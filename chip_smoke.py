@@ -1,0 +1,458 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch/CUDA port (docqa_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--out PATH]
+
+Phases, each of which fails the run on any error (nothing is caught):
+
+1. build: print the card's name and power limit, build every CUDA kernel
+   from ``docqa_tpu_torch/csrc`` (one nvcc per source, started together).
+2. kernels: call each kernel's wrapper on the card at the shapes the /ask
+   path gives it, hold the result against the plain PyTorch version on the
+   same inputs (bf16 and float32), and time kernel, plain version, the
+   library yardstick and the roofline bound.
+3. main path: /ask end to end through ``QAService.ask`` at full width —
+   MiniLM-L6 encoder, a 1,000,000-row bf16 store, Mistral-7B-width decoder
+   in bf16 with random seeded weights, greedy with K=4 speculation — with
+   the launch counters reset just before and read just after.
+4. reference: the same path at a tiny float32 width on the card (kernels)
+   and on the CPU (plain versions) must give the same answers.
+
+Prints the kernels JSON line, the nvidia-smi line, and last the ok line.
+Exits non-zero when CUDA is unavailable or any phase fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from docqa_tpu_torch.config import (
+    DecoderConfig, EncoderConfig, GenerateConfig, StoreConfig,
+)
+from docqa_tpu_torch.engines.encoder import EncoderEngine
+from docqa_tpu_torch.engines.generate import GenerateEngine
+from docqa_tpu_torch.index.store import VectorStore
+from docqa_tpu_torch.models.decoder import (
+    decoder_forward, init_decoder_params, init_kv_cache,
+)
+from docqa_tpu_torch.ops import _kernels
+from docqa_tpu_torch.ops import attention as attn
+from docqa_tpu_torch.service.qa import QAService
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor FLOP/s
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+
+STORE_ROWS = 1_000_000
+N_NOTES = 20
+QUESTIONS = (
+    "Quelle est la dose de metformine du patient P003 ?",
+    "Quel traitement pour l'hypertension du patient P007 ?",
+    "Le patient P012 a-t-il une allergie à la pénicilline ?",
+    "Quelle est la tension artérielle du patient P015 ?",
+)
+# |kernel - plain| <= atol + rtol * |plain|.  bf16: both sides compute in
+# float32 and round once to bf16 (2^-8 relative), so allow ~2.5 bf16 ulps;
+# float32: only the summation order differs.
+TOL = {
+    torch.bfloat16: (1e-2, 1e-2),
+    torch.float32: (5e-5, 0.0),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+# ---- phase 2: kernels against their plain versions ----------------------
+
+def live_mask(b, sq, skv, lengths, q_offset, causal, window, device):
+    """[b, sq, skv] bool: the (q row, kv row) pairs the function attends."""
+    kv = torch.arange(skv, device=device)[None, None, :]
+    mask = kv < lengths[:, None, None]
+    if causal:
+        q_abs = torch.arange(sq, device=device)[None, :, None] + q_offset[:, None, None]
+        mask = mask & (kv <= q_abs)
+        if window:
+            mask = mask & (kv > q_abs - window)
+    else:
+        mask = mask.expand(b, sq, skv)
+    return mask
+
+
+def kernel_cases():
+    """Shapes the /ask path gives the flash kernel — Mistral-7B decoder: a
+    ~200-token RAG prompt in the 256 bucket, a 384-row cache (256 + 64 new
+    + K, rounded to 128); MiniLM encoder: the note batch (32 lanes, some
+    empty) — plus a ragged GQA case whose sq is no multiple of a tile."""
+    mistral = dict(hq=32, hkv=8, d=128, causal=True, window=4096)
+    return [
+        dict(name="mistral_prefill", b=1, sq=256, skv=384,
+             lengths=[197], q_offset=[0], **mistral),
+        dict(name="mistral_decode", b=1, sq=1, skv=384,
+             lengths=[230], q_offset=[229], **mistral),
+        dict(name="mistral_verify", b=1, sq=4, skv=384,
+             lengths=[233], q_offset=[229], **mistral),
+        dict(name="minilm_encoder", b=32, sq=128, skv=128, hq=12, hkv=12,
+             d=32, causal=False, window=None,
+             lengths=[0, 128, 1, 77, 0, 33] + [64 + i for i in range(26)],
+             q_offset=None),
+        dict(name="gqa_ragged", b=3, sq=37, skv=300, hq=8, hkv=2, d=64,
+             causal=True, window=50, lengths=[300, 123, 37], q_offset=None),
+    ]
+
+
+def time_ms(fn, flush, reps=25, warmup=3) -> float:
+    """Median device time of ``fn`` over ``reps`` runs, each timed with
+    CUDA events after overwriting a 64 MB buffer so L2 starts cold (as it
+    is for attention inside a 7B forward).  A ~2 ms spin kernel ahead of
+    the start event keeps the card busy while the host enqueues ``fn``, so
+    the events bracket device work and not the host's launch overhead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(4_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def run_kernel_cases():
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    results = []
+    for case in kernel_cases():
+        b, sq, skv = case["b"], case["sq"], case["skv"]
+        hq, hkv, d = case["hq"], case["hkv"], case["d"]
+        lengths = torch.tensor(case["lengths"], dtype=torch.int32, device=dev)
+        q_offset = (
+            torch.tensor(case["q_offset"], dtype=torch.int32, device=dev)
+            if case["q_offset"] is not None
+            else (lengths - sq if case["causal"] else torch.zeros_like(lengths))
+        )
+        kw = dict(causal=case["causal"], lengths=lengths, q_offset=q_offset,
+                  sliding_window=case["window"])
+        q32 = torch.randn((b, sq, hq, d), generator=gen, device=dev)
+        k32 = torch.randn((b, skv, hkv, d), generator=gen, device=dev)
+        v32 = torch.randn((b, skv, hkv, d), generator=gen, device=dev)
+        rec = {"case": case["name"], "shape": f"b{b} sq{sq} skv{skv} hq{hq} hkv{hkv} d{d}"}
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            got = attn.flash_attention(q, k, v, **kw)
+            want = attn.attention_reference(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            atol, rtol = TOL[dtype]
+            ok = bool((err <= atol + rtol * want.float().abs()).all())
+            if not torch.isfinite(got.float()).all() or not ok:
+                raise AssertionError(
+                    f"flash_attention {case['name']} {tag}: max |err| "
+                    f"{float(err.max()):.3e} over atol {atol} rtol {rtol}"
+                )
+            rec[f"max_abs_err_{tag}"] = float(err.max())
+        # times at the main path's type, bf16
+        q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+        mask = live_mask(b, sq, skv, lengths, q_offset, case["causal"],
+                         case["window"], dev)
+        rec["ms"] = time_ms(lambda: attn.flash_attention(q, k, v, **kw), flush)
+        rec["plain_ms"] = time_ms(
+            lambda: attn.attention_reference(q, k, v, **kw), flush
+        )
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_mask = mask[:, None]
+        rec["library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=hq != hkv
+            ),
+            flush,
+        )
+        es = 2  # bf16
+        live_pairs = int(mask.sum())
+        live_kv_rows = int(mask.any(dim=1).sum())
+        flops = 4 * d * hq * live_pairs
+        nbytes = (2 * b * sq * hq * d + 2 * live_kv_rows * hkv * d) * es + 8 * b
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_flops = flops / PEAK_BF16_FLOPS * 1e3
+        rec["bound_ms"] = max(t_bytes, t_flops)
+        rec["bound_by"] = "bytes" if t_bytes >= t_flops else "operations"
+        rec["tolerance"] = {"bf16": TOL[torch.bfloat16], "f32": TOL[torch.float32]}
+        log(f"  {rec['case']:16s} {rec['shape']:34s} err bf16 "
+            f"{rec['max_abs_err_bf16']:.2e} f32 {rec['max_abs_err_f32']:.2e}  "
+            f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
+            f"sdpa {rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.5f} ms "
+            f"({rec['bound_by']})")
+        results.append(rec)
+    return results
+
+
+# ---- phase 3: the main path at full width ---------------------------------
+
+def clinical_notes(rng: np.random.Generator):
+    drugs = [("metformine", 500), ("lisinopril", 10), ("amlodipine", 5),
+             ("atorvastatine", 20), ("aspirine", 100), ("lévothyroxine", 75)]
+    conditions = ["diabète de type 2", "hypertension artérielle",
+                  "dyslipidémie", "hypothyroïdie", "insuffisance cardiaque"]
+    notes = []
+    for i in range(N_NOTES):
+        drug, dose = drugs[int(rng.integers(len(drugs)))]
+        cond = conditions[int(rng.integers(len(conditions)))]
+        allergy = "pénicilline" if rng.random() < 0.3 else "aucune connue"
+        text = (
+            f"Consultation du patient P{i:03d}, {int(rng.integers(30, 90))} ans. "
+            f"Antécédents : {cond}. Traitement : {drug} {dose} mg "
+            f"{int(rng.integers(1, 3))} fois par jour. Tension artérielle "
+            f"{int(rng.integers(110, 170))}/{int(rng.integers(60, 100))} mmHg. "
+            f"Allergies : {allergy}. Suivi dans {int(rng.integers(1, 6))} mois."
+        )
+        notes.append((f"note-{i:02d}.txt", text))
+    return notes
+
+
+def build_main_path(counts):
+    """The /ask service at full width on the card: MiniLM-L6 encoder, a
+    store of the notes (encoded through the engine) plus seeded random
+    unit vectors up to STORE_ROWS rows, and a Mistral-7B-width bf16
+    generator with weights drawn on the card.  ``counts`` is reset before
+    the notes are encoded.  Returns (qa, params, note-encoding launches)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    enc_cfg = EncoderConfig()
+    dec_cfg = DecoderConfig.mistral_7b()
+
+    t0 = time.perf_counter()
+    encoder = EncoderEngine(enc_cfg, seed=0, device=dev)
+    store = VectorStore(StoreConfig(), device=dev)
+    notes = clinical_notes(rng)
+    counts.clear()
+    note_emb = encoder.encode_texts([text for _, text in notes])
+    enc_launches = counts["flash_attention"]
+    if enc_launches != enc_cfg.num_layers:
+        raise AssertionError(
+            f"note encoding launched the flash kernel {enc_launches} times, "
+            f"expected {enc_cfg.num_layers}"
+        )
+    if not np.isfinite(note_emb).all() or not np.allclose(
+        np.linalg.norm(note_emb, axis=1), 1.0, atol=1e-3
+    ):
+        raise AssertionError("note embeddings are not finite unit vectors")
+    store.add(note_emb, [
+        {"source": src, "text_content": text, "doc_id": src}
+        for src, text in notes
+    ])
+    n_fill = STORE_ROWS - N_NOTES
+    filler = rng.standard_normal((n_fill, enc_cfg.embed_dim), dtype=np.float32)
+    store.add(filler, [{"source": f"filler-{i:07d}"} for i in range(n_fill)])
+    del filler
+    t_store = time.perf_counter() - t0
+    log(f"  store: {store.count} rows x {enc_cfg.embed_dim} "
+        f"{store.cfg.dtype} (capacity {store.capacity}), built in {t_store:.1f} s")
+
+    t0 = time.perf_counter()
+    params = init_decoder_params(dec_cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"  decoder: Mistral-7B width, {sum(p.numel() for p in params.values()) / 1e9:.2f} "
+        f"B params bf16 drawn on the card in {time.perf_counter() - t0:.1f} s")
+    generator = GenerateEngine(
+        dec_cfg, GenerateConfig(max_new_tokens=64, speculative_k=4),
+        params=params, device=dev,
+    )
+    qa = QAService(encoder, store, generator, k=3, device=dev)
+    return qa, params, enc_launches
+
+
+def run_main_path(counts):
+    dev = torch.device("cuda")
+    qa, params, enc_launches = build_main_path(counts)
+    generator = qa.generator
+    enc_cfg = qa.retriever.encoder.cfg
+    dec_cfg = generator.cfg
+
+    per_q = []
+    for question in QUESTIONS:
+        before = counts["flash_attention"]
+        t0 = time.perf_counter()
+        out = qa.ask(question)
+        latency = time.perf_counter() - t0
+        launched = counts["flash_attention"] - before
+        st = dict(generator.last_stats)
+        expected = enc_cfg.num_layers + st["forwards"] * dec_cfg.num_layers
+        if launched != expected or st["forwards"] < 1:
+            raise AssertionError(
+                f"ask launched the flash kernel {launched} times; expected "
+                f"{enc_cfg.num_layers} (encoder) + {st['forwards']} forwards x "
+                f"{dec_cfg.num_layers} layers (decoder)"
+            )
+        if not isinstance(out["answer"], str) or not out["answer"].strip():
+            raise AssertionError(f"empty answer for {question!r}")
+        if len(out["sources"]) != 3:
+            raise AssertionError(f"expected 3 sources, got {out['sources']}")
+        if not any(s.startswith("note-") for s in out["sources"]):
+            raise AssertionError(f"no real note among sources {out['sources']}")
+        rec = {
+            "question": question,
+            "latency_s": latency,
+            "sources": out["sources"],
+            "answer_words": len(out["answer"].split()),
+            "prefill_tokens": st["prefill_tokens"],
+            "prefill_s": st["prefill_s"],
+            "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+            "decode_tokens": st["decode_tokens"],
+            "decode_s": st["decode_s"],
+            "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+            "decoder_forwards": st["forwards"],
+            "flash_launches": launched,
+        }
+        log(f"  ask {len(per_q)}: {latency:.3f} s, sources {out['sources']}, "
+            f"prefill {rec['prefill_tokens']} tok in {rec['prefill_s'] * 1e3:.1f} ms "
+            f"({rec['prefill_tok_s']:.0f} tok/s), decode {rec['decode_tokens']} tok "
+            f"in {rec['decode_s'] * 1e3:.1f} ms ({rec['decode_tok_s']:.1f} tok/s), "
+            f"{st['forwards']} forwards, {launched} flash launches")
+        per_q.append(rec)
+    launches = {"total": dict(counts), "note_encoding": enc_launches}
+
+    # full-width output check (after the counts are read): one prefill of
+    # the last question gives finite logits of the expected shape
+    prompt_ids = generator.tokenizer.encode(QUESTIONS[-1])
+    ids = torch.tensor([prompt_ids], device=dev)
+    cache = init_kv_cache(dec_cfg, 1, max_len=128, dtype=torch.bfloat16, device=dev)
+    with torch.inference_mode():
+        logits = decoder_forward(
+            params, dec_cfg, ids, cache, torch.zeros(1, dtype=torch.int32, device=dev),
+            last_token_only=True,
+        )
+    if logits.shape != (1, 1, dec_cfg.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"full-width logits bad: {tuple(logits.shape)}")
+    return per_q, launches
+
+
+# ---- phase 4: tiny float32 path, card (kernels) against CPU (plain) -------
+
+def run_reference_check():
+    enc_cfg = EncoderConfig(vocab_size=512, hidden_dim=64, num_layers=2,
+                            num_heads=2, mlp_dim=128, max_seq_len=128,
+                            embed_dim=64, dtype="float32")
+    dec_cfg = DecoderConfig(vocab_size=256, hidden_dim=128, num_layers=2,
+                            num_heads=4, num_kv_heads=2, head_dim=32,
+                            mlp_dim=256, max_seq_len=1024, dtype="float32",
+                            sliding_window=64)
+    gen_cfg = GenerateConfig(max_new_tokens=16, prefill_buckets=(64, 128, 256, 512))
+    notes = clinical_notes(np.random.default_rng(3))
+    answers = {}
+    for device in ("cuda", "cpu"):
+        encoder = EncoderEngine(enc_cfg, seed=1, device=device)
+        store = VectorStore(StoreConfig(dim=64), device=device)
+        emb = encoder.encode_texts([t for _, t in notes])
+        store.add(emb, [{"source": s, "text_content": t} for s, t in notes])
+        generator = GenerateEngine(dec_cfg, gen_cfg, seed=2, device=device)
+        qa = QAService(encoder, store, generator, k=3, device=device)
+        answers[device] = ([qa.ask(q) for q in QUESTIONS], emb)
+    (ans_gpu, emb_gpu), (ans_cpu, emb_cpu) = answers["cuda"], answers["cpu"]
+    emb_err = float(np.abs(emb_gpu - emb_cpu).max())
+    if emb_err > 1e-4 or ans_gpu != ans_cpu:
+        raise AssertionError(
+            f"tiny float32 path differs between card and CPU: embeddings "
+            f"max |err| {emb_err:.2e}, answers equal {ans_gpu == ans_cpu}"
+        )
+    log(f"  tiny float32 /ask: {len(QUESTIONS)} answers identical on card and "
+        f"CPU; embeddings max |err| {emb_err:.2e} (tolerance 1e-4)")
+    return {"answers_identical": True, "embedding_max_abs_err": emb_err}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="also write the full results as JSON to this path")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke needs a card",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[1/4] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    build_logs = _kernels.build()
+    build_s = time.perf_counter() - t0
+    log(f"  built {sorted(build_logs) or 'nothing (cached)'} in {build_s:.1f} s")
+    for name, text in build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    {name}: {line.strip()}")
+
+    log("[2/4] kernels against their plain versions (bf16 and float32)")
+    cases = run_kernel_cases()
+
+    log("[3/4] main path: QAService.ask at full width")
+    t_main = time.perf_counter()
+    per_q, launches = run_main_path(_kernels.LAUNCHES)
+    main_s = time.perf_counter() - t_main
+
+    log("[4/4] reference: tiny float32 /ask on the card against the CPU")
+    reference = run_reference_check()
+
+    head = next(c for c in cases if c["case"] == "mistral_prefill")
+    kernels = [{
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "docqa_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "docqa_tpu/ops/attention.py:315",
+        "launches": launches["total"]["flash_attention"],
+        "max_abs_err": max(c["max_abs_err_bf16"] for c in cases),
+        "tolerance": "bf16 |err| <= 1e-2 + 1e-2*|plain|; f32 |err| <= 5e-5",
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "timed_case": head["case"],
+        "cases": cases,
+    }]
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({
+                "card": smi, "torch": torch.__version__,
+                "build_s": build_s, "build_logs": build_logs,
+                "kernels": kernels, "main_path": per_q, "main_path_s": main_s,
+                "launches": launches, "reference": reference,
+            }, f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,86 @@
+"""Encoder serving engine: tokenize -> bucket -> encode on the device.
+Counterpart of ``docqa_tpu/engines/encoder.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from docqa_tpu_torch import weights
+from docqa_tpu_torch.config import EncoderConfig
+from docqa_tpu_torch.models.encoder import Params, encode_batch
+from docqa_tpu_torch.text.tokenizer import Tokenizer, default_tokenizer
+from docqa_tpu_torch.utils import pick_bucket, resolve_device
+
+SEQ_BUCKETS = (64, 128, 256, 512)
+BATCH_BUCKETS = (8, 32, 128)
+
+
+def marshal_texts(
+    tokenizer,
+    cfg: EncoderConfig,
+    texts: Sequence[str],
+    batch_buckets: Tuple[int, ...] = BATCH_BUCKETS,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Tokenize + seq/batch bucket + pad — the one marshalling path, shared
+    by :class:`EncoderEngine` and the fused retriever, with the reference's
+    buckets.  Returns (ids [B, S] int32, lengths [B] int32); rows beyond
+    ``len(texts)`` are zero-length lanes."""
+    n = len(texts)
+    ids, lengths = tokenizer.batch(
+        texts, max_len=min(cfg.max_seq_len, SEQ_BUCKETS[-1])
+    )
+    seq_b = min(
+        pick_bucket(int(lengths.max()) if n else 1, SEQ_BUCKETS), ids.shape[1]
+    )
+    batch_b = pick_bucket(n, batch_buckets) if n <= batch_buckets[-1] else n
+    ids_p = np.zeros((batch_b, seq_b), np.int32)
+    len_p = np.zeros((batch_b,), np.int32)
+    ids_p[:n] = ids[:, :seq_b]
+    len_p[:n] = np.minimum(lengths, seq_b)
+    return ids_p, len_p
+
+
+class EncoderEngine:
+    def __init__(
+        self,
+        cfg: EncoderConfig,
+        tokenizer: Optional[Tokenizer] = None,
+        params: Optional[Params] = None,
+        seed: int = 0,
+        device="cuda",
+    ):
+        """``params``: a tree of numpy arrays or tensors with the
+        reference's names; None draws the reference's seeded host init.
+        Parameters stay float32 (matmuls cast to ``cfg.dtype``)."""
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.tokenizer = tokenizer or default_tokenizer(cfg.vocab_size)
+        if params is None:
+            params = weights.host_init_encoder_params(cfg, seed)
+        self.params = weights.to_torch(params, self.device)
+
+    def encode_ids(self, ids: np.ndarray, lengths: np.ndarray) -> torch.Tensor:
+        """Marshalled [B, S] ids -> [B, embed_dim] f32 embeddings, left on
+        the device."""
+        ids_t = torch.from_numpy(ids).long().to(self.device)
+        len_t = torch.from_numpy(lengths).to(self.device)
+        with torch.inference_mode():
+            return encode_batch(self.params, self.cfg, ids_t, len_t)
+
+    def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
+        """[n] texts -> [n, embed_dim] float32 embeddings (host).  Splits
+        oversized requests into max-bucket batches."""
+        if not len(texts):
+            return np.zeros((0, self.cfg.embed_dim), np.float32)
+        out = []
+        max_b = BATCH_BUCKETS[-1]
+        for start in range(0, len(texts), max_b):
+            chunk = texts[start : start + max_b]
+            ids_p, len_p = marshal_texts(self.tokenizer, self.cfg, chunk)
+            emb = self.encode_ids(ids_p, len_p)
+            out.append(emb.float().cpu().numpy()[: len(chunk)])
+        return np.concatenate(out, 0)

@@ -1,0 +1,116 @@
+"""Hash-fallback tokenizer: a verbatim copy of ``docqa_tpu/text/tokenizer.py``
+(``Tokenizer`` + ``HashTokenizer``), so token ids match the reference bit
+for bit.  Word -> stable FNV-1a hash bucket; no vocabulary file needed.
+
+Output contract: right-padded ``ids [batch, max_len]`` plus ``lengths
+[batch]`` — the padding convention the attention ``lengths`` masks expect.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+PAD, UNK, CLS, SEP, MASK = 0, 1, 2, 3, 4
+_SPECIALS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+
+_WORD_RE = re.compile(r"\w+|[^\w\s]", re.UNICODE)
+
+
+def _fnv1a(s: str) -> int:
+    h = 0xCBF29CE484222325
+    for byte in s.encode("utf-8"):
+        h ^= byte
+        h = (h * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+class Tokenizer:
+    """Base: whitespace/punct pre-tokenization + subclass word→ids."""
+
+    pad_id = PAD
+    unk_id = UNK
+    cls_id = CLS
+    sep_id = SEP
+
+    def __init__(self, vocab_size: int, lowercase: bool = True):
+        self.vocab_size = vocab_size
+        self.lowercase = lowercase
+
+    def pre_tokenize(self, text: str) -> List[str]:
+        if self.lowercase:
+            text = text.lower()
+        return _WORD_RE.findall(text)
+
+    def word_to_ids(self, word: str) -> List[int]:
+        raise NotImplementedError
+
+    def encode(
+        self, text: str, max_len: Optional[int] = None, add_specials: bool = True
+    ) -> List[int]:
+        ids: List[int] = [self.cls_id] if add_specials else []
+        budget = None if max_len is None else max_len - (2 if add_specials else 0)
+        for word in self.pre_tokenize(text):
+            wids = self.word_to_ids(word)
+            if budget is not None and len(ids) - (1 if add_specials else 0) + len(
+                wids
+            ) > budget:
+                break
+            ids.extend(wids)
+        if add_specials:
+            ids.append(self.sep_id)
+        return ids
+
+    def decode_ids(self, ids: Sequence[int]) -> str:
+        """Best-effort detokenization (skips specials, merges wordpieces)."""
+        inv = getattr(self, "_inv_vocab", None)
+        if inv is None:
+            return " ".join(f"w{i}" for i in ids)
+        pieces: List[str] = []
+        for i in ids:
+            tok = inv.get(int(i))
+            if tok is None or tok in _SPECIALS:
+                continue
+            if tok.startswith("##") and pieces:
+                pieces[-1] += tok[2:]
+            else:
+                pieces.append(tok)
+        return " ".join(pieces)
+
+    def batch(
+        self,
+        texts: Sequence[str],
+        max_len: int,
+        add_specials: bool = True,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Right-padded [batch, max_len] int32 ids + [batch] lengths."""
+        rows = [self.encode(t, max_len, add_specials) for t in texts]
+        out = np.full((len(rows), max_len), self.pad_id, np.int32)
+        lengths = np.zeros((len(rows),), np.int32)
+        for i, row in enumerate(rows):
+            row = row[:max_len]
+            out[i, : len(row)] = row
+            lengths[i] = len(row)
+        return out, lengths
+
+
+class HashTokenizer(Tokenizer):
+    """Deterministic hash-bucket tokenizer (no vocabulary file needed)."""
+
+    def __init__(self, vocab_size: int = 30522, lowercase: bool = True):
+        super().__init__(vocab_size, lowercase)
+        self._n_reserved = len(_SPECIALS)
+
+    def word_to_ids(self, word: str) -> List[int]:
+        bucket = self._n_reserved + _fnv1a(word) % (
+            self.vocab_size - self._n_reserved
+        )
+        return [int(bucket)]
+
+
+def default_tokenizer(vocab_size: int = 30522) -> Tokenizer:
+    """The hash fallback — the only tokenizer this slice ports (real
+    vocabularies arrive with the checkpoint-import slice)."""
+    return HashTokenizer(vocab_size)

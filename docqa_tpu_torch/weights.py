@@ -1,0 +1,119 @@
+"""Parameter trees for the port.
+
+Two routes, both numpy-only on the way in:
+
+* :func:`host_init_decoder_params` / :func:`host_init_encoder_params`
+  reproduce ``docqa_tpu``'s ``host_init`` trees bit for bit without JAX:
+  ``np.random.default_rng(seed)``, then for the decoder
+  ``standard_normal(shape, float32) * fan_in**-0.5`` in schema order
+  (``docqa_tpu/models/decoder.py`` init_decoder_params) and for the
+  encoder ``standard_normal(shape) * 0.02`` cast to float32
+  (``docqa_tpu/models/encoder.py`` init_encoder_params).
+* :func:`to_torch` turns any such tree of numpy arrays — including one
+  exported from ``docqa_tpu`` with ``np.asarray`` on each leaf, bfloat16
+  leaves too — into tensors on a device.
+
+Names and layouts are the reference's, so a tree moves between the two
+packages unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from docqa_tpu_torch.config import DecoderConfig, EncoderConfig
+from docqa_tpu_torch.models.decoder import decoder_param_schema
+
+HostTree = Dict[str, np.ndarray]
+
+
+def _host_rng(seed: int) -> np.random.Generator:
+    # the reference masks an explicit host seed to 31 bits
+    return np.random.default_rng(int(seed) & 0x7FFFFFFF)
+
+
+def host_init_decoder_params(cfg: DecoderConfig, seed: int) -> HostTree:
+    """float32 numpy decoder tree equal to the reference's
+    ``init_decoder_params(PRNGKey(seed), cfg, host_init=True,
+    host_seed=seed)`` before its cast to the parameter dtype."""
+    rng = _host_rng(seed)
+    p: HostTree = {}
+    for name, kind, shape, fan_in in decoder_param_schema(cfg):
+        if kind == "ones":
+            p[name] = np.ones(shape, np.float32)
+        else:
+            p[name] = rng.standard_normal(shape, np.float32) * (fan_in ** -0.5)
+    return p
+
+
+def host_init_encoder_params(cfg: EncoderConfig, seed: int) -> HostTree:
+    """float32 numpy encoder tree equal to the reference's
+    ``init_encoder_params(PRNGKey(seed), cfg, host_init=True,
+    host_seed=seed)``; draws happen in the reference's order."""
+    rng = _host_rng(seed)
+
+    def norm(shape, scale=0.02):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def ones(n):
+        return np.ones((n,), np.float32)
+
+    def zeros(n):
+        return np.zeros((n,), np.float32)
+
+    h, m = cfg.hidden_dim, cfg.mlp_dim
+    p: HostTree = {
+        "tok_emb": norm((cfg.vocab_size, h)),
+        "pos_emb": norm((cfg.max_seq_len, h)),
+        "type_emb": norm((2, h)),
+        "emb_ln_g": ones(h),
+        "emb_ln_b": zeros(h),
+    }
+    if cfg.embed_dim != h:
+        p["proj_w"] = norm((h, cfg.embed_dim))
+        p["proj_b"] = zeros(cfg.embed_dim)
+    for i in range(cfg.num_layers):
+        p.update(
+            {
+                f"l{i}_q_w": norm((h, h)), f"l{i}_q_b": zeros(h),
+                f"l{i}_k_w": norm((h, h)), f"l{i}_k_b": zeros(h),
+                f"l{i}_v_w": norm((h, h)), f"l{i}_v_b": zeros(h),
+                f"l{i}_o_w": norm((h, h)), f"l{i}_o_b": zeros(h),
+                f"l{i}_attn_ln_g": ones(h), f"l{i}_attn_ln_b": zeros(h),
+                f"l{i}_up_w": norm((h, m)), f"l{i}_up_b": zeros(m),
+                f"l{i}_down_w": norm((m, h)), f"l{i}_down_b": zeros(h),
+                f"l{i}_mlp_ln_g": ones(h), f"l{i}_mlp_ln_b": zeros(h),
+            }
+        )
+    return p
+
+
+def _leaf_to_tensor(arr) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr
+    arr = np.asarray(arr)
+    if not arr.flags.writeable:
+        # an exported (read-only) buffer: never let a tensor alias it
+        arr = arr.copy()
+    if arr.dtype.name == "bfloat16":
+        # numpy has no native bfloat16: reinterpret the 16-bit payload
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)).view(
+            torch.bfloat16
+        )
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def to_torch(
+    tree: Mapping[str, object], device, dtype: Optional[torch.dtype] = None
+) -> Dict[str, torch.Tensor]:
+    """numpy (or tensor) tree -> tensors on ``device``, each cast to
+    ``dtype`` when given (one tensor at a time: a full-width float32 tree
+    never sits on the device)."""
+    out = {}
+    for name, arr in tree.items():
+        t = _leaf_to_tensor(arr)
+        out[name] = t.to(device=device, dtype=dtype or t.dtype)
+    return out

@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Where the time of one /ask goes on the card, for the PyTorch/CUDA port.
+
+    python3 scripts/torch_ask_profile.py [--out PATH]
+
+Builds the same full-width service as ``chip_smoke.py`` (MiniLM-L6
+encoder, 1,000,000-row bf16 store, Mistral-7B-width bf16 decoder with
+random seeded weights, greedy, K=4 speculation), answers one warm-up
+question, then answers each question under ``torch.profiler`` and reports
+per question: wall time, device busy time (union of kernel intervals) and
+idle share, kernel launches, and device time by kernel family and by
+kernel name.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import QUESTIONS, build_main_path, nvidia_smi_line  # noqa: E402
+from docqa_tpu_torch.ops import _kernels  # noqa: E402
+
+
+def family(name: str) -> str:
+    """Coarse kernel family from its (mangled) name."""
+    low = name.lower()
+    if "flash_fwd_kernel" in name:
+        return "flash_attention (port kernel)"
+    if any(t in low for t in ("nvjet", "gemm", "gemv", "xmma", "cutlass", "cublas", "splitk")):
+        return "matmul (cuBLAS)"
+    if "topk" in low or "sort" in low or "radix" in low:
+        return "top-k / sort"
+    if "reduce" in low:
+        return "reductions"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    if "elementwise" in low or "vectorized" in low or "fill" in low:
+        return "elementwise"
+    return "other"
+
+
+def busy_us(intervals):
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted(intervals):
+        if stop <= end:
+            continue
+        total += stop - max(start, end)
+        end = stop
+    return total
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None, help="write the JSON report here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_ask_profile: needs a CUDA card", file=sys.stderr)
+        return 2
+    smi = nvidia_smi_line()
+    print(f"card: {smi}", flush=True)
+    _kernels.build()
+    qa, _, _ = build_main_path(_kernels.LAUNCHES)
+    qa.ask("question de préchauffage sur le patient P001")  # warm-up
+    torch.cuda.synchronize()
+
+    report = {"card": smi, "questions": []}
+    for question in QUESTIONS:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            qa.ask(question)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        by_name, by_family = defaultdict(float), defaultdict(float)
+        counts = defaultdict(int)
+        for e in kernels:
+            dur = e.time_range.elapsed_us()
+            by_name[e.name] += dur
+            by_family[family(e.name)] += dur
+            counts[family(e.name)] += 1
+        busy = busy_us(
+            (e.time_range.start, e.time_range.end) for e in kernels
+        )
+        st = qa.generator.last_stats
+        rec = {
+            "question": question,
+            "wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us if kernels else None,
+            "kernel_launches": len(kernels),
+            "decoder_forwards": st["forwards"],
+            "decode_tokens": st["decode_tokens"],
+            "by_family_ms": {
+                k: {"ms": v / 1e3, "launches": counts[k]}
+                for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])
+            },
+            "top_kernels_ms": {
+                k[:120]: v / 1e3
+                for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+            },
+        }
+        report["questions"].append(rec)
+        print(f"{question!r}: wall {rec['wall_ms']:.1f} ms, device busy "
+              f"{rec['device_busy_ms']:.1f} ms (idle share "
+              f"{rec['device_idle_share']}), {len(kernels)} kernels, "
+              f"{st['forwards']} decoder forwards", flush=True)
+        for fam, v in rec["by_family_ms"].items():
+            print(f"    {fam:32s} {v['ms']:9.3f} ms  {v['launches']:6d} launches")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

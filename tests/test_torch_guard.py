@@ -1,0 +1,125 @@
+"""Guards for the port: it never imports jax or docqa_tpu, and its entry
+points never fall back to the CPU on their own."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from docqa_tpu_torch.config import (
+    DecoderConfig,
+    EncoderConfig,
+    GenerateConfig,
+    StoreConfig,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "docqa_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "docqa_tpu")
+
+torch.set_num_threads(1)
+
+_BLOCKED_IMPORT = f"""
+import importlib, pkgutil, sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None  # any import of it now raises ImportError
+sys.path.insert(0, {REPO!r})
+import docqa_tpu_torch
+for mod in pkgutil.walk_packages(docqa_tpu_torch.__path__, "docqa_tpu_torch."):
+    importlib.import_module(mod.name)
+import importlib.util
+spec = importlib.util.spec_from_file_location("chip_smoke", {os.path.join(REPO, "chip_smoke.py")!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
+                and sys.modules[m] is not None)
+print("LOADED", loaded)
+"""
+
+
+def _python_files():
+    files = [
+        os.path.join(REPO, "chip_smoke.py"),
+        os.path.join(REPO, "scripts", "torch_ask_profile.py"),
+    ]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def test_imports_with_jax_and_reference_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT],
+        capture_output=True, text=True, timeout=120,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+
+
+def test_ast_scan_finds_no_forbidden_import():
+    offenders = []
+    for path in _python_files():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in FORBIDDEN:
+                    offenders.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {name}")
+    assert len(_python_files()) > 10
+    assert offenders == []
+
+
+def _build(entry):
+    from docqa_tpu_torch.engines.encoder import EncoderEngine
+    from docqa_tpu_torch.engines.generate import GenerateEngine
+    from docqa_tpu_torch.engines.retrieve import FusedRetriever
+    from docqa_tpu_torch.index.store import VectorStore
+    from docqa_tpu_torch.service.qa import QAService
+
+    enc_cfg = EncoderConfig(vocab_size=64, hidden_dim=32, num_layers=1,
+                            num_heads=1, mlp_dim=32, max_seq_len=16,
+                            embed_dim=32, dtype="float32")
+    dec_cfg = DecoderConfig(vocab_size=64, hidden_dim=32, num_layers=1,
+                            num_heads=1, num_kv_heads=1, head_dim=32,
+                            mlp_dim=32, dtype="float32")
+    store_cfg = StoreConfig(dim=32, shard_capacity=128)
+    if entry == "EncoderEngine":
+        return EncoderEngine(enc_cfg)
+    if entry == "GenerateEngine":
+        return GenerateEngine(dec_cfg, GenerateConfig())
+    if entry == "VectorStore":
+        return VectorStore(store_cfg)
+    enc = EncoderEngine(enc_cfg, device="cpu")
+    store = VectorStore(store_cfg, device="cpu")
+    if entry == "FusedRetriever":
+        return FusedRetriever(enc, store)
+    gen = GenerateEngine(dec_cfg, GenerateConfig(), device="cpu")
+    return QAService(enc, store, gen)
+
+
+@pytest.mark.parametrize(
+    "entry",
+    ["EncoderEngine", "GenerateEngine", "VectorStore", "FusedRetriever", "QAService"],
+)
+def test_entry_points_raise_without_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-CUDA guard cannot be exercised")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _build(entry)
+
+
+def test_flash_wrapper_rejects_other_devices():
+    from docqa_tpu_torch.ops.attention import flash_attention
+
+    q = torch.zeros((1, 2, 1, 32), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention(q, q, q)
