@@ -6,15 +6,21 @@
 Phases, each of which fails the run on any error (nothing is caught):
 
 1. build: print the card's name and power limit, build every CUDA kernel
-   from ``docqa_tpu_torch/csrc`` (one nvcc per source, started together).
-2. kernels: call each kernel's wrapper on the card at the shapes the /ask
-   path gives it, hold the result against the plain PyTorch version on the
-   same inputs (bf16 and float32), and time kernel, plain version, the
-   library yardstick and the roofline bound.
+   from ``docqa_tpu_torch/csrc`` (one nvcc per source, started together)
+   and print each kernel's registers and spills.
+2. kernels: call the flash wrapper on the card at the shapes the /ask path
+   gives it and at a 4K-token prompt, hold the result against the plain
+   PyTorch version on the same inputs (bf16: the decode or prefill
+   tensor-core path; float32: the SIMT path), and time the kernel, the
+   first port's SIMT kernel on the same bf16 inputs, the plain version,
+   the library yardstick (masked, and over the live slice where that is
+   expressible) and the roofline bound.
 3. main path: /ask end to end through ``QAService.ask`` at full width —
    MiniLM-L6 encoder, a 1,000,000-row bf16 store, Mistral-7B-width decoder
    in bf16 with random seeded weights, greedy with K=4 speculation — with
-   the launch counters reset just before and read just after.
+   the launch counters reset just before and read just after; every verify
+   step must go through the split-kv kernel, every prefill and encoder
+   call through the wgmma kernel.
 4. reference: the same path at a tiny float32 width on the card (kernels)
    and on the CPU (plain versions) must give the same answers.
 
@@ -25,8 +31,10 @@ Exits non-zero when CUDA is unavailable or any phase fails.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -63,6 +71,7 @@ QUESTIONS = (
 # |kernel - plain| <= atol + rtol * |plain|.  bf16: both sides compute in
 # float32 and round once to bf16 (2^-8 relative), so allow ~2.5 bf16 ulps;
 # float32: only the summation order differs.
+PATH_KEYS = ("flash_attention.decode", "flash_attention.prefill", "flash_attention.simt")
 TOL = {
     torch.bfloat16: (1e-2, 1e-2),
     torch.float32: (5e-5, 0.0),
@@ -80,21 +89,33 @@ def nvidia_smi_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def ptxas_summary(log_text: str):
+    """(kernel, registers, spill stores/loads) per entry of a -Xptxas -v log;
+    the kernel named by its template, e.g. flash_decode_kernel<128,1>."""
+    rows, kernel, spills = [], None, "?"
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = m.group(1)
+            name = re.search(r"(flash_[a-z]+(?:_[a-z]+)*_kernel)I(\S+)", kernel)
+            if name:
+                rest = name.group(2)
+                dtype = ("bf16," if rest.startswith("13__nv_bfloat16")
+                         else "f32," if rest.startswith("f") else "")
+                nums = ",".join(re.findall(r"Li(\d+)E", rest))
+                kernel = f"{name.group(1)}<{dtype}{nums}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = f"{m.group(1)}/{m.group(2)} bytes"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            rows.append((kernel, int(m.group(1)), spills))
+            kernel, spills = None, "?"
+    return rows
+
+
 # ---- phase 2: kernels against their plain versions ----------------------
-
-def live_mask(b, sq, skv, lengths, q_offset, causal, window, device):
-    """[b, sq, skv] bool: the (q row, kv row) pairs the function attends."""
-    kv = torch.arange(skv, device=device)[None, None, :]
-    mask = kv < lengths[:, None, None]
-    if causal:
-        q_abs = torch.arange(sq, device=device)[None, :, None] + q_offset[:, None, None]
-        mask = mask & (kv <= q_abs)
-        if window:
-            mask = mask & (kv > q_abs - window)
-    else:
-        mask = mask.expand(b, sq, skv)
-    return mask
-
 
 def kernel_cases():
     """Shapes the /ask path gives the flash kernel — Mistral-7B decoder: a
@@ -115,6 +136,12 @@ def kernel_cases():
              q_offset=None),
         dict(name="gqa_ragged", b=3, sq=37, skv=300, hq=8, hkv=2, d=64,
              causal=True, window=50, lengths=[300, 123, 37], q_offset=None),
+        # a 4K-token prompt: prefill is bound by operations there, and
+        # verify reads a 4K-row cache
+        dict(name="mistral_prefill_4k", b=1, sq=4096, skv=4224,
+             lengths=[4096], q_offset=[0], **mistral),
+        dict(name="mistral_verify_4k", b=1, sq=4, skv=4224,
+             lengths=[4100], q_offset=[4096], **{**mistral, "window": None}),
     ]
 
 
@@ -141,6 +168,43 @@ def time_ms(fn, flush, reps=25, warmup=3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def simt_bf16(q, k, v, lengths, q_offset, causal, window, out):
+    """The first port's SIMT kernel on bf16 inputs (path 0 of the C entry
+    point), for a same-run comparison; it bypasses the wrapper and its
+    launch counts."""
+    b, sq, hq, d = q.shape
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
+    )
+    rc = attn._flash_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lengths.data_ptr(), q_offset.data_ptr(), ctypes.addressof(strides),
+        b, sq, k.shape[1], hq, k.shape[2], d, int(causal), int(window or 0),
+        float(d ** -0.5), 1, attn.PATHS.index("simt"), 1, 0, 0, None, None,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"SIMT kernel launch failed: CUDA error {rc}")
+
+
+def live_sdpa(case, q, k, v):
+    """SDPA with no mask over the live slice, where the case's mask can be
+    written that way (decode: one row over the live prefix; prefill from
+    position 0: is_causal over the prompt rows), else None."""
+    n = case["lengths"][0]
+    if case["b"] != 1 or not case["causal"] or (case["window"] or n) < n:
+        return None
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = case["hq"] != case["hkv"]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if case["sq"] == 1 and case["q_offset"] == [n - 1]:
+        return lambda: sdpa(qt, kt[:, :, :n], vt[:, :, :n], enable_gqa=gqa)
+    if case["q_offset"] == [0] and case["sq"] >= n:
+        return lambda: sdpa(qt[:, :, :n], kt[:, :, :n], vt[:, :, :n],
+                            is_causal=True, enable_gqa=gqa)
+    return None
+
+
 def run_kernel_cases():
     dev = torch.device("cuda")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -161,7 +225,10 @@ def run_kernel_cases():
         q32 = torch.randn((b, sq, hq, d), generator=gen, device=dev)
         k32 = torch.randn((b, skv, hkv, d), generator=gen, device=dev)
         v32 = torch.randn((b, skv, hkv, d), generator=gen, device=dev)
-        rec = {"case": case["name"], "shape": f"b{b} sq{sq} skv{skv} hq{hq} hkv{hkv} d{d}"}
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = attn.plan_flash(torch.bfloat16, b, sq, skv, hq, hkv, sms)
+        rec = {"case": case["name"], "shape": f"b{b} sq{sq} skv{skv} hq{hq} hkv{hkv} d{d}",
+               "path": plan.path, "plan": plan._asdict()}
         for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             q, k, v = (t.to(dtype) for t in (q32, k32, v32))
             got = attn.flash_attention(q, k, v, **kw)
@@ -178,9 +245,14 @@ def run_kernel_cases():
             rec[f"max_abs_err_{tag}"] = float(err.max())
         # times at the main path's type, bf16
         q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
-        mask = live_mask(b, sq, skv, lengths, q_offset, case["causal"],
-                         case["window"], dev)
+        mask = attn.live_mask(b, sq, skv, lengths, q_offset, case["causal"],
+                              case["window"], dev)
         rec["ms"] = time_ms(lambda: attn.flash_attention(q, k, v, **kw), flush)
+        out = torch.empty_like(q)
+        rec["simt_ms"] = time_ms(
+            lambda: simt_bf16(q, k, v, lengths, q_offset, case["causal"],
+                              case["window"], out), flush
+        )
         rec["plain_ms"] = time_ms(
             lambda: attn.attention_reference(q, k, v, **kw), flush
         )
@@ -192,6 +264,8 @@ def run_kernel_cases():
             ),
             flush,
         )
+        live_fn = live_sdpa(case, q, k, v)
+        rec["library_live_ms"] = time_ms(live_fn, flush) if live_fn else None
         es = 2  # bf16
         live_pairs = int(mask.sum())
         live_kv_rows = int(mask.any(dim=1).sum())
@@ -201,12 +275,16 @@ def run_kernel_cases():
         t_flops = flops / PEAK_BF16_FLOPS * 1e3
         rec["bound_ms"] = max(t_bytes, t_flops)
         rec["bound_by"] = "bytes" if t_bytes >= t_flops else "operations"
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         rec["tolerance"] = {"bf16": TOL[torch.bfloat16], "f32": TOL[torch.float32]}
-        log(f"  {rec['case']:16s} {rec['shape']:34s} err bf16 "
+        live = rec["library_live_ms"]
+        log(f"  {rec['case']:18s} {rec['shape']:36s} {plan.path:7s} err bf16 "
             f"{rec['max_abs_err_bf16']:.2e} f32 {rec['max_abs_err_f32']:.2e}  "
-            f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
-            f"sdpa {rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.5f} ms "
-            f"({rec['bound_by']})")
+            f"kernel {rec['ms']:.4f} ms  simt {rec['simt_ms']:.4f} ms  "
+            f"plain {rec['plain_ms']:.4f} ms  sdpa {rec['library_ms']:.4f} ms  "
+            f"sdpa-live {'-' if live is None else f'{live:.4f}'} ms  "
+            f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}, "
+            f"{100 * rec['bound_share']:.1f} % of it)")
         results.append(rec)
     return results
 
@@ -252,7 +330,7 @@ def build_main_path(counts):
     counts.clear()
     note_emb = encoder.encode_texts([text for _, text in notes])
     enc_launches = counts["flash_attention"]
-    if enc_launches != enc_cfg.num_layers:
+    if enc_launches != enc_cfg.num_layers or counts["flash_attention.prefill"] != enc_launches:
         raise AssertionError(
             f"note encoding launched the flash kernel {enc_launches} times, "
             f"expected {enc_cfg.num_layers}"
@@ -295,11 +373,12 @@ def run_main_path(counts):
 
     per_q = []
     for question in QUESTIONS:
-        before = counts["flash_attention"]
+        before = dict(counts)
         t0 = time.perf_counter()
         out = qa.ask(question)
         latency = time.perf_counter() - t0
-        launched = counts["flash_attention"] - before
+        delta = {key: counts[key] - before.get(key, 0) for key in PATH_KEYS}
+        launched = counts["flash_attention"] - before.get("flash_attention", 0)
         st = dict(generator.last_stats)
         expected = enc_cfg.num_layers + st["forwards"] * dec_cfg.num_layers
         if launched != expected or st["forwards"] < 1:
@@ -308,6 +387,15 @@ def run_main_path(counts):
                 f"{enc_cfg.num_layers} (encoder) + {st['forwards']} forwards x "
                 f"{dec_cfg.num_layers} layers (decoder)"
             )
+        # the query encode and the one prefill forward on the wgmma path,
+        # every verify forward on the split-kv path, nothing on the SIMT one
+        want = {
+            "flash_attention.prefill": enc_cfg.num_layers + dec_cfg.num_layers,
+            "flash_attention.decode": (st["forwards"] - 1) * dec_cfg.num_layers,
+            "flash_attention.simt": 0,
+        }
+        if delta != want:
+            raise AssertionError(f"ask's launches by path {delta}, expected {want}")
         if not isinstance(out["answer"], str) or not out["answer"].strip():
             raise AssertionError(f"empty answer for {question!r}")
         if len(out["sources"]) != 3:
@@ -327,12 +415,15 @@ def run_main_path(counts):
             "decode_tok_s": st["decode_tokens"] / st["decode_s"],
             "decoder_forwards": st["forwards"],
             "flash_launches": launched,
+            "flash_launches_by_path": delta,
         }
         log(f"  ask {len(per_q)}: {latency:.3f} s, sources {out['sources']}, "
             f"prefill {rec['prefill_tokens']} tok in {rec['prefill_s'] * 1e3:.1f} ms "
             f"({rec['prefill_tok_s']:.0f} tok/s), decode {rec['decode_tokens']} tok "
             f"in {rec['decode_s'] * 1e3:.1f} ms ({rec['decode_tok_s']:.1f} tok/s), "
-            f"{st['forwards']} forwards, {launched} flash launches")
+            f"{st['forwards']} forwards, {launched} flash launches "
+            f"(decode {delta['flash_attention.decode']}, prefill "
+            f"{delta['flash_attention.prefill']}, simt {delta['flash_attention.simt']})")
         per_q.append(rec)
     launches = {"total": dict(counts), "note_encoding": enc_launches}
 
@@ -405,9 +496,8 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     log(f"  built {sorted(build_logs) or 'nothing (cached)'} in {build_s:.1f} s")
     for name, text in build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {name}: {line.strip()}")
+        for kernel, regs, spills in ptxas_summary(text):
+            log(f"    {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
 
     log("[2/4] kernels against their plain versions (bf16 and float32)")
     cases = run_kernel_cases()
@@ -420,30 +510,44 @@ def main(argv=None) -> int:
     log("[4/4] reference: tiny float32 /ask on the card against the CPU")
     reference = run_reference_check()
 
-    head = next(c for c in cases if c["case"] == "mistral_prefill")
-    kernels = [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "docqa_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "docqa_tpu/ops/attention.py:315",
-        "launches": launches["total"]["flash_attention"],
-        "max_abs_err": max(c["max_abs_err_bf16"] for c in cases),
-        "tolerance": "bf16 |err| <= 1e-2 + 1e-2*|plain|; f32 |err| <= 5e-5",
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "timed_case": head["case"],
-        "cases": cases,
-    }]
+    def entry(name, source, counter, timed, path=None):
+        head = next(c for c in cases if c["case"] == timed)
+        own = [c for c in cases if path is None or c["path"] == path]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": "docqa_tpu/ops/attention.py:315",
+            "launches": launches["total"].get(counter, 0),
+            "max_abs_err": max(c["max_abs_err_bf16"] for c in own),
+            "tolerance": "bf16 |err| <= 1e-2 + 1e-2*|plain|; f32 |err| <= 5e-5",
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library_live_ms": head["library_live_ms"],
+            "timed_case": head["case"],
+            "cases": [c["case"] for c in own],
+        }
+
+    # K1 as a whole (the wrapper, PR 1's entry), then its two bf16 paths
+    kernels = [
+        entry("flash_attention", "docqa_tpu_torch/csrc/flash_attention.cu",
+              "flash_attention", "mistral_prefill"),
+        entry("flash_attention.decode", "docqa_tpu_torch/csrc/flash_decode.cuh",
+              "flash_attention.decode", "mistral_verify", "decode"),
+        entry("flash_attention.prefill", "docqa_tpu_torch/csrc/flash_prefill.cuh",
+              "flash_attention.prefill", "mistral_prefill", "prefill"),
+    ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({
                 "card": smi, "torch": torch.__version__,
                 "build_s": build_s, "build_logs": build_logs,
-                "kernels": kernels, "main_path": per_q, "main_path_s": main_s,
+                "kernels": kernels, "cases": cases,
+                "main_path": per_q, "main_path_s": main_s,
                 "launches": launches, "reference": reference,
             }, f, indent=1)
     print(json.dumps({"kernels": kernels}))

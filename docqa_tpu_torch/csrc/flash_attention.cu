@@ -2,39 +2,66 @@
 // that docqa_tpu_torch/ops/attention.py binds through ctypes.
 //
 // Replaces the Pallas TPU kernel docqa_tpu/ops/attention.py::_flash_kernel
-// (pl.pallas_call in flash_attention).  Same function: blockwise attention
-// with an online softmax whose running max, sum and accumulator stay in
-// float32; GQA maps kv head = q head / groups; mask kv < lengths[b], and
-// when causal kv <= q_abs (q_abs = row + q_offset[b]) and, with a window W,
-// kv > q_abs - W; a fully masked row outputs 0; the output takes q's dtype.
+// (pl.pallas_call in flash_attention).  Same function on every path:
+// blockwise attention with an online softmax whose running max, sum and
+// accumulator stay in float32; GQA maps kv head = q head / groups; mask
+// kv < lengths[b], and when causal kv <= q_abs (q_abs = row + q_offset[b])
+// and, with a window W, kv > q_abs - W; a fully masked row outputs 0; the
+// output takes q's dtype.  All paths read [b, s, h, d] tensors through
+// their strides (the decoder's KV cache in place) and skip dead kv tiles.
 //
-// Design (correct and simple first):
-//   * one CUDA block per (batch * q head, q tile); a loop over kv tiles
-//     inside the block takes the place of the TPU's sequential grid axis
-//     and its VMEM scratch carry;
-//   * the loop bounds come from lengths[b], the causal frontier and the
-//     window start, so dead kv tiles are never visited (the TPU kernel's
-//     block_live predicate);
-//   * each block reads its own lengths[b] / q_offset[b] (the TPU's scalar
-//     prefetch) and reads [b, s, h, d] tensors through their strides: no
-//     transposes and no padding, the ragged edge is masked here;
-//   * templated on head_dim (32, 64, 128), element type (bf16, f32) and
-//     q-tile rows (16 for decode / spec verify, 64 for prefill and the
-//     encoder) — a 64-row tile would leave most of a block idle at sq <= 4.
-//   * each thread issues its share of a K/V tile as 16-byte vector loads
-//     before storing any of it, so the loads' latencies overlap;
-//   * arithmetic is plain float32 FMA from shared memory.
+// Three paths, chosen by the wrapper from dtype and shapes alone:
 //
-// Bound on an H100 SXM: decode and verify are memory-bound (K and V bytes
-// of the live rows / 3.35 TB/s); long prefill is compute-bound
-// (4 * sq * skv_live * hq * d / 989 TFLOP/s bf16).  This kernel keeps K/V
-// traffic to one read of each live tile per (head, q tile) and skips dead
-// tiles, but its float32 FMA path cannot reach the tensor-core rate: the
-// mma/wgmma version with TMA-fed tiles and split-kv for decode is later work.
+//   decode  (bf16, sq <= 16; flash_decode.cuh): split-kv over mma.sync.
+//     Bound on an H100 SXM by bytes: q, out and the live K/V rows once
+//     over 3.35 TB/s (a 4K-row Mistral verify: ~5 us).  PR 1's kernel lost
+//     this case four ways; what the design does about each:
+//       1. one block per (b * q head, q tile) gave 32 blocks for 132 SMs:
+//          blocks are now (split, kv head, batch), the split count sized
+//          from skv, heads and the SM count (static shapes: no host sync,
+//          capturable in a CUDA graph), and a combine kernel merges the
+//          splits with log-sum-exp weights;
+//       2. each q head re-read its kv head's K/V: the block packs all
+//          groups * sq rows of its kv head into one 16-row mma tile, so K/V
+//          are read once per kv head;
+//       3. one tile in flight: K/V tiles stream through a 3-stage cp.async
+//          ring, two tiles in flight while the third is computed;
+//       4. float32 FMA: S = Q K^T and P V run on bf16 tensor cores with
+//          f32 accumulation, P rounded to bf16 as the TPU's MXU does.
+//     Not wgmma: at 1-16 rows a 64-row wgmma tile is >= 75 % padding, and
+//     the path is memory-bound, so mma.sync's 16-row tile is the fit.
+//
+//   prefill (bf16, sq > 16; flash_prefill.cuh): wgmma fed by TMA.  Bound by
+//     operations at long prompts: 4 * d * hq * live pairs over 989 TFLOP/s
+//     (a 4K-token Mistral prefill: ~139 us).  One or two consumer
+//     warpgroups of 64 q rows issue wgmma over 128-row kv tiles (S from
+//     shared memory, P V with P in registers and V as an MN-major
+//     operand), S_j overlapped with P_{j-1} V_{j-1}; a producer keeps K/V
+//     tiles in flight by TMA into an mbarrier-guarded ring (the four
+//     causes above: enough blocks at long prompts, no per-thread loads,
+//     a 2-3 stage ring, tensor cores).  The mask is applied on edge tiles
+//     only.  What limits it at 4K tokens is the softmax between the two
+//     products (exp and row reductions on the SFU and ALUs), not the
+//     tensor cores: its reductions run as independent partials so the
+//     warps are not left waiting on latency.
+//
+//   simt    (float32; below): PR 1's kernel, unchanged.  TF32 tensor cores
+//     keep ~3 decimal digits and cannot meet the f32 tolerance of 5e-5;
+//     f32 serves only the tiny card-vs-CPU check and the tests.
+//
+// SIMT path design: one CUDA block per (batch * q head, q tile); a loop over
+// kv tiles inside the block takes the place of the TPU's sequential grid
+// axis and its VMEM scratch carry; loop bounds from lengths[b], the causal
+// frontier and the window start skip dead tiles (the TPU's block_live);
+// templated on head_dim (32, 64, 128), element type and q-tile rows (16 for
+// decode / verify, 64 otherwise); 16-byte vector loads; float32 FMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_decode.cuh"
+#include "flash_prefill.cuh"
 
 namespace {
 
@@ -318,17 +345,86 @@ cudaError_t launch_d(const FlashParams& p, int batch, int head_dim,
 
 }  // namespace
 
+enum { kPathSimt = 0, kPathDecode = 1, kPathPrefill = 2 };
+
 // strides: 12 element strides, (batch, seq, head) for q, k, v, o in that
-// order; the head_dim stride must be 1.  Returns cudaGetLastError() after
-// the launch (0 = launched).
+// order; the head_dim stride must be 1.  path: 0 simt, 1 decode (split-kv;
+// num_splits splits of split_tiles tiles, partials in part_o / part_ml when
+// num_splits > 1), 2 prefill (wgmma; prefill_groups consumer warpgroups).
+// Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int docqa_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o,
     const void* lengths, const void* q_offset, const void* strides,
     int batch, int sq, int skv, int hq, int hkv, int head_dim, int causal,
-    int window, float scale, int is_bf16, int block_q, void* stream) {
-  if (batch <= 0 || sq <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0)
+    int window, float scale, int is_bf16, int path, int num_splits,
+    int split_tiles, int prefill_groups, void* part_o, void* part_ml,
+    void* stream) {
+  if (batch <= 0 || sq <= 0 || skv <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0)
     return (int)cudaErrorInvalidValue;
   const long long* st = static_cast<const long long*>(strides);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == kPathDecode) {
+    if (!is_bf16 || num_splits <= 0 || split_tiles <= 0) return (int)cudaErrorInvalidValue;
+    flash::DecodeParams p;
+    p.q = static_cast<const __nv_bfloat16*>(q);
+    p.k = static_cast<const __nv_bfloat16*>(k);
+    p.v = static_cast<const __nv_bfloat16*>(v);
+    p.o = static_cast<__nv_bfloat16*>(o);
+    p.lengths = static_cast<const int*>(lengths);
+    p.q_offset = static_cast<const int*>(q_offset);
+    p.part_o = static_cast<float*>(part_o);
+    p.part_ml = static_cast<float*>(part_ml);
+    p.sq = sq; p.skv = skv; p.hq = hq; p.hkv = hkv;
+    p.groups = hq / hkv;
+    p.rows = p.groups * sq;
+    p.num_splits = num_splits;
+    p.split_tiles = split_tiles;
+    p.q_sb = st[0]; p.q_ss = st[1]; p.q_sh = st[2];
+    p.k_sb = st[3]; p.k_ss = st[4]; p.k_sh = st[5];
+    p.v_sb = st[6]; p.v_ss = st[7]; p.v_sh = st[8];
+    p.o_sb = st[9]; p.o_ss = st[10]; p.o_sh = st[11];
+    p.causal = causal;
+    p.window = window;
+    p.scale_log2 = scale * flash::kLog2e;
+    switch (head_dim) {
+      case 32: return (int)flash::launch_decode_mt<32>(p, batch, s);
+      case 64: return (int)flash::launch_decode_mt<64>(p, batch, s);
+      case 128: return (int)flash::launch_decode_mt<128>(p, batch, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (path == kPathPrefill) {
+    if (!is_bf16 || (prefill_groups != 1 && prefill_groups != 2))
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap qm, km, vm;
+    cudaError_t err = flash::make_map(&qm, q, head_dim, batch, sq, hq, st[0], st[1], st[2], 64);
+    if (err == cudaSuccess)
+      err = flash::make_map(&km, k, head_dim, batch, skv, hkv, st[3], st[4], st[5], flash::kPreKV);
+    if (err == cudaSuccess)
+      err = flash::make_map(&vm, v, head_dim, batch, skv, hkv, st[6], st[7], st[8], flash::kPreKV);
+    if (err != cudaSuccess) return (int)err;
+    flash::PrefillParams p;
+    p.o = static_cast<__nv_bfloat16*>(o);
+    p.lengths = static_cast<const int*>(lengths);
+    p.q_offset = static_cast<const int*>(q_offset);
+    p.sq = sq; p.skv = skv; p.hq = hq; p.hkv = hkv;
+    p.o_sb = st[9]; p.o_ss = st[10]; p.o_sh = st[11];
+    p.causal = causal;
+    p.window = window;
+    p.scale_log2 = scale * flash::kLog2e;
+#define FLASH_PREFILL(D)                                                   \
+  return (int)(prefill_groups == 2                                         \
+                   ? flash::launch_prefill<D, 2>(qm, km, vm, p, batch, s)  \
+                   : flash::launch_prefill<D, 1>(qm, km, vm, p, batch, s))
+    switch (head_dim) {
+      case 32: FLASH_PREFILL(32);
+      case 64: FLASH_PREFILL(64);
+      case 128: FLASH_PREFILL(128);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef FLASH_PREFILL
+  }
+  if (path != kPathSimt) return (int)cudaErrorInvalidValue;
   FlashParams p;
   p.q = q;
   p.k = k;
@@ -347,16 +443,15 @@ extern "C" int docqa_flash_attention_fwd(
   p.causal = causal;
   p.window = window;
   p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 16-row q tiles for decode / verify, 64 otherwise
+  const int block_q = sq <= 16 ? 16 : 64;
   cudaError_t err;
   if (block_q == 16) {
     err = is_bf16 ? launch_d<__nv_bfloat16, 16>(p, batch, head_dim, s)
                   : launch_d<float, 16>(p, batch, head_dim, s);
-  } else if (block_q == 64) {
+  } else {
     err = is_bf16 ? launch_d<__nv_bfloat16, 64>(p, batch, head_dim, s)
                   : launch_d<float, 64>(p, batch, head_dim, s);
-  } else {
-    err = cudaErrorInvalidValue;
   }
   return (int)err;
 }

@@ -3,8 +3,9 @@
 Each ``docqa_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, under
 ``build/torch_kernels/`` at the repository root, at first use.  The file
-name carries a hash of the source and flags, so an edited source builds
-anew.  Libraries are loaded with ``ctypes``; the wrapper that binds a
+name carries a hash of the source, of every ``csrc/*.cuh`` header it may
+include, and of the full flag list, so an edited source, header or flag
+builds anew.  Libraries are loaded with ``ctypes``; the wrapper that binds a
 function sets its ``argtypes``.  Nothing here runs at import time: the CPU
 tests import every module on a host without ``nvcc``.
 
@@ -50,12 +51,15 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def library_path(name: str, csrc_dir: Path = CSRC_DIR) -> Path:
+    """Where the library of ``<csrc_dir>/<name>.cu`` lives: its name hashes
+    the source, every header beside it (by name and content) and the
+    flags."""
+    h = hashlib.sha1((csrc_dir / f"{name}.cu").read_bytes())
+    for header in sorted(csrc_dir.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:

@@ -8,23 +8,29 @@ Counterpart of ``docqa_tpu/ops/attention.py`` (``attention_reference``,
   lengths  [batch] int — valid KV prefix per example
   q_offset [batch] int — absolute position of q[:, 0]
 
-``flash_attention`` on a CUDA tensor launches the hand-written kernel in
-``csrc/flash_attention.cu``, which replaces the Pallas TPU kernel
+``flash_attention`` on a CUDA tensor launches the hand-written kernels in
+``csrc/flash_attention.cu``, which replace the Pallas TPU kernel
 ``docqa_tpu/ops/attention.py::_flash_kernel``; on a CPU tensor it runs
-``attention_reference``, the plain version the kernel is held against.
-On an H100 the kernel is memory-bound at decode (K and V bytes of the live
-rows / 3.35 TB/s) and compute-bound at long prefill
-(4 * sq * skv_live * hq * d / 989 TFLOP/s in bf16).  Its design skips dead
-kv tiles and reads each live tile once per (head, q tile), and uses a
-16-row q tile for decode and speculative verify; its float32 FMA inner
-loops are far from the tensor-core rate, which is later work.
+``attention_reference``, the plain version the kernels are held against.
+:func:`plan_flash` picks one of three paths from dtype and static shapes:
+
+* ``decode`` (bf16, sq <= 16): split-kv with GQA packing on ``mma.sync``
+  tensor cores; memory-bound (the live K/V bytes / 3.35 TB/s on an H100).
+  The splits tile ``[0, skv)`` by shape alone, never by ``lengths``, so
+  the step needs no host sync.  :func:`split_kv_reference` is its plain
+  version of the split-and-merge arithmetic, for the tests.
+* ``prefill`` (bf16, sq > 16): ``wgmma`` fed by TMA; operation-bound at
+  long prompts (4 * d * hq * live pairs / 989 TFLOP/s in bf16).
+* ``simt`` (float32): the first port's float32-FMA kernel, kept because
+  TF32 tensor cores cannot meet the float32 tolerance.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+import math
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,8 +40,71 @@ NEG_INF = -1e30
 
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
-SMALL_Q_TILE = 16  # decode (sq=1) and spec verify (sq=K)
-LARGE_Q_TILE = 64
+DECODE_MAX_Q = 16     # q rows per call on the split-kv path (decode, verify)
+DECODE_MAX_ROWS = 64  # packed groups * sq rows: four 16-row mma tiles
+SPLIT_TILE = 64       # kv rows per tile of the split-kv kernel
+PREFILL_TILE = 64     # q rows per consumer warpgroup of the prefill kernel
+H100_SMS = 132
+PATHS = ("simt", "decode", "prefill")  # the C entry point's path numbers
+
+
+class FlashPlan(NamedTuple):
+    path: str            # "decode", "prefill" or "simt"
+    num_splits: int      # kv splits (decode path; 1 elsewhere)
+    split_tiles: int     # SPLIT_TILE-row tiles per split (decode; 0 elsewhere)
+    prefill_groups: int  # consumer warpgroups per block (prefill; 0 elsewhere)
+
+
+def plan_flash(dtype, b: int, sq: int, skv: int, hq: int, hkv: int,
+               num_sms: int = H100_SMS) -> FlashPlan:
+    """The kernel path and its launch shape, from static shapes alone — no
+    ``lengths``, so a decode step's launch never waits on the device.
+
+    Decode splits the kv axis so that about two blocks per SM are in flight
+    (``b * hkv`` blocks per split); prefill takes two 64-row warpgroups per
+    block (half the K/V re-reads) when the grid still holds two blocks per
+    SM at that size."""
+    if dtype != torch.bfloat16:
+        return FlashPlan("simt", 1, 0, 0)
+    if sq <= DECODE_MAX_Q and (hq // hkv) * sq <= DECODE_MAX_ROWS:
+        tiles = max(1, math.ceil(skv / SPLIT_TILE))
+        want = math.ceil(2 * num_sms / (b * hkv))
+        per = math.ceil(tiles / max(1, min(tiles, want)))
+        return FlashPlan("decode", math.ceil(tiles / per), per, 0)
+    pairs = (math.ceil(sq / PREFILL_TILE) // 2) * hq * b
+    return FlashPlan("prefill", 1, 0, 2 if pairs >= 2 * num_sms else 1)
+
+
+def split_bounds(skv: int, num_splits: int) -> List[Tuple[int, int]]:
+    """The kv row range [lo, hi) of each split, as the decode kernel cuts
+    them: whole SPLIT_TILE tiles, the same number per split, the last one
+    clipped at ``skv``.  ``num_splits`` is an upper bound (the plan's
+    count is exact)."""
+    tiles = max(1, math.ceil(skv / SPLIT_TILE))
+    per = math.ceil(tiles / max(1, min(tiles, num_splits)))
+    return [
+        (i * per * SPLIT_TILE, min(skv, (i + 1) * per * SPLIT_TILE))
+        for i in range(math.ceil(tiles / per))
+    ]
+
+
+def live_mask(b, sq, skv, lengths, q_offset, causal, sliding_window, dev):
+    """[b, sq, skv] bool: the (q row, kv row) pairs attended.  Defaults as
+    in :func:`attention_reference`: no ``lengths`` = all of skv; causal
+    with no ``q_offset`` aligns the ends of q and kv."""
+    kv_pos = torch.arange(skv, device=dev)[None, None, :]
+    mask = torch.ones((b, sq, skv), dtype=torch.bool, device=dev)
+    if lengths is not None:
+        mask = mask & (kv_pos < lengths.to(dev)[:, None, None])
+    if causal:
+        if q_offset is None:
+            end = lengths.to(dev) if lengths is not None else torch.full((b,), skv, device=dev)
+            q_offset = end - sq
+        q_abs = torch.arange(sq, device=dev)[None, :, None] + q_offset.to(dev)[:, None, None]
+        mask = mask & (kv_pos <= q_abs)
+        if sliding_window is not None:
+            mask = mask & (kv_pos > q_abs - sliding_window)
+    return mask
 
 
 def attention_reference(
@@ -67,27 +136,7 @@ def attention_reference(
         vf = vf.repeat_interleave(groups, dim=2)
 
     scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf)  # [b, h, sq, skv]
-
-    dev = q.device
-    kv_pos = torch.arange(skv, device=dev)[None, None, None, :]
-    mask = torch.ones((b, 1, sq, skv), dtype=torch.bool, device=dev)
-    if lengths is not None:
-        mask = mask & (kv_pos < lengths.to(dev)[:, None, None, None])
-    if causal:
-        rows = torch.arange(sq, device=dev)[None, :]
-        if q_offset is None:
-            end = (
-                lengths.to(dev)[:, None]
-                if lengths is not None
-                else torch.full((b, 1), skv, device=dev)
-            )
-            q_abs = rows + (end - sq)
-        else:
-            q_abs = rows + q_offset.to(dev)[:, None]
-        q_abs = q_abs[:, None, :, None]  # [b, 1, sq, 1]
-        mask = mask & (kv_pos <= q_abs)
-        if sliding_window is not None:
-            mask = mask & (kv_pos > q_abs - sliding_window)
+    mask = live_mask(b, sq, skv, lengths, q_offset, causal, sliding_window, q.device)[:, None]
     scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     # a row with no valid kv position (padding rows) outputs zeros,
@@ -97,13 +146,66 @@ def attention_reference(
     return out.to(q.dtype)
 
 
+def split_kv_reference(
+    q,
+    k,
+    v,
+    *,
+    causal: bool = False,
+    lengths: Optional[torch.Tensor] = None,
+    q_offset: Optional[torch.Tensor] = None,
+    sliding_window: Optional[int] = None,
+    scale: Optional[float] = None,
+    num_splits: int = 1,
+):
+    """The decode path's arithmetic in plain PyTorch, float32: each split of
+    :func:`split_bounds` keeps its own (running max m, sum l, unnormalised
+    output o); a split with nothing live holds the empty state (m = -inf,
+    l = 0).  The merge weighs split i by exp(m_i - M), M the largest m_i,
+    skips empty splits, and divides by the weighted l; a row with no live
+    kv anywhere outputs 0.  Used by the tests only."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    groups = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    dev = q.device
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(groups, dim=2)
+    vf = v.float().repeat_interleave(groups, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    live = live_mask(b, sq, skv, lengths, q_offset, causal, sliding_window, dev)[:, None]
+    ms, ls, os_ = [], [], []
+    for lo, hi in split_bounds(skv, num_splits):
+        sl = slice(lo, hi)
+        s_i = scores[..., sl].masked_fill(~live[..., sl], -math.inf)
+        m_i = s_i.amax(dim=-1)  # -inf where the split holds nothing live
+        p_i = torch.exp(s_i - torch.where(torch.isinf(m_i), 0.0, m_i)[..., None])
+        ms.append(m_i)
+        ls.append(p_i.sum(dim=-1))
+        os_.append(torch.einsum("bhqk,bkhd->bhqd", p_i, vf[:, sl]))
+    m = torch.stack(ms)  # [splits, b, h, sq]
+    big = m.amax(dim=0)
+    w = torch.where(torch.isinf(m), 0.0, torch.exp(m - torch.where(torch.isinf(big), 0.0, big)))
+    den = (w * torch.stack(ls)).sum(dim=0)
+    num = (w[..., None] * torch.stack(os_)).sum(dim=0)
+    out = torch.where(den[..., None] > 0, num / den.clamp(min=1e-30)[..., None], 0.0)
+    return out.permute(0, 2, 1, 3).to(q.dtype)  # [b, sq, h, d]
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _flash_fn():
     fn = _kernels.load("flash_attention").docqa_flash_attention_fwd
     fn.argtypes = (
         [ctypes.c_void_p] * 7  # q, k, v, o, lengths, q_offset, strides
         + [ctypes.c_int] * 8  # batch, sq, skv, hq, hkv, head_dim, causal, window
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_float]  # scale
+        + [ctypes.c_int] * 5  # is_bf16, path, num_splits, split_tiles, prefill_groups
+        + [ctypes.c_void_p] * 3  # part_o, part_ml, stream
     )
     fn.restype = ctypes.c_int
     return fn
@@ -160,8 +262,10 @@ def flash_attention(
     scale: Optional[float] = None,
 ):
     """Forward-only flash attention.  CPU tensors take
-    :func:`attention_reference`; CUDA tensors launch the Hopper kernel or
-    raise — there is no fallback on the card."""
+    :func:`attention_reference`; CUDA tensors launch the Hopper kernel of
+    :func:`plan_flash`'s path or raise — there is no fallback on the card.
+    Counts one launch under ``flash_attention`` and one under
+    ``flash_attention.<path>``."""
     if q.device.type == "cpu":
         return attention_reference(
             q, k, v, causal=causal, lengths=lengths, q_offset=q_offset,
@@ -180,21 +284,34 @@ def flash_attention(
     q_offset = q_offset.to(device=q.device, dtype=torch.int32).contiguous()
     _check_cuda_inputs(q, k, v, lengths, q_offset, sliding_window, causal)
 
+    plan = plan_flash(q.dtype, b, sq, skv, hq, hkv, _num_sms(q.device.index or 0))
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
-    block_q = SMALL_Q_TILE if sq <= SMALL_Q_TILE else LARGE_Q_TILE
+    part_o = part_ml = None
+    if plan.path == "decode" and plan.num_splits > 1:
+        rows = (hq // hkv) * sq
+        part_o = torch.empty((b, hkv, plan.num_splits, rows, d),
+                             dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((b, hkv, plan.num_splits, rows, 2),
+                              dtype=torch.float32, device=q.device)
     rc = _flash_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lengths.data_ptr(), q_offset.data_ptr(), ctypes.addressof(strides),
         b, sq, skv, hq, hkv, d, int(causal), int(sliding_window or 0),
-        float(scale), int(q.dtype == torch.bfloat16), block_q,
+        float(scale), int(q.dtype == torch.bfloat16), PATHS.index(plan.path),
+        plan.num_splits, plan.split_tiles, plan.prefill_groups,
+        part_o.data_ptr() if part_o is not None else None,
+        part_ml.data_ptr() if part_ml is not None else None,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(
+            f"flash_attention {plan.path} kernel launch failed: CUDA error {rc}"
+        )
     _kernels.LAUNCHES["flash_attention"] += 1
+    _kernels.LAUNCHES[f"flash_attention.{plan.path}"] += 1
     return out
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import time
 from collections import defaultdict
@@ -34,7 +35,9 @@ from docqa_tpu_torch.ops import _kernels  # noqa: E402
 def family(name: str) -> str:
     """Coarse kernel family from its (mangled) name."""
     low = name.lower()
-    if "flash_fwd_kernel" in name:
+    if "flash_" in name and "kernel" in name:
+        # every kernel of csrc/flash_attention.cu: K1's decode, combine,
+        # prefill and SIMT kernels
         return "flash_attention (port kernel)"
     if any(t in low for t in ("nvjet", "gemm", "gemv", "xmma", "cutlass", "cublas", "splitk")):
         return "matmul (cuBLAS)"
@@ -82,12 +85,16 @@ def main(argv=None) -> int:
             wall_us = (time.perf_counter() - t0) * 1e6
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         by_name, by_family = defaultdict(float), defaultdict(float)
-        counts = defaultdict(int)
+        counts, k1 = defaultdict(int), defaultdict(lambda: [0.0, 0])
         for e in kernels:
             dur = e.time_range.elapsed_us()
             by_name[e.name] += dur
             by_family[family(e.name)] += dur
             counts[family(e.name)] += 1
+            if family(e.name).startswith("flash_attention"):
+                short = re.search(r"flash_\w+?_kernel", e.name).group(0)
+                k1[short][0] += dur
+                k1[short][1] += 1
         busy = busy_us(
             (e.time_range.start, e.time_range.end) for e in kernels
         )
@@ -104,6 +111,9 @@ def main(argv=None) -> int:
                 k: {"ms": v / 1e3, "launches": counts[k]}
                 for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])
             },
+            "k1_by_kernel": {
+                k: {"ms": v[0] / 1e3, "launches": v[1]} for k, v in sorted(k1.items())
+            },
             "top_kernels_ms": {
                 k[:120]: v / 1e3
                 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
@@ -116,6 +126,8 @@ def main(argv=None) -> int:
               f"{st['forwards']} decoder forwards", flush=True)
         for fam, v in rec["by_family_ms"].items():
             print(f"    {fam:32s} {v['ms']:9.3f} ms  {v['launches']:6d} launches")
+        for kern, v in rec["k1_by_kernel"].items():
+            print(f"      K1 {kern:29s} {v['ms']:9.3f} ms  {v['launches']:6d} launches")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,4 +1,4 @@
-"""The Hopper flash kernel against its plain version, on the card.
+"""The Hopper flash kernels against their plain versions, on the card.
 
 Marked ``cuda``: without a card every test here skips (the decision is
 taken in the fixture, never at import).  On the card:
@@ -12,7 +12,10 @@ import pytest
 import torch
 
 from docqa_tpu_torch.ops import _kernels
-from docqa_tpu_torch.ops.attention import attention_reference, flash_attention
+from docqa_tpu_torch.ops.attention import (
+    attention_reference, flash_attention, plan_flash, split_bounds,
+    split_kv_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -27,6 +30,19 @@ CASES = [
     (2, 4, 128, 4, 2, 128, True, None, [54, 93], [50, 89]),
     (2, 37, 100, 4, 1, 64, True, 20, [100, 60], None),
     (1, 200, 700, 32, 8, 128, True, 64, [650], [450]),
+    # split-kv edges: splits wholly past lengths, wholly before the window,
+    # lengths = 0 (output 0); packed GQA verify and decode
+    (2, 4, 4224, 32, 8, 128, True, None, [100, 4100], [96, 4096]),
+    (1, 4, 4224, 32, 8, 128, True, 64, [4100], [4096]),
+    (2, 1, 640, 8, 2, 64, True, None, [0, 300], [0, 299]),
+    (2, 4, 384, 8, 2, 64, True, None, [233, 54], [229, 50]),
+    (1, 16, 512, 16, 4, 128, True, 128, [400], [384]),
+    # MiniLM encoder width (d = 32, no GQA, ragged and empty rows)
+    (4, 128, 128, 12, 12, 32, False, None, [128, 0, 1, 77], None),
+    # first size on the prefill path
+    (2, 17, 200, 8, 2, 64, True, None, [150, 17], None),
+    # long causal prefill with a window, two warpgroups per block
+    (2, 1024, 1100, 32, 8, 128, True, 300, [1030, 700], [6, 0]),
 ]
 
 
@@ -57,10 +73,16 @@ def _inputs(dev, case, dtype):
 @pytest.mark.parametrize("case", CASES)
 def test_kernel_matches_plain(dev, case, dtype):
     q, k, v, kw = _inputs(dev, case, dtype)
-    before = _kernels.LAUNCHES["flash_attention"]
+    b, sq, skv, hq, hkv = case[:5]
+    path = plan_flash(dtype, b, sq, skv, hq, hkv,
+                      torch.cuda.get_device_properties(dev).multi_processor_count).path
+    assert path == ("simt" if dtype == torch.float32 else "decode" if sq <= 16 else "prefill")
+    before = dict(_kernels.LAUNCHES)
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["flash_attention"] == before + 1
+    assert _kernels.LAUNCHES["flash_attention"] == before.get("flash_attention", 0) + 1
+    key = f"flash_attention.{path}"
+    assert _kernels.LAUNCHES[key] == before.get(key, 0) + 1
     want = attention_reference(q, k, v, **kw)
     atol, rtol = (5e-5, 0.0) if dtype == torch.float32 else (1e-2, 1e-2)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
@@ -94,3 +116,23 @@ def test_wrapper_raises_on_misaligned_rows(dev):
     x = flat[1:].view(1, 4, 2, 64)
     with pytest.raises(ValueError, match="aligned"):
         flash_attention(x, x, x)
+
+
+def test_split_reference_matches_kernel_bf16(dev):
+    """The decode kernel's split-and-merge against its plain version at the
+    plan's own split count (4K-row cache, GQA packed)."""
+    case = CASES[9]
+    q, k, v, kw = _inputs(dev, case, torch.bfloat16)
+    plan = plan_flash(torch.bfloat16, *case[:5],
+                      torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert plan.num_splits > 1 and len(split_bounds(case[2], plan.num_splits)) == plan.num_splits
+    got = flash_attention(q, k, v, **kw)
+    want = split_kv_reference(q, k, v, num_splits=plan.num_splits, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+def test_zero_length_rows_are_zero_not_nan(dev):
+    q, k, v, kw = _inputs(dev, CASES[11], torch.bfloat16)
+    got = flash_attention(q, k, v, **kw)
+    assert torch.isfinite(got.float()).all()
+    assert not got[0].float().any()  # lengths[0] == 0

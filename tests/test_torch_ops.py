@@ -3,9 +3,13 @@ same numpy inputs (CPU, float32).
 
 The flash wrapper on a CPU tensor runs its plain version; it is held
 against the reference's Pallas kernel in interpret mode and against the
-reference's XLA attention.  Tolerance 2e-5 (the reference's own flash
-test tolerance): same float32 math, only the summation order differs.
+reference's XLA attention.  So is ``split_kv_reference``, the plain version
+of the decode kernel's split-and-merge.  Tolerance 2e-5 (the reference's
+own flash test tolerance): same float32 math, only the summation order
+differs.
 """
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +24,10 @@ from docqa_tpu.ops.attention import attention_reference as j_attention_reference
 from docqa_tpu.ops.attention import flash_attention as j_flash_attention
 from docqa_tpu.ops.sampling import greedy as j_greedy
 from docqa_tpu.index.store import _search_single as j_search_single
-from docqa_tpu_torch.ops.attention import attention, flash_attention
+from docqa_tpu_torch.ops.attention import (
+    SPLIT_TILE, attention, attention_reference, flash_attention, plan_flash,
+    split_bounds, split_kv_reference,
+)
 from docqa_tpu_torch.ops.norms import layer_norm, rms_norm
 from docqa_tpu_torch.ops.rope import apply_rope, rope_angles
 from docqa_tpu_torch.ops.sampling import greedy, sample
@@ -151,6 +158,10 @@ FLASH_CASES = [
     ("decode_q_offset", 9, 2, 1, 128, 4, 2, 64, True, None, [51, 90], [50, 89], 128, 64),
     ("verify_sq4", 10, 2, 4, 128, 4, 2, 64, True, None, [54, 93], [50, 89], 128, 64),
     ("ragged_sq37", 11, 2, 37, 100, 4, 1, 64, True, 20, [100, 60], None, 16, 32),
+    # the split-kv kernel's packed-GQA shapes: 4 q heads per kv head, so a
+    # verify step packs 4 x 4 rows and a decode step 4 x 1
+    ("gqa_verify_packed", 12, 2, 4, 320, 8, 2, 64, True, None, [233, 54], [229, 50], 128, 64),
+    ("gqa_decode_packed", 13, 2, 1, 320, 8, 2, 64, True, None, [230, 37], [229, 36], 128, 64),
 ]
 
 
@@ -199,3 +210,87 @@ class TestFlashAttention:
         q = torch.randn((1, 4, 2, 32), generator=torch.Generator().manual_seed(0))
         out = flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), causal=True)
         assert out.dtype == torch.bfloat16
+
+
+# (name, seed, sq, lengths, q_offset, window, num_splits): b=2, skv=320
+# (5 tiles of SPLIT_TILE rows), hq=8, hkv=2, d=32, causal
+SPLIT_CASES = [
+    ("verify_packed", 20, 4, [233, 54], [229, 50], None, 5),
+    ("decode_packed", 21, 1, [230, 37], [229, 36], None, 5),
+    ("splits_past_lengths", 22, 4, [40, 70], [36, 66], None, 5),
+    ("splits_before_window", 23, 4, [300, 254], [296, 250], 64, 5),
+    ("zero_length", 24, 1, [0, 100], [0, 99], None, 5),
+    ("uneven_splits", 25, 4, [317, 129], [313, 125], 100, 3),
+]
+
+
+class TestSplitKvReference:
+    @pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+    def test_matches_reference_and_pallas(self, case):
+        _, seed, sq, lengths, q_offset, window, num_splits = case
+        q, k, v = _case_inputs(seed, 2, sq, 320, 8, 2, 32)
+        lens = np.asarray(lengths, np.int32)
+        qoff = np.asarray(q_offset, np.int32)
+        jkw = dict(causal=True, sliding_window=window, lengths=jnp.asarray(lens),
+                   q_offset=jnp.asarray(qoff))
+        want_ref = np.asarray(
+            j_attention_reference(jnp.array(q), jnp.array(k), jnp.array(v), **jkw)
+        )
+        want_flash = np.asarray(
+            j_flash_attention(jnp.array(q), jnp.array(k), jnp.array(v), **jkw,
+                              block_q=128, block_kv=64, interpret=True)
+        )
+        got = split_kv_reference(
+            T(q), T(k), T(v), causal=True, sliding_window=window,
+            lengths=T(lens), q_offset=T(qoff), num_splits=num_splits,
+        ).numpy()
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want_ref, atol=2e-5)
+        np.testing.assert_allclose(got, want_flash, atol=2e-5)
+        if (lens == 0).any():
+            assert not got[lens == 0].any()  # no live kv: 0, not NaN
+
+    def test_split_count_does_not_change_the_result(self):
+        q, k, v = _case_inputs(26, 2, 4, 320, 8, 2, 32)
+        kw = dict(causal=True, lengths=torch.tensor([250, 90]),
+                  q_offset=torch.tensor([246, 86]), sliding_window=128)
+        want = attention_reference(T(q), T(k), T(v), **kw)
+        for n in (1, 2, 4, 5, 8):
+            got = split_kv_reference(T(q), T(k), T(v), num_splits=n, **kw)
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+# (b, sq, skv, hq, hkv): decode, verify, prefill, encoder and edge shapes
+PLAN_SHAPES = [
+    (1, 1, 384, 32, 8), (1, 4, 384, 32, 8), (1, 4, 4224, 32, 8),
+    (2, 1, 1, 4, 4), (3, 16, 1000, 16, 4), (64, 4, 8192, 32, 8),
+    (1, 256, 384, 32, 8), (32, 128, 128, 12, 12), (1, 4096, 4224, 32, 8),
+    (2, 4, 100, 64, 2),
+]
+
+
+class TestPlanFlash:
+    def test_takes_static_shapes_only(self):
+        params = inspect.signature(plan_flash).parameters
+        assert not {"lengths", "q_offset"} & set(params)
+
+    @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+    def test_paths_and_split_tiling(self, shape):
+        b, sq, skv, hq, hkv = shape
+        assert plan_flash(torch.float32, *shape).path == "simt"
+        plan = plan_flash(torch.bfloat16, *shape)
+        if sq <= 16 and (hq // hkv) * sq <= 64:
+            assert plan.path == "decode"
+            bounds = split_bounds(skv, plan.num_splits)
+            assert len(bounds) == plan.num_splits
+            # the splits tile [0, skv): no gap, no overlap, none empty, and
+            # each is the plan's whole number of tiles (the last clipped)
+            assert bounds[0][0] == 0 and bounds[-1][1] == skv
+            for (lo, hi), (nlo, _) in zip(bounds, bounds[1:]):
+                assert hi == nlo and hi - lo == plan.split_tiles * SPLIT_TILE
+            assert all(hi > lo for lo, hi in bounds)
+            # about two blocks per SM, never more splits than tiles
+            assert plan.num_splits <= -(-skv // SPLIT_TILE)
+        else:
+            assert plan.path == "prefill" and plan.num_splits == 1
+            assert plan.prefill_groups in (1, 2)
