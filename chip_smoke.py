@@ -14,7 +14,11 @@ Phases, each of which fails the run on any error (nothing is caught):
    tensor-core path; float32: the SIMT path), and time the kernel, the
    first port's SIMT kernel on the same bf16 inputs, the plain version,
    the library yardstick (masked, and over the live slice where that is
-   expressible) and the roofline bound.
+   expressible) and the roofline bound.  K1's paged mode (the batcher's
+   verify step through a block table: 8 lanes, K=4, shuffled blocks with
+   holes) is held against its plain version too, and timed beside
+   gather + masked SDPA and the reference's TPU route, gather + K1's
+   contiguous decode path.
 3. main path: /ask end to end through ``QAService.ask`` at full width —
    MiniLM-L6 encoder, a 1,000,000-row bf16 store, Mistral-7B-width decoder
    in bf16 with random seeded weights, greedy with K=4 speculation — with
@@ -23,6 +27,14 @@ Phases, each of which fails the run on any error (nothing is caught):
    call through the wgmma kernel.
 4. reference: the same path at a tiny float32 width on the card (kernels)
    and on the CPU (plain versions) must give the same answers.
+5. main path through the continuous batcher: phase 3's service rewired to
+   a ``ContinuousBatcher`` (8 slots, paged KV pool, prefix cache, K=4);
+   two rounds of eight concurrent /ask; every verify step's attention on
+   K1's paged mode (launches = 32 layers x verify steps), at least one
+   warm prefix admission, no leaked block after the drain; one prompt
+   submitted alone gives first-step logits (taken from the batcher's own
+   prefill dispatch) within ``FIRST_STEP_RTOL`` of the solo engine's, and
+   the batcher delivers their argmax.
 
 Prints the kernels JSON line, the nvidia-smi line, and last the ok line.
 Exits non-zero when CUDA is unavailable or any phase fails.
@@ -31,6 +43,7 @@ Exits non-zero when CUDA is unavailable or any phase fails.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
 import os
@@ -38,6 +51,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -46,15 +60,19 @@ import torch
 from docqa_tpu_torch.config import (
     DecoderConfig, EncoderConfig, GenerateConfig, StoreConfig,
 )
+from docqa_tpu_torch.engines import paged as paged_mod
+from docqa_tpu_torch.engines import serve as serve_mod
 from docqa_tpu_torch.engines.encoder import EncoderEngine
 from docqa_tpu_torch.engines.generate import GenerateEngine
+from docqa_tpu_torch.engines.serve import ContinuousBatcher
 from docqa_tpu_torch.index.store import VectorStore
 from docqa_tpu_torch.models.decoder import (
     decoder_forward, init_decoder_params, init_kv_cache,
 )
 from docqa_tpu_torch.ops import _kernels
 from docqa_tpu_torch.ops import attention as attn
-from docqa_tpu_torch.service.qa import QAService
+from docqa_tpu_torch.service.qa import QA_TEMPLATE, QAService
+from docqa_tpu_torch.utils import pick_bucket, round_up
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -289,6 +307,119 @@ def run_kernel_cases():
     return results
 
 
+def paged_cases():
+    """The batcher's verify step at Mistral widths and with Mistral's
+    4,096-token sliding window, as the main path passes it (8 lanes, K=4,
+    16-token blocks, NB=64: the 1,024-row capacity of phase 5), and the
+    same over ~4,100 live rows per lane, where the window cuts the first
+    rows."""
+    mistral = dict(hq=32, hkv=8, d=128, sq=4, block_size=16, window=4096)
+    return [
+        dict(name="mistral_paged_verify", lanes=8, nb=64, live=(180, 260), **mistral),
+        dict(name="mistral_paged_verify_4k", lanes=8, nb=264, live=(4090, 4110), **mistral),
+    ]
+
+
+def run_paged_cases():
+    """K1's paged mode against its plain version (gather_paged_kv +
+    attention_reference) on shuffled block ids with hole entries, and the
+    times of: the kernel, the plain version, the library call (gather +
+    masked SDPA) and the reference's own TPU route (gather + K1's
+    contiguous decode path)."""
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    rng = np.random.default_rng(4321)
+    results = []
+    for case in paged_cases():
+        S, sq, nb, bs = case["lanes"], case["sq"], case["nb"], case["block_size"]
+        hq, hkv, d = case["hq"], case["hkv"], case["d"]
+        n_blocks = S * nb  # every lane could fill its table
+        lengths_np = rng.integers(case["live"][0], case["live"][1] + 1, S)
+        perm = rng.permutation(n_blocks)
+        tables_np = np.full((S, nb), n_blocks, np.int32)  # holes past the live blocks
+        for lane, n in enumerate(lengths_np):
+            used = -(-int(n) // bs)
+            tables_np[lane, :used] = perm[lane * nb: lane * nb + used]
+        tables = torch.from_numpy(tables_np).to(dev)
+        lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(dev)
+        q_offset = lengths - sq
+        q = torch.randn((S, sq, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+        k_pool, v_pool = (
+            torch.randn((n_blocks * bs, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2)
+        )
+        kw = dict(block_size=bs, q_offset=q_offset, sliding_window=case["window"])
+        dense_kw = dict(causal=True, lengths=lengths, q_offset=q_offset,
+                        sliding_window=case["window"])
+
+        def kernel():
+            return attn.paged_decode_attention(q, k_pool, v_pool, tables, lengths, **kw)
+
+        def gathered():
+            return (attn.gather_paged_kv(k_pool, tables, bs),
+                    attn.gather_paged_kv(v_pool, tables, bs))
+
+        def plain():
+            k, v = gathered()
+            return attn.attention_reference(q, k, v, **dense_kw)
+
+        skv = nb * bs
+        mask = attn.live_mask(S, sq, skv, lengths, q_offset, True, case["window"], dev)
+
+        def library():
+            k, v = gathered()
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask[:, None], enable_gqa=hq != hkv,
+            )
+
+        def gather_k1():
+            k, v = gathered()
+            return attn.flash_attention(q, k, v, **dense_kw)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        atol, rtol = TOL[torch.bfloat16]
+        if not torch.isfinite(got.float()).all() or not bool(
+            (err <= atol + rtol * want.float().abs()).all()
+        ):
+            raise AssertionError(
+                f"paged_decode_attention {case['name']}: max |err| "
+                f"{float(err.max()):.3e} over atol {atol} rtol {rtol}"
+            )
+        plan = attn.plan_flash(torch.bfloat16, S, sq, skv, hq, hkv,
+                               torch.cuda.get_device_properties(dev).multi_processor_count)
+        rec = {"case": case["name"], "path": "decode_paged",
+               "shape": f"S{S} sq{sq} NB{nb} bs{bs} hq{hq} hkv{hkv} d{d}",
+               "plan": plan._asdict(), "lengths": lengths_np.tolist(),
+               "max_abs_err_bf16": float(err.max())}
+        rec["ms"] = time_ms(kernel, flush)
+        rec["plain_ms"] = time_ms(plain, flush)
+        rec["library_ms"] = time_ms(library, flush)
+        rec["gather_k1_ms"] = time_ms(gather_k1, flush)
+        es = 2  # bf16
+        live_pairs = int(mask.sum())
+        live_kv_rows = int(mask.any(dim=1).sum())
+        flops = 4 * d * hq * live_pairs
+        nbytes = ((2 * S * sq * hq * d + 2 * live_kv_rows * hkv * d) * es
+                  + 4 * S * nb + 8 * S)  # + the block table, lengths, q_offset
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_flops = flops / PEAK_BF16_FLOPS * 1e3
+        rec["bound_ms"] = max(t_bytes, t_flops)
+        rec["bound_by"] = "bytes" if t_bytes >= t_flops else "operations"
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        log(f"  {rec['case']:24s} {rec['shape']:38s} {plan.num_splits} splits  err bf16 "
+            f"{rec['max_abs_err_bf16']:.2e}  kernel {rec['ms']:.4f} ms  plain "
+            f"{rec['plain_ms']:.4f} ms  gather+sdpa {rec['library_ms']:.4f} ms  "
+            f"gather+K1 {rec['gather_k1_ms']:.4f} ms  bound {rec['bound_ms']:.5f} ms "
+            f"({rec['bound_by']}, {100 * rec['bound_share']:.1f} % of it)")
+        results.append(rec)
+    return results
+
+
 # ---- phase 3: the main path at full width ---------------------------------
 
 def clinical_notes(rng: np.random.Generator):
@@ -364,9 +495,8 @@ def build_main_path(counts):
     return qa, params, enc_launches
 
 
-def run_main_path(counts):
+def run_main_path(counts, qa, params, enc_launches):
     dev = torch.device("cuda")
-    qa, params, enc_launches = build_main_path(counts)
     generator = qa.generator
     enc_cfg = qa.retriever.encoder.cfg
     dec_cfg = generator.cfg
@@ -406,6 +536,7 @@ def run_main_path(counts):
             "question": question,
             "latency_s": latency,
             "sources": out["sources"],
+            "answer": out["answer"],
             "answer_words": len(out["answer"].split()),
             "prefill_tokens": st["prefill_tokens"],
             "prefill_s": st["prefill_s"],
@@ -475,6 +606,294 @@ def run_reference_check():
     return {"answers_identical": True, "embedding_max_abs_err": emb_err}
 
 
+# ---- phase 5: /ask through the continuous batcher at full width ------------
+
+# Batcher vs solo first-step logits for one prompt, bf16 on the card: the
+# relative RMS difference ||served - solo|| / ||solo||.  The two routes run
+# the same 32 layers but with other GEMM batch shapes (a 512-token packed
+# stream against the solo engine's 256 bucket, so cuBLAS may pick other
+# kernels and summation orders) and another prefill attention (the plain
+# f32 ragged version against K1's wgmma path, which rounds P to bf16).
+# Each bf16 rounding is 2^-9 relative; compounded over 32 layers of a
+# random-weight stack they stay well under 5 % of the logits' RMS.
+FIRST_STEP_RTOL = 5e-2
+
+
+def first_step(qa, batcher, question):
+    """The first step of ``question``'s /ask prompt through the batcher and
+    through the solo engine, bf16 on the card.  The prompt alone is
+    submitted to the idle batcher with ``max_new_tokens=1`` (admission,
+    packing, the prefill program and the pipelined fetch as any request
+    takes them) while a tap on the batcher's ragged prefill forward keeps
+    the logits that dispatch computed; the solo logits come from the solo
+    engine's bucketed prefill through K1.  Returns (solo logits, served
+    logits, the token the batcher delivered, prompt length)."""
+    gen = qa.generator
+    cfg, dev = gen.cfg, gen.device
+    hits = qa.retriever.search_texts([question], k=qa.k)[0]
+    chunks = [h.metadata.get("text_content", h.metadata.get("source", "")) for h in hits]
+    prompt = QA_TEMPLATE.format(context="\n\n".join(chunks), question=question)
+    ids = gen.encode_prompt(prompt, batcher.cache_len - 2 - batcher.spec_k)
+    n = len(ids)
+
+    taken = []
+    forward = serve_mod.ragged_prefill_forward
+
+    def tap(*args, **kwargs):
+        logits = forward(*args, **kwargs)
+        taken.append(logits.clone())  # on the batcher's stream, in order
+        return logits
+
+    serve_mod.ragged_prefill_forward = tap
+    try:
+        delivered = batcher.submit_text(prompt, max_new_tokens=1).result(timeout=600)
+    finally:
+        serve_mod.ragged_prefill_forward = forward
+    torch.cuda.synchronize()
+    if len(taken) != 1 or len(delivered) != 1:
+        raise AssertionError(
+            f"one prefill dispatch and one token expected, got {len(taken)} "
+            f"dispatches and tokens {delivered}"
+        )
+    served = taken[0][0]  # the prompt is the round's only lane
+
+    with torch.inference_mode():
+        bucket = pick_bucket(n, gen.gen.prefill_buckets)
+        solo_ids = torch.full((1, bucket), gen.gen.pad_id, dtype=torch.long, device=dev)
+        solo_ids[0, :n] = torch.tensor(ids, device=dev)
+        cache = init_kv_cache(cfg, 1, max_len=round_up(bucket + 64 + 4, 128),
+                              dtype=gen.params["tok_emb"].dtype, device=dev)
+        solo = decoder_forward(
+            gen.params, cfg, solo_ids, cache, torch.zeros(1, dtype=torch.int32, device=dev),
+            attn_lengths=torch.tensor([n], dtype=torch.int32, device=dev),
+            last_token_only=True,
+        )[0, 0]
+    return solo.float(), served.float(), delivered[0], n
+
+
+def _ask_round(qa, questions):
+    """Submit every question at once (retrieval then a queued decode each),
+    then wait for all of them on one thread per request; returns
+    (question, response, latency_s) per request, latency from its submit."""
+    pend = []
+    for q in questions:
+        t0 = time.perf_counter()
+        pend.append((q, t0, qa.ask_submit(q)))
+    results = [None] * len(pend)
+
+    def wait(i, q, t0, pending):
+        try:
+            out = pending.resolve(timeout=600)
+            results[i] = (q, out, time.perf_counter() - t0)
+        except BaseException as e:  # reported below, failing the phase
+            results[i] = (q, e, None)
+
+    threads = [threading.Thread(target=wait, args=(i, *p)) for i, p in enumerate(pend)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=660)
+    for q, out, _lat in results:
+        if not isinstance(out, dict):
+            raise AssertionError(f"batcher /ask {q!r} failed: {out!r}")
+    return results
+
+
+def _tokens(answer: str):
+    return answer.split()  # the hash tokenizer decodes one "w<id>" per token
+
+
+def run_batcher_path(counts, qa_solo, solo_per_q):
+    """Phase 5: /ask through ``ContinuousBatcher`` at full width on phase
+    3's encoder, store and Mistral-7B-width weights (no second copy): 8
+    slots, 16-token chunks, 1,024-token capacity, 16-token blocks, a
+    worst-case pool, the prefix cache on, K=4, FIFO.  Round A submits the
+    four questions twice each at once; round B the same eight after A
+    drained, so the prefix cache serves warm admissions.  The launch counts
+    are set to 0 just before the two rounds and read just after."""
+    dev = torch.device("cuda")
+    gen = qa_solo.generator
+    dec_cfg = gen.cfg
+    enc_layers = qa_solo.retriever.encoder.cfg.num_layers
+    batcher = ContinuousBatcher(gen, n_slots=8, chunk=16, cache_len=1024,
+                                kv_block_size=16, kv_pool_tokens=None,
+                                prefix_cache=True)
+    try:
+        qa = QAService(qa_solo.retriever.encoder, qa_solo.retriever.store, gen,
+                       k=3, device=dev, batcher=batcher)
+        t0 = time.perf_counter()
+        batcher.warmup()
+        torch.cuda.synchronize()
+        log(f"  batcher: {batcher.n_slots} slots, chunk {batcher.chunk}, K={batcher.spec_k}, "
+            f"{batcher.n_blocks} blocks x {batcher.block_size} tokens "
+            f"({batcher.n_blocks * batcher.block_size * batcher.kv_bytes_per_token / 2**30:.2f} GiB "
+            f"of KV), token budgets {batcher._token_buckets}; warmed in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        solo_logits, served_logits, token, n_prompt = first_step(qa, batcher, QUESTIONS[0])
+        diff = served_logits - solo_logits
+        rel = float(diff.norm() / solo_logits.norm())
+        solo_rms = float(solo_logits.pow(2).mean().sqrt())
+        top2 = solo_logits.topk(2).values
+        gap = float(top2[0] - top2[1])
+        max_abs = float(diff.abs().max())
+        # a solo top-2 gap wider than twice the largest logit difference
+        # cannot flip the argmax: then the delivered token must be solo's
+        decisive = gap > 2 * max_abs
+        logit_check = {
+            "prompt_tokens": n_prompt, "rel_rms_diff": rel,
+            "max_abs_diff": max_abs,
+            "solo_logit_rms": solo_rms,
+            "solo_top2_gap": gap,
+            "delivered_token": token,
+            "served_argmax": int(served_logits.argmax()),
+            "solo_argmax": int(solo_logits.argmax()),
+            "tolerance_rel_rms": FIRST_STEP_RTOL,
+        }
+        log(f"  first step through the batcher vs solo ({n_prompt}-token prompt): "
+            f"logits relative RMS diff {rel:.3e} (tolerance {FIRST_STEP_RTOL}), max |diff| "
+            f"{logit_check['max_abs_diff']:.3e}; delivered token {token}, served argmax "
+            f"{logit_check['served_argmax']}, solo argmax {logit_check['solo_argmax']} "
+            f"(solo top-2 gap {gap:.3e}, {'asserted' if decisive else 'reported'})")
+        if not rel <= FIRST_STEP_RTOL:
+            raise AssertionError(f"batcher vs solo first-step logits differ: {logit_check}")
+        if token != logit_check["served_argmax"]:
+            raise AssertionError(f"the batcher delivered another token than its logits' argmax: {logit_check}")
+        if decisive and token != logit_check["solo_argmax"]:
+            raise AssertionError(f"batcher and solo first tokens differ past a decisive gap: {logit_check}")
+
+        # the plain versions, counted while the two rounds run: none of the
+        # flash wrappers may take them on the card (the ragged prefill
+        # attention IS plain in this slice and is counted apart)
+        plain_calls = collections.Counter()
+        originals = {
+            (attn, "attention_reference"): attn.attention_reference,
+            (attn, "gather_paged_kv"): attn.gather_paged_kv,
+            (paged_mod, "ragged_prefill_attention"): paged_mod.ragged_prefill_attention,
+        }
+
+        def counting(name, fn):
+            def wrapper(*a, **k):
+                plain_calls[name] += 1
+                return fn(*a, **k)
+            return wrapper
+
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, counting(name, fn))
+        try:
+            stats0 = collections.Counter(batcher.stats)
+            torch.cuda.reset_peak_memory_stats()
+            counts.clear()
+            rounds = {}
+            t_all = time.perf_counter()
+            for name in ("A", "B"):
+                t0 = time.perf_counter()
+                before = collections.Counter(batcher.stats)
+                results = _ask_round(qa, QUESTIONS * 2)
+                if not batcher.drain(timeout=600):
+                    raise AssertionError(f"round {name} did not drain")
+                wall = time.perf_counter() - t0
+                batcher.resume()
+                done = collections.Counter(batcher.stats) - before
+                lat = sorted(r[2] for r in results)
+                n_tok = sum(len(_tokens(r[1]["answer"])) for r in results)
+                rounds[name] = {
+                    "wall_s": wall,
+                    "latency_p50_s": statistics.median(lat),
+                    "latency_max_s": lat[-1],
+                    "latencies_s": [r[2] for r in results],
+                    "answer_tokens": n_tok,
+                    "tokens_per_s": n_tok / wall,
+                    "verify_steps": done["verify_steps"],
+                    "admissions": done["admissions"],
+                    "warm_admissions": done["warm_admissions"],
+                    "prefill_dispatches": done["prefill_dispatches"],
+                    "answers": [(r[0], r[1]["answer"], r[1]["sources"]) for r in results],
+                }
+                occ = batcher.kv_block_occupancy()
+                log(f"  round {name}: 8 /ask in {wall:.3f} s, latency p50 "
+                    f"{rounds[name]['latency_p50_s']:.3f} s max {lat[-1]:.3f} s, "
+                    f"{n_tok} answer tokens = {n_tok / wall:.1f} tok/s, "
+                    f"{done['verify_steps']} verify steps, {done['admissions']} admissions "
+                    f"({done['warm_admissions']} warm) in {done['prefill_dispatches']} "
+                    f"prefill passes; blocks after drain {occ['blocks_used']} / "
+                    f"{occ['blocks_total']} (prefix cache {occ.get('prefix_blocks')})")
+            wall_all = time.perf_counter() - t_all
+            launches = dict(counts)
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            stats = collections.Counter(batcher.stats) - stats0
+        finally:
+            for (mod, name), fn in originals.items():
+                setattr(mod, name, fn)
+
+        # ---- what must hold ----
+        for rnd in rounds.values():
+            for q, answer, sources in rnd["answers"]:
+                if not answer.strip():
+                    raise AssertionError(f"empty batcher answer for {q!r}")
+                if len(sources) != 3:
+                    raise AssertionError(f"expected 3 sources, got {sources}")
+        pstats = batcher._prefix_cache.stats()
+        if pstats["hits"] < 1 or stats["warm_admissions"] < 1:
+            raise AssertionError(f"no warm prefix admission: {pstats}")
+        in_use = batcher._alloc.blocks_in_use
+        if in_use != pstats["pinned_blocks"]:
+            raise AssertionError(
+                f"{in_use} blocks in use after drain, the prefix cache pins "
+                f"{pstats['pinned_blocks']}: blocks leaked"
+            )
+        if plain_calls["attention_reference"] or plain_calls["gather_paged_kv"]:
+            raise AssertionError(f"an attention call took the plain version: {dict(plain_calls)}")
+        n_ask = 16
+        want = {
+            "flash_attention.decode_paged": dec_cfg.num_layers * stats["verify_steps"],
+            "flash_attention.prefill": enc_layers * n_ask,
+            "flash_attention.decode": 0,
+            "flash_attention.simt": 0,
+        }
+        got = {key: launches.get(key, 0) for key in want}
+        if got != want or stats["verify_steps"] < 1:
+            raise AssertionError(f"batcher phase launches {got}, expected {want}")
+        if launches.get("flash_attention", 0) != sum(want.values()):
+            raise AssertionError(f"flash_attention launches {launches}, expected {sum(want.values())}")
+        if plain_calls["ragged_prefill_attention"] != dec_cfg.num_layers * stats["prefill_dispatches"]:
+            raise AssertionError(f"ragged prefill calls {dict(plain_calls)} vs {stats}")
+
+        # reported, not asserted: greedy tokens against phase 3's solo answers
+        solo = {r["question"]: _tokens(r["answer"]) for r in solo_per_q}
+        match = []
+        for q, answer, _src in rounds["A"]["answers"] + rounds["B"]["answers"]:
+            a, s = _tokens(answer), solo[q]
+            same = next((i for i, (x, y) in enumerate(zip(a, s)) if x != y), min(len(a), len(s)))
+            match.append({"question": q, "matching_prefix": same, "solo_tokens": len(s),
+                          "batcher_tokens": len(a)})
+        lat_all = sorted(x for r in rounds.values() for x in r["latencies_s"])
+        tok_all = sum(r["answer_tokens"] for r in rounds.values())
+        summary = {
+            "latency_p50_s": statistics.median(lat_all), "latency_max_s": lat_all[-1],
+            "tokens_per_s": tok_all / wall_all, "wall_s": wall_all,
+            "verify_steps": stats["verify_steps"],
+            "peak_device_gib": peak_gib,
+            "kv_block_occupancy": batcher.kv_block_occupancy(),
+            "prefix_cache": pstats, "plain_calls": dict(plain_calls),
+            "greedy_match_vs_solo": match,
+            "full_matches": sum(m["matching_prefix"] == m["solo_tokens"] == m["batcher_tokens"]
+                                for m in match),
+        }
+        log(f"  batcher /ask: 16 answers, latency p50 {summary['latency_p50_s']:.3f} s "
+            f"max {lat_all[-1]:.3f} s, {tok_all / wall_all:.1f} answer tok/s overall, "
+            f"{stats['verify_steps']} verify steps, peak device memory {peak_gib:.2f} GiB, "
+            f"launches {got} (= {dec_cfg.num_layers} "
+            f"x verify steps on decode_paged), plain calls {dict(plain_calls)}; "
+            f"prefix hits {pstats['hits']:.0f} / misses {pstats['misses']:.0f}; "
+            f"greedy answers equal to solo: {summary['full_matches']} of 16 "
+            f"(matching prefixes {[m['matching_prefix'] for m in match]})")
+        return {"rounds": rounds, "summary": summary, "logit_check": logit_check,
+                "launches": launches, "stats": dict(stats)}
+    finally:
+        batcher.stop()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -490,7 +909,7 @@ def main(argv=None) -> int:
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/4] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[1/5] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     build_logs = _kernels.build()
     build_s = time.perf_counter() - t0
@@ -499,16 +918,27 @@ def main(argv=None) -> int:
         for kernel, regs, spills in ptxas_summary(text):
             log(f"    {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
 
-    log("[2/4] kernels against their plain versions (bf16 and float32)")
+    log("[2/5] kernels against their plain versions (bf16 and float32)")
     cases = run_kernel_cases()
+    cases += run_paged_cases()
 
-    log("[3/4] main path: QAService.ask at full width")
+    log("[3/5] main path: QAService.ask at full width")
     t_main = time.perf_counter()
-    per_q, launches = run_main_path(_kernels.LAUNCHES)
+    qa, params, enc_launches = build_main_path(_kernels.LAUNCHES)
+    per_q, launches = run_main_path(_kernels.LAUNCHES, qa, params, enc_launches)
     main_s = time.perf_counter() - t_main
 
-    log("[4/4] reference: tiny float32 /ask on the card against the CPU")
+    log("[4/5] reference: tiny float32 /ask on the card against the CPU")
     reference = run_reference_check()
+
+    log("[5/5] main path: QAService.ask through the continuous batcher at full width")
+    t_batch = time.perf_counter()
+    batcher_path = run_batcher_path(_kernels.LAUNCHES, qa, per_q)
+    batcher_s = time.perf_counter() - t_batch
+    del qa, params
+    # launches of both main-path runs (each counted from 0 around its run)
+    path_launches = collections.Counter(launches["total"])
+    path_launches.update(batcher_path["launches"])
 
     def entry(name, source, counter, timed, path=None):
         head = next(c for c in cases if c["case"] == timed)
@@ -518,7 +948,7 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": source,
             "replaces": "docqa_tpu/ops/attention.py:315",
-            "launches": launches["total"].get(counter, 0),
+            "launches": path_launches.get(counter, 0),
             "max_abs_err": max(c["max_abs_err_bf16"] for c in own),
             "tolerance": "bf16 |err| <= 1e-2 + 1e-2*|plain|; f32 |err| <= 5e-5",
             "ms": head["ms"],
@@ -526,12 +956,13 @@ def main(argv=None) -> int:
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
-            "library_live_ms": head["library_live_ms"],
+            "library_live_ms": head.get("library_live_ms"),
+            "gather_k1_ms": head.get("gather_k1_ms"),
             "timed_case": head["case"],
             "cases": [c["case"] for c in own],
         }
 
-    # K1 as a whole (the wrapper, PR 1's entry), then its two bf16 paths
+    # K1 as a whole (the wrapper's entry), then its bf16 paths
     kernels = [
         entry("flash_attention", "docqa_tpu_torch/csrc/flash_attention.cu",
               "flash_attention", "mistral_prefill"),
@@ -539,6 +970,8 @@ def main(argv=None) -> int:
               "flash_attention.decode", "mistral_verify", "decode"),
         entry("flash_attention.prefill", "docqa_tpu_torch/csrc/flash_prefill.cuh",
               "flash_attention.prefill", "mistral_prefill", "prefill"),
+        entry("flash_attention.decode_paged", "docqa_tpu_torch/csrc/flash_decode.cuh",
+              "flash_attention.decode_paged", "mistral_paged_verify", "decode_paged"),
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -549,6 +982,7 @@ def main(argv=None) -> int:
                 "kernels": kernels, "cases": cases,
                 "main_path": per_q, "main_path_s": main_s,
                 "launches": launches, "reference": reference,
+                "batcher_path": batcher_path, "batcher_path_s": batcher_s,
             }, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -66,7 +66,7 @@ class DecoderConfig:
 @dataclass(frozen=True)
 class GenerateConfig:
     """Decode-loop policy (the fields of the reference's GenerateConfig
-    that the solo engine reads)."""
+    that the solo engine and the continuous batcher read)."""
 
     max_new_tokens: int = 256
     temperature: float = 0.0
@@ -74,10 +74,34 @@ class GenerateConfig:
     top_p: float = 1.0
     eos_id: int = 2
     pad_id: int = 0
-    # prompt lengths pad to these buckets
+    # SOLO engine: prompt lengths pad to these buckets
     prefill_buckets: Tuple[int, ...] = (128, 256, 512, 1024, 2048, 4096)
+    # batcher: ragged-prefill packed token budgets (the batcher always adds
+    # the full packed capacity of one maximal prompt)
+    prefill_token_buckets: Tuple[int, ...] = (512,)
+    max_concurrent: int = 16  # batcher decode slots
+    decode_chunk: int = 16  # tokens per batcher decode dispatch
+    kv_block_size: int = 16  # tokens per paged KV block
+    # tokens the shared KV block pool holds; None = n_slots x capacity
+    kv_pool_tokens: Optional[int] = None
+    prefix_cache: bool = True  # copy-on-write KV prefix cache
+    prefix_cache_entries: int = 32
     # prompt-lookup speculation verify width (greedy only); 0/1 disables
     speculative_k: int = 4
+
+
+@dataclass(frozen=True)
+class QoSConfig:
+    """Batcher admission policy (the fields of the reference's QoSConfig
+    that the admission queue reads).  KV preemption is off, the
+    reference's default; its ``preemption`` field comes with it."""
+
+    enabled: bool = True
+    weight_interactive: float = 8.0
+    weight_batch: float = 2.0
+    weight_background: float = 1.0
+    # a queue head older than this wins the next slot regardless of weight
+    aging_floor_s: float = 5.0
 
 
 @dataclass(frozen=True)

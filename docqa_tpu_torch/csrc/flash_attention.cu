@@ -30,6 +30,11 @@
 //          f32 accumulation, P rounded to bf16 as the TPU's MXU does.
 //     Not wgmma: at 1-16 rows a 64-row wgmma tile is >= 75 % padding, and
 //     the path is memory-bound, so mma.sync's 16-row tile is the fit.
+//     Paged mode (entry docqa_flash_decode_paged): the same kernels read
+//     K/V rows of a flat block pool through a block table, one lookup per
+//     row in the cp.async producer — the batcher's decode and verify
+//     steps.  It replaces the reference's gather_paged_kv + K1 route on
+//     the TPU and is bound the same way: the live K/V rows once.
 //
 //   prefill (bf16, sq > 16; flash_prefill.cuh): wgmma fed by TMA.  Bound by
 //     operations at long prompts: 4 * d * hq * live pairs over 989 TFLOP/s
@@ -347,6 +352,80 @@ cudaError_t launch_d(const FlashParams& p, int batch, int head_dim,
 
 enum { kPathSimt = 0, kPathDecode = 1, kPathPrefill = 2 };
 
+namespace {
+
+flash::DecodeParams decode_params(const void* q, const void* k, const void* v,
+                                  void* o, const void* lengths,
+                                  const void* q_offset, const long long* st,
+                                  int sq, int skv, int hq, int hkv, int causal,
+                                  int window, float scale, int num_splits,
+                                  int split_tiles, void* part_o, void* part_ml) {
+  flash::DecodeParams p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lengths = static_cast<const int*>(lengths);
+  p.q_offset = static_cast<const int*>(q_offset);
+  p.part_o = static_cast<float*>(part_o);
+  p.part_ml = static_cast<float*>(part_ml);
+  p.sq = sq; p.skv = skv; p.hq = hq; p.hkv = hkv;
+  p.groups = hq / hkv;
+  p.rows = p.groups * sq;
+  p.num_splits = num_splits;
+  p.split_tiles = split_tiles;
+  p.q_sb = st[0]; p.q_ss = st[1]; p.q_sh = st[2];
+  p.k_sb = st[3]; p.k_ss = st[4]; p.k_sh = st[5];
+  p.v_sb = st[6]; p.v_ss = st[7]; p.v_sh = st[8];
+  p.o_sb = st[9]; p.o_ss = st[10]; p.o_sh = st[11];
+  p.causal = causal;
+  p.window = window;
+  p.scale_log2 = scale * flash::kLog2e;
+  p.block_table = nullptr;
+  p.nb = p.block_size = p.pool_rows = 0;
+  return p;
+}
+
+int launch_decode_d(const flash::DecodeParams& p, int batch, int head_dim,
+                    cudaStream_t s) {
+  switch (head_dim) {
+    case 32: return (int)flash::launch_decode_mt<32>(p, batch, s);
+    case 64: return (int)flash::launch_decode_mt<64>(p, batch, s);
+    case 128: return (int)flash::launch_decode_mt<128>(p, batch, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// K1's split-kv decode path in paged mode (bf16, causal): q [batch, sq, hq,
+// D] read through strides[0..2], K/V rows from the flat pools k_pool /
+// v_pool [pool_rows, hkv, D] (strides[3..8]: batch stride 0, row, head)
+// through block_tables [batch, nb] int32, out through strides[9..11].
+// skv = nb * block_size; num_splits / split_tiles as the contiguous path.
+// Returns cudaGetLastError() after the launches (0 = launched).
+extern "C" int docqa_flash_decode_paged(
+    const void* q, const void* k_pool, const void* v_pool, void* o,
+    const void* lengths, const void* q_offset, const void* block_tables,
+    const void* strides, int batch, int sq, int nb, int block_size,
+    int pool_rows, int hq, int hkv, int head_dim, int window, float scale,
+    int num_splits, int split_tiles, void* part_o, void* part_ml,
+    void* stream) {
+  if (batch <= 0 || sq <= 0 || nb <= 0 || block_size <= 0 || pool_rows <= 0 ||
+      hq <= 0 || hkv <= 0 || hq % hkv != 0 || num_splits <= 0 ||
+      split_tiles <= 0)
+    return (int)cudaErrorInvalidValue;
+  flash::DecodeParams p = decode_params(
+      q, k_pool, v_pool, o, lengths, q_offset,
+      static_cast<const long long*>(strides), sq, nb * block_size, hq, hkv,
+      /*causal=*/1, window, scale, num_splits, split_tiles, part_o, part_ml);
+  p.block_table = static_cast<const int*>(block_tables);
+  p.nb = nb;
+  p.block_size = block_size;
+  p.pool_rows = pool_rows;
+  return launch_decode_d(p, batch, head_dim, static_cast<cudaStream_t>(stream));
+}
+
 // strides: 12 element strides, (batch, seq, head) for q, k, v, o in that
 // order; the head_dim stride must be 1.  path: 0 simt, 1 decode (split-kv;
 // num_splits splits of split_tiles tiles, partials in part_o / part_ml when
@@ -365,33 +444,10 @@ extern "C" int docqa_flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == kPathDecode) {
     if (!is_bf16 || num_splits <= 0 || split_tiles <= 0) return (int)cudaErrorInvalidValue;
-    flash::DecodeParams p;
-    p.q = static_cast<const __nv_bfloat16*>(q);
-    p.k = static_cast<const __nv_bfloat16*>(k);
-    p.v = static_cast<const __nv_bfloat16*>(v);
-    p.o = static_cast<__nv_bfloat16*>(o);
-    p.lengths = static_cast<const int*>(lengths);
-    p.q_offset = static_cast<const int*>(q_offset);
-    p.part_o = static_cast<float*>(part_o);
-    p.part_ml = static_cast<float*>(part_ml);
-    p.sq = sq; p.skv = skv; p.hq = hq; p.hkv = hkv;
-    p.groups = hq / hkv;
-    p.rows = p.groups * sq;
-    p.num_splits = num_splits;
-    p.split_tiles = split_tiles;
-    p.q_sb = st[0]; p.q_ss = st[1]; p.q_sh = st[2];
-    p.k_sb = st[3]; p.k_ss = st[4]; p.k_sh = st[5];
-    p.v_sb = st[6]; p.v_ss = st[7]; p.v_sh = st[8];
-    p.o_sb = st[9]; p.o_ss = st[10]; p.o_sh = st[11];
-    p.causal = causal;
-    p.window = window;
-    p.scale_log2 = scale * flash::kLog2e;
-    switch (head_dim) {
-      case 32: return (int)flash::launch_decode_mt<32>(p, batch, s);
-      case 64: return (int)flash::launch_decode_mt<64>(p, batch, s);
-      case 128: return (int)flash::launch_decode_mt<128>(p, batch, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
+    const flash::DecodeParams p = decode_params(
+        q, k, v, o, lengths, q_offset, st, sq, skv, hq, hkv, causal, window,
+        scale, num_splits, split_tiles, part_o, part_ml);
+    return launch_decode_d(p, batch, head_dim, s);
   }
   if (path == kPathPrefill) {
     if (!is_bf16 || (prefill_groups != 1 && prefill_groups != 2))

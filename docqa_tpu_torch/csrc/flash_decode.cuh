@@ -17,6 +17,15 @@
 // In the block, warp w owns kv rows 16w..16w+15 of every tile and keeps its
 // own online-softmax state; the four states merge through shared memory at
 // the end.  Scores live in the log2 domain (scale * log2 e folded in).
+//
+// Paged mode (block_table != nullptr; the continuous batcher's decode and
+// verify steps): K/V live in one flat pool [pool_rows, hkv, D] shared by
+// every lane, and lane b's kv position p is pool row
+// min(table[b, p / block_size] * block_size + p % block_size, pool_rows - 1)
+// — the reference's gather_paged_kv, computed per row in the cp.async
+// producer, so the gather is never materialised.  Hole entries (ids past
+// the pool) clamp and are masked by lengths; skv = NB * block_size, so the
+// split plan stays a function of shapes alone.
 
 #pragma once
 
@@ -45,7 +54,19 @@ struct DecodeParams {
   int64_t o_sb, o_ss, o_sh;
   int causal, window;
   float scale_log2;
+  // paged mode: [batch, nb] block ids (nullptr = contiguous [b, s, h, d])
+  const int* block_table;
+  int nb, block_size, pool_rows;
 };
+
+// the row of K/V that kv position `kv` of lane `b` reads
+__device__ __forceinline__ int64_t decode_kv_row(const DecodeParams& p, int b,
+                                                 int kv) {
+  if (p.block_table == nullptr) return kv;
+  const int64_t blk = p.block_table[(int64_t)b * p.nb + kv / p.block_size];
+  const int64_t row = blk * p.block_size + kv % p.block_size;
+  return row < 0 ? 0 : (row < p.pool_rows ? row : (int64_t)p.pool_rows - 1);
+}
 
 template <int D, int MT>
 constexpr size_t decode_smem_bytes() {
@@ -121,7 +142,7 @@ flash_decode_kernel(const DecodeParams p) {
         const int r = i / VPR, c = (i - r * VPR) * 8;
         const int kv = kv0 + r;
         const bool ok = kv < hi;
-        const int64_t row = ok ? kv : 0;
+        const int64_t row = ok ? decode_kv_row(p, b, kv) : 0;
         cp_async_16(sK + r * P + c, kg + row * p.k_ss + c, ok ? 16 : 0);
         cp_async_16(sV + r * P + c, vg + row * p.v_ss + c, ok ? 16 : 0);
       }

@@ -1,0 +1,1470 @@
+"""Continuous-batching decode scheduler, counterpart of
+``docqa_tpu/engines/serve.py``'s ``ContinuousBatcher``.
+
+A fixed set of decode *slots* shares one paged KV block pool
+(``engines/paged.py``):
+
+* admission: every free slot is filled from the queue in one round; the
+  round's prompts PACK into a flat token axis (starts RAGGED_ALIGN-aligned)
+  and prefill in one ragged pass per token budget
+  (``gen.prefill_token_buckets`` plus the full packed capacity), their K/V
+  written straight into their block tables.  A copy-on-write prefix cache
+  keyed by the submitter's ``prefix_key`` maps a cached, token-verified,
+  aligned prompt prefix into a new request's table and prefills only the
+  novel suffix (warm lanes pack and dispatch after the cold ones);
+* decode: one chunk advances every live slot ``chunk`` tokens through the
+  block tables — plain steps, or (greedy, ``speculative_k >= 2``)
+  prompt-lookup verify steps of q_len K; attention is K1's paged decode
+  kernel on the card (``ops/attention.paged_decode_attention``);
+* retirement: a slot frees, and returns its blocks, as soon as its lane
+  hits EOS or its token budget; blocks are allocated at admission (prompt
+  + a grow margin) and grown before each chunk;
+* pipelining: the worker keeps one decode chunk's results in flight past
+  the host: chunk N+1 is issued before chunk N's packed results are read.
+  Every chunk carries the slot->request mapping of its own dispatch, and
+  tokens go only to slots whose occupant is still that request.  A slot
+  retired on budget mid-pipeline decodes one extra chunk whose tokens are
+  discarded; a capacity guard deactivates any lane before a K/V write could
+  land past its allocated blocks, and such writes land on the pool's drop
+  row, never on a live row.
+
+All device work runs on the batcher's ONE CUDA stream (``spine.Lane``), so
+the reference's donation-ordering argument holds unchanged: an in-flight
+chunk's stale writes to freed blocks land before the prefill that reuses
+them.  The plain chunk issues its ``chunk`` steps with no host sync; the
+speculative chunk is the reference's ``lax.while_loop``, whose condition
+costs one small device->host fetch per verify step.  Results come back by
+a non-blocking copy into pinned memory behind a CUDA event.
+
+Serve == solo.  XLA keeps batcher output bitwise equal to the solo engine
+through RAGGED_ALIGN; on a card cuBLAS and K1's split count change with
+the batch shape, so the port states a weaker guarantee:
+* float32 on the CPU: greedy tokens identical to the solo engine (and to
+  ``docqa_tpu``'s), speculation on or off, warm or cold;
+* bf16 on the card: first-step logits of a prompt within a stated
+  tolerance of the solo engine's (``chip_smoke.py`` holds it), tokens
+  allowed to diverge where two logits tie within bf16 rounding.
+
+Not in this port yet, each left out rather than stubbed: the trace spans
+and events, the cost ledger and shed forensics, metrics counters (a plain
+``stats`` counter stands in), fault-injection sites, KV preemption, the
+SLO probe and batch deferral, ``annotate_costs``, the mesh, and the replica
+pool's hooks (``on_worker_death`` is kept: the death path is tested).
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import threading
+from dataclasses import dataclass, field
+from time import monotonic as time_monotonic
+from time import perf_counter as _now
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from docqa_tpu_torch.engines.generate import accept_drafts, draft_tokens
+from docqa_tpu_torch.engines.paged import (
+    BlockAllocator,
+    OutOfBlocks,
+    PrefixCache,
+    init_paged_pools,
+    kv_bytes_per_token,
+    paged_decode_forward,
+    ragged_prefill_forward,
+    share_alignment,
+)
+from docqa_tpu_torch.engines.qos import QoSPolicy
+from docqa_tpu_torch.engines.spine import Lane
+from docqa_tpu_torch.ops.attention import RAGGED_ALIGN
+from docqa_tpu_torch.ops.sampling import sample
+from docqa_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
+from docqa_tpu_torch.utils import round_up
+
+
+@dataclass
+class _Request:
+    prompt_ids: List[int]
+    max_new: int
+    done: threading.Event = field(default_factory=threading.Event)
+    tokens: List[int] = field(default_factory=list)
+    error: Optional[BaseException] = None
+    # notified whenever tokens grow or the request finishes (streaming)
+    cv: threading.Condition = field(default_factory=threading.Condition)
+    # end-to-end budget: the worker sheds the request (queued or live) the
+    # moment it is gone
+    deadline: Optional[Deadline] = None
+    t_submit: float = 0.0
+    # when the request last entered a queue (reset on every bounce)
+    t_queue: float = 0.0
+    # cooperative cancellation: dropped at the next admission round, or
+    # retired at the next chunk boundary
+    cancelled: bool = False
+    # prefix-cache key (for /ask: template hash + chunk-set hash); None =
+    # always cold
+    prefix_key: Optional[str] = None
+    # admission class for the QoS queue
+    req_class: str = "interactive"
+
+
+def make_request(
+    prompt_ids: Sequence[int],
+    max_new: int,
+    deadline: Optional[Deadline] = None,
+    prefix_key: Optional[str] = None,
+    req_class: Optional[str] = None,
+) -> _Request:
+    """Build a :class:`_Request`; a request already past its deadline is
+    shed here, before it takes a queue slot."""
+    if deadline is not None and deadline.expired:
+        deadline.check("serve_submit")
+    req = _Request(
+        list(prompt_ids), max_new, deadline=deadline, prefix_key=prefix_key,
+        req_class=req_class or "interactive",
+    )
+    req.t_submit = _now()
+    req.t_queue = req.t_submit
+    return req
+
+
+# one wait policy for every consumer of a Handle
+DEFAULT_RESULT_TIMEOUT = 600.0
+
+
+def _finish(req: _Request) -> None:
+    """Mark a request terminal and wake streamers (the one completion
+    path)."""
+    req.done.set()
+    with req.cv:
+        req.cv.notify_all()
+
+
+class WorkerDied(RuntimeError):
+    """The batcher's worker thread died; waiters fail at once, typed,
+    instead of hanging to their :class:`ResultTimeout`."""
+
+
+class RequestCancelled(RuntimeError):
+    """The request was cancelled; its lane was released before
+    completion."""
+
+
+class ResultTimeout(TimeoutError):
+    """``Handle.result()``/``iter_tokens()`` waited out its timeout while
+    the request was still decoding (slow, as opposed to shed)."""
+
+    def __init__(self, waited_s: Optional[float]) -> None:
+        self.waited_s = waited_s
+        detail = "" if waited_s is None else f" after {waited_s:.1f}s"
+        super().__init__(f"generation timed out{detail}")
+
+
+class Handle:
+    """Future-like result for a submitted request."""
+
+    def __init__(self, req: _Request) -> None:
+        self._req = req
+
+    def result(
+        self, timeout: Optional[float] = DEFAULT_RESULT_TIMEOUT
+    ) -> List[int]:
+        dl = self._req.deadline
+        if dl is not None:
+            timeout = dl.bound(timeout)
+        if not self._req.done.wait(timeout):
+            if dl is not None and dl.expired:
+                raise DeadlineExceeded("serve_result", -dl.remaining())
+            raise ResultTimeout(timeout)
+        if self._req.error is not None:
+            raise self._req.error
+        return list(self._req.tokens)
+
+    def text(
+        self, tokenizer, timeout: Optional[float] = DEFAULT_RESULT_TIMEOUT
+    ) -> str:
+        """Wait and detokenize."""
+        return tokenizer.decode_ids(self.result(timeout))
+
+    def cancel(self) -> None:
+        """Best-effort cancellation (see :class:`_Request`)."""
+        self._req.cancelled = True
+
+    def iter_tokens(self, timeout: Optional[float] = DEFAULT_RESULT_TIMEOUT):
+        """Stream token ids as decode chunks land: every token exactly once,
+        in order; raises the request's error (or a timeout) instead of
+        returning partial output silently."""
+        req = self._req
+        sent = 0
+        if req.deadline is not None:
+            timeout = req.deadline.bound(timeout)
+
+        def _timed_out():
+            if req.deadline is not None and req.deadline.expired:
+                raise DeadlineExceeded(
+                    "serve_result", -req.deadline.remaining()
+                )
+            raise ResultTimeout(timeout)
+
+        deadline = None if timeout is None else time_monotonic() + timeout
+        while True:
+            with req.cv:
+                while len(req.tokens) <= sent and not req.done.is_set():
+                    remaining = (
+                        None if deadline is None
+                        else deadline - time_monotonic()
+                    )
+                    if remaining is not None and remaining <= 0:
+                        _timed_out()
+                    if not req.cv.wait(remaining):
+                        _timed_out()
+                fresh = list(req.tokens[sent:])
+            sent += len(fresh)
+            for t in fresh:
+                yield t
+            if req.done.is_set() and sent >= len(req.tokens):
+                if req.error is not None:
+                    raise req.error
+                return
+
+
+class QueueFull(RuntimeError):
+    """Admission control: the wait queue is at capacity (an HTTP 503).
+    Carries the load snapshot at rejection time."""
+
+    def __init__(
+        self,
+        message: str,
+        n_queued: Optional[int] = None,
+        n_active: Optional[int] = None,
+    ) -> None:
+        self.n_queued = n_queued
+        self.n_active = n_active
+        if n_queued is not None or n_active is not None:
+            message = f"{message} (queued={n_queued}, active={n_active})"
+        super().__init__(message)
+
+
+class Draining(QueueFull):
+    """Admission refused because the batcher is draining."""
+
+
+class BlockPoolExhausted(QueueFull):
+    """The KV block pool ran dry: at submit, when the queue is full AND the
+    pool has no free block; on a request's handle, when its lane could not
+    grow mid-decode in an overcommitted pool.  Requests merely waiting for
+    blocks stay queued under their deadline."""
+
+
+class DeferredByPolicy(QueueFull):
+    """QoS deferral of batch admission while an interactive SLO burns.
+    Defined for the error surface; nothing raises it until the SLO probe
+    is ported."""
+
+
+def _to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A device copy of a host array (never sharing the host buffer)."""
+    return torch.tensor(arr, device=device)
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching over a ``GenerateEngine``'s model, on
+    the engine's device."""
+
+    def __init__(
+        self,
+        engine,  # GenerateEngine: supplies cfg/gen/params/tokenizer/device
+        n_slots: Optional[int] = None,
+        chunk: Optional[int] = None,
+        cache_len: Optional[int] = None,
+        seed: int = 0,
+        max_queue: Optional[int] = 256,
+        kv_block_size: Optional[int] = None,
+        kv_pool_tokens: Optional[int] = None,
+        prefix_cache: Optional[bool] = None,
+        qos=None,  # config.QoSConfig | qos.QoSPolicy | None (FIFO)
+    ) -> None:
+        self.engine = engine
+        self.cfg = engine.cfg
+        self.gen = engine.gen
+        self.device = engine.device
+        self.n_slots = n_slots or self.gen.max_concurrent
+        self.chunk = chunk or self.gen.decode_chunk
+        self.cache_len = round_up(cache_len or self.cfg.max_seq_len, 128)
+        self._seed = seed
+        self._rng_counter = itertools.count(1)
+        self.max_queue = max_queue
+        # prompt-lookup speculation (greedy only)
+        self.spec_k = (
+            self.gen.speculative_k
+            if self.gen.speculative_k >= 2 and self.gen.temperature == 0.0
+            else 0
+        )
+        # work counts (the reference's registry counters are not ported):
+        # verify_steps / decode_steps are forwards of the decode programs —
+        # each launches the paged decode kernel once per layer
+        self.stats: collections.Counter = collections.Counter()
+
+        # ---- paged KV geometry ----
+        self.block_size = int(kv_block_size or self.gen.kv_block_size)
+        self.block_size = max(1, min(self.block_size, self.cache_len))
+        self.blocks_per_seq = -(-self.cache_len // self.block_size)
+        self.seq_capacity = self.blocks_per_seq * self.block_size
+        pool_tokens = (
+            kv_pool_tokens
+            or self.gen.kv_pool_tokens
+            or self.n_slots * self.seq_capacity  # worst-case provisioning
+        )
+        self.n_blocks = max(
+            self.blocks_per_seq, -(-int(pool_tokens) // self.block_size)
+        )
+        # ragged-prefill token budgets: clamped to the packed capacity one
+        # maximal prompt needs, which is always included
+        usable = self.cache_len - 2 - self.spec_k
+        full_t = round_up(max(usable, 1), RAGGED_ALIGN)
+        self._token_buckets = sorted(
+            {
+                min(round_up(int(t), RAGGED_ALIGN), full_t)
+                for t in self.gen.prefill_token_buckets
+                if int(t) > 0
+            }
+            | {full_t}
+        )
+        # grow-at-decode margin: a pipelined chunk can run one dispatch past
+        # the host's token count, and a spec dispatch emits up to chunk-1+K
+        self._grow_margin = 2 * (self.chunk + max(self.spec_k, 1)) + 2
+
+        self._alloc = BlockAllocator(self.n_blocks, self.block_size)
+        # copy-on-write prefix cache: shared runs are full blocks AND
+        # RAGGED_ALIGN-aligned; disabled when one unit reaches the capacity
+        self._share_align = share_alignment(self.block_size)
+        self._prefix_cache: Optional[PrefixCache] = None
+        want_cache = (
+            bool(self.gen.prefix_cache)
+            if prefix_cache is None
+            else bool(prefix_cache)
+        )
+        if want_cache and self._share_align < self.seq_capacity:
+            self._prefix_cache = PrefixCache(
+                self._alloc, self._share_align,
+                max_entries=int(self.gen.prefix_cache_entries),
+            )
+        self._lane = Lane(self.device)
+        with self._lane.active():
+            self._init_device_state()
+
+        # host-side slot bookkeeping (worker-thread state)
+        self._slot_req: List[Optional[_Request]] = [None] * self.n_slots
+        self._slot_budget = np.zeros((self.n_slots,), np.int64)
+        # prompt tokens each occupied slot was admitted with: with the
+        # delivered-token count, the lane's KV length on the host
+        self._slot_prompt = [0] * self.n_slots
+        # per-request block tables and their device mirror: the flat
+        # [n_slots, blocks_per_seq] int32 table (sentinel n_blocks = hole),
+        # re-uploaded only when dirty
+        self._slot_table: List[Optional[Any]] = [None] * self.n_slots
+        self._block_rows = np.full(
+            (self.n_slots, self.blocks_per_seq), self.n_blocks, np.int32
+        )
+        self._caps_np = np.zeros((self.n_slots,), np.int32)
+        self._tables_dev = None
+        self._caps_dev = None
+        self._tables_dirty = True
+        # slots retired on the host whose device `active` lane is not
+        # cleared yet: applied first in the next device work item
+        self._deact_pending: List[int] = []
+
+        self._qos: Optional[QoSPolicy] = QoSPolicy.coerce(qos)
+        if self._qos is not None:
+            self._queue: Any = self._qos.make_queue(now_fn=_now)
+        else:
+            self._queue = collections.deque()
+        self._cv = threading.Condition()
+        self._stopped = False
+        # requests popped from the queue but not yet slot-resident (guarded
+        # by _cv): drain() counts them as pending, and the death/kill sweeps
+        # must see them
+        self._admitting_reqs: List[_Request] = []
+        self._worker_dead = False
+        self._death_cause: Optional[BaseException] = None
+        self._draining = False
+        # called from the dying worker with (batcher, queued requests);
+        # returns the requests it could NOT rescue
+        self.on_worker_death = None
+        self._worker = threading.Thread(
+            target=self._run, daemon=True, name="continuous-batcher"
+        )
+        self._worker.start()
+
+    # ---- device programs -----------------------------------------------------
+
+    def _next_generator(self) -> Optional[torch.Generator]:
+        """A generator per dispatch, seeded from the batcher's seed and a
+        counter (``next`` on itertools.count is atomic); None when greedy."""
+        if self.gen.temperature == 0.0:
+            return None
+        g = torch.Generator(device=self.device)
+        g.manual_seed(self._seed * 100_003 + next(self._rng_counter))
+        return g
+
+    def _prefill_program(self, ids, seg, pos, dest, last_rows, slots,
+                         generator, block_tables=None, prefix_lens=None):
+        """Ragged prefill of one packed group (engines/paged.py), in place
+        on the pools; returns the sampled first tokens [n_slots].
+
+        ``ids``/``seg``/``pos``/``dest`` [T] are the packed stream (padding:
+        seg -1, dest on the drop row), ``last_rows`` [n_slots] each lane's
+        last prompt row, ``slots`` [n_slots] each lane's slot (padding lanes
+        carry n_slots, the spare row of the drafting table).  With
+        speculation on, the admitted slots' drafting-table rows are REPLACED
+        by each prompt's bigrams plus the confirmed (last prompt token ->
+        first token) pair.  WARM (``block_tables``/``prefix_lens`` set):
+        the stream holds only each lane's novel suffix and attention also
+        reads the cached prefix through the tables."""
+        S = self.n_slots
+        warm_kw = {}
+        if block_tables is not None:
+            warm_kw = dict(
+                block_tables=block_tables, prefix_lens=prefix_lens,
+                n_prefix_rows=self.seq_capacity, block_size=self.block_size,
+            )
+        logits = ragged_prefill_forward(
+            self.engine.params, self.cfg, self._pools, ids, seg, pos, dest,
+            last_rows, rope_len=self.seq_capacity, **warm_kw,
+        )
+        toks = sample(
+            logits, generator, self.gen.temperature, self.gen.top_k,
+            self.gen.top_p,
+        )
+        if not self.spec_k:
+            return toks
+        # bigram rows from the packed stream: a (prev, next) pair wherever
+        # two adjacent packed tokens share a segment; the spare row S and
+        # spare column vocab take the pairs the reference drops
+        vocab = self.cfg.vocab_size
+        prev, nxt = ids[:-1], ids[1:]
+        pair_ok = (seg[:-1] == seg[1:]) & (seg[:-1] >= 0)
+        lane = torch.where(pair_ok, seg[:-1], S)
+        prev = torch.where(pair_ok, prev, vocab)
+        rows = torch.full((S + 1, vocab + 1), -1, dtype=torch.long, device=ids.device)
+        rows[lane, prev] = nxt
+        rows[torch.arange(S, device=ids.device), ids[last_rows]] = toks
+        self._table[slots] = rows[:S]
+        return toks
+
+    def _decode_program(self, tables, caps, generator):
+        """Advance every active slot ``chunk`` tokens (plain steps, no host
+        sync).  Returns packed [S, 2*chunk + 1] int64: tokens (pad on
+        inactive steps), valid flags (EOS excluded), the active flag."""
+        S, C = self.n_slots, self.chunk
+        pad, eos = self.gen.pad_id, self.gen.eos_id
+        out = torch.full((S, C), pad, dtype=torch.long, device=self.device)
+        valid = torch.zeros((S, C), dtype=torch.bool, device=self.device)
+        tok, lengths, active = self._tok, self._lengths, self._active
+        for t in range(C):
+            logits = paged_decode_forward(
+                self.engine.params, self.cfg, self._pools, tables,
+                tok[:, None], lengths, block_size=self.block_size,
+                rope_len=self.seq_capacity,
+            )
+            self.stats["decode_steps"] += 1
+            nxt = sample(
+                logits[:, 0], generator, self.gen.temperature,
+                self.gen.top_k, self.gen.top_p,
+            )
+            nxt = torch.where(active, nxt, pad)
+            is_eos = active & (nxt == eos)
+            out[:, t] = nxt
+            valid[:, t] = active & ~is_eos
+            lengths = lengths + active.to(lengths.dtype)
+            active = active & ~is_eos
+            # capacity guard: the next step writes row `lengths`; a lane at
+            # its last ALLOCATED row stops here
+            active = active & (lengths < caps) & (lengths < self.cache_len)
+            tok = torch.where(active, nxt, tok)
+        self._tok, self._lengths, self._active = tok, lengths, active
+        return torch.cat([out, valid.long(), active.long()[:, None]], dim=1)
+
+    def _decode_spec_program(self, tables, caps):
+        """Speculative chunk: verify steps until every live slot has emitted
+        >= ``chunk`` tokens or retired.  Each step drafts K-1 tokens per slot
+        from its bigram row and verifies them in ONE forward of q_len K
+        (``draft_tokens``/``accept_drafts``, the solo engine's halves),
+        emitting the matched prefix + bonus — output-exact with the plain
+        program.  The loop condition is one small fetch per step.
+
+        Returns packed [S, chunk + 2K + 2] int64: token slab (sized so the
+        K-wide write at n_out never runs off its end), per-slot emission
+        count, active flag."""
+        S, K, C = self.n_slots, self.spec_k, self.chunk
+        pad = self.gen.pad_id
+        dev = self.device
+        width = C + 2 * K
+        karange = torch.arange(K, device=dev)[None, :]
+        out = torch.full((S, width), pad, dtype=torch.long, device=dev)
+        n_out = torch.zeros((S,), dtype=torch.long, device=dev)
+        table = self._table[:S]  # view: in-place bigram confirmations
+        tok, lengths, active = self._tok, self._lengths, self._active
+        while bool((active & (n_out < C)).any()):
+            drafts = draft_tokens(table, tok, K)
+            verify_in = torch.cat([tok[:, None], drafts], dim=1)
+            logits = paged_decode_forward(
+                self.engine.params, self.cfg, self._pools, tables, verify_in,
+                lengths, block_size=self.block_size, rope_len=self.seq_capacity,
+            )
+            self.stats["verify_steps"] += 1
+            g, m, cand, is_eos, eos_pos = accept_drafts(
+                logits, drafts, self.gen.eos_id
+            )
+            # slots that filled their chunk quota freeze until next dispatch
+            live = active & (n_out < C)
+            emit_valid = cand & (karange < eos_pos[:, None]) & live[:, None]
+            emitted = torch.where(emit_valid, g, pad)
+            out.scatter_(1, n_out[:, None] + karange, emitted)
+            n_valid = emit_valid.long().sum(dim=1)
+            n_out = n_out + n_valid
+            saw_eos = live & is_eos.any(dim=1)
+            last_tok = emitted.gather(1, (n_valid - 1).clamp(min=0)[:, None])[:, 0]
+            self.engine.confirm_bigrams(table, tok, g, emit_valid)
+            lengths = lengths + torch.where(active, n_valid, 0).to(lengths.dtype)
+            active = active & ~saw_eos
+            # capacity guard: a verify writes rows [lengths, lengths + K)
+            active = active & (lengths <= caps - K) & (lengths < self.cache_len - K)
+            tok = torch.where(active & (n_valid > 0), last_tok, tok)
+        self._tok, self._lengths, self._active = tok, lengths, active
+        return torch.cat([out, n_out[:, None], active.long()[:, None]], dim=1)
+
+    def _fetch_async(self, dev_tensor: torch.Tensor):
+        """Start the device->host copy of a result on the lane: a
+        non-blocking copy into pinned memory and an event after it (on the
+        CPU the tensor itself and no event)."""
+        if self.device.type != "cuda":
+            return dev_tensor, None
+        host = torch.empty(dev_tensor.shape, dtype=dev_tensor.dtype, pin_memory=True)
+        host.copy_(dev_tensor, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    @staticmethod
+    def _fetched(pending) -> np.ndarray:
+        host, event = pending
+        if event is not None:
+            event.synchronize()
+        return host.numpy()
+
+    def _init_device_state(self):
+        """Fresh pools and zeroed slot state assigned to self, run on the
+        lane (construction and the failed-dispatch reset).  The drafting table carries a spare
+        row (index n_slots) and a spare column (index vocab) for the writes
+        the reference drops."""
+        S, dev = self.n_slots, self.device
+        self._pools = init_paged_pools(
+            self.cfg, self.n_blocks, self.block_size,
+            dtype=self.engine.params["tok_emb"].dtype, device=dev,
+        )
+        self._table = (
+            torch.full((S + 1, self.cfg.vocab_size + 1), -1, dtype=torch.long, device=dev)
+            if self.spec_k else None
+        )
+        self._tok = torch.zeros((S,), dtype=torch.long, device=dev)
+        self._lengths = torch.zeros((S,), dtype=torch.int32, device=dev)
+        self._active = torch.zeros((S,), dtype=torch.bool, device=dev)
+
+    def warmup(self) -> None:
+        """Run every program shape once on throwaway state before traffic:
+        one ragged prefill per packed token budget (and its warm variant
+        with the prefix cache on) and one decode/verify step.  This builds
+        the kernel library and pays first-call costs; live slots are
+        untouched."""
+        S, dev = self.n_slots, self.device
+        nb = self.blocks_per_seq
+
+        with self._lane.active():
+            pools = init_paged_pools(
+                self.cfg, nb, self.block_size,
+                dtype=self.engine.params["tok_emb"].dtype, device=dev,
+            )
+            sentinel = torch.full((S, nb), nb, dtype=torch.int32, device=dev)
+            for T in self._token_buckets:
+                pad = torch.full((T,), -1, dtype=torch.long, device=dev)
+                zeros = torch.zeros((T,), dtype=torch.long, device=dev)
+                variants = [{}]
+                if self._prefix_cache is not None:
+                    variants.append(dict(
+                        block_tables=sentinel,
+                        prefix_lens=torch.zeros((S,), dtype=torch.long, device=dev),
+                        n_prefix_rows=self.seq_capacity,
+                        block_size=self.block_size,
+                    ))
+                for kw in variants:
+                    ragged_prefill_forward(
+                        self.engine.params, self.cfg, pools, zeros, pad,
+                        zeros, torch.full((T,), nb * self.block_size, device=dev),
+                        torch.zeros((S,), dtype=torch.long, device=dev),
+                        rope_len=self.seq_capacity, **kw,
+                    )
+            s = self.spec_k or 1
+            paged_decode_forward(
+                self.engine.params, self.cfg, pools, sentinel,
+                torch.zeros((S, s), dtype=torch.long, device=dev),
+                torch.zeros((S,), dtype=torch.int32, device=dev),
+                block_size=self.block_size, rope_len=self.seq_capacity,
+            ).sum().item()
+
+    def _pick_token_bucket(self, n_tokens: int) -> int:
+        """Smallest packed token budget covering ``n_tokens`` (the largest
+        for anything bigger: admission splits into several passes)."""
+        for t in self._token_buckets:
+            if n_tokens <= t:
+                return t
+        return self._token_buckets[-1]
+
+    # ---- public API ----------------------------------------------------------
+
+    @property
+    def prefix_cache_enabled(self) -> bool:
+        """Submitters (service/qa.py) check this before passing a key."""
+        return self._prefix_cache is not None
+
+    def submit_ids(
+        self,
+        prompt_ids: Sequence[int],
+        max_new_tokens: Optional[int] = None,
+        deadline: Optional[Deadline] = None,
+        prefix_key: Optional[str] = None,
+        req_class: Optional[str] = None,
+    ) -> Handle:
+        max_new = max_new_tokens or self.gen.max_new_tokens
+        return self.submit_request(
+            make_request(
+                prompt_ids, max_new, deadline=deadline,
+                prefix_key=prefix_key, req_class=req_class,
+            )
+        )
+
+    def submit_request(self, req: _Request) -> Handle:
+        """Admit an already-built :class:`_Request`."""
+        with self._cv:
+            if self._worker_dead:
+                raise WorkerDied(f"batcher worker is dead: {self._death_cause!r}")
+            if self._stopped:
+                raise RuntimeError("batcher is stopped")
+            if self._draining:
+                raise Draining(
+                    "batcher is draining",
+                    n_queued=len(self._queue), n_active=self.n_active,
+                )
+            if self.max_queue is not None and len(self._queue) >= self.max_queue:
+                n_active = self.n_active
+                if self._alloc.n_free == 0 and self._prefix_cache is not None:
+                    # cached-but-idle prefixes give their blocks back
+                    # before live work is shed
+                    self._prefix_cache.evict_for(1)
+                if self._alloc.n_free == 0:
+                    # the queue backed up BECAUSE the pool is dry
+                    raise BlockPoolExhausted(
+                        "KV block pool exhausted and generation queue at "
+                        f"capacity ({self.max_queue})",
+                        n_queued=len(self._queue), n_active=n_active,
+                    )
+                raise QueueFull(
+                    f"generation queue at capacity ({self.max_queue})",
+                    n_queued=len(self._queue), n_active=n_active,
+                )
+            req.t_queue = _now()
+            self._queue.append(req)
+            self._cv.notify_all()
+        return Handle(req)
+
+    def submit_text(
+        self,
+        prompt: str,
+        max_new_tokens: Optional[int] = None,
+        deadline: Optional[Deadline] = None,
+        prefix_key: Optional[str] = None,
+        req_class: Optional[str] = None,
+    ) -> Handle:
+        """The solo engine's text contract (chat template applied,
+        template-aware truncation against this batcher's cache budget)."""
+        usable = self.cache_len - 2 - self.spec_k
+        return self.submit_ids(
+            self.engine.encode_prompt(prompt, usable),
+            max_new_tokens, deadline=deadline, prefix_key=prefix_key,
+            req_class=req_class,
+        )
+
+    def generate_texts(
+        self, prompts: Sequence[str], max_new_tokens: Optional[int] = None
+    ) -> List[str]:
+        """Batch convenience (the solo engine's contract), any N: a bulk
+        batch waits for queue room instead of shedding mid-batch, bounded
+        end to end by ``DEFAULT_RESULT_TIMEOUT``."""
+        if self.max_queue == 0:
+            raise QueueFull("batcher has queueing disabled (max_queue=0)")
+        deadline = Deadline.after(DEFAULT_RESULT_TIMEOUT)
+        handles = []
+        for p in prompts:
+            while True:
+                try:
+                    handles.append(
+                        self.submit_text(
+                            p, max_new_tokens, deadline=deadline,
+                            req_class="batch",
+                        )
+                    )
+                    break
+                except DeadlineExceeded as e:
+                    raise QueueFull(
+                        "generation queue stayed full past the bulk "
+                        f"budget ({e})",
+                        n_queued=self.n_queued, n_active=self.n_active,
+                    ) from e
+                except QueueFull:
+                    if deadline.expired:
+                        raise
+                    # woken when an admission round frees queue space
+                    with self._cv:
+                        self._cv.wait(deadline.bound(0.05))
+        return [h.text(self.engine.tokenizer) for h in handles]
+
+    def stop(self) -> None:
+        with self._cv:
+            self._stopped = True
+            self._cv.notify_all()
+        self._worker.join(timeout=10)
+        # sweep under the lock, the admission window included
+        with self._cv:
+            swept = (
+                self._admitting_reqs
+                + list(self._queue)
+                + [r for r in self._slot_req if r]
+            )
+            self._admitting_reqs = []
+            self._queue.clear()
+        for req in swept:
+            if not req.done.is_set():
+                req.error = RuntimeError("batcher stopped")
+                _finish(req)
+        # block accounting closes with the batcher (release is idempotent)
+        for slot in range(self.n_slots):
+            self._release_slot_blocks(slot)
+        if self._prefix_cache is not None:
+            self._prefix_cache.clear()
+
+    # ---- graceful drain -------------------------------------------------------
+
+    def drain(self, timeout: Optional[float] = 30.0) -> bool:
+        """Stop admitting (new submissions raise :class:`Draining`), let
+        queued and in-flight requests finish, then return True; False when
+        not quiescent within ``timeout`` or the worker died.  The batcher
+        stays alive; :meth:`resume` re-opens admission."""
+        deadline = Deadline.after(timeout) if timeout is not None else None
+        with self._cv:
+            self._draining = True
+            self._cv.notify_all()
+            while (
+                self._queue
+                or self._admitting_reqs
+                or any(r is not None for r in self._slot_req)
+            ):
+                if self._stopped or self._worker_dead:
+                    return False
+                if deadline is not None and deadline.expired:
+                    return False
+                wait_s = 0.1 if deadline is None else deadline.bound(0.1)
+                self._cv.wait(wait_s)
+            return True
+
+    def resume(self) -> None:
+        with self._cv:
+            self._draining = False
+            self._cv.notify_all()
+
+    def steal_queued(self) -> List[_Request]:
+        """Atomically take every queued-but-unadmitted request (they own no
+        slot, token or block)."""
+        with self._cv:
+            out = list(self._queue)
+            self._queue.clear()
+            self._cv.notify_all()
+        return out
+
+    def fail_active(self, error: BaseException) -> None:
+        """Typed-fail every slot-resident request (device state untouched)."""
+        for slot in range(self.n_slots):
+            req = self._slot_req[slot]
+            if req is not None and not req.done.is_set():
+                req.error = error
+                _finish(req)
+
+    def kill(self, error: BaseException) -> None:
+        """Fail-fast teardown without joining the worker (it may be hung):
+        mark stopped and dead, fail everything typed, close the block
+        accounting."""
+        with self._cv:
+            self._stopped = True
+            self._worker_dead = True
+            queued = list(
+                {
+                    id(r): r
+                    for r in self._admitting_reqs + list(self._queue)
+                }.values()
+            )
+            self._admitting_reqs = []
+            self._queue.clear()
+            self._cv.notify_all()
+        for req in queued:
+            if not req.done.is_set():
+                req.error = error
+                _finish(req)
+        self.fail_active(error)
+        for slot in range(self.n_slots):
+            self._release_slot_blocks(slot)
+        if self._prefix_cache is not None:
+            self._prefix_cache.clear()
+
+    @property
+    def n_active(self) -> int:
+        return sum(1 for r in self._slot_req if r is not None)
+
+    @property
+    def n_queued(self) -> int:
+        return len(self._queue)
+
+    @property
+    def kv_bytes_per_token(self) -> int:
+        """Device bytes one token of KV occupies (all layers)."""
+        return kv_bytes_per_token(self.cfg)
+
+    def kv_block_occupancy(self) -> Dict[str, float]:
+        """Block-pool occupancy snapshot (lock-free reads; a sample that
+        races a transition may miscount one block)."""
+        bpt = self.kv_bytes_per_token
+        used = self._alloc.blocks_in_use
+        tokens = 0
+        for slot in range(self.n_slots):
+            req = self._slot_req[slot]
+            if req is not None:
+                tokens += self._slot_prompt[slot] + len(req.tokens)
+        out = {
+            "blocks_total": self.n_blocks,
+            "blocks_used": used,
+            "block_size": self.block_size,
+            "bytes_per_token": bpt,
+            "pool_bytes": self.n_blocks * self.block_size * bpt,
+            "used_bytes": used * self.block_size * bpt,
+            "tokens_committed": tokens,
+            "utilization": used / self.n_blocks,
+        }
+        if self._prefix_cache is not None:
+            pstats = self._prefix_cache.stats()
+            out["prefix_entries"] = pstats["entries"]
+            out["prefix_blocks"] = pstats["pinned_blocks"]
+            out["prefix_hits"] = pstats["hits"]
+            out["prefix_misses"] = pstats["misses"]
+            out["prefix_hit_rate"] = round(pstats["hit_rate"], 4)
+            out["prefix_tokens_avoided"] = pstats["tokens_avoided"]
+        return out
+
+    def block_seconds(self) -> Dict[str, float]:
+        """The pool's block-second ledger: total/billed/residual (residual
+        ~0 after drain/stop)."""
+        return self._alloc.block_seconds()
+
+    # ---- worker loop ---------------------------------------------------------
+
+    def _admit_round(self, pairs: List[Tuple[int, "_Request"]]):
+        """Prefill every (slot, request) pair of this round through ragged
+        packed passes (no host sync; the first tokens are fetched by
+        ``_finalize_admissions``).  Each request's blocks are allocated here
+        (prompt + grow margin, net of a shared cached prefix); a request the
+        pool cannot hold goes back to the queue head."""
+        # truncation keeps budget >= 1 for a maximal prompt (mirrors the
+        # budget formula below)
+        usable = self.cache_len - 2 - self.spec_k
+        # entry: (slot, req, ids, table, shared); shared > 0 = WARM lane
+        good: List[Tuple[int, "_Request", List[int], Any, int]] = []
+        send_back: List["_Request"] = []
+        for slot, req in pairs:
+            if req.deadline is not None and req.deadline.expired:
+                req.error = DeadlineExceeded(
+                    "serve_admit", -req.deadline.remaining()
+                )
+                _finish(req)
+                continue
+            try:
+                ids = [int(t) for t in req.prompt_ids][-usable:] or [self.gen.pad_id]
+            except (TypeError, ValueError) as e:  # bad request: fail it alone
+                req.error = e
+                _finish(req)
+                continue
+            table = self._alloc.new_table()
+            shared = 0
+            try:
+                if self._prefix_cache is not None:
+                    shared = self._prefix_cache.acquire(req.prefix_key, ids, table)
+                table.ensure(min(len(ids) + self._grow_margin, self.seq_capacity))
+            except OutOfBlocks:
+                # release first: a partial share would strand refcounts
+                table.release()
+                send_back.append(req)
+                continue
+            try:
+                if self._prefix_cache is not None and req.prefix_key is not None:
+                    self._prefix_cache.credit(shared)
+                if self._prefix_cache is not None:
+                    # insert IN the allocation loop: a later same-key request
+                    # of this round shares in-round (cold groups dispatch
+                    # before warm ones on the one stream, so the shared rows
+                    # are written before any sharer reads them)
+                    self._prefix_cache.insert(req.prefix_key, ids, table)
+            except BaseException:
+                # the table is in no slot yet: release before propagating
+                table.release()
+                raise
+            good.append((slot, req, ids, table, shared))
+        if send_back:
+            sent = {id(r) for r in send_back}
+            with self._cv:
+                for req in reversed(send_back):
+                    req.t_queue = _now()
+                    self._queue.appendleft(req)
+                self._admitting_reqs = [
+                    r for r in self._admitting_reqs if id(r) not in sent
+                ]
+                self._cv.notify_all()
+        if not good:
+            return [], None
+
+        # register slot state BEFORE the dispatch: a failed dispatch's
+        # _fail_active then releases these tables too
+        for slot, req, ids, table, _shared in good:
+            n_ids = len(ids)
+            self._slot_req[slot] = req
+            self._slot_budget[slot] = min(
+                req.max_new, self.cache_len - n_ids - 1 - self.spec_k
+            )
+            self._slot_prompt[slot] = n_ids
+            self._slot_table[slot] = table
+            row = self._block_rows[slot]
+            row[:] = self.n_blocks
+            row[: len(table.blocks)] = table.blocks
+            self._caps_np[slot] = table.capacity
+        self._tables_dirty = True
+
+        # pack into dispatch groups: each prompt's NOVEL portion starts on a
+        # RAGGED_ALIGN boundary and a group never exceeds the largest
+        # budget; warm lanes group apart from cold ones
+        def _packed_len(entry) -> int:
+            return round_up(len(entry[2]) - entry[4], RAGGED_ALIGN)
+
+        groups: List[Tuple[bool, List[tuple]]] = []
+        max_t = self._token_buckets[-1]
+        for warm_flag in (False, True):
+            cur: List[tuple] = []
+            cur_tokens = 0
+            for entry in good:
+                if bool(entry[4]) != warm_flag:
+                    continue
+                n_aligned = _packed_len(entry)
+                if cur and cur_tokens + n_aligned > max_t:
+                    groups.append((warm_flag, cur))
+                    cur, cur_tokens = [], 0
+                cur.append(entry)
+                cur_tokens += n_aligned
+            if cur:
+                groups.append((warm_flag, cur))
+
+        S = self.n_slots
+        drop_row = self.n_blocks * self.block_size
+        group_inputs = []
+        for warm_flag, group in groups:
+            T = self._pick_token_bucket(sum(_packed_len(e) for e in group))
+            ids_flat = np.full((T,), self.gen.pad_id, np.int64)
+            seg = np.full((T,), -1, np.int64)
+            pos = np.zeros((T,), np.int64)
+            dest = np.full((T,), drop_row, np.int64)
+            last_rows = np.zeros((S,), np.int64)
+            slots_arr = np.full((S,), S, np.int64)  # spare drafting row
+            tables_np = plens_np = None
+            if warm_flag:
+                tables_np = np.full((S, self.blocks_per_seq), self.n_blocks, np.int32)
+                plens_np = np.zeros((S,), np.int64)
+            off = 0
+            for lane, (slot, _req, ids, table, shared) in enumerate(group):
+                n = len(ids)
+                # only the novel suffix, at ABSOLUTE positions
+                p = np.arange(shared, n, dtype=np.int64)
+                n_sfx = n - shared
+                ids_flat[off: off + n_sfx] = ids[shared:]
+                seg[off: off + n_sfx] = lane
+                pos[off: off + n_sfx] = p
+                blocks = np.asarray(table.blocks, np.int64)
+                dest[off: off + n_sfx] = (
+                    blocks[p // self.block_size] * self.block_size
+                    + p % self.block_size
+                )
+                last_rows[lane] = off + n_sfx - 1
+                slots_arr[lane] = slot
+                if warm_flag:
+                    tables_np[lane, : len(table.blocks)] = table.blocks
+                    plens_np[lane] = shared
+                off += round_up(n_sfx, RAGGED_ALIGN)
+            group_inputs.append(
+                (ids_flat, seg, pos, dest, last_rows, slots_arr, len(group),
+                 tables_np, plens_np)
+            )
+            # group-major order: the slot scatters and the first-token fetch
+        # line up with the concatenated outputs
+        ordered = [e for _w, group in groups for e in group]
+        slots_np = np.array([e[0] for e in ordered], np.int64)
+        lens_np = np.array([len(e[2]) for e in ordered], np.int32)
+        budget_ok = np.array(
+            [self._slot_budget[e[0]] >= 2 for e in ordered], bool
+        )
+
+        # on the lane: pending lane deactivations, one packed prefill per
+        # group, then the slot-state scatter on the device (alive = first !=
+        # eos and budget >= 2 needs no fetch), then the first tokens' async
+        # copy to the host
+        dev = self.device
+        with self._lane.active():
+            self._apply_deact_on_lane()
+            parts = []
+            for (ids_flat, seg, pos, dest, last_rows, slots_arr, n_lanes,
+                 tables_np, plens_np) in group_inputs:
+                warm_kw = {}
+                if tables_np is not None:
+                    warm_kw = dict(
+                        block_tables=_to_device(tables_np, dev),
+                        prefix_lens=_to_device(plens_np, dev),
+                    )
+                toks = self._prefill_program(
+                    _to_device(ids_flat, dev), _to_device(seg, dev),
+                    _to_device(pos, dev), _to_device(dest, dev),
+                    _to_device(last_rows, dev), _to_device(slots_arr, dev),
+                    self._next_generator(), **warm_kw,
+                )
+                parts.append(toks[:n_lanes])
+            first = torch.cat(parts)
+            idx = _to_device(slots_np, dev)
+            self._tok[idx] = first
+            self._lengths[idx] = _to_device(lens_np, dev)
+            self._active[idx] = (first != self.gen.eos_id) & _to_device(budget_ok, dev)
+            pending = self._fetch_async(first)
+        self.stats["prefill_dispatches"] += len(groups)
+        self.stats["admissions"] += len(ordered)
+        self.stats["warm_admissions"] += sum(1 for e in ordered if e[4])
+        meta = [(slot, req) for slot, req, _ids, _t, _s in ordered]
+        return meta, pending
+
+    def _finalize_admissions(self, admitted) -> bool:
+        """One fetch of the round's first tokens, then per-request delivery
+        or retirement.  The worker calls this AFTER issuing the next decode
+        chunk.  Returns False when the fetch failed (the pipeline is
+        poisoned and has been reset)."""
+        meta, pending = admitted
+        try:
+            firsts = self._fetched(pending)[: len(meta)]
+        except Exception as e:
+            self._fail_active(e)
+            return False
+        for (slot, req), first in zip(meta, firsts):
+            first = int(first)
+            budget = self._slot_budget[slot]
+            if first == self.gen.eos_id or budget <= 0:
+                self._retire(slot)
+            else:
+                req.tokens.append(first)
+                with req.cv:  # the first streamed token
+                    req.cv.notify_all()
+                if len(req.tokens) >= budget:
+                    self._retire(slot)
+        return True
+
+    def _apply_deact_on_lane(self) -> None:
+        """Clear device ``active`` lanes of host-retired slots (called first
+        inside every device work item)."""
+        if self._deact_pending:
+            idx = torch.tensor(self._deact_pending, dtype=torch.long, device=self.device)
+            self._active[idx] = False
+            self._deact_pending = []
+
+    def _release_slot_blocks(self, slot: int) -> None:
+        """Return a slot's blocks to the pool (idempotent) and sentinel its
+        table row so in-flight programs' further writes through it land on
+        the drop row."""
+        table = self._slot_table[slot]
+        self._slot_table[slot] = None
+        self._block_rows[slot, :] = self.n_blocks
+        self._caps_np[slot] = 0
+        self._tables_dirty = True
+        if table is not None:
+            table.release()
+
+    def _fail_active(self, err: BaseException) -> None:
+        """Fail all in-flight requests, free their blocks, and rebuild clean
+        device state."""
+        for slot in range(self.n_slots):
+            req = self._slot_req[slot]
+            self._slot_req[slot] = None
+            self._release_slot_blocks(slot)
+            if req is not None:
+                req.error = RuntimeError(f"decode failed: {err!r}")
+                _finish(req)
+        # the reset replaces the pools: every cached prefix row is garbage
+        if self._prefix_cache is not None:
+            self._prefix_cache.clear()
+        if self._stopped:
+            return
+        self._deact_pending = []
+        with self._lane.active():
+            self._init_device_state()
+
+    def _retire(self, slot: int) -> None:
+        req = self._slot_req[slot]
+        self._slot_req[slot] = None
+        # blocks return IMMEDIATELY: the next queued request can take them
+        # this same worker iteration
+        self._release_slot_blocks(slot)
+        if req is not None:
+            _finish(req)
+            if req.error is None:
+                self.stats["completed"] += 1
+
+    def _process_chunk(self, pending, snap: List[Optional[_Request]]) -> bool:
+        """Read one decode chunk's packed results and deliver its tokens to
+        the slots whose occupant is still the dispatch-time request.
+        Returns False when the fetch failed (state reset)."""
+        try:
+            packed_h = self._fetched(pending)
+        except Exception as e:
+            self._fail_active(e)
+            return False
+        if self.spec_k:
+            width = self.chunk + 2 * self.spec_k
+            out_h = packed_h[:, :width]
+            counts_h = packed_h[:, width]
+            active_h = packed_h[:, width + 1].astype(bool)
+            valid_h = np.arange(width)[None, :] < counts_h[:, None]
+            n_cols = width
+        else:
+            out_h = packed_h[:, : self.chunk]
+            valid_h = packed_h[:, self.chunk: 2 * self.chunk].astype(bool)
+            active_h = packed_h[:, -1].astype(bool)
+            n_cols = self.chunk
+        deactivate = []
+        for slot in range(self.n_slots):
+            req = snap[slot]
+            if req is None or self._slot_req[slot] is not req:
+                continue
+            before = len(req.tokens)
+            for t in range(n_cols):
+                if not valid_h[slot, t]:
+                    continue
+                if len(req.tokens) >= self._slot_budget[slot]:
+                    break
+                req.tokens.append(int(out_h[slot, t]))
+            if len(req.tokens) > before:  # wake streamers per chunk
+                with req.cv:
+                    req.cv.notify_all()
+            finished = (
+                not active_h[slot]
+                or len(req.tokens) >= self._slot_budget[slot]
+            )
+            expired = (
+                not finished
+                and req.deadline is not None
+                and req.deadline.expired
+            )
+            if expired:
+                req.error = DeadlineExceeded(
+                    "serve_decode", -req.deadline.remaining()
+                )
+            cancelled = not finished and not expired and req.cancelled
+            if cancelled and not req.done.is_set():
+                req.error = RequestCancelled("cancelled mid-decode")
+            if finished or expired or cancelled:
+                deactivate.append(slot)
+                self._retire(slot)
+        if deactivate:
+            self._deact_pending.extend(deactivate)
+        return True
+
+    def _blocks_for_admission(self, req: "_Request") -> int:
+        """FRESH blocks admitting ``req`` would allocate (prompt after
+        truncation plus the grow margin, one sequence at most), net of a
+        cached prefix it would share."""
+        usable = self.cache_len - 2 - self.spec_k
+        n_ids = max(1, min(len(req.prompt_ids), usable))
+        total = self._alloc.blocks_for(
+            min(n_ids + self._grow_margin, self.seq_capacity)
+        )
+        if self._prefix_cache is not None and req.prefix_key is not None:
+            try:
+                ids = [int(t) for t in req.prompt_ids][-usable:]
+            except (TypeError, ValueError):
+                return total  # bad request: _admit_round fails it alone
+            shared = self._prefix_cache.peek(req.prefix_key, ids)
+            total -= shared // self.block_size
+        return max(total, 0)
+
+    def _pop_free_slots(self, pairs: List[Tuple[int, "_Request"]]) -> None:
+        """Fill every free slot from the queue into ``pairs`` (caller holds
+        ``_cv``).  Requests whose deadline lapsed or that were cancelled
+        while queued are finished here, never admitted.  A head the pool
+        cannot hold STOPS the fill (FIFO is kept): it stays queued until
+        retirements free blocks; cached idle prefixes are evicted for it
+        first."""
+        taken = {s for s, _ in pairs}
+        drained = False
+        # blocks already earmarked by earlier picks of this round
+        planned = sum(self._blocks_for_admission(r) for _, r in pairs)
+        blocked = False
+        for slot in range(self.n_slots):
+            if blocked or self._slot_req[slot] is not None or slot in taken:
+                continue
+            filled = False
+            while self._queue and not filled:
+                head = self._queue[0]
+                need = self._blocks_for_admission(head)
+                head_live = (
+                    head.deadline is None or not head.deadline.expired
+                ) and not head.cancelled
+                if (
+                    head_live
+                    and self._prefix_cache is not None
+                    and not self._alloc.can_alloc(planned + need)
+                ):
+                    # re-estimate after eviction: it may have taken the
+                    # head's own entry
+                    if self._prefix_cache.evict_for(planned + need):
+                        need = self._blocks_for_admission(head)
+                if head_live and not self._alloc.can_alloc(planned + need):
+                    blocked = True
+                    break
+                req = self._queue.popleft()
+                drained = True
+                if req.cancelled:
+                    if not req.done.is_set():
+                        req.error = RequestCancelled("cancelled before admission")
+                        _finish(req)
+                    continue
+                if req.deadline is not None and req.deadline.expired:
+                    req.error = DeadlineExceeded(
+                        "serve_queue", -req.deadline.remaining()
+                    )
+                    _finish(req)
+                    continue
+                pairs.append((slot, req))
+                planned += need
+                filled = True
+            if not self._queue and not filled:
+                break
+        self._admitting_reqs = [r for _, r in pairs]
+        if drained:
+            # wake bulk submitters blocked on queue capacity
+            self._cv.notify_all()
+
+    def _run(self) -> None:
+        """Worker entry: the loop must never die silently."""
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self._lane.device)
+            self._run_loop()
+        except BaseException as e:
+            self._worker_died(e)
+        finally:
+            # a kill() landing mid-iteration lets this loop register fresh
+            # tables after the kill's sweep: close the accounting on exit
+            with self._cv:
+                stopped = self._stopped
+            if stopped:
+                for slot in range(self.n_slots):
+                    self._release_slot_blocks(slot)
+                if self._prefix_cache is not None:
+                    self._prefix_cache.clear()
+
+    def _worker_died(self, e: BaseException) -> None:
+        """The loop crashed: queued (and admission-window) requests go to
+        ``on_worker_death`` first; the rest, and every admitted request,
+        fail typed with :class:`WorkerDied`.  Blocks and cache pins are
+        released."""
+        with self._cv:
+            self._worker_dead = True
+            self._death_cause = e
+            queued = list(
+                {
+                    id(r): r
+                    for r in self._admitting_reqs + list(self._queue)
+                }.values()
+            )
+            self._admitting_reqs = []
+            self._queue.clear()
+            self._cv.notify_all()
+        cb = self.on_worker_death
+        if cb is not None:
+            try:
+                queued = list(cb(self, queued) or [])
+            except Exception:
+                pass  # the hook failed: every queued request fails below
+        err = WorkerDied(f"batcher worker died: {e!r}")
+        for req in queued:
+            if not req.done.is_set():
+                req.error = err
+                _finish(req)
+        for slot in range(self.n_slots):
+            req = self._slot_req[slot]
+            self._slot_req[slot] = None
+            self._release_slot_blocks(slot)
+            if req is not None and not req.done.is_set():
+                req.error = err
+                _finish(req)
+        if self._prefix_cache is not None:
+            self._prefix_cache.clear()
+
+    def _grow_tables(self) -> None:
+        """Grow-at-decode: top every live lane's table up to the margin
+        before a chunk (the in-program capacity guard must never be what
+        stops a live lane).  A lane the pool cannot grow, after the prefix
+        cache gave back idle blocks, sheds typed."""
+        shed_slots = []
+        for slot in range(self.n_slots):
+            req = self._slot_req[slot]
+            table = self._slot_table[slot]
+            if req is None or table is None:
+                continue
+            est = self._slot_prompt[slot] + len(req.tokens)
+            target = min(est + self._grow_margin, self.seq_capacity)
+            if table.capacity >= target:
+                continue
+            try:
+                try:
+                    table.ensure(target)
+                except OutOfBlocks:
+                    if self._prefix_cache is None:
+                        raise
+                    self._prefix_cache.evict_for(
+                        self._alloc.blocks_for(target) - len(table.blocks)
+                    )
+                    table.ensure(target)
+                row = self._block_rows[slot]
+                row[: len(table.blocks)] = table.blocks
+                self._caps_np[slot] = table.capacity
+                self._tables_dirty = True
+            except OutOfBlocks:
+                with self._cv:
+                    n_queued = len(self._queue)
+                req.error = BlockPoolExhausted(
+                    "KV block pool exhausted mid-decode (lane at "
+                    f"{est} tokens, pool {self.n_blocks}x{self.block_size})",
+                    n_queued=n_queued, n_active=self.n_active,
+                )
+                self._retire(slot)
+                shed_slots.append(slot)
+        if shed_slots:
+            self._deact_pending.extend(shed_slots)
+
+    def _dispatch_decode(self):
+        """Issue one decode chunk for every live slot on the lane: pending
+        deactivations, the dirty table upload, the chunk, and the async copy
+        of its packed results."""
+        with self._lane.active():
+            self._apply_deact_on_lane()
+            if self._tables_dirty:
+                self._tables_dev = _to_device(self._block_rows, self.device)
+                self._caps_dev = _to_device(self._caps_np, self.device)
+                self._tables_dirty = False
+            if self.spec_k:
+                packed = self._decode_spec_program(self._tables_dev, self._caps_dev)
+            else:
+                packed = self._decode_program(
+                    self._tables_dev, self._caps_dev, self._next_generator()
+                )
+            return self._fetch_async(packed)
+
+    def _run_loop(self) -> None:
+        # the one issued-but-unread decode chunk: (pending fetch, the
+        # dispatch-time slot->request snapshot)
+        pending: Optional[Tuple[Any, List[Optional[_Request]]]] = None
+        while True:
+            pairs: List[Tuple[int, _Request]] = []
+            with self._cv:
+                while (
+                    not self._stopped
+                    and not self._queue
+                    and not any(self._slot_req)
+                ):
+                    self._cv.wait(0.5)
+                if self._stopped:
+                    return
+                self._pop_free_slots(pairs)
+                if not pairs and self._queue and not any(self._slot_req):
+                    # block-starved head with every slot idle: bounded wait
+                    # instead of a hot spin (retirements notify)
+                    self._cv.wait(0.05)
+                    self._pop_free_slots(pairs)
+            if pairs and pending is not None:
+                # read the in-flight chunk before admitting: it may retire
+                # slots this round can refill
+                drained_ok = self._process_chunk(*pending)
+                pending = None
+                if drained_ok:
+                    with self._cv:
+                        self._pop_free_slots(pairs)
+            # disaggregated order: the chunk for ALREADY-LIVE lanes is
+            # issued before this round's admission prefill
+            self._grow_tables()
+            packed = snap = None
+            if any(self._slot_req):
+                # snapshot at DISPATCH time: lanes admitted below were free
+                snap = list(self._slot_req)
+                try:
+                    packed = self._dispatch_decode()
+                except Exception as e:
+                    self._fail_active(e)
+                    pending = None
+                    continue
+            admitted = None
+            if pairs:
+                try:
+                    admitted = self._admit_round(pairs)
+                    if not admitted[0]:
+                        admitted = None
+                except Exception as e:
+                    # the round's prefill died: fail its requests (those sent
+                    # back to the queue stay queued) and reset; the chunk
+                    # issued above shares the poisoned state — drop it
+                    with self._cv:
+                        requeued = {id(r) for r in self._queue}
+                    for _slot, req in pairs:
+                        if id(req) in requeued:
+                            continue
+                        if not req.done.is_set():
+                            req.error = RuntimeError(f"prefill failed: {e!r}")
+                            _finish(req)
+                    self._fail_active(e)
+                    pending = None
+                    continue
+                finally:
+                    with self._cv:
+                        self._admitting_reqs = []
+                        self._cv.notify_all()
+            ok = True
+            if admitted is not None:
+                ok = self._finalize_admissions(admitted)
+            if ok and pending is not None:
+                ok = self._process_chunk(*pending)
+            if ok and packed is None and any(self._slot_req):
+                # admission-only iteration: give the fresh lanes their first
+                # chunk now instead of one loop later
+                snap = list(self._slot_req)
+                try:
+                    packed = self._dispatch_decode()
+                except Exception as e:
+                    self._fail_active(e)
+                    pending = None
+                    continue
+            pending = (packed, snap) if ok and packed is not None else None

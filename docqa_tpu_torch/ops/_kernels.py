@@ -10,8 +10,9 @@ function sets its ``argtypes``.  Nothing here runs at import time: the CPU
 tests import every module on a host without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by kernel name.  A wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that its
-path really went through the kernels.
+(:func:`count`) where it launches its kernel and nowhere else, so a run can
+show that its path really went through the kernels.  The count takes a
+lock: the batcher's worker and request threads launch concurrently.
 """
 
 from __future__ import annotations
@@ -39,6 +40,14 @@ LAUNCHES: Counter = Counter()
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count(*names: str) -> None:
+    """Add one launch under each of ``names``."""
+    with _COUNT_LOCK:
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

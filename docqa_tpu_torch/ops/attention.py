@@ -23,6 +23,13 @@ Counterpart of ``docqa_tpu/ops/attention.py`` (``attention_reference``,
   long prompts (4 * d * hq * live pairs / 989 TFLOP/s in bf16).
 * ``simt`` (float32): the first port's float32-FMA kernel, kept because
   TF32 tensor cores cannot meet the float32 tolerance.
+
+The continuous batcher's attention lives here too: ``paged_decode_attention``
+runs the ``decode`` path in paged mode (K/V rows of a flat block pool
+read through a block table inside the kernel; ``gather_paged_kv`` +
+``attention_reference`` is its plain version), and
+``ragged_prefill_attention`` is plain PyTorch, as the reference leaves it
+to XLA.
 """
 
 from __future__ import annotations
@@ -310,8 +317,7 @@ def flash_attention(
         raise RuntimeError(
             f"flash_attention {plan.path} kernel launch failed: CUDA error {rc}"
         )
-    _kernels.LAUNCHES["flash_attention"] += 1
-    _kernels.LAUNCHES[f"flash_attention.{plan.path}"] += 1
+    _kernels.count("flash_attention", f"flash_attention.{plan.path}")
     return out
 
 
@@ -319,3 +325,240 @@ def attention(q, k, v, **kwargs):
     """Dispatcher: the flash wrapper decides by the tensors' device (the
     kernel on a card, the plain version on the CPU)."""
     return flash_attention(q, k, v, **kwargs)
+
+
+# --------------------------------------------------------------------------
+# Ragged / paged attention (block-table KV), counterparts of the reference's
+# ragged_prefill_attention, gather_paged_kv and paged_decode_attention
+# --------------------------------------------------------------------------
+
+# Sequence starts inside a packed ragged-prefill batch are aligned to this
+# many rows, and a shared prefix-cache run is a multiple of it.  The
+# reference aligns for XLA's bitwise serve == solo parity; the port keeps
+# the value so the prefix cache's sharing unit is the reference's.
+RAGGED_ALIGN = 128
+
+
+def ragged_prefill_attention(q, k, v, seg_ids, positions, *,
+                             sliding_window=None, scale=None,
+                             k_pool=None, v_pool=None, block_tables=None,
+                             prefix_lens=None, n_prefix_rows=0,
+                             block_size=None):
+    """Self-attention over a PACKED batch of variable-length prompts, in
+    plain PyTorch (the reference leaves it to XLA; its hand kernel is a
+    later slice).
+
+    q, k, v   [T, heads, d] — one flat token axis, each prompt a contiguous
+              run of rows (starts RAGGED_ALIGN-aligned)
+    seg_ids   [T] — sequence id per token; negative = padding row
+    positions [T] — position of each token within its own sequence
+
+    A token attends within its own segment, causally by position (plus the
+    optional sliding window); f32 softmax; padding rows output zeros.
+    Computed in RAGGED_ALIGN-row query blocks, so the score transient is
+    heads x 128 x T, never heads x T x T.
+
+    WARM mode (``n_prefix_rows > 0``): each segment also attends a cached
+    prompt prefix read from the pool ``k_pool``/``v_pool`` [P, hkv, d]
+    through its block table: per query block, the owning lane's first
+    ``prefix_lens[lane]`` pool rows (in position order, ``n_prefix_rows``
+    columns, the rest masked) come ahead of the packed keys in one
+    softmax.  Aligned segment starts make every query block belong to one
+    lane (or be padding)."""
+    t, hq, d = q.shape
+    hkv = k.shape[1]
+    groups = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    dev = q.device
+
+    qf = q.float() * scale
+    kf = k.float()
+    vf = v.float()
+    if groups > 1:
+        kf = kf.repeat_interleave(groups, dim=1)
+        vf = vf.repeat_interleave(groups, dim=1)
+    valid = seg_ids >= 0
+    warm = n_prefix_rows > 0
+    if warm:
+        if t % RAGGED_ALIGN:
+            raise ValueError(
+                "warm ragged prefill needs a RAGGED_ALIGN-multiple packed "
+                f"axis (got T={t})"
+            )
+        pool_rows = k_pool.shape[0]
+        n_blocks = pool_rows // block_size
+        pfx_cols = torch.arange(n_prefix_rows, device=dev)
+
+    def attend_rows(lo: int, hi: int):
+        qb = qf[lo:hi]
+        seg_q = seg_ids[lo:hi]
+        pos_q = positions[lo:hi]
+        scores = torch.einsum("qhd,khd->hqk", qb, kf)  # [hq, bq, T]
+        mask = (
+            (seg_q[:, None] == seg_ids[None, :])
+            & (valid[lo:hi][:, None] & valid[None, :])
+            & (positions[None, :] <= pos_q[:, None])
+        )
+        if sliding_window is not None:
+            mask &= positions[None, :] > pos_q[:, None] - sliding_window
+        mask = mask[None]
+        if not warm:
+            scores = scores.masked_fill(~mask, NEG_INF)
+            probs = torch.softmax(scores, dim=-1)
+            probs = torch.where(mask.any(dim=-1, keepdim=True), probs, 0.0)
+            return torch.einsum("hqk,khd->qhd", probs, vf)
+        # the block's lane (-1 when all padding), read on the device: no
+        # host sync
+        lane = seg_q.max()
+        lane_c = lane.clamp(min=0)
+        blk = block_tables[lane_c].long()[pfx_cols // block_size]
+        rows = (blk * block_size + pfx_cols % block_size).clamp(max=pool_rows - 1)
+        kp = k_pool[rows].float()  # [PFX, hkv, d]
+        vp = v_pool[rows].float()
+        if groups > 1:
+            kp = kp.repeat_interleave(groups, dim=1)
+            vp = vp.repeat_interleave(groups, dim=1)
+        plen = prefix_lens[lane_c]
+        scores_p = torch.einsum("qhd,khd->hqk", qb, kp)  # [hq, bq, PFX]
+        mask_p = (
+            (lane >= 0)
+            & valid[lo:hi][:, None]
+            & (pfx_cols[None, :] < plen)
+            & (blk[None, :] < n_blocks)
+            & (pfx_cols[None, :] <= pos_q[:, None])
+        )
+        if sliding_window is not None:
+            mask_p &= pfx_cols[None, :] > pos_q[:, None] - sliding_window
+        full_mask = torch.cat([mask_p[None], mask], dim=-1)
+        full_scores = torch.cat([scores_p, scores], dim=-1).masked_fill(
+            ~full_mask, NEG_INF
+        )
+        probs = torch.softmax(full_scores, dim=-1)
+        probs = torch.where(full_mask.any(dim=-1, keepdim=True), probs, 0.0)
+        return torch.einsum("hqk,khd->qhd", probs, torch.cat([vp, vf], dim=0))
+
+    if t % RAGGED_ALIGN or t <= RAGGED_ALIGN:
+        out = attend_rows(0, t)
+    else:
+        out = torch.cat(
+            [attend_rows(lo, lo + RAGGED_ALIGN) for lo in range(0, t, RAGGED_ALIGN)]
+        )
+    return out.to(q.dtype)
+
+
+def gather_paged_kv(pool, block_tables, block_size):
+    """A per-sequence contiguous KV view gathered out of a flat block pool:
+    pool [P, kv_heads, d], block_tables [S, NB] (ids >= P / block_size are
+    holes, clamped here and masked later by ``lengths``) -> [S, NB *
+    block_size, kv_heads, d], row p of sequence s its token position p."""
+    S, nb = block_tables.shape
+    cols = torch.arange(nb * block_size, device=pool.device)
+    blk = block_tables.long()[:, cols // block_size]  # [S, L]
+    rows = (blk * block_size + cols[None, :] % block_size).clamp(max=pool.shape[0] - 1)
+    return pool[rows]
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_fn():
+    fn = _kernels.load("flash_attention").docqa_flash_decode_paged
+    fn.argtypes = (
+        [ctypes.c_void_p] * 8  # q, k_pool, v_pool, o, lengths, q_offset, tables, strides
+        + [ctypes.c_int] * 9  # batch, sq, nb, block_size, pool_rows, hq, hkv, head_dim, window
+        + [ctypes.c_float]  # scale
+        + [ctypes.c_int] * 2  # num_splits, split_tiles
+        + [ctypes.c_void_p] * 3  # part_o, part_ml, stream
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
+                           block_size, q_offset=None, sliding_window=None,
+                           scale=None):
+    """Decode / verify attention through a block table (the batcher's
+    steps), causal.
+
+    q            [S, s, q_heads, d] (s = 1 plain step, K spec verify)
+    k/v_pool     [P, kv_heads, d] flat block pool
+    block_tables [S, NB] int; ids >= P / block_size are holes
+    lengths      [S] valid kv length per sequence AFTER this step
+    q_offset     [S] position of q row 0 (default ``lengths - s``)
+
+    A CPU tensor takes the plain version, :func:`gather_paged_kv` +
+    :func:`attention_reference`.  A CUDA tensor launches K1's split-kv
+    decode kernel in paged mode or raises (bf16 and the decode path only):
+    row p of lane s is read at pool row ``min(table[s, p // block_size] *
+    block_size + p % block_size, P - 1)`` inside the kernel's cp.async
+    producer, so the gather is never materialised, holes clamp like
+    :func:`gather_paged_kv` and ``lengths`` masks them.  The plan comes
+    from ``skv = NB * block_size`` and the shapes alone, never from
+    ``lengths`` or table contents.  Counts one launch under
+    ``flash_attention`` and one under ``flash_attention.decode_paged``."""
+    if q.device.type == "cpu":
+        k = gather_paged_kv(k_pool, block_tables, block_size)
+        v = gather_paged_kv(v_pool, block_tables, block_size)
+        return attention_reference(
+            q, k, v, causal=True, lengths=lengths, q_offset=q_offset,
+            sliding_window=sliding_window, scale=scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cuda or cpu, not {q.device}")
+    S, sq, hq, d = q.shape
+    if k_pool.dim() != 3 or v_pool.shape != k_pool.shape:
+        raise ValueError(
+            f"pools must be [P, kv_heads, d], got {tuple(k_pool.shape)} / "
+            f"{tuple(v_pool.shape)}"
+        )
+    P, hkv = k_pool.shape[0], k_pool.shape[1]
+    block_size = int(block_size)
+    if block_size <= 0:
+        raise ValueError(f"block_size must be positive, got {block_size}")
+    if (block_tables.dim() != 2 or block_tables.shape[0] != S
+            or block_tables.device != q.device):
+        raise ValueError(f"block_tables must be [{S}, NB] on {q.device}")
+    nb = block_tables.shape[1]
+    skv = nb * block_size
+    tables = block_tables.to(torch.int32).contiguous()
+    scale = scale if scale is not None else d ** -0.5
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    if q_offset is None:
+        q_offset = lengths - sq
+    q_offset = q_offset.to(device=q.device, dtype=torch.int32).contiguous()
+    # the pools seen as [S, P, hkv, d] with a zero batch stride: the same
+    # checks as the contiguous path (device, dtype, 16-byte rows, heads)
+    k4 = k_pool.unsqueeze(0).expand(S, -1, -1, -1)
+    v4 = v_pool.unsqueeze(0).expand(S, -1, -1, -1)
+    _check_cuda_inputs(q, k4, v4, lengths, q_offset, sliding_window, True)
+    plan = plan_flash(q.dtype, S, sq, skv, hq, hkv, _num_sms(q.device.index or 0))
+    if plan.path != "decode":
+        raise ValueError(
+            "paged attention runs on K1's split-kv decode path only (bf16, "
+            f"q_len <= {DECODE_MAX_Q}, groups * q_len <= {DECODE_MAX_ROWS}); "
+            f"got {q.dtype}, q_len {sq}, groups {hq // hkv}"
+        )
+    out = torch.empty((S, sq, hq, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], 0, *k_pool.stride()[:2], 0, *v_pool.stride()[:2],
+        *out.stride()[:3],
+    )
+    part_o = part_ml = None
+    if plan.num_splits > 1:
+        rows = (hq // hkv) * sq
+        part_o = torch.empty((S, hkv, plan.num_splits, rows, d),
+                             dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((S, hkv, plan.num_splits, rows, 2),
+                              dtype=torch.float32, device=q.device)
+    rc = _paged_fn()(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
+        lengths.data_ptr(), q_offset.data_ptr(), tables.data_ptr(),
+        ctypes.addressof(strides),
+        S, sq, nb, block_size, P, hq, hkv, d, int(sliding_window or 0),
+        float(scale), plan.num_splits, plan.split_tiles,
+        part_o.data_ptr() if part_o is not None else None,
+        part_ml.data_ptr() if part_ml is not None else None,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention decode_paged kernel launch failed: CUDA error {rc}")
+    _kernels.count("flash_attention", "flash_attention.decode_paged")
+    return out

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one /ask goes on the card, for the PyTorch/CUDA port.
 
-    python3 scripts/torch_ask_profile.py [--out PATH]
+    python3 scripts/torch_ask_profile.py [--out PATH] [--batcher]
 
 Builds the same full-width service as ``chip_smoke.py`` (MiniLM-L6
 encoder, 1,000,000-row bf16 store, Mistral-7B-width bf16 decoder with
@@ -9,7 +9,10 @@ random seeded weights, greedy, K=4 speculation), answers one warm-up
 question, then answers each question under ``torch.profiler`` and reports
 per question: wall time, device busy time (union of kernel intervals) and
 idle share, kernel launches, and device time by kernel family and by
-kernel name.  Needs a CUDA card.
+kernel name.  With ``--batcher`` the service goes through
+``chip_smoke.py`` phase 5's ``ContinuousBatcher`` instead, and one round
+of eight concurrent questions is profiled as a whole (plus device and
+wall time per verify step).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,8 +31,12 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import QUESTIONS, build_main_path, nvidia_smi_line  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    QUESTIONS, _ask_round, build_main_path, nvidia_smi_line,
+)
+from docqa_tpu_torch.engines.serve import ContinuousBatcher  # noqa: E402
 from docqa_tpu_torch.ops import _kernels  # noqa: E402
+from docqa_tpu_torch.service.qa import QAService  # noqa: E402
 
 
 def family(name: str) -> str:
@@ -62,9 +69,92 @@ def busy_us(intervals):
     return total
 
 
+def analyse(prof, wall_us):
+    """Device busy time, idle share and time by kernel family / K1 kernel /
+    name for one profiled window of ``wall_us`` microseconds."""
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name, by_family = defaultdict(float), defaultdict(float)
+    counts, k1 = defaultdict(int), defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        dur = e.time_range.elapsed_us()
+        by_name[e.name] += dur
+        by_family[family(e.name)] += dur
+        counts[family(e.name)] += 1
+        if family(e.name).startswith("flash_attention"):
+            short = re.search(r"flash_\w+?_kernel", e.name).group(0)
+            k1[short][0] += dur
+            k1[short][1] += 1
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
+    return {
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "device_idle_share": 1.0 - busy / wall_us if kernels else None,
+        "kernel_launches": len(kernels),
+        "by_family_ms": {
+            k: {"ms": v / 1e3, "launches": counts[k]}
+            for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])
+        },
+        "k1_by_kernel": {
+            k: {"ms": v[0] / 1e3, "launches": v[1]} for k, v in sorted(k1.items())
+        },
+        "top_kernels_ms": {
+            k[:120]: v / 1e3
+            for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        },
+    }
+
+
+def print_breakdown(rec):
+    for fam, v in rec["by_family_ms"].items():
+        print(f"    {fam:32s} {v['ms']:9.3f} ms  {v['launches']:6d} launches")
+    for kern, v in rec["k1_by_kernel"].items():
+        print(f"      K1 {kern:29s} {v['ms']:9.3f} ms  {v['launches']:6d} launches")
+
+
+def profile_batcher(qa_solo):
+    """One round of eight concurrent /ask through phase 5's batcher, after
+    one warm-up round."""
+    gen = qa_solo.generator
+    batcher = ContinuousBatcher(gen, n_slots=8, chunk=16, cache_len=1024,
+                                kv_block_size=16, prefix_cache=True)
+    try:
+        qa = QAService(qa_solo.retriever.encoder, qa_solo.retriever.store, gen,
+                       k=3, device=gen.device, batcher=batcher)
+        batcher.warmup()
+        _ask_round(qa, ["question de préchauffage sur le patient P001"])
+        torch.cuda.synchronize()
+        before = dict(batcher.stats)
+        # device activity only: recording the worker's CPU ops would slow
+        # the host that bounds the batcher
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _ask_round(qa, list(QUESTIONS) * 2)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rec = analyse(prof, wall_us)
+        done = {k: v - before.get(k, 0) for k, v in batcher.stats.items()}
+        steps = done.get("verify_steps", 0)
+        rec.update(mode="batcher", requests=8, batcher_stats=done,
+                   ms_per_verify_step=rec["wall_ms"] / max(steps, 1),
+                   device_ms_per_verify_step=rec["device_busy_ms"] / max(steps, 1),
+                   launches_per_verify_step=rec["kernel_launches"] / max(steps, 1))
+    finally:
+        batcher.stop()
+    print(f"batcher round of 8 /ask: wall {rec['wall_ms']:.1f} ms, device busy "
+          f"{rec['device_busy_ms']:.1f} ms (idle share {rec['device_idle_share']}), "
+          f"{rec['kernel_launches']} kernels, {steps} verify steps: "
+          f"{rec['ms_per_verify_step']:.2f} ms wall and "
+          f"{rec['device_ms_per_verify_step']:.2f} ms device a step, "
+          f"{rec['launches_per_verify_step']:.0f} kernels a step", flush=True)
+    print_breakdown(rec)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the JSON report here")
+    ap.add_argument("--batcher", action="store_true",
+                    help="profile a round of eight /ask through the batcher")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_ask_profile: needs a CUDA card", file=sys.stderr)
@@ -73,61 +163,28 @@ def main(argv=None) -> int:
     print(f"card: {smi}", flush=True)
     _kernels.build()
     qa, _, _ = build_main_path(_kernels.LAUNCHES)
-    qa.ask("question de préchauffage sur le patient P001")  # warm-up
-    torch.cuda.synchronize()
-
     report = {"card": smi, "questions": []}
-    for question in QUESTIONS:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            qa.ask(question)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        by_name, by_family = defaultdict(float), defaultdict(float)
-        counts, k1 = defaultdict(int), defaultdict(lambda: [0.0, 0])
-        for e in kernels:
-            dur = e.time_range.elapsed_us()
-            by_name[e.name] += dur
-            by_family[family(e.name)] += dur
-            counts[family(e.name)] += 1
-            if family(e.name).startswith("flash_attention"):
-                short = re.search(r"flash_\w+?_kernel", e.name).group(0)
-                k1[short][0] += dur
-                k1[short][1] += 1
-        busy = busy_us(
-            (e.time_range.start, e.time_range.end) for e in kernels
-        )
-        st = qa.generator.last_stats
-        rec = {
-            "question": question,
-            "wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1.0 - busy / wall_us if kernels else None,
-            "kernel_launches": len(kernels),
-            "decoder_forwards": st["forwards"],
-            "decode_tokens": st["decode_tokens"],
-            "by_family_ms": {
-                k: {"ms": v / 1e3, "launches": counts[k]}
-                for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])
-            },
-            "k1_by_kernel": {
-                k: {"ms": v[0] / 1e3, "launches": v[1]} for k, v in sorted(k1.items())
-            },
-            "top_kernels_ms": {
-                k[:120]: v / 1e3
-                for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-            },
-        }
-        report["questions"].append(rec)
-        print(f"{question!r}: wall {rec['wall_ms']:.1f} ms, device busy "
-              f"{rec['device_busy_ms']:.1f} ms (idle share "
-              f"{rec['device_idle_share']}), {len(kernels)} kernels, "
-              f"{st['forwards']} decoder forwards", flush=True)
-        for fam, v in rec["by_family_ms"].items():
-            print(f"    {fam:32s} {v['ms']:9.3f} ms  {v['launches']:6d} launches")
-        for kern, v in rec["k1_by_kernel"].items():
-            print(f"      K1 {kern:29s} {v['ms']:9.3f} ms  {v['launches']:6d} launches")
+    if args.batcher:
+        report["batcher_round"] = profile_batcher(qa)
+    else:
+        qa.ask("question de préchauffage sur le patient P001")  # warm-up
+        torch.cuda.synchronize()
+        for question in QUESTIONS:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                qa.ask(question)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            rec = analyse(prof, wall_us)
+            st = qa.generator.last_stats
+            rec.update(question=question, decoder_forwards=st["forwards"],
+                       decode_tokens=st["decode_tokens"])
+            report["questions"].append(rec)
+            print(f"{question!r}: wall {rec['wall_ms']:.1f} ms, device busy "
+                  f"{rec['device_busy_ms']:.1f} ms (idle share "
+                  f"{rec['device_idle_share']}), {rec['kernel_launches']} kernels, "
+                  f"{st['forwards']} decoder forwards", flush=True)
+            print_breakdown(rec)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -13,8 +13,8 @@ import torch
 
 from docqa_tpu_torch.ops import _kernels
 from docqa_tpu_torch.ops.attention import (
-    attention_reference, flash_attention, plan_flash, split_bounds,
-    split_kv_reference,
+    attention_reference, flash_attention, gather_paged_kv,
+    paged_decode_attention, plan_flash, split_bounds, split_kv_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -136,3 +136,92 @@ def test_zero_length_rows_are_zero_not_nan(dev):
     got = flash_attention(q, k, v, **kw)
     assert torch.isfinite(got.float()).all()
     assert not got[0].float().any()  # lengths[0] == 0
+
+
+# paged mode: (lanes, q_len, hq, hkv, d, block_size, NB, lengths, window)
+PAGED_CASES = [
+    (8, 4, 32, 8, 128, 16, 64, [180, 260, 201, 233, 199, 250, 190, 222], None),
+    (8, 1, 32, 8, 128, 16, 64, [180, 260, 201, 233, 199, 250, 190, 1], 4096),
+    (3, 4, 8, 2, 64, 16, 40, [0, 500, 37], None),
+    (2, 4, 32, 8, 128, 16, 264, [4100, 4097], None),
+    (4, 4, 8, 8, 32, 8, 20, [150, 9, 64, 100], 50),
+]
+
+
+def _paged_inputs(dev, case):
+    """Shuffled block ids per lane, holes (id = n_blocks) past each lane's
+    live blocks, and a pool with room for every lane."""
+    S, sq, hq, hkv, d, bs, nb, lengths, window = case
+    n_blocks = S * nb
+    gen = torch.Generator(device=dev).manual_seed(S * 100 + nb)
+    pool_shape = (n_blocks * bs, hkv, d)
+    q, k_pool, v_pool = (
+        torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        for shape in ((S, sq, hq, d), pool_shape, pool_shape)
+    )
+    perm = torch.randperm(n_blocks, generator=gen, device=dev).to(torch.int32)
+    tables = torch.full((S, nb), n_blocks, dtype=torch.int32, device=dev)
+    for lane, n in enumerate(lengths):
+        used = -(-n // bs)
+        tables[lane, :used] = perm[lane * nb: lane * nb + used]
+    lengths_t = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, k_pool, v_pool, tables, lengths_t, dict(
+        block_size=bs, q_offset=(lengths_t - sq).clamp(min=0),
+        sliding_window=window,
+    )
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_kernel_matches_plain(dev, case):
+    q, k_pool, v_pool, tables, lengths, kw = _paged_inputs(dev, case)
+    before = dict(_kernels.LAUNCHES)
+    got = paged_decode_attention(q, k_pool, v_pool, tables, lengths, **kw)
+    torch.cuda.synchronize()
+    key = "flash_attention.decode_paged"
+    assert _kernels.LAUNCHES[key] == before.get(key, 0) + 1
+    # the plain version: gather + attention_reference, on the same tensors
+    k = gather_paged_kv(k_pool, tables, kw["block_size"])
+    v = gather_paged_kv(v_pool, tables, kw["block_size"])
+    want = attention_reference(
+        q, k, v, causal=True, lengths=lengths, q_offset=kw["q_offset"],
+        sliding_window=kw["sliding_window"],
+    )
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+    # and the same numbers as the contiguous path on the gathered view
+    dense = flash_attention(q, k, v, causal=True, lengths=lengths,
+                            q_offset=kw["q_offset"],
+                            sliding_window=kw["sliding_window"])
+    torch.testing.assert_close(got.float(), dense.float(), atol=1e-2, rtol=1e-2)
+
+
+def test_paged_mode_refuses_float32(dev):
+    q, k_pool, v_pool, tables, lengths, kw = _paged_inputs(dev, PAGED_CASES[2])
+    with pytest.raises(ValueError, match="decode path"):
+        paged_decode_attention(q.float(), k_pool.float(), v_pool.float(),
+                              tables, lengths, **kw)
+
+
+def test_paged_batcher_on_the_card(dev):
+    """A tiny bf16 batcher on the card: every verify step's attention is a
+    paged launch (layers x verify steps) and every request answers."""
+    from docqa_tpu_torch.config import DecoderConfig, GenerateConfig
+    from docqa_tpu_torch.engines.generate import GenerateEngine
+    from docqa_tpu_torch.engines.serve import ContinuousBatcher
+
+    cfg = DecoderConfig(vocab_size=256, hidden_dim=256, num_layers=2,
+                        num_heads=8, num_kv_heads=2, head_dim=64,
+                        mlp_dim=512, max_seq_len=512)
+    eng = GenerateEngine(cfg, GenerateConfig(max_new_tokens=24), seed=1,
+                         device=dev)
+    b = ContinuousBatcher(eng, n_slots=4, chunk=8, cache_len=512)
+    try:
+        before = _kernels.LAUNCHES["flash_attention.decode_paged"]
+        prompts = [[3 + i] + list(range(5, 5 + 30 * i)) for i in range(6)]
+        handles = [b.submit_ids(p, prefix_key="k") for p in prompts]
+        outs = [h.result(timeout=300) for h in handles]
+        launched = _kernels.LAUNCHES["flash_attention.decode_paged"] - before
+        assert all(len(o) > 0 for o in outs)
+        assert launched == cfg.num_layers * b.stats["verify_steps"] > 0
+    finally:
+        b.stop()
+    assert b._alloc.blocks_in_use == 0

@@ -36,7 +36,19 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
                 and sys.modules[m] is not None)
 print("LOADED", loaded)
+print("PORT", sorted(m for m in sys.modules if m.startswith("docqa_tpu_torch.")))
 """
+
+# the batcher slice's modules: each must be imported by the blocked-import
+# subprocess and read by the AST scan
+BATCHER_MODULES = (
+    "docqa_tpu_torch.engines.paged",
+    "docqa_tpu_torch.engines.qos",
+    "docqa_tpu_torch.engines.serve",
+    "docqa_tpu_torch.engines.spine",
+    "docqa_tpu_torch.resilience.deadline",
+    "docqa_tpu_torch.service.qa",
+)
 
 
 def _python_files():
@@ -57,6 +69,15 @@ def test_imports_with_jax_and_reference_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout
+    port_line = next(line for line in out.stdout.splitlines() if line.startswith("PORT"))
+    for mod in BATCHER_MODULES:
+        assert f"'{mod}'" in port_line, mod
+
+
+def test_ast_scan_covers_the_batcher_modules():
+    scanned = {os.path.relpath(p, REPO) for p in _python_files()}
+    for mod in BATCHER_MODULES:
+        assert mod.replace(".", os.sep) + ".py" in scanned, mod
 
 
 def test_ast_scan_finds_no_forbidden_import():
@@ -123,3 +144,32 @@ def test_flash_wrapper_rejects_other_devices():
     q = torch.zeros((1, 2, 1, 32), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention(q, q, q)
+
+
+def test_batcher_runs_on_its_engine_device_only():
+    """The batcher takes its device from the engine (which raised without
+    a card unless given the CPU), and the service refuses a batcher on
+    another device."""
+    from docqa_tpu_torch.engines.encoder import EncoderEngine
+    from docqa_tpu_torch.engines.generate import GenerateEngine
+    from docqa_tpu_torch.engines.serve import ContinuousBatcher
+    from docqa_tpu_torch.index.store import VectorStore
+    from docqa_tpu_torch.service.qa import QAService
+
+    dec_cfg = DecoderConfig(vocab_size=64, hidden_dim=32, num_layers=1,
+                            num_heads=1, num_kv_heads=1, head_dim=32,
+                            mlp_dim=32, max_seq_len=128, dtype="float32")
+    enc_cfg = EncoderConfig(vocab_size=64, hidden_dim=32, num_layers=1,
+                            num_heads=1, mlp_dim=32, max_seq_len=16,
+                            embed_dim=32, dtype="float32")
+    gen = GenerateEngine(dec_cfg, GenerateConfig(), device="cpu")
+    b = ContinuousBatcher(gen, n_slots=1, chunk=2)
+    try:
+        assert b.device == torch.device("cpu")
+        b.device = torch.device("meta")  # as if on another device
+        with pytest.raises(ValueError, match="batcher on meta"):
+            QAService(EncoderEngine(enc_cfg, device="cpu"),
+                      VectorStore(StoreConfig(dim=32), device="cpu"), gen,
+                      device="cpu", batcher=b)
+    finally:
+        b.stop()
