@@ -15,10 +15,10 @@ Phases, each of which fails the run on any error (nothing is caught):
    first port's SIMT kernel on the same bf16 inputs, the plain version,
    the library yardstick (masked, and over the live slice where that is
    expressible) and the roofline bound.  K1's paged mode (the batcher's
-   verify step through a block table: 8 lanes, K=4, shuffled blocks with
-   holes) is held against its plain version too, and timed beside
-   gather + masked SDPA and the reference's TPU route, gather + K1's
-   contiguous decode path.
+   verify step through a block table: 8 and 16 lanes, K=4, shuffled blocks
+   with holes, idle lanes) is held against its plain version too, and
+   timed beside gather + masked SDPA and the reference's TPU route, gather
+   + K1's contiguous decode path.
 3. main path: /ask end to end through ``QAService.ask`` at full width —
    MiniLM-L6 encoder, a 1,000,000-row bf16 store, Mistral-7B-width decoder
    in bf16 with random seeded weights, greedy with K=4 speculation — with
@@ -35,8 +35,26 @@ Phases, each of which fails the run on any error (nothing is caught):
    submitted alone gives first-step logits (taken from the batcher's own
    prefill dispatch) within ``FIRST_STEP_RTOL`` of the solo engine's, and
    the batcher delivers their argmax.
+6. main path through the replica pool: phase 3's service over
+   ``EnginePool(PoolConfig(replicas=2, n_slots=16), QoSConfig())`` with the
+   decoder breaker and ``ResilienceConfig`` (every /ask under a 60 s
+   deadline).  A1 (reported): round A's asks through one replica.  Two
+   prompts at once, one on each replica, give first-step logits within
+   ``FIRST_STEP_RTOL`` of solo's.  A: 16 concurrent /ask, none degraded,
+   both replicas routed, decode_paged launches = 32 x the pool's verify
+   steps, blocks after the drain = the prefix caches' pins.  B: a worker crash injected mid-round;
+   every answer generated or degraded ``replica_died``, no waiter hangs,
+   the replica rebuilt healthy within ``REBUILD_LIMIT_S``, reserved memory
+   within one replica pool.  C: a rolling restart under 8 /ask drops and
+   degrades nothing.  D: a 1-replica pool with preemption on, sized to hold
+   eight batch requests, takes four interactive /ask: at least one
+   preemption, nothing degraded, every batch request completes with its
+   earlier tokens kept, no block leaked.  E: a decoder outage degrades
+   ``decoder_error`` until the breaker trips, then ``decoder_breaker_open``;
+   after the outage and the breaker's reset a plain answer comes back.
 
-Prints the kernels JSON line, the nvidia-smi line, and last the ok line.
+Prints the pool JSON line, the kernels JSON line, the nvidia-smi line, and
+last the ok line.
 Exits non-zero when CUDA is unavailable or any phase fails.
 """
 
@@ -45,6 +63,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -53,17 +72,20 @@ import subprocess
 import sys
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
 
 from docqa_tpu_torch.config import (
-    DecoderConfig, EncoderConfig, GenerateConfig, StoreConfig,
+    DecoderConfig, EncoderConfig, GenerateConfig, PoolConfig, QoSConfig,
+    ResilienceConfig, StoreConfig,
 )
 from docqa_tpu_torch.engines import paged as paged_mod
 from docqa_tpu_torch.engines import serve as serve_mod
 from docqa_tpu_torch.engines.encoder import EncoderEngine
 from docqa_tpu_torch.engines.generate import GenerateEngine
+from docqa_tpu_torch.engines.pool import EnginePool
 from docqa_tpu_torch.engines.serve import ContinuousBatcher
 from docqa_tpu_torch.index.store import VectorStore
 from docqa_tpu_torch.models.decoder import (
@@ -71,6 +93,10 @@ from docqa_tpu_torch.models.decoder import (
 )
 from docqa_tpu_torch.ops import _kernels
 from docqa_tpu_torch.ops import attention as attn
+from docqa_tpu_torch.resilience import (
+    BreakerBoard, Deadline, FaultPlan, FaultRule, faults,
+)
+from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY
 from docqa_tpu_torch.service.qa import QA_TEMPLATE, QAService
 from docqa_tpu_torch.utils import pick_bucket, round_up
 
@@ -310,13 +336,16 @@ def run_kernel_cases():
 def paged_cases():
     """The batcher's verify step at Mistral widths and with Mistral's
     4,096-token sliding window, as the main path passes it (8 lanes, K=4,
-    16-token blocks, NB=64: the 1,024-row capacity of phase 5), and the
-    same over ~4,100 live rows per lane, where the window cuts the first
-    rows."""
+    16-token blocks, NB=64: the 1,024-row capacity of phase 5), the same
+    over ~4,100 live rows per lane, where the window cuts the first rows,
+    and a replica of phase 6 (16 lanes over a pool of 16 x 64 blocks, half
+    of them idle: their table rows all holes, as a free slot's are)."""
     mistral = dict(hq=32, hkv=8, d=128, sq=4, block_size=16, window=4096)
     return [
         dict(name="mistral_paged_verify", lanes=8, nb=64, live=(180, 260), **mistral),
         dict(name="mistral_paged_verify_4k", lanes=8, nb=264, live=(4090, 4110), **mistral),
+        dict(name="mistral_paged_verify_16", lanes=16, idle=8, nb=64, live=(180, 300),
+             **mistral),
     ]
 
 
@@ -339,9 +368,12 @@ def run_paged_cases():
         lengths_np = rng.integers(case["live"][0], case["live"][1] + 1, S)
         perm = rng.permutation(n_blocks)
         tables_np = np.full((S, nb), n_blocks, np.int32)  # holes past the live blocks
-        for lane, n in enumerate(lengths_np):
+        busy = S - case.get("idle", 0)  # the last lanes idle: no block, any length
+        for lane, n in enumerate(lengths_np[:busy]):
             used = -(-int(n) // bs)
             tables_np[lane, :used] = perm[lane * nb: lane * nb + used]
+        if busy < S:
+            lengths_np[busy:] = rng.integers(sq, case["live"][1] + 1, S - busy)
         tables = torch.from_numpy(tables_np).to(dev)
         lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(dev)
         q_offset = lengths - sq
@@ -507,6 +539,7 @@ def run_main_path(counts, qa, params, enc_launches):
         t0 = time.perf_counter()
         out = qa.ask(question)
         latency = time.perf_counter() - t0
+        _no_degraded("solo /ask", [out])
         delta = {key: counts[key] - before.get(key, 0) for key in PATH_KEYS}
         launched = counts["flash_attention"] - before.get("flash_attention", 0)
         st = dict(generator.last_stats)
@@ -594,6 +627,7 @@ def run_reference_check():
         generator = GenerateEngine(dec_cfg, gen_cfg, seed=2, device=device)
         qa = QAService(encoder, store, generator, k=3, device=device)
         answers[device] = ([qa.ask(q) for q in QUESTIONS], emb)
+        _no_degraded(f"tiny /ask on {device}", answers[device][0])
     (ans_gpu, emb_gpu), (ans_cpu, emb_cpu) = answers["cuda"], answers["cpu"]
     emb_err = float(np.abs(emb_gpu - emb_cpu).max())
     if emb_err > 1e-4 or ans_gpu != ans_cpu:
@@ -619,44 +653,19 @@ def run_reference_check():
 FIRST_STEP_RTOL = 5e-2
 
 
-def first_step(qa, batcher, question):
-    """The first step of ``question``'s /ask prompt through the batcher and
-    through the solo engine, bf16 on the card.  The prompt alone is
-    submitted to the idle batcher with ``max_new_tokens=1`` (admission,
-    packing, the prefill program and the pipelined fetch as any request
-    takes them) while a tap on the batcher's ragged prefill forward keeps
-    the logits that dispatch computed; the solo logits come from the solo
-    engine's bucketed prefill through K1.  Returns (solo logits, served
-    logits, the token the batcher delivered, prompt length)."""
-    gen = qa.generator
-    cfg, dev = gen.cfg, gen.device
+def first_step_prompt(qa, question, usable):
+    """``question``'s /ask prompt (retrieval at the service's k) and its
+    token ids as the batcher truncates them to ``usable`` tokens."""
     hits = qa.retriever.search_texts([question], k=qa.k)[0]
     chunks = [h.metadata.get("text_content", h.metadata.get("source", "")) for h in hits]
     prompt = QA_TEMPLATE.format(context="\n\n".join(chunks), question=question)
-    ids = gen.encode_prompt(prompt, batcher.cache_len - 2 - batcher.spec_k)
-    n = len(ids)
+    return prompt, qa.generator.encode_prompt(prompt, usable)
 
-    taken = []
-    forward = serve_mod.ragged_prefill_forward
 
-    def tap(*args, **kwargs):
-        logits = forward(*args, **kwargs)
-        taken.append(logits.clone())  # on the batcher's stream, in order
-        return logits
-
-    serve_mod.ragged_prefill_forward = tap
-    try:
-        delivered = batcher.submit_text(prompt, max_new_tokens=1).result(timeout=600)
-    finally:
-        serve_mod.ragged_prefill_forward = forward
-    torch.cuda.synchronize()
-    if len(taken) != 1 or len(delivered) != 1:
-        raise AssertionError(
-            f"one prefill dispatch and one token expected, got {len(taken)} "
-            f"dispatches and tokens {delivered}"
-        )
-    served = taken[0][0]  # the prompt is the round's only lane
-
+def solo_first_step(gen, ids):
+    """First-step logits of ``ids`` from the solo engine's bucketed prefill
+    through K1, bf16 on the card."""
+    cfg, dev, n = gen.cfg, gen.device, len(ids)
     with torch.inference_mode():
         bucket = pick_bucket(n, gen.gen.prefill_buckets)
         solo_ids = torch.full((1, bucket), gen.gen.pad_id, dtype=torch.long, device=dev)
@@ -668,7 +677,89 @@ def first_step(qa, batcher, question):
             attn_lengths=torch.tensor([n], dtype=torch.int32, device=dev),
             last_token_only=True,
         )[0, 0]
-    return solo.float(), served.float(), delivered[0], n
+    return solo.float()
+
+
+def served_first_step(submit, items):
+    """The first step of each ``(prompt, ids, submit kwargs)`` as a batcher
+    (or a pool of them) serves it: every prompt is submitted at once with
+    ``max_new_tokens=1`` (admission, packing, the prefill program and the
+    pipelined fetch as any request takes them) while a tap on the batcher's
+    ragged prefill forward keeps the logits of each lane whose packed tokens
+    are one prompt's ``ids`` from position 0 (a concurrent canary's lane is
+    not taken).  Returns [(served logits, the token delivered)] in order."""
+    wants = [torch.tensor(ids) for _p, ids, _kw in items]
+    taken = [[] for _ in items]
+    forward = serve_mod.ragged_prefill_forward
+
+    def tap(params, cfg, pools, ids_t, seg, pos, dest, last_rows, **kw):
+        logits = forward(params, cfg, pools, ids_t, seg, pos, dest, last_rows, **kw)
+        seg_h, ids_h, pos_h = seg.cpu(), ids_t.cpu(), pos.cpu()
+        for lane in range(last_rows.shape[0]):
+            mine = seg_h == lane
+            for i, want in enumerate(wants):
+                if (int(mine.sum()) == len(want) and int(pos_h[mine][0]) == 0
+                        and torch.equal(ids_h[mine], want)):
+                    taken[i].append(logits[lane].float().clone())
+        return logits
+
+    serve_mod.ragged_prefill_forward = tap
+    try:
+        handles = [submit(prompt, max_new_tokens=1, **kw) for prompt, _ids, kw in items]
+        delivered = [h.result(timeout=600) for h in handles]
+    finally:
+        serve_mod.ragged_prefill_forward = forward
+    torch.cuda.synchronize()
+    if [len(t) for t in taken] != [1] * len(items) or any(len(d) != 1 for d in delivered):
+        raise AssertionError(
+            f"one prefill lane and one token per prompt expected, got "
+            f"{[len(t) for t in taken]} lanes and tokens {delivered}"
+        )
+    return [(t[0], d[0]) for t, d in zip(taken, delivered)]
+
+
+def check_first_step(where, solo_logits, served_logits, token, n_prompt):
+    """Served first-step logits within ``FIRST_STEP_RTOL`` relative RMS of
+    solo's, the delivered token their argmax (and solo's past a decisive
+    top-2 gap); returns the record."""
+    diff = served_logits - solo_logits
+    rel = float(diff.norm() / solo_logits.norm())
+    top2 = solo_logits.topk(2).values
+    gap = float(top2[0] - top2[1])
+    max_abs = float(diff.abs().max())
+    # a solo top-2 gap wider than twice the largest logit difference
+    # cannot flip the argmax: then the delivered token must be solo's
+    decisive = gap > 2 * max_abs
+    rec = {
+        "prompt_tokens": n_prompt, "rel_rms_diff": rel,
+        "max_abs_diff": max_abs,
+        "solo_logit_rms": float(solo_logits.pow(2).mean().sqrt()),
+        "solo_top2_gap": gap,
+        "delivered_token": token,
+        "served_argmax": int(served_logits.argmax()),
+        "solo_argmax": int(solo_logits.argmax()),
+        "tolerance_rel_rms": FIRST_STEP_RTOL,
+    }
+    log(f"  first step through the {where} vs solo ({n_prompt}-token prompt): "
+        f"logits relative RMS diff {rel:.3e} (tolerance {FIRST_STEP_RTOL}), max |diff| "
+        f"{max_abs:.3e}; delivered token {token}, served argmax "
+        f"{rec['served_argmax']}, solo argmax {rec['solo_argmax']} "
+        f"(solo top-2 gap {gap:.3e}, {'asserted' if decisive else 'reported'})")
+    if not rel <= FIRST_STEP_RTOL:
+        raise AssertionError(f"{where} vs solo first-step logits differ: {rec}")
+    if token != rec["served_argmax"]:
+        raise AssertionError(f"the {where} delivered another token than its logits' argmax: {rec}")
+    if decisive and token != rec["solo_argmax"]:
+        raise AssertionError(f"{where} and solo first tokens differ past a decisive gap: {rec}")
+    return rec
+
+
+def _no_degraded(where, outs):
+    """Phases 3-5 run no fault and no deadline: every answer is generated."""
+    bad = [(o.get("degrade_reason"), o.get("answer", "")[:60]) for o in outs
+           if o.get("degraded")]
+    if bad:
+        raise AssertionError(f"{where}: degraded answers {bad}")
 
 
 def _ask_round(qa, questions):
@@ -696,6 +787,7 @@ def _ask_round(qa, questions):
     for q, out, _lat in results:
         if not isinstance(out, dict):
             raise AssertionError(f"batcher /ask {q!r} failed: {out!r}")
+    _no_degraded("batcher /ask", [r[1] for r in results])
     return results
 
 
@@ -730,37 +822,11 @@ def run_batcher_path(counts, qa_solo, solo_per_q):
             f"of KV), token budgets {batcher._token_buckets}; warmed in "
             f"{time.perf_counter() - t0:.1f} s")
 
-        solo_logits, served_logits, token, n_prompt = first_step(qa, batcher, QUESTIONS[0])
-        diff = served_logits - solo_logits
-        rel = float(diff.norm() / solo_logits.norm())
-        solo_rms = float(solo_logits.pow(2).mean().sqrt())
-        top2 = solo_logits.topk(2).values
-        gap = float(top2[0] - top2[1])
-        max_abs = float(diff.abs().max())
-        # a solo top-2 gap wider than twice the largest logit difference
-        # cannot flip the argmax: then the delivered token must be solo's
-        decisive = gap > 2 * max_abs
-        logit_check = {
-            "prompt_tokens": n_prompt, "rel_rms_diff": rel,
-            "max_abs_diff": max_abs,
-            "solo_logit_rms": solo_rms,
-            "solo_top2_gap": gap,
-            "delivered_token": token,
-            "served_argmax": int(served_logits.argmax()),
-            "solo_argmax": int(solo_logits.argmax()),
-            "tolerance_rel_rms": FIRST_STEP_RTOL,
-        }
-        log(f"  first step through the batcher vs solo ({n_prompt}-token prompt): "
-            f"logits relative RMS diff {rel:.3e} (tolerance {FIRST_STEP_RTOL}), max |diff| "
-            f"{logit_check['max_abs_diff']:.3e}; delivered token {token}, served argmax "
-            f"{logit_check['served_argmax']}, solo argmax {logit_check['solo_argmax']} "
-            f"(solo top-2 gap {gap:.3e}, {'asserted' if decisive else 'reported'})")
-        if not rel <= FIRST_STEP_RTOL:
-            raise AssertionError(f"batcher vs solo first-step logits differ: {logit_check}")
-        if token != logit_check["served_argmax"]:
-            raise AssertionError(f"the batcher delivered another token than its logits' argmax: {logit_check}")
-        if decisive and token != logit_check["solo_argmax"]:
-            raise AssertionError(f"batcher and solo first tokens differ past a decisive gap: {logit_check}")
+        prompt, ids = first_step_prompt(qa, QUESTIONS[0],
+                                        batcher.cache_len - 2 - batcher.spec_k)
+        [(served, token)] = served_first_step(batcher.submit_text, [(prompt, ids, {})])
+        logit_check = check_first_step("batcher", solo_first_step(gen, ids), served,
+                                       token, len(ids))
 
         # the plain versions, counted while the two rounds run: none of the
         # flash wrappers may take them on the card (the ragged prefill
@@ -894,6 +960,432 @@ def run_batcher_path(counts, qa_solo, solo_per_q):
         batcher.stop()
 
 
+# ---- phase 6: /ask through the replica pool at full width -------------------
+
+# Rounds B-E pass this budget to every /ask, not the reference's 8 s: the
+# host's clock spread 2x between runs of the same code (PERF.md section 4)
+POOL_DEADLINE_S = 60.0
+# a dead replica must be healthy again within this many seconds
+REBUILD_LIMIT_S = 30.0
+# round E's decoder breaker: the reference's 5-failure threshold, its 30 s
+# reset cut to 2 s so the drill waits out one reset window
+BREAKER_RESET_S = 2.0
+
+
+def _resolve_all(pend):
+    """Wait for every (question, t0, PendingAnswer) on its own thread, each
+    result taken with a timeout; returns (question, response, latency_s).
+    Fails when a waiter hangs or an /ask raised."""
+    results = [None] * len(pend)
+
+    def wait(i, q, t0, pending):
+        try:
+            out = pending.resolve(timeout=120)
+            results[i] = (q, out, time.perf_counter() - t0)
+        except BaseException as e:  # reported below, failing the phase
+            results[i] = (q, e, None)
+
+    threads = [threading.Thread(target=wait, args=(i, *p)) for i, p in enumerate(pend)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=180)
+    hung = [pend[i][0] for i, r in enumerate(results) if r is None]
+    if hung:
+        raise AssertionError(f"pool /ask waiter(s) hung: {hung}")
+    for q, out, _lat in results:
+        if not isinstance(out, dict):
+            raise AssertionError(f"pool /ask {q!r} failed: {out!r}")
+    return results
+
+
+def _submit_round(qa, questions, req_class="interactive"):
+    pend = []
+    for q in questions:
+        t0 = time.perf_counter()
+        pend.append((q, t0, qa.ask_submit(
+            q, deadline=Deadline.after(POOL_DEADLINE_S), req_class=req_class)))
+    return pend
+
+
+def _round_record(results, wall):
+    lat = sorted(r[2] for r in results)
+    served = [r[1] for r in results if not r[1].get("degraded")]
+    n_tok = sum(len(_tokens(out["answer"])) for out in served)
+    reasons = collections.Counter(r[1]["degrade_reason"] for r in results
+                                  if r[1].get("degraded"))
+    return {"asks": len(results), "wall_s": wall,
+            "latency_p50_s": statistics.median(lat), "latency_max_s": lat[-1],
+            "answer_tokens": n_tok, "tokens_per_s": n_tok / wall,
+            "degraded": dict(reasons)}
+
+
+def _reserved_bytes() -> int:
+    """Reserved device memory once the caching allocator returned what no
+    tensor holds."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def _pool_prompt(qa, question):
+    hits = qa.retriever.search_texts([question], k=qa.k)[0]
+    chunks = [h.metadata.get("text_content", h.metadata.get("source", "")) for h in hits]
+    return QA_TEMPLATE.format(context="\n\n".join(chunks), question=question)
+
+
+def run_pool_path(counts, qa_solo):
+    """Phase 6: /ask through ``EnginePool(PoolConfig(replicas=2, n_slots=16),
+    QoSConfig())`` on phase 3's encoder, store and Mistral-7B-width weights
+    (chunk 16, capacity 1,024, 16-token blocks, prefix cache, K=4), with the
+    decoder breaker and ``ResilienceConfig`` wired as the reference's
+    ``/ask`` does.  Rounds: A1 (reported) the 16 /ask of round A through a
+    1-replica pool; A 16 concurrent /ask at 64 new tokens; B the same
+    at 32 with a worker crash injected; C a rolling restart under 8 /ask; D
+    KV preemption in a separate 1-replica pool; E the degraded path.  Before
+    A, two prompts submitted at once through the 2-replica pool, one on
+    each replica, give first-step logits within ``FIRST_STEP_RTOL`` of the
+    solo engine's.  The
+    launch counts are set to 0 just before round A1 and read after E."""
+    gen = qa_solo.generator
+    dev = gen.device
+    dec_cfg = gen.cfg
+    encoder, store = qa_solo.retriever.encoder, qa_solo.retriever.store
+    enc_layers = encoder.cfg.num_layers
+    res_cfg = ResilienceConfig()
+    # the solo side of the pool's first-step check, before the counts start:
+    # its launches compare, they do not serve
+    first = [first_step_prompt(qa_solo, q, 1024 - 2 - gen.gen.speculative_k)
+             for q in QUESTIONS[1:3]]
+    solo_fs = [solo_first_step(gen, ids) for _prompt, ids in first]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts.clear()
+    n_encodes = 0
+    rounds = {}
+
+    # ---- A1, reported and not asserted: round A's 16 /ask through ONE
+    # replica of 16 slots (the reference's default replica count), the same
+    # work on one worker thread
+    pool1 = EnginePool(gen, cfg=PoolConfig(replicas=1, n_slots=16), qos=QoSConfig(),
+                       chunk=16, cache_len=1024, device=dev)
+    try:
+        qa1 = QAService(encoder, store, gen, k=3, device=dev, batcher=pool1,
+                        breakers=BreakerBoard(res_cfg.breaker_failure_threshold,
+                                              res_cfg.breaker_reset_s),
+                        resilience=res_cfg)
+        t0 = time.perf_counter()
+        res = _resolve_all(_submit_round(qa1, QUESTIONS * 4))
+        wall = time.perf_counter() - t0
+        stats_1 = pool1.stats()
+    finally:
+        pool1.stop()
+    n_encodes += len(res)
+    rec = _round_record(res, wall)
+    rec["verify_steps"] = stats_1["verify_steps"]
+    rounds["A1"] = rec
+    log(f"  round A1 (1 replica x 16 slots, reported): 16 /ask in {wall:.3f} s, p50 "
+        f"{rec['latency_p50_s']:.3f} s max {rec['latency_max_s']:.3f} s, "
+        f"{rec['tokens_per_s']:.1f} answer tok/s, {rec['verify_steps']} verify steps, "
+        f"degraded {rec['degraded']}")
+
+    t0 = time.perf_counter()
+    pool = EnginePool(gen, cfg=PoolConfig(replicas=2, n_slots=16), qos=QoSConfig(),
+                      chunk=16, cache_len=1024, device=dev)
+    build_s = time.perf_counter() - t0
+    pool_d = None
+    try:
+        b0 = pool._replicas[0].batcher
+        pool_bytes = b0.kv_block_occupancy()["pool_bytes"]
+        log(f"  pool: 2 replicas x {b0.n_slots} slots, chunk {b0.chunk}, K={b0.spec_k}, "
+            f"{b0.n_blocks} blocks x {b0.block_size} tokens ({pool_bytes / 2**30:.2f} GiB "
+            f"of KV each), weighted-fair QoS; built and warmed in {build_s:.1f} s")
+        def make_qa(board=None):
+            board = board or BreakerBoard(res_cfg.breaker_failure_threshold,
+                                          res_cfg.breaker_reset_s)
+            return QAService(encoder, store, gen, k=3, device=dev, batcher=pool,
+                             breakers=board, resilience=res_cfg)
+
+        def routed():
+            return [r["routed"] for r in pool.status()["replicas"]]
+
+        # two prompts at once, one on each replica (session affinity on the
+        # prefix key), their prefills on the two worker threads and streams
+        keys = [next(f"fs{j}" for j in range(64)
+                     if zlib.crc32(f"fs{j}".encode()) % pool.n_replicas == i)
+                for i in range(pool.n_replicas)]
+        routed_fs = routed()
+        served = served_first_step(pool.submit_text, [
+            (prompt, ids, {"prefix_key": key}) for (prompt, ids), key in zip(first, keys)])
+        logit_check = [
+            check_first_step(f"pool replica {i}", solo, got, token, len(ids))
+            for i, (solo, (got, token), (_p, ids)) in enumerate(zip(solo_fs, served, first))]
+        if [a - b for a, b in zip(routed(), routed_fs)] != [1] * pool.n_replicas:
+            raise AssertionError(f"first-step prompts not one per replica: {routed()}")
+
+        # ---- A: 16 concurrent /ask, 64 new tokens
+        stats0 = pool.stats()
+        paged0 = counts["flash_attention.decode_paged"]
+        routed0 = routed()
+        t0 = time.perf_counter()
+        res = _resolve_all(_submit_round(make_qa(), QUESTIONS * 4))
+        wall = time.perf_counter() - t0
+        n_encodes += len(res)
+        for i in range(pool.n_replicas):
+            if not pool.drain(i, timeout=120)["drained"]:
+                raise AssertionError(f"round A: replica {i} did not drain")
+        occ = pool.kv_block_occupancy()
+        for i in range(pool.n_replicas):
+            pool.resume(i)
+        steps = pool.stats() - stats0
+        launches_a = counts["flash_attention.decode_paged"] - paged0
+        rec = _round_record(res, wall)
+        rec["routed"] = [a - b for a, b in zip(routed(), routed0)]
+        rec["verify_steps"] = steps["verify_steps"]
+        rec["blocks_after_drain"] = occ["blocks_used"]
+        rec["prefix_pins"] = occ.get("prefix_blocks", 0)
+        rounds["A"] = rec
+        want = dec_cfg.num_layers * (steps["verify_steps"] + steps["decode_steps"]
+                                     + steps["warmup_steps"])
+        if rec["degraded"]:
+            raise AssertionError(f"round A degraded answers: {rec['degraded']}")
+        if min(rec["routed"]) < 1:
+            raise AssertionError(f"round A left a replica without traffic: {rec['routed']}")
+        if launches_a != want or want < 1:
+            raise AssertionError(f"round A decode_paged launches {launches_a}, expected "
+                                 f"{dec_cfg.num_layers} x verify steps = {want}")
+        if occ["blocks_used"] != rec["prefix_pins"]:
+            raise AssertionError(f"round A: {occ['blocks_used']} blocks in use after the "
+                                 f"drain, the prefix caches pin {rec['prefix_pins']}")
+        log(f"  round A: 16 /ask in {wall:.3f} s, p50 {rec['latency_p50_s']:.3f} s max "
+            f"{rec['latency_max_s']:.3f} s, {rec['tokens_per_s']:.1f} answer tok/s, routed "
+            f"{rec['routed']}, {rec['verify_steps']} verify steps, decode_paged launches "
+            f"{want}, blocks after drain {occ['blocks_used']} = prefix pins")
+
+        # rounds B-E answer 32 new tokens: the pool's default answer length
+        pool.gen = dataclasses.replace(pool.gen, max_new_tokens=32)
+
+        # ---- B: a worker crash mid-round
+        mem_b0 = _reserved_bytes()
+        deaths0 = sum(r["deaths"] for r in pool.status()["replicas"])
+        gens0 = sum(r["generation"] for r in pool.status()["replicas"])
+        seen = {}
+        watching = threading.Event()
+
+        def watch():
+            while not watching.is_set():
+                st = pool.status()["replicas"]
+                now = time.perf_counter()
+                if "death" not in seen and sum(r["deaths"] for r in st) > deaths0:
+                    seen["death"] = now
+                if ("death" in seen and sum(r["generation"] for r in st) > gens0
+                        and all(r["state"] == "healthy" for r in st)):
+                    seen["healthy"] = now
+                    return
+                time.sleep(0.01)
+
+        watcher = threading.Thread(target=watch)
+        watcher.start()
+        t0 = time.perf_counter()
+        plan = FaultPlan([FaultRule("serve.worker_loop", at_steps=(4,))])
+        try:
+            with plan:
+                res = _resolve_all(_submit_round(make_qa(), QUESTIONS * 4))
+            wall = time.perf_counter() - t0
+            watcher.join(timeout=REBUILD_LIMIT_S + 60)
+        finally:
+            watching.set()
+        n_encodes += len(res)
+        rec = _round_record(res, wall)
+        st = pool.status()["replicas"]
+        rec["deaths"] = sum(r["deaths"] for r in st) - deaths0
+        rec["rebuild_s"] = (seen["healthy"] - seen["death"]) if "healthy" in seen else None
+        rec["fault_log"] = plan.log
+        mem_b1 = _reserved_bytes()
+        rec["memory_reserved_before"], rec["memory_reserved_after"] = mem_b0, mem_b1
+        rounds["B"] = rec
+        if not plan.log or rec["deaths"] < 1:
+            raise AssertionError(f"round B: no replica died ({plan.log}, {st})")
+        if set(rec["degraded"]) - {"replica_died"}:
+            raise AssertionError(f"round B degraded for another reason: {rec['degraded']}")
+        if rec["rebuild_s"] is None or rec["rebuild_s"] > REBUILD_LIMIT_S:
+            raise AssertionError(f"round B: the dead replica was not healthy within "
+                                 f"{REBUILD_LIMIT_S} s: {seen}, {st}")
+        if mem_b1 - mem_b0 > pool_bytes:
+            raise AssertionError(f"round B: reserved memory grew {mem_b1 - mem_b0} bytes, "
+                                 f"more than one replica pool ({pool_bytes})")
+        log(f"  round B: crash at {plan.log}, {rec['deaths']} death(s), rebuilt healthy in "
+            f"{rec['rebuild_s']:.3f} s; 16 /ask: {rec['asks'] - sum(rec['degraded'].values())} "
+            f"generated, degraded {rec['degraded']}, p50 {rec['latency_p50_s']:.3f} s; "
+            f"reserved {mem_b0 / 2**30:.2f} -> {mem_b1 / 2**30:.2f} GiB")
+
+        # ---- C: a rolling restart under 8 /ask
+        mem_c0 = _reserved_bytes()
+        gens0 = [r["generation"] for r in pool.status()["replicas"]]
+        t0 = time.perf_counter()
+        pend = _submit_round(make_qa(), QUESTIONS * 2)
+        restart = pool.rolling_restart(timeout_per_replica=120)
+        res = _resolve_all(pend)
+        wall = time.perf_counter() - t0
+        n_encodes += len(res)
+        rec = _round_record(res, wall)
+        gens1 = [r["generation"] for r in pool.status()["replicas"]]
+        mem_c1 = _reserved_bytes()
+        rec["restart"] = restart
+        rec["memory_reserved_before"], rec["memory_reserved_after"] = mem_c0, mem_c1
+        rounds["C"] = rec
+        if not restart["ok"] or rec["degraded"] or any(b <= a for a, b in zip(gens0, gens1)):
+            raise AssertionError(f"round C: restart {restart}, degraded {rec['degraded']}, "
+                                 f"generations {gens0} -> {gens1}")
+        if mem_c1 - mem_c0 > pool_bytes:
+            raise AssertionError(f"round C: reserved memory grew {mem_c1 - mem_c0} bytes, "
+                                 f"more than one replica pool ({pool_bytes})")
+        log(f"  round C: rolling restart under 8 /ask in {wall:.3f} s, 0 dropped, 0 "
+            f"degraded, generations {gens0} -> {gens1}; reserved {mem_c0 / 2**30:.2f} -> "
+            f"{mem_c1 / 2**30:.2f} GiB")
+
+        # ---- D: KV preemption in a separate 1-replica pool.  Its block pool
+        # holds exactly the eight batch requests at their full length
+        # (prompt + 64 new tokens + the grow margin, in 16-token blocks);
+        # four interactive /ask arrive once each batch lane has 32 tokens
+        prompts = [_pool_prompt(qa_solo, q) for q in QUESTIONS * 2]
+        n_encodes += len(prompts)
+        chunk, spec_k, bs, batch_new = 16, gen.gen.speculative_k, 16, 64
+        margin = 2 * (chunk + max(spec_k, 1)) + 2
+        lens = [len(gen.encode_prompt(p, 1024 - 2 - spec_k)) for p in prompts]
+        n_blocks = sum(-(-(n + batch_new + margin) // bs) for n in lens)
+        gen_d = GenerateEngine(
+            dec_cfg, dataclasses.replace(gen.gen, max_new_tokens=32, kv_block_size=bs,
+                                         kv_pool_tokens=n_blocks * bs, prefix_cache=False),
+            params=gen.params, tokenizer=gen.tokenizer, device=dev,
+        )
+        pool_d = EnginePool(gen_d, cfg=PoolConfig(replicas=1, n_slots=16),
+                            qos=QoSConfig(preemption="on"), chunk=chunk,
+                            cache_len=1024, device=dev)
+        bd = pool_d._replicas[0].batcher
+        if bd.n_blocks != n_blocks or bd._grow_margin != margin:
+            raise AssertionError(f"round D pool sized {bd.n_blocks} blocks (margin "
+                                 f"{bd._grow_margin}), expected {n_blocks} ({margin})")
+        qa_d = QAService(encoder, store, gen_d, k=3, device=dev, batcher=pool_d,
+                         breakers=BreakerBoard(res_cfg.breaker_failure_threshold,
+                                               res_cfg.breaker_reset_s),
+                         resilience=res_cfg)
+        preempted0 = DEFAULT_REGISTRY.counter("qos_preempted").value
+        t0 = time.perf_counter()
+        batch = [pool_d.submit_text(p, max_new_tokens=batch_new, req_class="batch",
+                                    deadline=Deadline.after(120)) for p in prompts]
+        end = time.monotonic() + 120
+        while (min(len(h._req.tokens) for h in batch) < 32
+               and time.monotonic() < end):
+            time.sleep(0.005)
+        before = [list(h._req.tokens) for h in batch]
+        res = _resolve_all(_submit_round(qa_d, QUESTIONS))
+        n_encodes += len(res)
+        outs = [h.result(timeout=120) for h in batch]
+        wall = time.perf_counter() - t0
+        deadline = time.monotonic() + 30
+        while pool_d.n_active and time.monotonic() < deadline:
+            time.sleep(0.01)
+        occ_d = pool_d.kv_block_occupancy()
+        stats_d = pool_d.stats()
+        rec = _round_record(res, wall)
+        rec.update({
+            "pool_blocks": n_blocks, "prompt_tokens": lens, "grow_margin": margin,
+            "batch_tokens_at_arrival": [len(b) for b in before],
+            "batch_tokens": [len(o) for o in outs],
+            "preempted": stats_d["preempted"],
+            "qos_preempted": DEFAULT_REGISTRY.counter("qos_preempted").value - preempted0,
+            "blocks_after": occ_d["blocks_used"],
+        })
+        rounds["D"] = rec
+        kept = all(o[: len(b)] == b for o, b in zip(outs, before))
+        if rec["qos_preempted"] < 1 or rec["preempted"] < 1:
+            raise AssertionError(f"round D: nothing was preempted: {rec}")
+        # every batch result() returned (none failed); a lane may end early
+        # on EOS, so lengths are reported, not asserted
+        if rec["degraded"] or not kept:
+            raise AssertionError(f"round D: degraded {rec['degraded']}, tokens kept {kept}, "
+                                 f"batch lengths {rec['batch_tokens']}")
+        if occ_d["blocks_used"] != 0:
+            raise AssertionError(f"round D: {occ_d['blocks_used']} blocks leaked")
+        log(f"  round D: {n_blocks}-block pool (prompts {lens}), 8 batch requests at "
+            f"{rec['batch_tokens_at_arrival']} tokens when 4 interactive /ask arrived; "
+            f"{rec['preempted']} preempted, interactive p50 {rec['latency_p50_s']:.3f} s, "
+            f"every batch request complete ({rec['batch_tokens']} tokens) with its "
+            f"earlier tokens kept, 0 blocks leaked")
+        pool_d.stop()
+        pool_d = None
+
+        # ---- E: the degraded path (decoder outage, then the breaker)
+        board = BreakerBoard(res_cfg.breaker_failure_threshold, BREAKER_RESET_S)
+        qa_e = make_qa(board)
+        plan = FaultPlan.from_env({"DOCQA_FAULTS": "decoder:p=1"})
+        t0 = time.perf_counter()
+        faults.install(plan)
+        try:
+            outs = [qa_e.ask(q, deadline=Deadline.after(POOL_DEADLINE_S))
+                    for q in QUESTIONS * 2]
+        finally:
+            faults.uninstall(plan)
+        reasons = [o.get("degrade_reason") for o in outs]
+        time.sleep(BREAKER_RESET_S + 0.1)
+        healthy = qa_e.ask(QUESTIONS[0], deadline=Deadline.after(POOL_DEADLINE_S))
+        n_encodes += len(outs) + 1
+        want_reasons = (["decoder_error"] * res_cfg.breaker_failure_threshold
+                        + ["decoder_breaker_open"] * (len(outs) - res_cfg.breaker_failure_threshold))
+        rounds["E"] = {"reasons": reasons, "after_reset": sorted(healthy),
+                       "breaker": board.states(), "wall_s": time.perf_counter() - t0}
+        if reasons != want_reasons or sorted(healthy) != ["answer", "sources"]:
+            raise AssertionError(f"round E: reasons {reasons}, expected {want_reasons}; "
+                                 f"after the reset {healthy}")
+        if board.states() != {"decoder": "closed"}:
+            raise AssertionError(f"round E: breaker {board.states()} after the reset")
+        log(f"  round E: decoder outage -> {reasons}; after the reset a plain "
+            f"{{answer, sources}}, breaker {board.states()}")
+
+        # ---- the launch identity over the whole phase, all three pools
+        # (their construction warm-ups included)
+        launches = dict(counts)
+        steps = pool.stats() + stats_d + stats_1
+        want = {
+            "flash_attention.decode_paged": dec_cfg.num_layers * (
+                steps["verify_steps"] + steps["decode_steps"] + steps["warmup_steps"]),
+            "flash_attention.prefill": enc_layers * n_encodes,
+            "flash_attention.decode": 0,
+            "flash_attention.simt": 0,
+        }
+        got = {key: launches.get(key, 0) for key in want}
+        if got != want:
+            raise AssertionError(f"pool phase launches {got}, expected {want}")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        summary = {
+            "rounds": rounds,
+            "routed": [r["routed"] for r in pool.status()["replicas"]],
+            "deaths": sum(r["deaths"] for r in pool.status()["replicas"]),
+            "rebuild_s": rounds["B"]["rebuild_s"],
+            "first_step": logit_check,
+            "preempted": rounds["D"]["preempted"],
+            "degraded": dict(sum((collections.Counter(rnd.get("degraded", {}))
+                                  for rnd in rounds.values()), collections.Counter(reasons))),
+            "memory_reserved_gib": {
+                f"{r}_{w}": rounds[r][f"memory_reserved_{w}"] / 2**30
+                for r in ("B", "C") for w in ("before", "after")},
+            "pool_bytes": pool_bytes,
+            "peak_device_gib": peak_gib,
+            "launches_by_path": got,
+            "steps": dict(steps),
+            "build_s": build_s,
+        }
+        log(f"  pool phase: launches {got} (= {dec_cfg.num_layers} x "
+            f"{steps['verify_steps']} verify + {steps['warmup_steps']} warm-up steps over "
+            f"the three pools), peak device memory {peak_gib:.2f} GiB")
+        return {"summary": summary, "launches": launches}
+    finally:
+        if pool_d is not None:
+            pool_d.stop()
+        pool.stop()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -909,7 +1401,7 @@ def main(argv=None) -> int:
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/5] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[1/6] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     build_logs = _kernels.build()
     build_s = time.perf_counter() - t0
@@ -918,27 +1410,33 @@ def main(argv=None) -> int:
         for kernel, regs, spills in ptxas_summary(text):
             log(f"    {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
 
-    log("[2/5] kernels against their plain versions (bf16 and float32)")
+    log("[2/6] kernels against their plain versions (bf16 and float32)")
     cases = run_kernel_cases()
     cases += run_paged_cases()
 
-    log("[3/5] main path: QAService.ask at full width")
+    log("[3/6] main path: QAService.ask at full width")
     t_main = time.perf_counter()
     qa, params, enc_launches = build_main_path(_kernels.LAUNCHES)
     per_q, launches = run_main_path(_kernels.LAUNCHES, qa, params, enc_launches)
     main_s = time.perf_counter() - t_main
 
-    log("[4/5] reference: tiny float32 /ask on the card against the CPU")
+    log("[4/6] reference: tiny float32 /ask on the card against the CPU")
     reference = run_reference_check()
 
-    log("[5/5] main path: QAService.ask through the continuous batcher at full width")
+    log("[5/6] main path: QAService.ask through the continuous batcher at full width")
     t_batch = time.perf_counter()
     batcher_path = run_batcher_path(_kernels.LAUNCHES, qa, per_q)
     batcher_s = time.perf_counter() - t_batch
+
+    log("[6/6] main path: QAService.ask through the replica pool at full width")
+    t_pool = time.perf_counter()
+    pool_path = run_pool_path(_kernels.LAUNCHES, qa)
+    pool_s = time.perf_counter() - t_pool
     del qa, params
-    # launches of both main-path runs (each counted from 0 around its run)
+    # launches of the three main-path runs (each counted from 0 around its run)
     path_launches = collections.Counter(launches["total"])
     path_launches.update(batcher_path["launches"])
+    path_launches.update(pool_path["launches"])
 
     def entry(name, source, counter, timed, path=None):
         head = next(c for c in cases if c["case"] == timed)
@@ -983,7 +1481,9 @@ def main(argv=None) -> int:
                 "main_path": per_q, "main_path_s": main_s,
                 "launches": launches, "reference": reference,
                 "batcher_path": batcher_path, "batcher_path_s": batcher_s,
+                "pool_path": pool_path, "pool_path_s": pool_s,
             }, f, indent=1)
+    print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

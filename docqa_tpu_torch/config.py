@@ -79,6 +79,9 @@ class GenerateConfig:
     # batcher: ragged-prefill packed token budgets (the batcher always adds
     # the full packed capacity of one maximal prompt)
     prefill_token_buckets: Tuple[int, ...] = (512,)
+    # how many of the SMALLEST packed token budgets EnginePool construction
+    # warms per replica (plus the decode step); 0 = none
+    startup_warm_buckets: int = 1
     max_concurrent: int = 16  # batcher decode slots
     decode_chunk: int = 16  # tokens per batcher decode dispatch
     kv_block_size: int = 16  # tokens per paged KV block
@@ -92,16 +95,75 @@ class GenerateConfig:
 
 @dataclass(frozen=True)
 class QoSConfig:
-    """Batcher admission policy (the fields of the reference's QoSConfig
-    that the admission queue reads).  KV preemption is off, the
-    reference's default; its ``preemption`` field comes with it."""
+    """Multi-tenant QoS: weighted-fair admission by request class, KV
+    preemption under block-pool pressure, and SLO-burn deferral of batch
+    traffic (the rule is ported; nothing wires a burn probe until the obs
+    slice)."""
 
+    # False: plain FIFO admission, no preemption, no deferral
     enabled: bool = True
     weight_interactive: float = 8.0
     weight_batch: float = 2.0
     weight_background: float = 1.0
     # a queue head older than this wins the next slot regardless of weight
     aging_floor_s: float = 5.0
+    # "off" never evicts; "advisory" counts would-be victims without
+    # evicting; "on" evicts lower-ranked lanes' KV blocks and requeues them
+    # with their generated tokens kept for the re-prefill
+    preemption: str = "off"
+    # a victim with less deadline than this left cannot survive a second
+    # prefill: it sheds typed instead of requeueing
+    preempt_min_resume_s: float = 0.5
+
+
+@dataclass(frozen=True)
+class ResilienceConfig:
+    """Failure-path policy of ``/ask`` (the fields of the reference's
+    ResilienceConfig that this package reads; its retry policy serves the
+    ingest slice)."""
+
+    # end-to-end /ask budget stamped at admission; 0 disables deadlines
+    request_deadline_s: float = 8.0
+    # below this remaining budget the QA path skips generation and serves
+    # the degraded extractive answer
+    min_generate_budget_s: float = 0.5
+    # decoder circuit breaker: trip after this many consecutive failures,
+    # probe again after the reset timeout
+    breaker_failure_threshold: int = 5
+    breaker_reset_s: float = 30.0
+    # cap on the degraded extractive answer built from retrieved chunks
+    degraded_max_chars: int = 600
+
+
+@dataclass(frozen=True)
+class PoolConfig:
+    """Replicated decode-engine pool (``engines/pool.py``): N continuous
+    batchers behind one submit surface, each with a liveness contract
+    (heartbeat, canary, breaker), failover for queued requests, fail-fast
+    for admitted ones, graceful drain and optional hedged dispatch."""
+
+    replicas: int = 1
+    # per-replica batcher slots; None = gen.max_concurrent
+    n_slots: Optional[int] = None
+    max_queue: int = 256
+    # a worker iteration may legitimately hold a long first-shape call;
+    # pre-warmed deployments can drop this for faster wedge detection
+    heartbeat_max_age_s: float = 60.0
+    # synthetic 2-token canary generate per idle replica
+    canary_interval_s: float = 20.0
+    canary_timeout_s: float = 30.0
+    health_interval_s: float = 0.5
+    # replica hops a queued request may make before failing typed
+    requeue_max_hops: int = 1
+    # hedged dispatch: duplicate a request with no first token after a
+    # p95-based delay onto a second replica; the first token wins
+    hedge: bool = False
+    hedge_min_delay_s: float = 0.75
+    hedge_warmup: int = 20
+    # session-affine routing on the prefix key, unless the preferred
+    # replica is more than affinity_max_queue_delta requests deeper
+    session_affinity: bool = True
+    affinity_max_queue_delta: int = 4
 
 
 @dataclass(frozen=True)

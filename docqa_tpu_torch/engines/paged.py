@@ -271,6 +271,15 @@ class BlockAllocator:
         with self._lock:
             return self._refs[int(block)]
 
+    def reclaimable(self, table: BlockTable) -> int:
+        """Blocks releasing ``table`` would return to the free list right
+        now (refcount 1: not also pinned by the prefix cache or another
+        sharer).  KV preemption ranks victims by this."""
+        with self._lock:
+            if table.released:
+                return 0
+            return sum(1 for b in table.blocks if self._refs[b] == 1)
+
     def block_seconds(self) -> Dict[str, float]:
         """``total`` = ∫ blocks_in_use dt since construction, ``billed`` =
         the sum of released tables' bills, ``residual`` = what live tables

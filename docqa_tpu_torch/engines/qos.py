@@ -1,25 +1,51 @@
-"""Multi-tenant admission policy for the continuous batcher, counterpart of
+"""Multi-tenant QoS policy for the continuous batcher, counterpart of
 ``docqa_tpu/engines/qos.py`` (host only, near verbatim).
 
 * :class:`ClassQueue` — a drop-in for the batcher's FIFO admission deque
   that keeps one deque per request class and picks the next head by
   weighted-fair queueing (deficit-style virtual time) with a
   starvation-aging floor.
-* :class:`QoSPolicy` — the configured weights and aging floor.
+* :class:`QoSPolicy` — the configured weights, aging floor, preemption
+  mode (``off`` / ``advisory`` / ``on``), class ranks for victim selection
+  and the SLO-burn deferral rule.
+* ``CLASS_RANK`` / ``DEFER_SLOS`` — the fixed policy tables.  Ranks are not
+  the weights: weights shape throughput sharing among admitted work, ranks
+  decide who may evict whom under block pressure.
 
-Not in this port yet: KV preemption (the victim ranking and the
-batcher's evict-and-requeue path; preemption is off, the reference's
-default) and SLO-burn deferral of batch traffic (it needs the burn-rate
-probe of the obs slice).  ROADMAP queue 1 lists both.
+A request's class is the ``req_class`` it was submitted with (the
+reference reads it from the request's cost record; the cost ledger comes
+with the obs slice).
 """
 
 from __future__ import annotations
 
 import collections
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
-__all__ = ["ClassQueue", "QoSPolicy", "request_class"]
+__all__ = [
+    "CLASS_RANK",
+    "DEFER_SLOS",
+    "ClassQueue",
+    "QoSPolicy",
+    "request_class",
+]
+
+# who may evict whom: preemption requires pressure rank > victim rank.
+# interactive outranks everything; background is always the first victim;
+# batch and unclassed traffic are peers (no mutual eviction)
+CLASS_RANK: Dict[str, int] = {
+    "interactive": 3,
+    "batch": 2,
+    "other": 2,
+    "background": 1,
+}
+_DEFAULT_RANK = 2
+
+# the SLO burns that defer batch-class admission: the interactive SLOs this
+# layer protects (the degraded-rate SLO is absent: degradation is often
+# caused by load shedding, and deferring on it would latch the pressure)
+DEFER_SLOS: Tuple[str, ...] = ("ask_p95_latency", "ask_availability")
 
 # deterministic class order for iteration/sweeps
 _CLASS_ORDER = ("interactive", "batch", "other", "background")
@@ -161,25 +187,36 @@ class ClassQueue:
         for q in self._queues.values():
             q.clear()
 
+    def depths(self) -> Dict[str, int]:
+        """Per-class queue depths (status snapshot)."""
+        return {c: len(q) for c, q in self._queues.items() if q}
+
 
 class QoSPolicy:
-    """The configured admission policy: class weights and the aging
-    floor.  KV preemption is off (the reference's default); the
-    reference's ``preemption`` setting comes with KV preemption (ROADMAP
-    queue 1)."""
+    """The configured QoS policy: weights, ranks, preemption mode and the
+    SLO-burn deferral rule.  Built from a ``config.QoSConfig`` by
+    :meth:`coerce`."""
 
-    __slots__ = ("weights", "aging_floor_s")
+    __slots__ = ("weights", "aging_floor_s", "preemption", "preempt_min_resume_s")
 
     def __init__(
         self,
         weights: Optional[Dict[str, float]] = None,
         aging_floor_s: float = 5.0,
+        preemption: str = "off",
+        preempt_min_resume_s: float = 0.5,
     ) -> None:
         self.weights = dict(
             weights
             or {"interactive": 8.0, "batch": 2.0, "background": 1.0}
         )
         self.aging_floor_s = float(aging_floor_s)
+        if preemption not in ("off", "advisory", "on"):
+            raise ValueError(
+                f"preemption must be off|advisory|on, got {preemption!r}"
+            )
+        self.preemption = preemption
+        self.preempt_min_resume_s = float(preempt_min_resume_s)
 
     @classmethod
     def coerce(cls, qos) -> Optional["QoSPolicy"]:
@@ -196,7 +233,42 @@ class QoSPolicy:
                 "background": float(getattr(qos, "weight_background", 1.0)),
             },
             aging_floor_s=float(getattr(qos, "aging_floor_s", 5.0)),
+            preemption=str(getattr(qos, "preemption", "off")),
+            preempt_min_resume_s=float(getattr(qos, "preempt_min_resume_s", 0.5)),
         )
+
+    # ---- ranks / victims -------------------------------------------------
+
+    @staticmethod
+    def rank(cls_name: Optional[str]) -> int:
+        return CLASS_RANK.get(cls_name or "other", _DEFAULT_RANK)
+
+    @staticmethod
+    def order_victims(
+        holders: Sequence[Tuple[int, str, int]], pressure_cls: str
+    ) -> List[Tuple[int, str, int]]:
+        """Order ``(slot, class, reclaimable_blocks)`` holders into the
+        eviction sequence for ``pressure_cls``: only strictly lower-ranked
+        holders qualify, lowest rank first, most reclaimable blocks first
+        within a rank, slot index as the final tiebreak."""
+        p = QoSPolicy.rank(pressure_cls)
+        eligible = [h for h in holders if QoSPolicy.rank(h[1]) < p]
+        eligible.sort(key=lambda h: (QoSPolicy.rank(h[1]), -h[2], h[0]))
+        return eligible
+
+    # ---- deferral --------------------------------------------------------
+
+    def should_defer(self, cls_name: str, firing: Sequence[str]) -> bool:
+        """Defer ``cls_name`` admission given the firing SLO burns?  Only
+        batch is ever deferred: interactive is the protected class and
+        background carries the pool's canaries.  Ported for parity; nothing
+        in this package wires a burn probe yet (it needs the obs slice's
+        burn-rate evaluator), so the batcher and pool never call it with a
+        firing SLO, and the reference's ``defer_batch_on_burn`` switch stays
+        out with it (the rule is the reference's default, on)."""
+        if cls_name != "batch":
+            return False
+        return any(name in DEFER_SLOS for name in firing)
 
     def make_queue(self, now_fn=None) -> ClassQueue:
         return ClassQueue(
@@ -204,3 +276,13 @@ class QoSPolicy:
             aging_floor_s=self.aging_floor_s,
             now_fn=now_fn,
         )
+
+    def status(self) -> Dict[str, Any]:
+        return {
+            "weights": dict(self.weights),
+            "aging_floor_s": self.aging_floor_s,
+            "preemption": self.preemption,
+            # the reference's default: the switch waits for the obs slice
+            "defer_batch_on_burn": True,
+            "preempt_min_resume_s": self.preempt_min_resume_s,
+        }

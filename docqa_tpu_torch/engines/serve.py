@@ -45,11 +45,30 @@ the batch shape, so the port states a weaker guarantee:
   tolerance of the solo engine's (``chip_smoke.py`` holds it), tokens
   allowed to diverge where two logits tie within bf16 rounding.
 
+KV preemption (``QoSConfig.preemption``): under block-pool pressure a
+higher-ranked request evicts lower-ranked lanes (``engines/qos.py``), at
+admission or when a live lane cannot grow.  A victim keeps its delivered
+tokens and requeues (through the replica pool's ``on_preempt`` hook when
+one is wired); its next admission re-prefills prompt + generated tokens, so
+its stream never rewinds.  In float32 on the CPU the resumed stream equals
+the unpreempted one; on the card the re-prefill computes the K/V that
+decode computed before, so later tokens may part on bf16 ties.
+
+Liveness contract (``engines/pool.py`` reads it): the worker stamps a
+heartbeat every iteration and idle wakeup; ``cold`` holds until warm-up or
+the first decode chunk, so a first-shape call is never read as a wedge;
+``n_admitting`` shows work popped from the queue but not yet
+slot-resident.  Fault sites: ``serve.worker_loop`` (top of each iteration)
+and ``serve.decode_chunk`` (before each chunk's fetch).
+
+A kernel or CUDA fault (``ops/_kernels.is_device_fault``) is never reset
+around: the worker dies with it, and every request it holds, queued ones
+included, fails with that original error.
+
 Not in this port yet, each left out rather than stubbed: the trace spans
-and events, the cost ledger and shed forensics, metrics counters (a plain
-``stats`` counter stands in), fault-injection sites, KV preemption, the
-SLO probe and batch deferral, ``annotate_costs``, the mesh, and the replica
-pool's hooks (``on_worker_death`` is kept: the death path is tested).
+and events, the cost ledger and shed forensics, the SLO probe and batch
+deferral, ``annotate_costs``, the mesh.  A plain ``stats`` counter stands
+beside the metrics registry's counters.
 """
 
 from __future__ import annotations
@@ -76,12 +95,17 @@ from docqa_tpu_torch.engines.paged import (
     ragged_prefill_forward,
     share_alignment,
 )
-from docqa_tpu_torch.engines.qos import QoSPolicy
+from docqa_tpu_torch.engines.qos import QoSPolicy, request_class
 from docqa_tpu_torch.engines.spine import Lane
+from docqa_tpu_torch.ops._kernels import is_device_fault
 from docqa_tpu_torch.ops.attention import RAGGED_ALIGN
 from docqa_tpu_torch.ops.sampling import sample
+from docqa_tpu_torch.resilience import faults
 from docqa_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
+from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger
 from docqa_tpu_torch.utils import round_up
+
+log = get_logger("docqa.serve")
 
 
 @dataclass
@@ -105,8 +129,10 @@ class _Request:
     # prefix-cache key (for /ask: template hash + chunk-set hash); None =
     # always cold
     prefix_key: Optional[str] = None
-    # admission class for the QoS queue
+    # admission class for the QoS queue and preemption ranks
     req_class: str = "interactive"
+    # replica hops taken by pool failover / preemption requeue
+    hops: int = 0
 
 
 def make_request(
@@ -190,6 +216,11 @@ class Handle:
     def cancel(self) -> None:
         """Best-effort cancellation (see :class:`_Request`)."""
         self._req.cancelled = True
+
+    @property
+    def started(self) -> bool:
+        """A first token arrived, or the request is already finished."""
+        return bool(self._req.tokens) or self._req.done.is_set()
 
     def iter_tokens(self, timeout: Optional[float] = DEFAULT_RESULT_TIMEOUT):
         """Stream token ids as decode chunks land: every token exactly once,
@@ -374,6 +405,9 @@ class ContinuousBatcher:
         # slots retired on the host whose device `active` lane is not
         # cleared yet: applied first in the next device work item
         self._deact_pending: List[int] = []
+        # id() of the queue head last counted block-starved: one count per
+        # starvation episode, not per worker poll (guarded by _cv)
+        self._block_wait_marked: Optional[int] = None
 
         self._qos: Optional[QoSPolicy] = QoSPolicy.coerce(qos)
         if self._qos is not None:
@@ -386,12 +420,27 @@ class ContinuousBatcher:
         # by _cv): drain() counts them as pending, and the death/kill sweeps
         # must see them
         self._admitting_reqs: List[_Request] = []
+        # liveness contract (engines/pool.py): the worker stamps _beat every
+        # loop iteration and idle wakeup, so a stale beat with work pending
+        # is a wedge inside one iteration, not idleness
+        self._beat = time_monotonic()
+        # last processed decode chunk: recent progress is a passed canary
+        self._last_progress = 0.0
+        # True until warmup() completes or the first decode chunk lands: a
+        # cold iteration may hold a kernel build or a first-shape call
+        self._cold = True
         self._worker_dead = False
         self._death_cause: Optional[BaseException] = None
+        # the kernel or CUDA fault the worker died of, if it did
+        self.device_fault: Optional[BaseException] = None
         self._draining = False
         # called from the dying worker with (batcher, queued requests);
         # returns the requests it could NOT rescue
         self.on_worker_death = None
+        # called from the worker (outside _cv) with (batcher, victim) when a
+        # preemption victim needs a requeue; True when the hook placed,
+        # parked or typed-failed it, else it requeues locally
+        self.on_preempt = None
         self._worker = threading.Thread(
             target=self._run, daemon=True, name="continuous-batcher"
         )
@@ -572,14 +621,20 @@ class ContinuousBatcher:
         self._lengths = torch.zeros((S,), dtype=torch.int32, device=dev)
         self._active = torch.zeros((S,), dtype=torch.bool, device=dev)
 
-    def warmup(self) -> None:
-        """Run every program shape once on throwaway state before traffic:
-        one ragged prefill per packed token budget (and its warm variant
-        with the prefix cache on) and one decode/verify step.  This builds
-        the kernel library and pays first-call costs; live slots are
-        untouched."""
+    def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
+        """Run the admission path's shapes once on throwaway state before
+        traffic: one ragged prefill per packed token budget (and its warm
+        variant with the prefix cache on) and one decode/verify step.  This
+        builds the kernel library and pays first-call costs; live slots are
+        untouched.  ``buckets`` narrows the budgets to those the given
+        prompt sizes pack into (default: every budget).  A kernel that
+        fails to build or launch raises here.  Clears :attr:`cold`."""
         S, dev = self.n_slots, self.device
         nb = self.blocks_per_seq
+        if buckets is None:
+            warm = list(self._token_buckets)
+        else:
+            warm = sorted({self._pick_token_bucket(int(b)) for b in buckets})
 
         with self._lane.active():
             pools = init_paged_pools(
@@ -587,7 +642,7 @@ class ContinuousBatcher:
                 dtype=self.engine.params["tok_emb"].dtype, device=dev,
             )
             sentinel = torch.full((S, nb), nb, dtype=torch.int32, device=dev)
-            for T in self._token_buckets:
+            for T in warm:
                 pad = torch.full((T,), -1, dtype=torch.long, device=dev)
                 zeros = torch.zeros((T,), dtype=torch.long, device=dev)
                 variants = [{}]
@@ -612,6 +667,9 @@ class ContinuousBatcher:
                 torch.zeros((S,), dtype=torch.int32, device=dev),
                 block_size=self.block_size, rope_len=self.seq_capacity,
             ).sum().item()
+        # one paged forward outside any chunk: launch identities count it
+        self.stats["warmup_steps"] += 1
+        self._cold = False
 
     def _pick_token_bucket(self, n_tokens: int) -> int:
         """Smallest packed token budget covering ``n_tokens`` (the largest
@@ -648,6 +706,8 @@ class ContinuousBatcher:
         """Admit an already-built :class:`_Request`."""
         with self._cv:
             if self._worker_dead:
+                if self.device_fault is not None:
+                    raise self.device_fault
                 raise WorkerDied(f"batcher worker is dead: {self._death_cause!r}")
             if self._stopped:
                 raise RuntimeError("batcher is stopped")
@@ -657,6 +717,7 @@ class ContinuousBatcher:
                     n_queued=len(self._queue), n_active=self.n_active,
                 )
             if self.max_queue is not None and len(self._queue) >= self.max_queue:
+                DEFAULT_REGISTRY.counter("serve_shed").inc()
                 n_active = self.n_active
                 if self._alloc.n_free == 0 and self._prefix_cache is not None:
                     # cached-but-idle prefixes give their blocks back
@@ -664,6 +725,7 @@ class ContinuousBatcher:
                     self._prefix_cache.evict_for(1)
                 if self._alloc.n_free == 0:
                     # the queue backed up BECAUSE the pool is dry
+                    DEFAULT_REGISTRY.counter("serve_block_shed").inc()
                     raise BlockPoolExhausted(
                         "KV block pool exhausted and generation queue at "
                         f"capacity ({self.max_queue})",
@@ -676,6 +738,7 @@ class ContinuousBatcher:
             req.t_queue = _now()
             self._queue.append(req)
             self._cv.notify_all()
+        DEFAULT_REGISTRY.counter("serve_submitted").inc()
         return Handle(req)
 
     def submit_text(
@@ -782,6 +845,46 @@ class ContinuousBatcher:
             self._draining = False
             self._cv.notify_all()
 
+    # ---- liveness contract (engines/pool.py) ---------------------------------
+
+    @property
+    def worker_alive(self) -> bool:
+        """The worker loop can still make progress (thread running and not
+        past its death handler)."""
+        return self._worker.is_alive() and not self._worker_dead
+
+    @property
+    def heartbeat_age_s(self) -> float:
+        """Seconds since the worker last stamped its heartbeat.  An idle
+        worker re-stamps every 0.5 s wakeup, so a large age with work
+        pending means the loop is wedged inside one iteration."""
+        return time_monotonic() - self._beat
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def cold(self) -> bool:
+        """True until :meth:`warmup` completes or the first decode chunk
+        lands; a monitor must not read a cold worker's stale heartbeat as a
+        wedge (its iteration may hold a kernel build)."""
+        return self._cold
+
+    @property
+    def last_progress_age_s(self) -> float:
+        """Seconds since the worker last processed a decode chunk (``inf``
+        before the first)."""
+        if not self._last_progress:
+            return float("inf")
+        return time_monotonic() - self._last_progress
+
+    @property
+    def n_admitting(self) -> int:
+        """Requests popped from the queue but not yet slot-resident: work
+        pending that neither ``n_queued`` nor ``n_active`` shows."""
+        return len(self._admitting_reqs)
+
     def steal_queued(self) -> List[_Request]:
         """Atomically take every queued-but-unadmitted request (they own no
         slot, token or block)."""
@@ -873,6 +976,185 @@ class ContinuousBatcher:
         ~0 after drain/stop)."""
         return self._alloc.block_seconds()
 
+    def pressure_by_class(self) -> Dict[str, Any]:
+        """Which request classes hold how many KV blocks, decode lanes and
+        queue slots right now.  Lock-free (it may run on a thread that
+        holds another batcher's lock): a sample racing a transition may
+        miscount one lane."""
+        by: Dict[str, Dict[str, int]] = {}
+
+        def row(cls: str) -> Dict[str, int]:
+            return by.setdefault(cls, {"kv_blocks": 0, "lanes": 0, "queued": 0})
+
+        for slot in range(self.n_slots):
+            req = self._slot_req[slot]
+            if req is None:
+                continue
+            r = row(request_class(req))
+            r["lanes"] += 1
+            table = self._slot_table[slot]
+            if table is not None:
+                r["kv_blocks"] += len(table.blocks)
+        try:
+            queued = list(self._queue)
+        except RuntimeError:  # deque mutated mid-iteration (lock-free)
+            queued = []
+        for req in queued:
+            row(request_class(req))["queued"] += 1
+        out: Dict[str, Any] = {
+            "by_class": by,
+            "free_blocks": self._alloc.n_free,
+            "blocks_total": self.n_blocks,
+        }
+        if self._prefix_cache is not None:
+            out["prefix_cache_blocks"] = int(
+                self._prefix_cache.stats()["pinned_blocks"]
+            )
+        return out
+
+    # ---- QoS: status and KV preemption ----------------------------------------
+
+    def qos_status(self) -> Dict[str, Any]:
+        """Policy state and per-class queue depths (lock-free snapshot).
+        No SLO probe is wired in this port, so nothing is ever firing."""
+        if self._qos is None:
+            return {"enabled": False}
+        out: Dict[str, Any] = {"enabled": True}
+        out.update(self._qos.status())
+        out["slo_firing"] = []
+        out["defer_active"] = self._qos.should_defer("batch", [])
+        depths = getattr(self._queue, "depths", None)
+        if depths is not None:
+            out["queued_by_class"] = depths()
+        return out
+
+    def _holders_snapshot(
+        self, exclude_slot: Optional[int] = None
+    ) -> List[Tuple[int, str, int]]:
+        """(slot, class, reclaimable blocks) of every live lane: the victim
+        selection input (exact on the worker thread, advisory elsewhere)."""
+        out = []
+        for slot in range(self.n_slots):
+            if slot == exclude_slot:
+                continue
+            req = self._slot_req[slot]
+            table = self._slot_table[slot]
+            if req is None or table is None:
+                continue
+            out.append((slot, request_class(req), self._alloc.reclaimable(table)))
+        return out
+
+    def preemption_candidates(
+        self, pressure_cls: str = "interactive"
+    ) -> List[Dict[str, Any]]:
+        """What preemption WOULD evict for ``pressure_cls`` pressure, in
+        eviction order, in every mode including ``off`` (an operator's dry
+        run)."""
+        if self._qos is None:
+            return []
+        victims = QoSPolicy.order_victims(self._holders_snapshot(), pressure_cls)
+        return [
+            {"slot": s, "class": c, "reclaimable_blocks": r}
+            for s, c, r in victims
+        ]
+
+    def _preempt_slot(self, slot: int, pressure_cls: str) -> Optional[_Request]:
+        """Evict one victim lane's KV blocks (worker thread; does not take
+        ``_cv``).  Returns the victim for the caller to requeue (its tokens
+        stay on the request for the re-prefill), or None when its deadline
+        cannot survive a second prefill: then it sheds typed here."""
+        req = self._slot_req[slot]
+        self._slot_req[slot] = None
+        cls = request_class(req)
+        self._release_slot_blocks(slot)
+        # the device lane deactivates in the next device work item
+        self._deact_pending.append(slot)
+        self.stats["preempted"] += 1
+        DEFAULT_REGISTRY.counter("qos_preempted").inc()
+        DEFAULT_REGISTRY.counter(f"qos_preempted_{cls}").inc()
+        if req.deadline is not None and (
+            req.deadline.expired
+            or req.deadline.remaining() < self._qos.preempt_min_resume_s
+        ):
+            req.error = BlockPoolExhausted(
+                f"preempted by {pressure_cls} pressure with too little "
+                "deadline budget left to re-prefill",
+                n_active=self.n_active,
+            )
+            DEFAULT_REGISTRY.counter("serve_block_shed").inc()
+            _finish(req)
+            return None
+        return req
+
+    def _requeue_preempted(self, victim: _Request) -> None:
+        """Requeue a victim: the pool's hook first (it may place it on a
+        replica with free blocks now), the local class head otherwise.
+        Called outside ``_cv``: the hook takes the pool's and other
+        replicas' locks."""
+        cb = self.on_preempt
+        if cb is not None:
+            try:
+                if cb(self, victim):
+                    return
+            except Exception:
+                log.exception("on_preempt hook failed; requeueing locally")
+        with self._cv:
+            victim.t_queue = _now()
+            self._queue.appendleft(victim)
+            self._cv.notify_all()
+
+    def _admission_preempt(
+        self, head: _Request, planned: int, need: int,
+        requeue_out: List[_Request],
+    ) -> int:
+        """Admission-side preemption (caller holds ``_cv``): evict
+        lower-ranked lanes until ``planned + need`` blocks fit.  Victims go
+        to ``requeue_out`` for the caller to requeue after it pops the head.
+        Returns the head's re-estimated block need.  Advisory mode only
+        counts, once per starvation episode."""
+        cls = request_class(head)
+        victims = QoSPolicy.order_victims(self._holders_snapshot(), cls)
+        if not victims:
+            return need
+        if self._qos.preemption == "advisory":
+            if self._block_wait_marked != id(head):
+                DEFAULT_REGISTRY.counter("qos_preempt_advisory").inc()
+            return need
+        for slot, _vcls, _reclaim in victims:
+            if self._alloc.can_alloc(planned + need):
+                break
+            victim = self._preempt_slot(slot, cls)
+            if victim is not None:
+                requeue_out.append(victim)
+            need = self._blocks_for_admission(head)
+        return need
+
+    def _grow_preempt(self, slot: int, req: _Request, table, target: int) -> bool:
+        """Mid-decode preemption (worker thread, outside ``_cv``): a live
+        lane that cannot grow evicts lower-ranked lanes, one at a time,
+        retrying the grow after each; True when the grow succeeded.  Stale
+        in-flight writes to the freed blocks land before any reuse: the
+        batcher's one stream runs its work in issue order."""
+        if self._qos is None or self._qos.preemption != "on":
+            return False
+        victims = QoSPolicy.order_victims(
+            self._holders_snapshot(exclude_slot=slot), request_class(req)
+        )
+        for vslot, _vcls, _reclaim in victims:
+            victim = self._preempt_slot(vslot, request_class(req))
+            if victim is not None:
+                self._requeue_preempted(victim)
+            try:
+                table.ensure(target)
+            except OutOfBlocks:
+                continue
+            row = self._block_rows[slot]
+            row[: len(table.blocks)] = table.blocks
+            self._caps_np[slot] = table.capacity
+            self._tables_dirty = True
+            return True
+        return False
+
     # ---- worker loop ---------------------------------------------------------
 
     def _admit_round(self, pairs: List[Tuple[int, "_Request"]]):
@@ -895,7 +1177,12 @@ class ContinuousBatcher:
                 _finish(req)
                 continue
             try:
-                ids = [int(t) for t in req.prompt_ids][-usable:] or [self.gen.pad_id]
+                # token-preserving re-prefill: a preemption victim re-admits
+                # with its generated tokens appended, so the prefill's first
+                # token is its NEXT token and its stream never rewinds
+                ids = (
+                    [int(t) for t in req.prompt_ids] + [int(t) for t in req.tokens]
+                )[-usable:] or [self.gen.pad_id]
             except (TypeError, ValueError) as e:  # bad request: fail it alone
                 req.error = e
                 _finish(req)
@@ -942,11 +1229,16 @@ class ContinuousBatcher:
         # _fail_active then releases these tables too
         for slot, req, ids, table, _shared in good:
             n_ids = len(ids)
+            # a resumed victim's delivered tokens count toward its budget
+            # (the retire check compares len(req.tokens) with it) and are
+            # part of its KV, so _slot_prompt + len(req.tokens) stays the
+            # lane's KV length
+            resumed = min(len(req.tokens), n_ids)
             self._slot_req[slot] = req
-            self._slot_budget[slot] = min(
-                req.max_new, self.cache_len - n_ids - 1 - self.spec_k
+            self._slot_budget[slot] = resumed + min(
+                req.max_new - resumed, self.cache_len - n_ids - 1 - self.spec_k
             )
-            self._slot_prompt[slot] = n_ids
+            self._slot_prompt[slot] = n_ids - resumed
             self._slot_table[slot] = table
             row = self._block_rows[slot]
             row[:] = self.n_blocks
@@ -1106,7 +1398,12 @@ class ContinuousBatcher:
 
     def _fail_active(self, err: BaseException) -> None:
         """Fail all in-flight requests, free their blocks, and rebuild clean
-        device state."""
+        device state.  A kernel or CUDA fault is re-raised instead: the
+        context is poisoned, so the worker dies with it (``_worker_died``
+        fails every request with the original error)."""
+        if is_device_fault(err):
+            raise err
+        DEFAULT_REGISTRY.counter("serve_decode_failures").inc()
         for slot in range(self.n_slots):
             req = self._slot_req[slot]
             self._slot_req[slot] = None
@@ -1133,16 +1430,24 @@ class ContinuousBatcher:
             _finish(req)
             if req.error is None:
                 self.stats["completed"] += 1
+                DEFAULT_REGISTRY.counter("serve_completed").inc()
 
     def _process_chunk(self, pending, snap: List[Optional[_Request]]) -> bool:
         """Read one decode chunk's packed results and deliver its tokens to
         the slots whose occupant is still the dispatch-time request.
         Returns False when the fetch failed (state reset)."""
         try:
+            # resilience_site: serve.decode_chunk — a delay is a slow-decode
+            # replica, a raise a decode failure (typed, the batcher lives)
+            faults.perturb("serve.decode_chunk")
             packed_h = self._fetched(pending)
         except Exception as e:
             self._fail_active(e)
             return False
+        # the first chunk landed: liveness monitoring may engage, and a
+        # fetched chunk is real progress (the pool skips canaries on it)
+        self._cold = False
+        self._last_progress = time_monotonic()
         if self.spec_k:
             width = self.chunk + 2 * self.spec_k
             out_h = packed_h[:, :width]
@@ -1198,13 +1503,16 @@ class ContinuousBatcher:
         truncation plus the grow margin, one sequence at most), net of a
         cached prefix it would share."""
         usable = self.cache_len - 2 - self.spec_k
-        n_ids = max(1, min(len(req.prompt_ids), usable))
+        # a preemption victim re-prefills its generated tokens too
+        n_ids = max(1, min(len(req.prompt_ids) + len(req.tokens), usable))
         total = self._alloc.blocks_for(
             min(n_ids + self._grow_margin, self.seq_capacity)
         )
         if self._prefix_cache is not None and req.prefix_key is not None:
             try:
-                ids = [int(t) for t in req.prompt_ids][-usable:]
+                ids = (
+                    [int(t) for t in req.prompt_ids] + [int(t) for t in req.tokens]
+                )[-usable:]
             except (TypeError, ValueError):
                 return total  # bad request: _admit_round fails it alone
             shared = self._prefix_cache.peek(req.prefix_key, ids)
@@ -1223,6 +1531,9 @@ class ContinuousBatcher:
         # blocks already earmarked by earlier picks of this round
         planned = sum(self._blocks_for_admission(r) for _, r in pairs)
         blocked = False
+        # preemption victims, requeued after the fill: the head the block
+        # plan was computed against must stay the next pop
+        preempted_back: List[_Request] = []
         for slot in range(self.n_slots):
             if blocked or self._slot_req[slot] is not None or slot in taken:
                 continue
@@ -1242,10 +1553,26 @@ class ContinuousBatcher:
                     # head's own entry
                     if self._prefix_cache.evict_for(planned + need):
                         need = self._blocks_for_admission(head)
+                if (
+                    head_live
+                    and self._qos is not None
+                    and self._qos.preemption != "off"
+                    and not self._alloc.can_alloc(planned + need)
+                ):
+                    # KV preemption after the prefix-cache valve, before the
+                    # head is left block-starved (advisory only counts)
+                    need = self._admission_preempt(
+                        head, planned, need, preempted_back
+                    )
                 if head_live and not self._alloc.can_alloc(planned + need):
+                    if self._block_wait_marked != id(head):
+                        self._block_wait_marked = id(head)
+                        DEFAULT_REGISTRY.counter("serve_block_pool_wait").inc()
                     blocked = True
                     break
                 req = self._queue.popleft()
+                if self._block_wait_marked == id(req):
+                    self._block_wait_marked = None
                 drained = True
                 if req.cancelled:
                     if not req.done.is_set():
@@ -1263,6 +1590,12 @@ class ContinuousBatcher:
                 filled = True
             if not self._queue and not filled:
                 break
+        for victim in preempted_back:
+            # back at their class head with their tokens kept; a local
+            # requeue (the pool's hook takes locks that must not nest under
+            # _cv; the mid-decode path offers victims to the pool first)
+            victim.t_queue = _now()
+            self._queue.appendleft(victim)
         self._admitting_reqs = [r for _, r in pairs]
         if drained:
             # wake bulk submitters blocked on queue capacity
@@ -1291,7 +1624,14 @@ class ContinuousBatcher:
         """The loop crashed: queued (and admission-window) requests go to
         ``on_worker_death`` first; the rest, and every admitted request,
         fail typed with :class:`WorkerDied`.  Blocks and cache pins are
-        released."""
+        released.  A kernel or CUDA fault is recorded as
+        :attr:`device_fault` before the hook runs (the pool rescues nothing
+        then), and every request fails with that original error."""
+        fault = is_device_fault(e)
+        if fault:
+            self.device_fault = e
+            log.error("batcher worker died of a device fault: %r", e)
+        DEFAULT_REGISTRY.counter("serve_worker_deaths").inc()
         with self._cv:
             self._worker_dead = True
             self._death_cause = e
@@ -1310,7 +1650,7 @@ class ContinuousBatcher:
                 queued = list(cb(self, queued) or [])
             except Exception:
                 pass  # the hook failed: every queued request fails below
-        err = WorkerDied(f"batcher worker died: {e!r}")
+        err = e if fault else WorkerDied(f"batcher worker died: {e!r}")
         for req in queued:
             if not req.done.is_set():
                 req.error = err
@@ -1355,8 +1695,13 @@ class ContinuousBatcher:
                 self._caps_np[slot] = table.capacity
                 self._tables_dirty = True
             except OutOfBlocks:
+                if self._grow_preempt(slot, req, table, target):
+                    # a lower-ranked lane gave up its blocks and requeued
+                    # with its tokens kept; this lane decodes on
+                    continue
                 with self._cv:
                     n_queued = len(self._queue)
+                DEFAULT_REGISTRY.counter("serve_block_shed").inc()
                 req.error = BlockPoolExhausted(
                     "KV block pool exhausted mid-decode (lane at "
                     f"{est} tokens, pool {self.n_blocks}x{self.block_size})",
@@ -1390,6 +1735,11 @@ class ContinuousBatcher:
         # dispatch-time slot->request snapshot)
         pending: Optional[Tuple[Any, List[Optional[_Request]]]] = None
         while True:
+            self._beat = time_monotonic()
+            # resilience_site: serve.worker_loop — a raise is a worker CRASH
+            # (queued requests fail over through the pool, admitted ones
+            # fail typed); a pure delay is a WEDGE (the heartbeat goes stale)
+            faults.perturb("serve.worker_loop")
             pairs: List[Tuple[int, _Request]] = []
             with self._cv:
                 while (
@@ -1397,6 +1747,7 @@ class ContinuousBatcher:
                     and not self._queue
                     and not any(self._slot_req)
                 ):
+                    self._beat = time_monotonic()
                     self._cv.wait(0.5)
                 if self._stopped:
                     return
@@ -1404,6 +1755,7 @@ class ContinuousBatcher:
                 if not pairs and self._queue and not any(self._slot_req):
                     # block-starved head with every slot idle: bounded wait
                     # instead of a hot spin (retirements notify)
+                    self._beat = time_monotonic()
                     self._cv.wait(0.05)
                     self._pop_free_slots(pairs)
             if pairs and pending is not None:
@@ -1434,6 +1786,8 @@ class ContinuousBatcher:
                     if not admitted[0]:
                         admitted = None
                 except Exception as e:
+                    if is_device_fault(e):
+                        raise  # the worker dies with it (_worker_died)
                     # the round's prefill died: fail its requests (those sent
                     # back to the queue stay queued) and reset; the chunk
                     # issued above shares the poisoned state — drop it

@@ -13,6 +13,13 @@ tests import every module on a host without ``nvcc``.
 (:func:`count`) where it launches its kernel and nowhere else, so a run can
 show that its path really went through the kernels.  The count takes a
 lock: the batcher's worker and request threads launch concurrently.
+
+A kernel that fails to build, load or launch raises :class:`KernelError`.
+:func:`is_device_fault` names it, and the CUDA errors torch raises on the
+card, as the faults no serving policy may hide: the degraded answer, the
+breakers and the replica pool's failover all let them through to the
+caller (after a CUDA error the context is poisoned, so failing over inside
+the process would serve nothing).
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ import threading
 from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -43,6 +52,22 @@ _LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, load or launch."""
+
+
+def is_device_fault(exc: BaseException) -> bool:
+    """True for a :class:`KernelError` and for a CUDA error raised by torch
+    (``torch.AcceleratorError``, or a ``RuntimeError`` whose message starts
+    with "CUDA error"): errors that reach the caller unchanged."""
+    if isinstance(exc, KernelError):
+        return True
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    return isinstance(exc, RuntimeError) and str(exc).startswith("CUDA error")
+
+
 def count(*names: str) -> None:
     """Add one launch under each of ``names``."""
     with _COUNT_LOCK:
@@ -53,7 +78,7 @@ def count(*names: str) -> None:
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (looked on PATH and in /usr/local/cuda/bin); "
             "the CUDA kernels cannot be built"
         )
@@ -99,18 +124,23 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     return logs
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``, built first if needed.
+    The lock serialises the build: two replicas warming at once build it
+    once."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             path = library_path(name)
             if not path.exists():
                 build((name,))
-            lib = ctypes.CDLL(str(path))
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelError(f"cannot load {path.name}: {e}") from e
             _LIBS[name] = lib
         return lib

@@ -314,7 +314,7 @@ def flash_attention(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(
+        raise _kernels.KernelError(
             f"flash_attention {plan.path} kernel launch failed: CUDA error {rc}"
         )
     _kernels.count("flash_attention", f"flash_attention.{plan.path}")
@@ -559,6 +559,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"flash_attention decode_paged kernel launch failed: CUDA error {rc}")
+        raise _kernels.KernelError(
+            f"flash_attention decode_paged kernel launch failed: CUDA error {rc}"
+        )
     _kernels.count("flash_attention", "flash_attention.decode_paged")
     return out

@@ -12,7 +12,10 @@ idle share, kernel launches, and device time by kernel family and by
 kernel name.  With ``--batcher`` the service goes through
 ``chip_smoke.py`` phase 5's ``ContinuousBatcher`` instead, and one round
 of eight concurrent questions is profiled as a whole (plus device and
-wall time per verify step).  Needs a CUDA card.
+wall time per verify step).  With ``--pool 1,2`` it goes through
+``chip_smoke.py`` phase 6's ``EnginePool`` (16 slots a replica) at each
+replica count in turn and profiles one round of sixteen concurrent
+questions per count.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import (  # noqa: E402
     QUESTIONS, _ask_round, build_main_path, nvidia_smi_line,
 )
+from docqa_tpu_torch.config import PoolConfig, QoSConfig  # noqa: E402
+from docqa_tpu_torch.engines.pool import EnginePool  # noqa: E402
 from docqa_tpu_torch.engines.serve import ContinuousBatcher  # noqa: E402
 from docqa_tpu_torch.ops import _kernels  # noqa: E402
 from docqa_tpu_torch.service.qa import QAService  # noqa: E402
@@ -150,11 +155,50 @@ def profile_batcher(qa_solo):
     return rec
 
 
+def profile_pool(qa_solo, replicas):
+    """One round of sixteen concurrent /ask through phase 6's pool with
+    ``replicas`` replicas of 16 slots, after one warm-up round."""
+    gen = qa_solo.generator
+    pool = EnginePool(gen, cfg=PoolConfig(replicas=replicas, n_slots=16),
+                      qos=QoSConfig(), chunk=16, cache_len=1024, device=gen.device)
+    try:
+        qa = QAService(qa_solo.retriever.encoder, qa_solo.retriever.store, gen,
+                       k=3, device=gen.device, batcher=pool)
+        _ask_round(qa, ["question de préchauffage sur le patient P001"])
+        torch.cuda.synchronize()
+        before = pool.stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _ask_round(qa, list(QUESTIONS) * 4)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rec = analyse(prof, wall_us)
+        done = dict(pool.stats() - before)
+        steps = done.get("verify_steps", 0)
+        # replicas step concurrently: a replica's step takes wall / (its steps)
+        rec.update(mode="pool", replicas=replicas, requests=16, pool_stats=done,
+                   wall_ms_per_replica_step=rec["wall_ms"] * replicas / max(steps, 1),
+                   device_ms_per_verify_step=rec["device_busy_ms"] / max(steps, 1),
+                   launches_per_verify_step=rec["kernel_launches"] / max(steps, 1))
+    finally:
+        pool.stop()
+    print(f"pool of {replicas} replica(s), round of 16 /ask: wall {rec['wall_ms']:.1f} ms, "
+          f"device busy {rec['device_busy_ms']:.1f} ms (idle share "
+          f"{rec['device_idle_share']}), {rec['kernel_launches']} kernels, {steps} verify "
+          f"steps: {rec['wall_ms_per_replica_step']:.2f} ms wall a replica step, "
+          f"{rec['device_ms_per_verify_step']:.2f} ms device a step", flush=True)
+    print_breakdown(rec)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the JSON report here")
     ap.add_argument("--batcher", action="store_true",
                     help="profile a round of eight /ask through the batcher")
+    ap.add_argument("--pool", default=None, metavar="COUNTS",
+                    help="profile a round of sixteen /ask through a pool of each "
+                         "comma-separated replica count")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_ask_profile: needs a CUDA card", file=sys.stderr)
@@ -164,7 +208,9 @@ def main(argv=None) -> int:
     _kernels.build()
     qa, _, _ = build_main_path(_kernels.LAUNCHES)
     report = {"card": smi, "questions": []}
-    if args.batcher:
+    if args.pool:
+        report["pool_rounds"] = [profile_pool(qa, int(n)) for n in args.pool.split(",")]
+    elif args.batcher:
         report["batcher_round"] = profile_batcher(qa)
     else:
         qa.ask("question de préchauffage sur le patient P001")  # warm-up

@@ -8,6 +8,8 @@ Tolerances: float32 5e-5 (only the summation order differs); bf16
 ``1e-2 + 1e-2 * |plain|`` (both sides round a float32 result to bf16).
 """
 
+import zlib
+
 import pytest
 import torch
 
@@ -225,3 +227,94 @@ def test_paged_batcher_on_the_card(dev):
     finally:
         b.stop()
     assert b._alloc.blocks_in_use == 0
+
+
+def _tiny_pool_engine(dev):
+    from docqa_tpu_torch.config import DecoderConfig, GenerateConfig
+    from docqa_tpu_torch.engines.generate import GenerateEngine
+
+    cfg = DecoderConfig(vocab_size=256, hidden_dim=256, num_layers=2,
+                        num_heads=8, num_kv_heads=2, head_dim=64,
+                        mlp_dim=512, max_seq_len=512)
+    return cfg, GenerateEngine(cfg, GenerateConfig(max_new_tokens=24), seed=1,
+                               device=dev)
+
+
+def _affine_keys(n_replicas, replica, n):
+    """``n`` fresh prefix keys that session affinity routes to ``replica``
+    (a fresh key is a cold admission: the prefix cache is keyed by it)."""
+    keys = (f"key{j}" for j in range(10_000))
+    return [next(k for k in keys if zlib.crc32(k.encode()) % n_replicas == replica)
+            for _ in range(n)]
+
+
+def test_pool_on_the_card_launch_identity_and_no_leak(dev):
+    """Two replicas (two worker threads, two streams) on the card: every
+    verify step of either replica is one paged launch per layer, and after
+    the drain every block is back or pinned by a prefix cache.  Then pairs
+    of prompts decoded at once, one alone on each replica, give exactly the
+    tokens each gives when it runs with the other replica idle: a replica's
+    work on its stream does not leak into the other's.  (The paged path is
+    bf16 only on the card, so the reference is the same replica's kernels;
+    a lone lane's arithmetic does not depend on what else runs.)"""
+    from docqa_tpu_torch.config import PoolConfig
+    from docqa_tpu_torch.engines.pool import EnginePool
+
+    cfg, eng = _tiny_pool_engine(dev)
+    pool = EnginePool(eng, PoolConfig(replicas=2, n_slots=4),
+                      cache_len=512, canary_interval_s=600.0, device=dev)
+    try:
+        stats0 = pool.stats()
+        before = _kernels.LAUNCHES["flash_attention.decode_paged"]
+        prompts = [[3 + i] + list(range(5, 5 + 20 * i)) for i in range(8)]
+        handles = [pool.submit_ids(p, prefix_key=f"k{i % 3}") for i, p in enumerate(prompts)]
+        outs = [h.result(timeout=300) for h in handles]
+        launched = _kernels.LAUNCHES["flash_attention.decode_paged"] - before
+        steps = pool.stats() - stats0
+
+        pairs = [(prompts[2 * i], prompts[2 * i + 1]) for i in range(4)]
+        keys = [_affine_keys(2, r, 2 * len(pairs)) for r in range(2)]
+        routed0 = [r["routed"] for r in pool.status()["replicas"]]
+        together, alone = [], []
+        for i, pair in enumerate(pairs):
+            hs = [pool.submit_ids(p, prefix_key=keys[r][i]) for r, p in enumerate(pair)]
+            together.append([h.result(timeout=300) for h in hs])
+        for i, pair in enumerate(pairs):
+            alone.append([
+                pool.submit_ids(p, prefix_key=keys[r][len(pairs) + i]).result(timeout=300)
+                for r, p in enumerate(pair)
+            ])
+        routed = [a - b for a, b in zip((r["routed"] for r in pool.status()["replicas"]),
+                                        routed0)]
+        for i in range(2):
+            assert pool.drain(i, timeout=120)["drained"]
+        st = pool.status()
+        occ = pool.kv_block_occupancy()
+    finally:
+        pool.stop()
+    assert all(len(o) > 0 for o in outs)
+    assert all(r["routed"] > 0 for r in st["replicas"])
+    assert launched == cfg.num_layers * (steps["verify_steps"] + steps["warmup_steps"]) > 0
+    assert occ["blocks_used"] == occ.get("prefix_blocks", 0)
+    assert routed == [2 * len(pairs), 2 * len(pairs)]
+    assert all(len(o) > 0 for pair in together for o in pair)
+    assert together == alone
+
+
+def test_pool_construction_raises_when_the_kernels_cannot_load(dev, monkeypatch):
+    from docqa_tpu_torch.config import PoolConfig
+    from docqa_tpu_torch.engines.pool import EnginePool
+    from docqa_tpu_torch.ops import attention
+
+    def cannot_load(name):
+        raise _kernels.KernelError(f"cannot load lib{name}")
+
+    _, eng = _tiny_pool_engine(dev)
+    monkeypatch.setattr(_kernels, "load", cannot_load)
+    attention._paged_fn.cache_clear()
+    try:
+        with pytest.raises(_kernels.KernelError, match="cannot load"):
+            EnginePool(eng, PoolConfig(replicas=2, n_slots=4), cache_len=512,
+                       device=dev)
+    finally:
+        attention._paged_fn.cache_clear()

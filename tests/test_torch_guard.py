@@ -39,14 +39,19 @@ print("LOADED", loaded)
 print("PORT", sorted(m for m in sys.modules if m.startswith("docqa_tpu_torch.")))
 """
 
-# the batcher slice's modules: each must be imported by the blocked-import
-# subprocess and read by the AST scan
+# the batcher and serving-plane slices' modules: each must be imported by
+# the blocked-import subprocess and read by the AST scan
 BATCHER_MODULES = (
     "docqa_tpu_torch.engines.paged",
+    "docqa_tpu_torch.engines.pool",
     "docqa_tpu_torch.engines.qos",
+    "docqa_tpu_torch.engines.router",
     "docqa_tpu_torch.engines.serve",
     "docqa_tpu_torch.engines.spine",
+    "docqa_tpu_torch.resilience.breaker",
     "docqa_tpu_torch.resilience.deadline",
+    "docqa_tpu_torch.resilience.faults",
+    "docqa_tpu_torch.runtime.metrics",
     "docqa_tpu_torch.service.qa",
 )
 
@@ -124,12 +129,17 @@ def _build(entry):
     if entry == "FusedRetriever":
         return FusedRetriever(enc, store)
     gen = GenerateEngine(dec_cfg, GenerateConfig(), device="cpu")
+    if entry == "EnginePool":
+        from docqa_tpu_torch.engines.pool import EnginePool
+
+        return EnginePool(gen)
     return QAService(enc, store, gen)
 
 
 @pytest.mark.parametrize(
     "entry",
-    ["EncoderEngine", "GenerateEngine", "VectorStore", "FusedRetriever", "QAService"],
+    ["EncoderEngine", "GenerateEngine", "VectorStore", "FusedRetriever", "QAService",
+     "EnginePool"],
 )
 def test_entry_points_raise_without_cuda(entry):
     if torch.cuda.is_available():

@@ -32,6 +32,7 @@ from docqa_tpu_torch.engines.encoder import EncoderEngine
 from docqa_tpu_torch.engines.generate import GenerateEngine
 from docqa_tpu_torch.engines.retrieve import FusedRetriever
 from docqa_tpu_torch.index.store import VectorStore
+from docqa_tpu_torch.ops._kernels import KernelError
 from docqa_tpu_torch.service.qa import QA_TEMPLATE, QAService
 
 torch.set_num_threads(1)
@@ -156,11 +157,22 @@ class TestQAService:
             assert got["answer"] and len(got["sources"]) == 3
 
     def test_generation_error_propagates(self, stacks):
-        """No degraded fallback on the port: a failing generator raises."""
+        """A kernel fault in generation raises out of ``ask``; any other
+        generation error serves the reference's degraded answer."""
         _, _, tenc, tstore = stacks
         tgen = GenerateEngine(
             DecoderConfig(**DEC), GenerateConfig(**GEN), seed=4, device="cpu"
         )
         tgen.params.pop("lm_head")
-        with pytest.raises(KeyError):
-            QAService(tenc, tstore, tgen, device="cpu").ask(QUESTIONS[0])
+        qa = QAService(tenc, tstore, tgen, device="cpu")
+        out = qa.ask(QUESTIONS[0])
+        assert out["degraded"] is True
+        assert out["degrade_reason"] == "decoder_error"
+        assert out["answer"] and len(out["sources"]) == 3
+
+        def broken(_prompts):
+            raise KernelError("nvcc failed for flash_attention.cu")
+
+        tgen.generate_texts = broken
+        with pytest.raises(KernelError, match="nvcc failed"):
+            qa.ask(QUESTIONS[0])

@@ -46,6 +46,7 @@ from docqa_tpu_torch.engines.serve import (
     make_request,
 )
 from docqa_tpu_torch.index.store import VectorStore
+from docqa_tpu_torch.ops._kernels import KernelError
 from docqa_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
 from docqa_tpu_torch.service.qa import QAService, prefix_key_for
 
@@ -441,6 +442,9 @@ class TestQAServiceWithBatcher:
         assert prefix_key_for(chunks) != prefix_key_for(chunks[::-1])
 
     def test_batcher_error_propagates(self):
+        """A kernel fault from the batcher reaches the caller unchanged; an
+        ordinary batcher error (a stopped batcher) serves the reference's
+        degraded answer instead."""
         gen = _engine(4)
         enc = EncoderEngine(EncoderConfig(**ENC), seed=1, device="cpu")
         store = VectorStore(StoreConfig(**STORE), device="cpu")
@@ -448,5 +452,14 @@ class TestQAServiceWithBatcher:
                   [{"source": s, "text_content": t} for s, t in NOTES])
         b = ContinuousBatcher(gen, n_slots=1, chunk=4, cache_len=512)
         b.stop()
-        with pytest.raises(RuntimeError, match="stopped"):
-            QAService(enc, store, gen, device="cpu", batcher=b).ask(QUESTIONS[0])
+        qa = QAService(enc, store, gen, device="cpu", batcher=b)
+        out = qa.ask(QUESTIONS[0])
+        assert out["degraded"] is True
+        assert out["degrade_reason"] == "decoder_error"
+
+        def broken(*_a, **_k):
+            raise KernelError("flash_attention decode_paged kernel launch failed")
+
+        b.submit_text = broken
+        with pytest.raises(KernelError, match="decode_paged"):
+            qa.ask(QUESTIONS[0])
