@@ -18,7 +18,9 @@ Phases, each of which fails the run on any error (nothing is caught):
    verify step through a block table: 8 and 16 lanes, K=4, shuffled blocks
    with holes, idle lanes) is held against its plain version too, and
    timed beside gather + masked SDPA and the reference's TPU route, gather
-   + K1's contiguous decode path.
+   + K1's contiguous decode path.  The NER tagger's window batches (32
+   windows, and the pipeline's 8, of up to 512 rows, 8 heads of 32) are
+   prefill cases.
 3. main path: /ask end to end through ``QAService.ask`` at full width —
    MiniLM-L6 encoder, a 1,000,000-row bf16 store, Mistral-7B-width decoder
    in bf16 with random seeded weights, greedy with K=4 speculation — with
@@ -52,9 +54,27 @@ Phases, each of which fails the run on any error (nothing is caught):
    earlier tokens kept, no block leaked.  E: a decoder outage degrades
    ``decoder_error`` until the breaker trips, then ``decoder_breaker_open``;
    after the outage and the breaker's reset a plain answer comes back.
+7. ingest: ``DocumentPipeline`` over phase 3's encoder and store with the
+   NER tagger at ``NERConfig()`` (bf16, seeded random weights), the
+   in-memory broker and a SQLite registry.  512 generated notes (8 .docx,
+   8 .pdf) with header PHI go up; each reaches INDEXED; the registry's
+   chunk counts, the store's new rows and ``chunk_text`` over the masked
+   texts agree; no header phone, email or date reaches the store.  The
+   tagger batches the deid worker served are tapped: those of its most
+   served shape (8 windows x 512), until they hold 64 documents, give the
+   same masked texts as the port on the CPU in float32 (the regexes'
+   spans; the random tagger's stay under the 0.8 threshold on both), and
+   their served logits, like those of one 32-window batch, are within
+   ``FIRST_STEP_RTOL`` of the CPU's with word labels equal but for tied
+   words.  32 new rows find
+   themselves first over the whole store; an /ask over an ingested chunk
+   cites its document; K1 launches = 4 x tagger forwards + 6 x encoder
+   forwards, all on the prefill path.  Reported: a ``deidentify_batch`` of
+   32 notes, docs/s, upload -> INDEXED, the stage spans, and 8 /ask through
+   a 1-replica pool alone and beside 64 more uploads.
 
-Prints the pool JSON line, the kernels JSON line, the nvidia-smi line, and
-last the ok line.
+Prints the pool JSON line, the ingest JSON line, the kernels JSON line, the
+nvidia-smi line, and last the ok line.
 Exits non-zero when CUDA is unavailable or any phase fails.
 """
 
@@ -64,6 +84,7 @@ import argparse
 import collections
 import ctypes
 import dataclasses
+import io
 import json
 import os
 import re
@@ -72,15 +93,18 @@ import subprocess
 import sys
 import threading
 import time
+import zipfile
 import zlib
 
 import numpy as np
 import torch
 
 from docqa_tpu_torch.config import (
-    DecoderConfig, EncoderConfig, GenerateConfig, PoolConfig, QoSConfig,
-    ResilienceConfig, StoreConfig,
+    Config, DecoderConfig, EncoderConfig, GenerateConfig, NERConfig, PoolConfig,
+    QoSConfig, ResilienceConfig, StoreConfig,
 )
+from docqa_tpu_torch.deid import datagen
+from docqa_tpu_torch.deid.engine import DeidEngine
 from docqa_tpu_torch.engines import paged as paged_mod
 from docqa_tpu_torch.engines import serve as serve_mod
 from docqa_tpu_torch.engines.encoder import EncoderEngine
@@ -91,13 +115,20 @@ from docqa_tpu_torch.index.store import VectorStore
 from docqa_tpu_torch.models.decoder import (
     decoder_forward, init_decoder_params, init_kv_cache,
 )
+from docqa_tpu_torch.models.ner import init_ner_params, ner_forward
 from docqa_tpu_torch.ops import _kernels
 from docqa_tpu_torch.ops import attention as attn
 from docqa_tpu_torch.resilience import (
     BreakerBoard, Deadline, FaultPlan, FaultRule, faults,
 )
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY
+from docqa_tpu_torch.service import registry as reg
+from docqa_tpu_torch.service.broker import make_broker
+from docqa_tpu_torch.service.extract import extract_text_ex
+from docqa_tpu_torch.service.pipeline import DocumentPipeline
 from docqa_tpu_torch.service.qa import QA_TEMPLATE, QAService
+from docqa_tpu_torch.service.registry import DocumentRegistry
+from docqa_tpu_torch.text.chunker import chunk_text
 from docqa_tpu_torch.utils import pick_bucket, round_up
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor FLOP/s
@@ -165,7 +196,8 @@ def kernel_cases():
     """Shapes the /ask path gives the flash kernel — Mistral-7B decoder: a
     ~200-token RAG prompt in the 256 bucket, a 384-row cache (256 + 64 new
     + K, rounded to 128); MiniLM encoder: the note batch (32 lanes, some
-    empty) — plus a ragged GQA case whose sq is no multiple of a tile."""
+    empty) — plus a ragged GQA case whose sq is no multiple of a tile, and
+    the ingest path's NER window batch."""
     mistral = dict(hq=32, hkv=8, d=128, causal=True, window=4096)
     return [
         dict(name="mistral_prefill", b=1, sq=256, skv=384,
@@ -186,22 +218,35 @@ def kernel_cases():
              lengths=[4096], q_offset=[0], **mistral),
         dict(name="mistral_verify_4k", b=1, sq=4, skv=4224,
              lengths=[4100], q_offset=[4096], **{**mistral, "window": None}),
+        # the NER tagger's window batch on phase 7's path (NERConfig: 8
+        # heads of 32, no GQA, bidirectional): 32 windows of 300-512 rows,
+        # two of them empty lanes
+        dict(name="ner_window_batch", b=32, sq=512, skv=512, hq=8, hkv=8, d=32,
+             causal=False, window=None, q_offset=None,
+             lengths=[0, 0] + np.random.default_rng(32).integers(300, 513, 30).tolist()),
+        # the batch the pipeline's deid worker serves (prefetch 8: 8 windows
+        # of up to 512 rows), one lane empty; plan_flash gives it one
+        # warpgroup a block where the 32-window batch takes two
+        dict(name="ner_served_batch", b=8, sq=512, skv=512, hq=8, hkv=8, d=32,
+             causal=False, window=None, q_offset=None,
+             lengths=[0] + np.random.default_rng(8).integers(300, 513, 7).tolist()),
     ]
 
 
-def time_ms(fn, flush, reps=25, warmup=3) -> float:
+def time_ms(fn, flush, reps=25, warmup=3, spin_cycles=4_000_000) -> float:
     """Median device time of ``fn`` over ``reps`` runs, each timed with
     CUDA events after overwriting a 64 MB buffer so L2 starts cold (as it
-    is for attention inside a 7B forward).  A ~2 ms spin kernel ahead of
-    the start event keeps the card busy while the host enqueues ``fn``, so
-    the events bracket device work and not the host's launch overhead."""
+    is for attention inside a 7B forward).  A spin kernel ahead of the
+    start event (~2 ms by default; longer for a ``fn`` of many launches)
+    keeps the card busy while the host enqueues ``fn``, so the events
+    bracket device work and not the host's launch overhead."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(4_000_000)
+        torch.cuda._sleep(spin_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1386,6 +1431,411 @@ def run_pool_path(counts, qa_solo):
         pool.stop()
 
 
+# ---- phase 7: document ingest at full width ---------------------------------
+
+INGEST_DOCS = 512
+INGEST_MIN_CHARS = 2000  # about 4-5 chunks of 500 characters a note
+INGEST_TIMEOUT_S = 300.0
+CPU_CHECK_DOCS = 64
+SELF_RETRIEVAL_ROWS = 32
+CONCURRENT_DOCS = 64
+MONTHS_FR = ("janvier", "février", "mars", "avril", "mai", "juin", "juillet",
+             "août", "septembre", "octobre", "novembre", "décembre")
+
+
+def _docx_bytes(paragraphs):
+    """A minimal .docx (zip with word/document.xml), built as the
+    reference's tests build one."""
+    xml = (b'<?xml version="1.0"?><w:document><w:body>'
+           + b"".join(b"<w:p><w:r><w:t>" + p.encode() + b"</w:t></w:r></w:p>"
+                      for p in paragraphs)
+           + b"</w:body></w:document>")
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as z:
+        z.writestr("word/document.xml", xml)
+    return buf.getvalue()
+
+
+def _pdf_bytes(lines):
+    """A text-layer .pdf (one FlateDecode content stream of Tj lines), built
+    as the reference's tests build one; parentheses would end a PDF string,
+    so the lines carry none."""
+    content = b"BT /F1 12 Tf " + b" ".join(
+        b"(" + ln.encode() + b") Tj T*" for ln in lines) + b" ET"
+    stream = zlib.compress(content)
+    return (b"%PDF-1.4\n1 0 obj\n<< /Length " + str(len(stream)).encode()
+            + b" /Filter /FlateDecode >>\nstream\n" + stream
+            + b"endstream\nendobj\ntrailer\n%%EOF")
+
+
+def ingest_corpus(rng, n, prefix):
+    """``n`` uploads: notes of the port's synthetic generator (training
+    lexicons) taking sentences until they reach INGEST_MIN_CHARS, each
+    under a header line with a seeded phone number, email address and
+    French date; notes 1 and 2 of every 64 go up as .docx and as .pdf,
+    the rest as .txt."""
+    docs = []
+    for i in range(n):
+        phone = f"0{int(rng.integers(1, 10))} " + " ".join(
+            f"{int(rng.integers(0, 100)):02d}" for _ in range(4))
+        email = f"dossier{int(rng.integers(1000, 9999))}.{i}@chu-{int(rng.integers(1, 99))}.fr"
+        date = (f"{int(rng.integers(1, 29))} {MONTHS_FR[int(rng.integers(12))]} "
+                f"{int(rng.integers(2015, 2027))}")
+        lines = [f"Tél : {phone} — courriel : {email} — consultation du {date}."]
+        while len("\n".join(lines)) < INGEST_MIN_CHARS:
+            text, _spans = datagen.generate_example(rng, datagen.TRAIN_LEXICONS)
+            lines.append(text.replace("(", " ").replace(")", " "))
+        kind = {1: "docx", 2: "pdf"}.get(i % 64, "txt")
+        data = (_docx_bytes(lines) if kind == "docx" else _pdf_bytes(lines)
+                if kind == "pdf" else "\n".join(lines).encode("utf-8"))
+        docs.append({"filename": f"{prefix}-{i:04d}.{kind}", "data": data,
+                     "phi": (phone, email, date)})
+    return docs
+
+
+def _memo_logits(engine):
+    """Make ``engine.ner_logits`` compute each (ids, lengths) batch once;
+    returns the memo (batch key -> logits)."""
+    forward, memo = engine.ner_logits, {}
+
+    def cached(ids, lengths):
+        key = (ids.tobytes(), lengths.tobytes())
+        if key not in memo:
+            memo[key] = forward(ids, lengths)
+        return memo[key]
+
+    engine.ner_logits = cached
+    return memo
+
+
+def _hold_tagger_batch(cpu, batch):
+    """One tagger batch as the card ran it (``batch``: its texts, ids,
+    lengths and bf16 logits) against the CPU engine's float32 forward on
+    the same ids (``cpu.ner_logits``, memoised by the caller).  The logits must be
+    within ``FIRST_STEP_RTOL`` relative RMS over the live rows; the word
+    labels are compared with phases 5-6's decisive-gap rule: a word whose
+    two largest CPU logits differ by less than twice the largest |card -
+    CPU| logit difference of its window may take either label, every other
+    word must take the same label on both.  Returns (relative RMS, words,
+    words tied, labels that differ, max |diff|)."""
+    segments, ids, lengths, token_idx = cpu.windows(batch["texts"])
+    if not (np.array_equal(ids, batch["ids"]) and np.array_equal(lengths, batch["lengths"])):
+        raise AssertionError("a tagger batch does not repack to the ids it ran on the card")
+    lc, lp = batch["logits"], cpu.ner_logits(ids, lengths)
+    valid = np.arange(ids.shape[1])[None, :] < lengths[:, None]
+    rel = float(np.linalg.norm((lc - lp)[valid]) / np.linalg.norm(lp[valid]))
+    if not rel <= FIRST_STEP_RTOL:
+        raise AssertionError(
+            f"tagger logits of a {ids.shape[0]} x {ids.shape[1]} batch, card vs CPU: "
+            f"relative RMS {rel:.3e} (tolerance {FIRST_STEP_RTOL})")
+    n_words = n_tied = n_flipped = 0
+    max_diff = 0.0
+    for si, (di, seg) in enumerate(segments):
+        n = int(lengths[si])
+        diff = float(np.abs(lc[si, :n] - lp[si, :n]).max())
+        max_diff = max(max_diff, diff)
+        for wi, (_w, s, e) in enumerate(seg):
+            ti = token_idx[si][wi]
+            top2 = np.sort(lp[si, ti])[-2:]
+            tied = top2[1] - top2[0] < 2 * diff
+            n_words += 1
+            n_tied += int(tied)
+            if int(lc[si, ti].argmax()) != int(lp[si, ti].argmax()):
+                n_flipped += 1
+                if not tied:
+                    raise AssertionError(
+                        f"the NER label of word [{s}, {e}) of document {di} differs "
+                        f"between the card and the CPU past a decisive gap "
+                        f"({top2[1] - top2[0]:.3e} >= 2 x {diff:.3e})")
+    return rel, n_words, n_tied, n_flipped, max_diff
+
+
+def run_ingest_path(counts, qa_solo):
+    """Phase 7: ``DocumentPipeline.ingest_document`` at full width on phase
+    3's MiniLM encoder and 1,000,000-row store, with ``DeidEngine(NERConfig())``
+    (4 layers, hidden 256, 8 heads, 512 positions, bf16; a seeded random
+    tagger: plumbing mode), ``make_broker(BrokerConfig())`` (prefetch 8) and
+    ``DocumentRegistry("sqlite://")``.  The launch counts are set to 0 just
+    before the 512 uploads and read once all are INDEXED; then the rows,
+    the masked texts against the CPU in float32, self-retrieval and an
+    /ask over an ingested chunk are checked, and a round of 64 more uploads
+    runs beside 8 /ask through a 1-replica pool."""
+    dev = torch.device("cuda")
+    gen = qa_solo.generator
+    encoder, store = qa_solo.retriever.encoder, qa_solo.retriever.store
+    enc_layers = encoder.cfg.num_layers
+    ner_cfg = NERConfig()
+    ner_params = init_ner_params(ner_cfg, seed=11)
+    deid = DeidEngine(ner_cfg, params=ner_params, device=dev)
+    cfg = Config(encoder=encoder.cfg, ner=ner_cfg, store=store.cfg)
+    registry = DocumentRegistry(cfg.registry.url)  # "sqlite://": in memory
+    pipe = DocumentPipeline(cfg, make_broker(cfg.broker), registry, deid, encoder, store)
+    rng = np.random.default_rng(2024)
+    docs = ingest_corpus(rng, INGEST_DOCS, "ingest")
+    extra = ingest_corpus(rng, CONCURRENT_DOCS, "concurrent")
+    texts = {d["filename"]: extract_text_ex(d["data"], d["filename"])[0]
+             for d in docs + extra}
+    if any(not t for t in texts.values()):
+        raise AssertionError("a generated upload did not extract")
+
+    # BASELINE config 2, reported: one deidentify_batch of 32 notes, and
+    # the tagger's forward over their window batch timed with CUDA events
+    batch32 = [texts[d["filename"]] for d in docs[:32]]
+    deid.deidentify_batch(batch32)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deid.deidentify_batch(batch32)
+    batch32_wall = time.perf_counter() - t0
+    _seg, ids32, len32, _tidx = deid.windows(batch32)
+    ids_t = torch.from_numpy(ids32).long().to(dev)
+    len_t = torch.from_numpy(len32).to(dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    with torch.inference_mode():
+        # ~20 ms of spin: the host enqueues the forward's ~150 launches
+        # behind it, so the events see device time only
+        ner_ms = time_ms(lambda: ner_forward(deid.params, ner_cfg, ids_t, len_t), flush,
+                         reps=10, spin_cycles=40_000_000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            ner_forward(deid.params, ner_cfg, ids_t, len_t)
+        torch.cuda.synchronize()
+        ner_wall_ms = (time.perf_counter() - t0) * 100
+    del flush
+    log(f"  deidentify_batch of 32 notes ({ids32.shape[0]} windows x {ids32.shape[1]} "
+        f"tokens): {batch32_wall * 1e3:.1f} ms wall; tagger forward {ner_ms:.3f} ms of "
+        f"device time (CUDA events), {ner_wall_ms:.3f} ms wall a forward back to back")
+
+    # instruments of the counted run: masked texts, INDEXED times, spans,
+    # and every tagger batch the deid worker served (texts, ids, lengths
+    # and the logits it masked with)
+    masked, indexed_at, served_spans, served = {}, {}, [0], []
+    deidentify, set_status = deid.deidentify_batch, registry.set_status_unless_deleted
+    ner_results, ner_logits = deid._ner_results, deid.ner_logits
+
+    def recording_deidentify(batch):
+        out = deidentify(batch)
+        masked.update(zip(batch, out))
+        return out
+
+    def recording_status(doc_id, status, n_chunks=None):
+        ok = set_status(doc_id, status, n_chunks=n_chunks)
+        if status == reg.INDEXED:
+            indexed_at[doc_id] = time.perf_counter()
+        return ok
+
+    def recording_logits(ids, lengths):
+        out = ner_logits(ids, lengths)
+        served.append({"ids": ids, "lengths": lengths, "logits": out})
+        return out
+
+    def recording_spans(batch):
+        n = len(served)
+        out = ner_results(batch)
+        served_spans[0] += sum(map(len, out))
+        if len(served) > n:  # one deid worker: the forward this call made
+            served[n]["texts"] = list(batch)
+        return out
+
+    def untap():
+        deid.deidentify_batch, deid._ner_results = deidentify, ner_results
+        deid.ner_logits = ner_logits
+        registry.set_status_unless_deleted = set_status
+
+    deid.deidentify_batch = recording_deidentify
+    registry.set_status_unless_deleted = recording_status
+    deid._ner_results, deid.ner_logits = recording_spans, recording_logits
+    pool = None
+    try:
+        pipe.start()
+        rows0, nf0, ne0 = store.count, deid.forwards, encoder.forwards
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts.clear()
+        t_start = time.perf_counter()
+        uploaded = []
+        for d in docs:
+            rec = pipe.ingest_document(d["filename"], d["data"])
+            uploaded.append((rec.doc_id, time.perf_counter()))
+        t_uploaded = time.perf_counter() - t_start
+        deadline = time.perf_counter() + INGEST_TIMEOUT_S
+        for doc_id, _t in uploaded:
+            if not pipe.wait_indexed(doc_id, timeout=max(0.0, deadline - time.perf_counter())):
+                raise AssertionError(
+                    f"{doc_id} not INDEXED: {registry.get(doc_id).status} "
+                    f"({registry.get(doc_id).status_detail})")
+        wall = max(indexed_at[d] for d, _t in uploaded) - t_start
+        launches = dict(counts)
+        n_ner, n_enc = deid.forwards - nf0, encoder.forwards - ne0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        untap()
+
+        # ---- what must hold over the 512 uploads ----
+        want = {"flash_attention.prefill": ner_cfg.num_layers * n_ner + enc_layers * n_enc,
+                "flash_attention.decode": 0, "flash_attention.decode_paged": 0,
+                "flash_attention.simt": 0}
+        got = {key: launches.get(key, 0) for key in want}
+        if got != want or launches.get("flash_attention", 0) != want["flash_attention.prefill"]:
+            raise AssertionError(
+                f"ingest launches {launches}, expected {want} ({n_ner} tagger forwards "
+                f"x {ner_cfg.num_layers} layers + {n_enc} encoder forwards x {enc_layers})")
+        new_rows = store.metadata_rows()[rows0:]
+        n_chunks = sum(registry.get(d).n_chunks for d, _t in uploaded)
+        masked_docs = [masked[texts[d["filename"]]] for d in docs]
+        n_expected = sum(len(chunk_text(m, cfg.chunk)) for m in masked_docs)
+        if not (n_chunks == len(new_rows) == store.count - rows0 == n_expected):
+            raise AssertionError(
+                f"registry n_chunks {n_chunks}, store rows gained {store.count - rows0}, "
+                f"chunk_text over the masked texts {n_expected}")
+        joined = "\x00".join(r["text_content"] for r in new_rows)
+        leaked = [s for d in docs for s in d["phi"] if s in joined]
+        if leaked:
+            raise AssertionError(f"header PHI survived into the store: {leaked[:5]}")
+        lat = sorted(indexed_at[d] - t for d, t in uploaded)
+        spans = {name: DEFAULT_REGISTRY.histogram(f"{name}_ms").summary()["p50"]
+                 for name in ("extract", "deid_batch", "index_batch")}
+        log(f"  {INGEST_DOCS} uploads ({sum(d['filename'].endswith('.docx') for d in docs)} "
+            f"docx, {sum(d['filename'].endswith('.pdf') for d in docs)} pdf) INDEXED in "
+            f"{wall:.2f} s (uploads queued in {t_uploaded:.2f} s): "
+            f"{INGEST_DOCS / wall:.1f} docs/s, {len(new_rows) / wall:.1f} chunks/s; upload -> "
+            f"INDEXED p50 {statistics.median(lat):.3f} s max {lat[-1]:.3f} s; span p50 "
+            f"extract {spans['extract']:.2f} ms, deid_batch {spans['deid_batch']:.1f} ms, "
+            f"index_batch {spans['index_batch']:.1f} ms; {n_ner} tagger + {n_enc} encoder "
+            f"forwards, launches {got}; {served_spans[0]} NER spans served; peak device "
+            f"memory {peak_gib:.2f} GiB")
+
+        # ---- served tagger batches against the port on the CPU in float32 ----
+        # the batches of the shape the deid worker served most (8 windows x
+        # 512: the K1 launch the path made most), in order, until they hold
+        # CPU_CHECK_DOCS documents: their masked texts, their logits and
+        # their word labels as served, against the CPU on the same batches
+        shapes = collections.Counter(bt["ids"].shape for bt in served)
+        served_shape, n_at_shape = shapes.most_common(1)[0]
+        checked, n_docs = [], 0
+        for bt in served:
+            if bt["ids"].shape == served_shape and n_docs < CPU_CHECK_DOCS:
+                checked.append(bt)
+                n_docs += len(bt["texts"])
+        cpu_cfg = dataclasses.replace(ner_cfg, dtype="float32")
+        cpu = DeidEngine(cpu_cfg, params=ner_params, device="cpu")
+        _memo_logits(cpu)  # one float32 forward a batch serves both checks
+        t0 = time.perf_counter()
+        held = []
+        for bt in checked:
+            if cpu.deidentify_batch(bt["texts"]) != [masked[t] for t in bt["texts"]]:
+                raise AssertionError(
+                    "the masked texts of a served batch differ between the card's "
+                    "pipeline and the CPU in float32")
+            held.append(_hold_tagger_batch(cpu, bt))
+        # BASELINE config 2's batch (32 notes, 32 windows x 512: two
+        # warpgroups a block), on the pipeline's engine after the run
+        card32 = {"texts": batch32, "ids": ids32, "lengths": len32,
+                  "logits": deid.ner_logits(ids32, len32)}
+        rel32, words32, tied32, flipped32, diff32 = _hold_tagger_batch(cpu, card32)
+        cpu_s = time.perf_counter() - t0
+        rel = max(h[0] for h in held)
+        n_words, n_tied, n_flipped = (sum(h[i] for h in held) for i in (1, 2, 3))
+        max_diff = max(h[4] for h in held)
+        log(f"  served tagger batches: {len(served)}, shapes {dict(shapes)}; "
+            f"{len(checked)} of shape {served_shape} holding {n_docs} documents held "
+            f"against the CPU in float32: masked texts identical, logits relative RMS "
+            f"<= {rel:.3e} (tolerance {FIRST_STEP_RTOL}), word labels equal but "
+            f"{n_flipped} of {n_words}, all among {n_tied} tied words (max |logit diff| "
+            f"{max_diff:.3e}); the 32-window batch: relative RMS {rel32:.3e}, labels "
+            f"equal but {flipped32} of {words32}, all among {tied32} tied; "
+            f"CPU check {cpu_s:.1f} s")
+
+        # ---- self-retrieval over the whole store, and /ask over a chunk ----
+        picks = np.random.default_rng(5).choice(len(new_rows), SELF_RETRIEVAL_ROWS,
+                                                replace=False)
+        queries = [new_rows[i]["text_content"] for i in picks]
+        hits = qa_solo.retriever.search_texts(queries, k=2)
+        missed = [i for i, (q, h) in enumerate(zip(queries, hits))
+                  if h[0].metadata.get("text_content") != q]
+        margins = [h[0].score - h[1].score for h in hits]
+        if missed:
+            raise AssertionError(f"self-retrieval missed rank 1 for {len(missed)} of "
+                                 f"{SELF_RETRIEVAL_ROWS} rows over {store.count} rows")
+        row = new_rows[int(picks[0])]
+        out = qa_solo.ask(row["text_content"])
+        _no_degraded("/ask over an ingested chunk", [out])
+        if row["source"] not in out["sources"]:
+            raise AssertionError(f"/ask over a chunk of {row['source']} cites {out['sources']}")
+        log(f"  self-retrieval: {SELF_RETRIEVAL_ROWS} of {SELF_RETRIEVAL_ROWS} new rows "
+            f"first over {store.count} rows (rank 1 - rank 2 score margin min "
+            f"{min(margins):.4f}); /ask over a chunk of {row['source']} cites {out['sources']}")
+
+        # ---- /ask beside a concurrent ingest, through a 1-replica pool ----
+        res_cfg = ResilienceConfig()
+        pool = EnginePool(gen, cfg=PoolConfig(replicas=1, n_slots=8), qos=QoSConfig(),
+                          chunk=16, cache_len=1024, device=dev)
+        qa = QAService(encoder, store, gen, k=3, device=dev, batcher=pool,
+                       breakers=BreakerBoard(res_cfg.breaker_failure_threshold,
+                                             res_cfg.breaker_reset_s),
+                       resilience=res_cfg)
+        questions = list(QUESTIONS) * 2
+        t0 = time.perf_counter()
+        alone = _round_record(_resolve_all(_submit_round(qa, questions)),
+                              time.perf_counter() - t0)
+        counts.clear()
+        nf1, ne1 = deid.forwards, encoder.forwards
+        extra_ids = []
+
+        def upload():
+            for d in extra:
+                extra_ids.append(pipe.ingest_document(d["filename"], d["data"]).doc_id)
+
+        uploader = threading.Thread(target=upload)
+        t0 = time.perf_counter()
+        uploader.start()
+        beside = _round_record(_resolve_all(_submit_round(qa, questions)),
+                               time.perf_counter() - t0)
+        uploader.join(timeout=INGEST_TIMEOUT_S)
+        for doc_id in extra_ids:
+            if not pipe.wait_indexed(doc_id, timeout=INGEST_TIMEOUT_S):
+                raise AssertionError(f"concurrent upload {doc_id} not INDEXED")
+        concurrent_wall = time.perf_counter() - t0
+        round_launches = dict(counts)
+        if len(extra_ids) != CONCURRENT_DOCS or alone["degraded"] or beside["degraded"]:
+            raise AssertionError(f"concurrent round: {len(extra_ids)} uploads, /ask "
+                                 f"degraded alone {alone['degraded']} beside {beside['degraded']}")
+        log(f"  8 /ask through a 1-replica pool: alone p50 {alone['latency_p50_s']:.3f} s "
+            f"max {alone['latency_max_s']:.3f} s; beside {CONCURRENT_DOCS} uploads p50 "
+            f"{beside['latency_p50_s']:.3f} s max {beside['latency_max_s']:.3f} s; all "
+            f"{CONCURRENT_DOCS} INDEXED {concurrent_wall:.2f} s after the round began "
+            f"({deid.forwards - nf1} tagger + {encoder.forwards - ne1} encoder forwards)")
+    finally:
+        if pool is not None:
+            pool.stop()
+        untap()
+        pipe.stop()
+    summary = {
+        "docs": INGEST_DOCS, "chunks": len(new_rows), "wall_s": wall,
+        "uploads_queued_s": t_uploaded,
+        "docs_per_s": INGEST_DOCS / wall, "chunks_per_s": len(new_rows) / wall,
+        "upload_to_indexed_p50_s": statistics.median(lat),
+        "upload_to_indexed_max_s": lat[-1],
+        "span_p50_ms": spans, "tagger_forwards": n_ner, "encoder_forwards": n_enc,
+        "ner_spans_served": served_spans[0], "peak_device_gib": peak_gib,
+        "deidentify_batch_32_wall_ms": batch32_wall * 1e3,
+        "ner_forward_32_ms": ner_ms, "ner_forward_32_wall_ms": ner_wall_ms,
+        "ner_batch_shape": list(ids32.shape),
+        "tagger_batches_served": {"x".join(map(str, k)): v for k, v in shapes.items()},
+        "cpu_check": {"served_shape": list(served_shape), "batches": len(checked),
+                      "docs": n_docs, "masked_texts_identical": True,
+                      "words": n_words, "tied_words": n_tied, "labels_differing": n_flipped,
+                      "max_abs_logit_diff": max_diff, "logits_rel_rms_max": rel,
+                      "batch_32": {"logits_rel_rms": rel32, "words": words32,
+                                   "tied_words": tied32, "labels_differing": flipped32,
+                                   "max_abs_logit_diff": diff32},
+                      "tolerance_rel_rms": FIRST_STEP_RTOL, "seconds": cpu_s},
+        "self_retrieval_min_margin": min(margins),
+        "ask_alone": alone, "ask_beside_ingest": beside,
+        "concurrent_docs_indexed_s": concurrent_wall,
+    }
+    return {"summary": summary, "launches": launches, "round_launches": round_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -1401,7 +1851,7 @@ def main(argv=None) -> int:
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/6] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[1/7] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     build_logs = _kernels.build()
     build_s = time.perf_counter() - t0
@@ -1410,33 +1860,40 @@ def main(argv=None) -> int:
         for kernel, regs, spills in ptxas_summary(text):
             log(f"    {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
 
-    log("[2/6] kernels against their plain versions (bf16 and float32)")
+    log("[2/7] kernels against their plain versions (bf16 and float32)")
     cases = run_kernel_cases()
     cases += run_paged_cases()
 
-    log("[3/6] main path: QAService.ask at full width")
+    log("[3/7] main path: QAService.ask at full width")
     t_main = time.perf_counter()
     qa, params, enc_launches = build_main_path(_kernels.LAUNCHES)
     per_q, launches = run_main_path(_kernels.LAUNCHES, qa, params, enc_launches)
     main_s = time.perf_counter() - t_main
 
-    log("[4/6] reference: tiny float32 /ask on the card against the CPU")
+    log("[4/7] reference: tiny float32 /ask on the card against the CPU")
     reference = run_reference_check()
 
-    log("[5/6] main path: QAService.ask through the continuous batcher at full width")
+    log("[5/7] main path: QAService.ask through the continuous batcher at full width")
     t_batch = time.perf_counter()
     batcher_path = run_batcher_path(_kernels.LAUNCHES, qa, per_q)
     batcher_s = time.perf_counter() - t_batch
 
-    log("[6/6] main path: QAService.ask through the replica pool at full width")
+    log("[6/7] main path: QAService.ask through the replica pool at full width")
     t_pool = time.perf_counter()
     pool_path = run_pool_path(_kernels.LAUNCHES, qa)
     pool_s = time.perf_counter() - t_pool
+
+    log("[7/7] ingest: DocumentPipeline at full width, then /ask over what it indexed")
+    t_ingest = time.perf_counter()
+    ingest_path = run_ingest_path(_kernels.LAUNCHES, qa)
+    ingest_s = time.perf_counter() - t_ingest
     del qa, params
-    # launches of the three main-path runs (each counted from 0 around its run)
+    # launches of the main-path runs (each counted from 0 around its run)
     path_launches = collections.Counter(launches["total"])
     path_launches.update(batcher_path["launches"])
     path_launches.update(pool_path["launches"])
+    path_launches.update(ingest_path["launches"])
+    path_launches.update(ingest_path["round_launches"])
 
     def entry(name, source, counter, timed, path=None):
         head = next(c for c in cases if c["case"] == timed)
@@ -1482,8 +1939,16 @@ def main(argv=None) -> int:
                 "launches": launches, "reference": reference,
                 "batcher_path": batcher_path, "batcher_path_s": batcher_s,
                 "pool_path": pool_path, "pool_path_s": pool_s,
+                "ingest_path": ingest_path, "ingest_path_s": ingest_s,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
+    print(json.dumps({"ingest": {
+        **ingest_path["summary"], "phase_s": ingest_s,
+        "launches": ingest_path["launches"],
+        **{c["case"]: {key: c[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err_bf16")}
+           for c in cases if c["case"] in ("ner_window_batch", "ner_served_batch")},
+    }}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

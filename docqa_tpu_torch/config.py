@@ -7,7 +7,7 @@ overrides builds the same configuration in both packages.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -24,6 +24,41 @@ class EncoderConfig:
     embed_dim: int = 384  # pooled output dim
     dtype: str = "bfloat16"
     normalize: bool = True  # cosine == dot product on normalized vectors
+
+
+@dataclass(frozen=True)
+class NERConfig:
+    """Token-classification PHI tagger: the encoder trunk plus a per-token
+    head, BIO labels over the reference's 6-entity contract."""
+
+    vocab_size: int = 30522
+    hidden_dim: int = 256
+    num_layers: int = 4
+    num_heads: int = 8
+    mlp_dim: int = 1024
+    max_seq_len: int = 512
+    entities: Tuple[str, ...] = (
+        "PERSON",
+        "PHONE_NUMBER",
+        "EMAIL_ADDRESS",
+        "DATE_TIME",
+        "NRP",
+        "LOCATION",
+    )
+    dtype: str = "bfloat16"
+    # the trained tagger's cache (training/ner.py) and the steps it must
+    # have been trained with; a missing or mismatched cache raises
+    params_path: Optional[str] = None
+    train_steps: int = 1500
+    # document-register language of the pattern recognizers: "fr" keeps
+    # the French + English forms, "en" drops the French-only ones
+    language: str = "fr"
+    # part of the cache fingerprint (the training recipe's entity weight)
+    entity_loss_weight: float = 4.0
+
+    @property
+    def num_labels(self) -> int:
+        return 1 + 2 * len(self.entities)  # O + B-/I- per entity
 
 
 @dataclass(frozen=True)
@@ -119,8 +154,7 @@ class QoSConfig:
 @dataclass(frozen=True)
 class ResilienceConfig:
     """Failure-path policy of ``/ask`` (the fields of the reference's
-    ResilienceConfig that this package reads; its retry policy serves the
-    ingest slice)."""
+    ResilienceConfig that this package reads)."""
 
     # end-to-end /ask budget stamped at admission; 0 disables deadlines
     request_deadline_s: float = 8.0
@@ -133,6 +167,11 @@ class ResilienceConfig:
     breaker_reset_s: float = 30.0
     # cap on the degraded extractive answer built from retrieved chunks
     degraded_max_chars: int = 600
+    # in-place retry policy (resilience/policy.py) of the ingest pipeline's
+    # broker publishes, extraction and queue handlers
+    retry_attempts: int = 3
+    retry_base_delay_s: float = 0.05
+    retry_max_delay_s: float = 2.0
 
 
 @dataclass(frozen=True)
@@ -175,3 +214,53 @@ class StoreConfig:
     shard_capacity: int = 16384
     dtype: str = "bfloat16"
     default_k: int = 3
+    # per-row generator-token sidecar of the fused RAG path; not in this
+    # port yet, so only 0 is accepted (index/store.py)
+    token_width: int = 0
+
+
+@dataclass(frozen=True)
+class ChunkConfig:
+    """Chunking policy: the reference's fixed 500 characters, optional
+    overlap."""
+
+    chunk_chars: int = 500
+    overlap_chars: int = 0
+
+
+@dataclass(frozen=True)
+class BrokerConfig:
+    """The ingest pipeline's message bus (two queues, batched consumers,
+    redelivery with backoff, then a dead-letter queue)."""
+
+    backend: str = "memory"  # "memory"; "amqp" is not in this port yet
+    raw_queue: str = "raw_documents_queue"
+    clean_queue: str = "clean_documents_queue"
+    prefetch: int = 8  # messages a consumer pulls per batch
+    max_redelivery: int = 3
+    retry_backoff_s: float = 0.5  # base redelivery delay (doubles per attempt)
+
+
+@dataclass(frozen=True)
+class RegistryConfig:
+    """Document-metadata registry: SQLite by default, a Postgres URL for
+    several processes."""
+
+    url: str = "sqlite://"  # in memory; "sqlite:///path.db" on disk
+
+
+@dataclass(frozen=True)
+class Config:
+    """The sections ``DocumentPipeline`` reads (``cfg.broker``,
+    ``cfg.chunk``, ``cfg.resilience``, ``cfg.ner``, ``cfg.store``), plus
+    the registry section that wires it.  The reference's ``DataConfig``
+    (work and bootstrap directories) comes with the app's runtime, its
+    only reader."""
+
+    encoder: EncoderConfig = field(default_factory=EncoderConfig)
+    ner: NERConfig = field(default_factory=NERConfig)
+    store: StoreConfig = field(default_factory=StoreConfig)
+    chunk: ChunkConfig = field(default_factory=ChunkConfig)
+    broker: BrokerConfig = field(default_factory=BrokerConfig)
+    registry: RegistryConfig = field(default_factory=RegistryConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)

@@ -4,6 +4,7 @@ Counterpart of ``docqa_tpu/engines/encoder.py``.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,13 +56,16 @@ class EncoderEngine:
     ):
         """``params``: a tree of numpy arrays or tensors with the
         reference's names; None draws the reference's seeded host init.
-        Parameters stay float32 (matmuls cast to ``cfg.dtype``)."""
+        Parameters stay float32 (matmuls cast to ``cfg.dtype``).
+        ``forwards`` counts encoder forwards (one per marshalled batch)."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tokenizer = tokenizer or default_tokenizer(cfg.vocab_size)
         if params is None:
             params = weights.host_init_encoder_params(cfg, seed)
         self.params = weights.to_torch(params, self.device)
+        self.forwards = 0
+        self._count_lock = threading.Lock()
 
     def encode_ids(self, ids: np.ndarray, lengths: np.ndarray) -> torch.Tensor:
         """Marshalled [B, S] ids -> [B, embed_dim] f32 embeddings, left on
@@ -69,7 +73,10 @@ class EncoderEngine:
         ids_t = torch.from_numpy(ids).long().to(self.device)
         len_t = torch.from_numpy(lengths).to(self.device)
         with torch.inference_mode():
-            return encode_batch(self.params, self.cfg, ids_t, len_t)
+            out = encode_batch(self.params, self.cfg, ids_t, len_t)
+        with self._count_lock:
+            self.forwards += 1
+        return out
 
     def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
         """[n] texts -> [n, embed_dim] float32 embeddings (host).  Splits

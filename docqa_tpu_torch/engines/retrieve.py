@@ -51,6 +51,11 @@ class FusedRetriever:
         buf, count = store.device_view()
         if count == 0:
             return [[] for _ in texts]
+        if buf.is_cuda:
+            # an add on another stream (the ingest pipeline's index worker)
+            # may swap in a grown buffer meanwhile: the allocator must not
+            # reuse this one before this stream's reads of it are done
+            buf.record_stream(torch.cuda.current_stream(buf.device))
         emb = self.encoder.encode_ids(ids_p, len_p)
         with torch.inference_mode():
             # the store scores cosine: re-normalize even when the encoder

@@ -4,14 +4,15 @@
 A float32 host master copy plus one [capacity, dim] device buffer in
 ``StoreConfig.dtype`` (bf16 by default) that doubles when it fills.
 Vectors are L2-normalized on add, so a dot product is the cosine.
-Metadata filters, tombstones and snapshots are later slices.
+Metadata filters, tombstones, snapshots and the fused RAG path's token
+sidecar (``StoreConfig.token_width``) are later slices.
 """
 
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +57,11 @@ class VectorStore:
 
     def __init__(self, cfg: StoreConfig, device="cuda"):
         self.device = resolve_device(device)
+        if cfg.token_width:
+            raise ValueError(
+                "the token sidecar (StoreConfig.token_width) comes with the "
+                "fused RAG slice; only token_width=0 is supported"
+            )
         self.cfg = cfg
         self._lock = threading.RLock()
         self._meta: List[Dict[str, Any]] = []
@@ -94,10 +100,26 @@ class VectorStore:
         self._dev = buf
         self._capacity = new_cap
 
-    def add(self, vectors: np.ndarray,
-            metadata: Sequence[Dict[str, Any]]) -> List[int]:
+    def add(
+        self,
+        vectors: np.ndarray,
+        metadata: Sequence[Dict[str, Any]],
+        token_rows: Optional[np.ndarray] = None,
+        token_lens: Optional[np.ndarray] = None,
+    ) -> List[int]:
         """Append vectors (L2-normalized here) + metadata rows; returns the
-        global row ids.  Visible to searches immediately."""
+        global row ids.  Visible to searches immediately, from any stream:
+        on a card the call returns once the rows are on the device.
+
+        ``token_rows`` / ``token_lens`` take the reference's signature for
+        the token sidecar, which this port does not have yet: passing
+        either raises."""
+        if token_rows is not None or token_lens is not None:
+            raise ValueError(
+                "token_rows/token_lens need the token sidecar "
+                f"(StoreConfig.token_width, here {self.cfg.token_width}), "
+                "which comes with the fused RAG slice"
+            )
         vectors = np.asarray(vectors, np.float32)
         if vectors.ndim != 2 or vectors.shape[1] != self.cfg.dim:
             raise ValueError(
@@ -122,6 +144,10 @@ class VectorStore:
             self._dev[start : start + n] = torch.from_numpy(vectors).to(
                 device=self.device, dtype=self._dtype
             )
+            if self.device.type == "cuda":
+                # the count below publishes the rows to searches on other
+                # streams: the write must have landed first
+                torch.cuda.current_stream(self.device).synchronize()
             self._meta.extend(dict(m) for m in metadata)
             self._count = start + n
             return list(range(start, start + n))
@@ -141,3 +167,9 @@ class VectorStore:
                 )
             out.append(row)
         return out
+
+    def metadata_rows(self) -> List[Dict[str, Any]]:
+        """Copy of the metadata list (row order == insertion order) —
+        non-semantic listings without a device round trip."""
+        with self._lock:
+            return list(self._meta[: self._count])

@@ -8,9 +8,8 @@
   replica) that stop hammering a failing dependency.
 * :mod:`faults` — a deterministic seeded fault-injection plan that drives
   every behaviour above in the tests and in ``chip_smoke.py``.
-
-The reference's :mod:`policy` (retries with seeded jitter) serves the
-ingest pipeline and comes with that slice.
+* :mod:`policy` — in-place retries with seeded jitter, for the ingest
+  pipeline's publishes, extraction and queue handlers.
 """
 
 from docqa_tpu_torch.resilience.breaker import (  # noqa: F401
@@ -31,3 +30,4 @@ from docqa_tpu_torch.resilience.faults import (  # noqa: F401
     perturb,
     uninstall,
 )
+from docqa_tpu_torch.resilience.policy import RetryPolicy  # noqa: F401

@@ -7,6 +7,13 @@ with no active plan that is one global read and an immediate return.
 Instrumented sites in this package (grep ``resilience_site:``):
 
 =====================  =====================================================
+``broker.publish``     ``MemoryBroker.publish`` — a raise is a dropped
+                       broker connection
+``extract``            ``DocumentPipeline.ingest_document``, before
+                       extraction
+``deid``               ``DocumentPipeline._deid_handler``, before the tagger
+                       batch
+``index``              ``DocumentPipeline._index_handler``, before encoding
 ``decoder``            ``QAService`` generation submission — a raise here is
                        a decoder outage (the degraded-answer trigger)
 ``serve.worker_loop``  top of every ``ContinuousBatcher`` worker iteration —
@@ -19,8 +26,8 @@ Instrumented sites in this package (grep ``resilience_site:``):
                        (typed errors, the batcher survives)
 =====================  =====================================================
 
-The reference's other sites (broker, ingest stages, checkpoint loads) come
-with the slices that port those modules.
+The reference's ``checkpoint.load`` site comes with the checkpoint-import
+slice.
 
 A :class:`FaultPlan` is a list of :class:`FaultRule`; each rule matches a
 site and fires at explicit call indices (``at_steps``) or with probability

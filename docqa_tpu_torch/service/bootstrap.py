@@ -1,0 +1,169 @@
+"""Knowledge-base bootstrap from CSV files, counterpart of
+``docqa_tpu/service/bootstrap.py`` (verbatim but the token sidecar).
+
+Parity with ``semantic-indexer/indexer.py:50-94``: on first start, CSV rows
+from a data directory are templated into natural-language sentences and
+indexed, filename-dispatched —
+
+* files whose name contains ``matrice`` or ``ranking``: the reference's
+  (syndrome, plant, score) scoring matrix → one score sentence per row
+  (``indexer.py:67-76``);
+* files whose name contains ``base`` or ``connaissance``: the denormalized
+  syndrome/formula/plant table → one detail sentence per row, quoting the
+  monograph prose columns (nature/saveur/tropisme, indications, posologie,
+  contre-indications) when present (``indexer.py:79-89``);
+* files whose name contains ``monograph`` or ``plantes``: one per-herb
+  monograph sentence;
+* anything else: a generic "column: value" sentence (the reference skipped
+  unknown files; we keep them searchable).
+
+Sentences are our own templating, not the reference's strings; the *shape*
+(one sentence per row, score surfaced for ranking prompts) is what matters
+for retrieval parity.
+"""
+
+from __future__ import annotations
+
+import csv
+import glob
+import os
+from typing import Dict, List, Optional
+
+from docqa_tpu_torch.runtime.metrics import get_logger
+
+log = get_logger("docqa.bootstrap")
+
+
+def _get(row: Dict[str, str], *names: str) -> Optional[str]:
+    for n in names:
+        for key, value in row.items():
+            if key and key.strip().lower() == n:
+                value = (value or "").strip()
+                if value:
+                    return value
+    return None
+
+
+def row_to_sentence(filename: str, row: Dict[str, str]) -> Optional[str]:
+    base = os.path.basename(filename).lower()
+    if "matrice" in base or "ranking" in base:
+        syndrome = _get(row, "nom_syndrome", "syndrome")
+        plant = _get(row, "nom_latin", "plante", "plant")
+        chinese = _get(row, "nom_chinois")
+        score = _get(row, "score_role", "score")
+        if not (syndrome and plant):
+            return None
+        name = f"{plant} ({chinese})" if chinese else plant
+        return (
+            f"Pour le syndrome {syndrome}, la plante {name} est pertinente "
+            f"avec un score de {score or 'non renseigné'}."
+        )
+    if "base" in base or "connaissance" in base:
+        syndrome = _get(row, "nom_syndrome", "syndrome")
+        formula = _get(row, "nom_formule", "formule", "formula")
+        plant = _get(row, "nom_latin", "nom_plante", "plante")
+        chinese = _get(row, "nom_chinois")
+        role = _get(row, "role", "role_plante")
+        score = _get(row, "score_role", "score")
+        parts = []
+        if syndrome:
+            parts.append(f"Syndrome: {syndrome}.")
+        if formula:
+            f_ind = _get(row, "indication_formule", "indications_formule")
+            f_pos = _get(row, "posologie_formule")
+            line = f"Formule associée: {formula}"
+            if f_ind:
+                line += f" — {f_ind}"
+            parts.append(line + ".")
+            if f_pos:
+                parts.append(f"Posologie de la formule: {f_pos}.")
+        if plant:
+            name = f"{plant} ({chinese})" if chinese else plant
+            r = f" avec le rôle {role}" if role else ""
+            s = f" (score {score})" if score else ""
+            parts.append(f"La plante {name} y figure{r}{s}.")
+            nature = _get(row, "nature_plante", "nature")
+            saveur = _get(row, "saveur_plante", "saveur")
+            trop = _get(row, "tropisme_plante", "tropisme")
+            props = "; ".join(
+                p
+                for p in (
+                    f"nature {nature}" if nature else None,
+                    f"saveur {saveur}" if saveur else None,
+                    f"tropisme {trop}" if trop else None,
+                )
+                if p
+            )
+            if props:
+                parts.append(f"Propriétés: {props}.")
+            ind = _get(row, "indications_plante", "indications")
+            if ind:
+                parts.append(f"Indications de la plante: {ind}.")
+            pos = _get(row, "posologie_plante", "posologie")
+            if pos:
+                parts.append(f"Posologie: {pos}.")
+            ci = _get(row, "contre_indications_plante", "contre_indications")
+            if ci:
+                parts.append(f"Contre-indications: {ci}.")
+        return " ".join(parts) if parts else None
+    if "monograph" in base or "plantes" in base:
+        plant = _get(row, "nom_latin", "plante")
+        chinese = _get(row, "nom_chinois")
+        if not plant:
+            return None
+        name = f"{plant} ({chinese})" if chinese else plant
+        parts = [f"Monographie de la plante {name}."]
+        nature = _get(row, "nature")
+        saveur = _get(row, "saveur")
+        trop = _get(row, "tropisme")
+        props = "; ".join(
+            p
+            for p in (
+                f"nature {nature}" if nature else None,
+                f"saveur {saveur}" if saveur else None,
+                f"tropisme {trop}" if trop else None,
+            )
+            if p
+        )
+        if props:
+            parts.append(f"Propriétés: {props}.")
+        for field, label in (
+            ("indications", "Indications"),
+            ("posologie", "Posologie"),
+            ("contre_indications", "Contre-indications"),
+        ):
+            value = _get(row, field)
+            if value:
+                parts.append(f"{label}: {value}.")
+        return " ".join(parts)
+    # generic fallback
+    kv = [f"{k.strip()}: {v.strip()}" for k, v in row.items() if k and v and v.strip()]
+    return ". ".join(kv) + "." if kv else None
+
+
+def bootstrap_csv_dir(data_dir: str, encoder, store) -> int:
+    """Index every CSV in ``data_dir``; returns rows indexed.  All sentences
+    of all files are encoded in batched device calls (the reference looped
+    batch-1 encodes, 649 of them — SURVEY §3.4 hot spot).  The reference's
+    ``prompt_tokenizer`` (the store's token sidecar) comes with FusedRAG."""
+    sentences: List[str] = []
+    metas: List[Dict[str, object]] = []
+    for path in sorted(glob.glob(os.path.join(data_dir, "*.csv"))):
+        with open(path, newline="", encoding="utf-8", errors="replace") as f:
+            for row in csv.DictReader(f):
+                sent = row_to_sentence(path, row)
+                if sent:
+                    sentences.append(sent)
+                    metas.append(
+                        {
+                            "doc_id": f"kb:{os.path.basename(path)}",
+                            "text_content": sent,
+                            "source": os.path.basename(path),
+                            "type": "knowledge_base",
+                            "patient_id": None,
+                        }
+                    )
+    if sentences:
+        store.add(encoder.encode_texts(sentences), metas)
+        log.info("bootstrapped %d knowledge rows from %s", len(sentences), data_dir)
+    return len(sentences)

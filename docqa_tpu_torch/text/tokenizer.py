@@ -1,6 +1,7 @@
-"""Hash-fallback tokenizer: a verbatim copy of ``docqa_tpu/text/tokenizer.py``
-(``Tokenizer`` + ``HashTokenizer``), so token ids match the reference bit
-for bit.  Word -> stable FNV-1a hash bucket; no vocabulary file needed.
+"""Hash-fallback tokenizers: a verbatim copy of ``docqa_tpu/text/tokenizer.py``
+(``Tokenizer``, ``HashTokenizer`` and the NER tagger's
+``ShapeHashTokenizer``), so token ids match the reference bit for bit.
+Word -> stable FNV-1a hash bucket; no vocabulary file needed.
 
 Output contract: right-padded ``ids [batch, max_len]`` plus ``lengths
 [batch]`` — the padding convention the attention ``lengths`` masks expect.
@@ -108,6 +109,42 @@ class HashTokenizer(Tokenizer):
             self.vocab_size - self._n_reserved
         )
         return [int(bucket)]
+
+
+class ShapeHashTokenizer(HashTokenizer):
+    """Hash tokenizer that preserves orthographic shape for NER.
+
+    PHI detection hinges on casing — "Boston" vs "boston" — but an unseen
+    name hashes to a bucket whose embedding carries no case information.  So
+    each word is emitted as ``[shape_marker?, bucket]``: a TITLE / ALLCAPS /
+    HAS-DIGIT marker token (when the word has a notable shape) followed by
+    the case-insensitive hash bucket.
+
+    ``lowercase=False`` so callers (``deid/engine.py``) pass words through
+    with case intact; the bucket itself is computed case-insensitively.
+    """
+
+    SHAPE_TITLE, SHAPE_UPPER, SHAPE_DIGIT = 5, 6, 7
+
+    def __init__(self, vocab_size: int = 30522):
+        super().__init__(vocab_size, lowercase=False)
+        self._n_reserved = 8  # 5 specials + 3 shape markers
+
+    def _shape(self, word: str) -> Optional[int]:
+        if any(c.isdigit() for c in word):
+            return self.SHAPE_DIGIT
+        if len(word) > 1 and word.isupper():
+            return self.SHAPE_UPPER
+        if word[:1].isupper():
+            return self.SHAPE_TITLE
+        return None
+
+    def word_to_ids(self, word: str) -> List[int]:
+        bucket = self._n_reserved + _fnv1a(word.lower()) % (
+            self.vocab_size - self._n_reserved
+        )
+        shape = self._shape(word)
+        return [bucket] if shape is None else [shape, int(bucket)]
 
 
 def default_tokenizer(vocab_size: int = 30522) -> Tokenizer:

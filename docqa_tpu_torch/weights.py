@@ -11,7 +11,10 @@ Two routes, both numpy-only on the way in:
   (``docqa_tpu/models/encoder.py`` init_encoder_params).
 * :func:`to_torch` turns any such tree of numpy arrays — including one
   exported from ``docqa_tpu`` with ``np.asarray`` on each leaf, bfloat16
-  leaves too — into tensors on a device.
+  leaves too — into tensors on a device; :func:`ner_params_to_torch` does
+  so for a NER tagger tree after checking its names and shapes (the
+  reference draws its tagger with ``jax.random``, so a tagger reaches the
+  port only this way or through ``training/ner.py``'s npz).
 
 Names and layouts are the reference's, so a tree moves between the two
 packages unchanged.
@@ -24,7 +27,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from docqa_tpu_torch.config import DecoderConfig, EncoderConfig
+from docqa_tpu_torch.config import DecoderConfig, EncoderConfig, NERConfig
 from docqa_tpu_torch.models.decoder import decoder_param_schema
 
 HostTree = Dict[str, np.ndarray]
@@ -117,3 +120,42 @@ def to_torch(
         t = _leaf_to_tensor(arr)
         out[name] = t.to(device=device, dtype=dtype or t.dtype)
     return out
+
+
+def ner_param_shapes(cfg: NERConfig) -> Dict[str, tuple]:
+    """Name -> shape of a NER tagger tree: the encoder trunk at the
+    tagger's widths (no pooling projection) plus ``head_w`` [hidden,
+    num_labels] and ``head_b`` [num_labels]."""
+    h, m = cfg.hidden_dim, cfg.mlp_dim
+    shapes = {
+        "tok_emb": (cfg.vocab_size, h), "pos_emb": (cfg.max_seq_len, h),
+        "type_emb": (2, h), "emb_ln_g": (h,), "emb_ln_b": (h,),
+        "head_w": (h, cfg.num_labels), "head_b": (cfg.num_labels,),
+    }
+    for i in range(cfg.num_layers):
+        for name in ("q", "k", "v", "o"):
+            shapes[f"l{i}_{name}_w"], shapes[f"l{i}_{name}_b"] = (h, h), (h,)
+        shapes[f"l{i}_up_w"], shapes[f"l{i}_up_b"] = (h, m), (m,)
+        shapes[f"l{i}_down_w"], shapes[f"l{i}_down_b"] = (m, h), (h,)
+        for ln in ("attn_ln", "mlp_ln"):
+            shapes[f"l{i}_{ln}_g"], shapes[f"l{i}_{ln}_b"] = (h,), (h,)
+    return shapes
+
+
+def ner_params_to_torch(
+    tree: Mapping[str, object], cfg: NERConfig, device
+) -> Dict[str, torch.Tensor]:
+    """A NER tagger tree (numpy or tensors, the reference's names, head
+    included) -> float32 tensors on ``device``.  Raises on a missing,
+    extra or misshapen leaf."""
+    want = ner_param_shapes(cfg)
+    got = {name: tuple(np.shape(arr)) for name, arr in tree.items()}
+    if got != want:
+        missing = sorted(set(want) - set(got))
+        extra = sorted(set(got) - set(want))
+        shape = sorted(n for n in set(want) & set(got) if want[n] != got[n])
+        raise ValueError(
+            f"not a NER tree for this config: missing {missing}, extra "
+            f"{extra}, wrong shape {shape}"
+        )
+    return to_torch(tree, device, dtype=torch.float32)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one /ask goes on the card, for the PyTorch/CUDA port.
 
-    python3 scripts/torch_ask_profile.py [--out PATH] [--batcher]
+    python3 scripts/torch_ask_profile.py [--out PATH] [--batcher | --pool N,M | --ingest]
 
 Builds the same full-width service as ``chip_smoke.py`` (MiniLM-L6
 encoder, 1,000,000-row bf16 store, Mistral-7B-width bf16 decoder with
@@ -15,7 +15,10 @@ of eight concurrent questions is profiled as a whole (plus device and
 wall time per verify step).  With ``--pool 1,2`` it goes through
 ``chip_smoke.py`` phase 6's ``EnginePool`` (16 slots a replica) at each
 replica count in turn and profiles one round of sixteen concurrent
-questions per count.  Needs a CUDA card.
+questions per count.  With ``--ingest`` it profiles one round of 64
+uploads through ``chip_smoke.py`` phase 7's ``DocumentPipeline`` (NER
+tagger at full width, the same encoder and store), after a warm-up round
+of 16, and reports K1's share of the device time.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import sys
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -35,13 +39,20 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
-    QUESTIONS, _ask_round, build_main_path, nvidia_smi_line,
+    QUESTIONS, _ask_round, build_main_path, ingest_corpus, nvidia_smi_line,
 )
-from docqa_tpu_torch.config import PoolConfig, QoSConfig  # noqa: E402
+from docqa_tpu_torch.config import (  # noqa: E402
+    Config, NERConfig, PoolConfig, QoSConfig,
+)
+from docqa_tpu_torch.deid.engine import DeidEngine  # noqa: E402
 from docqa_tpu_torch.engines.pool import EnginePool  # noqa: E402
 from docqa_tpu_torch.engines.serve import ContinuousBatcher  # noqa: E402
+from docqa_tpu_torch.models.ner import init_ner_params  # noqa: E402
 from docqa_tpu_torch.ops import _kernels  # noqa: E402
+from docqa_tpu_torch.service.broker import make_broker  # noqa: E402
+from docqa_tpu_torch.service.pipeline import DocumentPipeline  # noqa: E402
 from docqa_tpu_torch.service.qa import QAService  # noqa: E402
+from docqa_tpu_torch.service.registry import DocumentRegistry  # noqa: E402
 
 
 def family(name: str) -> str:
@@ -191,6 +202,54 @@ def profile_pool(qa_solo, replicas):
     return rec
 
 
+def profile_ingest(qa_solo, n_docs=64):
+    """One round of ``n_docs`` uploads through phase 7's pipeline (seeded
+    random tagger at ``NERConfig()``, phase 3's encoder and store), timed
+    from the first upload to the last INDEXED, after a warm-up round."""
+    encoder, store = qa_solo.retriever.encoder, qa_solo.retriever.store
+    ner_cfg = NERConfig()
+    deid = DeidEngine(ner_cfg, params=init_ner_params(ner_cfg, seed=11),
+                      device=encoder.device)
+    cfg = Config(encoder=encoder.cfg, ner=ner_cfg, store=store.cfg)
+    pipe = DocumentPipeline(cfg, make_broker(cfg.broker), DocumentRegistry("sqlite://"),
+                            deid, encoder, store)
+    rng = np.random.default_rng(2025)
+    warm, docs = ingest_corpus(rng, 16, "warm"), ingest_corpus(rng, n_docs, "profiled")
+
+    def ingest(batch):
+        ids = [pipe.ingest_document(d["filename"], d["data"]).doc_id for d in batch]
+        for doc_id in ids:
+            if not pipe.wait_indexed(doc_id, timeout=300):
+                raise RuntimeError(f"{doc_id} not INDEXED")
+
+    pipe.start()
+    try:
+        ingest(warm)
+        torch.cuda.synchronize()
+        nf, ne, rows = deid.forwards, encoder.forwards, store.count
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ingest(docs)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        pipe.stop()
+    rec = analyse(prof, wall_us)
+    k1_ms = sum(v["ms"] for v in rec["k1_by_kernel"].values())
+    rec.update(mode="ingest", docs=n_docs, chunks=store.count - rows,
+               docs_per_s=n_docs / (wall_us / 1e6),
+               tagger_forwards=deid.forwards - nf, encoder_forwards=encoder.forwards - ne,
+               k1_ms=k1_ms, k1_share_of_busy=k1_ms / max(rec["device_busy_ms"], 1e-9))
+    print(f"ingest round of {n_docs} uploads ({rec['chunks']} chunks): wall "
+          f"{rec['wall_ms']:.1f} ms = {rec['docs_per_s']:.1f} docs/s, device busy "
+          f"{rec['device_busy_ms']:.1f} ms (idle share {rec['device_idle_share']}), "
+          f"{rec['kernel_launches']} kernels, {rec['tagger_forwards']} tagger + "
+          f"{rec['encoder_forwards']} encoder forwards; K1 {k1_ms:.3f} ms = "
+          f"{100 * rec['k1_share_of_busy']:.1f} % of the busy time", flush=True)
+    print_breakdown(rec)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write the JSON report here")
@@ -199,6 +258,8 @@ def main(argv=None) -> int:
     ap.add_argument("--pool", default=None, metavar="COUNTS",
                     help="profile a round of sixteen /ask through a pool of each "
                          "comma-separated replica count")
+    ap.add_argument("--ingest", action="store_true",
+                    help="profile a round of 64 uploads through the ingest pipeline")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_ask_profile: needs a CUDA card", file=sys.stderr)
@@ -208,7 +269,9 @@ def main(argv=None) -> int:
     _kernels.build()
     qa, _, _ = build_main_path(_kernels.LAUNCHES)
     report = {"card": smi, "questions": []}
-    if args.pool:
+    if args.ingest:
+        report["ingest_round"] = profile_ingest(qa)
+    elif args.pool:
         report["pool_rounds"] = [profile_pool(qa, int(n)) for n in args.pool.split(",")]
     elif args.batcher:
         report["batcher_round"] = profile_batcher(qa)

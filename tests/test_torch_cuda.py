@@ -45,6 +45,14 @@ CASES = [
     (2, 17, 200, 8, 2, 64, True, None, [150, 17], None),
     # long causal prefill with a window, two warpgroups per block
     (2, 1024, 1100, 32, 8, 128, True, 300, [1030, 700], [6, 0]),
+    # the NER tagger's window batch (NERConfig: 8 heads of 32, no GQA,
+    # bidirectional), ragged lengths and two empty lanes
+    (32, 512, 512, 8, 8, 32, False, None,
+     [0, 0] + [300 + (37 * i) % 213 for i in range(30)], None),
+    # the batch the pipeline's deid worker serves (8 windows, one warpgroup
+    # a block), one lane empty
+    (8, 512, 512, 8, 8, 32, False, None,
+     [0] + [300 + (53 * i) % 213 for i in range(7)], None),
 ]
 
 
@@ -138,6 +146,22 @@ def test_zero_length_rows_are_zero_not_nan(dev):
     got = flash_attention(q, k, v, **kw)
     assert torch.isfinite(got.float()).all()
     assert not got[0].float().any()  # lengths[0] == 0
+
+
+@pytest.mark.parametrize("case,groups", [(CASES[-2], 2), (CASES[-1], 1)],
+                         ids=["b32", "served_b8"])
+def test_empty_lanes_of_a_window_batch_are_zero_on_the_prefill_path(dev, case, groups):
+    """The tagger's padded window batches (32 windows, two warpgroups a
+    block; the pipeline's 8, one): the empty lanes come out as exact zeros
+    on the wgmma path, as ``encoder_forward`` documents."""
+    q, k, v, kw = _inputs(dev, case, torch.bfloat16)
+    plan = plan_flash(torch.bfloat16, *case[:5],
+                      torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert plan.path == "prefill" and plan.prefill_groups == groups
+    got = flash_attention(q, k, v, **kw)
+    empty = case[8].count(0)
+    assert torch.isfinite(got.float()).all()
+    assert not got[:empty].float().any() and got[empty:].float().abs().sum() > 0
 
 
 # paged mode: (lanes, q_len, hq, hkv, d, block_size, NB, lengths, window)
@@ -318,3 +342,71 @@ def test_pool_construction_raises_when_the_kernels_cannot_load(dev, monkeypatch)
                        device=dev)
     finally:
         attention._paged_fn.cache_clear()
+
+
+def test_ingest_pipeline_on_the_card(dev):
+    """32 uploads through ``DocumentPipeline`` on the card in float32 (K1's
+    SIMT path) and on the CPU: the same statuses, rows and masked texts,
+    embeddings within 1e-4; on the card, K1 launches = tagger layers x
+    tagger forwards + encoder layers x encoder forwards.  The random tagger's
+    head is scaled up so that every word's label is decided by a wide
+    margin, and the threshold is 0, so the tagger's spans reach the text."""
+    import numpy as np
+
+    from docqa_tpu_torch.config import (
+        Config, EncoderConfig, NERConfig, StoreConfig,
+    )
+    from docqa_tpu_torch.deid import datagen
+    from docqa_tpu_torch.deid.engine import DeidEngine
+    from docqa_tpu_torch.engines.encoder import EncoderEngine
+    from docqa_tpu_torch.index.store import VectorStore
+    from docqa_tpu_torch.models.ner import init_ner_params
+    from docqa_tpu_torch.service import registry as reg
+    from docqa_tpu_torch.service.broker import make_broker
+    from docqa_tpu_torch.service.pipeline import DocumentPipeline
+
+    enc_cfg = EncoderConfig(vocab_size=512, hidden_dim=64, num_layers=2, num_heads=2,
+                            mlp_dim=128, max_seq_len=128, embed_dim=64, dtype="float32")
+    ner_cfg = NERConfig(vocab_size=512, hidden_dim=128, num_layers=2, num_heads=4,
+                        mlp_dim=256, max_seq_len=128, dtype="float32")
+    params = init_ner_params(ner_cfg, seed=3)
+    params["head_w"] = params["head_w"] * 50
+    rng = np.random.default_rng(8)
+    docs = []
+    for i in range(32):
+        parts = [f"Tél : 06 12 34 {i:02d} 78 — courriel : p{i}@chu.fr."]
+        while len(" ".join(parts)) < 900:
+            parts.append(datagen.generate_example(rng)[0])
+        docs.append((f"note{i}.txt", "\n".join(parts).encode()))
+
+    def run(device):
+        cfg = Config(encoder=enc_cfg, ner=ner_cfg, store=StoreConfig(dim=64))
+        pipe = DocumentPipeline(
+            cfg, make_broker(cfg.broker), reg.DocumentRegistry(),
+            DeidEngine(ner_cfg, params=params, ner_threshold=0.0, device=device),
+            EncoderEngine(enc_cfg, seed=1, device=device),
+            VectorStore(cfg.store, device=device),
+        )
+        ids = [pipe.ingest_document(name, data).doc_id for name, data in docs]
+        before = dict(_kernels.LAUNCHES)
+        pipe.start()
+        try:
+            assert all(pipe.wait_indexed(d, timeout=120) for d in ids)
+        finally:
+            pipe.stop()
+        launched = {k: _kernels.LAUNCHES[k] - before.get(k, 0)
+                    for k in ("flash_attention", "flash_attention.simt")}
+        rows = [dict(r, doc_id=ids.index(r["doc_id"])) for r in pipe.store.metadata_rows()]
+        n = pipe.store.count
+        return (rows, [pipe.registry.get(d).n_chunks for d in ids],
+                pipe.store._host[:n].copy(), launched, pipe.deid.forwards,
+                pipe.encoder.forwards)
+
+    rows, chunks, emb, launched, n_ner, n_enc = run(dev)
+    c_rows, c_chunks, c_emb, _, _, _ = run("cpu")
+    assert rows == c_rows and chunks == c_chunks and sum(chunks) == len(rows)
+    assert not any("@chu.fr" in r["text_content"] for r in rows)
+    assert any("<PERSON>" in r["text_content"] for r in rows)
+    np.testing.assert_allclose(emb, c_emb, atol=1e-4, rtol=0)
+    want = ner_cfg.num_layers * n_ner + enc_cfg.num_layers * n_enc
+    assert launched == {"flash_attention": want, "flash_attention.simt": want} and n_ner > 0

@@ -54,6 +54,20 @@ BATCHER_MODULES = (
     "docqa_tpu_torch.runtime.metrics",
     "docqa_tpu_torch.service.qa",
 )
+# the ingest slice's modules, held to the same two checks
+INGEST_MODULES = (
+    "docqa_tpu_torch.deid.datagen",
+    "docqa_tpu_torch.deid.engine",
+    "docqa_tpu_torch.models.ner",
+    "docqa_tpu_torch.resilience.policy",
+    "docqa_tpu_torch.service.bootstrap",
+    "docqa_tpu_torch.service.broker",
+    "docqa_tpu_torch.service.extract",
+    "docqa_tpu_torch.service.pipeline",
+    "docqa_tpu_torch.service.registry",
+    "docqa_tpu_torch.text.chunker",
+    "docqa_tpu_torch.training.ner",
+)
 
 
 def _python_files():
@@ -75,13 +89,13 @@ def test_imports_with_jax_and_reference_blocked():
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout
     port_line = next(line for line in out.stdout.splitlines() if line.startswith("PORT"))
-    for mod in BATCHER_MODULES:
+    for mod in BATCHER_MODULES + INGEST_MODULES:
         assert f"'{mod}'" in port_line, mod
 
 
 def test_ast_scan_covers_the_batcher_modules():
     scanned = {os.path.relpath(p, REPO) for p in _python_files()}
-    for mod in BATCHER_MODULES:
+    for mod in BATCHER_MODULES + INGEST_MODULES:
         assert mod.replace(".", os.sep) + ".py" in scanned, mod
 
 
@@ -124,6 +138,13 @@ def _build(entry):
         return GenerateEngine(dec_cfg, GenerateConfig())
     if entry == "VectorStore":
         return VectorStore(store_cfg)
+    if entry == "DeidEngine":
+        from docqa_tpu_torch.config import NERConfig
+        from docqa_tpu_torch.deid.engine import DeidEngine
+
+        return DeidEngine(NERConfig(vocab_size=64, hidden_dim=32, num_layers=1,
+                                    num_heads=1, mlp_dim=32, max_seq_len=16,
+                                    dtype="float32"))
     enc = EncoderEngine(enc_cfg, device="cpu")
     store = VectorStore(store_cfg, device="cpu")
     if entry == "FusedRetriever":
@@ -139,7 +160,7 @@ def _build(entry):
 @pytest.mark.parametrize(
     "entry",
     ["EncoderEngine", "GenerateEngine", "VectorStore", "FusedRetriever", "QAService",
-     "EnginePool"],
+     "EnginePool", "DeidEngine"],
 )
 def test_entry_points_raise_without_cuda(entry):
     if torch.cuda.is_available():
