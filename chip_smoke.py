@@ -73,8 +73,31 @@ Phases, each of which fails the run on any error (nothing is caught):
    32 notes, docs/s, upload -> INDEXED, the stage spans, and 8 /ask through
    a 1-replica pool alone and beside 64 more uploads.
 
-Prints the pool JSON line, the ingest JSON line, the kernels JSON line, the
-nvidia-smi line, and last the ok line.
+8. obs: phase 6's 1-replica pool takes round A1 (16 /ask, 64 new tokens)
+   three times with the flight recorder off and three times on,
+   alternating, each /ask under its own trace and cost record as the
+   reference app opens them (the median difference and its spread are
+   reported against the reference's 2 % budget, not asserted).  Over the
+   last traced round: every trace complete with the expected spans; the
+   observatory's peak names the card; ``serve_prefill_fetch`` and
+   ``serve_decode_chunk`` costed on every call; no MFU above 1; every
+   spine item's device time within its submit-to-done wall time; the cost
+   ledger's per-class device ms equal to the spine's series; K1's launch
+   identity.  A ``torch.profiler`` window around at least four verify
+   steps names K1's decode kernel, and each decode chunk fetched in it
+   launched kernels whose CUPTI time is nonzero and within the chunk's
+   CUDA-event span; a telemetry tick over the pool, the
+   spine, a broker and the recorder renders lint-clean Prometheus text;
+   one upload through a pipeline configured as phase 7's leaves a
+   timeline of extract, deid and index spans.  Prints the attribution
+   table, the per-stage MFU table, the recorder numbers and what a spine
+   item pays to cross to a lane thread beside a busy Python thread.
+
+The recorder is on by default, so phases 3-7 run traced too.  Prints the
+pool JSON line, the ingest JSON line, the obs JSON line, the kernels JSON
+line, the nvidia-smi line, and last the ok line.  Phases 6 and 7 also
+print each spine stage's queue wait; ``--spine-lanes N`` sets the spine's
+lane count.
 Exits non-zero when CUDA is unavailable or any phase fails.
 """
 
@@ -85,9 +108,11 @@ import collections
 import ctypes
 import dataclasses
 import io
+import itertools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -99,6 +124,7 @@ import zlib
 import numpy as np
 import torch
 
+from docqa_tpu_torch import obs
 from docqa_tpu_torch.config import (
     Config, DecoderConfig, EncoderConfig, GenerateConfig, NERConfig, PoolConfig,
     QoSConfig, ResilienceConfig, StoreConfig,
@@ -111,11 +137,13 @@ from docqa_tpu_torch.engines.encoder import EncoderEngine
 from docqa_tpu_torch.engines.generate import GenerateEngine
 from docqa_tpu_torch.engines.pool import EnginePool
 from docqa_tpu_torch.engines.serve import ContinuousBatcher
+from docqa_tpu_torch.engines.spine import DispatchSpine, configure, get_spine
 from docqa_tpu_torch.index.store import VectorStore
 from docqa_tpu_torch.models.decoder import (
     decoder_forward, init_decoder_params, init_kv_cache,
 )
 from docqa_tpu_torch.models.ner import init_ner_params, ner_forward
+from docqa_tpu_torch.obs.expo import lint_prometheus_text, prometheus_text
 from docqa_tpu_torch.ops import _kernels
 from docqa_tpu_torch.ops import attention as attn
 from docqa_tpu_torch.resilience import (
@@ -1836,10 +1864,484 @@ def run_ingest_path(counts, qa_solo):
     return {"summary": summary, "launches": launches, "round_launches": round_launches}
 
 
+# ---- phase 8: observability over the pool and ingest ----------------------------
+
+# the spans every traced /ask of the pool path must hold (submitted and
+# resolved as the reference app's /ask does: no qa_e2e span)
+ASK_SPANS = frozenset({
+    "ask", "qa_retrieve", "fused_query", "dispatch:retrieve",
+    "serve_queue_wait", "serve_prefill", "serve_decode_chunk", "serve_result_wait",
+})
+# the spans of one ingested document's timeline
+DOC_SPANS = frozenset({"ingest", "extract", "deid_batch", "index_batch"})
+PROFILED_VERIFY_STEPS = 4
+# the reference's recorder overhead budget: reported beside the measured
+# difference, never asserted (the host's clock spreads 2x between runs)
+RECORDER_BUDGET = 0.02
+# recorder off/on round pairs, alternating
+RECORDER_PAIRS = 3
+# the profiler range name of one spine item in the profiled window
+ITEM_RANGE = "smoke_spine_item_"
+# a decode chunk's kernel busy time (CUPTI) may exceed its CUDA-event span
+# by no more than the two clocks' resolution
+SPAN_REL_SLACK = 1e-3
+SPAN_ABS_SLACK_US = 5.0
+# the spine handoff reading: items a pass, passes a side
+HANDOFF_ITEMS = 40
+HANDOFF_ROUNDS = 2
+
+
+class _Traced:
+    """A PendingAnswer resolved under its /ask trace, as the HTTP layer
+    resolves it."""
+
+    def __init__(self, ctx, pending):
+        self.ctx, self.pending = ctx, pending
+
+    def resolve(self, timeout):
+        return obs.call_in(self.ctx, self.pending.resolve, timeout)
+
+
+def _traced_round(qa, questions):
+    """Round A1's /ask, each under its own trace with an interactive cost
+    record (``obs.new_trace`` + ``obs.cost_open``, the reference app's
+    /ask), finished once answered.  With the recorder off every trace is
+    None and the round runs untraced.  Returns (results, traces)."""
+    pend, ctxs = [], []
+    for q in questions:
+        t0 = time.perf_counter()
+        ctx = obs.new_trace("ask")
+        obs.cost_open(ctx, "interactive")
+        pending = obs.call_in(ctx, qa.ask_submit, q,
+                              deadline=Deadline.after(POOL_DEADLINE_S))
+        pend.append((q, t0, _Traced(ctx, pending)))
+        ctxs.append(ctx)
+    results = _resolve_all(pend)
+    for ctx in ctxs:
+        obs.finish(ctx)
+    return results, [c.trace for c in ctxs if c is not None]
+
+
+def _spine_waits(stats):
+    """Per-stage items, mean queue wait and mean device time of a spine
+    snapshot, with its lane count."""
+    return {
+        "n_lanes": stats["n_lanes"],
+        "stages": {name: {key: row[key] for key in (
+            "count", "queue_wait_mean_ms", "device_mean_ms")}
+            for name, row in sorted(stats["stages"].items())},
+    }
+
+
+def _log_spine_waits(where, waits):
+    log(f"  spine over {where} ({waits['n_lanes']} lanes): " + ", ".join(
+            f"{name} {row['count']} items, queue wait mean "
+            f"{row['queue_wait_mean_ms']:.3f} ms, device mean {row['device_mean_ms']:.3f} ms"
+            for name, row in waits["stages"].items()))
+
+
+def _item_kernel_busy_us(events):
+    """Kernel time (us) per profiled spine item, from a torch.profiler
+    Chrome trace: a kernel belongs to the item whose ``ITEM_RANGE`` range
+    holds its launch (joined on the CUPTI correlation id), on the same
+    thread when the trace's thread ids join, else by time alone.  Returns
+    ``({item: us}, how)``."""
+    ranges = [(int(e["name"][len(ITEM_RANGE):]), str(e.get("tid")), e["ts"],
+               e["ts"] + e.get("dur", 0.0))
+              for e in events
+              if e.get("ph") == "X" and str(e.get("name", "")).startswith(ITEM_RANGE)]
+    launches = {e["args"]["correlation"]: (str(e.get("tid")), e["ts"])
+                for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    by_tid = bool({r[1] for r in ranges} & {tid for tid, _ in launches.values()})
+    busy = collections.defaultdict(float)
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        if launch is None:
+            continue
+        tid, ts = launch
+        for n, r_tid, t0, t1 in ranges:
+            if t0 <= ts <= t1 and (r_tid == tid or not by_tid):
+                busy[n] += e.get("dur", 0.0)
+                break
+    return dict(busy), "thread and time" if by_tid else "time"
+
+
+def spine_handoff(device, items=HANDOFF_ITEMS, rounds=HANDOFF_ROUNDS):
+    """What crossing to a spine lane thread costs an item on this host:
+    ``items`` small work items (one 64 x 64 matmul) on a fresh spine of
+    ``DEFAULT_LANES`` slots, beside a thread running a busy Python loop (as
+    ingest's deid worker runs beside its index worker), once on a lane
+    thread (``submit(...).result()``) and once on the caller (``run``) a
+    round, alternating which goes first.  Returns, per side, the ms an item
+    and the busy loop's iterations a second, one entry a round."""
+    x = torch.ones(64, 64, device=device)
+    spine = DispatchSpine()
+    out = {"lane": [], "caller": []}
+
+    def one(on_lane):
+        stop, count = threading.Event(), [0]
+
+        def busy():
+            while not stop.is_set():
+                sum(i * i for i in range(2000))
+                count[0] += 1
+
+        loop = threading.Thread(target=busy)
+        loop.start()
+        t0 = time.perf_counter()
+        try:
+            for _ in range(items):
+                if on_lane:
+                    spine.submit("handoff", lambda: (x @ x).sum(), device=device).result()
+                else:
+                    spine.run("handoff", lambda: (x @ x).sum(), device=device)
+        finally:
+            wall = time.perf_counter() - t0
+            stop.set()
+            loop.join()
+        return {"ms_per_item": wall / items * 1e3, "busy_loop_per_s": count[0] / wall}
+
+    try:
+        for r in range(rounds):
+            for side in (("lane", "caller") if r % 2 == 0 else ("caller", "lane")):
+                out[side].append(one(side == "lane"))
+    finally:
+        spine.close()
+    return out
+
+
+def _mfu_table(stats):
+    lines = [f"    {'stage':<22} {'calls':>6} {'device_s':>10} {'GFLOP':>10} "
+             f"{'MFU':>9} {'FLOP/B':>8} bound"]
+    for stage, row in stats["stages"].items():
+        mfu = "-" if row["mfu"] is None else f"{row['mfu']:.6f}"
+        if "mfu_raw_invalid" in row:
+            mfu = f"invalid {row['mfu_raw_invalid']:.3f}"
+        inten = row["intensity_flops_per_byte"]
+        lines.append(
+            f"    {stage:<22} {row['calls']:>6} {row['device_s']:>10.6f} "
+            f"{row['flops'] / 1e9:>10.3f} {mfu:>9} "
+            f"{'-' if inten is None else f'{inten:.1f}':>8} {row['roofline_bound'] or '-'}")
+    return "\n".join(lines)
+
+
+def run_obs_path(counts, qa_solo):
+    """Phase 8: observability over phase 6's 1-replica pool (16 slots,
+    chunk 16, capacity 1,024, K=4) and round A1 (16 /ask, 64 new tokens),
+    then one upload through a pipeline configured as phase 7's.
+
+    The round runs ``RECORDER_PAIRS`` times with the recorder off and on,
+    alternating (the median difference reported against the reference's
+    2 % budget).  Around the last traced round the launch counts,
+    the spine's stage series, the observatory and the cost ledger are set
+    to 0; after it: every /ask trace complete with ``ASK_SPANS``; the
+    observatory's peak names the card; the costed stages with no uncosted
+    call and no MFU above 1; every spine item's device time within its
+    submit-to-done wall time; the per-class device ms equal to the spine's
+    series; a telemetry tick over the pool, the spine, a broker and the
+    recorder rendering lint-clean Prometheus text; K1's launch identity.
+    A profiler window around at least ``PROFILED_VERIFY_STEPS`` verify
+    steps names K1's decode kernel; every decode chunk fetched in it
+    launched kernels whose CUPTI time is nonzero and at most its
+    CUDA-event span (an event pair on the wrong stream would read near 0);
+    the document's timeline holds ``DOC_SPANS``.  Reports what a spine item
+    pays to cross to a lane thread (:func:`spine_handoff`)."""
+    gen = qa_solo.generator
+    dev = gen.device
+    dec_cfg = gen.cfg
+    encoder, store = qa_solo.retriever.encoder, qa_solo.retriever.store
+    enc_layers = encoder.cfg.num_layers
+    res_cfg = ResilienceConfig()
+    spine = get_spine()
+    card = torch.cuda.get_device_name(0)
+    pool1 = EnginePool(gen, cfg=PoolConfig(replicas=1, n_slots=16), qos=QoSConfig(),
+                       chunk=16, cache_len=1024, device=dev)
+    pipe = None
+    try:
+        pool1.annotate_costs()
+        encoder.annotate_costs()
+        qa_solo.retriever.annotate_costs()
+        qa1 = QAService(encoder, store, gen, k=3, device=dev, batcher=pool1,
+                        breakers=BreakerBoard(res_cfg.breaker_failure_threshold,
+                                              res_cfg.breaker_reset_s),
+                        resilience=res_cfg)
+        questions = list(QUESTIONS) * 4
+
+        # ---- the recorder off and on, alternating (reported); the last
+        # round, recorder on, is the counted and checked one
+        pairs = []
+        items = []
+        settle = spine._settle
+
+        def tapped(item):
+            # the item's wall time runs to the end of its accounting
+            first = not item.settled
+            settle(item)
+            if first:
+                items.append((item.stage, item.device_s,
+                              time.perf_counter() - item.t_submit))
+
+        for i in range(RECORDER_PAIRS):
+            obs.set_enabled(False)
+            try:
+                t0 = time.perf_counter()
+                res, traces = _traced_round(qa1, questions)
+                off = _round_record(res, time.perf_counter() - t0)
+            finally:
+                obs.set_enabled(True)
+            if traces:
+                raise AssertionError(f"recorder off, yet {len(traces)} traces opened")
+            counted = i == RECORDER_PAIRS - 1
+            if counted:
+                spine.reset_stats()
+                obs.DEFAULT_OBSERVATORY.reset()
+                obs.DEFAULT_COST_LEDGER.reset()
+                stats0 = pool1.stats()
+                spine._settle = tapped
+                counts.clear()
+            try:
+                t0 = time.perf_counter()
+                res, traces = _traced_round(qa1, questions)
+                on = _round_record(res, time.perf_counter() - t0)
+            finally:
+                if counted:
+                    del spine._settle
+            pairs.append({"off": off, "on": on, "overhead": {
+                "p50": on["latency_p50_s"] / off["latency_p50_s"] - 1.0,
+                "max": on["latency_max_s"] / off["latency_max_s"] - 1.0,
+                "tokens_per_s": 1.0 - on["tokens_per_s"] / off["tokens_per_s"],
+            }})
+        launches = dict(counts)
+        steps = pool1.stats() - stats0
+        for pair in pairs:
+            for r in (pair["off"], pair["on"]):
+                if r["degraded"]:
+                    raise AssertionError(f"phase 8 degraded answers: {r['degraded']}")
+        overhead = {key: {
+            "median": statistics.median(p["overhead"][key] for p in pairs),
+            "min": min(p["overhead"][key] for p in pairs),
+            "max": max(p["overhead"][key] for p in pairs),
+        } for key in ("p50", "max", "tokens_per_s")}
+        for pair in pairs:
+            off, on = pair["off"], pair["on"]
+            log(f"  round A1, recorder off: p50 {off['latency_p50_s']:.3f} s max "
+                f"{off['latency_max_s']:.3f} s {off['tokens_per_s']:.1f} answer tok/s; on: "
+                f"p50 {on['latency_p50_s']:.3f} s max {on['latency_max_s']:.3f} s "
+                f"{on['tokens_per_s']:.1f} answer tok/s")
+        log(f"  recorder on against off over {RECORDER_PAIRS} alternating pairs, median "
+            f"[min, max]: " + ", ".join(
+                f"{label} {sign * o['median']:+.1%} "
+                f"[{min(sign * o['min'], sign * o['max']):+.1%}, "
+                f"{max(sign * o['min'], sign * o['max']):+.1%}]"
+                for label, sign, o in (("p50", 1, overhead["p50"]),
+                                       ("max", 1, overhead["max"]),
+                                       ("tok/s", -1, overhead["tokens_per_s"])))
+            + f" (the reference's budget {RECORDER_BUDGET:.0%}, reported, not asserted)")
+
+        # ---- every /ask trace complete, with the expected spans
+        if len(traces) != len(questions):
+            raise AssertionError(f"{len(traces)} traces for {len(questions)} /ask")
+        for tr in traces:
+            names = {sp.name for sp in tr.snapshot_spans()}
+            ids = {sp.span_id for sp in tr.snapshot_spans()}
+            orphans = [sp.name for sp in tr.snapshot_spans()
+                       if sp.parent_id is not None and sp.parent_id not in ids]
+            if (not tr.finished or tr.status != "ok" or not ASK_SPANS <= names
+                    or orphans or obs.DEFAULT_RECORDER.get(tr.trace_id) is not tr):
+                raise AssertionError(
+                    f"trace {tr.trace_id}: finished {tr.finished}, status {tr.status}, "
+                    f"missing {sorted(ASK_SPANS - names)}, orphans {orphans}")
+        attribution = obs.attribution(traces)
+        log("  attribution over the 16 traced /ask:\n"
+            + "\n".join("    " + line for line in obs.format_table(attribution).splitlines()))
+
+        # ---- the observatory: the card's peak, costed stages, MFU <= 1
+        stats = obs.DEFAULT_OBSERVATORY.stats()
+        peak = stats["peak"]
+        if card not in peak["peak_flops_source"] or not peak["peak_flops"]:
+            raise AssertionError(f"observatory peak does not name {card}: {peak}")
+        for stage in ("serve_prefill_fetch", "serve_decode_chunk"):
+            row = stats["stages"].get(stage)
+            if row is None or row["uncosted_calls"] or not row["flops"]:
+                raise AssertionError(f"{stage}: {row}")
+        invalid = {k: v for k, v in stats["stages"].items() if "mfu_raw_invalid" in v}
+        if invalid:
+            raise AssertionError(f"MFU above 1 in {sorted(invalid)}: {invalid}")
+        log(f"  per-stage MFU (analytic FLOPs over CUDA-event device time, peak "
+            f"{peak['peak_flops'] / 1e12:.0f} TFLOP/s, {peak['peak_flops_source']}):\n"
+            + _mfu_table(stats))
+
+        # ---- every spine item's device time within its wall time
+        over = [(st, d, w) for st, d, w in items if d > w]
+        if not items or over:
+            raise AssertionError(f"{len(over)} of {len(items)} spine items took more "
+                                 f"device than wall time: {over[:5]}")
+
+        # ---- per-class device ms equal the spine's series
+        counters = spine.telemetry_counters()
+        classes = obs.DEFAULT_COST_LEDGER.class_totals()
+        reconcile = {}
+        for stage, fields in (
+            ("serve_prefill_fetch", ("prefill_device_ms_cold", "prefill_device_ms_warm")),
+            ("serve_decode_chunk", ("decode_device_ms",)),
+            ("retrieve", ("retrieve_device_ms",)),
+        ):
+            spine_ms = counters.get(f"dispatch_device_ms_{stage}", 0.0)
+            attributed = sum(row.get(f, 0.0) for row in classes.values() for f in fields)
+            reconcile[stage] = {"spine_ms": spine_ms, "attributed_ms": attributed}
+            if not spine_ms or abs(attributed - spine_ms) > 1e-6 * spine_ms:
+                raise AssertionError(f"{stage}: classes {attributed} ms, spine "
+                                     f"{spine_ms} ms")
+        log(f"  per-class device ms = the spine's series: {reconcile}")
+
+        # ---- K1's launch identity over the traced round
+        want = {
+            "flash_attention.decode_paged": dec_cfg.num_layers * (
+                steps["verify_steps"] + steps["decode_steps"] + steps["warmup_steps"]),
+            "flash_attention.prefill": enc_layers * len(questions),
+            "flash_attention.decode": 0,
+            "flash_attention.simt": 0,
+        }
+        got = {key: launches.get(key, 0) for key in want}
+        if got != want:
+            raise AssertionError(f"obs phase launches {got}, expected {want}")
+
+        # ---- a profiler window around verify steps: each decode chunk's
+        # CUDA-event span held against the CUPTI time of the kernels it
+        # launched
+        before = pool1.stats()["verify_steps"]
+        paged0 = counts["flash_attention.decode_paged"]
+        execute, seq, window = spine._execute, itertools.count(), {}
+
+        def annotated(item):
+            # a profiler range per item on the thread that executes it (a
+            # lane's or its caller's): the launches inside it are the item's
+            n = next(seq)
+            window[n] = item
+            with torch.profiler.record_function(f"{ITEM_RANGE}{n}"):
+                execute(item)
+
+        logdir = obs.DEFAULT_PROFILER.start(device=dev)  # a temporary directory
+        spine._execute = annotated
+        try:
+            pool1.submit_text(_pool_prompt(qa_solo, QUESTIONS[0]), max_new_tokens=8,
+                              deadline=Deadline.after(POOL_DEADLINE_S)).result(timeout=120)
+        finally:
+            del spine._execute
+            obs.DEFAULT_PROFILER.stop()
+        profiled_steps = pool1.stats()["verify_steps"] - before
+        with open(obs.DEFAULT_PROFILER.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        shutil.rmtree(logdir, ignore_errors=True)
+        kernel_names = collections.Counter(
+            e["name"] for e in events if e.get("cat") == "kernel")
+        k1 = {n: c for n, c in kernel_names.items() if "flash_decode_kernel" in n}
+        if profiled_steps < PROFILED_VERIFY_STEPS or not k1:
+            raise AssertionError(f"profiler window: {profiled_steps} verify steps, K1 "
+                                 f"decode kernels {k1}, {len(kernel_names)} kernel names")
+        if counts["flash_attention.decode_paged"] == paged0:
+            raise AssertionError("profiler window: no paged decode launch counted")
+        busy, matched_by = _item_kernel_busy_us(events)
+        chunks = []
+        for n, item in sorted(window.items()):
+            # a chunk still unfetched when the window closed has no span
+            if item.stage != "serve_decode_chunk" or not item.settled or item.error:
+                continue
+            span_us, busy_us = item.device_s * 1e6, busy.get(n, 0.0)
+            chunks.append({"span_ms": span_us / 1e3, "busy_ms": busy_us / 1e3,
+                           "busy_share": busy_us / span_us if span_us else None})
+            if not 0.0 < busy_us <= span_us * (1 + SPAN_REL_SLACK) + SPAN_ABS_SLACK_US:
+                raise AssertionError(
+                    f"decode chunk {n}: CUDA-event span {span_us:.1f} us, kernel busy "
+                    f"{busy_us:.1f} us (launches matched by {matched_by}, "
+                    f"{len(busy)} items with kernels)")
+        if not chunks:
+            raise AssertionError(f"profiler window: no fetched decode chunk among "
+                                 f"{[it.stage for it in window.values()]}")
+        log(f"  profiler window: {profiled_steps} verify steps, {sum(kernel_names.values())} "
+            f"kernel events; K1 {k1}")
+        log(f"  decode chunks in the window (launches matched to items by {matched_by}): "
+            + "; ".join(f"span {c['span_ms']:.3f} ms, kernel busy {c['busy_ms']:.3f} ms "
+                        f"({c['busy_share']:.1%})" for c in chunks))
+
+        # ---- one document through a pipeline configured as phase 7's
+        ner_cfg = NERConfig()
+        deid = DeidEngine(ner_cfg, params=init_ner_params(ner_cfg, seed=11), device=dev)
+        cfg = Config(encoder=encoder.cfg, ner=ner_cfg, store=store.cfg)
+        pipe = DocumentPipeline(cfg, make_broker(cfg.broker),
+                                DocumentRegistry(cfg.registry.url), deid, encoder, store)
+        doc = ingest_corpus(np.random.default_rng(808), 1, "obs")[0]
+        pipe.start()
+        doc_id = pipe.ingest_document(doc["filename"], doc["data"]).doc_id
+        if not pipe.wait_indexed(doc_id, timeout=INGEST_TIMEOUT_S):
+            raise AssertionError(f"phase 8 upload {doc_id} not INDEXED")
+        doc_trace = next(t for t in obs.DEFAULT_RECORDER.recent(64)
+                         if t.root.attrs.get("doc_id") == doc_id)
+        spans = doc_trace.snapshot_spans()
+        doc_names = collections.Counter(sp.name for sp in spans)
+        parents = {sp.parent_id for sp in spans if sp.parent_id is not None}
+        if (set(doc_names) != DOC_SPANS or any(n != 1 for n in doc_names.values())
+                or parents != {doc_trace.root.span_id} or doc_trace.status != "ok"):
+            raise AssertionError(f"document timeline {dict(doc_names)}, parents "
+                                 f"{parents}, status {doc_trace.status}")
+        log(f"  ingested document: {obs.timeline_dict(doc_trace)['spans'][1:]!r:.300}")
+
+        # ---- a telemetry tick over the pool, the spine, a broker, the recorder
+        store_t = obs.TelemetryStore(interval_s=10.0, points=60)
+        slo = obs.BurnRateEvaluator(store_t, obs.default_ask_slos(8000.0),
+                                    registry=DEFAULT_REGISTRY,
+                                    recorder=obs.DEFAULT_RECORDER)
+        sampler = obs.TelemetrySampler(
+            store_t, registry=DEFAULT_REGISTRY, batcher=pool1, broker=pipe.broker,
+            queues=(cfg.broker.raw_queue, cfg.broker.clean_queue),
+            recorder=obs.DEFAULT_RECORDER, engine=gen, slo_evaluator=slo,
+            spine=spine, extra_probes=[obs.DEFAULT_COST_LEDGER.telemetry_gauges],
+        )
+        sampler.tick()
+        lint = {om: lint_prometheus_text(prometheus_text(DEFAULT_REGISTRY, store_t,
+                                                         openmetrics=om))
+                for om in (False, True)}
+        gauges = store_t.latest_gauges()
+        needed = ("pool_replica0_alive", "dispatch_occupancy", "trace_open",
+                  f"broker_depth_{cfg.broker.raw_queue}", "device_mem_allocated_bytes")
+        if any(lint.values()) or any(n not in gauges for n in needed):
+            raise AssertionError(f"telemetry: lint {lint}, missing "
+                                 f"{[n for n in needed if n not in gauges]}")
+        log(f"  telemetry tick: {len(store_t.names())} series, Prometheus text lint-clean "
+            f"in both dialects; device_mem_allocated_bytes "
+            f"{gauges['device_mem_allocated_bytes'] / 2**30:.2f} GiB")
+        # ---- what a lane crossing costs an item here (reported)
+        handoff = spine_handoff(dev)
+        log("  spine handoff beside a busy Python thread, ms an item (busy loops/s): "
+            + "; ".join(f"{side} " + ", ".join(
+                f"{h['ms_per_item']:.3f} ({h['busy_loop_per_s']:.0f})" for h in runs)
+                for side, runs in handoff.items()))
+        summary = {
+            "recorder_pairs": pairs, "recorder_overhead": overhead, "spine_handoff": handoff,
+            "recorder_budget": RECORDER_BUDGET, "attribution": attribution,
+            "observatory": stats, "reconcile": reconcile, "spine_items": len(items),
+            "launches": got, "profiled_verify_steps": profiled_steps,
+            "profiled_k1_kernels": k1, "profiled_chunks": chunks,
+            "profiled_launch_match": matched_by, "document_spans": dict(doc_names),
+            "telemetry_series": len(store_t.names()),
+        }
+        return {"summary": summary, "launches": launches}
+    finally:
+        if pipe is not None:
+            pipe.stop()
+        pool1.stop()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the full results as JSON to this path")
+    ap.add_argument("--spine-lanes", type=int, default=None,
+                    help="the dispatch spine's lane count (default: the spine's own)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1848,10 +2350,12 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.spine_lanes is not None:
+        configure(n_lanes=args.spine_lanes)  # before the first dispatch
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/7] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[1/8] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     build_logs = _kernels.build()
     build_s = time.perf_counter() - t0
@@ -1860,33 +2364,45 @@ def main(argv=None) -> int:
         for kernel, regs, spills in ptxas_summary(text):
             log(f"    {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
 
-    log("[2/7] kernels against their plain versions (bf16 and float32)")
+    log("[2/8] kernels against their plain versions (bf16 and float32)")
     cases = run_kernel_cases()
     cases += run_paged_cases()
 
-    log("[3/7] main path: QAService.ask at full width")
+    log("[3/8] main path: QAService.ask at full width")
     t_main = time.perf_counter()
     qa, params, enc_launches = build_main_path(_kernels.LAUNCHES)
     per_q, launches = run_main_path(_kernels.LAUNCHES, qa, params, enc_launches)
     main_s = time.perf_counter() - t_main
 
-    log("[4/7] reference: tiny float32 /ask on the card against the CPU")
+    log("[4/8] reference: tiny float32 /ask on the card against the CPU")
     reference = run_reference_check()
 
-    log("[5/7] main path: QAService.ask through the continuous batcher at full width")
+    log("[5/8] main path: QAService.ask through the continuous batcher at full width")
     t_batch = time.perf_counter()
     batcher_path = run_batcher_path(_kernels.LAUNCHES, qa, per_q)
     batcher_s = time.perf_counter() - t_batch
 
-    log("[6/7] main path: QAService.ask through the replica pool at full width")
+    log("[6/8] main path: QAService.ask through the replica pool at full width")
     t_pool = time.perf_counter()
+    get_spine().reset_stats()
     pool_path = run_pool_path(_kernels.LAUNCHES, qa)
     pool_s = time.perf_counter() - t_pool
+    pool_path["summary"]["spine"] = _spine_waits(get_spine().stats())
+    _log_spine_waits("phase 6", pool_path["summary"]["spine"])
 
-    log("[7/7] ingest: DocumentPipeline at full width, then /ask over what it indexed")
+    log("[7/8] ingest: DocumentPipeline at full width, then /ask over what it indexed")
     t_ingest = time.perf_counter()
+    get_spine().reset_stats()
     ingest_path = run_ingest_path(_kernels.LAUNCHES, qa)
     ingest_s = time.perf_counter() - t_ingest
+    ingest_path["summary"]["spine"] = _spine_waits(get_spine().stats())
+    _log_spine_waits("phase 7", ingest_path["summary"]["spine"])
+
+    log("[8/8] obs: traces, stage device time, MFU and costs over the pool, "
+        "and an ingested document's timeline")
+    t_obs = time.perf_counter()
+    obs_path = run_obs_path(_kernels.LAUNCHES, qa)
+    obs_s = time.perf_counter() - t_obs
     del qa, params
     # launches of the main-path runs (each counted from 0 around its run)
     path_launches = collections.Counter(launches["total"])
@@ -1894,6 +2410,7 @@ def main(argv=None) -> int:
     path_launches.update(pool_path["launches"])
     path_launches.update(ingest_path["launches"])
     path_launches.update(ingest_path["round_launches"])
+    path_launches.update(obs_path["launches"])
 
     def entry(name, source, counter, timed, path=None):
         head = next(c for c in cases if c["case"] == timed)
@@ -1940,6 +2457,7 @@ def main(argv=None) -> int:
                 "batcher_path": batcher_path, "batcher_path_s": batcher_s,
                 "pool_path": pool_path, "pool_path_s": pool_s,
                 "ingest_path": ingest_path, "ingest_path_s": ingest_s,
+                "obs_path": obs_path, "obs_path_s": obs_s,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
     print(json.dumps({"ingest": {
@@ -1949,6 +2467,12 @@ def main(argv=None) -> int:
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err_bf16")}
            for c in cases if c["case"] in ("ner_window_batch", "ner_served_batch")},
     }}))
+    print(json.dumps({"obs": {
+        key: obs_path["summary"][key] for key in (
+            "recorder_pairs", "recorder_overhead", "reconcile", "spine_items",
+            "launches", "profiled_verify_steps", "profiled_chunks", "spine_handoff",
+            "document_spans")
+    } | {"phase_s": obs_s}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -132,8 +132,8 @@ class GenerateConfig:
 class QoSConfig:
     """Multi-tenant QoS: weighted-fair admission by request class, KV
     preemption under block-pool pressure, and SLO-burn deferral of batch
-    traffic (the rule is ported; nothing wires a burn probe until the obs
-    slice)."""
+    traffic (``set_slo_probe`` on the batcher or pool wires the burn
+    probe)."""
 
     # False: plain FIFO admission, no preemption, no deferral
     enabled: bool = True
@@ -146,6 +146,10 @@ class QoSConfig:
     # evicting; "on" evicts lower-ranked lanes' KV blocks and requeues them
     # with their generated tokens kept for the re-prefill
     preemption: str = "off"
+    # while an interactive SLO burns (the probe reports it firing), defer
+    # batch-class admission (typed serve.DeferredByPolicy); background is
+    # never deferred: it carries the pool's canaries
+    defer_batch_on_burn: bool = True
     # a victim with less deadline than this left cannot survive a second
     # prefill: it sheds typed instead of requeueing
     preempt_min_resume_s: float = 0.5

@@ -1,5 +1,11 @@
 """Encoder serving engine: tokenize -> bucket -> encode on the device.
 Counterpart of ``docqa_tpu/engines/encoder.py``.
+
+:meth:`EncoderEngine.encode_texts` runs each marshalled batch as one
+dispatch-spine work item (stage ``encode``: upload, forward, fetch) inside
+an ``encode_batch`` span; :meth:`EncoderEngine.encode_ids` is the forward
+alone, for callers that run it inside their own item (the fused
+retriever).
 """
 
 from __future__ import annotations
@@ -12,7 +18,10 @@ import torch
 
 from docqa_tpu_torch import weights
 from docqa_tpu_torch.config import EncoderConfig
+from docqa_tpu_torch.engines.spine import spine_run, to_host
 from docqa_tpu_torch.models.encoder import Params, encode_batch
+from docqa_tpu_torch.obs.observatory import DEFAULT_OBSERVATORY, encoder_cost
+from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, span
 from docqa_tpu_torch.text.tokenizer import Tokenizer, default_tokenizer
 from docqa_tpu_torch.utils import pick_bucket, resolve_device
 
@@ -67,9 +76,22 @@ class EncoderEngine:
         self.forwards = 0
         self._count_lock = threading.Lock()
 
+    def cost_key(self, ids: np.ndarray, lengths: np.ndarray) -> tuple:
+        """The analytic cost key of one forward over a marshalled batch:
+        ``("encode", batch, seq, live pairs)`` (``obs/observatory.py``)."""
+        lens = lengths.astype(np.int64)
+        return ("encode", ids.shape[0], ids.shape[1], int((lens * lens).sum()))
+
+    def annotate_costs(self) -> None:
+        """Register the ``encode`` stage's analytic cost model."""
+        cfg = self.cfg
+        DEFAULT_OBSERVATORY.annotate_model(
+            "encode", lambda key: encoder_cost(cfg, *key[1:])
+        )
+
     def encode_ids(self, ids: np.ndarray, lengths: np.ndarray) -> torch.Tensor:
         """Marshalled [B, S] ids -> [B, embed_dim] f32 embeddings, left on
-        the device."""
+        the device (the forward alone: no spine item)."""
         ids_t = torch.from_numpy(ids).long().to(self.device)
         len_t = torch.from_numpy(lengths).to(self.device)
         with torch.inference_mode():
@@ -88,6 +110,14 @@ class EncoderEngine:
         for start in range(0, len(texts), max_b):
             chunk = texts[start : start + max_b]
             ids_p, len_p = marshal_texts(self.tokenizer, self.cfg, chunk)
-            emb = self.encode_ids(ids_p, len_p)
-            out.append(emb.float().cpu().numpy()[: len(chunk)])
+
+            def _encode_on_device(ids_p=ids_p, len_p=len_p):
+                return to_host(self.encode_ids(ids_p, len_p).float())
+
+            with span("encode_batch", DEFAULT_REGISTRY):
+                emb = spine_run(
+                    "encode", _encode_on_device, device=self.device,
+                    cost_key=self.cost_key(ids_p, len_p),
+                )
+            out.append(emb.numpy()[: len(chunk)])
         return np.concatenate(out, 0)

@@ -9,6 +9,9 @@ prompt-lookup speculation: draft K-1 tokens from a per-lane bigram table,
 verify them in one forward of q_len=K, emit the matched prefix plus the
 bonus token.  Every emitted token is an argmax of the model's own logits,
 so the output equals plain greedy decoding.
+
+A generation is one dispatch-spine work item (stage ``generate``: upload,
+the whole loop, the fetch) inside a ``generate`` span.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from docqa_tpu_torch import weights
 from docqa_tpu_torch.config import DecoderConfig, GenerateConfig
+from docqa_tpu_torch.engines.spine import spine_run, to_host
 from docqa_tpu_torch.models.decoder import (
     KVCache,
     Params,
@@ -28,6 +32,7 @@ from docqa_tpu_torch.models.decoder import (
     init_kv_cache,
 )
 from docqa_tpu_torch.ops.sampling import sample
+from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, span
 from docqa_tpu_torch.text.tokenizer import Tokenizer, default_tokenizer
 from docqa_tpu_torch.utils import pick_bucket, resolve_device, round_up, torch_dtype
 
@@ -283,21 +288,29 @@ class GenerateEngine:
             ids[i, : len(p)] = p
             lengths[i] = max(len(p), 1)
 
+        def _generate_on_device():
+            """The device phase (one spine work item): upload, the whole
+            generation, and the start of the copy to the host."""
+            with torch.inference_mode():
+                ids_t = torch.from_numpy(ids).to(self.device)
+                len_t = torch.from_numpy(lengths).to(self.device)
+                spec_k = self.gen.speculative_k
+                if temperature == 0.0 and spec_k >= 2:
+                    o, n = self._generate_spec(ids_t, len_t, max_new, spec_k)
+                else:
+                    generator = torch.Generator(device=self.device)
+                    generator.manual_seed(int(seed))
+                    o, n = self._generate_plain(
+                        ids_t, len_t, max_new, temperature, generator
+                    )
+                return to_host(o[:b]), to_host(n[:b])
+
         self._t0 = time.perf_counter()
-        with torch.inference_mode():
-            ids_t = torch.from_numpy(ids).to(self.device)
-            len_t = torch.from_numpy(lengths).to(self.device)
-            spec_k = self.gen.speculative_k
-            if temperature == 0.0 and spec_k >= 2:
-                out, n_emitted = self._generate_spec(ids_t, len_t, max_new, spec_k)
-            else:
-                generator = torch.Generator(device=self.device)
-                generator.manual_seed(int(seed))
-                out, n_emitted = self._generate_plain(
-                    ids_t, len_t, max_new, temperature, generator
-                )
-            out = out[:b].cpu().numpy()
-            n_emitted = n_emitted[:b].cpu().numpy()
+        with span("generate", DEFAULT_REGISTRY):
+            out, n_emitted = spine_run(
+                "generate", _generate_on_device, device=self.device
+            )
+        out, n_emitted = out.numpy(), n_emitted.numpy()
         total_s = time.perf_counter() - self._t0
         self.last_stats.update(
             prefill_tokens=int(lengths[:b].sum()),

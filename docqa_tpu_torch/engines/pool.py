@@ -49,9 +49,12 @@ fail over to.  The pool rebuilds nothing around it; it fails every waiter
 on every replica with the original error, marks every replica ``failed``
 in :meth:`status`, and raises that error to every later submission.
 
-Not in this port yet: the cost-ledger hooks (``annotate_costs``, shed
-forensics) and the SLO-burn deferral of batch traffic, with the obs slice;
-trace events on routing, failover and hedging.
+Observability, as in the reference: requests are pool-managed (a replica's
+refusal is routing, so only the pool's terminal shed leaves a snapshot in the
+cost ledger and retires the record); routing, parking, failover and hedging
+leave events on the request's trace; a hedge twin shares its primary's trace
+and cost record.  :meth:`EnginePool.set_slo_probe` wires the burn probe: batch
+traffic is deferred once, at dispatch (``QoSConfig.defer_batch_on_burn``).
 """
 
 from __future__ import annotations
@@ -66,10 +69,11 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from docqa_tpu_torch.engines.qos import QoSPolicy
+from docqa_tpu_torch.engines.qos import QoSPolicy, request_class
 from docqa_tpu_torch.engines.serve import (
     DEFAULT_RESULT_TIMEOUT,
     ContinuousBatcher,
+    DeferredByPolicy,
     Draining,
     Handle,
     QueueFull,
@@ -77,8 +81,10 @@ from docqa_tpu_torch.engines.serve import (
     ResultTimeout,
     WorkerDied,
     _finish,
+    _req_mark,
     make_request,
 )
+from docqa_tpu_torch.obs.costs import DEFAULT_COST_LEDGER
 from docqa_tpu_torch.ops._kernels import is_device_fault
 from docqa_tpu_torch.resilience.breaker import OPEN, CircuitBreaker
 from docqa_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
@@ -338,6 +344,8 @@ class EnginePool:
         # preemption live there); the coerced policy backs qos_status()
         self._qos_cfg = qos
         self.qos: Optional[QoSPolicy] = QoSPolicy.coerce(qos)
+        # the burn probe batch deferral reads (set_slo_probe); None = off
+        self._slo_probe = None
         self._replicas: List[_Replica] = []
         try:
             for i in range(self.n_replicas):
@@ -369,6 +377,8 @@ class EnginePool:
             max_queue=self.max_queue,
             qos=self._qos_cfg,
         )
+        if self._slo_probe is not None:
+            batcher.set_slo_probe(self._slo_probe)
         batcher.on_worker_death = (
             lambda b, queued, _i=idx: self._on_worker_death(_i, b, queued)
         )
@@ -602,15 +612,54 @@ class EnginePool:
             return r, n_full, len(candidates)
         return None, n_full, len(candidates)
 
+    def _shed(self, req, kind: str, exc: QueueFull) -> QueueFull:
+        """Terminal pool-level shed: the forensics snapshot and the cost
+        record's retirement (replica refusals on the way were routing)."""
+        cls = req.cost.cls if req.cost is not None else None
+        DEFAULT_COST_LEDGER.record_shed(
+            kind, cls=cls, stage="pool_dispatch",
+            n_queued=exc.n_queued, n_active=exc.n_active,
+        )
+        if req.cost is not None:
+            DEFAULT_COST_LEDGER.retire(req.cost, "shed_queue")
+        return exc
+
     def _dispatch(self, req, exclude=()) -> None:
         """Route to the least-queued healthy replica; park when nothing is
         routable but a replica is draining or rebuilding; shed only when
         out of capacity everywhere."""
         if self._failed is not None:
             raise self._failed
+        # replica refusals are routing decisions, not terminal sheds
+        req.pool_managed = True
+        # SLO-aware self-protection, once per request, at pool dispatch
+        if self.qos is not None and not req.hops:
+            cls = request_class(req)
+            firing = self._slo_firing()
+            if self.qos.should_defer(cls, firing):
+                DEFAULT_REGISTRY.counter("qos_deferred").inc()
+                DEFAULT_REGISTRY.counter(f"qos_deferred_{cls}").inc()
+                _req_mark(
+                    req, "qos_deferred", stage="pool_dispatch",
+                    firing=",".join(firing),
+                )
+                DEFAULT_COST_LEDGER.record_shed(
+                    "deferred_by_policy", cls=cls, stage="pool_dispatch",
+                    firing=",".join(firing),
+                )
+                if req.cost is not None:
+                    DEFAULT_COST_LEDGER.retire(req.cost, "shed_deferred")
+                raise DeferredByPolicy(
+                    f"{cls} deferred while SLO burn active: {firing}",
+                    n_queued=self.n_queued, n_active=self.n_active,
+                )
         placed, n_full, n_candidates = self._try_place(req, exclude)
         if placed is not None:
             placed.routed += 1
+            _req_mark(
+                req, "pool_route", anomalous=False,
+                replica=placed.idx, generation=placed.generation,
+            )
             if self.hedge_enabled:
                 self._inflight[id(req)] = {
                     "req": req, "twin": None, "t": time_monotonic(),
@@ -619,10 +668,10 @@ class EnginePool:
             return
         if n_full and n_full == n_candidates:
             DEFAULT_REGISTRY.counter("pool_shed").inc()
-            raise QueueFull(
+            raise self._shed(req, "queue_full", QueueFull(
                 f"all {n_candidates} healthy replica(s) at capacity",
                 n_queued=self.n_queued, n_active=self.n_active,
-            )
+            ))
         with self._lock:
             if self._failed is not None:
                 raise self._failed
@@ -633,20 +682,21 @@ class EnginePool:
             )
             if not coming_back:
                 # n_queued takes self._lock, which this thread holds
-                raise QueueFull(
+                raise self._shed(req, "no_routable_replica", QueueFull(
                     "no routable replica",
                     n_queued=len(self._pending)
                     + sum(r.batcher.n_queued for r in self._replicas),
                     n_active=self.n_active,
-                )
+                ))
             if len(self._pending) >= (self.max_queue or 256):
                 DEFAULT_REGISTRY.counter("pool_shed").inc()
-                raise QueueFull(
+                raise self._shed(req, "queue_full", QueueFull(
                     "pool pending queue at capacity",
                     n_queued=len(self._pending), n_active=self.n_active,
-                )
+                ))
             self._pending.append(req)
         DEFAULT_REGISTRY.counter("pool_parked").inc()
+        _req_mark(req, "pool_parked", anomalous=False)
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         for r in self._replicas:
@@ -687,6 +737,12 @@ class EnginePool:
         if req.deadline is not None and req.deadline.expired:
             req.error = DeadlineExceeded("pool_requeue")
             DEFAULT_REGISTRY.counter("serve_deadline_shed").inc()
+            _req_mark(req, "deadline_exceeded", stage="pool_requeue")
+            DEFAULT_COST_LEDGER.record_shed(
+                "deadline",
+                cls=req.cost.cls if req.cost is not None else None,
+                stage="pool_requeue",
+            )
             _finish(req)
             return True  # handled (typed), not lost
         if req.hops >= self.requeue_max_hops:
@@ -695,6 +751,10 @@ class EnginePool:
         placed, _, _ = self._try_place(req, exclude=(from_idx,))
         if placed is not None:
             DEFAULT_REGISTRY.counter("pool_requeued").inc()
+            _req_mark(
+                req, "pool_failover",
+                from_replica=from_idx, to_replica=placed.idx, hop=req.hops,
+            )
             return True
         # nowhere healthy now: park it (flushed on recovery)
         with self._lock:
@@ -704,6 +764,7 @@ class EnginePool:
             ):
                 return False
             self._pending.append(req)
+        _req_mark(req, "pool_failover_parked", from_replica=from_idx)
         return True
 
     # ---- health monitor ------------------------------------------------------
@@ -781,6 +842,7 @@ class EnginePool:
                     req.error = FailoverExhausted(
                         f"replica {r.idx} wedged; no failover left"
                     )
+                    _req_mark(req, "failover_exhausted")
                     _finish(req)
             b.kill(WorkerDied(f"replica {r.idx} wedged (heartbeat stale)"))
         if r.state == DEAD:
@@ -868,11 +930,21 @@ class EnginePool:
             if req.deadline is not None and req.deadline.expired:
                 req.error = DeadlineExceeded("pool_pending")
                 DEFAULT_REGISTRY.counter("serve_deadline_shed").inc()
+                _req_mark(req, "deadline_exceeded", stage="pool_pending")
+                DEFAULT_COST_LEDGER.record_shed(
+                    "deadline",
+                    cls=req.cost.cls if req.cost is not None else None,
+                    stage="pool_pending",
+                )
                 _finish(req)
                 continue
             placed, _, _ = self._try_place(req)
             if placed is not None:
                 placed.routed += 1
+                _req_mark(
+                    req, "pool_route", anomalous=False,
+                    replica=placed.idx, parked=True,
+                )
                 continue
             with self._lock:
                 if not self._stopped and self._failed is None:
@@ -933,16 +1005,29 @@ class EnginePool:
             if not targets:
                 continue
             r = min(targets, key=lambda x: (x.batcher.n_queued, x.batcher.n_active))
+            # the twin rides the same trace and the same cost record (the
+            # duplicated decode is real cost of the one request); as a
+            # shadow it never retires the shared record
             twin = make_request(
                 list(req.prompt_ids), req.max_new, deadline=req.deadline,
                 prefix_key=req.prefix_key, req_class=req.req_class,
+                cost=req.cost,
             )
+            twin.trace = req.trace
+            twin.span_parent = req.span_parent
+            twin.cost_shadow = True
             try:
                 r.batcher.submit_request(twin)
-            except Exception:
+            except Exception as e:
+                if is_device_fault(e):
+                    raise
                 continue
             entry["twin"] = twin
             DEFAULT_REGISTRY.counter("pool_hedges").inc()
+            _req_mark(
+                req, "pool_hedged", anomalous=False,
+                to_replica=r.idx, after_ms=round((now - entry["t"]) * 1e3),
+            )
 
     # ---- drain / rolling restart --------------------------------------------
 
@@ -1075,7 +1160,7 @@ class EnginePool:
         except RuntimeError:  # deque mutated mid-iteration (lock-free)
             parked = []
         for req in parked:
-            cls = req.req_class or "other"
+            cls = request_class(req)
             by.setdefault(cls, {"kv_blocks": 0, "lanes": 0, "queued": 0})["queued"] += 1
         return out
 
@@ -1090,14 +1175,37 @@ class EnginePool:
                 out.append({"replica": r.idx, **row})
         return out
 
+    def set_slo_probe(self, probe) -> None:
+        """Wire the burn-rate probe (callable -> names of firing SLOs) into
+        the pool and every replica; rebuilt replicas inherit it."""
+        self._slo_probe = probe
+        for r in self._replicas:
+            r.batcher.set_slo_probe(probe)
+
+    def _slo_firing(self) -> List[str]:
+        if self._slo_probe is None:
+            return []
+        try:
+            return list(self._slo_probe() or [])
+        except Exception as e:
+            if is_device_fault(e):
+                raise
+            return []
+
+    def annotate_costs(self) -> bool:
+        """Register the analytic cost models with the observatory: every
+        replica runs the same shapes, so replica 0's are every replica's."""
+        return self._replicas[0].batcher.annotate_costs()
+
     def qos_status(self) -> Dict[str, Any]:
-        """Policy config, the (never firing, no probe wired) burn view and
-        per-class queue depths summed over replicas."""
+        """Policy config, the live burn/deferral view and per-class queue
+        depths summed over replicas."""
         if self.qos is None:
             return {"enabled": False}
+        firing = self._slo_firing()
         out = self.qos.status()
-        out["slo_firing"] = []
-        out["defer_active"] = self.qos.should_defer("batch", [])
+        out["slo_firing"] = firing
+        out["defer_active"] = self.qos.should_defer("batch", firing)
         queued: Dict[str, int] = {}
         for r in self._replicas:
             for cls, n in r.batcher.qos_status().get("queued_by_class", {}).items():

@@ -12,9 +12,9 @@
   the weights: weights shape throughput sharing among admitted work, ranks
   decide who may evict whom under block pressure.
 
-A request's class is the ``req_class`` it was submitted with (the
-reference reads it from the request's cost record; the cost ledger comes
-with the obs slice).
+A request's class is its cost record's class (``obs/costs.py``), as in
+the reference: the class it was submitted with, or the class its
+endpoint stamped on the trace.
 """
 
 from __future__ import annotations
@@ -52,9 +52,10 @@ _CLASS_ORDER = ("interactive", "batch", "other", "background")
 
 
 def request_class(req) -> str:
-    """A request's QoS class (``interactive`` / ``batch`` / ``background``
-    as stamped at submission; ``other`` when none was)."""
-    return getattr(req, "req_class", None) or "other"
+    """A request's QoS class: its cost record's class, or ``other`` when
+    the ledger is off (the convention of ``pressure_by_class``)."""
+    cost = getattr(req, "cost", None)
+    return cost.cls if cost is not None else "other"
 
 
 class ClassQueue:
@@ -197,13 +198,17 @@ class QoSPolicy:
     SLO-burn deferral rule.  Built from a ``config.QoSConfig`` by
     :meth:`coerce`."""
 
-    __slots__ = ("weights", "aging_floor_s", "preemption", "preempt_min_resume_s")
+    __slots__ = (
+        "weights", "aging_floor_s", "preemption", "defer_batch_on_burn",
+        "preempt_min_resume_s",
+    )
 
     def __init__(
         self,
         weights: Optional[Dict[str, float]] = None,
         aging_floor_s: float = 5.0,
         preemption: str = "off",
+        defer_batch_on_burn: bool = True,
         preempt_min_resume_s: float = 0.5,
     ) -> None:
         self.weights = dict(
@@ -216,6 +221,7 @@ class QoSPolicy:
                 f"preemption must be off|advisory|on, got {preemption!r}"
             )
         self.preemption = preemption
+        self.defer_batch_on_burn = bool(defer_batch_on_burn)
         self.preempt_min_resume_s = float(preempt_min_resume_s)
 
     @classmethod
@@ -234,6 +240,7 @@ class QoSPolicy:
             },
             aging_floor_s=float(getattr(qos, "aging_floor_s", 5.0)),
             preemption=str(getattr(qos, "preemption", "off")),
+            defer_batch_on_burn=bool(getattr(qos, "defer_batch_on_burn", True)),
             preempt_min_resume_s=float(getattr(qos, "preempt_min_resume_s", 0.5)),
         )
 
@@ -259,14 +266,12 @@ class QoSPolicy:
     # ---- deferral --------------------------------------------------------
 
     def should_defer(self, cls_name: str, firing: Sequence[str]) -> bool:
-        """Defer ``cls_name`` admission given the firing SLO burns?  Only
-        batch is ever deferred: interactive is the protected class and
-        background carries the pool's canaries.  Ported for parity; nothing
-        in this package wires a burn probe yet (it needs the obs slice's
-        burn-rate evaluator), so the batcher and pool never call it with a
-        firing SLO, and the reference's ``defer_batch_on_burn`` switch stays
-        out with it (the rule is the reference's default, on)."""
-        if cls_name != "batch":
+        """Defer ``cls_name`` admission given the firing SLO burns (the
+        probe is ``obs.BurnRateEvaluator.firing``, wired with
+        ``set_slo_probe`` on the batcher or the pool)?  Only batch is ever
+        deferred: interactive is the protected class and background carries
+        the pool's canaries."""
+        if not self.defer_batch_on_burn or cls_name != "batch":
             return False
         return any(name in DEFER_SLOS for name in firing)
 
@@ -282,7 +287,6 @@ class QoSPolicy:
             "weights": dict(self.weights),
             "aging_floor_s": self.aging_floor_s,
             "preemption": self.preemption,
-            # the reference's default: the switch waits for the obs slice
-            "defer_batch_on_burn": True,
+            "defer_batch_on_burn": self.defer_batch_on_burn,
             "preempt_min_resume_s": self.preempt_min_resume_s,
         }

@@ -2,6 +2,9 @@
 re-normalize -> cast to the store's dtype -> exact scores -> top-k, all on
 the device, with one fetch at the end.  Counterpart of
 ``docqa_tpu/engines/retrieve.py``'s ``FusedRetriever`` (single device).
+
+The device phase is one dispatch-spine work item (stage ``retrieve``)
+inside a ``fused_query`` span, as the reference's single program is.
 """
 
 from __future__ import annotations
@@ -11,7 +14,10 @@ from typing import List, Optional, Sequence
 import torch
 
 from docqa_tpu_torch.engines.encoder import EncoderEngine, marshal_texts
+from docqa_tpu_torch.engines.spine import spine_run, to_host
 from docqa_tpu_torch.index.store import SearchResult, VectorStore, search_single
+from docqa_tpu_torch.obs.observatory import DEFAULT_OBSERVATORY, encoder_cost
+from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, span
 from docqa_tpu_torch.utils import resolve_device
 
 QUERY_BATCH_BUCKETS = (1, 4, 16)
@@ -32,6 +38,25 @@ class FusedRetriever:
         self.encoder = encoder
         self.store = store
 
+    def annotate_costs(self) -> None:
+        """Register the ``retrieve`` stage's analytic cost model: the
+        encoder forward plus the exact scores (``2·queries·rows·dim``
+        FLOPs, the store rows read once).  Key: ``("retrieve", batch,
+        seq, pairs, rows)``."""
+        cfg = self.encoder.cfg
+        dim = self.store.cfg.dim
+        row_bytes = dim * self.store._dev.element_size()
+
+        def model(key):
+            _tag, batch, seq, pairs, rows = key
+            c = encoder_cost(cfg, batch, seq, pairs)
+            return {
+                "flops": c["flops"] + 2.0 * batch * rows * dim,
+                "bytes": c["bytes"] + float(rows * row_bytes),
+            }
+
+        DEFAULT_OBSERVATORY.annotate_model("retrieve", model)
+
     def search_texts(
         self, texts: Sequence[str], k: Optional[int] = None
     ) -> List[List[SearchResult]]:
@@ -51,19 +76,28 @@ class FusedRetriever:
         buf, count = store.device_view()
         if count == 0:
             return [[] for _ in texts]
-        if buf.is_cuda:
-            # an add on another stream (the ingest pipeline's index worker)
-            # may swap in a grown buffer meanwhile: the allocator must not
-            # reuse this one before this stream's reads of it are done
-            buf.record_stream(torch.cuda.current_stream(buf.device))
-        emb = self.encoder.encode_ids(ids_p, len_p)
-        with torch.inference_mode():
-            # the store scores cosine: re-normalize even when the encoder
-            # config skips its own normalize (idempotent when it doesn't)
-            emb = emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-9)
-            vals, row_ids = search_single(
-                buf, emb.to(buf.dtype), count, min(k, count)
+
+        def _retrieve_on_device():
+            if buf.is_cuda:
+                # an add on another stream (the ingest pipeline's index
+                # worker) may swap in a grown buffer meanwhile: the
+                # allocator must not reuse this one before this stream's
+                # reads of it are done
+                buf.record_stream(torch.cuda.current_stream(buf.device))
+            emb = self.encoder.encode_ids(ids_p, len_p)
+            with torch.inference_mode():
+                # the store scores cosine: re-normalize even when the
+                # encoder config skips its own normalize
+                emb = emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-9)
+                vals, row_ids = search_single(
+                    buf, emb.to(buf.dtype), count, min(k, count)
+                )
+            return to_host(vals[:n]), to_host(row_ids[:n])
+
+        _tag, batch, seq, pairs = self.encoder.cost_key(ids_p, len_p)
+        with span("fused_query", DEFAULT_REGISTRY):
+            vals, row_ids = spine_run(
+                "retrieve", _retrieve_on_device, device=self.device,
+                cost_key=("retrieve", batch, seq, pairs, count),
             )
-        return store.assemble_results(
-            vals[:n].cpu().numpy(), row_ids[:n].cpu().numpy()
-        )
+        return store.assemble_results(vals.numpy(), row_ids.numpy())

@@ -28,13 +28,24 @@ A fixed set of decode *slots* shares one paged KV block pool
   land past its allocated blocks, and such writes land on the pool's drop
   row, never on a live row.
 
-All device work runs on the batcher's ONE CUDA stream (``spine.Lane``), so
-the reference's donation-ordering argument holds unchanged: an in-flight
-chunk's stale writes to freed blocks land before the prefill that reuses
-them.  The plain chunk issues its ``chunk`` steps with no host sync; the
-speculative chunk is the reference's ``lax.while_loop``, whose condition
-costs one small device->host fetch per verify step.  Results come back by
-a non-blocking copy into pinned memory behind a CUDA event.
+Device work runs as dispatch-spine work items (``engines/spine.py``) on the
+batcher's ONE CUDA stream (``spine.Lane``), so the reference's
+donation-ordering argument holds unchanged: an in-flight chunk's stale
+writes to freed blocks land before the prefill that reuses them.  The
+worker issues each item (on its own thread while a spine slot is free) before
+it touches batcher state again.
+A chunk is one item, ``serve_decode_chunk`` (the chunk and the start of
+its packed results' copy to pinned memory), and its fetch is the item's
+result, which waits for the item's end event and reads its device time:
+the worker issues chunk N+1 before it fetches and processes chunk N, so the
+plain chunk's ``chunk`` steps run on the device while the host processes
+the chunk before, as in the reference.  The speculative chunk is the
+reference's ``lax.while_loop``, whose condition costs one small
+device->host fetch per verify step, so its item waits on the device as it
+issues.  An admission round is one item, ``serve_prefill_fetch`` (the
+packed prefill groups, the slot-state scatter and the first tokens' copy),
+fetched at once; the reference's separate ``serve_prefill`` and
+``serve_decode`` dispatch items have no counterpart.
 
 Serve == solo.  XLA keeps batcher output bitwise equal to the solo engine
 through RAGGED_ALIGN; on a card cuBLAS and K1's split count change with
@@ -65,10 +76,18 @@ A kernel or CUDA fault (``ops/_kernels.is_device_fault``) is never reset
 around: the worker dies with it, and every request it holds, queued ones
 included, fails with that original error.
 
-Not in this port yet, each left out rather than stubbed: the trace spans
-and events, the cost ledger and shed forensics, the SLO probe and batch
-deferral, ``annotate_costs``, the mesh.  A plain ``stats`` counter stands
-beside the metrics registry's counters.
+Observability, as in the reference: a request carries its submitter's
+trace and cost record (``make_request``); the worker records
+``serve_queue_wait``, ``serve_prefill`` and ``serve_decode_chunk`` spans and
+instant events on it explicitly, the waiter ``serve_result_wait``.  Each
+spine item's measured device time is split across the requests it served
+(prefill by novel tokens, a chunk equally over its occupants), so the
+per-class sums of the cost ledger equal the spine's series for those
+stages.  Sheds leave a pressure snapshot in the ledger
+(``_record_shed``).  :meth:`ContinuousBatcher.annotate_costs` registers the
+analytic cost models (``obs/observatory.py``); ``set_slo_probe`` wires the
+burn probe that defers batch admission.  Not in this port: the mesh.  A
+plain ``stats`` counter stands beside the metrics registry's counters.
 """
 
 from __future__ import annotations
@@ -84,6 +103,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from docqa_tpu_torch import obs
 from docqa_tpu_torch.engines.generate import accept_drafts, draft_tokens
 from docqa_tpu_torch.engines.paged import (
     BlockAllocator,
@@ -96,13 +116,24 @@ from docqa_tpu_torch.engines.paged import (
     share_alignment,
 )
 from docqa_tpu_torch.engines.qos import QoSPolicy, request_class
-from docqa_tpu_torch.engines.spine import Lane
+from docqa_tpu_torch.engines.spine import (
+    Lane,
+    SpineSaturated,
+    spine_issue,
+    to_host,
+)
+from docqa_tpu_torch.obs.costs import DEFAULT_COST_LEDGER, cost_record_of
+from docqa_tpu_torch.obs.observatory import (
+    DEFAULT_OBSERVATORY,
+    causal_pairs,
+    decoder_cost,
+)
 from docqa_tpu_torch.ops._kernels import is_device_fault
 from docqa_tpu_torch.ops.attention import RAGGED_ALIGN
 from docqa_tpu_torch.ops.sampling import sample
 from docqa_tpu_torch.resilience import faults
 from docqa_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
-from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger
+from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger, span
 from docqa_tpu_torch.utils import round_up
 
 log = get_logger("docqa.serve")
@@ -120,6 +151,11 @@ class _Request:
     # end-to-end budget: the worker sheds the request (queued or live) the
     # moment it is gone
     deadline: Optional[Deadline] = None
+    # the submitter's trace and span: the worker records this request's
+    # spans on it explicitly (it serves many requests, so it never uses the
+    # context var); None = untraced, every hook no-ops
+    trace: Optional[Any] = None
+    span_parent: Optional[str] = None
     t_submit: float = 0.0
     # when the request last entered a queue (reset on every bounce)
     t_queue: float = 0.0
@@ -133,6 +169,14 @@ class _Request:
     req_class: str = "interactive"
     # replica hops taken by pool failover / preemption requeue
     hops: int = 0
+    # the request's CostRecord (obs/costs.py): queue wait, device ms and KV
+    # block-seconds land here; retired once, at _finish.  None = ledger off
+    cost: Optional[Any] = None
+    # a hedge twin shares its primary's record but must not retire it
+    cost_shadow: bool = False
+    # shed and retired by the pool's terminal decision, not by one
+    # replica's refusal (which routing may retry)
+    pool_managed: bool = False
 
 
 def make_request(
@@ -141,18 +185,81 @@ def make_request(
     deadline: Optional[Deadline] = None,
     prefix_key: Optional[str] = None,
     req_class: Optional[str] = None,
+    cost: Optional[Any] = None,
 ) -> _Request:
-    """Build a :class:`_Request`; a request already past its deadline is
-    shed here, before it takes a queue slot."""
+    """Build a :class:`_Request`, capturing the submitter's trace position
+    and cost record; a request already past its deadline is shed here,
+    before it takes a queue slot.
+
+    The record is, in order: ``cost`` (a hedge twin shares its primary's),
+    the record the endpoint stamped on the trace, or a fresh one of
+    ``req_class`` (default interactive)."""
     if deadline is not None and deadline.expired:
+        DEFAULT_REGISTRY.counter("serve_deadline_shed").inc()
         deadline.check("serve_submit")
     req = _Request(
         list(prompt_ids), max_new, deadline=deadline, prefix_key=prefix_key,
         req_class=req_class or "interactive",
     )
+    ctx = obs.current()
+    if ctx is not None:
+        req.trace = ctx.trace
+        req.span_parent = ctx.span_id
+    req.cost = cost if cost is not None else cost_record_of(req.trace)
+    if req.cost is None:
+        req.cost = DEFAULT_COST_LEDGER.open(req.req_class, session=prefix_key)
+    else:
+        req.cost.set_session(prefix_key)
     req.t_submit = _now()
     req.t_queue = req.t_submit
     return req
+
+
+def _cost_add(req: _Request, field: str, value: float) -> None:
+    if req.cost is not None and value:
+        req.cost.add(field, value)
+
+
+def _cost_outcome(req: _Request) -> str:
+    """A finished request's ledger outcome, from its typed error."""
+    e = req.error
+    if e is None:
+        return "ok"
+    if isinstance(e, DeadlineExceeded):
+        return "shed_deadline"
+    if isinstance(e, BlockPoolExhausted):
+        return "shed_block_pool"
+    if isinstance(e, SpineSaturated):
+        return "shed_spine"
+    if isinstance(e, DeferredByPolicy):
+        # before the QueueFull it subclasses: a policy choice, not a
+        # capacity shed
+        return "shed_deferred"
+    if isinstance(e, QueueFull):
+        return "shed_queue"
+    if isinstance(e, RequestCancelled):
+        return "cancelled"
+    if isinstance(e, WorkerDied):
+        return "failed_replica"
+    return "error"
+
+
+def _req_span(req: _Request, name: str, t0: float, t1: float, **attrs) -> None:
+    """Attribute a measured interval to the request's trace (no-op when
+    untraced), parented under the span current at submit time."""
+    if req.trace is not None:
+        req.trace.record_span(
+            name, t0, t1, parent_id=req.span_parent, **attrs
+        )
+
+
+def _req_mark(req: _Request, reason: str, anomalous: bool = True, **attrs):
+    """An instant event on the request's trace; ``anomalous`` also flags
+    the trace for the flight recorder's always-keep ring."""
+    if req.trace is not None:
+        if anomalous:
+            req.trace.flag(reason)
+        req.trace.add_event(reason, span_id=req.span_parent, **attrs)
 
 
 # one wait policy for every consumer of a Handle
@@ -160,8 +267,11 @@ DEFAULT_RESULT_TIMEOUT = 600.0
 
 
 def _finish(req: _Request) -> None:
-    """Mark a request terminal and wake streamers (the one completion
-    path)."""
+    """Mark a request terminal and wake streamers: the one completion path,
+    and the one cost retirement (typed outcome, exactly once; a hedge twin
+    never retires its shared record)."""
+    if req.cost is not None and not req.cost_shadow:
+        DEFAULT_COST_LEDGER.retire(req.cost, _cost_outcome(req))
     req.done.set()
     with req.cv:
         req.cv.notify_all()
@@ -196,16 +306,26 @@ class Handle:
     def result(
         self, timeout: Optional[float] = DEFAULT_RESULT_TIMEOUT
     ) -> List[int]:
-        dl = self._req.deadline
-        if dl is not None:
-            timeout = dl.bound(timeout)
-        if not self._req.done.wait(timeout):
-            if dl is not None and dl.expired:
-                raise DeadlineExceeded("serve_result", -dl.remaining())
-            raise ResultTimeout(timeout)
-        if self._req.error is not None:
-            raise self._req.error
-        return list(self._req.tokens)
+        t0 = _now()
+        try:
+            dl = self._req.deadline
+            if dl is not None:
+                timeout = dl.bound(timeout)
+            if not self._req.done.wait(timeout):
+                if dl is not None and dl.expired:
+                    _req_mark(
+                        self._req, "deadline_exceeded", stage="serve_result"
+                    )
+                    raise DeadlineExceeded("serve_result", -dl.remaining())
+                _req_mark(self._req, "result_timeout")
+                raise ResultTimeout(timeout)
+            if self._req.error is not None:
+                raise self._req.error
+            return list(self._req.tokens)
+        finally:
+            # the waiter-side span overlaps the worker's decode-chunk spans,
+            # so coverage stays gapless from submission to delivery
+            _req_span(self._req, "serve_result_wait", t0, _now())
 
     def text(
         self, tokenizer, timeout: Optional[float] = DEFAULT_RESULT_TIMEOUT
@@ -233,31 +353,38 @@ class Handle:
 
         def _timed_out():
             if req.deadline is not None and req.deadline.expired:
+                _req_mark(req, "deadline_exceeded", stage="serve_result")
                 raise DeadlineExceeded(
                     "serve_result", -req.deadline.remaining()
                 )
+            _req_mark(req, "result_timeout")
             raise ResultTimeout(timeout)
 
         deadline = None if timeout is None else time_monotonic() + timeout
-        while True:
-            with req.cv:
-                while len(req.tokens) <= sent and not req.done.is_set():
-                    remaining = (
-                        None if deadline is None
-                        else deadline - time_monotonic()
-                    )
-                    if remaining is not None and remaining <= 0:
-                        _timed_out()
-                    if not req.cv.wait(remaining):
-                        _timed_out()
-                fresh = list(req.tokens[sent:])
-            sent += len(fresh)
-            for t in fresh:
-                yield t
-            if req.done.is_set() and sent >= len(req.tokens):
-                if req.error is not None:
-                    raise req.error
-                return
+        t0 = _now()
+        try:
+            while True:
+                with req.cv:
+                    while len(req.tokens) <= sent and not req.done.is_set():
+                        remaining = (
+                            None if deadline is None
+                            else deadline - time_monotonic()
+                        )
+                        if remaining is not None and remaining <= 0:
+                            _timed_out()
+                        if not req.cv.wait(remaining):
+                            _timed_out()
+                    fresh = list(req.tokens[sent:])
+                sent += len(fresh)
+                for t in fresh:
+                    yield t
+                if req.done.is_set() and sent >= len(req.tokens):
+                    if req.error is not None:
+                        raise req.error
+                    return
+        finally:
+            # on exhaust, error and generator close (client disconnect)
+            _req_span(req, "serve_result_wait", t0, _now(), streaming=True)
 
 
 class QueueFull(RuntimeError):
@@ -289,9 +416,9 @@ class BlockPoolExhausted(QueueFull):
 
 
 class DeferredByPolicy(QueueFull):
-    """QoS deferral of batch admission while an interactive SLO burns.
-    Defined for the error surface; nothing raises it until the SLO probe
-    is ported."""
+    """QoS deferral of batch admission while an interactive SLO burns
+    (``QoSConfig.defer_batch_on_burn`` with a probe wired by
+    ``set_slo_probe``)."""
 
 
 def _to_device(arr: np.ndarray, device) -> torch.Tensor:
@@ -382,8 +509,9 @@ class ContinuousBatcher:
                 max_entries=int(self.gen.prefix_cache_entries),
             )
         self._lane = Lane(self.device)
-        with self._lane.active():
-            self._init_device_state()
+        # the burn probe batch deferral reads (set_slo_probe); None = off
+        self._slo_probe = None
+        self._on_lane("serve_alloc", self._init_device_state).result()
 
         # host-side slot bookkeeping (worker-thread state)
         self._slot_req: List[Optional[_Request]] = [None] * self.n_slots
@@ -447,6 +575,16 @@ class ContinuousBatcher:
         self._worker.start()
 
     # ---- device programs -----------------------------------------------------
+
+    def _on_lane(self, stage: str, fn, *args, stream: str = "serve",
+                 cost_key: Any = None):
+        """Issue ``fn`` as a spine work item on this batcher's lane stream
+        (inference mode); returns its ticket once the item has issued."""
+        with self._lane.active():
+            return spine_issue(
+                stage, fn, *args, stream=stream, cost_key=cost_key,
+                device=self.device,
+            )
 
     def _next_generator(self) -> Optional[torch.Generator]:
         """A generator per dispatch, seeded from the batcher's seed and a
@@ -543,9 +681,9 @@ class ContinuousBatcher:
         emitting the matched prefix + bonus — output-exact with the plain
         program.  The loop condition is one small fetch per step.
 
-        Returns packed [S, chunk + 2K + 2] int64: token slab (sized so the
-        K-wide write at n_out never runs off its end), per-slot emission
-        count, active flag."""
+        Returns (packed [S, chunk + 2K + 2] int64, verify steps run): token
+        slab (sized so the K-wide write at n_out never runs off its end),
+        per-slot emission count, active flag."""
         S, K, C = self.n_slots, self.spec_k, self.chunk
         pad = self.gen.pad_id
         dev = self.device
@@ -555,7 +693,9 @@ class ContinuousBatcher:
         n_out = torch.zeros((S,), dtype=torch.long, device=dev)
         table = self._table[:S]  # view: in-place bigram confirmations
         tok, lengths, active = self._tok, self._lengths, self._active
+        steps = 0
         while bool((active & (n_out < C)).any()):
+            steps += 1
             drafts = draft_tokens(table, tok, K)
             verify_in = torch.cat([tok[:, None], drafts], dim=1)
             logits = paged_decode_forward(
@@ -582,32 +722,17 @@ class ContinuousBatcher:
             active = active & (lengths <= caps - K) & (lengths < self.cache_len - K)
             tok = torch.where(active & (n_valid > 0), last_tok, tok)
         self._tok, self._lengths, self._active = tok, lengths, active
-        return torch.cat([out, n_out[:, None], active.long()[:, None]], dim=1)
-
-    def _fetch_async(self, dev_tensor: torch.Tensor):
-        """Start the device->host copy of a result on the lane: a
-        non-blocking copy into pinned memory and an event after it (on the
-        CPU the tensor itself and no event)."""
-        if self.device.type != "cuda":
-            return dev_tensor, None
-        host = torch.empty(dev_tensor.shape, dtype=dev_tensor.dtype, pin_memory=True)
-        host.copy_(dev_tensor, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
-
-    @staticmethod
-    def _fetched(pending) -> np.ndarray:
-        host, event = pending
-        if event is not None:
-            event.synchronize()
-        return host.numpy()
+        return (
+            torch.cat([out, n_out[:, None], active.long()[:, None]], dim=1),
+            steps,
+        )
 
     def _init_device_state(self):
-        """Fresh pools and zeroed slot state assigned to self, run on the
-        lane (construction and the failed-dispatch reset).  The drafting table carries a spare
-        row (index n_slots) and a spare column (index vocab) for the writes
-        the reference drops."""
+        """Fresh pools and zeroed slot state assigned to self: the spine
+        items ``serve_alloc`` (construction) and ``serve_reset`` (the
+        failed-dispatch reset).  The drafting table carries a spare row
+        (index n_slots) and a spare column (index vocab) for the writes the
+        reference drops."""
         S, dev = self.n_slots, self.device
         self._pools = init_paged_pools(
             self.cfg, self.n_blocks, self.block_size,
@@ -623,12 +748,13 @@ class ContinuousBatcher:
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run the admission path's shapes once on throwaway state before
-        traffic: one ragged prefill per packed token budget (and its warm
-        variant with the prefix cache on) and one decode/verify step.  This
-        builds the kernel library and pays first-call costs; live slots are
-        untouched.  ``buckets`` narrows the budgets to those the given
-        prompt sizes pack into (default: every budget).  A kernel that
-        fails to build or launch raises here.  Clears :attr:`cold`."""
+        traffic, each as a background spine item (``serve_warmup``): one
+        ragged prefill per packed token budget (and its warm variant with
+        the prefix cache on) and one decode/verify step.  This builds the
+        kernel library and pays first-call costs; live slots are untouched.
+        ``buckets`` narrows the budgets to those the given prompt sizes pack
+        into (default: every budget).  A kernel that fails to build or
+        launch raises here.  Clears :attr:`cold`."""
         S, dev = self.n_slots, self.device
         nb = self.blocks_per_seq
         if buckets is None:
@@ -636,40 +762,75 @@ class ContinuousBatcher:
         else:
             warm = sorted({self._pick_token_bucket(int(b)) for b in buckets})
 
-        with self._lane.active():
-            pools = init_paged_pools(
+        def fresh_pools():
+            return init_paged_pools(
                 self.cfg, nb, self.block_size,
                 dtype=self.engine.params["tok_emb"].dtype, device=dev,
             )
-            sentinel = torch.full((S, nb), nb, dtype=torch.int32, device=dev)
-            for T in warm:
-                pad = torch.full((T,), -1, dtype=torch.long, device=dev)
-                zeros = torch.zeros((T,), dtype=torch.long, device=dev)
-                variants = [{}]
-                if self._prefix_cache is not None:
-                    variants.append(dict(
-                        block_tables=sentinel,
-                        prefix_lens=torch.zeros((S,), dtype=torch.long, device=dev),
-                        n_prefix_rows=self.seq_capacity,
-                        block_size=self.block_size,
-                    ))
-                for kw in variants:
-                    ragged_prefill_forward(
-                        self.engine.params, self.cfg, pools, zeros, pad,
-                        zeros, torch.full((T,), nb * self.block_size, device=dev),
-                        torch.zeros((S,), dtype=torch.long, device=dev),
-                        rope_len=self.seq_capacity, **kw,
-                    )
+
+        def sentinel():
+            return torch.full((S, nb), nb, dtype=torch.int32, device=dev)
+
+        def warm_prefill(T: int, prefix: bool):
+            kw = {}
+            if prefix:
+                kw = dict(
+                    block_tables=sentinel(),
+                    prefix_lens=torch.zeros((S,), dtype=torch.long, device=dev),
+                    n_prefix_rows=self.seq_capacity,
+                    block_size=self.block_size,
+                )
+            zeros = torch.zeros((T,), dtype=torch.long, device=dev)
+            return ragged_prefill_forward(
+                self.engine.params, self.cfg, fresh_pools(), zeros,
+                torch.full((T,), -1, dtype=torch.long, device=dev), zeros,
+                torch.full((T,), nb * self.block_size, device=dev),
+                torch.zeros((S,), dtype=torch.long, device=dev),
+                rope_len=self.seq_capacity, **kw,
+            )
+
+        def warm_decode():
             s = self.spec_k or 1
-            paged_decode_forward(
-                self.engine.params, self.cfg, pools, sentinel,
+            return paged_decode_forward(
+                self.engine.params, self.cfg, fresh_pools(), sentinel(),
                 torch.zeros((S, s), dtype=torch.long, device=dev),
                 torch.zeros((S,), dtype=torch.int32, device=dev),
                 block_size=self.block_size, rope_len=self.seq_capacity,
             ).sum().item()
+
+        for T in warm:
+            variants = [False] + ([True] if self._prefix_cache is not None else [])
+            for prefix in variants:
+                self._on_lane(
+                    "serve_warmup", warm_prefill, T, prefix, stream="warmup"
+                ).result()
+        self._on_lane("serve_warmup", warm_decode, stream="warmup").result()
         # one paged forward outside any chunk: launch identities count it
         self.stats["warmup_steps"] += 1
         self._cold = False
+
+    def annotate_costs(self) -> bool:
+        """Register the analytic cost models of the batcher's two costed
+        stages with the observatory (``obs/observatory.py``), so the spine's
+        measured device time yields per-stage MFU: ``serve_prefill_fetch``
+        (keys ``("prefill", T, lanes, pairs, kv_rows)``, one per packed
+        group) and ``serve_decode_chunk`` (``("decode", lanes, q, steps,
+        pairs, kv_rows)``).  Returns True."""
+        cfg = self.cfg
+
+        def prefill_cost(key):
+            _tag, T, lanes, pairs, kv_rows = key
+            return decoder_cost(cfg, T, lanes, pairs, kv_rows)
+
+        def decode_cost(key):
+            _tag, lanes, q, steps, pairs, kv_rows = key
+            return decoder_cost(
+                cfg, lanes * q, lanes * q, pairs, kv_rows, forwards=steps
+            )
+
+        DEFAULT_OBSERVATORY.annotate_model("serve_prefill_fetch", prefill_cost)
+        DEFAULT_OBSERVATORY.annotate_model("serve_decode_chunk", decode_cost)
+        return True
 
     def _pick_token_bucket(self, n_tokens: int) -> int:
         """Smallest packed token budget covering ``n_tokens`` (the largest
@@ -703,19 +864,55 @@ class ContinuousBatcher:
         )
 
     def submit_request(self, req: _Request) -> Handle:
-        """Admit an already-built :class:`_Request`."""
+        """Admit an already-built :class:`_Request` (the pool's requeue
+        re-admits the same object on another replica).  Every refusal
+        leaves a shed snapshot and retires the request's cost record,
+        except for pool-managed requests, whose refusal is routing."""
         with self._cv:
             if self._worker_dead:
+                self._record_shed(
+                    req, "worker_dead", outcome="failed_replica",
+                    stage="serve_submit",
+                )
                 if self.device_fault is not None:
                     raise self.device_fault
                 raise WorkerDied(f"batcher worker is dead: {self._death_cause!r}")
             if self._stopped:
+                self._record_shed(
+                    req, "stopped", outcome="error", stage="serve_submit",
+                )
                 raise RuntimeError("batcher is stopped")
             if self._draining:
+                self._record_shed(
+                    req, "draining", outcome="shed_queue",
+                    stage="serve_submit", n_queued=len(self._queue),
+                )
                 raise Draining(
                     "batcher is draining",
                     n_queued=len(self._queue), n_active=self.n_active,
                 )
+            if not req.pool_managed and self._qos is not None:
+                # SLO-aware self-protection: while an interactive SLO burns,
+                # batch admission defers typed (the pool checks its managed
+                # requests once, at dispatch)
+                cls = request_class(req)
+                firing = self._slo_firing()
+                if self._qos.should_defer(cls, firing):
+                    DEFAULT_REGISTRY.counter("qos_deferred").inc()
+                    DEFAULT_REGISTRY.counter(f"qos_deferred_{cls}").inc()
+                    _req_mark(
+                        req, "qos_deferred", stage="serve_submit",
+                        firing=",".join(firing),
+                    )
+                    self._record_shed(
+                        req, "deferred_by_policy", outcome="shed_deferred",
+                        stage="serve_submit", firing=",".join(firing),
+                    )
+                    raise DeferredByPolicy(
+                        "batch admission deferred: interactive SLO "
+                        f"burning ({', '.join(firing)})",
+                        n_queued=len(self._queue), n_active=self.n_active,
+                    )
             if self.max_queue is not None and len(self._queue) >= self.max_queue:
                 DEFAULT_REGISTRY.counter("serve_shed").inc()
                 n_active = self.n_active
@@ -726,18 +923,35 @@ class ContinuousBatcher:
                 if self._alloc.n_free == 0:
                     # the queue backed up BECAUSE the pool is dry
                     DEFAULT_REGISTRY.counter("serve_block_shed").inc()
+                    _req_mark(
+                        req, "block_pool_exhausted", n_queued=len(self._queue)
+                    )
+                    self._record_shed(
+                        req, "block_pool_exhausted", stage="serve_submit",
+                        n_queued=len(self._queue), n_active=n_active,
+                    )
                     raise BlockPoolExhausted(
                         "KV block pool exhausted and generation queue at "
                         f"capacity ({self.max_queue})",
                         n_queued=len(self._queue), n_active=n_active,
                     )
+                _req_mark(req, "queue_full", n_queued=len(self._queue))
+                self._record_shed(
+                    req, "queue_full", stage="serve_submit",
+                    n_queued=len(self._queue), n_active=n_active,
+                )
                 raise QueueFull(
                     f"generation queue at capacity ({self.max_queue})",
                     n_queued=len(self._queue), n_active=n_active,
                 )
             req.t_queue = _now()
             self._queue.append(req)
+            n_queued = len(self._queue)
             self._cv.notify_all()
+        _req_mark(
+            req, "serve_submit", anomalous=False,
+            n_queued=n_queued, prompt_len=len(req.prompt_ids),
+        )
         DEFAULT_REGISTRY.counter("serve_submitted").inc()
         return Handle(req)
 
@@ -900,6 +1114,7 @@ class ContinuousBatcher:
             req = self._slot_req[slot]
             if req is not None and not req.done.is_set():
                 req.error = error
+                _req_mark(req, "replica_failed", slot=slot)
                 _finish(req)
 
     def kill(self, error: BaseException) -> None:
@@ -921,6 +1136,7 @@ class ContinuousBatcher:
         for req in queued:
             if not req.done.is_set():
                 req.error = error
+                _req_mark(req, "replica_killed", queued=True)
                 _finish(req)
         self.fail_active(error)
         for slot in range(self.n_slots):
@@ -1014,15 +1230,33 @@ class ContinuousBatcher:
 
     # ---- QoS: status and KV preemption ----------------------------------------
 
+    def set_slo_probe(self, probe) -> None:
+        """Wire the burn-rate probe (``obs.BurnRateEvaluator.firing``) that
+        drives batch deferral; None disables deferral."""
+        self._slo_probe = probe
+
+    def _slo_firing(self) -> List[str]:
+        probe = self._slo_probe
+        if probe is None:
+            return []
+        try:
+            return list(probe() or [])
+        except Exception as e:
+            if is_device_fault(e):
+                raise
+            # a broken probe must never take admission down with it
+            return []
+
     def qos_status(self) -> Dict[str, Any]:
-        """Policy state and per-class queue depths (lock-free snapshot).
-        No SLO probe is wired in this port, so nothing is ever firing."""
+        """Policy state, live deferral and per-class queue depths
+        (lock-free snapshot)."""
         if self._qos is None:
             return {"enabled": False}
         out: Dict[str, Any] = {"enabled": True}
         out.update(self._qos.status())
-        out["slo_firing"] = []
-        out["defer_active"] = self._qos.should_defer("batch", [])
+        firing = self._slo_firing()
+        out["slo_firing"] = firing
+        out["defer_active"] = self._qos.should_defer("batch", firing)
         depths = getattr(self._queue, "depths", None)
         if depths is not None:
             out["queued_by_class"] = depths()
@@ -1064,14 +1298,25 @@ class ContinuousBatcher:
         stay on the request for the re-prefill), or None when its deadline
         cannot survive a second prefill: then it sheds typed here."""
         req = self._slot_req[slot]
+        table = self._slot_table[slot]
         self._slot_req[slot] = None
         cls = request_class(req)
-        self._release_slot_blocks(slot)
+        was_released = table.released if table is not None else True
+        self._release_slot_blocks(slot, req=req)
+        if table is not None and not was_released:
+            # the waste line: also billed under kv_block_seconds
+            _cost_add(
+                req, "preempted_block_seconds", table.billed_block_seconds
+            )
         # the device lane deactivates in the next device work item
         self._deact_pending.append(slot)
         self.stats["preempted"] += 1
         DEFAULT_REGISTRY.counter("qos_preempted").inc()
         DEFAULT_REGISTRY.counter(f"qos_preempted_{cls}").inc()
+        _req_mark(
+            req, "pool_preempted", slot=slot, pressure_class=pressure_cls,
+            tokens_so_far=len(req.tokens),
+        )
         if req.deadline is not None and (
             req.deadline.expired
             or req.deadline.remaining() < self._qos.preempt_min_resume_s
@@ -1082,6 +1327,10 @@ class ContinuousBatcher:
                 n_active=self.n_active,
             )
             DEFAULT_REGISTRY.counter("serve_block_shed").inc()
+            DEFAULT_COST_LEDGER.record_shed(
+                "preempted", cls=cls, stage="serve_preempt",
+                pressure_class=pressure_cls,
+            )
             _finish(req)
             return None
         return req
@@ -1119,6 +1368,10 @@ class ContinuousBatcher:
         if self._qos.preemption == "advisory":
             if self._block_wait_marked != id(head):
                 DEFAULT_REGISTRY.counter("qos_preempt_advisory").inc()
+                _req_mark(
+                    head, "qos_preempt_advisory", anomalous=False,
+                    candidates=[s for s, _c, _r in victims],
+                )
             return need
         for slot, _vcls, _reclaim in victims:
             if self._alloc.can_alloc(planned + need):
@@ -1155,14 +1408,38 @@ class ContinuousBatcher:
             return True
         return False
 
+    def _record_shed(
+        self, req: _Request, kind: str, outcome: Optional[str] = None,
+        **attrs,
+    ) -> None:
+        """Shed forensics and terminal cost retirement for a request this
+        batcher refuses at submit.  Pool-managed requests and hedge twins
+        skip both: the pool may still place the former, and a twin's shared
+        record belongs to its primary.  Safe under ``_cv`` (the pressure
+        probe is lock-free)."""
+        if req.pool_managed or req.cost_shadow:
+            return
+        cls = req.cost.cls if req.cost is not None else None
+        DEFAULT_COST_LEDGER.record_shed(kind, cls=cls, **attrs)
+        if req.cost is not None:
+            DEFAULT_COST_LEDGER.retire(
+                req.cost,
+                outcome or (
+                    "shed_block_pool" if kind == "block_pool_exhausted"
+                    else "shed_queue"
+                ),
+            )
+
     # ---- worker loop ---------------------------------------------------------
 
     def _admit_round(self, pairs: List[Tuple[int, "_Request"]]):
         """Prefill every (slot, request) pair of this round through ragged
-        packed passes (no host sync; the first tokens are fetched by
-        ``_finalize_admissions``).  Each request's blocks are allocated here
-        (prompt + grow margin, net of a shared cached prefix); a request the
-        pool cannot hold goes back to the queue head."""
+        packed passes, as one spine item (``serve_prefill_fetch``) that also
+        scatters the slot state and copies the first tokens to the host;
+        ``_finalize_admissions`` delivers them.  Each request's blocks are
+        allocated here (prompt + grow margin, net of a shared cached
+        prefix); a request the pool cannot hold goes back to the queue
+        head."""
         # truncation keeps budget >= 1 for a maximal prompt (mirrors the
         # budget formula below)
         usable = self.cache_len - 2 - self.spec_k
@@ -1173,6 +1450,13 @@ class ContinuousBatcher:
             if req.deadline is not None and req.deadline.expired:
                 req.error = DeadlineExceeded(
                     "serve_admit", -req.deadline.remaining()
+                )
+                DEFAULT_REGISTRY.counter("serve_deadline_shed").inc()
+                _req_mark(req, "deadline_exceeded", stage="serve_admit")
+                DEFAULT_COST_LEDGER.record_shed(
+                    "deadline",
+                    cls=req.cost.cls if req.cost is not None else None,
+                    stage="serve_admit",
                 )
                 _finish(req)
                 continue
@@ -1194,13 +1478,29 @@ class ContinuousBatcher:
                     shared = self._prefix_cache.acquire(req.prefix_key, ids, table)
                 table.ensure(min(len(ids) + self._grow_margin, self.seq_capacity))
             except OutOfBlocks:
-                # release first: a partial share would strand refcounts
+                # release first: a partial share would strand refcounts; the
+                # moment of holding still bills
                 table.release()
+                _cost_add(req, "kv_block_seconds", table.billed_block_seconds)
+                DEFAULT_REGISTRY.counter("serve_block_pool_wait").inc()
+                _req_mark(
+                    req, "block_pool_exhausted", queued=True,
+                    free_blocks=self._alloc.n_free,
+                )
                 send_back.append(req)
                 continue
             try:
                 if self._prefix_cache is not None and req.prefix_key is not None:
                     self._prefix_cache.credit(shared)
+                if shared:
+                    DEFAULT_REGISTRY.counter("serve_prefix_hits").inc()
+                    DEFAULT_REGISTRY.counter(
+                        "serve_prefix_tokens_avoided"
+                    ).inc(shared)
+                    _req_mark(
+                        req, "prefix_hit", anomalous=False,
+                        shared_tokens=shared, prompt_tokens=len(ids),
+                    )
                 if self._prefix_cache is not None:
                     # insert IN the allocation loop: a later same-key request
                     # of this round shares in-round (cold groups dispatch
@@ -1208,8 +1508,10 @@ class ContinuousBatcher:
                     # are written before any sharer reads them)
                     self._prefix_cache.insert(req.prefix_key, ids, table)
             except BaseException:
-                # the table is in no slot yet: release before propagating
+                # the table is in no slot yet: release (and bill) before
+                # propagating
                 table.release()
+                _cost_add(req, "kv_block_seconds", table.billed_block_seconds)
                 raise
             good.append((slot, req, ids, table, shared))
         if send_back:
@@ -1223,7 +1525,7 @@ class ContinuousBatcher:
                 ]
                 self._cv.notify_all()
         if not good:
-            return [], None
+            return None
 
         # register slot state BEFORE the dispatch: a failed dispatch's
         # _fail_active then releases these tables too
@@ -1271,9 +1573,19 @@ class ContinuousBatcher:
 
         S = self.n_slots
         drop_row = self.n_blocks * self.block_size
+        window = self.cfg.sliding_window
         group_inputs = []
+        # one analytic cost key per group (obs/observatory.py): live causal
+        # pairs of each lane's novel rows (prefix included) and the K/V
+        # rows attention reads
+        cost_keys = []
         for warm_flag, group in groups:
             T = self._pick_token_bucket(sum(_packed_len(e) for e in group))
+            cost_keys.append((
+                "prefill", T, S,
+                sum(causal_pairs(e[4], len(e[2]), window) for e in group),
+                sum(len(e[2]) for e in group),
+            ))
             ids_flat = np.full((T,), self.gen.pad_id, np.int64)
             seg = np.full((T,), -1, np.int64)
             pos = np.zeros((T,), np.int64)
@@ -1317,12 +1629,12 @@ class ContinuousBatcher:
             [self._slot_budget[e[0]] >= 2 for e in ordered], bool
         )
 
-        # on the lane: pending lane deactivations, one packed prefill per
-        # group, then the slot-state scatter on the device (alive = first !=
-        # eos and budget >= 2 needs no fetch), then the first tokens' async
-        # copy to the host
+        # the spine item: pending lane deactivations, one packed prefill per
+        # group, the slot-state scatter on the device (alive = first != eos
+        # and budget >= 2 needs no fetch), then the first tokens to the host
         dev = self.device
-        with self._lane.active():
+
+        def _prefill_on_lane():
             self._apply_deact_on_lane()
             parts = []
             for (ids_flat, seg, pos, dest, last_rows, slots_arr, n_lanes,
@@ -1345,36 +1657,80 @@ class ContinuousBatcher:
             self._tok[idx] = first
             self._lengths[idx] = _to_device(lens_np, dev)
             self._active[idx] = (first != self.gen.eos_id) & _to_device(budget_ok, dev)
-            pending = self._fetch_async(first)
+            return to_host(first)
+
+        t_prefill0 = _now()
+        with span("serve_prefill", DEFAULT_REGISTRY):
+            # the prefill rides the spine's prefill stream: decode items of
+            # other replicas schedule ahead of it
+            ticket = self._on_lane(
+                "serve_prefill_fetch", _prefill_on_lane, stream="prefill",
+                cost_key=cost_keys,
+            )
+            firsts = ticket.result().numpy()
+        t_prefill1 = _now()
+        for gi, (_warm, group) in enumerate(groups):
+            for slot, req, ids, table, shared in group:
+                _req_span(
+                    req, "serve_prefill", t_prefill0, t_prefill1,
+                    batch=len(good), dispatch=gi, slot=slot,
+                    prompt_tokens=len(ids), blocks=len(table.blocks),
+                    shared_tokens=shared,
+                )
         self.stats["prefill_dispatches"] += len(groups)
         self.stats["admissions"] += len(ordered)
         self.stats["warm_admissions"] += sum(1 for e in ordered if e[4])
-        meta = [(slot, req) for slot, req, _ids, _t, _s in ordered]
-        return meta, pending
+        meta = [
+            (slot, req, len(ids), shared)
+            for slot, req, ids, _t, shared in ordered
+        ]
+        return meta, firsts, ticket, cost_keys
 
-    def _finalize_admissions(self, admitted) -> bool:
-        """One fetch of the round's first tokens, then per-request delivery
-        or retirement.  The worker calls this AFTER issuing the next decode
-        chunk.  Returns False when the fetch failed (the pipeline is
-        poisoned and has been reset)."""
-        meta, pending = admitted
-        try:
-            firsts = self._fetched(pending)[: len(meta)]
-        except Exception as e:
-            self._fail_active(e)
-            return False
-        for (slot, req), first in zip(meta, firsts):
+    def _finalize_admissions(self, admitted) -> None:
+        """Per-request cost attribution and delivery (or retirement) of an
+        admission round's first tokens.
+
+        The round's measured device time splits across its requests in
+        proportion to the NOVEL tokens each packed (warm lanes bill the
+        warm field and record their avoided tokens), so the per-class sums
+        equal the ``serve_prefill_fetch`` series (same measured value,
+        partitioned)."""
+        meta, firsts, ticket, cost_keys = admitted
+        firsts = firsts[: len(meta)]
+        sfx = [max(n_ids - shared, 1) for _s, _r, n_ids, shared in meta]
+        total_sfx = float(sum(sfx)) or 1.0
+        flops_total = 0.0
+        for key in cost_keys:
+            c = DEFAULT_OBSERVATORY.cost_of("serve_prefill_fetch", key)
+            if c is not None:
+                flops_total += c["flops"]
+        dev_ms = ticket.device_s * 1e3
+        qw_ms = ticket.queue_wait_s * 1e3
+        for (slot, req, n_ids, shared), n_sfx in zip(meta, sfx):
+            share = n_sfx / total_sfx
+            field = (
+                "prefill_device_ms_warm" if shared
+                else "prefill_device_ms_cold"
+            )
+            _cost_add(req, field, dev_ms * share)
+            _cost_add(req, "spine_queue_wait_ms", qw_ms * share)
+            _cost_add(req, "prefill_tokens", n_ids)
+            _cost_add(req, "prefill_tokens_avoided", shared)
+            if flops_total:
+                _cost_add(req, "flops_est", flops_total * share)
+        for (slot, req, _n_ids, _shared), first in zip(meta, firsts):
             first = int(first)
             budget = self._slot_budget[slot]
             if first == self.gen.eos_id or budget <= 0:
                 self._retire(slot)
             else:
                 req.tokens.append(first)
+                _cost_add(req, "decode_tokens", 1)
+                _req_mark(req, "first_token", anomalous=False, slot=slot)
                 with req.cv:  # the first streamed token
                     req.cv.notify_all()
                 if len(req.tokens) >= budget:
                     self._retire(slot)
-        return True
 
     def _apply_deact_on_lane(self) -> None:
         """Clear device ``active`` lanes of host-retired slots (called first
@@ -1384,17 +1740,26 @@ class ContinuousBatcher:
             self._active[idx] = False
             self._deact_pending = []
 
-    def _release_slot_blocks(self, slot: int) -> None:
+    def _release_slot_blocks(
+        self, slot: int, req: Optional[_Request] = None
+    ) -> None:
         """Return a slot's blocks to the pool (idempotent) and sentinel its
         table row so in-flight programs' further writes through it land on
-        the drop row."""
+        the drop row.  The release is where the occupant's KV
+        block-seconds bill lands (after retirement too: the ledger
+        late-adds), once: only the call that released credits."""
+        if req is None:
+            req = self._slot_req[slot]
         table = self._slot_table[slot]
         self._slot_table[slot] = None
         self._block_rows[slot, :] = self.n_blocks
         self._caps_np[slot] = 0
         self._tables_dirty = True
         if table is not None:
+            was_released = table.released
             table.release()
+            if not was_released and req is not None:
+                _cost_add(req, "kv_block_seconds", table.billed_block_seconds)
 
     def _fail_active(self, err: BaseException) -> None:
         """Fail all in-flight requests, free their blocks, and rebuild clean
@@ -1407,9 +1772,11 @@ class ContinuousBatcher:
         for slot in range(self.n_slots):
             req = self._slot_req[slot]
             self._slot_req[slot] = None
-            self._release_slot_blocks(slot)
+            # bill KV block-seconds before _finish retires the record
+            self._release_slot_blocks(slot, req=req)
             if req is not None:
                 req.error = RuntimeError(f"decode failed: {err!r}")
+                _req_mark(req, "decode_failed", slot=slot)
                 _finish(req)
         # the reset replaces the pools: every cached prefix row is garbage
         if self._prefix_cache is not None:
@@ -1417,15 +1784,14 @@ class ContinuousBatcher:
         if self._stopped:
             return
         self._deact_pending = []
-        with self._lane.active():
-            self._init_device_state()
+        self._on_lane("serve_reset", self._init_device_state).result()
 
     def _retire(self, slot: int) -> None:
         req = self._slot_req[slot]
         self._slot_req[slot] = None
         # blocks return IMMEDIATELY: the next queued request can take them
-        # this same worker iteration
-        self._release_slot_blocks(slot)
+        # this same worker iteration; the KV bill lands before _finish
+        self._release_slot_blocks(slot, req=req)
         if req is not None:
             _finish(req)
             if req.error is None:
@@ -1433,19 +1799,51 @@ class ContinuousBatcher:
                 DEFAULT_REGISTRY.counter("serve_completed").inc()
 
     def _process_chunk(self, pending, snap: List[Optional[_Request]]) -> bool:
-        """Read one decode chunk's packed results and deliver its tokens to
-        the slots whose occupant is still the dispatch-time request.
-        Returns False when the fetch failed (state reset)."""
+        """Fetch one decode chunk and deliver its packed results to the
+        slots whose occupant is still the dispatch-time request.  Returns
+        False when the chunk failed (state reset).
+
+        The fetch (the item's result) reads the chunk's measured device
+        time, which splits equally across the dispatch-time occupants
+        ``snap`` (a lane that retired in flight still owns its share,
+        late-added), so the per-class sums equal the
+        ``serve_decode_chunk`` series: an unfetched chunk enters neither."""
+        ticket, cost_key, t_issue0, t_issue1 = pending
+        t_fetch0 = _now()
         try:
             # resilience_site: serve.decode_chunk — a delay is a slow-decode
             # replica, a raise a decode failure (typed, the batcher lives)
             faults.perturb("serve.decode_chunk")
-            packed_h = self._fetched(pending)
+            if self.spec_k:
+                packed, steps = ticket.result()
+            else:
+                # the pipelined chunk: the worker waits on its device work
+                # here, as the reference's fetch does
+                with span("serve_decode_chunk", DEFAULT_REGISTRY):
+                    packed, steps = ticket.result()
         except Exception as e:
             self._fail_active(e)
             return False
+        t_fetch1 = _now()
+        # the interval the worker waited on this chunk's device work
+        t_chunk0, t_chunk1 = (
+            (t_issue0, t_issue1) if self.spec_k else (t_fetch0, t_fetch1)
+        )
+        packed_h = packed.numpy()
+        charged = [r for r in snap if r is not None]
+        dev_ms = ticket.device_s * 1e3 / len(charged)
+        qw_ms = ticket.queue_wait_s * 1e3 / len(charged)
+        model = DEFAULT_OBSERVATORY.cost_of(
+            "serve_decode_chunk", cost_key((packed, steps))
+        )
+        fl = model["flops"] / len(charged) if model else 0.0
+        for req in charged:
+            _cost_add(req, "decode_device_ms", dev_ms)
+            _cost_add(req, "spine_queue_wait_ms", qw_ms)
+            if fl:
+                _cost_add(req, "flops_est", fl)
         # the first chunk landed: liveness monitoring may engage, and a
-        # fetched chunk is real progress (the pool skips canaries on it)
+        # processed chunk is real progress (the pool skips canaries on it)
         self._cold = False
         self._last_progress = time_monotonic()
         if self.spec_k:
@@ -1461,6 +1859,7 @@ class ContinuousBatcher:
             active_h = packed_h[:, -1].astype(bool)
             n_cols = self.chunk
         deactivate = []
+        n_appended = 0
         for slot in range(self.n_slots):
             req = snap[slot]
             if req is None or self._slot_req[slot] is not req:
@@ -1472,6 +1871,13 @@ class ContinuousBatcher:
                 if len(req.tokens) >= self._slot_budget[slot]:
                     break
                 req.tokens.append(int(out_h[slot, t]))
+                n_appended += 1
+            # every chunk the request decoded through shows on its timeline
+            _req_span(
+                req, "serve_decode_chunk", t_chunk0, t_chunk1,
+                slot=slot, tokens=len(req.tokens) - before,
+            )
+            _cost_add(req, "decode_tokens", len(req.tokens) - before)
             if len(req.tokens) > before:  # wake streamers per chunk
                 with req.cv:
                     req.cv.notify_all()
@@ -1488,12 +1894,27 @@ class ContinuousBatcher:
                 req.error = DeadlineExceeded(
                     "serve_decode", -req.deadline.remaining()
                 )
+                DEFAULT_REGISTRY.counter("serve_deadline_shed").inc()
+                _req_mark(req, "deadline_exceeded", stage="serve_decode")
+                DEFAULT_COST_LEDGER.record_shed(
+                    "deadline",
+                    cls=req.cost.cls if req.cost is not None else None,
+                    stage="serve_decode",
+                )
             cancelled = not finished and not expired and req.cancelled
             if cancelled and not req.done.is_set():
                 req.error = RequestCancelled("cancelled mid-decode")
+                _req_mark(
+                    req, "cancelled", anomalous=False, stage="serve_decode"
+                )
             if finished or expired or cancelled:
                 deactivate.append(slot)
                 self._retire(slot)
+        # tokens delivered per chunk: with speculation this exceeds chunk x
+        # live slots when drafts accept
+        DEFAULT_REGISTRY.histogram("serve_tokens_per_chunk").observe(
+            float(n_appended)
+        )
         if deactivate:
             self._deact_pending.extend(deactivate)
         return True
@@ -1565,8 +1986,13 @@ class ContinuousBatcher:
                         head, planned, need, preempted_back
                     )
                 if head_live and not self._alloc.can_alloc(planned + need):
+                    # one mark and count per starvation episode, not per poll
                     if self._block_wait_marked != id(head):
                         self._block_wait_marked = id(head)
+                        _req_mark(
+                            head, "block_pool_exhausted", queued=True,
+                            anomalous=False, free_blocks=self._alloc.n_free,
+                        )
                         DEFAULT_REGISTRY.counter("serve_block_pool_wait").inc()
                     blocked = True
                     break
@@ -1574,14 +2000,33 @@ class ContinuousBatcher:
                 if self._block_wait_marked == id(req):
                     self._block_wait_marked = None
                 drained = True
+                # queue wait is over either way (admitted or shed); the
+                # cost is this queue entry's interval only (t_queue resets
+                # on every requeue)
+                _req_span(req, "serve_queue_wait", req.t_submit, _now())
+                _cost_add(
+                    req, "queue_wait_ms",
+                    (_now() - (req.t_queue or req.t_submit)) * 1e3,
+                )
                 if req.cancelled:
                     if not req.done.is_set():
                         req.error = RequestCancelled("cancelled before admission")
+                        _req_mark(
+                            req, "cancelled", anomalous=False,
+                            stage="serve_queue",
+                        )
                         _finish(req)
                     continue
                 if req.deadline is not None and req.deadline.expired:
                     req.error = DeadlineExceeded(
                         "serve_queue", -req.deadline.remaining()
+                    )
+                    DEFAULT_REGISTRY.counter("serve_deadline_shed").inc()
+                    _req_mark(req, "deadline_exceeded", stage="serve_queue")
+                    DEFAULT_COST_LEDGER.record_shed(
+                        "deadline",
+                        cls=req.cost.cls if req.cost is not None else None,
+                        stage="serve_queue",
                     )
                     _finish(req)
                     continue
@@ -1654,13 +2099,15 @@ class ContinuousBatcher:
         for req in queued:
             if not req.done.is_set():
                 req.error = err
+                _req_mark(req, "worker_died", queued=True)
                 _finish(req)
         for slot in range(self.n_slots):
             req = self._slot_req[slot]
             self._slot_req[slot] = None
-            self._release_slot_blocks(slot)
+            self._release_slot_blocks(slot, req=req)
             if req is not None and not req.done.is_set():
                 req.error = err
+                _req_mark(req, "worker_died", slot=slot)
                 _finish(req)
         if self._prefix_cache is not None:
             self._prefix_cache.clear()
@@ -1707,32 +2154,78 @@ class ContinuousBatcher:
                     f"{est} tokens, pool {self.n_blocks}x{self.block_size})",
                     n_queued=n_queued, n_active=self.n_active,
                 )
+                _req_mark(req, "block_pool_exhausted", slot=slot)
+                # forensics BEFORE the retire frees its blocks: the snapshot
+                # shows the holdings that caused the shed
+                DEFAULT_COST_LEDGER.record_shed(
+                    "block_pool_exhausted",
+                    cls=req.cost.cls if req.cost is not None else None,
+                    stage="serve_decode_grow", lane_tokens=est,
+                )
                 self._retire(slot)
                 shed_slots.append(slot)
         if shed_slots:
             self._deact_pending.extend(shed_slots)
 
-    def _dispatch_decode(self):
-        """Issue one decode chunk for every live slot on the lane: pending
-        deactivations, the dirty table upload, the chunk, and the async copy
-        of its packed results."""
-        with self._lane.active():
+    def _dispatch_decode(self, snap: List[Optional[_Request]]):
+        """Issue one decode chunk for every live slot as a spine item
+        (``serve_decode_chunk``): pending deactivations, the dirty table
+        upload, the chunk, and the start of its packed results' copy to the
+        host.  Returns ``(ticket, cost key, t0, t1)`` once the item has
+        issued; :meth:`_process_chunk` fetches it.
+
+        The cost key counts the steps the device ran and, per step, each
+        occupied lane's live pairs and K/V rows at its length at dispatch
+        (``snap``)."""
+        q = self.spec_k or 1
+        window = self.cfg.sliding_window
+        lens = [
+            self._slot_prompt[slot] + len(req.tokens)
+            for slot, req in enumerate(snap) if req is not None
+        ]
+        pairs = sum(causal_pairs(n, n + q, window) for n in lens)
+        kv_rows = sum(n + q for n in lens)
+
+        def cost_key(result):
+            steps = result[1]
+            return ("decode", self.n_slots, q, steps, steps * pairs,
+                    steps * kv_rows)
+
+        def _decode_on_lane():
             self._apply_deact_on_lane()
             if self._tables_dirty:
                 self._tables_dev = _to_device(self._block_rows, self.device)
                 self._caps_dev = _to_device(self._caps_np, self.device)
                 self._tables_dirty = False
             if self.spec_k:
-                packed = self._decode_spec_program(self._tables_dev, self._caps_dev)
+                packed, steps = self._decode_spec_program(
+                    self._tables_dev, self._caps_dev
+                )
             else:
                 packed = self._decode_program(
                     self._tables_dev, self._caps_dev, self._next_generator()
                 )
-            return self._fetch_async(packed)
+                steps = self.chunk
+            return to_host(packed), steps
+
+        def issue():
+            return self._on_lane(
+                "serve_decode_chunk", _decode_on_lane, cost_key=cost_key
+            )
+
+        t0 = _now()
+        if self.spec_k:
+            # the speculative chunk fetches once per verify step inside its
+            # item: the worker waits on the chunk's device work here
+            with span("serve_decode_chunk", DEFAULT_REGISTRY):
+                ticket = issue()
+        else:
+            ticket = issue()
+        return ticket, cost_key, t0, _now()
 
     def _run_loop(self) -> None:
-        # the one issued-but-unread decode chunk: (pending fetch, the
-        # dispatch-time slot->request snapshot)
+        # the one issued-but-unfetched decode chunk: (its ticket, cost key
+        # and issue times, the dispatch-time slot->request snapshot)
         pending: Optional[Tuple[Any, List[Optional[_Request]]]] = None
         while True:
             self._beat = time_monotonic()
@@ -1759,22 +2252,22 @@ class ContinuousBatcher:
                     self._cv.wait(0.05)
                     self._pop_free_slots(pairs)
             if pairs and pending is not None:
-                # read the in-flight chunk before admitting: it may retire
+                # process the previous chunk before admitting: it may retire
                 # slots this round can refill
                 drained_ok = self._process_chunk(*pending)
                 pending = None
                 if drained_ok:
                     with self._cv:
                         self._pop_free_slots(pairs)
-            # disaggregated order: the chunk for ALREADY-LIVE lanes is
-            # issued before this round's admission prefill
+            # disaggregated order: the chunk for ALREADY-LIVE lanes runs
+            # before this round's admission prefill
             self._grow_tables()
             packed = snap = None
             if any(self._slot_req):
                 # snapshot at DISPATCH time: lanes admitted below were free
                 snap = list(self._slot_req)
                 try:
-                    packed = self._dispatch_decode()
+                    packed = self._dispatch_decode(snap)
                 except Exception as e:
                     self._fail_active(e)
                     pending = None
@@ -1783,14 +2276,12 @@ class ContinuousBatcher:
             if pairs:
                 try:
                     admitted = self._admit_round(pairs)
-                    if not admitted[0]:
-                        admitted = None
                 except Exception as e:
                     if is_device_fault(e):
                         raise  # the worker dies with it (_worker_died)
                     # the round's prefill died: fail its requests (those sent
                     # back to the queue stay queued) and reset; the chunk
-                    # issued above shares the poisoned state — drop it
+                    # run above shares the poisoned state — drop it
                     with self._cv:
                         requeued = {id(r) for r in self._queue}
                     for _slot, req in pairs:
@@ -1806,17 +2297,17 @@ class ContinuousBatcher:
                     with self._cv:
                         self._admitting_reqs = []
                         self._cv.notify_all()
-            ok = True
             if admitted is not None:
-                ok = self._finalize_admissions(admitted)
-            if ok and pending is not None:
+                self._finalize_admissions(admitted)
+            ok = True
+            if pending is not None:
                 ok = self._process_chunk(*pending)
             if ok and packed is None and any(self._slot_req):
                 # admission-only iteration: give the fresh lanes their first
                 # chunk now instead of one loop later
                 snap = list(self._slot_req)
                 try:
-                    packed = self._dispatch_decode()
+                    packed = self._dispatch_decode(snap)
                 except Exception as e:
                     self._fail_active(e)
                     pending = None

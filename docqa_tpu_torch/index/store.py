@@ -5,7 +5,9 @@ A float32 host master copy plus one [capacity, dim] device buffer in
 ``StoreConfig.dtype`` (bf16 by default) that doubles when it fills.
 Vectors are L2-normalized on add, so a dot product is the cosine.
 Metadata filters, tombstones, snapshots and the fused RAG path's token
-sidecar (``StoreConfig.token_width``) are later slices.
+sidecar (``StoreConfig.token_width``) are later slices.  The device write
+of :meth:`VectorStore.add` is a dispatch-spine work item (``store_add``);
+the port's only search is the fused retriever's ``retrieve`` item.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import numpy as np
 import torch
 
 from docqa_tpu_torch.config import StoreConfig
+from docqa_tpu_torch.engines.spine import spine_run
+from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, span
 from docqa_tpu_torch.utils import resolve_device, round_up, torch_dtype
 
 NEG_INF = -1e30
@@ -130,7 +134,7 @@ class VectorStore:
         norms = np.linalg.norm(vectors, axis=1, keepdims=True)
         vectors = vectors / np.maximum(norms, 1e-9)
 
-        with self._lock:
+        with self._lock, span("store_add", DEFAULT_REGISTRY):
             start = self._count
             n = len(vectors)
             if self._host.shape[0] < start + n:
@@ -139,15 +143,18 @@ class VectorStore:
                 host[:start] = self._host[:start]
                 self._host = host
             self._host[start : start + n] = vectors
-            self._grow_to(start + n)
-            # in-place write of the new rows into the device buffer
-            self._dev[start : start + n] = torch.from_numpy(vectors).to(
-                device=self.device, dtype=self._dtype
-            )
-            if self.device.type == "cuda":
-                # the count below publishes the rows to searches on other
-                # streams: the write must have landed first
-                torch.cuda.current_stream(self.device).synchronize()
+
+            def _append_on_device():
+                self._grow_to(start + n)
+                # in-place write of the new rows into the device buffer
+                self._dev[start : start + n] = torch.from_numpy(vectors).to(
+                    device=self.device, dtype=self._dtype
+                )
+
+            # the submitter holds the lock while blocked; the item takes
+            # none.  spine_run returns once the item's device work has
+            # finished, so the count below publishes rows that have landed.
+            spine_run("store_add", _append_on_device, device=self.device)
             self._meta.extend(dict(m) for m in metadata)
             self._count = start + n
             return list(range(start, start + n))

@@ -10,9 +10,9 @@ first opportunity instead of queueing.
 
 Shedding raises :class:`DeadlineExceeded`, a ``TimeoutError`` subclass, so
 callers that already handle timeouts keep working, while a front end can
-map it (504) apart from a queue-full shed (503).  The reference also marks
-the shed on the request's trace; traces come with the obs slice, so here
-the exception, with its stage and overrun, is the whole record.
+map it (504) apart from a queue-full shed (503).  A shed also flags the
+active trace ``deadline_exceeded`` and records an event naming the stage
+and the overrun (``docqa_tpu_torch/obs``).
 """
 
 from __future__ import annotations
@@ -62,9 +62,18 @@ class Deadline:
 
     def check(self, stage: str = "") -> None:
         """Raise :class:`DeadlineExceeded` naming ``stage`` if the budget
-        is gone."""
+        is gone, after marking the shed on the active trace (the flight
+        recorder keeps flagged traces; the event names the stage)."""
         overrun = monotonic() - self.expires_at
         if overrun >= 0:
+            from docqa_tpu_torch import obs
+
+            obs.flag("deadline_exceeded")
+            obs.event(
+                "deadline_exceeded",
+                stage=stage,
+                overrun_ms=round(overrun * 1000.0, 1),
+            )
             raise DeadlineExceeded(stage, overrun)
 
     def bound(self, timeout: Optional[float]) -> float:

@@ -14,7 +14,14 @@ and :meth:`DocumentPipeline.wait_indexed` blocks on it.
 
 Each worker runs its device work on a ``spine.Lane`` of its own (one CUDA
 stream, inference mode), so a tagger or encoder batch never queues on the
-stream of another thread's work.
+stream of another thread's work; the encoder's and the store's spine items
+run on that stream.
+
+Every document leaves one timeline (``docqa_tpu_torch/obs``): the trace
+opens at ingest (or continues the caller's), its headers ride the broker
+messages, each worker re-links it (``obs.from_headers``) and records its
+batch interval as a ``deid_batch`` / ``index_batch`` span, and the first
+terminal status finishes it, a dead letter included (flagged).
 
 Two departures from the reference:
 
@@ -22,10 +29,9 @@ Two departures from the reference:
   worker is never retried, dead-lettered or written as ``ERROR_DEID`` /
   ``ERROR_INDEXING``: the worker stops, the pipeline keeps the error, and
   :meth:`wait_indexed` and :meth:`stop` raise it;
-* the reference's trace calls (``obs``) are not here yet; trace headers
-  still ride the broker messages untouched.  Nor are its ``on_indexed``
-  hook (store snapshots) and ``prompt_tokenizer`` (the store's token
-  sidecar, FusedRAG): each comes with its first caller.
+* the reference's ``on_indexed`` hook (store snapshots) and
+  ``prompt_tokenizer`` (the store's token sidecar, FusedRAG) are not here:
+  each comes with its first caller.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from docqa_tpu_torch import obs
 from docqa_tpu_torch.config import Config
 from docqa_tpu_torch.engines.spine import Lane
 from docqa_tpu_torch.resilience import faults
@@ -117,8 +124,12 @@ class DocumentPipeline:
         self._suppressed_doc_ids: set = set()
         self._suppress_lock = threading.Lock()
 
-        def _dead(body, status):
+        def _dead(body, headers, status):
             self.registry.set_status_unless_deleted(body["doc_id"], status)
+            # the timeline ends here, flagged: the recorder always keeps it
+            obs.finish_id(
+                (headers or {}).get(obs.TRACE_HEADER), flag="dead_lettered"
+            )
             self._notify_done()
 
         # per-stage breakers: while a stage's circuit is open its consumer
@@ -132,7 +143,9 @@ class DocumentPipeline:
                 self._deid_handler,
                 batch=cfg.broker.prefetch,
                 name="deid-worker",
-                on_dead=lambda body, headers: _dead(body, reg.ERROR_DEID),
+                on_dead=lambda body, headers: _dead(
+                    body, headers, reg.ERROR_DEID
+                ),
                 retry=self._consumer_retry,
                 breaker=breakers.get("deid") if breakers else None,
                 pass_headers=True,
@@ -144,7 +157,9 @@ class DocumentPipeline:
                 self._index_handler,
                 batch=cfg.broker.prefetch,
                 name="index-worker",
-                on_dead=lambda body, headers: _dead(body, reg.ERROR_INDEXING),
+                on_dead=lambda body, headers: _dead(
+                    body, headers, reg.ERROR_INDEXING
+                ),
                 retry=self._consumer_retry,
                 breaker=breakers.get("index") if breakers else None,
                 pass_headers=True,
@@ -205,8 +220,22 @@ class DocumentPipeline:
         doc_date: Optional[str] = None,
     ):
         """Create the metadata row first, then extract, then queue; every
-        failure mode gets a distinct terminal status.  Returns the row."""
+        failure mode gets a distinct terminal status.  Returns the row.
+
+        The document's trace starts here (or continues the caller's) and
+        spans extract -> deid -> index: it finishes at the first terminal
+        status."""
+        with obs.ensure("ingest") as ctx:
+            return self._ingest_traced(
+                ctx, filename, data, doc_type, patient_id, doc_date
+            )
+
+    def _ingest_traced(
+        self, ctx, filename, data, doc_type, patient_id, doc_date
+    ):
         record = self.registry.create(filename, doc_type, patient_id, doc_date)
+        if ctx is not None:
+            ctx.trace.root.attrs.setdefault("doc_id", record.doc_id)
 
         def _extract():
             faults.perturb("extract")  # resilience_site: extract
@@ -228,6 +257,8 @@ class DocumentPipeline:
                 detail=why or "empty_text",
             )
             self._notify_done()
+            obs.flag("error_extraction")
+            obs.finish(ctx, status="error")
             return self.registry.get(record.doc_id)
         try:
             self._publish(
@@ -242,13 +273,17 @@ class DocumentPipeline:
                         "doc_date": doc_date,
                     },
                 },
+                headers=obs.headers_of(ctx),
             )
         except Exception:
             log.exception("queue publish failed")
             self.registry.set_status(record.doc_id, reg.ERROR_QUEUE)
             self._notify_done()
+            obs.flag("error_queue")
+            obs.finish(ctx, status="error")
             return self.registry.get(record.doc_id)
         self.registry.set_status(record.doc_id, reg.PROCESSED)
+        # the trace stays open: the deid and index hops finish it
         return self.registry.get(record.doc_id)
 
     def _publish(
@@ -290,11 +325,22 @@ class DocumentPipeline:
         faults.perturb("deid")  # resilience_site: deid (slow-stage/outage)
         headers = headers if headers is not None else [{} for _ in bodies]
         texts = [b["text"] for b in bodies]
+        t_batch0 = time.perf_counter()
         with span("deid_batch", DEFAULT_REGISTRY), self._deid_lane.active():
             masked = self.deid.deidentify_batch(texts)
+        t_batch1 = time.perf_counter()
         # Side-effect phase: per-message failures are terminal here, never
         # re-raised (a raise would make the retry republish the prefix).
         for body, clean, hdrs in zip(bodies, masked, headers):
+            # re-link the document's trace (or adopt a stub after a replay)
+            # and charge it this batch's interval
+            ctx = obs.from_headers(hdrs, name="doc")
+            if ctx is not None:
+                ctx.trace.record_span(
+                    "deid_batch", t_batch0, t_batch1,
+                    parent_id=ctx.span_id, batch=len(bodies),
+                    doc_id=body.get("doc_id"),
+                )
             try:
                 # deleted docs stop here too; the suppress lock covers only
                 # the set read — registry I/O runs outside it, and its
@@ -320,6 +366,7 @@ class DocumentPipeline:
                     log.info(
                         "dropping deleted doc %s at deid stage", body["doc_id"]
                     )
+                    obs.finish(ctx, status="dropped")
                     continue
                 self._publish(
                     self.cfg.broker.clean_queue,
@@ -329,7 +376,7 @@ class DocumentPipeline:
                         "metadata": body.get("metadata", {}),
                         "processed_at": time.time(),
                     },
-                    headers=hdrs,
+                    headers=obs.headers_of(ctx),
                 )
             except Exception:
                 log.exception("clean-queue publish failed for %s", body["doc_id"])
@@ -340,6 +387,9 @@ class DocumentPipeline:
                     self._notify_done()
                 except Exception:
                     log.exception("status write failed for %s", body["doc_id"])
+                if ctx is not None:
+                    ctx.trace.flag("error_deid")
+                    obs.finish(ctx, status="error")
 
     def _index_handler(
         self,
@@ -349,6 +399,13 @@ class DocumentPipeline:
         # before any side effect: an injected raise here replays the whole
         # batch safely (resilience_site: index)
         faults.perturb("index")
+        headers = headers if headers is not None else [{} for _ in bodies]
+        # per-doc trace contexts, re-linked from the message headers; the
+        # terminal status below finishes each trace
+        ctx_by_doc = {
+            body["doc_id"]: obs.from_headers(hdrs, name="doc")
+            for body, hdrs in zip(bodies, headers)
+        }
         all_chunks: List[str] = []
         all_meta: List[Dict[str, Any]] = []
         per_doc: List[tuple] = []
@@ -359,9 +416,11 @@ class DocumentPipeline:
             record = self.registry.get(body["doc_id"])
             if record is not None and record.status == reg.DELETED:
                 log.info("dropping deleted doc %s (registry)", body["doc_id"])
+                obs.finish(ctx_by_doc.get(body["doc_id"]), status="dropped")
                 continue
             if body["doc_id"] in self._suppressed_doc_ids:
                 log.info("dropping deleted in-flight doc %s", body["doc_id"])
+                obs.finish(ctx_by_doc.get(body["doc_id"]), status="dropped")
                 continue
             if body["doc_id"] in self._indexed_doc_ids:
                 log.info(
@@ -396,6 +455,7 @@ class DocumentPipeline:
                         "char_end": ch.end,
                     }
                 )
+        t_batch0 = time.perf_counter()
         if all_chunks:
             with span("index_batch", DEFAULT_REGISTRY), self._index_lane.active():
                 # encode is pure; a raise from it (or from store.add, whose
@@ -422,9 +482,20 @@ class DocumentPipeline:
                         log.info(
                             "dropped %d doc(s) deleted mid-encode", len(late)
                         )
+                        for d in sorted(late):
+                            obs.finish(ctx_by_doc.get(d), status="dropped")
                     if all_meta:
                         self.store.add(embeddings, all_meta)
                     self._indexed_doc_ids.update(d for d, _n in per_doc)
+            t_batch1 = time.perf_counter()
+            for doc_id, n in per_doc:
+                ctx = ctx_by_doc.get(doc_id)
+                if ctx is not None:
+                    ctx.trace.record_span(
+                        "index_batch", t_batch0, t_batch1,
+                        parent_id=ctx.span_id, batch=len(per_doc),
+                        doc_id=doc_id, n_chunks=n,
+                    )
         # vectors are committed past this point: never raise (a retry would
         # re-encode and re-append the whole batch)
         for doc_id, n in per_doc:
@@ -434,10 +505,13 @@ class DocumentPipeline:
                 with self._suppress_lock:
                     skip = doc_id in self._suppressed_doc_ids
                 if skip:
+                    obs.finish(ctx_by_doc.get(doc_id), status="dropped")
                     continue
                 self.registry.set_status_unless_deleted(
                     doc_id, reg.INDEXED, n_chunks=n
                 )
+                # terminal: the whole ingest -> deid -> index timeline ends
+                obs.finish(ctx_by_doc.get(doc_id), status="ok")
             except Exception:
                 log.exception("status write failed for %s", doc_id)
         for doc_id in replayed:
@@ -448,8 +522,10 @@ class DocumentPipeline:
                 with self._suppress_lock:
                     skip = doc_id in self._suppressed_doc_ids
                 if skip:
+                    obs.finish(ctx_by_doc.get(doc_id), status="dropped")
                     continue
                 self.registry.set_status_unless_deleted(doc_id, reg.INDEXED)
+                obs.finish(ctx_by_doc.get(doc_id), status="ok")
             except Exception:
                 log.exception("status write failed for %s", doc_id)
         if per_doc or replayed:  # wake wait_indexed() blockers

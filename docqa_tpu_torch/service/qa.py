@@ -23,6 +23,13 @@ or launch, or a CUDA error on the card (``ops/_kernels.is_device_fault``),
 reaches the caller unchanged.  It is never turned into a degraded answer
 and never recorded as a breaker failure, so a broken kernel cannot hide
 behind a plausible answer.
+
+Observability, as in the reference: ``ask_submit`` stamps a cost record of
+the request's class on the active trace (``obs.cost_open``) before
+retrieval, so the retrieve item's device time and the batcher's prefill and
+decode shares land on one record; a degraded answer flags the trace
+``degraded`` with a reason event; a queue-full shed retires the record
+typed.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import hashlib
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+from docqa_tpu_torch import obs
 from docqa_tpu_torch.engines.encoder import EncoderEngine
 from docqa_tpu_torch.engines.generate import GenerateEngine
 from docqa_tpu_torch.engines.retrieve import FusedRetriever
@@ -40,6 +48,7 @@ from docqa_tpu_torch.engines.router import (  # noqa: F401 (re-exported)
 )
 from docqa_tpu_torch.engines.serve import (
     DEFAULT_RESULT_TIMEOUT,
+    DeferredByPolicy,
     QueueFull,
     WorkerDied,
 )
@@ -113,6 +122,10 @@ class PendingAnswer:
         self.degraded = True
         self.degrade_reason = reason
         DEFAULT_REGISTRY.counter("qa_degraded").inc()
+        # the flight recorder always keeps degraded requests, and the event
+        # says why
+        obs.flag("degraded")
+        obs.event("degraded", reason=reason)
         return self._result(extractive_answer(self.chunks, self.degraded_max_chars))
 
     def _release(self) -> None:
@@ -223,6 +236,8 @@ class QAService:
         self, sources: List[str], chunks: List[str], reason: str
     ) -> PendingAnswer:
         DEFAULT_REGISTRY.counter("qa_degraded").inc()
+        obs.flag("degraded")
+        obs.event("degraded", reason=reason)
         return PendingAnswer(
             sources=sources,
             answer=extractive_answer(chunks, self.degraded_max_chars),
@@ -243,6 +258,9 @@ class QAService:
         is the module docstring's."""
         if deadline is not None:
             deadline.check("qa_admission")
+        # the request's cost record, on its trace BEFORE retrieval (the
+        # endpoint usually stamped one already; cost_open reuses it)
+        cost = obs.cost_open(obs.current(), req_class)
         with span("qa_retrieve", DEFAULT_REGISTRY):
             if deadline is not None:
                 deadline.check("retrieve")
@@ -269,6 +287,10 @@ class QAService:
                     kw["deadline"] = deadline
                 if self.batcher.prefix_cache_enabled:
                     kw["prefix_key"] = prefix_key_for(chunks)
+                    if cost is not None:
+                        # the ledger's top-spender table groups a patient
+                        # session's questions
+                        cost.set_session(kw["prefix_key"])
                 return PendingAnswer(
                     sources=sources,
                     handle=self.batcher.submit_text(prompt, **kw),
@@ -281,10 +303,17 @@ class QAService:
             if breaker is not None:
                 breaker.record_success()
             return PendingAnswer(sources=sources, answer=answer, chunks=chunks)
-        except QueueFull:
-            # overload is not an outage: the shed never reached the decoder
+        except QueueFull as e:
+            # overload is not an outage: the shed never reached the decoder.
+            # The record retires typed (idempotent: the batcher or pool
+            # usually retired it already)
             if breaker is not None:
                 breaker.release_probe()
+            obs.DEFAULT_COST_LEDGER.retire(
+                cost,
+                "shed_deferred" if isinstance(e, DeferredByPolicy)
+                else "shed_queue",
+            )
             raise
         except DeadlineExceeded:
             if breaker is not None:

@@ -68,6 +68,20 @@ INGEST_MODULES = (
     "docqa_tpu_torch.text.chunker",
     "docqa_tpu_torch.training.ner",
 )
+# the observability slice's modules, held to the same two checks
+OBS_MODULES = (
+    "docqa_tpu_torch.obs",
+    "docqa_tpu_torch.obs.context",
+    "docqa_tpu_torch.obs.costs",
+    "docqa_tpu_torch.obs.export",
+    "docqa_tpu_torch.obs.expo",
+    "docqa_tpu_torch.obs.observatory",
+    "docqa_tpu_torch.obs.profiler",
+    "docqa_tpu_torch.obs.recorder",
+    "docqa_tpu_torch.obs.slo",
+    "docqa_tpu_torch.obs.spans",
+    "docqa_tpu_torch.obs.telemetry",
+)
 
 
 def _python_files():
@@ -89,14 +103,44 @@ def test_imports_with_jax_and_reference_blocked():
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout
     port_line = next(line for line in out.stdout.splitlines() if line.startswith("PORT"))
-    for mod in BATCHER_MODULES + INGEST_MODULES:
+    for mod in BATCHER_MODULES + INGEST_MODULES + OBS_MODULES:
         assert f"'{mod}'" in port_line, mod
 
 
 def test_ast_scan_covers_the_batcher_modules():
     scanned = {os.path.relpath(p, REPO) for p in _python_files()}
-    for mod in BATCHER_MODULES + INGEST_MODULES:
-        assert mod.replace(".", os.sep) + ".py" in scanned, mod
+    for mod in BATCHER_MODULES + INGEST_MODULES + OBS_MODULES:
+        path = mod.replace(".", os.sep)
+        assert path + ".py" in scanned or os.path.join(path, "__init__.py") in scanned, mod
+
+
+def test_no_module_reaches_jax_profiler_or_the_reference_obs():
+    """Neither an import statement nor a dynamic import (``importlib``,
+    ``__import__``) names ``jax.profiler`` or ``docqa_tpu.obs``: the
+    profiler window is ``torch.profiler``'s, the obs package the port's own
+    copy."""
+    offenders = []
+    for path in _python_files():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            elif isinstance(node, ast.Call) and node.args and isinstance(
+                node.args[0], ast.Constant
+            ) and isinstance(node.args[0].value, str):
+                func = node.func
+                callee = func.attr if isinstance(func, ast.Attribute) else getattr(
+                    func, "id", "")
+                if callee in ("import_module", "__import__"):
+                    names = [node.args[0].value]
+            for name in names:
+                if name.startswith(("jax.profiler", "docqa_tpu.obs")):
+                    offenders.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {name}")
+    assert offenders == []
 
 
 def test_ast_scan_finds_no_forbidden_import():
