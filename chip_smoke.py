@@ -93,9 +93,36 @@ Phases, each of which fails the run on any error (nothing is caught):
    table, the per-stage MFU table, the recorder numbers and what a spine
    item pays to cross to a lane thread beside a busy Python thread.
 
+9. the app: ``DocQARuntime`` under the default ``Config`` (the decoder at
+   Mistral-7B width sharing phase 3's seeded card weights, ``ner.train_steps
+   =0``, and a 120 s /ask budget in place of 8 s, since a 256-token answer
+   outlasts 8 s at the port's decode speed) behind its stdlib HTTP front on
+   127.0.0.1, driven over real HTTP with ``urllib.request``, every JSON
+   answer held to ``api_contract.json`` (the smoke's copy of the reference's
+   validator): 16 generated notes (2 .docx, 2 .pdf, multipart) and two
+   lookup documents of ``data/routing_mix.jsonl`` up through ``/ingest/``
+   until INDEXED; patient snippets return only the asked patient's rows;
+   ``/api/llm/summarize`` and both syntheses at once; one decoded /ask alone
+   whose served first-step logits (a tap on the batcher's ragged prefill)
+   are within ``FIRST_STEP_RTOL`` of phase 3's solo engine on the same
+   prompt; 8 concurrent decoded /ask with K1's paged decode launched; the
+   two routed lookups answered with no decode launch; one /ask/stream whose
+   deltas concatenate to its final answer; a DELETE after which no answer
+   cites the document; /metrics lint-clean, /api/costs, /api/traces.
+   Reported: /ask p50/p95 and tokens/s over HTTP, the routed latency,
+   /ingest/ docs/s against phase 7's, the front's cost (the same routed
+   /ask in process and over HTTP), peak device memory, and whether batch
+   work is deferred once the /ask rounds burn the default SLO.  Then
+   ``python -m docqa_tpu_torch.service.app`` is started as a user starts it
+   (default config, ``ner.train_steps=0``, Mistral-7B width) and must serve
+   an upload and an /ask and exit 0 on SIGTERM; and a tiny runtime (float32
+   encoder and tagger, bf16 decoder behind a pool) must retrieve, route and
+   cite the same on the card and the CPU, its decoded answers equal but
+   for a tie (``decoded_tie_check``).
+
 The recorder is on by default, so phases 3-7 run traced too.  Prints the
-pool JSON line, the ingest JSON line, the obs JSON line, the kernels JSON
-line, the nvidia-smi line, and last the ok line.  Phases 6 and 7 also
+pool JSON line, the ingest JSON line, the obs JSON line, the app JSON line,
+the kernels JSON line, the nvidia-smi line, and last the ok line.  Phases 6 and 7 also
 print each spine stage's queue wait; ``--spine-lanes N`` sets the spine's
 lane count.
 Exits non-zero when CUDA is unavailable or any phase fails.
@@ -107,6 +134,7 @@ import argparse
 import collections
 import ctypes
 import dataclasses
+import gc
 import io
 import itertools
 import json
@@ -1496,12 +1524,12 @@ def _pdf_bytes(lines):
             + b"endstream\nendobj\ntrailer\n%%EOF")
 
 
-def ingest_corpus(rng, n, prefix):
+def ingest_corpus(rng, n, prefix, binary_every=64):
     """``n`` uploads: notes of the port's synthetic generator (training
     lexicons) taking sentences until they reach INGEST_MIN_CHARS, each
     under a header line with a seeded phone number, email address and
-    French date; notes 1 and 2 of every 64 go up as .docx and as .pdf,
-    the rest as .txt."""
+    French date; notes 1 and 2 of every ``binary_every`` go up as .docx and
+    as .pdf, the rest as .txt."""
     docs = []
     for i in range(n):
         phone = f"0{int(rng.integers(1, 10))} " + " ".join(
@@ -1513,7 +1541,7 @@ def ingest_corpus(rng, n, prefix):
         while len("\n".join(lines)) < INGEST_MIN_CHARS:
             text, _spans = datagen.generate_example(rng, datagen.TRAIN_LEXICONS)
             lines.append(text.replace("(", " ").replace(")", " "))
-        kind = {1: "docx", 2: "pdf"}.get(i % 64, "txt")
+        kind = {1: "docx", 2: "pdf"}.get(i % binary_every, "txt")
         data = (_docx_bytes(lines) if kind == "docx" else _pdf_bytes(lines)
                 if kind == "pdf" else "\n".join(lines).encode("utf-8"))
         docs.append({"filename": f"{prefix}-{i:04d}.{kind}", "data": data,
@@ -2336,6 +2364,710 @@ def run_obs_path(counts, qa_solo):
         pool1.stop()
 
 
+# ---- phase 9: the HTTP app ----------------------------------------------------
+
+APP_NOTES = 16
+# notes 1 and 9 go up as .docx, 2 and 10 as .pdf
+APP_BINARY_EVERY = 8
+APP_PATIENTS = ("P001", "P002", "P003", "P004")
+APP_ASKS = 8
+APP_FRONT_PAIRS = 10
+APP_INDEX_TIMEOUT_S = 300.0
+# the /ask budget (the default config's is 8 s): a 256-token answer at the
+# port's host-bound decode step (PERF.md section 5) outlasts 8 s, and a shed
+# answer is degraded; the phase reports how many asks took longer than 8 s
+APP_DEADLINE_S = 120.0
+DEFAULT_DEADLINE_S = 8.0
+APP_HTTP_TIMEOUT_S = 900.0
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+_CONTRACT_SCALARS = {
+    "str": (str,), "int": (int,), "float": (float,), "number": (int, float),
+    "bool": (bool,),
+}
+
+
+def _leaf_ok(value, leaf):
+    for alt in (a.strip() for a in leaf.split("|")):
+        if alt == "any" or (alt == "null" and value is None):
+            return True
+        types = _CONTRACT_SCALARS.get(alt)
+        if types is None or (isinstance(value, bool) and alt != "bool"):
+            continue
+        if isinstance(value, types):
+            return True
+    return False
+
+
+def contract_violations(value, spec, open_=False, path="$"):
+    """Violations of ``value`` against an ``api_contract.json`` spec node:
+    a copy of ``validate_value`` of the reference's wire audit (leaves
+    ``str|int|float|number|bool|any|null`` with ``|`` unions, ``[spec]``
+    lists, ``key?`` optional keys, ``*`` open maps, ``_nonfinite_fields``
+    always tolerated)."""
+    if isinstance(spec, str):
+        return [] if _leaf_ok(value, spec) else [
+            f"{path}: expected {spec}, got {type(value).__name__} ({value!r:.80})"]
+    if isinstance(spec, list):
+        if not isinstance(value, list):
+            return [f"{path}: expected list, got {type(value).__name__}"]
+        elem = spec[0] if spec else "any"
+        return [v for i, x in enumerate(value)
+                for v in contract_violations(x, elem, open_, f"{path}[{i}]")]
+    if not isinstance(spec, dict):
+        return [f"{path}: malformed spec node {spec!r}"]
+    if not isinstance(value, dict):
+        return [f"{path}: expected object, got {type(value).__name__}"]
+    out = []
+    declared = {k.rstrip("?"): (sub, not k.endswith("?"))
+                for k, sub in spec.items() if k != "*"}
+    for k, (sub, required) in declared.items():
+        if k in value:
+            out += contract_violations(value[k], sub, open_, f"{path}.{k}")
+        elif required:
+            out.append(f"{path}: missing required key '{k}'")
+    for k, v in value.items():
+        if k in declared or k == "_nonfinite_fields":
+            continue
+        if "*" in spec:
+            out += contract_violations(v, spec["*"], open_, f"{path}.{k}")
+        elif not open_:
+            out.append(f"{path}: undeclared key '{k}'")
+    return out
+
+
+def load_contract():
+    """The repository's ``api_contract.json`` endpoint entries."""
+    with open(os.path.join(REPO_ROOT, "api_contract.json"), encoding="utf-8") as f:
+        return json.load(f)["endpoints"]
+
+
+def contract_check(contract, key, status, body):
+    """Status and body of one response against its contract entry (the
+    reference's ``validate_response``); raises on a violation."""
+    entry = contract[key]
+    allowed = entry.get("statuses", [200])
+    if status not in allowed:
+        bad = [f"$: status {status} not in declared {allowed}"]
+    elif status != 200:
+        bad = contract_violations(body, {"detail": "str"})
+    elif entry.get("response") is None:
+        bad = []
+    else:
+        bad = contract_violations(body, entry["response"], bool(entry.get("open")))
+    if bad:
+        raise AssertionError(f"{key}: contract violations {bad[:5]}")
+
+
+def _multipart(filename, data, fields):
+    """A ``multipart/form-data`` body: the file, then each non-None field."""
+    boundary = "docqa-smoke-boundary"
+    parts = [(f'--{boundary}\r\nContent-Disposition: form-data; name="file"; '
+              f'filename="{filename}"\r\nContent-Type: application/octet-stream'
+              "\r\n\r\n").encode() + data + b"\r\n"]
+    parts += [(f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"'
+               f"\r\n\r\n{v}\r\n").encode() for k, v in fields.items() if v is not None]
+    return (b"".join(parts) + f"--{boundary}--\r\n".encode(),
+            f"multipart/form-data; boundary={boundary}")
+
+
+def _parse_sse(text):
+    """[(event name, decoded data)] of a server-sent event stream."""
+    events = []
+    for block in text.split("\n\n"):
+        name, data = "data", []
+        for line in block.split("\n"):
+            if line.startswith("event:"):
+                name = line.split(":", 1)[1].strip()
+            elif line.startswith("data:"):
+                data.append(line.split(":", 1)[1].strip())
+        if data:
+            events.append((name, json.loads("\n".join(data))))
+    return events
+
+
+class _Http:
+    """``urllib.request`` against one local app server, every JSON answer
+    held to ``api_contract.json``."""
+
+    def __init__(self, port, contract):
+        self.base = f"http://127.0.0.1:{port}"
+        self.contract = contract
+
+    def raw(self, method, path, body=None, ctype="application/json", headers=None):
+        import urllib.error
+        import urllib.request
+
+        h = dict(headers or {})
+        if body is not None:
+            h["Content-Type"] = ctype
+        req = urllib.request.Request(self.base + path, data=body, method=method, headers=h)
+        try:
+            with urllib.request.urlopen(req, timeout=APP_HTTP_TIMEOUT_S) as r:
+                return r.status, dict(r.headers), r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, dict(e.headers), e.read()
+
+    def json(self, key, path, payload=None, body=None, ctype="application/json",
+             expect=200):
+        method = key.split(" ", 1)[0]
+        if payload is not None:
+            body = json.dumps(payload).encode()
+        status, _h, raw = self.raw(method, path, body, ctype)
+        out = json.loads(raw) if raw else None
+        contract_check(self.contract, key, status, out)
+        if status != expect:
+            raise AssertionError(f"{key} {path}: status {status}, expected {expect}: {out}")
+        return out
+
+
+def app_notes(rng):
+    """``APP_NOTES`` uploads of phase 7's generator (2 .docx, 2 .pdf),
+    each with a patient, a type and a date."""
+    docs = ingest_corpus(rng, APP_NOTES, "app", binary_every=APP_BINARY_EVERY)
+    for i, d in enumerate(docs):
+        d["fields"] = {"patient_id": APP_PATIENTS[i % len(APP_PATIENTS)],
+                       "doc_type": "consultation", "doc_date": f"2024-{i % 12 + 1:02d}-15"}
+    return docs
+
+
+def routing_lookups(router, n=2):
+    """The first ``n`` lookups of ``data/routing_mix.jsonl`` the router
+    routes and whose own document passes its evidence gate."""
+    with open(os.path.join(REPO_ROOT, "data", "routing_mix.jsonl"), encoding="utf-8") as f:
+        mix = [json.loads(line) for line in f if line.strip()]
+    out = []
+    for row in mix:
+        if "doc" not in row:
+            continue
+        d = router.decide(row["question"])
+        gated, _ev = router.evidence_gate(d, row["question"], [row["doc"]])
+        if gated.route == "extractive":
+            out.append(row)
+    generative = [r["question"] for r in mix if router.decide(r["question"]).route != "extractive"]
+    return out[:n], generative
+
+
+def _wait_indexed(http, doc_ids, timeout=APP_INDEX_TIMEOUT_S):
+    """Poll ``GET /documents/{id}`` until every upload is INDEXED."""
+    deadline = time.perf_counter() + timeout
+    pending = set(doc_ids)
+    while pending:
+        for doc_id in sorted(pending):
+            rec = http.json("GET /documents/{doc_id}", f"/documents/{doc_id}")
+            if rec["status"] == reg.INDEXED:
+                pending.discard(doc_id)
+            elif rec["status"].startswith("ERROR") or rec["status"] == reg.DELETED:
+                raise AssertionError(f"upload {doc_id} ended {rec}")
+        if pending and time.perf_counter() > deadline:
+            raise AssertionError(f"{len(pending)} uploads not INDEXED in {timeout} s")
+        if pending:
+            time.sleep(0.2)
+
+
+class _Capture:
+    """Keeps the ``PendingAnswer`` of every ``/ask`` the runtime's QA
+    service submits (the handler wraps nothing else)."""
+
+    def __init__(self, qa):
+        self.qa, self.real, self.pending = qa, qa.ask_submit, []
+
+    def __enter__(self):
+        def submit(*a, **kw):
+            p = self.real(*a, **kw)
+            self.pending.append(p)
+            return p
+
+        self.qa.ask_submit = submit
+        return self
+
+    def __exit__(self, *exc):
+        self.qa.ask_submit = self.real
+
+
+def _tap_prefill():
+    """Record (ids, logits) of every ragged-prefill lane that starts at
+    position 0, until the returned ``untap`` is called."""
+    forward, lanes = serve_mod.ragged_prefill_forward, []
+
+    def tap(params, cfg, pools, ids_t, seg, pos, dest, last_rows, **kw):
+        logits = forward(params, cfg, pools, ids_t, seg, pos, dest, last_rows, **kw)
+        seg_h, ids_h, pos_h = seg.cpu(), ids_t.cpu(), pos.cpu()
+        for lane in range(last_rows.shape[0]):
+            mine = seg_h == lane
+            if int(mine.sum()) and int(pos_h[mine][0]) == 0:
+                lanes.append((ids_h[mine].tolist(), logits[lane].float().clone()))
+        return logits
+
+    serve_mod.ragged_prefill_forward = tap
+
+    def untap():
+        serve_mod.ragged_prefill_forward = forward
+
+    return lanes, untap
+
+
+def _pctl(values, q):
+    s = sorted(values)
+    return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
+
+
+def run_app_path(counts, qa, ingest_docs_s=None):
+    """Phase 9: ``DocQARuntime`` under the default ``Config`` (decoder at
+    Mistral-7B width sharing phase 3's seeded card weights,
+    ``ner.train_steps=0``) behind its stdlib HTTP front on 127.0.0.1, driven
+    over real HTTP.  ``counts`` is reset around each counted run."""
+    from docqa_tpu_torch.config import load_config
+    from docqa_tpu_torch.engines.router import AnswerRouter
+    from docqa_tpu_torch.service.app import AppServer, DocQARuntime, Request, make_app
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = qa.generator.device
+    contract = load_contract()
+    cfg = dataclasses.replace(
+        load_config(env={}, overrides={
+            "ner.train_steps": 0,
+            "resilience.request_deadline_s": APP_DEADLINE_S,
+        }),
+        decoder=qa.generator.cfg,
+    )
+    lookups, generative = routing_lookups(AnswerRouter())
+    if len(lookups) < 2 or len(generative) < APP_ASKS + 2:
+        raise AssertionError("the routing mix lacks the questions phase 9 asks")
+    t0 = time.perf_counter()
+    rt = DocQARuntime(cfg, device=dev, decoder_params=qa.generator.params).start()
+    server = AppServer(make_app(rt)).start()
+    boot_s = time.perf_counter() - t0
+    http = _Http(server.port, contract)
+    launches = collections.Counter()
+    summary = {"boot_s": boot_s}
+    log(f"  runtime booted in {boot_s:.1f} s; serving on 127.0.0.1:{server.port}")
+    try:
+        if http.json("GET /health", "/health") != {"status": "ok"}:
+            raise AssertionError("/health is not ok")
+        http.json("GET /api/status", "/api/status")
+
+        # -- ingest over HTTP: 16 notes (multipart) + the lookups' documents
+        docs = app_notes(np.random.default_rng(21))
+        counts.clear()
+        t0 = time.perf_counter()
+        patient_of = {}
+        for d in docs:
+            body, ctype = _multipart(d["filename"], d["data"], d["fields"])
+            out = http.json("POST /ingest/", "/ingest/", body=body, ctype=ctype)
+            patient_of[out["doc_id"]] = d["fields"]["patient_id"]
+        lookup_doc = {}
+        for i, row in enumerate(lookups):
+            out = http.json("POST /ingest/", "/ingest/", payload={
+                "filename": f"lookup-{i}.txt", "text": row["doc"], "patient_id": "P900"})
+            patient_of[out["doc_id"]] = "P900"
+            lookup_doc[row["question"]] = out["doc_id"]
+        _wait_indexed(http, list(patient_of))
+        ingest_s = time.perf_counter() - t0
+        launches.update(counts)
+        summary["ingest"] = {
+            "uploads": len(patient_of), "seconds": ingest_s,
+            "docs_per_s": len(patient_of) / ingest_s,
+            "in_process_docs_per_s_phase7": ingest_docs_s,
+            "rows": rt.store.count, "launches": dict(counts),
+        }
+        log(f"  /ingest/: {len(patient_of)} uploads (2 docx, 2 pdf) INDEXED over HTTP in "
+            f"{ingest_s:.2f} s = {len(patient_of) / ingest_s:.1f} docs/s "
+            f"(phase 7 in process: {ingest_docs_s}); {rt.store.count} rows")
+
+        # -- patient snippets: a filter returns only that patient's rows
+        rows = http.json("GET /api/search/patient-snippets",
+                         "/api/search/patient-snippets?patient_id=P002")
+        if not rows or any(patient_of[r["doc_id"]] != "P002" for r in rows):
+            raise AssertionError(f"patient-snippets for P002 returned {rows[:3]}")
+        focus = http.json("GET /api/search/patient-snippets",
+                          "/api/search/patient-snippets?patient_id=P003&focus=traitement")
+        if not focus or any(patient_of[r["doc_id"]] != "P003" for r in focus):
+            raise AssertionError("a focused patient-snippets left its patient")
+
+        # -- the summarizer and the two syntheses, at once, before any /ask:
+        # once /ask latency burns the default SLO, batch work is deferred
+        counts.clear()
+        jobs = [
+            ("POST /api/llm/summarize", "/api/llm/summarize",
+             {"prompt": "Résume ce dossier : " + rows[0]["text"]}),
+            ("POST /api/synthese/patient", "/api/synthese/patient", {"patient_id": "P001"}),
+            ("POST /api/synthese/comparaison", "/api/synthese/comparaison",
+             {"patient_ids": ["P001", "P002"]}),
+        ]
+        synth = [None] * len(jobs)
+
+        def run_job(i, key, path, payload):
+            t = time.perf_counter()
+            synth[i] = (http.json(key, path, payload=payload), time.perf_counter() - t)
+
+        threads = [threading.Thread(target=run_job, args=(i, *j)) for i, j in enumerate(jobs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=APP_HTTP_TIMEOUT_S)
+        if any(s is None for s in synth):
+            raise AssertionError("a summary or synthesis did not answer")
+        launches.update(counts)
+        if not synth[0][0]["summary"] or synth[1][0]["patient_id"] != "P001":
+            raise AssertionError(f"summaries came back empty: {synth[0][0]}")
+        summary["summaries_s"] = [s[1] for s in synth]
+
+        # -- one decode-routed /ask alone: its served first-step logits
+        counts.clear()
+        lanes, untap = _tap_prefill()
+        try:
+            with _Capture(rt.qa) as cap:
+                out = http.json("POST /ask/", "/ask/", payload={"question": generative[0]})
+        finally:
+            untap()
+        launches.update(counts)
+        tokens = cap.pending[0].handle.result(timeout=60)
+        if out.get("degraded") or "route" in out or not lanes:
+            raise AssertionError(f"the first-step /ask was not decoded: {out}")
+        ids, served = max(lanes, key=lambda lane: len(lane[0]))
+        solo = solo_first_step(qa.generator, ids)
+        summary["first_step"] = check_first_step("app over HTTP", solo, served, tokens[0], len(ids))
+
+        # -- 8 concurrent decode-routed /ask
+        counts.clear()
+        results = [None] * APP_ASKS
+
+        def ask(i, q):
+            t = time.perf_counter()
+            results[i] = (http.json("POST /ask/", "/ask/", payload={"question": q}),
+                          time.perf_counter() - t)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=ask, args=(i, q))
+                   for i, q in enumerate(generative[1:APP_ASKS + 1])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=APP_HTTP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if any(r is None for r in results):
+            raise AssertionError("a concurrent /ask over HTTP did not answer")
+        outs = [r[0] for r in results]
+        _no_degraded("app /ask", outs)
+        if any("route" in o for o in outs):
+            raise AssertionError("a generative question was routed")
+        decoded = counts["flash_attention.decode_paged"]
+        if decoded == 0:
+            raise AssertionError(f"8 decoded /ask launched no paged decode: {dict(counts)}")
+        launches.update(counts)
+        lat = [r[1] for r in results]
+        n_tok = sum(len(_tokens(o["answer"])) for o in outs)
+        summary["ask"] = {
+            "requests": APP_ASKS, "p50_s": _pctl(lat, 0.5), "p95_s": _pctl(lat, 0.95),
+            "wall_s": wall, "answer_tokens": n_tok, "tokens_per_s": n_tok / wall,
+            "decode_paged_launches": decoded,
+            "over_default_deadline": sum(x > DEFAULT_DEADLINE_S for x in lat),
+        }
+        log(f"  {APP_ASKS} concurrent /ask over HTTP: p50 {summary['ask']['p50_s']:.2f} s, "
+            f"p95 {summary['ask']['p95_s']:.2f} s, {n_tok} answer tokens in {wall:.2f} s = "
+            f"{n_tok / wall:.1f} tokens/s; decode_paged launches {decoded}; "
+            f"{summary['ask']['over_default_deadline']} over the default "
+            f"{DEFAULT_DEADLINE_S:.0f} s budget")
+
+        # -- 2 routed lookups: answered from retrieval, no decode
+        counts.clear()
+        routed = {}
+        for row in lookups:
+            t = time.perf_counter()
+            out = http.json("POST /ask/", "/ask/", payload={"question": row["question"]})
+            routed[row["question"]] = (out, time.perf_counter() - t)
+            if out.get("route") != "extractive":
+                raise AssertionError(f"lookup {row['question']!r} was not routed: {out}")
+            if f"Dossier Patient {lookup_doc[row['question']]}" not in out["sources"]:
+                raise AssertionError(f"lookup {row['question']!r} missed its document")
+        decode_keys = ("flash_attention.decode", "flash_attention.decode_paged")
+        if any(counts[k] for k in decode_keys):
+            raise AssertionError(f"routed answers launched a decode: {dict(counts)}")
+        launches.update(counts)
+        summary["routed"] = {"requests": len(routed),
+                             "latency_s": [v[1] for v in routed.values()],
+                             "launches": dict(counts)}
+        log(f"  {len(routed)} routed lookups: latency "
+            f"{', '.join(f'{v[1] * 1e3:.1f} ms' for v in routed.values())}; "
+            f"no decode launch ({dict(counts)})")
+
+        # -- one stream: its deltas concatenate to its final answer
+        counts.clear()
+        with _Capture(rt.qa) as cap:
+            status, hdrs, raw = http.raw("POST", "/ask/stream", json.dumps(
+                {"question": generative[APP_ASKS + 1]}).encode())
+        launches.update(counts)
+        if status != 200 or not hdrs.get("Content-Type", "").startswith("text/event-stream"):
+            raise AssertionError(f"/ask/stream answered {status} {hdrs}")
+        events = _parse_sse(raw.decode())
+        for name, payload in events:
+            bad = contract_violations(payload, contract["POST /ask/stream"]["events"][name])
+            if bad:
+                raise AssertionError(f"/ask/stream event {name}: {bad}")
+        pending = cap.pending[0]
+        final = rt.generator.tokenizer.decode_ids(pending.handle.result(timeout=60))
+        streamed = "".join(p["delta"] for n, p in events if n == "data")
+        if events[-1][0] != "done" or streamed != final or not streamed:
+            raise AssertionError("the stream's deltas do not make its final answer")
+        if events[-1][1]["sources"] != pending.sources:
+            raise AssertionError("the stream's done event lost the sources")
+        summary["stream"] = {"events": len(events), "chars": len(streamed)}
+
+        # -- delete a cited document: no later answer names it
+        question = lookups[0]["question"]
+        gone = lookup_doc[question]
+        out = http.json("DELETE /documents/{doc_id}", f"/documents/{gone}")
+        if out["chunks_removed"] < 1:
+            raise AssertionError(f"DELETE removed nothing: {out}")
+        after = http.json("POST /ask/", "/ask/", payload={"question": question})
+        again = http.json("POST /ask/", "/ask/", payload={"question": generative[0]})
+        if any(gone in s for o in (after, again) for s in o["sources"]):
+            raise AssertionError("a deleted document is still cited")
+        summary["deleted_chunks"] = out["chunks_removed"]
+
+        # -- observability surfaces
+        status, hdrs, raw = http.raw("GET", "/metrics")
+        problems = lint_prometheus_text(raw.decode())
+        if status != 200 or problems:
+            raise AssertionError(f"/metrics: {status} {problems[:3]}")
+        http.json("GET /api/costs", "/api/costs")
+        traces = http.json("GET /api/traces", "/api/traces?limit=20")
+        if not traces:
+            raise AssertionError("no trace recorded")
+        http.json("GET /api/retrieval", "/api/retrieval")
+        status_now = http.json("GET /api/status", "/api/status")
+        # batch work after the /ask rounds: deferred (503) while they burn
+        # the default /ask SLO; reported
+        status, _h, raw = http.raw("POST", "/api/llm/summarize", json.dumps(
+            {"prompt": "Résume : " + rows[0]["text"], "max_tokens": 4}).encode())
+        contract_check(contract, "POST /api/llm/summarize", status, json.loads(raw))
+        summary["after_asks"] = {
+            "summarize_status": status,
+            "slo_firing": [x["name"] for x in status_now["slo"] if x.get("firing")],
+        }
+        log(f"  after the /ask rounds: SLOs firing {summary['after_asks']['slo_firing']}, "
+            f"a summary answers {status}")
+
+        # -- what the HTTP front costs: the same routed /ask in process and
+        # over HTTP, in turns
+        q = lookups[1]["question"]
+        body = json.dumps({"question": q}).encode()
+        inproc, over = [], []
+        for _ in range(APP_FRONT_PAIRS):
+            t = time.perf_counter()
+            if server.app.handle(Request("POST", "/ask/", body=body)).status != 200:
+                raise AssertionError("in-process /ask failed")
+            inproc.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            http.json("POST /ask/", "/ask/", body=body)
+            over.append(time.perf_counter() - t)
+        summary["front"] = {
+            "in_process_ms_p50": statistics.median(inproc) * 1e3,
+            "http_ms_p50": statistics.median(over) * 1e3,
+            "http_minus_in_process_ms": (statistics.median(over) - statistics.median(inproc)) * 1e3,
+            "pairs": APP_FRONT_PAIRS,
+        }
+        log(f"  HTTP front: routed /ask p50 {summary['front']['http_ms_p50']:.2f} ms over HTTP "
+            f"vs {summary['front']['in_process_ms_p50']:.2f} ms in process "
+            f"({APP_FRONT_PAIRS} pairs)")
+        summary["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        if not server.close(timeout=30):
+            raise AssertionError("the app server's threads did not end")
+        rt.stop()
+    log(f"  peak device memory {summary['peak_device_gib']:.2f} GiB; launches {dict(launches)}")
+    return {"summary": summary, "launches": launches}
+
+
+def decoded_tie_check(gen, prompt_ids, card_tokens, cpu_tokens):
+    """Two greedy answers to one prompt, the card's and the CPU's, may part
+    only on a tie: at the first token where they differ, the CPU engine
+    ``gen`` fed the prompt and the shared prefix must score the card's
+    token within ``FIRST_STEP_RTOL`` of its logits' RMS below its best.
+    Returns None for equal answers, else (position, gap / RMS)."""
+    if list(card_tokens) == list(cpu_tokens):
+        return None
+    j = next((i for i, (a, b) in enumerate(zip(card_tokens, cpu_tokens)) if a != b),
+             min(len(card_tokens), len(cpu_tokens)))
+    if j >= min(len(card_tokens), len(cpu_tokens)):
+        raise AssertionError(f"one answer is a prefix of the other ({j} shared tokens)")
+    logits = solo_first_step(gen, list(prompt_ids) + list(card_tokens[:j]))
+    gap = float(logits.max() - logits[card_tokens[j]])
+    rel = gap / float(logits.pow(2).mean().sqrt())
+    if not rel <= FIRST_STEP_RTOL:
+        raise AssertionError(
+            f"card and CPU answers part at token {j} without a tie: the card's "
+            f"token is {rel:.3e} of the logits' RMS below the best (tolerance "
+            f"{FIRST_STEP_RTOL})")
+    return j, rel
+
+
+def run_app_reference_check(devices=("cuda", "cpu")):
+    """A tiny runtime (float32 encoder and tagger, a bf16 decoder behind a
+    1-replica pool: the pool's paged decode takes bf16 only on the card)
+    answers the same requests over HTTP on the card (K1's SIMT path in the
+    encoder and the tagger, its paged decode in the pool) and on the CPU
+    (plain).  Retrieval, routed answers, sources and snippets must be
+    equal; each decoded answer's prompt must be equal and its tokens equal
+    but for a tie (:func:`decoded_tie_check`)."""
+    from docqa_tpu_torch.config import load_config
+    from docqa_tpu_torch.engines.router import AnswerRouter
+    from docqa_tpu_torch.service.app import AppServer, DocQARuntime, make_app
+
+    tiny = {
+        "encoder.vocab_size": 512, "encoder.hidden_dim": 64, "encoder.num_layers": 2,
+        "encoder.num_heads": 2, "encoder.mlp_dim": 128, "encoder.max_seq_len": 128,
+        "encoder.embed_dim": 64, "encoder.dtype": "float32", "store.dim": 64,
+        "store.dtype": "float32",
+        # K1 takes head dims 32, 64 and 128: 64 / 2, 32 / 1 and 32
+        "ner.hidden_dim": 32, "ner.num_layers": 1, "ner.num_heads": 1, "ner.mlp_dim": 64,
+        "ner.dtype": "float32", "ner.train_steps": 0,
+        "decoder.hidden_dim": 64, "decoder.num_layers": 1, "decoder.num_heads": 2,
+        "decoder.num_kv_heads": 1, "decoder.head_dim": 32, "decoder.mlp_dim": 64,
+        "decoder.vocab_size": 256, "decoder.max_seq_len": 512, "decoder.dtype": "bfloat16",
+        "generate.max_new_tokens": 32, "generate.max_concurrent": 4,
+        "generate.prefill_buckets": (64, 128, 256, 512),
+        # a slow host must not degrade an answer, nor a canary share a step
+        "resilience.request_deadline_s": 0.0, "pool.canary_interval_s": 3600.0,
+    }
+    lookups, generative = routing_lookups(AnswerRouter())
+    notes = clinical_notes(np.random.default_rng(3))[:6]
+    questions = [r["question"] for r in lookups] + list(QUESTIONS) + generative[:2]
+    runs = {}
+    for device in devices:
+        rt = DocQARuntime(load_config(env={}, overrides=tiny), device=device).start()
+        server = AppServer(make_app(rt)).start()
+        http = _Http(server.port, load_contract())
+        _kernels.LAUNCHES.clear()
+        try:
+            ids = []
+            for i, (name, text) in enumerate(notes + [(f"l{i}.txt", r["doc"])
+                                                      for i, r in enumerate(lookups)]):
+                up = http.json("POST /ingest/", "/ingest/?wait=1", payload={
+                    "filename": name, "text": text, "patient_id": f"P{i % 2}"})
+                if up["status"] != reg.INDEXED:
+                    raise AssertionError(f"tiny app upload on {device} ended {up}")
+                ids.append(up["doc_id"])
+            with _Capture(rt.qa) as cap:
+                got = [http.json("POST /ask/", "/ask/", payload={"question": q})
+                       for q in questions]
+            decoded = []
+            for q, body, p in zip(questions, got, cap.pending):
+                if p.handle is None:
+                    continue
+                if body.get("degraded"):
+                    raise AssertionError(f"tiny app on {device} degraded {q!r}: {body}")
+                decoded.append((list(p.handle._req.prompt_ids), list(p.handle._req.tokens)))
+                body["answer"] = "<decoded>"
+            got.append(http.json("GET /api/search/patient-snippets",
+                                 "/api/search/patient-snippets?patient_id=P1&focus=tension"))
+            text = json.dumps(got)
+            for i, d in enumerate(ids):
+                text = text.replace(d, f"DOC{i}")
+            runs[device] = (text, decoded, dict(_kernels.LAUNCHES), rt.generator)
+        finally:
+            server.close(timeout=30)
+            rt.stop()
+    (card, card_dec, card_launches, _g), (cpu, cpu_dec, _l, cpu_gen) = (
+        runs[d] for d in devices)
+    if card != cpu:
+        raise AssertionError("the tiny app retrieves, routes or cites differently on the "
+                             "card and the CPU")
+    if not card_dec or len(card_dec) != len(cpu_dec):
+        raise AssertionError(f"decoded answers: {len(card_dec)} on the card, "
+                             f"{len(cpu_dec)} on the CPU")
+    ties = []
+    for (c_prompt, c_toks), (p_prompt, p_toks) in zip(card_dec, cpu_dec):
+        if c_prompt != p_prompt:
+            raise AssertionError("a decoded /ask got another prompt on the card")
+        tie = decoded_tie_check(cpu_gen, p_prompt, c_toks, p_toks)
+        if tie is not None:
+            ties.append(tie)
+    for path in ("simt", "decode_paged"):
+        if devices[0] == "cuda" and not card_launches.get(f"flash_attention.{path}"):
+            raise AssertionError(f"the tiny card runtime launched no K1 {path} kernel: "
+                                 f"{card_launches}")
+    n_routed = card.count('"route": "extractive"')
+    log(f"  tiny app: {len(questions)} /ask ({n_routed} routed, {len(card_dec)} decoded "
+        f"through the pool) and a focused snippet search; retrieval, routes, sources and "
+        f"snippets identical on card and CPU; decoded answers equal in "
+        f"{len(card_dec) - len(ties)} of {len(card_dec)}, parted on a tie in {len(ties)} "
+        f"(position, gap / RMS: {ties}; tolerance {FIRST_STEP_RTOL}); card K1 launches "
+        f"{card_launches}")
+    return {"identical_but_decoding": True, "routed": n_routed, "decoded": len(card_dec),
+            "decoded_equal": len(card_dec) - len(ties), "ties": ties,
+            "card_launches": card_launches}
+
+
+def run_app_module_check(boot_timeout=300.0):
+    """``python -m docqa_tpu_torch.service.app`` as a user starts it on the
+    card (Mistral-7B width, weights drawn on the device, ``ner.train_steps
+    =0``, everything else the default config, a free port): it must serve
+    /health, /api/status, an upload, an /ask and /api/pool, then stop on
+    SIGTERM with exit code 0.  The /ask runs under the default 8 s budget;
+    whether it came back degraded is reported."""
+    import signal
+
+    cmd = [sys.executable, "-m", "docqa_tpu_torch.service.app",
+           "--decoder", "mistral-7b",
+           "--set", "ner.train_steps=0", "--host", "127.0.0.1", "--port", "0"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO_ROOT, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    lines, found = [], threading.Event()
+
+    def drain():
+        for line in proc.stderr:
+            lines.append(line.rstrip())
+            if "serving on" in line:
+                found.set()
+
+    reader = threading.Thread(target=drain, name="app-module-stderr", daemon=True)
+    reader.start()
+    out = {}
+    try:
+        while not found.wait(1.0):
+            if proc.poll() is not None or time.perf_counter() - t0 > boot_timeout:
+                raise AssertionError(
+                    f"the app module did not start (rc {proc.poll()}): {lines[-20:]}")
+        port = int(next(x for x in lines if "serving on" in x).rsplit(":", 1)[1])
+        out["boot_s"] = time.perf_counter() - t0
+        http = _Http(port, load_contract())
+        if http.json("GET /health", "/health") != {"status": "ok"}:
+            raise AssertionError("the module's /health is not ok")
+        http.json("GET /api/status", "/api/status")
+        note = clinical_notes(np.random.default_rng(5))[0][1]
+        doc = http.json("POST /ingest/", "/ingest/?wait=1", payload={
+            "filename": "note.txt", "text": note, "patient_id": "P001"})
+        if doc["status"] != reg.INDEXED:
+            raise AssertionError(f"the module's upload ended {doc}")
+        t = time.perf_counter()
+        ans = http.json("POST /ask/", "/ask/", payload={
+            "question": "Pourquoi ce traitement a-t-il été choisi ?"})
+        out["ask_s"] = time.perf_counter() - t
+        out["ask_degraded"] = bool(ans.get("degraded"))
+        out["ask_degrade_reason"] = ans.get("degrade_reason")
+        http.json("GET /api/pool", "/api/pool")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait(timeout=60)
+        reader.join(timeout=10)
+    if rc != 0:
+        raise AssertionError(f"the app module exited {rc} on SIGTERM: {lines[-20:]}")
+    out["rc"] = rc
+    log(f"  python -m docqa_tpu_torch.service.app: serving after {out['boot_s']:.1f} s; "
+        f"/ask in {out['ask_s']:.2f} s under the default budget "
+        f"(degraded: {out['ask_degraded']}, {out['ask_degrade_reason']}); exit {rc} on SIGTERM")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -2353,9 +3085,10 @@ def main(argv=None) -> int:
     if args.spine_lanes is not None:
         configure(n_lanes=args.spine_lanes)  # before the first dispatch
 
+    t_smoke = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/8] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[1/9] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     build_logs = _kernels.build()
     build_s = time.perf_counter() - t0
@@ -2364,25 +3097,25 @@ def main(argv=None) -> int:
         for kernel, regs, spills in ptxas_summary(text):
             log(f"    {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
 
-    log("[2/8] kernels against their plain versions (bf16 and float32)")
+    log("[2/9] kernels against their plain versions (bf16 and float32)")
     cases = run_kernel_cases()
     cases += run_paged_cases()
 
-    log("[3/8] main path: QAService.ask at full width")
+    log("[3/9] main path: QAService.ask at full width")
     t_main = time.perf_counter()
     qa, params, enc_launches = build_main_path(_kernels.LAUNCHES)
     per_q, launches = run_main_path(_kernels.LAUNCHES, qa, params, enc_launches)
     main_s = time.perf_counter() - t_main
 
-    log("[4/8] reference: tiny float32 /ask on the card against the CPU")
+    log("[4/9] reference: tiny float32 /ask on the card against the CPU")
     reference = run_reference_check()
 
-    log("[5/8] main path: QAService.ask through the continuous batcher at full width")
+    log("[5/9] main path: QAService.ask through the continuous batcher at full width")
     t_batch = time.perf_counter()
     batcher_path = run_batcher_path(_kernels.LAUNCHES, qa, per_q)
     batcher_s = time.perf_counter() - t_batch
 
-    log("[6/8] main path: QAService.ask through the replica pool at full width")
+    log("[6/9] main path: QAService.ask through the replica pool at full width")
     t_pool = time.perf_counter()
     get_spine().reset_stats()
     pool_path = run_pool_path(_kernels.LAUNCHES, qa)
@@ -2390,7 +3123,7 @@ def main(argv=None) -> int:
     pool_path["summary"]["spine"] = _spine_waits(get_spine().stats())
     _log_spine_waits("phase 6", pool_path["summary"]["spine"])
 
-    log("[7/8] ingest: DocumentPipeline at full width, then /ask over what it indexed")
+    log("[7/9] ingest: DocumentPipeline at full width, then /ask over what it indexed")
     t_ingest = time.perf_counter()
     get_spine().reset_stats()
     ingest_path = run_ingest_path(_kernels.LAUNCHES, qa)
@@ -2398,12 +3131,23 @@ def main(argv=None) -> int:
     ingest_path["summary"]["spine"] = _spine_waits(get_spine().stats())
     _log_spine_waits("phase 7", ingest_path["summary"]["spine"])
 
-    log("[8/8] obs: traces, stage device time, MFU and costs over the pool, "
+    log("[8/9] obs: traces, stage device time, MFU and costs over the pool, "
         "and an ingested document's timeline")
     t_obs = time.perf_counter()
     obs_path = run_obs_path(_kernels.LAUNCHES, qa)
     obs_s = time.perf_counter() - t_obs
+
+    log("[9/9] the app: DocQARuntime behind its stdlib HTTP front at full width, "
+        "driven over HTTP")
+    t_app = time.perf_counter()
+    get_spine().reset_stats()
+    app_path = run_app_path(_kernels.LAUNCHES, qa, ingest_path["summary"]["docs_per_s"])
     del qa, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    app_path["summary"]["module"] = run_app_module_check()
+    app_path["summary"]["reference"] = run_app_reference_check()
+    app_s = time.perf_counter() - t_app
     # launches of the main-path runs (each counted from 0 around its run)
     path_launches = collections.Counter(launches["total"])
     path_launches.update(batcher_path["launches"])
@@ -2411,6 +3155,7 @@ def main(argv=None) -> int:
     path_launches.update(ingest_path["launches"])
     path_launches.update(ingest_path["round_launches"])
     path_launches.update(obs_path["launches"])
+    path_launches.update(app_path["launches"])
 
     def entry(name, source, counter, timed, path=None):
         head = next(c for c in cases if c["case"] == timed)
@@ -2458,6 +3203,7 @@ def main(argv=None) -> int:
                 "pool_path": pool_path, "pool_path_s": pool_s,
                 "ingest_path": ingest_path, "ingest_path_s": ingest_s,
                 "obs_path": obs_path, "obs_path_s": obs_s,
+                "app_path": app_path, "app_path_s": app_s,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
     print(json.dumps({"ingest": {
@@ -2473,6 +3219,8 @@ def main(argv=None) -> int:
             "launches", "profiled_verify_steps", "profiled_chunks", "spine_handoff",
             "document_spans")
     } | {"phase_s": obs_s}}))
+    print(json.dumps({"app": {**app_path["summary"], "phase_s": app_s}}))
+    log(f"smoke: {time.perf_counter() - t_smoke:.1f} s from the card query to the kernels line")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

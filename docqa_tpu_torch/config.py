@@ -2,13 +2,18 @@
 (``docqa_tpu/config.py``), holding only the fields this package reads.
 
 Field names and defaults match the reference exactly, so one dict of
-overrides builds the same configuration in both packages.
+overrides builds the same configuration in both packages; the one
+exception is ``DispatchConfig.n_lanes`` (see there).  :func:`load_config`
+is the reference's: defaults, then the ``DOCQA_<SECTION>__<FIELD>``
+environment overlay, then explicit ``section.field`` overrides.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Optional, Tuple
+import dataclasses
+import os
+from dataclasses import dataclass, field, fields
+from typing import Any, Mapping, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -24,6 +29,9 @@ class EncoderConfig:
     embed_dim: int = 384  # pooled output dim
     dtype: str = "bfloat16"
     normalize: bool = True  # cosine == dot product on normalized vectors
+    # a Hugging Face checkpoint directory: the import is not in this port
+    # yet, so the runtime refuses a set value
+    checkpoint_dir: Optional[str] = None
 
 
 @dataclass(frozen=True)
@@ -81,6 +89,9 @@ class DecoderConfig:
     # instruction wrapper for text prompts: a named alias ("mistral-inst")
     # or a format string containing "{prompt}"; None = raw prompts
     chat_template: Optional[str] = None
+    # a Hugging Face checkpoint directory (refused by the runtime, as the
+    # encoder's is)
+    checkpoint_dir: Optional[str] = None
 
     @staticmethod
     def mistral_7b() -> "DecoderConfig":
@@ -218,6 +229,12 @@ class StoreConfig:
     shard_capacity: int = 16384
     dtype: str = "bfloat16"
     default_k: int = 3
+    # "exact" (one product over the whole store) or "tiered" (IVF over the
+    # bulk plus an exact tail), which this port does not have yet
+    serving_index: str = "exact"
+    # a DELETE compacts the store once tombstones reach this share of its
+    # rows; 0 disables the automatic compaction
+    compact_threshold: float = 0.25
     # per-row generator-token sidecar of the fused RAG path; not in this
     # port yet, so only 0 is accepted (index/store.py)
     token_width: int = 0
@@ -254,17 +271,219 @@ class RegistryConfig:
 
 
 @dataclass(frozen=True)
+class SummarizerConfig:
+    """Clinical summarizer: instruction-prompted decoding on the generator,
+    within a prompt and summary token budget."""
+
+    max_input_tokens: int = 3072
+    max_summary_tokens: int = 512
+    max_chunks: int = 5
+    # "decoder": instruction prompts on the causal LM, through its batcher;
+    # "seq2seq" (a BART-class encoder-decoder) is not in this port yet
+    backend: str = "decoder"
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Startup data lifecycle: ``work_dir`` is the persistence root
+    (snapshots, journal, on-disk registry; not in this port yet, so the
+    runtime refuses a set value), ``bootstrap_dir`` a CSV knowledge base
+    indexed on first boot."""
+
+    work_dir: Optional[str] = None
+    bootstrap_dir: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class ServiceConfig:
+    """HTTP surface: the port the one server binds (the reference
+    deployment's ingest port), the bind address, and an optional
+    Tika-protocol extractor server."""
+
+    ingest_port: int = 8000
+    host: str = "0.0.0.0"
+    extractor_url: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class FlagsConfig:
+    """Fake-mode flags: canned LLM answers, canned patient retrieval, and
+    hash embeddings in place of the encoder."""
+
+    use_fake_llm: bool = False
+    use_fake_retrieval: bool = False
+    use_fake_encoder: bool = False
+
+
+@dataclass(frozen=True)
+class DispatchConfig:
+    """The dispatch spine (``engines/spine.py``): every device work item
+    of the process runs through its ``n_lanes`` slots."""
+
+    # the reference's default is 2; on the card a retrieval waited up to
+    # 94.8 ms in the queue at 2 slots and under 0.1 ms at 8 (PERF.md), so
+    # this port's default is its spine's DEFAULT_LANES
+    n_lanes: int = 8
+    max_depth: int = 256
+    inline: bool = False
+    # register the analytic cost models with the observatory after warm-up
+    annotate_costs: bool = True
+
+
+@dataclass(frozen=True)
+class TelemetryConfig:
+    """Time-series telemetry and the /ask SLO burn-rate policy
+    (``obs/telemetry.py``, ``obs/slo.py``)."""
+
+    enabled: bool = True
+    interval_s: float = 10.0
+    points: int = 360
+    sample_every_s: float = 2.0
+    slo_ask_p95_ms: float = 2500.0
+    slo_ask_availability: float = 0.99
+    slo_ask_degraded_budget: float = 0.05
+    slo_short_windows: int = 2
+    slo_long_windows: int = 30
+    slo_burn_threshold: float = 4.0
+
+
+@dataclass(frozen=True)
+class RetrievalQualityConfig:
+    """The retrieval-quality observatory's settings.  Its shadow recall
+    estimates cover the tiered and IVF search, which this port does not
+    have yet: under exact serving the observatory idles, and the runtime
+    reports these settings on ``/api/retrieval`` and builds the recall SLO
+    from them."""
+
+    enabled: bool = True
+    sample_every: int = 32
+    seed: int = 0
+    recall_target: float = 0.95
+    auto_apply_nprobe: bool = False
+    slo_short_windows: int = 2
+    slo_long_windows: int = 30
+    slo_burn_threshold: float = 4.0
+    slo_min_events: int = 6
+
+
+@dataclass(frozen=True)
+class LexicalConfig:
+    """The lexical (BM25-impact) tier beside the dense store
+    (``index/lexical.py``) and the hybrid fusion weight."""
+
+    enabled: bool = True
+    vocab_size: int = 131072
+    tile_width: int = 32
+    k1: float = 1.5
+    b: float = 0.75
+    ref_len: int = 64
+    # hybrid fusion mix: alpha * norm(dense) + (1 - alpha) * norm(lexical)
+    hybrid_alpha: float = 0.6
+    # the retrieve mode when a request names none: dense | lexical | hybrid
+    serving_mode: str = "dense"
+
+
+@dataclass(frozen=True)
+class RouterConfig:
+    """Confidence-gated answer routing (``engines/router.py``): lookup
+    questions are answered from retrieval, with no decode."""
+
+    enabled: bool = True
+    min_confidence: float = 0.7
+    evidence_min: float = 0.5
+
+
+@dataclass(frozen=True)
 class Config:
-    """The sections ``DocumentPipeline`` reads (``cfg.broker``,
-    ``cfg.chunk``, ``cfg.resilience``, ``cfg.ner``, ``cfg.store``), plus
-    the registry section that wires it.  The reference's ``DataConfig``
-    (work and bootstrap directories) comes with the app's runtime, its
-    only reader."""
+    """Every section the app's runtime (``service/app.py``) and the
+    components it builds read; the reference's mesh and seq2seq sections
+    have no reader in this port."""
 
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     ner: NERConfig = field(default_factory=NERConfig)
+    decoder: DecoderConfig = field(default_factory=DecoderConfig)
+    summarizer: SummarizerConfig = field(default_factory=SummarizerConfig)
     store: StoreConfig = field(default_factory=StoreConfig)
     chunk: ChunkConfig = field(default_factory=ChunkConfig)
     broker: BrokerConfig = field(default_factory=BrokerConfig)
     registry: RegistryConfig = field(default_factory=RegistryConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    service: ServiceConfig = field(default_factory=ServiceConfig)
+    flags: FlagsConfig = field(default_factory=FlagsConfig)
+    generate: GenerateConfig = field(default_factory=GenerateConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    pool: PoolConfig = field(default_factory=PoolConfig)
+    telemetry: TelemetryConfig = field(default_factory=TelemetryConfig)
+    dispatch: DispatchConfig = field(default_factory=DispatchConfig)
+    retrieval_quality: RetrievalQualityConfig = field(
+        default_factory=RetrievalQualityConfig
+    )
+    qos: QoSConfig = field(default_factory=QoSConfig)
+    lexical: LexicalConfig = field(default_factory=LexicalConfig)
+    router: RouterConfig = field(default_factory=RouterConfig)
+
+
+_SECTIONS = {f.name for f in fields(Config)}
+
+
+def _env_bool(value: str) -> bool:
+    return value.strip().lower() in ("1", "true", "yes", "on")
+
+
+def coerce_value(raw: str, target_type: Any) -> Any:
+    """A string from the environment or the command line as the field's
+    type; an Optional (None-default) field tries int, float, none/bool,
+    then keeps the string.  The reference's ``_coerce``."""
+    if target_type is bool:
+        return _env_bool(raw)
+    if target_type is int:
+        return int(raw)
+    if target_type is float:
+        return float(raw)
+    if target_type is str:
+        return raw
+    for cast in (int, float):
+        try:
+            return cast(raw)
+        except ValueError:
+            continue
+    if raw.lower() in ("none", "null", ""):
+        return None
+    if raw.lower() in ("true", "false"):
+        return _env_bool(raw)
+    return raw
+
+
+def load_config(
+    env: Optional[Mapping[str, str]] = None,
+    overrides: Optional[Mapping[str, Any]] = None,
+) -> Config:
+    """Defaults, then every ``DOCQA_<SECTION>__<FIELD>`` variable of
+    ``env`` (``os.environ`` when None; unknown sections and fields are
+    skipped), then ``overrides`` (``{"section.field": value}``; an unknown
+    name raises)."""
+    env = os.environ if env is None else env
+    cfg = Config()
+    sections = {name: getattr(cfg, name) for name in _SECTIONS}
+    prefix = "DOCQA_"
+    for key, raw in env.items():
+        if not key.startswith(prefix) or "__" not in key:
+            continue
+        section_name, _, field_name = key[len(prefix):].partition("__")
+        section = sections.get(section_name.lower())
+        if section is None:
+            continue
+        field_name = field_name.lower()
+        if field_name not in {f.name for f in fields(section)}:
+            continue
+        current = getattr(section, field_name)
+        target = type(current) if current is not None else object
+        sections[section_name.lower()] = dataclasses.replace(
+            section, **{field_name: coerce_value(raw, target)}
+        )
+    for path, value in (overrides or {}).items():
+        section_name, _, field_name = path.partition(".")
+        sections[section_name] = dataclasses.replace(
+            sections[section_name], **{field_name: value}
+        )
+    return Config(**sections)

@@ -1,5 +1,6 @@
 """Encoder serving engine: tokenize -> bucket -> encode on the device.
-Counterpart of ``docqa_tpu/engines/encoder.py``.
+Counterpart of ``docqa_tpu/engines/encoder.py``, with its device-free
+stand-in :class:`HashEncoder` (the runtime's ``flags.use_fake_encoder``).
 
 :meth:`EncoderEngine.encode_texts` runs each marshalled batch as one
 dispatch-spine work item (stage ``encode``: upload, forward, fetch) inside
@@ -121,3 +122,33 @@ class EncoderEngine:
                 )
             out.append(emb.numpy()[: len(chunk)])
         return np.concatenate(out, 0)
+
+
+class HashEncoder:
+    """Device-free deterministic stand-in for :class:`EncoderEngine`:
+    seeded random projections of token counts, so similar texts land near
+    each other and fake-encoder runs exercise real retrieval.  Embeddings
+    equal the reference's ``HashEncoder`` for the same config and seed.
+    ``device`` is where its callers' device work runs (the store's)."""
+
+    def __init__(self, cfg: EncoderConfig, seed: int = 0, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.tokenizer = default_tokenizer(cfg.vocab_size)
+        rng = np.random.default_rng(seed)
+        self._proj = rng.standard_normal(
+            (cfg.vocab_size, cfg.embed_dim)
+        ).astype(np.float32) / np.sqrt(cfg.embed_dim)
+
+    def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
+        out = np.zeros((len(texts), self.cfg.embed_dim), np.float32)
+        for i, t in enumerate(texts):
+            ids = self.tokenizer.encode(t, add_specials=False)
+            if ids:
+                counts = np.bincount(
+                    np.asarray(ids) % self.cfg.vocab_size,
+                    minlength=self.cfg.vocab_size,
+                ).astype(np.float32)
+                v = counts @ self._proj
+                out[i] = v / max(np.linalg.norm(v), 1e-9)
+        return out

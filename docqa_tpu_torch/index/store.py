@@ -1,13 +1,24 @@
-"""Device-resident exact vector store (a subset of
-``docqa_tpu/index/store.py``'s ``VectorStore``).
+"""Device-resident exact vector store, counterpart of
+``docqa_tpu/index/store.py``'s ``VectorStore`` on one device.
 
 A float32 host master copy plus one [capacity, dim] device buffer in
 ``StoreConfig.dtype`` (bf16 by default) that doubles when it fills.
 Vectors are L2-normalized on add, so a dot product is the cosine.
-Metadata filters, tombstones, snapshots and the fused RAG path's token
-sidecar (``StoreConfig.token_width``) are later slices.  The device write
-of :meth:`VectorStore.add` is a dispatch-spine work item (``store_add``);
-the port's only search is the fused retriever's ``retrieve`` item.
+
+Metadata filters are columnar, as in the reference: ``patient_id``,
+``doc_type`` and ``doc_id`` are interned to int codes and ``doc_date`` to a
+sortable int, so a filtered search builds its row mask with vectorized
+compares.  Deleted rows are tombstoned (masked out of every search and
+listing) until :meth:`VectorStore.compact_deleted` erases them and
+renumbers the rows.  Secondary indexes (the lexical tier) register as index
+sinks and are told of every add, delete and compaction inside the same
+locked mutation.
+
+Snapshots and the fused RAG path's token sidecar
+(``StoreConfig.token_width``) are later slices.  Device writes are
+dispatch-spine work items (``store_add``), the host-query search
+(:meth:`VectorStore.search`) a ``store_search`` item; the text-query search
+is the fused retriever's ``retrieve`` item.
 """
 
 from __future__ import annotations
@@ -20,15 +31,21 @@ import numpy as np
 import torch
 
 from docqa_tpu_torch.config import StoreConfig
-from docqa_tpu_torch.engines.spine import spine_run
-from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, span
+from docqa_tpu_torch.engines.spine import spine_run, to_host
+from docqa_tpu_torch.ops._kernels import is_device_fault
+from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger, span
 from docqa_tpu_torch.utils import resolve_device, round_up, torch_dtype
+
+log = get_logger("docqa.store")
 
 NEG_INF = -1e30
 
 # rows scored per float32 product in search_single: bounds the float32
 # copy of the buffer to 512 MB at d=384
 SCORE_CHUNK = 1 << 18
+
+_FILTER_KEYS = ("patient_id", "doc_type", "date_from", "date_to")
+_CODED = ("patient_id", "doc_type", "doc_id")
 
 
 @dataclass
@@ -39,11 +56,13 @@ class SearchResult:
 
 
 def search_single(vectors: torch.Tensor, queries: torch.Tensor, count: int,
-                  k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  k: int, mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k of ``queries`` [q, d] over rows [0, count) of
     ``vectors``.  Scores are float32 dot products of the stored-dtype
     values, as the reference's ``preferred_element_type=float32`` product
-    gives.  Returns (vals [q, k] f32, row ids [q, k])."""
+    gives; rows where ``mask`` [count] (bool) is False score ``NEG_INF``.
+    Returns (vals [q, k] f32, row ids [q, k])."""
     qf = queries.float()
     scores = torch.cat(
         [
@@ -52,12 +71,35 @@ def search_single(vectors: torch.Tensor, queries: torch.Tensor, count: int,
         ],
         dim=1,
     )
+    if mask is not None:
+        scores = scores.masked_fill(~mask[None, :], NEG_INF)
     vals, ids = torch.topk(scores, k, dim=-1)
     return vals, ids
 
 
+def _date_code(value: Optional[str]) -> int:
+    """ISO ``YYYY-MM-DD`` (or any prefix-ISO string) -> sortable int code;
+    anything unparseable -> -1 ('no date').  The reference's."""
+    if not value:
+        return -1
+    digits = "".join(c for c in str(value)[:10] if c.isdigit())
+    if len(digits) < 8:
+        return -1
+    return int(digits[:8])
+
+
+def _normalized(queries: np.ndarray) -> np.ndarray:
+    queries = np.asarray(queries, np.float32)
+    if queries.ndim == 1:
+        queries = queries[None]
+    return queries / np.maximum(
+        np.linalg.norm(queries, axis=1, keepdims=True), 1e-9
+    )
+
+
 class VectorStore:
-    """Append + exact search over device vectors with host metadata."""
+    """Append, exact search, filters and tombstones over device vectors
+    with host metadata."""
 
     def __init__(self, cfg: StoreConfig, device="cuda"):
         self.device = resolve_device(device)
@@ -71,11 +113,56 @@ class VectorStore:
         self._meta: List[Dict[str, Any]] = []
         self._host = np.zeros((0, cfg.dim), np.float32)  # durable master copy
         self._count = 0
+        self._version = 0
         self._dtype = torch_dtype(cfg.dtype)
         self._capacity = max(128, round_up(cfg.shard_capacity, 128))
         self._dev = torch.zeros(
             (self._capacity, cfg.dim), dtype=self._dtype, device=self.device
         )
+        self._reset_columns()
+        # secondary indexes kept row-aligned with this store (on_add /
+        # on_delete / on_compact), told inside the mutation's lock
+        self._index_sinks: List[Any] = []
+
+    def _reset_columns(self) -> None:
+        # columnar metadata: code -1 == absent, one code space per column
+        self._codes: Dict[str, Dict[str, int]] = {c: {} for c in _CODED}
+        self._cols: Dict[str, np.ndarray] = {
+            c: np.zeros((0,), np.int32) for c in _CODED + ("doc_date",)
+        }
+        self._deleted = np.zeros((0,), bool)
+        self._n_deleted = 0
+
+    def _intern(self, column: str, value: Optional[str]) -> int:
+        if value is None:
+            return -1
+        table = self._codes[column]
+        return table.setdefault(value, len(table))
+
+    def _append_columns(self, start: int, metadata: Sequence[Dict[str, Any]]) -> None:
+        n = len(metadata)
+        for name, col in self._cols.items():
+            if col.shape[0] < start + n:
+                grown = np.full(
+                    (max(start + n, 2 * max(1, col.shape[0])),), -1, np.int32
+                )
+                grown[: col.shape[0]] = col
+                self._cols[name] = grown
+        if self._deleted.shape[0] < start + n:
+            grown_d = np.zeros(
+                (max(start + n, 2 * max(1, self._deleted.shape[0])),), bool
+            )
+            grown_d[: self._deleted.shape[0]] = self._deleted
+            self._deleted = grown_d
+        for i, md in enumerate(metadata):
+            for column in _CODED:
+                self._cols[column][start + i] = self._intern(
+                    column, md.get(column)
+                )
+            self._cols["doc_date"][start + i] = _date_code(md.get("doc_date"))
+            if md.get("deleted"):  # a tombstone carried in the metadata
+                self._deleted[start + i] = True
+                self._n_deleted += 1
 
     @property
     def count(self) -> int:
@@ -85,12 +172,69 @@ class VectorStore:
     def capacity(self) -> int:
         return self._capacity
 
+    @property
+    def version(self) -> int:
+        return self._version
+
+    @property
+    def deleted_count(self) -> int:
+        """Tombstoned rows still in the buffer (0 after a compaction)."""
+        return self._n_deleted
+
+    def register_index_sink(self, sink: Any) -> None:
+        """Register a secondary index (``on_add(row_ids, metadata)``,
+        ``on_delete(row_ids)``, ``on_compact(keep_mask)``).  Rows already
+        committed are back-filled through ``on_add`` at once, tombstones
+        included (their metadata carries ``deleted``)."""
+        with self._lock:
+            self._index_sinks.append(sink)
+            if self._count:
+                self._call_sink(
+                    sink, "on_add", list(range(self._count)),
+                    self._meta[: self._count],
+                )
+
+    @staticmethod
+    def _call_sink(sink: Any, method: str, *args) -> None:
+        """A broken sink must not take dense ingest down with it, but it
+        fails loudly (``index_sink_errors``); a kernel or CUDA fault
+        reaches the caller."""
+        try:
+            getattr(sink, method)(*args)
+        except Exception as e:
+            if is_device_fault(e):
+                raise
+            DEFAULT_REGISTRY.counter("index_sink_errors").inc()
+            log.exception("index sink %s.%s failed", sink, method)
+
+    def _notify_sinks(self, method: str, *args) -> None:
+        for sink in self._index_sinks:
+            self._call_sink(sink, method, *args)
+
     def device_view(self) -> Tuple[torch.Tensor, int]:
         """(device buffer, row count) read under one lock acquisition.
-        Rows below the count never change, so a search may use the pair
-        after the lock is released."""
+        Rows below the count never change until a compaction, which swaps
+        in a new buffer, so a search may use the pair after the lock is
+        released."""
         with self._lock:
             return self._dev, self._count
+
+    def search_view(
+        self, filters: Optional[Dict[str, Any]] = None
+    ) -> Tuple[torch.Tensor, int, Optional[np.ndarray]]:
+        """(device buffer, row count, live mask [count] or None) under one
+        lock acquisition: the mask folds ``filters`` (patient_id /
+        doc_type / date_from / date_to) and the tombstones; None when
+        neither applies."""
+        with self._lock:
+            count = self._count
+            if filters:
+                mask = self._filter_mask_locked(filters)
+            elif self._n_deleted:
+                mask = ~self._deleted[:count]
+            else:
+                mask = None
+            return self._dev, count, mask
 
     def _grow_to(self, needed: int) -> None:
         new_cap = self._capacity
@@ -131,8 +275,7 @@ class VectorStore:
             )
         if len(vectors) != len(metadata):
             raise ValueError("vectors/metadata length mismatch")
-        norms = np.linalg.norm(vectors, axis=1, keepdims=True)
-        vectors = vectors / np.maximum(norms, 1e-9)
+        vectors = _normalized(vectors)
 
         with self._lock, span("store_add", DEFAULT_REGISTRY):
             start = self._count
@@ -156,27 +299,170 @@ class VectorStore:
             # finished, so the count below publishes rows that have landed.
             spine_run("store_add", _append_on_device, device=self.device)
             self._meta.extend(dict(m) for m in metadata)
+            self._append_columns(start, metadata)
             self._count = start + n
-            return list(range(start, start + n))
+            self._version += 1
+            row_ids = list(range(start, start + n))
+            self._notify_sinks("on_add", row_ids, metadata)
+            return row_ids
+
+    def _filter_mask_locked(self, filters: Dict[str, Any]) -> np.ndarray:
+        """[count] bool mask of the live rows matching ``filters``.  Rows
+        without a date are excluded when a date bound is given; a bound
+        that is not an ISO date raises ``ValueError``."""
+        unknown = set(filters) - set(_FILTER_KEYS)
+        if unknown:
+            raise ValueError(f"unknown filter keys: {sorted(unknown)}")
+        count = self._count
+        live = np.ones((count,), bool)
+        for column in ("patient_id", "doc_type"):
+            value = filters.get(column)
+            if value is not None:
+                # an unseen value interns to no row: code -2 matches nothing
+                code = self._codes[column].get(value, -2)
+                live &= self._cols[column][:count] == code
+        dates = self._cols["doc_date"][:count]
+        for bound in ("date_from", "date_to"):
+            value = filters.get(bound)
+            if not value:  # None or '': an unfilled form field is no bound
+                continue
+            code = _date_code(value)
+            if code < 0:
+                raise ValueError(
+                    f"{bound}={value!r} is not an ISO date (YYYY-MM-DD)"
+                )
+            live &= (dates >= code) if bound == "date_from" else (dates <= code)
+        if filters.get("date_from") or filters.get("date_to"):
+            live &= dates >= 0  # undated rows excluded when bounds given
+        if self._n_deleted:
+            live &= ~self._deleted[:count]
+        return live
+
+    def delete_docs(self, doc_ids: Sequence[str]) -> int:
+        """Tombstone every chunk of the given documents: the rows vanish
+        from every search and listing at once; their bytes stay until
+        :meth:`compact_deleted`.  Returns the rows tombstoned."""
+        with self._lock:
+            count = self._count
+            codes = [
+                self._codes["doc_id"][d]
+                for d in doc_ids
+                if d in self._codes["doc_id"]
+            ]
+            if count == 0 or not codes:
+                return 0
+            hit = np.isin(self._cols["doc_id"][:count], codes)
+            hit &= ~self._deleted[:count]
+            rows = [int(i) for i in np.nonzero(hit)[0]]
+            if not rows:
+                return 0
+            self._deleted[:count] |= hit
+            self._n_deleted += len(rows)
+            for i in rows:
+                self._meta[i]["deleted"] = True
+            self._version += 1
+            self._notify_sinks("on_delete", rows)
+            log.info("tombstoned %d rows across %d docs", len(rows), len(codes))
+            return len(rows)
+
+    def compact_deleted(self) -> int:
+        """Remove the tombstoned rows for real: the host copy, the columns
+        and a fresh device buffer.  Row ids change (the sinks get the keep
+        mask).  Returns the rows removed."""
+        with self._lock:
+            count = self._count
+            if not self._n_deleted:
+                return 0
+            keep = ~self._deleted[:count]
+            kept = int(keep.sum())
+            self._host = self._host[:count][keep].copy()
+            self._meta = [md for md, k in zip(self._meta, keep) if k]
+            self._reset_columns()
+            self._append_columns(0, self._meta)
+            self._count = kept
+            self._capacity = max(128, round_up(kept, 128))
+
+            def _reupload_on_device():
+                buf = torch.zeros((self._capacity, self.cfg.dim),
+                                  dtype=self._dtype, device=self.device)
+                buf[:kept] = torch.from_numpy(self._host[:kept]).to(
+                    device=self.device, dtype=self._dtype
+                )
+                self._dev = buf
+
+            spine_run("store_add", _reupload_on_device, device=self.device)
+            self._version += 1
+            self._notify_sinks("on_compact", keep.copy())
+            log.info("compacted %d deleted rows; %d remain", count - kept, kept)
+            return count - kept
+
+    def metadata_select(
+        self, limit: Optional[int] = None, **filters: Any
+    ) -> List[Dict[str, Any]]:
+        """The metadata rows matching ``filters`` in row order, at most
+        ``limit`` of them (the non-semantic patient-snippet listing)."""
+        with self._lock:
+            if self._count == 0:
+                return []
+            idx = np.nonzero(self._filter_mask_locked(filters))[0]
+            if limit is not None:
+                idx = idx[:limit]
+            return [self._meta[int(i)] for i in idx]
+
+    def search(
+        self,
+        queries: np.ndarray,
+        k: Optional[int] = None,
+        filters: Optional[Dict[str, Any]] = None,
+    ) -> List[List[SearchResult]]:
+        """Exact top-k of host query vectors (L2-normalized here) over the
+        live rows matching ``filters``: the search of the runtime's
+        fake-encoder mode and of the reference's ``store.search``."""
+        k = k or self.cfg.default_k
+        qn = _normalized(queries)
+        buf, count, mask = self.search_view(filters)
+        if count == 0:
+            return [[] for _ in qn]
+
+        def _search_on_device():
+            q = torch.from_numpy(qn).to(device=self.device, dtype=buf.dtype)
+            m = None if mask is None else torch.from_numpy(mask).to(self.device)
+            vals, ids = search_single(buf, q, count, min(k, count), m)
+            return to_host(vals), to_host(ids)
+
+        with span("store_search", DEFAULT_REGISTRY):
+            vals, ids = spine_run(
+                "store_search", _search_on_device, device=self.device
+            )
+        return self.assemble_results(vals.numpy(), ids.numpy())
 
     def assemble_results(
         self, vals: np.ndarray, ids: np.ndarray
     ) -> List[List[SearchResult]]:
-        """Host-side (score, row-id) -> SearchResult rows with metadata."""
+        """Host-side (score, row-id) -> SearchResult rows with metadata;
+        masked rows (``NEG_INF``) are dropped."""
         out: List[List[SearchResult]] = []
         for qi in range(len(vals)):
             row: List[SearchResult] = []
             for score, rid in zip(vals[qi], ids[qi]):
                 if score <= NEG_INF / 2:
-                    continue  # dead row
+                    continue  # filtered or tombstoned row
                 row.append(
                     SearchResult(float(score), int(rid), self._meta[int(rid)])
                 )
             out.append(row)
         return out
 
+    def row_metadata(self, rid: int) -> Optional[Dict[str, Any]]:
+        """Metadata of one row id, or None past the count."""
+        with self._lock:
+            if 0 <= rid < self._count:
+                return self._meta[rid]
+        return None
+
     def metadata_rows(self) -> List[Dict[str, Any]]:
-        """Copy of the metadata list (row order == insertion order) —
-        non-semantic listings without a device round trip."""
+        """Copy of the metadata list (row order == insertion order, tombstoned
+        rows included with ``deleted`` set) — listings without a device
+        round trip."""
         with self._lock:
             return list(self._meta[: self._count])

@@ -1,0 +1,1377 @@
+"""Application wiring and the HTTP surface, counterpart of
+``docqa_tpu/service/app.py``.
+
+:class:`DocQARuntime` builds and owns every component under one
+``Config``: the dispatch spine, encoder, vector store with its lexical
+tier, de-identification engine, generator and its ``EnginePool``,
+summarizer, broker, registry, ingest pipeline, answer router, QA and
+synthesis services, cost ledger probe, telemetry sampler and SLO
+evaluator.  :meth:`DocQARuntime.start` / :meth:`DocQARuntime.stop` run and
+join the workers.
+
+:class:`App` holds the reference's 29 routes (``make_app``) as plain
+functions from a :class:`Request` to a :class:`Response` (JSON payload,
+raw body, or an iterator of server-sent events for ``/ask/stream``), with
+the reference's statuses, payloads and its three executor lanes: the
+device lane (1 thread: retrieval, submissions, deletes), the wait lane
+(``max(generate.max_concurrent, 4)`` threads: waits on decodes) and the
+host lane (4 threads: extraction, registry and journal IO, pool control).
+
+:class:`AppServer` puts the standard library's ``ThreadingHTTPServer`` in
+front of an :class:`App`.  The card's Python has neither aiohttp nor
+pydantic, so the port's server is stdlib-only in every place it runs.
+Bodies above 64 MiB get 413; ``multipart/form-data`` uploads are parsed
+with ``email.parser.BytesParser``.
+
+Failure policy.  The reference's handlers catch broadly (a probe that
+fails reads as absent, a profiler that fails answers 500, a stream that
+fails sends an error event).  Here a kernel that fails to build or launch,
+or a CUDA error (``ops/_kernels.is_device_fault``), passes every such
+catch: :meth:`App.handle` raises it, and the HTTP front answers nothing,
+closes the connection and stops serving, and :func:`serve` re-raises it.
+The runtime's warm-up thread keeps its fault for :meth:`DocQARuntime.stop`
+to raise.
+
+Configuration that needs a part of the reference this port does not have
+yet raises at boot and names its ROADMAP item (:func:`refuse_unported`).
+Routes whose subsystem is not ported answer as the reference does when
+that subsystem is idle or absent: ``/api/retrieval`` with the idle
+observatory's payload (exact serving draws no recall shadows),
+``/api/witness`` and ``/api/ledger`` with 404; the checkpoint loader's
+breaker stays closed on ``/api/status``.
+
+Entry point: ``python -m docqa_tpu_torch.service.app`` (see :func:`main`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import functools
+import json
+import os
+import queue
+import re
+import signal
+import threading
+import time
+import urllib.parse
+from dataclasses import dataclass, field
+from email.parser import BytesParser
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+
+from docqa_tpu_torch import obs
+from docqa_tpu_torch.config import Config, coerce_value, load_config
+from docqa_tpu_torch.engines import spine as _spine
+from docqa_tpu_torch.engines.serve import QueueFull
+from docqa_tpu_torch.ops._kernels import is_device_fault
+from docqa_tpu_torch.resilience import faults as _faults
+from docqa_tpu_torch.resilience.breaker import BreakerBoard, CircuitBreaker
+from docqa_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
+from docqa_tpu_torch.resilience.faults import FaultPlan
+from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger
+from docqa_tpu_torch.service.schemas import (
+    PatientComparisonRequest,
+    PatientSummaryRequest,
+    Query,
+    SummarizeRequest,
+)
+from docqa_tpu_torch.service.synthesis import SynthesisError
+from docqa_tpu_torch.service.wire import to_wire
+from docqa_tpu_torch.utils import resolve_device
+
+log = get_logger("docqa.app")
+
+MAX_BODY = 64 * 1024 * 1024  # the reference's client_max_size
+UI_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ui.html")
+
+
+def refuse_unported(cfg: Config) -> None:
+    """Raise ``NotImplementedError`` for a configuration that needs a part
+    of the reference this port does not have yet, naming the ROADMAP item
+    (queue 1) that brings it."""
+    refusals = [
+        (cfg.store.serving_index == "tiered",
+         "store.serving_index='tiered' needs the IVF and tiered search "
+         "(ROADMAP queue 1, item 5)"),
+        (bool(cfg.data.work_dir),
+         "data.work_dir needs the store's snapshots and restore "
+         "(ROADMAP queue 1, item 5)"),
+        (cfg.store.token_width > 0,
+         "store.token_width > 0 needs the fused RAG path "
+         "(ROADMAP queue 1, item 4)"),
+        (cfg.summarizer.backend == "seq2seq" and not cfg.flags.use_fake_llm,
+         "summarizer.backend='seq2seq' needs the seq2seq summarizer "
+         "(ROADMAP queue 1, item 7)"),
+        (bool(cfg.encoder.checkpoint_dir) and not cfg.flags.use_fake_encoder,
+         "encoder.checkpoint_dir needs the checkpoint import "
+         "(ROADMAP queue 1, item 7)"),
+        (bool(cfg.decoder.checkpoint_dir) and not cfg.flags.use_fake_llm,
+         "decoder.checkpoint_dir needs the checkpoint import "
+         "(ROADMAP queue 1, item 7)"),
+        (cfg.broker.backend == "amqp",
+         "broker.backend='amqp' needs the AMQP broker (ROADMAP queue 1, "
+         "its own line)"),
+    ]
+    for refused, why in refusals:
+        if refused:
+            raise NotImplementedError(f"not in the PyTorch port yet: {why}")
+
+
+class DocQARuntime:
+    """Builds and owns every component; :meth:`start` / :meth:`stop`
+    manage the workers.  Everything runs on ``device`` (the card unless
+    the caller asks for the CPU).
+
+    ``decoder_params``: the generator's weights (a tree with the
+    reference's names, e.g. ``models.decoder.init_decoder_params`` drawn on
+    the card); None draws the reference's seeded host init, which is slow
+    at full width.  The reference loads a checkpoint here instead, which
+    this port cannot yet (ROADMAP queue 1, item 7)."""
+
+    def __init__(
+        self,
+        cfg: Optional[Config] = None,
+        journal_dir: Optional[str] = None,
+        device="cuda",
+        decoder_params=None,
+    ) -> None:
+        from docqa_tpu_torch.deid.engine import DeidEngine
+        from docqa_tpu_torch.engines.encoder import EncoderEngine, HashEncoder
+        from docqa_tpu_torch.engines.generate import GenerateEngine
+        from docqa_tpu_torch.engines.pool import EnginePool
+        from docqa_tpu_torch.engines.retrieve import FusedRetriever
+        from docqa_tpu_torch.engines.router import AnswerRouter
+        from docqa_tpu_torch.engines.summarize import SummarizeEngine
+        from docqa_tpu_torch.index.lexical import LexicalIndex
+        from docqa_tpu_torch.index.store import VectorStore
+        from docqa_tpu_torch.service.broker import make_broker
+        from docqa_tpu_torch.service.pipeline import DocumentPipeline
+        from docqa_tpu_torch.service.qa import QAService
+        from docqa_tpu_torch.service.registry import DocumentRegistry
+        from docqa_tpu_torch.service.synthesis import (
+            SynthesisService,
+            fake_patient_retrieval,
+        )
+
+        self.cfg = cfg = cfg or load_config()
+        refuse_unported(cfg)
+        self.device = resolve_device(device)
+        self.breakers = BreakerBoard(
+            failure_threshold=cfg.resilience.breaker_failure_threshold,
+            reset_timeout_s=cfg.resilience.breaker_reset_s,
+        )
+        # the reference adopts its checkpoint loader's breaker so that
+        # /api/status shows it; the loader is not ported, so it idles
+        self.breakers.adopt(
+            CircuitBreaker("checkpoint", failure_threshold=6, reset_timeout_s=60.0)
+        )
+        self._fault_plan = FaultPlan.from_env()
+        if self._fault_plan is not None:
+            _faults.install(self._fault_plan)
+            log.warning(
+                "fault-injection plan ACTIVE (%d rule(s), seed %d)",
+                len(self._fault_plan.rules), self._fault_plan.seed,
+            )
+        # every component below runs its device work through the spine
+        self.spine = _spine.configure(
+            n_lanes=cfg.dispatch.n_lanes,
+            max_depth=cfg.dispatch.max_depth,
+            inline=cfg.dispatch.inline,
+        )
+        dev = self.device
+        if cfg.flags.use_fake_encoder:
+            self.encoder = HashEncoder(cfg.encoder, device=dev)
+        else:
+            self.encoder = EncoderEngine(cfg.encoder, device=dev)
+        self.store = VectorStore(cfg.store, device=dev)
+        # the lexical tier is fed by the store's sink seam, registered
+        # before any bootstrap indexing
+        self.lexical = None
+        if cfg.lexical.enabled:
+            lx = cfg.lexical
+            self.lexical = LexicalIndex(
+                vocab_size=lx.vocab_size, tile_width=lx.tile_width,
+                k1=lx.k1, b=lx.b, ref_len=lx.ref_len, device=dev,
+            )
+            self.store.register_index_sink(self.lexical)
+        self.search_index = self.store
+        if cfg.ner.train_steps > 0 or cfg.ner.params_path:
+            # loads the trained tagger's cache or raises: the port does
+            # not train at boot (ROADMAP queue 1, item 6)
+            params_path = cfg.ner.params_path or os.path.join(
+                os.path.expanduser("~"), ".cache", "docqa_tpu", "ner.npz"
+            )
+            self.deid = DeidEngine.trained(
+                cfg.ner, params_path=params_path, steps=cfg.ner.train_steps,
+                device=dev,
+            )
+        else:  # plumbing mode: a seeded random tagger
+            self.deid = DeidEngine(cfg.ner, device=dev)
+        self.generator = GenerateEngine(
+            cfg.decoder, gen=cfg.generate, params=decoder_params, device=dev
+        )
+        self.batcher = None
+        if not cfg.flags.use_fake_llm:
+            self.batcher = EnginePool(
+                self.generator, cfg=cfg.pool, qos=cfg.qos, device=dev
+            )
+        self.summarizer = SummarizeEngine(
+            self.generator, cfg.summarizer,
+            use_fake=cfg.flags.use_fake_llm, batcher=self.batcher,
+        )
+        self.broker = make_broker(cfg.broker, journal_dir=journal_dir)
+        self.registry = DocumentRegistry(cfg.registry.url)
+        http_extractor = None
+        if cfg.service.extractor_url:
+            from docqa_tpu_torch.service.extract import make_http_extractor
+
+            http_extractor = make_http_extractor(cfg.service.extractor_url)
+        self.pipeline = DocumentPipeline(
+            cfg, self.broker, self.registry, self.deid, self.encoder,
+            self.store, http_extractor=http_extractor, breakers=self.breakers,
+        )
+        if cfg.data.bootstrap_dir and self.store.count == 0:
+            from docqa_tpu_torch.service.bootstrap import bootstrap_csv_dir
+
+            bootstrap_csv_dir(cfg.data.bootstrap_dir, self.encoder, self.store)
+        # exact serving retrieves dense, as the reference's does: its
+        # retrieve modes ride on the tiered index (ROADMAP queue 1, item 5)
+        retriever = None
+        if not cfg.flags.use_fake_encoder:
+            retriever = FusedRetriever(self.encoder, self.store, device=dev)
+        self.router = None
+        if cfg.router.enabled:
+            self.router = AnswerRouter(
+                min_confidence=cfg.router.min_confidence,
+                evidence_min=cfg.router.evidence_min,
+            )
+        self.qa = QAService(
+            self.encoder, self.store, self.generator,
+            k=cfg.store.default_k, device=dev, batcher=self.batcher,
+            breakers=self.breakers, resilience=cfg.resilience,
+            use_fake_llm=cfg.flags.use_fake_llm,
+            retriever=retriever, router=self.router,
+        )
+        retrieval = (
+            fake_patient_retrieval if cfg.flags.use_fake_retrieval
+            else self.qa.patient_snippets
+        )
+        self.synthesis = SynthesisService(retrieval=retrieval, summarizer=self.summarizer)
+        self.costs = obs.DEFAULT_COST_LEDGER
+        self.costs.set_pressure_probe(self._cost_pressure)
+        self.telemetry = None
+        self.slo = None
+        self.sampler = None
+        tcfg = cfg.telemetry
+        if tcfg.enabled:
+            # align the histograms' rollup windows with the store's clock
+            # before serving (re-windowing drops sealed history)
+            DEFAULT_REGISTRY.configure_windows(tcfg.interval_s, tcfg.points)
+            self.telemetry = obs.TelemetryStore(
+                interval_s=tcfg.interval_s, points=tcfg.points
+            )
+            slos = obs.default_ask_slos(
+                p95_objective_ms=tcfg.slo_ask_p95_ms,
+                availability=tcfg.slo_ask_availability,
+                degraded_budget=tcfg.slo_ask_degraded_budget,
+                short_windows=tcfg.slo_short_windows,
+                long_windows=tcfg.slo_long_windows,
+                burn_threshold=tcfg.slo_burn_threshold,
+            )
+            rq = cfg.retrieval_quality
+            if rq.enabled:
+                slos += obs.default_retrieval_slos(
+                    recall_target=rq.recall_target,
+                    short_windows=rq.slo_short_windows,
+                    long_windows=rq.slo_long_windows,
+                    burn_threshold=rq.slo_burn_threshold,
+                    min_events=rq.slo_min_events,
+                )
+            self.slo = obs.BurnRateEvaluator(
+                self.telemetry, slos, registry=DEFAULT_REGISTRY,
+                recorder=obs.DEFAULT_RECORDER,
+            )
+            if self.batcher is not None:
+                # the burn evaluator is the admission layer's deferral signal
+                self.batcher.set_slo_probe(self.slo.firing)
+            self.sampler = obs.TelemetrySampler(
+                self.telemetry,
+                registry=DEFAULT_REGISTRY,
+                batcher=self.batcher,
+                broker=self.broker,
+                queues=(cfg.broker.raw_queue, cfg.broker.clean_queue),
+                recorder=obs.DEFAULT_RECORDER,
+                engine=self.generator if self.batcher is not None else None,
+                slo_evaluator=self.slo,
+                spine=self.spine,
+                sample_every_s=tcfg.sample_every_s,
+                extra_probes=(self.costs.telemetry_gauges,),
+            )
+        self._started = False
+        self._warmup_thread: Optional[threading.Thread] = None
+        self._warmup_fault: Optional[BaseException] = None
+
+    def _cost_pressure(self) -> Dict[str, Any]:
+        """Shed-forensics pressure snapshot: per-class holdings of the pool,
+        its preemption dry run, and the spine's queue depth."""
+        out: Dict[str, Any] = {}
+        b = self.batcher
+        if b is not None:
+            out = b.pressure_by_class() or {}
+            try:
+                out["preemption_candidates"] = b.preemption_candidates()
+            except Exception as e:
+                if is_device_fault(e):
+                    raise
+        out["spine_queue_depth"] = self.spine.queue_depth
+        return out
+
+    def start(self) -> "DocQARuntime":
+        self.pipeline.start()
+        if self.sampler is not None:
+            self.sampler.start()
+        if self.batcher is not None:
+            # the pool warmed its programs at construction; one real request
+            # end to end checks admission, sampling and retirement off the
+            # request path (background class: never interactive spend)
+            self._warmup_thread = threading.Thread(
+                target=self._warmup_decode, daemon=True, name="warmup"
+            )
+            self._warmup_thread.start()
+        self._started = True
+        return self
+
+    def _warmup_decode(self) -> None:
+        try:
+            self.batcher.submit_ids(
+                [1, 2, 3], max_new_tokens=2, req_class="background"
+            ).result(timeout=600)
+            if self.cfg.dispatch.annotate_costs:
+                self.batcher.annotate_costs()
+            log.info("decode path warm")
+        except Exception as e:
+            if is_device_fault(e):
+                self._warmup_fault = e  # raised by stop()
+                return
+            log.exception("decode warmup failed (serving continues cold)")
+
+    def retrieval_status(self) -> Dict[str, Any]:
+        """``/api/retrieval``: the idle observatory's payload (exact serving
+        draws no recall shadows), the serving tier and the router's
+        posture and route split."""
+        rq = self.cfg.retrieval_quality
+        return {
+            "enabled": True,
+            "running": self._started,
+            "sample_every": rq.sample_every,
+            "seed": rq.seed,
+            "recall_target": rq.recall_target,
+            "counts": {
+                "served": 0, "sampled": 0, "shadows": 0,
+                "dropped": 0, "errors": 0, "pending": 0,
+            },
+            "estimate": None,
+            "current": None,
+            "estimates": {},
+            "frontier": [],
+            "recommended_nprobe": None,
+            "auto_apply": rq.auto_apply_nprobe,
+            "applied_nprobe": None,
+            "drift": {},
+            "serving": {
+                "serving_index": self.cfg.store.serving_index,
+                "rows": self.store.count,
+                "nprobe": None,
+                "covered": None,
+                "tail_rows": None,
+                "index": None,
+                "offmesh_fallbacks": 0,  # one device: nothing is off the mesh
+            },
+            "routing": {
+                "enabled": self.router is not None,
+                "min_confidence": getattr(self.router, "min_confidence", None),
+                "evidence_min": getattr(self.router, "evidence_min", None),
+                "routed_extractive": DEFAULT_REGISTRY.counter(
+                    "qa_routed_extractive"
+                ).value,
+                "routed_generative": DEFAULT_REGISTRY.counter(
+                    "qa_routed_generative"
+                ).value,
+                "hybrid_alpha": self.cfg.lexical.hybrid_alpha,
+                "serving_mode": self.cfg.lexical.serving_mode,
+            },
+        }
+
+    def delete_document(self, doc_id: str, erase: bool = False) -> int:
+        """Tombstone a document out of retrieval: a document still in the
+        pipeline is suppressed, an indexed one's chunks are tombstoned, and
+        ``erase=True`` (or tombstones past ``store.compact_threshold`` of
+        the rows) compacts the store.  Returns the chunks tombstoned by
+        this call."""
+        from docqa_tpu_torch.service import registry as reg
+
+        # first, so a racing index batch cannot add chunks after the look
+        self.pipeline.suppress_doc(doc_id)
+        n = self.store.delete_docs([doc_id])
+        threshold = self.cfg.store.compact_threshold
+        auto = (
+            not erase
+            and threshold > 0
+            and self.store.count > 0
+            and self.store.deleted_count >= threshold * self.store.count
+        )
+        if erase or auto:
+            self.store.compact_deleted()
+        try:
+            self.registry.set_status(doc_id, reg.DELETED)
+        except Exception:
+            log.exception("status write failed for %s", doc_id)
+        return n
+
+    def stop(self) -> None:
+        """Join every worker (each with a bound) and release the process
+        hooks this runtime installed; raises a device fault the warm-up
+        thread kept."""
+        if self.sampler is not None:
+            self.sampler.stop()
+        self.pipeline.stop()
+        if self.batcher is not None:
+            self.batcher.stop()
+        warmup = self._warmup_thread
+        if warmup is not None:
+            warmup.join(timeout=5)
+            if warmup.is_alive():
+                log.warning("decode warmup thread still alive after stop()")
+        self.broker.close()
+        self.registry.close()
+        if self.costs._pressure_probe == self._cost_pressure:
+            self.costs.set_pressure_probe(None)
+        if self._fault_plan is not None:
+            _faults.uninstall(self._fault_plan)
+        if self._warmup_fault is not None:
+            raise self._warmup_fault
+
+
+# ---------------------------------------------------------------------------
+# Requests, responses and the executor lanes
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Request:
+    method: str
+    path: str
+    query: Dict[str, str] = field(default_factory=dict)
+    headers: Dict[str, str] = field(default_factory=dict)  # lower-case names
+    body: bytes = b""
+    match: Dict[str, str] = field(default_factory=dict)  # path parameters
+
+    def json(self) -> Any:
+        return json.loads(self.body.decode("utf-8"))
+
+    @property
+    def content_type(self) -> str:
+        return self.headers.get("content-type", "").split(";")[0].strip()
+
+
+@dataclass
+class Response:
+    """A JSON ``payload`` (sent through :func:`to_wire`), or a raw
+    ``body``, or server-sent ``events``."""
+
+    status: int = 200
+    payload: Any = None
+    headers: Dict[str, str] = field(default_factory=dict)
+    body: Optional[bytes] = None
+    content_type: str = "application/json; charset=utf-8"
+    events: Optional[Iterator[bytes]] = None
+
+    def json_body(self) -> bytes:
+        return json.dumps(to_wire(self.payload)).encode("utf-8")
+
+
+def json_error(status: int, detail: str, ctx=None) -> Response:
+    return _traced(Response(status, {"detail": detail}), ctx)
+
+
+def _traced(resp: Response, ctx) -> Response:
+    """Stamp the request's trace id on a response header (the body stays
+    the reference's contract)."""
+    if ctx is not None:
+        resp.headers["X-Trace-Id"] = ctx.trace_id
+    return resp
+
+
+class _Lane:
+    """A fixed set of named threads running submitted calls in order: one
+    of the app's executor lanes.  :meth:`call` blocks for the result and
+    raises the call's exception."""
+
+    def __init__(self, name: str, workers: int) -> None:
+        self._q: "queue.Queue" = queue.Queue()
+        self._threads = [
+            threading.Thread(target=self._run, name=f"{name}-{i}", daemon=True)
+            for i in range(workers)
+        ]
+        for t in self._threads:
+            t.start()
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            fut, fn = item
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(fn())
+            except BaseException as e:  # handed to the caller through fut
+                fut.set_exception(e)
+
+    def submit(self, fn: Callable, *args, **kw) -> concurrent.futures.Future:
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._q.put((fut, functools.partial(fn, *args, **kw)))
+        return fut
+
+    def call(self, fn: Callable, *args, **kw) -> Any:
+        return self.submit(fn, *args, **kw).result()
+
+    def close(self, timeout: float = 10.0) -> bool:
+        """Stop the threads once the queued calls ran; True when every
+        thread ended within ``timeout`` each."""
+        for _ in self._threads:
+            self._q.put(None)
+        for t in self._threads:
+            t.join(timeout)
+        return not any(t.is_alive() for t in self._threads)
+
+
+def _multipart_fields(content_type: str, body: bytes) -> List[Tuple[str, Optional[str], bytes]]:
+    """``(field name, filename or None, raw bytes)`` of each part of a
+    ``multipart/form-data`` body."""
+    msg = BytesParser().parsebytes(
+        b"Content-Type: " + content_type.encode("latin-1") + b"\r\n\r\n" + body
+    )
+    if not msg.is_multipart():
+        raise ValueError("malformed multipart body")
+    out = []
+    for part in msg.get_payload():
+        name = part.get_param("name", header="content-disposition")
+        out.append((name, part.get_filename(), part.get_payload(decode=True) or b""))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The routes
+# ---------------------------------------------------------------------------
+
+
+class App:
+    """The reference's route table over one runtime.  :meth:`handle` maps a
+    :class:`Request` to a :class:`Response`; a device fault raises."""
+
+    def __init__(self, rt: DocQARuntime) -> None:
+        self.rt = rt
+        self.device_lane = _Lane("device", 1)
+        self.gen_lane = _Lane("genwait", max(rt.cfg.generate.max_concurrent, 4))
+        self.host_lane = _Lane("host", 4)
+        routes = [
+            ("GET", "/", self.index_page),
+            ("GET", "/health", self.health),
+            ("GET", "/api/status", self.api_status),
+            ("GET", "/metrics", self.metrics),
+            ("GET", "/api/metrics", self.api_metrics),
+            ("GET", "/api/telemetry", self.api_telemetry),
+            ("GET", "/api/costs", self.api_costs),
+            ("GET", "/api/costs/sheds", self.api_costs_sheds),
+            ("GET", "/api/retrieval", self.api_retrieval),
+            ("GET", "/api/traces", self.api_traces),
+            ("GET", "/api/witness", self.api_witness),
+            ("GET", "/api/ledger", self.api_ledger),
+            ("GET", "/api/trace/{trace_id}", self.api_trace_one),
+            ("GET", "/api/pool", self.api_pool),
+            ("POST", "/api/pool/drain", self.api_pool_drain),
+            ("POST", "/api/pool/resume", self.api_pool_resume),
+            ("POST", "/api/pool/rolling_restart", self.api_pool_rolling_restart),
+            ("POST", "/api/profiler/start", self.profiler_start),
+            ("POST", "/api/profiler/stop", self.profiler_stop),
+            ("POST", "/ingest/", self.ingest),
+            ("GET", "/documents/", self.documents),
+            ("GET", "/documents/{doc_id}", self.document_one),
+            ("DELETE", "/documents/{doc_id}", self.document_delete),
+            ("POST", "/ask/", self.ask),
+            ("POST", "/ask/stream", self.ask_stream),
+            ("GET", "/api/search/patient-snippets", self.patient_snippets),
+            ("POST", "/api/llm/summarize", self.llm_summarize),
+            ("POST", "/api/synthese/patient", self.synthese_patient),
+            ("POST", "/api/synthese/comparaison", self.synthese_comparaison),
+        ]
+        self.routes = [
+            (
+                method,
+                path,
+                re.compile(
+                    "^" + re.sub(r"\\{(\w+)\\}", r"(?P<\1>[^/]+)", re.escape(path)) + "$"
+                ),
+                fn,
+            )
+            for method, path, fn in routes
+        ]
+
+    def close(self, timeout: float = 10.0) -> bool:
+        return all(
+            [lane.close(timeout) for lane in (self.device_lane, self.gen_lane, self.host_lane)]
+        )
+
+    def handle(self, req: Request) -> Response:
+        allowed = []
+        for method, _path, pattern, fn in self.routes:
+            m = pattern.match(req.path)
+            if m is None:
+                continue
+            if method != req.method:
+                allowed.append(method)
+                continue
+            req.match = m.groupdict()
+            return fn(req)
+        if allowed:
+            return Response(405, {"detail": "method not allowed"})
+        return Response(404, {"detail": "not found"})
+
+    # ---- health / status --------------------------------------------------
+
+    def index_page(self, _req: Request) -> Response:
+        with open(UI_PATH, "rb") as f:
+            return Response(body=f.read(), content_type="text/html")
+
+    def health(self, _req: Request) -> Response:
+        return Response(payload={"status": "ok"})
+
+    def api_status(self, _req: Request) -> Response:
+        rt = self.rt
+        queues = (rt.cfg.broker.raw_queue, rt.cfg.broker.clean_queue)
+        return Response(payload={
+            "service": "docqa-tpu",
+            "status": "running",
+            "indexed_vectors": rt.store.count,
+            "index_version": rt.store.version,
+            "queue_depths": {q: rt.broker.depth(q) for q in queues},
+            "in_flight": {q: rt.broker.in_flight(q) for q in queues},
+            "dead_letters": {q: len(rt.broker.dead_letters(q)) for q in queues},
+            "breakers": rt.breakers.states(),
+            "pool": rt.batcher.status() if rt.batcher is not None else None,
+            "slo": rt.slo.status() if rt.slo is not None else None,
+            "qos": rt.batcher.qos_status() if rt.batcher is not None else None,
+            "dispatch": {
+                "spine": rt.spine.stats(),
+                "observatory": obs.DEFAULT_OBSERVATORY.stats(),
+            },
+        })
+
+    def metrics(self, req: Request) -> Response:
+        """Prometheus text: 0.0.4 by default, OpenMetrics 1.0 (with
+        exemplar trace ids) when the Accept header asks for it."""
+        openmetrics = "application/openmetrics-text" in req.headers.get("accept", "")
+        text = obs.prometheus_text(
+            DEFAULT_REGISTRY, self.rt.telemetry, openmetrics=openmetrics
+        )
+        if openmetrics:
+            return Response(
+                body=text.encode("utf-8"),
+                content_type="application/openmetrics-text; charset=utf-8",
+                headers={"X-Prometheus-Format": "openmetrics-1.0"},
+            )
+        return Response(
+            body=text.encode("utf-8"),
+            content_type="text/plain; charset=utf-8",
+            headers={"X-Prometheus-Format": "0.0.4"},
+        )
+
+    def api_metrics(self, _req: Request) -> Response:
+        return Response(payload=DEFAULT_REGISTRY.snapshot())
+
+    def api_telemetry(self, req: Request) -> Response:
+        if self.rt.telemetry is None:
+            return json_error(404, "telemetry disabled (telemetry.enabled)")
+        return Response(payload=obs.telemetry_json(self.rt.telemetry, req.query.get("name")))
+
+    def api_costs(self, _req: Request) -> Response:
+        rt = self.rt
+        spine_dev = sum(
+            row.get("device_s", 0.0) for row in rt.spine.stats()["stages"].values()
+        )
+        pool_bs = None
+        if rt.batcher is not None:
+            try:
+                pool_bs = rt.batcher.block_seconds()["total"]
+            except Exception as e:
+                if is_device_fault(e):
+                    raise
+        return Response(payload=rt.costs.snapshot(
+            spine_device_s=spine_dev, pool_block_seconds=pool_bs
+        ))
+
+    def api_costs_sheds(self, req: Request) -> Response:
+        try:
+            limit = int(req.query.get("limit", "64"))
+        except ValueError:
+            return json_error(422, "limit must be an integer")
+        if limit < 0:
+            return json_error(422, "limit must be >= 0")
+        return Response(payload=self.rt.costs.sheds(limit))
+
+    def api_retrieval(self, _req: Request) -> Response:
+        if not self.rt.cfg.retrieval_quality.enabled:
+            return json_error(
+                404, "retrieval observatory disabled (retrieval_quality.enabled)"
+            )
+        return Response(payload=self.rt.retrieval_status())
+
+    # ---- decode-engine pool -----------------------------------------------
+
+    def _pool_or_error(self) -> Tuple[Any, Optional[Response]]:
+        if self.rt.batcher is None:
+            return None, json_error(404, "no decode pool (fake-llm runtime)")
+        return self.rt.batcher, None
+
+    @staticmethod
+    def _body_or_error(req: Request) -> Tuple[Dict[str, Any], Optional[Response]]:
+        if not req.body:
+            return {}, None
+        try:
+            body = req.json()
+        except ValueError:
+            return {}, json_error(422, "body must be JSON")
+        if not isinstance(body, dict):
+            return {}, json_error(422, "body must be JSON")
+        return body, None
+
+    def api_pool(self, _req: Request) -> Response:
+        pool, err = self._pool_or_error()
+        return err or Response(payload=pool.status())
+
+    def _replica_or_error(self, pool, body) -> Optional[Response]:
+        replica = body.get("replica", 0)
+        if not isinstance(replica, int) or not 0 <= replica < pool.n_replicas:
+            return json_error(422, f"replica must be 0..{pool.n_replicas - 1}")
+        return None
+
+    def api_pool_drain(self, req: Request) -> Response:
+        """Drain one replica until ``/api/pool/resume`` (``{"replica": i,
+        "timeout": s}``)."""
+        pool, err = self._pool_or_error()
+        if err:
+            return err
+        body, err = self._body_or_error(req)
+        if err:
+            return err
+        try:
+            timeout = float(body.get("timeout", 30.0))
+        except (TypeError, ValueError):
+            return json_error(422, "timeout must be a number")
+        err = self._replica_or_error(pool, body)
+        if err:
+            return err
+        return Response(payload=self.host_lane.call(
+            pool.drain, body.get("replica", 0), timeout
+        ))
+
+    def api_pool_resume(self, req: Request) -> Response:
+        pool, err = self._pool_or_error()
+        if err:
+            return err
+        body, err = self._body_or_error(req)
+        if err:
+            return err
+        err = self._replica_or_error(pool, body)
+        if err:
+            return err
+        return Response(payload=self.host_lane.call(
+            pool.resume, body.get("replica", 0), bool(body.get("rebuild", False))
+        ))
+
+    def api_pool_rolling_restart(self, req: Request) -> Response:
+        """Drain, rebuild and resume every replica in turn."""
+        pool, err = self._pool_or_error()
+        if err:
+            return err
+        body, _err = self._body_or_error(req)
+        try:
+            timeout = float(body.get("timeout_per_replica", 30.0))
+        except (TypeError, ValueError):
+            timeout = 30.0
+        return Response(payload=self.host_lane.call(pool.rolling_restart, timeout))
+
+    # ---- observability ----------------------------------------------------
+
+    def api_traces(self, req: Request) -> Response:
+        anomalous = req.query.get("anomalous") in ("1", "true")
+        try:
+            limit = int(req.query.get("limit", "50"))
+        except ValueError:
+            return json_error(422, "limit must be an integer")
+        return Response(payload=obs.DEFAULT_RECORDER.summaries(n=limit, anomalous=anomalous))
+
+    def api_witness(self, _req: Request) -> Response:
+        return json_error(404, "witness not installed (not in the PyTorch port)")
+
+    def api_ledger(self, _req: Request) -> Response:
+        return json_error(404, "ledger witness not installed (not in the PyTorch port)")
+
+    def api_trace_one(self, req: Request) -> Response:
+        trace = obs.DEFAULT_RECORDER.get(req.match["trace_id"])
+        if trace is None:
+            return json_error(404, "trace not found (evicted or unknown)")
+        if req.query.get("format") == "chrome":
+            return Response(payload=obs.to_chrome_trace([trace]))
+        return Response(payload=obs.timeline_dict(trace))
+
+    def profiler_start(self, req: Request) -> Response:
+        """Open a ``torch.profiler`` window (``{"logdir": ...}``)."""
+        body, _err = self._body_or_error(req)
+        try:
+            logdir = self.host_lane.call(
+                obs.DEFAULT_PROFILER.start, body.get("logdir"), self.rt.device
+            )
+        except RuntimeError as e:  # a window is already open
+            if is_device_fault(e):
+                raise
+            return json_error(409, str(e))
+        except Exception as e:
+            if is_device_fault(e):
+                raise
+            return json_error(500, f"profiler start failed: {e!r}")
+        return Response(payload={"profiling": True, "logdir": logdir})
+
+    def profiler_stop(self, _req: Request) -> Response:
+        try:
+            logdir = self.host_lane.call(obs.DEFAULT_PROFILER.stop)
+        except RuntimeError as e:  # no window open
+            if is_device_fault(e):
+                raise
+            return json_error(409, str(e))
+        except Exception as e:
+            if is_device_fault(e):
+                raise
+            return json_error(500, f"profiler stop failed: {e!r}")
+        return Response(payload={"profiling": False, "logdir": logdir})
+
+    # ---- ingestion --------------------------------------------------------
+
+    def ingest(self, req: Request) -> Response:
+        """Multipart (``file`` plus ``doc_type`` / ``patient_id`` /
+        ``doc_date`` form fields) or JSON ``{filename, text, ...}``;
+        ``?wait=1`` waits for the document's terminal status."""
+        rt = self.rt
+        filename, data = None, None
+        form: Dict[str, Optional[str]] = {}
+        wait = req.query.get("wait") in ("1", "true")
+        if req.content_type.startswith("multipart/"):
+            try:
+                parts = _multipart_fields(req.headers["content-type"], req.body)
+            except (KeyError, ValueError) as e:
+                return json_error(400, f"malformed multipart body: {e}")
+            for name, part_filename, raw in parts:
+                if name == "file":
+                    filename = part_filename or "upload"
+                    data = raw
+                elif name in ("doc_type", "patient_id", "doc_date"):
+                    form[name] = raw.decode("utf-8").strip() or None
+        else:
+            body = req.json()
+            filename = body.get("filename", "inline.txt")
+            data = body.get("text", "").encode()
+            for name in ("doc_type", "patient_id", "doc_date"):
+                form[name] = body.get(name)
+        if not data:
+            return json_error(400, "no file/text provided")
+        # the document's trace, finished by the pipeline at its terminal
+        # status
+        ctx = obs.new_trace("ingest")
+        obs.cost_open(ctx, "background")
+        try:
+            record = self.host_lane.call(
+                obs.call_in, ctx, rt.pipeline.ingest_document, filename, data,
+                form.get("doc_type"), form.get("patient_id"), form.get("doc_date"),
+            )
+        except BaseException:
+            obs.finish(ctx, status="error")
+            raise
+        if wait:
+            rt.pipeline.wait_indexed(record.doc_id)
+            record = rt.registry.get(record.doc_id)
+        return _traced(
+            Response(payload={"doc_id": record.doc_id, "status": record.status}), ctx
+        )
+
+    def documents(self, _req: Request) -> Response:
+        return Response(payload=[r.to_dict() for r in self.rt.registry.list_documents()])
+
+    def document_one(self, req: Request) -> Response:
+        rec = self.rt.registry.get(req.match["doc_id"])
+        if rec is None:
+            return json_error(404, "document not found")
+        return Response(payload=rec.to_dict())
+
+    def document_delete(self, req: Request) -> Response:
+        doc_id = req.match["doc_id"]
+        if self.rt.registry.get(doc_id) is None:
+            return json_error(404, "document not found")
+        erase = req.query.get("erase") in ("1", "true")
+        # the device lane: tombstoning races with appends and searches
+        n = self.device_lane.call(self.rt.delete_document, doc_id, erase)
+        return Response(payload={"doc_id": doc_id, "chunks_removed": n, "erased": erase})
+
+    # ---- QA ---------------------------------------------------------------
+
+    def _ask_preamble(self, req: Request, ctx) -> Tuple[Any, Optional[Response]]:
+        """Shared /ask admission: parse -> 422, empty index -> 503,
+        submission on the device lane -> QueueFull 503, budget gone -> 504.
+        The request's deadline is stamped here and rides retrieval, the
+        pool and the batcher."""
+        try:
+            q = Query.from_json(req.json())
+        except ValueError as e:
+            return None, json_error(422, str(e), ctx)
+        rt = self.rt
+        if rt.store.count == 0:
+            return None, json_error(503, "index is empty; ingest documents first", ctx)
+        budget = rt.cfg.resilience.request_deadline_s
+        deadline = Deadline.after(budget) if budget > 0 else None
+        try:
+            pending = self.device_lane.call(
+                obs.call_in, ctx, rt.qa.ask_submit, q.question, deadline=deadline
+            )
+        except QueueFull as e:
+            return None, json_error(503, str(e), ctx)
+        except DeadlineExceeded as e:
+            DEFAULT_REGISTRY.counter("qa_deadline_shed").inc()
+            return None, json_error(504, str(e), ctx)
+        return pending, None
+
+    @staticmethod
+    def _ask_outcome(status: int) -> None:
+        """SLO accounting: every /ask admission is a request; a 5xx spends
+        the availability budget."""
+        DEFAULT_REGISTRY.counter("ask_requests").inc()
+        if status >= 500:
+            DEFAULT_REGISTRY.counter("ask_failures").inc()
+
+    def ask(self, req: Request) -> Response:
+        # retrieval and submission on the device lane, the decode wait on
+        # the wait lane, so concurrent /ask share the batcher's slots
+        t0 = time.perf_counter()
+        ctx = obs.new_trace("ask")
+        obs.cost_open(ctx, "interactive")
+        try:
+            pending, err = self._ask_preamble(req, ctx)
+            if err is not None:
+                obs.finish(ctx, status="error")
+                self._ask_outcome(err.status)
+                return err
+            try:
+                result = self.gen_lane.call(obs.call_in, ctx, pending.resolve)
+            except DeadlineExceeded as e:
+                DEFAULT_REGISTRY.counter("qa_deadline_shed").inc()
+                obs.finish(ctx, status="error")
+                self._ask_outcome(504)
+                return json_error(504, str(e), ctx)
+            DEFAULT_REGISTRY.histogram("qa_e2e_ms").observe(
+                (time.perf_counter() - t0) * 1000,
+                trace_id=ctx.trace_id if ctx else None,
+            )
+            obs.finish(ctx)
+            self._ask_outcome(200)
+            return _traced(Response(payload=result), ctx)
+        except BaseException:
+            obs.finish(ctx, status="error")
+            self._ask_outcome(500)
+            raise
+
+    def ask_stream(self, req: Request) -> Response:
+        """Server-sent events: one ``data: {"delta": ...}`` event per text
+        delta as the decode lands, then ``event: done`` with the sources
+        (or ``event: error``).  A device fault ends the stream by raising."""
+        t0 = time.perf_counter()
+        ctx = obs.new_trace("ask_stream")
+        obs.cost_open(ctx, "interactive")
+        pending, err = self._ask_preamble(req, ctx)
+        if err is not None:
+            obs.finish(ctx, status="error")
+            self._ask_outcome(err.status)
+            return err
+        # the stream commits to a 200 here; decode failures become error
+        # events, so availability is accounted at admission
+        self._ask_outcome(200)
+        deltas: "queue.Queue" = queue.Queue()
+        gone = threading.Event()  # the client is gone: stop pumping
+
+        def pump():
+            try:
+                for delta in pending.iter_text():
+                    if gone.is_set():
+                        return  # the batcher slot retires on its own budget
+                    deltas.put(("d", delta))
+                deltas.put(("end", None))
+            except BaseException as e:  # an error event, or a device fault
+                deltas.put(("err", e))
+
+        def events() -> Iterator[bytes]:
+            self.gen_lane.submit(pump)
+            try:
+                while True:
+                    kind, payload = deltas.get()
+                    if kind == "d":
+                        yield b"data: " + json.dumps({"delta": payload}).encode() + b"\n\n"
+                    elif kind == "err":
+                        if is_device_fault(payload):
+                            raise payload
+                        yield (
+                            b"event: error\ndata: "
+                            + json.dumps({"detail": str(payload)}).encode() + b"\n\n"
+                        )
+                        return
+                    else:
+                        yield (
+                            b"event: done\ndata: "
+                            + json.dumps({"sources": pending.sources}).encode() + b"\n\n"
+                        )
+                        return
+            finally:
+                gone.set()
+                DEFAULT_REGISTRY.histogram("qa_e2e_ms").observe(
+                    (time.perf_counter() - t0) * 1000,
+                    trace_id=ctx.trace_id if ctx else None,
+                )
+                obs.finish(ctx)
+
+        return _traced(Response(
+            headers={"Cache-Control": "no-cache"},
+            content_type="text/event-stream",
+            events=events(),
+        ), ctx)
+
+    def patient_snippets(self, req: Request) -> Response:
+        pid = req.query.get("patient_id")
+        if not pid:
+            return json_error(422, "patient_id is required")
+        try:
+            rows = self.device_lane.call(
+                self.rt.qa.patient_snippets, pid, req.query.get("from_date"),
+                req.query.get("to_date"), req.query.get("focus"),
+            )
+        except ValueError as e:  # a malformed date bound
+            return json_error(422, str(e))
+        return Response(payload=rows)
+
+    def llm_summarize(self, req: Request) -> Response:
+        try:
+            body = SummarizeRequest.from_json(req.json())
+        except ValueError as e:
+            return json_error(422, str(e))
+        rt = self.rt
+        t0 = time.perf_counter()
+        ctx = obs.new_trace("summarize")
+        obs.cost_open(ctx, "batch")
+        try:
+            pending = self.device_lane.call(
+                obs.call_in, ctx, rt.summarizer.submit_prompt, body.prompt,
+                body.max_tokens,
+            )
+        except QueueFull as e:
+            obs.finish(ctx, status="error")
+            return json_error(503, str(e), ctx)
+        try:
+            summary = self.gen_lane.call(obs.call_in, ctx, rt.summarizer.resolve, pending)
+        except BaseException:
+            obs.finish(ctx, status="error")
+            raise
+        if rt.batcher is not None:
+            DEFAULT_REGISTRY.histogram("summarize_ms").observe(
+                (time.perf_counter() - t0) * 1000,
+                trace_id=ctx.trace_id if ctx else None,
+            )
+        obs.finish(ctx)
+        return _traced(Response(payload={"summary": summary}), ctx)
+
+    def _synthesis(self, name: str, submit: Callable, *args) -> Response:
+        """Retrieval and packing on the device lane, the decode wait on the
+        wait lane."""
+        ctx = obs.new_trace(name)
+        obs.cost_open(ctx, "batch")
+        try:
+            finish = self.device_lane.call(obs.call_in, ctx, submit, *args)
+        except SynthesisError as e:
+            obs.finish(ctx, status="error")
+            return json_error(e.status, e.detail, ctx)
+        except QueueFull as e:
+            obs.finish(ctx, status="error")
+            return json_error(503, str(e), ctx)
+        try:
+            resp = self.gen_lane.call(obs.call_in, ctx, finish)
+        except BaseException:
+            obs.finish(ctx, status="error")
+            raise
+        obs.finish(ctx)
+        return _traced(Response(payload=resp.to_dict()), ctx)
+
+    def synthese_patient(self, req: Request) -> Response:
+        try:
+            body = PatientSummaryRequest.from_json(req.json())
+        except ValueError as e:
+            return json_error(422, str(e))
+        return self._synthesis(
+            "synthese_patient", self.rt.synthesis.patient_summary_submit,
+            body.patient_id, body.from_date, body.to_date, body.focus,
+        )
+
+    def synthese_comparaison(self, req: Request) -> Response:
+        try:
+            body = PatientComparisonRequest.from_json(req.json())
+        except ValueError as e:
+            return json_error(422, str(e))
+        return self._synthesis(
+            "synthese_comparaison", self.rt.synthesis.patient_comparison_submit,
+            body.patient_ids, body.focus,
+        )
+
+
+def make_app(rt: DocQARuntime) -> App:
+    return App(rt)
+
+
+# ---------------------------------------------------------------------------
+# The HTTP front
+# ---------------------------------------------------------------------------
+
+
+class _Handler(BaseHTTPRequestHandler):
+    server: "AppServer"
+    server_version = "docqa-torch"
+
+    def log_message(self, format, *args):  # noqa: A002 (the stdlib's name)
+        log.debug("%s - %s", self.address_string(), format % args)
+
+    def _dispatch(self, method: str) -> None:
+        url = urllib.parse.urlsplit(self.path)
+        length = int(self.headers.get("Content-Length") or 0)
+        if length > MAX_BODY:
+            self._send(Response(413, {"detail": "request body too large"}))
+            return
+        body = self.rfile.read(length) if length else b""
+        req = Request(
+            method=method,
+            path=url.path,
+            query={k: v[0] for k, v in urllib.parse.parse_qs(url.query).items()},
+            headers={k.lower(): v for k, v in self.headers.items()},
+            body=body,
+        )
+        try:
+            resp = self.server.app.handle(req)
+        except Exception as e:
+            if is_device_fault(e):
+                self.server.on_device_fault(e)
+                return  # no response: the connection closes
+            log.exception("%s %s failed", method, url.path)
+            resp = Response(500, {"detail": f"internal error: {e!r}"})
+        self._send(resp)
+
+    def _send(self, resp: Response) -> None:
+        body = None
+        if resp.events is None:
+            body = resp.body if resp.body is not None else resp.json_body()
+        self.send_response(resp.status)
+        self.send_header("Content-Type", resp.content_type)
+        for name, value in resp.headers.items():
+            self.send_header(name, value)
+        if body is not None:
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            return
+        self.end_headers()
+        events = resp.events
+        try:
+            for event in events:
+                self.wfile.write(event)
+                self.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError):
+            pass  # the client left; closing the iterator stops the pump
+        except Exception as e:
+            if not is_device_fault(e):
+                raise
+            self.server.on_device_fault(e)
+        finally:
+            events.close()
+
+    def do_GET(self):  # noqa: N802 (the stdlib's names)
+        self._dispatch("GET")
+
+    def do_POST(self):  # noqa: N802
+        self._dispatch("POST")
+
+    def do_DELETE(self):  # noqa: N802
+        self._dispatch("DELETE")
+
+
+class AppServer(ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` over an :class:`App`: one thread a request.
+    :meth:`start` serves from a background thread; :meth:`close` stops
+    serving and joins the server's threads and the app's lanes, each with
+    a bound.  ``fault`` holds the device fault that stopped it, if any."""
+
+    daemon_threads = True
+
+    def __init__(self, app: App, host: str = "127.0.0.1", port: int = 0) -> None:
+        super().__init__((host, port), _Handler)
+        self.app = app
+        self.fault: Optional[BaseException] = None
+        self._threads_lock = threading.Lock()
+        self._request_threads: List[threading.Thread] = []
+        self._serve_thread: Optional[threading.Thread] = None
+        self._serving = threading.Event()
+
+    @property
+    def port(self) -> int:
+        return self.server_address[1]
+
+    def process_request(self, request, client_address):
+        t = threading.Thread(
+            target=self.process_request_thread, args=(request, client_address),
+            name="http-request", daemon=True,
+        )
+        with self._threads_lock:
+            self._request_threads = [x for x in self._request_threads if x.is_alive()]
+            self._request_threads.append(t)
+        t.start()
+
+    def on_device_fault(self, exc: BaseException) -> None:
+        """Keep the first fault and stop serving (from a helper thread:
+        ``shutdown`` waits for the serving loop)."""
+        with self._threads_lock:
+            if self.fault is None:
+                self.fault = exc
+        log.error("device fault in a handler; the server stops: %r", exc)
+        if self._serving.is_set():
+            threading.Thread(target=self.shutdown, name="http-shutdown", daemon=True).start()
+
+    def serve_forever(self, poll_interval: float = 0.05) -> None:
+        self._serving.set()
+        try:
+            super().serve_forever(poll_interval)
+        finally:
+            self._serving.clear()
+
+    def start(self) -> "AppServer":
+        self._serve_thread = threading.Thread(
+            target=self.serve_forever, name="http-serve", daemon=True
+        )
+        self._serve_thread.start()
+        return self
+
+    def close(self, timeout: float = 10.0) -> bool:
+        """Stop, close the socket, and join; True when every thread ended."""
+        if self._serve_thread is not None and self._serve_thread.is_alive():
+            self.shutdown()
+            self._serve_thread.join(timeout)
+        self.server_close()
+        with self._threads_lock:
+            threads = list(self._request_threads)
+        for t in threads:
+            t.join(timeout)
+        lanes_done = self.app.close(timeout)
+        alive = [t for t in threads if t.is_alive()]
+        if self._serve_thread is not None and self._serve_thread.is_alive():
+            alive.append(self._serve_thread)
+        return lanes_done and not alive
+
+
+def serve(
+    cfg: Optional[Config] = None,
+    port: Optional[int] = None,
+    host: Optional[str] = None,
+    device="cuda",
+    decoder_params=None,
+) -> None:
+    """Boot the runtime and serve until interrupted (``ingest_port`` on
+    ``service.host`` unless given); a device fault in a handler stops the
+    server and is re-raised here."""
+    rt = DocQARuntime(cfg, device=device, decoder_params=decoder_params).start()
+    server = None
+    try:
+        server = AppServer(
+            make_app(rt),
+            host=host if host is not None else rt.cfg.service.host,
+            port=port if port is not None else rt.cfg.service.ingest_port,
+        )
+        log.info("serving on %s:%d", *server.server_address[:2])
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+    finally:
+        if server is not None:
+            server.close()
+        rt.stop()
+    if server.fault is not None:
+        raise server.fault
+
+
+def _parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description="Serve the DocQA app (the PyTorch port) over HTTP."
+    )
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; no fallback between them")
+    p.add_argument("--host", default=None, help="bind address (service.host)")
+    p.add_argument("--port", type=int, default=None,
+                   help="port (service.ingest_port); 0 picks a free one")
+    p.add_argument("--set", action="append", default=[], metavar="SECTION.FIELD=VALUE",
+                   help="config override, after the DOCQA_* environment overlay")
+    p.add_argument("--decoder", choices=("default", "mistral-7b"), default="default",
+                   help="decoder width preset (mistral-7b: DecoderConfig.mistral_7b())")
+    return p.parse_args(argv)
+
+
+def config_from_args(args) -> Config:
+    """The config ``main`` serves: defaults, the environment overlay, the
+    decoder preset, then each ``--set``."""
+    import dataclasses
+
+    from docqa_tpu_torch.config import DecoderConfig
+
+    cfg = load_config()
+    if args.decoder == "mistral-7b":
+        cfg = dataclasses.replace(cfg, decoder=DecoderConfig.mistral_7b())
+    for item in args.set:
+        path, sep, raw = item.partition("=")
+        section, _, name = path.partition(".")
+        if not sep or not name:
+            raise SystemExit(f"--set expects SECTION.FIELD=VALUE, got {item!r}")
+        part = getattr(cfg, section)
+        current = getattr(part, name)
+        value = coerce_value(raw, type(current) if current is not None else object)
+        cfg = dataclasses.replace(
+            cfg, **{section: dataclasses.replace(part, **{name: value})}
+        )
+    return cfg
+
+
+def main(argv=None) -> None:
+    args = _parse_args(argv)
+    cfg = config_from_args(args)
+    # random decoder weights drawn on the device from a seed: the
+    # reference's host init takes minutes at full width
+    from docqa_tpu_torch.models.decoder import init_decoder_params
+
+    params = init_decoder_params(cfg.decoder, seed=0, device=resolve_device(args.device))
+    # SIGTERM stops the server like Ctrl-C, so the runtime joins its workers
+    signal.signal(signal.SIGTERM, signal.default_int_handler)
+    serve(cfg, port=args.port, host=args.host, device=args.device, decoder_params=params)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,17 @@
 """QA / RAG service core: retrieval -> prompt -> generation, with the
-reference's failure policy.  Counterpart of ``docqa_tpu/service/qa.py``'s
-``PendingAnswer`` and ``QAService`` (``ask_submit`` / ``ask``) without the
-answer router, the fused RAG lane or the fake LLM.
+reference's failure policy.  Counterpart of ``docqa_tpu/service/qa.py``
+(``PendingAnswer``, ``QAService``: ``ask_submit`` / ``ask``, the answer
+router, the fake LLM, patient snippets) without the fused RAG lane.
+
+Retrieval is the fused retriever (encoder forward and store search in one
+device item) for an ``EncoderEngine``; the fake encoder (``HashEncoder``)
+keeps the reference's two steps, host embeddings then ``store.search``.
+
+With an answer router (``engines/router.py``), a lookup question asks the
+retriever for the ``hybrid`` mode (honoured where the retriever declares
+``supports_modes``) and, when the evidence gate passes, is answered with
+the retrieved chunks verbatim: no prompt, no batcher, no decode.  The
+answer then carries ``route: "extractive"``.
 
 With a batcher wired in — an ``EnginePool`` in the reference's default
 ``/ask``, or a bare ``ContinuousBatcher`` — ``ask`` submits the prompt to
@@ -42,10 +52,7 @@ from docqa_tpu_torch import obs
 from docqa_tpu_torch.engines.encoder import EncoderEngine
 from docqa_tpu_torch.engines.generate import GenerateEngine
 from docqa_tpu_torch.engines.retrieve import FusedRetriever
-from docqa_tpu_torch.engines.router import (  # noqa: F401 (re-exported)
-    ROUTE_EXTRACTIVE,
-    extractive_answer,
-)
+from docqa_tpu_torch.engines.router import ROUTE_EXTRACTIVE, extractive_answer
 from docqa_tpu_torch.engines.serve import (
     DEFAULT_RESULT_TIMEOUT,
     DeferredByPolicy,
@@ -108,6 +115,7 @@ class PendingAnswer:
     degrade_reason: Optional[str] = None
     breaker: Optional[Any] = None  # decoder CircuitBreaker (outcome sink)
     degraded_max_chars: int = 600
+    route: Optional[str] = None  # "extractive": no decode was dispatched
 
     def _result(self, answer: str) -> Dict[str, Any]:
         out: Dict[str, Any] = {"answer": answer, "sources": self.sources}
@@ -116,6 +124,8 @@ class PendingAnswer:
             # exactly {"answer", "sources"}
             out["degraded"] = True
             out["degrade_reason"] = self.degrade_reason
+        if self.route is not None:
+            out["route"] = self.route  # opt-in, as the degraded keys are
         return out
 
     def _degrade(self, reason: str) -> Dict[str, Any]:
@@ -202,7 +212,7 @@ class PendingAnswer:
 class QAService:
     def __init__(
         self,
-        encoder: EncoderEngine,
+        encoder,  # EncoderEngine, or the fake encoder (HashEncoder)
         store: VectorStore,
         generator: GenerateEngine,
         k: int = 3,
@@ -210,6 +220,9 @@ class QAService:
         batcher=None,  # EnginePool or ContinuousBatcher
         breakers=None,  # resilience.BreakerBoard: "decoder" gates generation
         resilience=None,  # config.ResilienceConfig: degrade thresholds
+        use_fake_llm: bool = False,
+        retriever: Optional[FusedRetriever] = None,
+        router=None,  # engines.router.AnswerRouter
     ) -> None:
         self.device = resolve_device(device)
         for name, part in (("generator", generator), ("batcher", batcher)):
@@ -218,7 +231,13 @@ class QAService:
                     f"{name} on {part.device}; the service runs on "
                     f"{self.device}"
                 )
-        self.retriever = FusedRetriever(encoder, store, device=self.device)
+        if retriever is None and isinstance(encoder, EncoderEngine):
+            retriever = FusedRetriever(encoder, store, device=self.device)
+        self.retriever = retriever
+        self.encoder = encoder
+        self.store = store
+        self.use_fake_llm = use_fake_llm
+        self.router = router
         self.generator = generator
         self.batcher = batcher
         self.k = k
@@ -231,6 +250,23 @@ class QAService:
         self.degraded_max_chars = (
             resilience.degraded_max_chars if resilience is not None else 600
         )
+
+    def _retrieve(self, text: str, k: int, filters=None, deadline=None,
+                  mode: Optional[str] = None):
+        """The fused retriever when one is wired, else host embeddings and
+        ``store.search``; ``mode`` reaches only a retriever that declares
+        ``supports_modes`` (everything else serves dense)."""
+        if self.retriever is not None:
+            kw = {}
+            if mode is not None and self.retriever.supports_modes:
+                kw["mode"] = mode
+            return self.retriever.search_texts(
+                [text], k=k, filters=filters, deadline=deadline, **kw
+            )[0]
+        if deadline is not None:
+            deadline.check("retrieve")
+        emb = self.encoder.encode_texts([text])
+        return self.store.search(emb, k=k, filters=filters)[0]
 
     def _degraded_pending(
         self, sources: List[str], chunks: List[str], reason: str
@@ -261,10 +297,25 @@ class QAService:
         # the request's cost record, on its trace BEFORE retrieval (the
         # endpoint usually stamped one already; cost_open reuses it)
         cost = obs.cost_open(obs.current(), req_class)
+        # the router's text stage picks the retrieve mode, so it runs first
+        decision = None
+        if self.router is not None and self.router.enabled:
+            decision = self.router.decide(question)
+            obs.event(
+                "route_decision",
+                route=decision.route,
+                confidence=round(decision.confidence, 3),
+                reason=decision.reason,
+            )
+        mode = (
+            "hybrid"
+            if decision is not None and decision.route == ROUTE_EXTRACTIVE
+            else None
+        )
         with span("qa_retrieve", DEFAULT_REGISTRY):
-            if deadline is not None:
-                deadline.check("retrieve")
-            hits = self.retriever.search_texts([question], k=k or self.k)[0]
+            hits = self._retrieve(
+                question, k=k or self.k, deadline=deadline, mode=mode
+            )
         chunks = [
             h.metadata.get("text_content", h.metadata.get("source", ""))
             for h in hits
@@ -272,6 +323,28 @@ class QAService:
         context = "\n\n".join(chunks)
         prompt = QA_TEMPLATE.format(context=context, question=question)
         sources = [h.metadata.get("source", "") for h in hits]
+        if decision is not None:
+            # the evidence gate: a routed answer must be in the context; a
+            # demotion is the generative path with a reason, not a failure
+            decision, ev = self.router.evidence_gate(decision, question, chunks)
+            if decision.route == ROUTE_EXTRACTIVE:
+                DEFAULT_REGISTRY.counter("qa_routed_extractive").inc()
+                obs.event(
+                    "routed_extractive", reason=decision.reason,
+                    evidence=round(ev, 3),
+                )
+                if cost is not None:
+                    cost.add("routed_extractive", 1.0)
+                return PendingAnswer(
+                    sources=sources,
+                    answer=extractive_answer(chunks, self.degraded_max_chars),
+                    chunks=chunks,
+                    route=ROUTE_EXTRACTIVE,
+                )
+            DEFAULT_REGISTRY.counter("qa_routed_generative").inc()
+        if self.use_fake_llm:
+            answer = context[:500] if context else "Aucun contexte trouvé."
+            return PendingAnswer(sources=sources, answer=answer)
         if deadline is not None and deadline.remaining() < self.min_generate_budget_s:
             # checked before the breaker: a budget shed never takes a
             # half-open probe slot
@@ -341,3 +414,29 @@ class QAService:
             deadline.check("qa_admission")
         with span("qa_e2e", DEFAULT_REGISTRY):
             return self.ask_submit(question, k, deadline=deadline).resolve()
+
+    def patient_snippets(
+        self,
+        patient_id: str,
+        from_date: Optional[str] = None,
+        to_date: Optional[str] = None,
+        focus: Optional[str] = None,
+        limit: int = 20,
+    ) -> List[Dict[str, str]]:
+        """``[{doc_id, text}]`` of one patient's chunks: ranked by
+        similarity to ``focus`` when given, else in row order.  Both paths
+        filter through the store's columnar mask; a malformed date bound
+        raises ``ValueError``."""
+        filters = {
+            "patient_id": patient_id,
+            "date_from": from_date,
+            "date_to": to_date,
+        }
+        if focus:
+            rows = [h.metadata for h in self._retrieve(focus, k=limit, filters=filters)]
+        else:
+            rows = self.store.metadata_select(limit=limit, **filters)
+        return [
+            {"doc_id": md["doc_id"], "text": md.get("text_content", "")}
+            for md in rows
+        ]

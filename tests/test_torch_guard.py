@@ -19,12 +19,14 @@ from docqa_tpu_torch.config import (
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "docqa_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "docqa_tpu")
+# the card's Python has neither: the app's server and schemas are stdlib
+NOT_ON_THE_CARD = ("aiohttp", "pydantic")
 
 torch.set_num_threads(1)
 
 _BLOCKED_IMPORT = f"""
 import importlib, pkgutil, sys
-for name in {FORBIDDEN!r}:
+for name in {FORBIDDEN + NOT_ON_THE_CARD!r}:
     sys.modules[name] = None  # any import of it now raises ImportError
 sys.path.insert(0, {REPO!r})
 import docqa_tpu_torch
@@ -33,7 +35,8 @@ for mod in pkgutil.walk_packages(docqa_tpu_torch.__path__, "docqa_tpu_torch."):
 import importlib.util
 spec = importlib.util.spec_from_file_location("chip_smoke", {os.path.join(REPO, "chip_smoke.py")!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "aiohttp", "pydantic")
                 and sys.modules[m] is not None)
 print("LOADED", loaded)
 print("PORT", sorted(m for m in sys.modules if m.startswith("docqa_tpu_torch.")))
@@ -82,6 +85,18 @@ OBS_MODULES = (
     "docqa_tpu_torch.obs.spans",
     "docqa_tpu_torch.obs.telemetry",
 )
+# the app slice's modules, held to the same two checks
+APP_MODULES = (
+    "docqa_tpu_torch.config",
+    "docqa_tpu_torch.engines.retrieve",
+    "docqa_tpu_torch.engines.summarize",
+    "docqa_tpu_torch.index.lexical",
+    "docqa_tpu_torch.index.store",
+    "docqa_tpu_torch.service.app",
+    "docqa_tpu_torch.service.schemas",
+    "docqa_tpu_torch.service.synthesis",
+    "docqa_tpu_torch.service.wire",
+)
 
 
 def _python_files():
@@ -103,13 +118,13 @@ def test_imports_with_jax_and_reference_blocked():
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout
     port_line = next(line for line in out.stdout.splitlines() if line.startswith("PORT"))
-    for mod in BATCHER_MODULES + INGEST_MODULES + OBS_MODULES:
+    for mod in BATCHER_MODULES + INGEST_MODULES + OBS_MODULES + APP_MODULES:
         assert f"'{mod}'" in port_line, mod
 
 
 def test_ast_scan_covers_the_batcher_modules():
     scanned = {os.path.relpath(p, REPO) for p in _python_files()}
-    for mod in BATCHER_MODULES + INGEST_MODULES + OBS_MODULES:
+    for mod in BATCHER_MODULES + INGEST_MODULES + OBS_MODULES + APP_MODULES:
         path = mod.replace(".", os.sep)
         assert path + ".py" in scanned or os.path.join(path, "__init__.py") in scanned, mod
 
@@ -156,7 +171,7 @@ def test_ast_scan_finds_no_forbidden_import():
             else:
                 continue
             for name in names:
-                if name.split(".")[0] in FORBIDDEN:
+                if name.split(".")[0] in FORBIDDEN + NOT_ON_THE_CARD:
                     offenders.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {name}")
     assert len(_python_files()) > 10
     assert offenders == []
@@ -193,6 +208,19 @@ def _build(entry):
     store = VectorStore(store_cfg, device="cpu")
     if entry == "FusedRetriever":
         return FusedRetriever(enc, store)
+    if entry == "LexicalIndex":
+        from docqa_tpu_torch.index.lexical import LexicalIndex
+
+        return LexicalIndex()
+    if entry == "HashEncoder":
+        from docqa_tpu_torch.engines.encoder import HashEncoder
+
+        return HashEncoder(enc_cfg)
+    if entry == "DocQARuntime":
+        from docqa_tpu_torch.config import load_config
+        from docqa_tpu_torch.service.app import DocQARuntime
+
+        return DocQARuntime(load_config(env={}, overrides={"ner.train_steps": 0}))
     gen = GenerateEngine(dec_cfg, GenerateConfig(), device="cpu")
     if entry == "EnginePool":
         from docqa_tpu_torch.engines.pool import EnginePool
@@ -204,7 +232,7 @@ def _build(entry):
 @pytest.mark.parametrize(
     "entry",
     ["EncoderEngine", "GenerateEngine", "VectorStore", "FusedRetriever", "QAService",
-     "EnginePool", "DeidEngine"],
+     "EnginePool", "DeidEngine", "LexicalIndex", "HashEncoder", "DocQARuntime"],
 )
 def test_entry_points_raise_without_cuda(entry):
     if torch.cuda.is_available():

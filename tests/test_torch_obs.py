@@ -19,6 +19,7 @@
   names, parents and counts."""
 
 import collections
+import contextlib
 import json
 import logging
 import os
@@ -337,7 +338,28 @@ DOC = ("Tél : 01 23 45 67 89 — consultation du 3 mars 2024.\n"
        "Patient suivi pour hypertension, traitement par lisinopril 10 mg.")
 
 
+@contextlib.contextmanager
+def _no_earlier_durations(rec):
+    """A finished trace is flagged ``slow_p95`` against the durations of the
+    recorder's earlier traces, which other test files in this worker leave
+    behind: hide them for the test, then put them back."""
+    with rec._lock:
+        saved = list(rec._durations)
+        rec._durations.clear()
+    try:
+        yield
+    finally:
+        with rec._lock:
+            rec._durations.clear()
+            rec._durations.extend(saved)
+
+
 def _doc_tree(o, pipe):
+    with _no_earlier_durations(o.DEFAULT_RECORDER):
+        return _traced_ingest(o, pipe)
+
+
+def _traced_ingest(o, pipe):
     ctx = o.new_trace("ingest")
     with ctx.activate():
         doc_id = pipe.ingest_document("note.txt", DOC.encode(), patient_id="P1").doc_id

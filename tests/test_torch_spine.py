@@ -125,7 +125,8 @@ def test_background_capped_below_lanes():
 
         t1 = s.submit("w1", bg, 1, stream="warmup")
         t2 = s.submit("w2", bg, 2, stream="warmup")
-        _wait_until(lambda: s.stats()["busy_background"] == 1)
+        # a lane counts the item busy before its closure runs: wait for both
+        _wait_until(lambda: s.stats()["busy_background"] == 1 and running)
         # one background item at most; the other lane still serves
         assert s.run("serve_probe", lambda: "ok") == "ok"
         assert running == [1] and s.queue_depth == 1
