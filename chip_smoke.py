@@ -120,9 +120,34 @@ Phases, each of which fails the run on any error (nothing is caught):
    cite the same on the card and the CPU, its decoded answers equal but
    for a tie (``decoded_tie_check``).
 
+10. the store's lifecycle and the single-sync /ask, run after phase 9's
+   HTTP rounds and before its module and tiny-runtime checks (which need
+   phase 3's weights freed): (a) phase 3's 1,000,000 rows in a store with
+   a 128-token sidecar (the notes' own tokens; each filler row a text of a
+   seeded pool, kept as its text so both paths read the same words);
+   ``FusedRAG`` behind ``QAService``: for each of the four questions no
+   synchronising call from the query encode's first launch to the
+   prefill's last (``torch.cuda.set_sync_debug_mode("error")`` around that
+   window, after a control ``.item()`` shows the mode raises), the packed
+   prompt ids and the hits equal the classic path's, the fused prefill's
+   first-step logits within ``FIRST_STEP_RTOL`` of the solo engine's on
+   the classic prompt and the delivered token their argmax, K1's launches
+   = encoder layers + decoder layers on the prefill path and decoder layers
+   x verify steps on the decode path; then 8 alternating fused and classic
+   /ask alone (both p50s reported).  (b) That store snapshotted and
+   restored through the native DNS1 codec (write and restore seconds and
+   bytes reported): rows, sidecar, metadata and version equal, the four
+   questions' top-10 ids equal.  (c) Phase 9's runtime with
+   ``data.work_dir`` and ``store.token_width=128`` over HTTP: 16 uploads,
+   a fused /ask alone, stop and boot again (count, version, registry rows
+   and the /ask's sources equal); two more uploads then a kill without the
+   final snapshot: on the next boot they read ``ERROR_INDEXING``; a DELETE
+   keeps one predecessor snapshot, an erasure none.
+
 The recorder is on by default, so phases 3-7 run traced too.  Prints the
 pool JSON line, the ingest JSON line, the obs JSON line, the app JSON line,
-the kernels JSON line, the nvidia-smi line, and last the ok line.  Phases 6 and 7 also
+the lifecycle JSON line, the kernels JSON line, the nvidia-smi line, and
+last the ok line.  Phases 6 and 7 also
 print each spine stage's queue wait; ``--spine-lanes N`` sets the spine's
 lane count.
 Exits non-zero when CUDA is unavailable or any phase fails.
@@ -144,6 +169,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import zipfile
@@ -164,9 +190,10 @@ from docqa_tpu_torch.engines import serve as serve_mod
 from docqa_tpu_torch.engines.encoder import EncoderEngine
 from docqa_tpu_torch.engines.generate import GenerateEngine
 from docqa_tpu_torch.engines.pool import EnginePool
+from docqa_tpu_torch.engines.retrieve import FusedRetriever
 from docqa_tpu_torch.engines.serve import ContinuousBatcher
 from docqa_tpu_torch.engines.spine import DispatchSpine, configure, get_spine
-from docqa_tpu_torch.index.store import VectorStore
+from docqa_tpu_torch.index.store import VectorStore, sidecar_rows
 from docqa_tpu_torch.models.decoder import (
     decoder_forward, init_decoder_params, init_kv_cache,
 )
@@ -3068,6 +3095,453 @@ def run_app_module_check(boot_timeout=300.0):
     return out
 
 
+# ---- phase 10: the store's lifecycle and the single-sync /ask -----------------
+
+LIFE_WIDTH = 128  # the sidecar's width (bench.py's)
+LIFE_PAIRS = 4  # 8 took phase 10 past 120 s on the card
+LIFE_POOL = 512  # seeded texts for the filler rows
+LIFE_RESTART_QUESTION = "Quel est le traitement du patient P002 ?"
+LIFE_LOST_DOCS = 2
+# a restored row is renormalized through add: within a few float32 ulps
+LIFE_ROW_TOL = 1e-6
+
+
+def _sidecar_rows(tokenizer, texts):
+    """The sidecar rows of ``texts`` as ingest writes them; none may be cut
+    (the classic prompt would hold the whole text)."""
+    rows, lens = sidecar_rows(tokenizer, texts, LIFE_WIDTH)
+    full = [len(tokenizer.encode(t, add_specials=False)) for t in texts]
+    if max(full, default=0) > LIFE_WIDTH:
+        raise AssertionError(f"a sidecar text of {max(full)} tokens exceeds {LIFE_WIDTH}")
+    return rows, lens
+
+
+def lifecycle_store(qa, dev):
+    """Phase 3's store (its first ``STORE_ROWS`` rows) with a ``LIFE_WIDTH``
+    token sidecar: the notes' own tokens, and for each filler row a text of
+    a seeded pool (kept as its ``text_content``, so the classic prompt
+    holds the same words the fused chain packs)."""
+    tok = qa.generator.tokenizer
+    vecs, meta = qa.store.vectors_snapshot()
+    vecs, meta = vecs[:STORE_ROWS], meta[:STORE_ROWS]
+    rng = np.random.default_rng(10)
+    pool = []
+    while len(pool) < LIFE_POOL:
+        text = datagen.generate_example(rng, datagen.TRAIN_LEXICONS)[0]
+        if len(tok.encode(text, add_specials=False)) <= LIFE_WIDTH:
+            pool.append(text)
+    pool_rows, pool_lens = _sidecar_rows(tok, pool)
+    pick = np.arange(len(meta)) % LIFE_POOL
+    rows, lens = pool_rows[pick], pool_lens[pick]
+    with_text = [i for i, m in enumerate(meta) if "text_content" in m]
+    note_rows, note_lens = _sidecar_rows(tok, [meta[i]["text_content"] for i in with_text])
+    rows[with_text], lens[with_text] = note_rows, note_lens
+    meta = [m if "text_content" in m else dict(m, text_content=pool[pick[i]])
+            for i, m in enumerate(meta)]
+    store = VectorStore(dataclasses.replace(qa.store.cfg, token_width=LIFE_WIDTH), device=dev)
+    store.add(vecs, meta, token_rows=rows, token_lens=lens)
+    return store, len(with_text)
+
+
+def _sync_window(rag, windows):
+    """Sync debug mode "error" from the fused chain's query encode (its
+    first launch) to the generator's mark that the prefill is issued (its
+    last launch; the decode loop's first exit test comes after it).
+    Returns the undo."""
+    enc, gen = rag.encoder, rag.generator
+    real_encode, real_mark = enc.encode_ids, gen._mark_prefill
+
+    def encode_ids(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        windows.append("open")
+        return real_encode(*a, **kw)
+
+    def mark_prefill():
+        torch.cuda.set_sync_debug_mode(0)
+        windows.append("closed")
+        return real_mark()
+
+    enc.encode_ids, gen._mark_prefill = encode_ids, mark_prefill
+
+    def undo():
+        torch.cuda.set_sync_debug_mode(0)
+        del enc.encode_ids, gen._mark_prefill
+
+    return undo
+
+
+def _tap_first_forward():
+    """Keep the logits of the generator's first decoder forward (the
+    prefill) until the returned ``untap`` is called."""
+    from docqa_tpu_torch.engines import generate as generate_mod
+
+    real, taken = generate_mod.decoder_forward, []
+
+    def tap(*a, **kw):
+        logits = real(*a, **kw)
+        if not taken:
+            taken.append(logits[0, -1].float().clone())
+        return logits
+
+    generate_mod.decoder_forward = tap
+    return taken, lambda: setattr(generate_mod, "decoder_forward", real)
+
+
+def _fused_launch_check(counts, before, gen, enc_layers):
+    """K1's launches of one fused ask: the query encode and the prefill on
+    the wgmma path, every verify step on the split-kv path."""
+    delta = {key: counts[key] - before.get(key, 0) for key in PATH_KEYS}
+    steps = gen.last_stats["forwards"] - 1
+    layers = gen.cfg.num_layers
+    want = {"flash_attention.prefill": enc_layers + layers,
+            "flash_attention.decode": steps * layers, "flash_attention.simt": 0}
+    if delta != want:
+        raise AssertionError(f"fused ask's launches by path {delta}, expected {want}")
+    return steps
+
+
+def _same_topk(a, b, tol=1e-3):
+    """Hit ids equal, but a hit tied with the k-th score (within ``tol``,
+    bf16 products) is interchangeable."""
+    for ra, rb in zip(a, b):
+        kth = rb[-1].score
+        strict = lambda hits: [h.row_id for h in hits if h.score > kth + tol]
+        if len(ra) != len(rb) or strict(ra) != strict(rb):
+            return False
+    return True
+
+
+def run_lifecycle_fused(counts, qa):
+    """Phase 10 (a): fused and classic /ask alone over phase 3's store with
+    a sidecar.  Returns (summary, launches, the store)."""
+    from docqa_tpu_torch.engines.rag_fused import FusedRAG
+
+    dev, gen = qa.generator.device, qa.generator
+    enc = qa.retriever.encoder
+    t0 = time.perf_counter()
+    store, n_notes = lifecycle_store(qa, dev)
+    build_s = time.perf_counter() - t0
+    log(f"  store with a {LIFE_WIDTH}-token sidecar: {store.count} rows ({n_notes} notes' "
+        f"own tokens, the rest from a seeded pool of {LIFE_POOL} texts), built in "
+        f"{build_s:.1f} s")
+    rag = FusedRAG(enc, store, gen, QA_TEMPLATE, k=3, device=dev)
+    qa_fused = QAService(enc, store, gen, k=3, device=dev, fused_rag=rag)
+    qa_classic = QAService(enc, store, gen, k=3, device=dev)
+    usable = gen.cfg.max_seq_len - gen.gen.max_new_tokens
+    enc_layers = enc.cfg.num_layers
+    # the check itself must catch a sync: a control
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.ones(1, device=dev).item()
+        caught = False
+    except RuntimeError:
+        caught = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not caught:
+        raise AssertionError("sync debug mode let .item() through: the check sees nothing")
+
+    launches = collections.Counter()
+    checks = []
+    for q in QUESTIONS:
+        before = dict(counts)
+        windows = []
+        undo = _sync_window(rag, windows)
+        taken, untap = _tap_first_forward()
+        try:
+            ans = rag.ask_submit(q)
+        finally:
+            untap()
+            undo()
+        steps = _fused_launch_check(counts, before, gen, enc_layers)
+        out = ans.resolve()
+        launches.update({k: counts[k] - before.get(k, 0) for k in counts})
+        if windows != ["open", "closed"]:
+            raise AssertionError(f"the sync window did not bracket the chain: {windows}")
+        fused_ids = ans.prompt_tokens()
+        hits = [h.row_id for h in ans.hits()]
+        classic_hits = [h.row_id for h in qa_classic.retriever.search_texts([q], k=3)[0]]
+        _prompt, classic_ids = first_step_prompt(qa_classic, q, usable)
+        if fused_ids != classic_ids:
+            raise AssertionError(f"fused prompt ids differ from the classic prompt's for {q!r}")
+        if hits != classic_hits:
+            raise AssertionError(f"fused hits {hits} differ from classic {classic_hits}")
+        token = int(ans._out_dev[0, 0])
+        rec = check_first_step("fused path", solo_first_step(gen, classic_ids), taken[0],
+                               token, len(classic_ids))
+        checks.append({"question": q, "prompt_tokens": len(fused_ids), "hits": hits,
+                       "fused_bucket": int(ans._prompt_dev.shape[1]),
+                       "classic_bucket": pick_bucket(len(classic_ids), gen.gen.prefill_buckets),
+                       "verify_steps": steps, "sources": out["sources"], **rec})
+    log(f"  {len(QUESTIONS)} fused asks: 0 synchronising calls from the query encode to the "
+        f"prefill (sync debug mode 'error'; a control .item() raised), prompt ids and hits "
+        f"equal the classic path's (prefill buckets {checks[0]['fused_bucket']} fused, "
+        f"{checks[0]['classic_bucket']} classic), K1 prefill = {enc_layers} + "
+        f"{gen.cfg.num_layers} and decode = {gen.cfg.num_layers} x verify steps each")
+
+    served = []
+    real_ask = rag.ask
+    rag.ask = lambda q, max_new_tokens=None: served.append(q) or real_ask(q, max_new_tokens)
+    fused_lat, classic_lat = [], []
+    try:
+        for i in range(LIFE_PAIRS):
+            q = QUESTIONS[i % len(QUESTIONS)]
+            before = dict(counts)
+            t = time.perf_counter()
+            out_f = qa_fused.ask(q)
+            fused_lat.append(time.perf_counter() - t)
+            _fused_launch_check(counts, before, gen, enc_layers)
+            t = time.perf_counter()
+            out_c = qa_classic.ask(q)
+            classic_lat.append(time.perf_counter() - t)
+            launches.update({k: counts[k] - before.get(k, 0) for k in counts})
+            _no_degraded("phase 10 /ask", [out_f, out_c])
+            if out_f["sources"] != out_c["sources"]:
+                raise AssertionError(f"fused and classic sources differ for {q!r}")
+    finally:
+        del rag.ask
+    if len(served) != LIFE_PAIRS or qa_fused.fused_rag is not rag:
+        raise AssertionError(f"the fused path served {len(served)} of {LIFE_PAIRS} asks")
+    summary = {
+        "store_build_s": build_s, "rows": store.count, "token_width": LIFE_WIDTH,
+        "checks": checks, "pairs": LIFE_PAIRS,
+        "fused_p50_s": statistics.median(fused_lat),
+        "classic_p50_s": statistics.median(classic_lat),
+        "fused_s": fused_lat, "classic_s": classic_lat,
+        "syncs_in_window": 0,
+    }
+    log(f"  {LIFE_PAIRS} alternating pairs alone, {gen.gen.max_new_tokens} new tokens: fused "
+        f"p50 {summary['fused_p50_s']:.3f} s, classic p50 {summary['classic_p50_s']:.3f} s")
+    return summary, launches, store
+
+
+def run_lifecycle_snapshot(qa, store):
+    """Phase 10 (b): a snapshot of the 1M-row store with its sidecar,
+    restored into a fresh store, through the native codec."""
+    from docqa_tpu_torch.runtime import native
+
+    dev = qa.generator.device
+    tmp = tempfile.mkdtemp(prefix="docqa_phase10_")
+    index = os.path.join(tmp, "index")
+    try:
+        runs0 = dict(native.RUNS)
+        t = time.perf_counter()
+        base = store.snapshot(index)
+        write_s = time.perf_counter() - t
+        nbytes = {name: os.path.getsize(os.path.join(base, name)) for name in os.listdir(base)}
+        t = time.perf_counter()
+        restored = VectorStore.restore(index, store.cfg, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        for op in ("write", "read"):
+            if native.RUNS[(op, "native")] != runs0.get((op, "native"), 0) + 1:
+                raise AssertionError(f"the snapshot's {op} did not run the native codec: "
+                                     f"{dict(native.RUNS)}")
+        n = store.count
+        if (restored.count, restored.version) != (n, store.version):
+            raise AssertionError(f"restored {restored.count} rows v{restored.version}, "
+                                 f"expected {n} v{store.version}")
+        shard = native.read_vectors(os.path.join(base, "vectors.dns"))
+        if not np.array_equal(shard, store._host[:n]):
+            raise AssertionError("the snapshot's vectors differ from the store's host rows")
+        row_err = float(np.abs(restored._host[:n] - store._host[:n]).max())
+        if row_err > LIFE_ROW_TOL:
+            raise AssertionError(f"restored rows differ by {row_err:.3e}")
+        for a, b in zip(store.token_sidecar(), restored.token_sidecar()):
+            if not torch.equal(a[:n], b[:n]):
+                raise AssertionError("the restored sidecar differs")
+        if restored.metadata_rows() != store.metadata_rows():
+            raise AssertionError("the restored metadata differs")
+        enc = qa.retriever.encoder
+        before = FusedRetriever(enc, store, device=dev).search_texts(list(QUESTIONS), k=10)
+        after = FusedRetriever(enc, restored, device=dev).search_texts(list(QUESTIONS), k=10)
+        ids_equal = ([[h.row_id for h in r] for r in before]
+                     == [[h.row_id for h in r] for r in after])
+        if not ids_equal and not _same_topk(after, before):
+            raise AssertionError("top-10 ids differ after the restore")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = {"write_s": write_s, "restore_s": restore_s, "bytes": nbytes,
+               "total_bytes": sum(nbytes.values()), "codec": "native",
+               "row_max_abs_err": row_err, "topk_ids_identical": ids_equal}
+    log(f"  snapshot of {n} rows + sidecar: {summary['total_bytes'] / 1e9:.3f} GB written in "
+        f"{write_s:.2f} s, restored in {restore_s:.2f} s (native codec both ways; "
+        f"{', '.join(f'{k} {v / 1e6:.1f} MB' for k, v in sorted(nbytes.items()))}); rows "
+        f"within {row_err:.2e}, sidecar, metadata and version equal; the four questions' "
+        f"top-10 ids {'identical' if ids_equal else 'equal under the tie rule'}")
+    return summary
+
+
+def _registry_rows(http, names):
+    """The listed documents as (upload index, status, chunks)."""
+    rows = http.json("GET /documents/", "/documents/")
+    return sorted((names[r["doc_id"]], r["status"], r["n_chunks"]) for r in rows
+                  if r["doc_id"] in names)
+
+
+def run_lifecycle_restart(counts, qa):
+    """Phase 10 (c): phase 9's runtime with ``data.work_dir`` and a sidecar,
+    over HTTP: ingest, a fused /ask alone, stop, boot again; then a kill
+    without the final snapshot, and an erasure."""
+    from docqa_tpu_torch.config import load_config
+    from docqa_tpu_torch.service.app import AppServer, DocQARuntime, make_app
+
+    gen = qa.generator
+    dev = gen.device
+    contract = load_contract()
+    work = tempfile.mkdtemp(prefix="docqa_phase10_work_")
+    cfg = dataclasses.replace(
+        load_config(env={}, overrides={
+            "ner.train_steps": 0,
+            "resilience.request_deadline_s": APP_DEADLINE_S,
+            "data.work_dir": work,
+            "data.snapshot_every": 10_000,  # no periodic snapshot: the kill loses
+            "store.token_width": LIFE_WIDTH,
+        }),
+        decoder=gen.cfg,
+    )
+    launches = collections.Counter()
+    summary = {}
+
+    def boot():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        rt = DocQARuntime(cfg, device=dev, decoder_params=gen.params).start()
+        server = AppServer(make_app(rt)).start()
+        return rt, server, _Http(server.port, contract), time.perf_counter() - t
+
+    def close(rt, server):
+        if not server.close(timeout=30):
+            raise AssertionError("the app server's threads did not end")
+        rt._warmup_thread.join(timeout=600)  # a warm-up cut by the stop only logs
+        rt.stop()
+
+    def fused_ask(rt, http):
+        """The runtime's ``QAService.ask`` alone (the fused chain: the
+        /ask route, as the reference's, submits to the pool), then the same
+        question over HTTP; both cite the same sources."""
+        rt._warmup_thread.join(timeout=600)  # the pool idle
+        served = []
+        real = rt.qa.fused_rag.ask
+        rt.qa.fused_rag.ask = lambda q, max_new_tokens=None: served.append(q) or real(q)
+        before = dict(counts)
+        try:
+            t = time.perf_counter()
+            out = rt.qa.ask(LIFE_RESTART_QUESTION)
+            ask_s = time.perf_counter() - t
+        finally:
+            del rt.qa.fused_rag.ask
+        _fused_launch_check(counts, before, rt.generator, rt.encoder.cfg.num_layers)
+        if served != [LIFE_RESTART_QUESTION] or out.get("degraded"):
+            raise AssertionError(f"the /ask did not take the fused path: {out}")
+        t = time.perf_counter()
+        over_http = http.json("POST /ask/", "/ask/", payload={"question": LIFE_RESTART_QUESTION})
+        http_s = time.perf_counter() - t
+        launches.update({k: counts[k] - before.get(k, 0) for k in counts})
+        if over_http.get("degraded") or over_http["sources"] != out["sources"]:
+            raise AssertionError(f"the /ask route cites {over_http}, the fused ask {out}")
+        return out, ask_s, http_s
+
+    def state(rt, http, names):
+        return {"count": rt.store.count, "version": rt.store.version,
+                "registry": _registry_rows(http, names)}
+
+    try:
+        rt, server, http, boot_s = boot()
+        try:
+            names = {}
+            for i, d in enumerate(app_notes(np.random.default_rng(21))):
+                body, ctype = _multipart(d["filename"], d["data"], d["fields"])
+                names[http.json("POST /ingest/", "/ingest/", body=body, ctype=ctype)["doc_id"]] = i
+            _wait_indexed(http, list(names))
+            out1, ask1_s, http1_s = fused_ask(rt, http)
+            state1 = state(rt, http, names)
+        finally:
+            close(rt, server)
+        rt, server, http, reboot_s = boot()
+        try:
+            state2 = state(rt, http, names)
+            out2, ask2_s, http2_s = fused_ask(rt, http)
+            if state2 != state1 or out2["sources"] != out1["sources"]:
+                raise AssertionError(f"the restart changed the state: {state1} -> {state2}, "
+                                     f"sources {out1['sources']} -> {out2['sources']}")
+            lost = {}
+            for i, d in enumerate(app_notes(np.random.default_rng(22))[:LIFE_LOST_DOCS]):
+                body, ctype = _multipart(d["filename"], d["data"], d["fields"])
+                lost[http.json("POST /ingest/", "/ingest/", body=body, ctype=ctype)["doc_id"]] = i
+            _wait_indexed(http, list(lost))
+            if not server.close(timeout=30):
+                raise AssertionError("the app server's threads did not end")
+            # a kill: every worker ends, the final snapshot never runs
+            if rt.sampler is not None:
+                rt.sampler.stop()
+            rt.pipeline.stop()
+            rt.batcher.stop()
+            rt._warmup_thread.join(timeout=60)
+            rt.broker.close()
+            rt.registry.close()
+        except BaseException:
+            close(rt, server)
+            raise
+        rt, server, http, kill_boot_s = boot()
+        try:
+            statuses = [http.json("GET /documents/{doc_id}", f"/documents/{d}")["status"]
+                        for d in lost]
+            if statuses != [reg.ERROR_INDEXING] * LIFE_LOST_DOCS or rt.store.count != state1["count"]:
+                raise AssertionError(f"after the kill: {statuses}, {rt.store.count} rows")
+            # a plain DELETE keeps one predecessor snapshot; an erasure none
+            index = os.path.join(work, "index")
+            kept = []
+            for doc_id, erase in zip(names, ("0", "1")):
+                out = http.json("DELETE /documents/{doc_id}",
+                                f"/documents/{doc_id}?erase={erase}")
+                kept.append(sorted(d for d in os.listdir(index) if d.startswith("index_v")))
+                if out["erased"] != (erase == "1") or not out["chunks_removed"]:
+                    raise AssertionError(f"DELETE answered {out}")
+            if [len(k) for k in kept] != [2, 1]:
+                raise AssertionError(f"snapshots after a delete, then an erasure: {kept}")
+        finally:
+            close(rt, server)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    summary = {
+        "uploads": len(names), "rows": state1["count"], "version": state1["version"],
+        "boot_s": boot_s, "reboot_s": reboot_s, "boot_after_kill_s": kill_boot_s,
+        "ask_s": [ask1_s, ask2_s], "http_ask_s": [http1_s, http2_s],
+        "new_tokens": cfg.generate.max_new_tokens, "sources_equal": True,
+        "answers_equal": out1["answer"] == out2["answer"],
+        "lost_docs": LIFE_LOST_DOCS, "lost_status": reg.ERROR_INDEXING,
+        "snapshots_after_delete_then_erase": [len(k) for k in kept],
+    }
+    log(f"  kill and restart over HTTP: {len(names)} uploads, {state1['count']} rows v"
+        f"{state1['version']}; fused QAService.ask {ask1_s:.2f} s, after the restart "
+        f"{ask2_s:.2f} s (the /ask route through the pool: {http1_s:.2f} / {http2_s:.2f} s, "
+        f"the same sources; {cfg.generate.max_new_tokens} new tokens) "
+        f"with the same count, version, registry rows and sources (answers "
+        f"{'equal' if summary['answers_equal'] else 'differ'}); boots {boot_s:.1f} / "
+        f"{reboot_s:.1f} / {kill_boot_s:.1f} s; {LIFE_LOST_DOCS} documents indexed after the "
+        f"last snapshot read {reg.ERROR_INDEXING} after a kill; a DELETE left 2 snapshots, "
+        f"an erasure 1")
+    return summary, launches
+
+
+def run_lifecycle_path(counts, qa):
+    """Phase 10: (a) fused against classic /ask, (b) a 1M-row snapshot and
+    restore, (c) kill and restart through HTTP.  Returns the summary and
+    the main path's launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts.clear()
+    fused, launches, store = run_lifecycle_fused(counts, qa)
+    persist = run_lifecycle_snapshot(qa, store)
+    del store
+    restart, restart_launches = run_lifecycle_restart(counts, qa)
+    launches.update(restart_launches)
+    return {"summary": {"fused": fused, "snapshot": persist, "restart": restart},
+            "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -3088,7 +3562,7 @@ def main(argv=None) -> int:
     t_smoke = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/9] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[1/10] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     build_logs = _kernels.build()
     build_s = time.perf_counter() - t0
@@ -3097,25 +3571,25 @@ def main(argv=None) -> int:
         for kernel, regs, spills in ptxas_summary(text):
             log(f"    {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
 
-    log("[2/9] kernels against their plain versions (bf16 and float32)")
+    log("[2/10] kernels against their plain versions (bf16 and float32)")
     cases = run_kernel_cases()
     cases += run_paged_cases()
 
-    log("[3/9] main path: QAService.ask at full width")
+    log("[3/10] main path: QAService.ask at full width")
     t_main = time.perf_counter()
     qa, params, enc_launches = build_main_path(_kernels.LAUNCHES)
     per_q, launches = run_main_path(_kernels.LAUNCHES, qa, params, enc_launches)
     main_s = time.perf_counter() - t_main
 
-    log("[4/9] reference: tiny float32 /ask on the card against the CPU")
+    log("[4/10] reference: tiny float32 /ask on the card against the CPU")
     reference = run_reference_check()
 
-    log("[5/9] main path: QAService.ask through the continuous batcher at full width")
+    log("[5/10] main path: QAService.ask through the continuous batcher at full width")
     t_batch = time.perf_counter()
     batcher_path = run_batcher_path(_kernels.LAUNCHES, qa, per_q)
     batcher_s = time.perf_counter() - t_batch
 
-    log("[6/9] main path: QAService.ask through the replica pool at full width")
+    log("[6/10] main path: QAService.ask through the replica pool at full width")
     t_pool = time.perf_counter()
     get_spine().reset_stats()
     pool_path = run_pool_path(_kernels.LAUNCHES, qa)
@@ -3123,7 +3597,7 @@ def main(argv=None) -> int:
     pool_path["summary"]["spine"] = _spine_waits(get_spine().stats())
     _log_spine_waits("phase 6", pool_path["summary"]["spine"])
 
-    log("[7/9] ingest: DocumentPipeline at full width, then /ask over what it indexed")
+    log("[7/10] ingest: DocumentPipeline at full width, then /ask over what it indexed")
     t_ingest = time.perf_counter()
     get_spine().reset_stats()
     ingest_path = run_ingest_path(_kernels.LAUNCHES, qa)
@@ -3131,23 +3605,37 @@ def main(argv=None) -> int:
     ingest_path["summary"]["spine"] = _spine_waits(get_spine().stats())
     _log_spine_waits("phase 7", ingest_path["summary"]["spine"])
 
-    log("[8/9] obs: traces, stage device time, MFU and costs over the pool, "
+    log("[8/10] obs: traces, stage device time, MFU and costs over the pool, "
         "and an ingested document's timeline")
     t_obs = time.perf_counter()
     obs_path = run_obs_path(_kernels.LAUNCHES, qa)
     obs_s = time.perf_counter() - t_obs
 
-    log("[9/9] the app: DocQARuntime behind its stdlib HTTP front at full width, "
+    log("[9/10] the app: DocQARuntime behind its stdlib HTTP front at full width, "
         "driven over HTTP")
     t_app = time.perf_counter()
     get_spine().reset_stats()
     app_path = run_app_path(_kernels.LAUNCHES, qa, ingest_path["summary"]["docs_per_s"])
+    app_s = time.perf_counter() - t_app
+
+    log("[10/10] the store's lifecycle and the single-sync /ask: fused against classic "
+        "/ask over a 1M-row store with a token sidecar, its snapshot and restore, and a "
+        "runtime killed and restarted through HTTP")
+    t_life = time.perf_counter()
+    get_spine().reset_stats()
+    life_path = run_lifecycle_path(_kernels.LAUNCHES, qa)
+    life_s = time.perf_counter() - t_life
+    log(f"  phase 10 took {life_s:.1f} s")
+
+    log("[9/10, continued] the app module as a user starts it, and a tiny runtime on the "
+        "card against the CPU")
+    t_app = time.perf_counter()
     del qa, params
     gc.collect()
     torch.cuda.empty_cache()
     app_path["summary"]["module"] = run_app_module_check()
     app_path["summary"]["reference"] = run_app_reference_check()
-    app_s = time.perf_counter() - t_app
+    app_s += time.perf_counter() - t_app
     # launches of the main-path runs (each counted from 0 around its run)
     path_launches = collections.Counter(launches["total"])
     path_launches.update(batcher_path["launches"])
@@ -3156,6 +3644,7 @@ def main(argv=None) -> int:
     path_launches.update(ingest_path["round_launches"])
     path_launches.update(obs_path["launches"])
     path_launches.update(app_path["launches"])
+    path_launches.update(life_path["launches"])
 
     def entry(name, source, counter, timed, path=None):
         head = next(c for c in cases if c["case"] == timed)
@@ -3204,6 +3693,7 @@ def main(argv=None) -> int:
                 "ingest_path": ingest_path, "ingest_path_s": ingest_s,
                 "obs_path": obs_path, "obs_path_s": obs_s,
                 "app_path": app_path, "app_path_s": app_s,
+                "lifecycle_path": life_path, "lifecycle_path_s": life_s,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
     print(json.dumps({"ingest": {
@@ -3220,6 +3710,7 @@ def main(argv=None) -> int:
             "document_spans")
     } | {"phase_s": obs_s}}))
     print(json.dumps({"app": {**app_path["summary"], "phase_s": app_s}}))
+    print(json.dumps({"lifecycle": {**life_path["summary"], "phase_s": life_s}}))
     log(f"smoke: {time.perf_counter() - t_smoke:.1f} s from the card query to the kernels line")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -235,8 +235,9 @@ class StoreConfig:
     # a DELETE compacts the store once tombstones reach this share of its
     # rows; 0 disables the automatic compaction
     compact_threshold: float = 0.25
-    # per-row generator-token sidecar of the fused RAG path; not in this
-    # port yet, so only 0 is accepted (index/store.py)
+    # per-row generator-token sidecar (index/store.py): > 0 keeps each
+    # row's chunk as this many generator token ids on the device and
+    # enables the single-sync fused /ask (engines/rag_fused.py)
     token_width: int = 0
 
 
@@ -285,13 +286,23 @@ class SummarizerConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """Startup data lifecycle: ``work_dir`` is the persistence root
-    (snapshots, journal, on-disk registry; not in this port yet, so the
-    runtime refuses a set value), ``bootstrap_dir`` a CSV knowledge base
-    indexed on first boot."""
+    """Startup data lifecycle.
+
+    * ``work_dir``: the persistence root.  The store snapshots under
+      ``<work_dir>/index`` and restores from it on boot, the broker
+      journals under ``<work_dir>/journal``, the default registry lives in
+      ``<work_dir>/registry.db`` and the trained tagger's cache in
+      ``<work_dir>/ner.npz``.  None keeps everything in memory.
+    * ``bootstrap_dir``: a CSV knowledge base indexed on first boot (only
+      into an empty store).
+    * ``snapshot_every``: snapshot after this many indexed documents; 0
+      turns the periodic snapshot off (a DELETE and a stop still
+      snapshot when ``work_dir`` is set).
+    """
 
     work_dir: Optional[str] = None
     bootstrap_dir: Optional[str] = None
+    snapshot_every: int = 64
 
 
 @dataclass(frozen=True)

@@ -90,11 +90,12 @@ class EncoderEngine:
             "encode", lambda key: encoder_cost(cfg, *key[1:])
         )
 
-    def encode_ids(self, ids: np.ndarray, lengths: np.ndarray) -> torch.Tensor:
-        """Marshalled [B, S] ids -> [B, embed_dim] f32 embeddings, left on
+    def encode_ids(self, ids, lengths) -> torch.Tensor:
+        """Marshalled [B, S] ids and [B] lengths (numpy arrays, or tensors
+        already on the device) -> [B, embed_dim] f32 embeddings, left on
         the device (the forward alone: no spine item)."""
-        ids_t = torch.from_numpy(ids).long().to(self.device)
-        len_t = torch.from_numpy(lengths).to(self.device)
+        ids_t = torch.as_tensor(ids).long().to(self.device)
+        len_t = torch.as_tensor(lengths).to(self.device)
         with torch.inference_mode():
             out = encode_batch(self.params, self.cfg, ids_t, len_t)
         with self._count_lock:

@@ -12,10 +12,14 @@ so the output equals plain greedy decoding.
 
 A generation is one dispatch-spine work item (stage ``generate``: upload,
 the whole loop, the fetch) inside a ``generate`` span.
+:meth:`GenerateEngine.generate_device` is the device-prompt entry of the
+fused RAG path: prefill and decode start from a prompt that is already on
+the device, which is never copied to the host.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -104,8 +108,16 @@ class GenerateEngine:
         if params is None:
             params = weights.host_init_decoder_params(cfg, seed)
         self.params = weights.to_torch(params, self.device, torch_dtype(cfg.dtype))
-        # timings and counts of the last generate_ids call
+        # timings and counts of the last generation
         self.last_stats: Dict[str, float] = {}
+        self._seed = seed
+        self._request_counter = itertools.count()
+
+    def next_request_seed(self) -> int:
+        """Counter-minted per-request sampling seed, ``seed * 100_003 +
+        counter`` as the reference mints its keys: concurrent submitters
+        get distinct seeds (``next`` on ``itertools.count`` is atomic)."""
+        return self._seed * 100_003 + next(self._request_counter)
 
     # ---- plain decode ---------------------------------------------------
 
@@ -246,6 +258,27 @@ class GenerateEngine:
         self.last_stats["prefill_s"] = time.perf_counter() - self._t0
         self.last_stats["forwards"] = 1
 
+    # ---- device-prompt entry ------------------------------------------------
+
+    def generate_device(self, ids: torch.Tensor, lengths: torch.Tensor,
+                        max_new: int, temperature: float, seed: int = 0):
+        """Prefill and decode from prompts already on the device: ``ids``
+        [b, L] (padded past ``lengths``), ``lengths`` [b] int32.  Greedy
+        with ``speculative_k >= 2`` speculates; otherwise plain decoding
+        samples with a ``torch.Generator`` seeded with ``seed``.  Returns
+        (tokens [b, >= max_new], tokens emitted [b]) on the device; the
+        prompt is never fetched, and nothing between the prefill's first
+        launch and its last waits on the device."""
+        self._t0 = time.perf_counter()
+        with torch.inference_mode():
+            ids, lengths = ids.long(), lengths.to(torch.int32)
+            spec_k = self.gen.speculative_k
+            if temperature == 0.0 and spec_k >= 2:
+                return self._generate_spec(ids, lengths, max_new, spec_k)
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(int(seed))
+            return self._generate_plain(ids, lengths, max_new, temperature, generator)
+
     # ---- host API ---------------------------------------------------------
 
     def generate_ids(
@@ -291,21 +324,13 @@ class GenerateEngine:
         def _generate_on_device():
             """The device phase (one spine work item): upload, the whole
             generation, and the start of the copy to the host."""
-            with torch.inference_mode():
-                ids_t = torch.from_numpy(ids).to(self.device)
-                len_t = torch.from_numpy(lengths).to(self.device)
-                spec_k = self.gen.speculative_k
-                if temperature == 0.0 and spec_k >= 2:
-                    o, n = self._generate_spec(ids_t, len_t, max_new, spec_k)
-                else:
-                    generator = torch.Generator(device=self.device)
-                    generator.manual_seed(int(seed))
-                    o, n = self._generate_plain(
-                        ids_t, len_t, max_new, temperature, generator
-                    )
-                return to_host(o[:b]), to_host(n[:b])
+            o, n = self.generate_device(
+                torch.from_numpy(ids).to(self.device),
+                torch.from_numpy(lengths).to(self.device),
+                max_new, temperature, seed,
+            )
+            return to_host(o[:b]), to_host(n[:b])
 
-        self._t0 = time.perf_counter()
         with span("generate", DEFAULT_REGISTRY):
             out, n_emitted = spine_run(
                 "generate", _generate_on_device, device=self.device

@@ -14,15 +14,30 @@ renumbers the rows.  Secondary indexes (the lexical tier) register as index
 sinks and are told of every add, delete and compaction inside the same
 locked mutation.
 
-Snapshots and the fused RAG path's token sidecar
-(``StoreConfig.token_width``) are later slices.  Device writes are
-dispatch-spine work items (``store_add``), the host-query search
-(:meth:`VectorStore.search`) a ``store_search`` item; the text-query search
-is the fused retriever's ``retrieve`` item.
+The token sidecar (``StoreConfig.token_width`` > 0) keeps each row's chunk
+as generator token ids (``[capacity, W]`` int32) and their true lengths
+(``[capacity]``), a host master copy and a device copy that stay row-aligned
+with the vectors through growth, tombstones and compaction: the device-side
+prompt source of the fused RAG path (``engines/rag_fused.py``).
+
+:meth:`VectorStore.snapshot` publishes the host copies atomically under a
+directory (the vectors as a DNS1 shard through ``runtime/native.py``, the
+metadata as JSON, the sidecar as ``.npy``, a manifest, then ``LATEST``);
+:meth:`VectorStore.restore` reads them back through :meth:`add`, so the
+index sinks see restored rows as any others.  Both directions read the
+reference's snapshot layout.
+
+Device writes are dispatch-spine work items (``store_add``), the host-query
+search (:meth:`VectorStore.search`) a ``store_search`` item; the text-query
+search is the fused retriever's ``retrieve`` item.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import shutil
+import tempfile
 import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -33,6 +48,7 @@ import torch
 from docqa_tpu_torch.config import StoreConfig
 from docqa_tpu_torch.engines.spine import spine_run, to_host
 from docqa_tpu_torch.ops._kernels import is_device_fault
+from docqa_tpu_torch.runtime import native
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger, span
 from docqa_tpu_torch.utils import resolve_device, round_up, torch_dtype
 
@@ -77,6 +93,20 @@ def search_single(vectors: torch.Tensor, queries: torch.Tensor, count: int,
     return vals, ids
 
 
+def sidecar_rows(tokenizer, texts: Sequence[str], width: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Each text's generator tokens (no specials) cut to ``width``: the
+    token sidecar's ``[n, width]`` int32 rows and their lengths, as ingest
+    and the bootstrap write them."""
+    rows = np.zeros((len(texts), width), np.int32)
+    lens = np.zeros((len(texts),), np.int32)
+    for i, text in enumerate(texts):
+        ids = tokenizer.encode(text, add_specials=False)[:width]
+        rows[i, : len(ids)] = ids
+        lens[i] = len(ids)
+    return rows, lens
+
+
 def _date_code(value: Optional[str]) -> int:
     """ISO ``YYYY-MM-DD`` (or any prefix-ISO string) -> sortable int code;
     anything unparseable -> -1 ('no date').  The reference's."""
@@ -103,11 +133,6 @@ class VectorStore:
 
     def __init__(self, cfg: StoreConfig, device="cuda"):
         self.device = resolve_device(device)
-        if cfg.token_width:
-            raise ValueError(
-                "the token sidecar (StoreConfig.token_width) comes with the "
-                "fused RAG slice; only token_width=0 is supported"
-            )
         self.cfg = cfg
         self._lock = threading.RLock()
         self._meta: List[Dict[str, Any]] = []
@@ -123,6 +148,16 @@ class VectorStore:
         # secondary indexes kept row-aligned with this store (on_add /
         # on_delete / on_compact), told inside the mutation's lock
         self._index_sinks: List[Any] = []
+        W = cfg.token_width
+        if W:
+            self._tok_host = np.zeros((0, W), np.int32)
+            self._tok_len_host = np.zeros((0,), np.int32)
+            self._tok_dev = torch.zeros(
+                (self._capacity, W), dtype=torch.int32, device=self.device
+            )
+            self._tok_len_dev = torch.zeros(
+                (self._capacity,), dtype=torch.int32, device=self.device
+            )
 
     def _reset_columns(self) -> None:
         # columnar metadata: code -1 == absent, one code space per column
@@ -246,7 +281,52 @@ class VectorStore:
                           device=self.device)
         buf[: self._count] = self._dev[: self._count]
         self._dev = buf
+        if self.cfg.token_width:
+            tok = torch.zeros((new_cap, self.cfg.token_width),
+                              dtype=torch.int32, device=self.device)
+            tok[: self._count] = self._tok_dev[: self._count]
+            tok_len = torch.zeros((new_cap,), dtype=torch.int32, device=self.device)
+            tok_len[: self._count] = self._tok_len_dev[: self._count]
+            self._tok_dev, self._tok_len_dev = tok, tok_len
         self._capacity = new_cap
+
+    def _sidecar_block(self, n: int, token_rows, token_lens):
+        """``[n, W]`` token ids and ``[n]`` lengths for an add: rows longer
+        than the width are truncated, absent rows stay empty (the fused
+        path then packs that chunk as zero tokens)."""
+        W = self.cfg.token_width
+        block = np.zeros((n, W), np.int32)
+        lens = np.zeros((n,), np.int32)
+        if token_rows is not None:
+            token_rows = np.asarray(token_rows, np.int32)
+            w = min(W, token_rows.shape[1])
+            block[:, :w] = token_rows[:, :w]
+            if token_lens is None:
+                token_lens = (token_rows != 0).sum(axis=1)
+            lens[:] = np.minimum(np.asarray(token_lens, np.int32), W)
+        return block, lens
+
+    def _append_sidecar_host(self, start: int, block, lens) -> None:
+        n = len(lens)
+        if self._tok_host.shape[0] < start + n:
+            grow = max(start + n, 2 * max(1, self._tok_host.shape[0]))
+            th = np.zeros((grow, self.cfg.token_width), np.int32)
+            th[: self._tok_host.shape[0]] = self._tok_host
+            tl = np.zeros((grow,), np.int32)
+            tl[: self._tok_len_host.shape[0]] = self._tok_len_host
+            self._tok_host, self._tok_len_host = th, tl
+        self._tok_host[start : start + n] = block
+        self._tok_len_host[start : start + n] = lens
+
+    def token_sidecar(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """(tokens [capacity, W] int32, lengths [capacity] int32) device
+        tensors read under one lock acquisition, or None when the sidecar
+        is off.  Rows below the count never change until a compaction,
+        which swaps in new tensors."""
+        if not self.cfg.token_width:
+            return None
+        with self._lock:
+            return self._tok_dev, self._tok_len_dev
 
     def add(
         self,
@@ -259,15 +339,10 @@ class VectorStore:
         global row ids.  Visible to searches immediately, from any stream:
         on a card the call returns once the rows are on the device.
 
-        ``token_rows`` / ``token_lens`` take the reference's signature for
-        the token sidecar, which this port does not have yet: passing
-        either raises."""
-        if token_rows is not None or token_lens is not None:
-            raise ValueError(
-                "token_rows/token_lens need the token sidecar "
-                f"(StoreConfig.token_width, here {self.cfg.token_width}), "
-                "which comes with the fused RAG slice"
-            )
+        ``token_rows`` / ``token_lens``: each row's generator token ids for
+        the sidecar (``cfg.token_width``); ignored when the sidecar is off.
+        Without ``token_lens`` a row's length is its count of nonzero
+        ids."""
         vectors = np.asarray(vectors, np.float32)
         if vectors.ndim != 2 or vectors.shape[1] != self.cfg.dim:
             raise ValueError(
@@ -286,6 +361,9 @@ class VectorStore:
                 host[:start] = self._host[:start]
                 self._host = host
             self._host[start : start + n] = vectors
+            if self.cfg.token_width:
+                block, lens = self._sidecar_block(n, token_rows, token_lens)
+                self._append_sidecar_host(start, block, lens)
 
             def _append_on_device():
                 self._grow_to(start + n)
@@ -293,6 +371,13 @@ class VectorStore:
                 self._dev[start : start + n] = torch.from_numpy(vectors).to(
                     device=self.device, dtype=self._dtype
                 )
+                if self.cfg.token_width:
+                    self._tok_dev[start : start + n] = torch.from_numpy(block).to(
+                        self.device
+                    )
+                    self._tok_len_dev[start : start + n] = torch.from_numpy(
+                        lens
+                    ).to(self.device)
 
             # the submitter holds the lock while blocked; the item takes
             # none.  spine_run returns once the item's device work has
@@ -376,6 +461,9 @@ class VectorStore:
             keep = ~self._deleted[:count]
             kept = int(keep.sum())
             self._host = self._host[:count][keep].copy()
+            if self.cfg.token_width:
+                self._tok_host = self._tok_host[:count][keep].copy()
+                self._tok_len_host = self._tok_len_host[:count][keep].copy()
             self._meta = [md for md, k in zip(self._meta, keep) if k]
             self._reset_columns()
             self._append_columns(0, self._meta)
@@ -389,6 +477,16 @@ class VectorStore:
                     device=self.device, dtype=self._dtype
                 )
                 self._dev = buf
+                if self.cfg.token_width:
+                    tok = torch.zeros((self._capacity, self.cfg.token_width),
+                                      dtype=torch.int32, device=self.device)
+                    tok[:kept] = torch.from_numpy(self._tok_host[:kept]).to(self.device)
+                    tok_len = torch.zeros((self._capacity,), dtype=torch.int32,
+                                          device=self.device)
+                    tok_len[:kept] = torch.from_numpy(
+                        self._tok_len_host[:kept]
+                    ).to(self.device)
+                    self._tok_dev, self._tok_len_dev = tok, tok_len
 
             spine_run("store_add", _reupload_on_device, device=self.device)
             self._version += 1
@@ -466,3 +564,99 @@ class VectorStore:
         round trip."""
         with self._lock:
             return list(self._meta[: self._count])
+
+    def host_rows(self, ids: np.ndarray) -> np.ndarray:
+        """L2-normalized float32 vectors of the given row ids from the host
+        master copy.  Rows the caller holds ids for are immutable until a
+        compaction, and a reallocation publishes a whole new array."""
+        return self._host[np.asarray(ids, np.int64)]
+
+    def vectors_snapshot(
+        self, start: int = 0
+    ) -> Tuple[np.ndarray, List[Dict[str, Any]]]:
+        """Consistent (vectors, metadata) of rows [start, count) under one
+        lock acquisition."""
+        with self._lock:
+            return self._host[start : self._count].copy(), list(
+                self._meta[start : self._count]
+            )
+
+    def snapshot(self, directory: str, keep_previous: bool = True) -> str:
+        """Publish the store under ``directory`` atomically and return the
+        published path: vectors (float32 DNS1 shard), ``metadata.json``,
+        the sidecar's ``tokens.npy`` / ``token_lens.npy`` and
+        ``manifest.json`` are written into a temporary directory, renamed
+        to ``index_v<version>`` (replacing a stale directory of the same
+        version: after a failed restore a fresh store counts from 0 again),
+        then ``LATEST`` is replaced.  Superseded versions are pruned,
+        keeping one predecessor unless ``keep_previous`` is False (after an
+        erasure the predecessor still holds the erased rows)."""
+        os.makedirs(directory, exist_ok=True)
+        with self._lock:
+            count, version = self._count, self._version
+            vectors = self._host[:count].copy()
+            meta = list(self._meta)
+            tokens = token_lens = None
+            if self.cfg.token_width:
+                tokens = self._tok_host[:count].copy()
+                token_lens = self._tok_len_host[:count].copy()
+        base = os.path.join(directory, f"index_v{version}")
+        tmp = tempfile.mkdtemp(dir=directory)
+        vec_path = native.write_vectors(os.path.join(tmp, "vectors"), vectors)
+        with open(os.path.join(tmp, "metadata.json"), "w") as f:
+            json.dump(meta, f)
+        manifest = {
+            "version": version,
+            "count": count,
+            "dim": self.cfg.dim,
+            "vectors": os.path.basename(vec_path),
+        }
+        if tokens is not None:
+            np.save(os.path.join(tmp, "tokens.npy"), tokens)
+            np.save(os.path.join(tmp, "token_lens.npy"), token_lens)
+            manifest["tokens"] = "tokens.npy"
+            manifest["token_width"] = self.cfg.token_width
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(base):
+            shutil.rmtree(base)
+        os.replace(tmp, base)
+        latest = os.path.join(directory, "LATEST")
+        with open(latest + ".tmp", "w") as f:
+            f.write(f"index_v{version}")
+        os.replace(latest + ".tmp", latest)
+        versions = sorted(
+            (
+                int(d.split("index_v", 1)[1])
+                for d in os.listdir(directory)
+                if d.startswith("index_v") and d.split("index_v", 1)[1].isdigit()
+            ),
+            reverse=True,
+        )
+        for old in versions[2 if keep_previous else 1:]:
+            shutil.rmtree(os.path.join(directory, f"index_v{old}"), ignore_errors=True)
+        return base
+
+    @classmethod
+    def restore(cls, directory: str, cfg: StoreConfig, device="cuda") -> "VectorStore":
+        """A new store holding the snapshot ``LATEST`` names under
+        ``directory``, its version included.  The sidecar is restored when
+        both the config and the snapshot have one."""
+        with open(os.path.join(directory, "LATEST")) as f:
+            base = os.path.join(directory, f.read().strip())
+        with open(os.path.join(base, "manifest.json")) as f:
+            manifest = json.load(f)
+        vectors = native.read_vectors(
+            os.path.join(base, manifest.get("vectors", "vectors.npy"))
+        )
+        with open(os.path.join(base, "metadata.json")) as f:
+            meta = json.load(f)
+        store = cls(cfg, device=device)
+        tokens = token_lens = None
+        if cfg.token_width and manifest.get("tokens"):
+            tokens = np.load(os.path.join(base, manifest["tokens"]))
+            token_lens = np.load(os.path.join(base, "token_lens.npy"))
+        if len(vectors):
+            store.add(vectors, meta, token_rows=tokens, token_lens=token_lens)
+        store._version = manifest["version"]
+        return store

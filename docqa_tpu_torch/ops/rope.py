@@ -14,9 +14,9 @@ def rope_angles(head_dim: int, max_len: int, theta: float = 10000.0,
         torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
         / head_dim
     )
-    inv_freq = 1.0 / torch.pow(
-        torch.tensor(theta, dtype=torch.float32, device=device), exponent
-    )
+    # a Python-float base: a tensor of theta made on the card would be a
+    # host-to-device copy, which waits for the device on every forward
+    inv_freq = 1.0 / torch.pow(float(theta), exponent)
     pos = torch.arange(max_len, dtype=torch.float32, device=device)
     angles = torch.outer(pos, inv_freq)  # [max_len, head_dim/2]
     return torch.cos(angles), torch.sin(angles)

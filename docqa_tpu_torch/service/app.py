@@ -32,6 +32,18 @@ closes the connection and stops serving, and :func:`serve` re-raises it.
 The runtime's warm-up thread keeps its fault for :meth:`DocQARuntime.stop`
 to raise.
 
+Persistence, as in the reference, rides ``data.work_dir``: the store
+restores from ``<work_dir>/index`` on boot (a corrupt or mismatched
+snapshot logs and serves a fresh store; a device fault raises), the broker
+journals under ``<work_dir>/journal``, the default registry lives in
+``<work_dir>/registry.db``, registry rows INDEXED whose vectors the
+restored snapshot lacks are re-marked ``ERROR_INDEXING``, and the store
+snapshots after a bootstrap, every ``data.snapshot_every`` indexed
+documents, after a DELETE (an erasure keeps no predecessor) and at
+:meth:`DocQARuntime.stop`.  With ``store.token_width > 0`` (and a real
+encoder and decoder) ``/ask`` takes the single-sync fused chain while the
+pool is idle (``engines/rag_fused.py``).
+
 Configuration that needs a part of the reference this port does not have
 yet raises at boot and names its ROADMAP item (:func:`refuse_unported`).
 Routes whose subsystem is not ported answer as the reference does when
@@ -95,12 +107,6 @@ def refuse_unported(cfg: Config) -> None:
         (cfg.store.serving_index == "tiered",
          "store.serving_index='tiered' needs the IVF and tiered search "
          "(ROADMAP queue 1, item 5)"),
-        (bool(cfg.data.work_dir),
-         "data.work_dir needs the store's snapshots and restore "
-         "(ROADMAP queue 1, item 5)"),
-        (cfg.store.token_width > 0,
-         "store.token_width > 0 needs the fused RAG path "
-         "(ROADMAP queue 1, item 4)"),
         (cfg.summarizer.backend == "seq2seq" and not cfg.flags.use_fake_llm,
          "summarizer.backend='seq2seq' needs the seq2seq summarizer "
          "(ROADMAP queue 1, item 7)"),
@@ -141,6 +147,7 @@ class DocQARuntime:
         from docqa_tpu_torch.engines.encoder import EncoderEngine, HashEncoder
         from docqa_tpu_torch.engines.generate import GenerateEngine
         from docqa_tpu_torch.engines.pool import EnginePool
+        from docqa_tpu_torch.engines.rag_fused import FusedRAG
         from docqa_tpu_torch.engines.retrieve import FusedRetriever
         from docqa_tpu_torch.engines.router import AnswerRouter
         from docqa_tpu_torch.engines.summarize import SummarizeEngine
@@ -148,7 +155,7 @@ class DocQARuntime:
         from docqa_tpu_torch.index.store import VectorStore
         from docqa_tpu_torch.service.broker import make_broker
         from docqa_tpu_torch.service.pipeline import DocumentPipeline
-        from docqa_tpu_torch.service.qa import QAService
+        from docqa_tpu_torch.service.qa import QA_TEMPLATE, QAService
         from docqa_tpu_torch.service.registry import DocumentRegistry
         from docqa_tpu_torch.service.synthesis import (
             SynthesisService,
@@ -185,7 +192,30 @@ class DocQARuntime:
             self.encoder = HashEncoder(cfg.encoder, device=dev)
         else:
             self.encoder = EncoderEngine(cfg.encoder, device=dev)
-        self.store = VectorStore(cfg.store, device=dev)
+        work_dir = cfg.data.work_dir
+        # restore on boot; a corrupt or mismatched snapshot logs and serves
+        # a fresh store, as the reference's does, but a device fault raises
+        self._index_dir = os.path.join(work_dir, "index") if work_dir else None
+        self._docs_since_snapshot = 0
+        self._snapshot_lock = threading.Lock()
+        self.store = None
+        if self._index_dir and os.path.exists(
+            os.path.join(self._index_dir, "LATEST")
+        ):
+            try:
+                self.store = VectorStore.restore(
+                    self._index_dir, cfg.store, device=dev
+                )
+                log.info(
+                    "restored index v%d (%d rows) from %s",
+                    self.store.version, self.store.count, self._index_dir,
+                )
+            except Exception as e:
+                if is_device_fault(e):
+                    raise
+                log.exception("index restore failed; starting with an empty store")
+        if self.store is None:
+            self.store = VectorStore(cfg.store, device=dev)
         # the lexical tier is fed by the store's sink seam, registered
         # before any bootstrap indexing
         self.lexical = None
@@ -200,8 +230,11 @@ class DocQARuntime:
         if cfg.ner.train_steps > 0 or cfg.ner.params_path:
             # loads the trained tagger's cache or raises: the port does
             # not train at boot (ROADMAP queue 1, item 6)
-            params_path = cfg.ner.params_path or os.path.join(
-                os.path.expanduser("~"), ".cache", "docqa_tpu", "ner.npz"
+            params_path = cfg.ner.params_path or (
+                os.path.join(work_dir, "ner.npz") if work_dir
+                else os.path.join(
+                    os.path.expanduser("~"), ".cache", "docqa_tpu", "ner.npz"
+                )
             )
             self.deid = DeidEngine.trained(
                 cfg.ner, params_path=params_path, steps=cfg.ner.train_steps,
@@ -221,8 +254,21 @@ class DocQARuntime:
             self.generator, cfg.summarizer,
             use_fake=cfg.flags.use_fake_llm, batcher=self.batcher,
         )
+        if journal_dir is None and work_dir:
+            # un-acked pipeline messages replay after a crash
+            journal_dir = os.path.join(work_dir, "journal")
         self.broker = make_broker(cfg.broker, journal_dir=journal_dir)
-        self.registry = DocumentRegistry(cfg.registry.url)
+        registry_url = cfg.registry.url
+        if registry_url == "sqlite://" and work_dir:
+            # an index that outlives its registry would serve vectors for
+            # documents /documents/ no longer lists
+            os.makedirs(work_dir, exist_ok=True)
+            registry_url = "sqlite:///" + os.path.join(work_dir, "registry.db")
+        self.registry = DocumentRegistry(registry_url)
+        # generator tokens at index time feed the fused chain's sidecar
+        prompt_tokenizer = (
+            self.generator.tokenizer if cfg.store.token_width else None
+        )
         http_extractor = None
         if cfg.service.extractor_url:
             from docqa_tpu_torch.service.extract import make_http_extractor
@@ -230,17 +276,39 @@ class DocQARuntime:
             http_extractor = make_http_extractor(cfg.service.extractor_url)
         self.pipeline = DocumentPipeline(
             cfg, self.broker, self.registry, self.deid, self.encoder,
-            self.store, http_extractor=http_extractor, breakers=self.breakers,
+            self.store, http_extractor=http_extractor,
+            on_indexed=self._on_indexed, breakers=self.breakers,
+            prompt_tokenizer=prompt_tokenizer,
         )
+        if self._index_dir:
+            self._reconcile_registry()
         if cfg.data.bootstrap_dir and self.store.count == 0:
             from docqa_tpu_torch.service.bootstrap import bootstrap_csv_dir
 
-            bootstrap_csv_dir(cfg.data.bootstrap_dir, self.encoder, self.store)
+            n = bootstrap_csv_dir(
+                cfg.data.bootstrap_dir, self.encoder, self.store,
+                prompt_tokenizer=prompt_tokenizer,
+            )
+            if n and self._index_dir:
+                self._snapshot()
         # exact serving retrieves dense, as the reference's does: its
         # retrieve modes ride on the tiered index (ROADMAP queue 1, item 5)
         retriever = None
         if not cfg.flags.use_fake_encoder:
             retriever = FusedRetriever(self.encoder, self.store, device=dev)
+        # the single-sync ask needs the sidecar, device encoder params and
+        # a real decoder, over exact serving on one device
+        fused_rag = None
+        if (
+            cfg.store.token_width
+            and not cfg.flags.use_fake_llm
+            and not cfg.flags.use_fake_encoder
+            and cfg.store.serving_index == "exact"
+        ):
+            fused_rag = FusedRAG(
+                self.encoder, self.store, self.generator, QA_TEMPLATE,
+                k=cfg.store.default_k, device=dev,
+            )
         self.router = None
         if cfg.router.enabled:
             self.router = AnswerRouter(
@@ -252,7 +320,7 @@ class DocQARuntime:
             k=cfg.store.default_k, device=dev, batcher=self.batcher,
             breakers=self.breakers, resilience=cfg.resilience,
             use_fake_llm=cfg.flags.use_fake_llm,
-            retriever=retriever, router=self.router,
+            retriever=retriever, router=self.router, fused_rag=fused_rag,
         )
         retrieval = (
             fake_patient_retrieval if cfg.flags.use_fake_retrieval
@@ -312,6 +380,51 @@ class DocQARuntime:
         self._started = False
         self._warmup_thread: Optional[threading.Thread] = None
         self._warmup_fault: Optional[BaseException] = None
+
+    def _reconcile_registry(self) -> None:
+        """Re-mark ``ERROR_INDEXING`` every registry row INDEXED whose
+        vectors the restored store lacks (a crash between snapshots): the
+        registry must not claim documents that cannot be retrieved."""
+        from docqa_tpu_torch.service import registry as reg
+
+        try:
+            indexed_ids = {md.get("doc_id") for md in self.store.metadata_rows()}
+            lost = [
+                rec for rec in self.registry.list_documents()
+                if rec.status == reg.INDEXED and rec.doc_id not in indexed_ids
+            ]
+            for rec in lost:
+                self.registry.set_status(rec.doc_id, reg.ERROR_INDEXING)
+            if lost:
+                log.warning(
+                    "reconciled %d registry rows whose vectors predate the "
+                    "restored snapshot (re-marked ERROR_INDEXING)", len(lost),
+                )
+        except Exception:
+            log.exception("registry/index reconciliation failed")
+
+    def _snapshot(self, keep_previous: bool = True) -> None:
+        """Snapshot the store under ``<work_dir>/index`` (one at a time);
+        a failure is logged, a device fault raised."""
+        if not self._index_dir:
+            return
+        with self._snapshot_lock:
+            try:
+                self.store.snapshot(self._index_dir, keep_previous=keep_previous)
+                self._docs_since_snapshot = 0
+            except Exception as e:
+                if is_device_fault(e):
+                    raise
+                log.exception("index snapshot failed")
+
+    def _on_indexed(self, n_docs: int) -> None:
+        """The index worker's hook after each batch: a snapshot every
+        ``data.snapshot_every`` documents."""
+        if not self._index_dir or self.cfg.data.snapshot_every <= 0:
+            return
+        self._docs_since_snapshot += n_docs
+        if self._docs_since_snapshot >= self.cfg.data.snapshot_every:
+            self._snapshot()
 
     def _cost_pressure(self) -> Dict[str, Any]:
         """Shed-forensics pressure snapshot: per-class holdings of the pool,
@@ -408,8 +521,9 @@ class DocQARuntime:
         """Tombstone a document out of retrieval: a document still in the
         pipeline is suppressed, an indexed one's chunks are tombstoned, and
         ``erase=True`` (or tombstones past ``store.compact_threshold`` of
-        the rows) compacts the store.  Returns the chunks tombstoned by
-        this call."""
+        the rows) compacts the store.  A change is snapshotted at once; an
+        erasure's snapshot keeps no predecessor (it would still hold the
+        erased rows).  Returns the chunks tombstoned by this call."""
         from docqa_tpu_torch.service import registry as reg
 
         # first, so a racing index batch cannot add chunks after the look
@@ -422,12 +536,15 @@ class DocQARuntime:
             and self.store.count > 0
             and self.store.deleted_count >= threshold * self.store.count
         )
+        compacted = 0
         if erase or auto:
-            self.store.compact_deleted()
+            compacted = self.store.compact_deleted()
         try:
             self.registry.set_status(doc_id, reg.DELETED)
         except Exception:
             log.exception("status write failed for %s", doc_id)
+        if n or compacted:
+            self._snapshot(keep_previous=not erase)
         return n
 
     def stop(self) -> None:
@@ -444,6 +561,8 @@ class DocQARuntime:
             warmup.join(timeout=5)
             if warmup.is_alive():
                 log.warning("decode warmup thread still alive after stop()")
+        # a restart resumes exactly here
+        self._snapshot()
         self.broker.close()
         self.registry.close()
         if self.costs._pressure_probe == self._cost_pressure:

@@ -1,5 +1,5 @@
 """Knowledge-base bootstrap from CSV files, counterpart of
-``docqa_tpu/service/bootstrap.py`` (verbatim but the token sidecar).
+``docqa_tpu/service/bootstrap.py``.
 
 Parity with ``semantic-indexer/indexer.py:50-94``: on first start, CSV rows
 from a data directory are templated into natural-language sentences and
@@ -29,6 +29,7 @@ import glob
 import os
 from typing import Dict, List, Optional
 
+from docqa_tpu_torch.index.store import sidecar_rows
 from docqa_tpu_torch.runtime.metrics import get_logger
 
 log = get_logger("docqa.bootstrap")
@@ -141,11 +142,14 @@ def row_to_sentence(filename: str, row: Dict[str, str]) -> Optional[str]:
     return ". ".join(kv) + "." if kv else None
 
 
-def bootstrap_csv_dir(data_dir: str, encoder, store) -> int:
+def bootstrap_csv_dir(data_dir: str, encoder, store, prompt_tokenizer=None) -> int:
     """Index every CSV in ``data_dir``; returns rows indexed.  All sentences
     of all files are encoded in batched device calls (the reference looped
-    batch-1 encodes, 649 of them — SURVEY §3.4 hot spot).  The reference's
-    ``prompt_tokenizer`` (the store's token sidecar) comes with FusedRAG."""
+    batch-1 encodes, 649 of them — SURVEY §3.4 hot spot).  With a
+    ``prompt_tokenizer`` and the store's token sidecar on, each row's
+    generator tokens go into the sidecar: without them a fused /ask that
+    retrieves knowledge-base rows would pack no context while citing
+    them."""
     sentences: List[str] = []
     metas: List[Dict[str, object]] = []
     for path in sorted(glob.glob(os.path.join(data_dir, "*.csv"))):
@@ -164,6 +168,14 @@ def bootstrap_csv_dir(data_dir: str, encoder, store) -> int:
                         }
                     )
     if sentences:
-        store.add(encoder.encode_texts(sentences), metas)
+        tok_rows = tok_lens = None
+        if prompt_tokenizer is not None and store.cfg.token_width:
+            tok_rows, tok_lens = sidecar_rows(
+                prompt_tokenizer, sentences, store.cfg.token_width
+            )
+        store.add(
+            encoder.encode_texts(sentences), metas,
+            token_rows=tok_rows, token_lens=tok_lens,
+        )
         log.info("bootstrapped %d knowledge rows from %s", len(sentences), data_dir)
     return len(sentences)

@@ -23,15 +23,20 @@ messages, each worker re-links it (``obs.from_headers``) and records its
 batch interval as a ``deid_batch`` / ``index_batch`` span, and the first
 terminal status finishes it, a dead letter included (flagged).
 
-Two departures from the reference:
+With a ``prompt_tokenizer`` (the generator's) and a store whose token
+sidecar is on, the index worker writes each chunk's generator tokens into
+the sidecar at index time (the fused RAG path's prompt source).  The
+``on_indexed(n_docs)`` hook (the runtime's periodic snapshot) runs after
+each batch's rows are added and before their INDEXED status is written, so
+with ``data.snapshot_every = 1`` an INDEXED row implies durable vectors.
+A replayed message whose document the store already holds (the set is
+seeded from the store, a restored one included) adds no chunk.
 
-* a kernel or CUDA fault (``ops/_kernels.is_device_fault``) in either
-  worker is never retried, dead-lettered or written as ``ERROR_DEID`` /
-  ``ERROR_INDEXING``: the worker stops, the pipeline keeps the error, and
-  :meth:`wait_indexed` and :meth:`stop` raise it;
-* the reference's ``on_indexed`` hook (store snapshots) and
-  ``prompt_tokenizer`` (the store's token sidecar, FusedRAG) are not here:
-  each comes with its first caller.
+One departure from the reference: a kernel or CUDA fault
+(``ops/_kernels.is_device_fault``) in either worker is never retried,
+dead-lettered or written as ``ERROR_DEID`` / ``ERROR_INDEXING``: the worker
+stops, the pipeline keeps the error, and :meth:`wait_indexed` and
+:meth:`stop` raise it.
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ import numpy as np
 from docqa_tpu_torch import obs
 from docqa_tpu_torch.config import Config
 from docqa_tpu_torch.engines.spine import Lane
+from docqa_tpu_torch.index.store import sidecar_rows
+from docqa_tpu_torch.ops._kernels import is_device_fault
 from docqa_tpu_torch.resilience import faults
 from docqa_tpu_torch.resilience.policy import RetryPolicy
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger, span
@@ -70,7 +77,9 @@ class DocumentPipeline:
         encoder_engine,  # EncoderEngine
         store,  # VectorStore
         http_extractor=None,
+        on_indexed=None,  # callable(n_docs) after each indexed batch
         breakers=None,  # resilience.BreakerBoard: broker/deid/index circuits
+        prompt_tokenizer=None,  # the generator's: the store's token sidecar
     ) -> None:
         self.cfg = cfg
         self.broker = broker
@@ -79,6 +88,8 @@ class DocumentPipeline:
         self.encoder = encoder_engine
         self.store = store
         self.http_extractor = http_extractor
+        self.on_indexed = on_indexed
+        self.prompt_tokenizer = prompt_tokenizer
         self.breakers = breakers
         # one stream per worker for its device work
         self._deid_lane = Lane(deid_engine.device)
@@ -462,6 +473,12 @@ class DocumentPipeline:
                 # append is all-or-nothing) leaves no partial state, so the
                 # Consumer's individual retry cannot duplicate vectors
                 embeddings = self.encoder.encode_texts(all_chunks)
+                tok_rows = tok_lens = None
+                if self.prompt_tokenizer is not None and self.store.cfg.token_width:
+                    tok_rows, tok_lens = sidecar_rows(
+                        self.prompt_tokenizer, all_chunks,
+                        self.store.cfg.token_width,
+                    )
                 with self._suppress_lock:
                     # a DELETE may have landed during the encode; drop those
                     # docs' rows now, while suppress_doc is excluded
@@ -476,6 +493,8 @@ class DocumentPipeline:
                         ]
                         embeddings = np.asarray(embeddings)[keep]
                         all_meta = [all_meta[i] for i in keep]
+                        if tok_rows is not None:
+                            tok_rows, tok_lens = tok_rows[keep], tok_lens[keep]
                         per_doc = [
                             (d, n) for d, n in per_doc if d not in late
                         ]
@@ -485,7 +504,10 @@ class DocumentPipeline:
                         for d in sorted(late):
                             obs.finish(ctx_by_doc.get(d), status="dropped")
                     if all_meta:
-                        self.store.add(embeddings, all_meta)
+                        self.store.add(
+                            embeddings, all_meta,
+                            token_rows=tok_rows, token_lens=tok_lens,
+                        )
                     self._indexed_doc_ids.update(d for d, _n in per_doc)
             t_batch1 = time.perf_counter()
             for doc_id, n in per_doc:
@@ -498,6 +520,15 @@ class DocumentPipeline:
                     )
         # vectors are committed past this point: never raise (a retry would
         # re-encode and re-append the whole batch)
+        if self.on_indexed is not None and per_doc:
+            # before the status writes: with snapshot_every=1 an INDEXED
+            # status then implies the vectors are already durable
+            try:
+                self.on_indexed(len(per_doc))
+            except Exception as e:
+                if is_device_fault(e):
+                    raise
+                log.exception("on_indexed hook failed")
         for doc_id, n in per_doc:
             try:
                 # conditional at the database: a DELETE between store.add

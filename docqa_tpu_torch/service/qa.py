@@ -1,7 +1,14 @@
 """QA / RAG service core: retrieval -> prompt -> generation, with the
 reference's failure policy.  Counterpart of ``docqa_tpu/service/qa.py``
 (``PendingAnswer``, ``QAService``: ``ask_submit`` / ``ask``, the answer
-router, the fake LLM, patient snippets) without the fused RAG lane.
+router, the fake LLM, patient snippets, the fused RAG lane).
+
+With a ``FusedRAG`` wired in (``engines/rag_fused.py``), ``ask`` at the
+service's own ``k`` runs the single-sync chain whenever the batcher (or
+pool) is idle or absent; under load, or with another ``k``, it takes the
+classic path below.  An empty store falls through to the classic path; any
+other failure of the fused chain disables it loudly and serves the classic
+path, as the reference does, except a device fault, which propagates.
 
 Retrieval is the fused retriever (encoder forward and store search in one
 device item) for an ``EncoderEngine``; the fake encoder (``HashEncoder``)
@@ -51,6 +58,7 @@ from typing import Any, Dict, List, Optional
 from docqa_tpu_torch import obs
 from docqa_tpu_torch.engines.encoder import EncoderEngine
 from docqa_tpu_torch.engines.generate import GenerateEngine
+from docqa_tpu_torch.engines.rag_fused import EmptyStoreError
 from docqa_tpu_torch.engines.retrieve import FusedRetriever
 from docqa_tpu_torch.engines.router import ROUTE_EXTRACTIVE, extractive_answer
 from docqa_tpu_torch.engines.serve import (
@@ -223,6 +231,7 @@ class QAService:
         use_fake_llm: bool = False,
         retriever: Optional[FusedRetriever] = None,
         router=None,  # engines.router.AnswerRouter
+        fused_rag=None,  # engines.rag_fused.FusedRAG: the single-sync ask
     ) -> None:
         self.device = resolve_device(device)
         for name, part in (("generator", generator), ("batcher", batcher)):
@@ -240,6 +249,7 @@ class QAService:
         self.router = router
         self.generator = generator
         self.batcher = batcher
+        self.fused_rag = fused_rag
         self.k = k
         self.decoder_breaker = (
             breakers.get("decoder") if breakers is not None else None
@@ -409,9 +419,31 @@ class QAService:
         deadline: Optional[Deadline] = None,
     ) -> Dict[str, Any]:
         """The reference's response contract ``{"answer", "sources"}``
-        (plus ``degraded`` / ``degrade_reason`` on a degraded answer)."""
+        (plus ``degraded`` / ``degrade_reason`` on a degraded answer).  The
+        fused chain serves it when wired, at the default ``k``, with the
+        batcher idle (module docstring)."""
         if deadline is not None:
             deadline.check("qa_admission")
+        if (
+            self.fused_rag is not None
+            and (k is None or k == self.k)
+            and (
+                self.batcher is None
+                or (self.batcher.n_active == 0 and self.batcher.n_queued == 0)
+            )
+        ):
+            try:
+                with span("qa_e2e", DEFAULT_REGISTRY):
+                    return self.fused_rag.ask(question)
+            except EmptyStoreError:
+                pass  # the classic path answers the empty index uniformly
+            except Exception as e:
+                if is_device_fault(e):
+                    raise
+                # a broken fused chain must not tax every request with a
+                # failed attempt, nor fail silently
+                log.exception("fused ask failed; disabling the fused path")
+                self.fused_rag = None
         with span("qa_e2e", DEFAULT_REGISTRY):
             return self.ask_submit(question, k, deadline=deadline).resolve()
 

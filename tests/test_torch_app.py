@@ -650,13 +650,19 @@ def test_oversized_body_is_refused(apps):
 
 @pytest.mark.parametrize("cfg, item", [
     ({"store.serving_index": "tiered"}, "item 5"),
-    ({"data.work_dir": "/nonexistent"}, "item 5"),
-    ({"store.token_width": 8}, "item 4"),
+    # data.work_dir (item 5's store lifecycle) and store.token_width (item
+    # 4's fused RAG) are ported: both now boot past the refusals.  The
+    # cases keep the ids they had while refused.
+    pytest.param({"data.work_dir": "/nonexistent"}, None, id="cfg1-item 5"),
+    pytest.param({"store.token_width": 8}, None, id="cfg2-item 4"),
     ({"summarizer.backend": "seq2seq"}, "item 7"),
     ({"encoder.checkpoint_dir": "/nonexistent"}, "item 7"),
     ({"broker.backend": "amqp"}, "AMQP"),
 ])
 def test_unported_config_raises_at_boot(cfg, item):
+    if item is None:
+        refuse_unported(load_config(env={}, overrides=cfg))
+        return
     with pytest.raises(NotImplementedError, match=item):
         refuse_unported(load_config(env={}, overrides=cfg))
 
@@ -776,3 +782,45 @@ def test_shutdown_joins_every_thread(apps):
     server_done, leaked = apps.shutdown()
     assert server_done
     assert leaked == []
+
+
+def test_key_trees_with_work_dir_and_sidecar_equal_reference(tmp_path):
+    """With ``data.work_dir`` and ``store.token_width`` set (the lifecycle
+    slice lifted both refusals), the status and retrieval surfaces keep
+    the reference's key trees, and both runtimes persist the same files.
+    After the module's shutdown test: its thread check counts only the
+    module's own runtimes."""
+    persisted = {"data.work_dir": None, "store.token_width": 16}
+    trees = {}
+    threads_before = set(threading.enumerate())
+    for side in ("ref", "port"):
+        overrides = {**FAKE, **persisted, "data.work_dir": str(tmp_path / side)}
+        if side == "ref":
+            rt = JDocQARuntime(j_load_config(env={}, overrides=overrides)).start()
+            client = _RefClient(rt)
+            call, close = client, client.close
+        else:
+            app = _PortApp(overrides)
+            rt, call, close = app.rt, app.call, app.close
+        try:
+            body = _j({"filename": "n.txt", "text": NOTES[0][4], "patient_id": "p1"})
+            assert call("POST", "/ingest/?wait=1", body)[0] == 200
+            trees[side] = {key: json.loads(call("GET", key)[2])
+                           for key in ("/api/status", "/api/retrieval")}
+        finally:
+            close()
+            if side == "ref":
+                rt.stop()
+        assert sorted(os.listdir(tmp_path / side)) == ["index", "journal", "registry.db"]
+    for t in threading.enumerate():
+        if t not in threads_before:
+            t.join(timeout=10)
+    status, jstatus = trees["port"]["/api/status"], trees["ref"]["/api/status"]
+    assert set(status) == set(jstatus)
+    assert set(status["breakers"]) == set(jstatus["breakers"])
+    retrieval, jretrieval = trees["port"]["/api/retrieval"], trees["ref"]["/api/retrieval"]
+    retrieval.pop("drift")
+    jretrieval.pop("drift")
+    jretrieval.pop("_nonfinite_fields", None)
+    assert _keys(retrieval) == _keys(jretrieval)
+    assert retrieval["serving"]["rows"] == jretrieval["serving"]["rows"] == 1

@@ -410,3 +410,115 @@ def test_ingest_pipeline_on_the_card(dev):
     np.testing.assert_allclose(emb, c_emb, atol=1e-4, rtol=0)
     want = ner_cfg.num_layers * n_ner + enc_cfg.num_layers * n_enc
     assert launched == {"flash_attention": want, "flash_attention.simt": want} and n_ner > 0
+
+
+def _fused_rag(device, dtype):
+    """A tiny fused /ask stack: encoder, decoder (head dim 32, K1's smallest
+    tensor-core width) and a float32 store of clinical sentences with their
+    sidecar rows."""
+    import numpy as np
+
+    from docqa_tpu_torch.config import (
+        DecoderConfig, EncoderConfig, GenerateConfig, StoreConfig,
+    )
+    from docqa_tpu_torch.engines.encoder import EncoderEngine
+    from docqa_tpu_torch.engines.generate import GenerateEngine
+    from docqa_tpu_torch.engines.rag_fused import FusedRAG
+    from docqa_tpu_torch.index.store import VectorStore
+    from docqa_tpu_torch.service.qa import QA_TEMPLATE
+
+    enc = EncoderEngine(EncoderConfig(vocab_size=512, hidden_dim=64, num_layers=2,
+                                      num_heads=2, mlp_dim=128, max_seq_len=128,
+                                      embed_dim=64, dtype=dtype), seed=1, device=device)
+    gen = GenerateEngine(DecoderConfig(vocab_size=256, hidden_dim=128, num_layers=2,
+                                       num_heads=4, num_kv_heads=2, head_dim=32,
+                                       mlp_dim=256, max_seq_len=1024, dtype=dtype),
+                         GenerateConfig(max_new_tokens=8, prefill_buckets=(64, 128, 256, 512)),
+                         seed=2, device=device)
+    store = VectorStore(StoreConfig(dim=64, token_width=32, dtype="float32"), device=device)
+    texts = [f"patient P{i:03d} takes drug{i % 7} {10 * i} mg for condition{i % 5}"
+             for i in range(40)]
+    rows = np.zeros((len(texts), 32), np.int32)
+    for i, t in enumerate(texts):
+        ids = gen.tokenizer.encode(t, add_specials=False)[:32]
+        rows[i, : len(ids)] = ids
+    store.add(enc.encode_texts(texts), [{"source": f"s{i}", "text_content": t}
+                                        for i, t in enumerate(texts)], token_rows=rows)
+    return FusedRAG(enc, store, gen, QA_TEMPLATE, k=3, device=device)
+
+
+def _sync_window(rag, windows):
+    """Sync debug mode "error" from the query encode's first launch to the
+    prefill's last (the generator marks its prefill done before the decode
+    loop's first exit test); returns the undo."""
+    enc, gen = rag.encoder, rag.generator
+    real_encode, real_mark = enc.encode_ids, gen._mark_prefill
+
+    def encode_ids(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        windows.append("open")
+        return real_encode(*a, **kw)
+
+    def mark_prefill():
+        torch.cuda.set_sync_debug_mode(0)
+        windows.append("closed")
+        return real_mark()
+
+    enc.encode_ids, gen._mark_prefill = encode_ids, mark_prefill
+
+    def undo():
+        torch.cuda.set_sync_debug_mode(0)
+        del enc.encode_ids, gen._mark_prefill
+
+    return undo
+
+
+def test_fused_chain_makes_no_host_sync_on_the_card(dev):
+    rag = _fused_rag(dev, "bfloat16")
+    question = "which drug does patient P007 take?"
+    rag.ask(question)  # builds the kernels and the shape's constants
+    before = dict(_kernels.LAUNCHES)
+    windows = []
+    undo = _sync_window(rag, windows)
+    try:
+        out = rag.ask(question)
+    finally:
+        undo()
+    assert windows == ["open", "closed"] and len(out["sources"]) == 3
+    launched = {k: _kernels.LAUNCHES[k] - before.get(k, 0)
+                for k in ("flash_attention.prefill", "flash_attention.decode")}
+    steps = rag.generator.last_stats["forwards"] - 1
+    assert launched == {"flash_attention.prefill": 2 + 2, "flash_attention.decode": 2 * steps}
+
+
+def test_fused_ask_on_the_card_equals_the_cpu_in_float32(dev):
+    question = "which drug does patient P012 take?"
+    card, cpu = _fused_rag(dev, "float32"), _fused_rag("cpu", "float32")
+    got, want = card.ask_submit(question), cpu.ask_submit(question)
+    assert got.prompt_tokens() == want.prompt_tokens()
+    assert got.resolve() == want.resolve()
+
+
+def test_card_snapshot_restores_to_equal_ids(dev, tmp_path):
+    import numpy as np
+
+    from docqa_tpu_torch.config import StoreConfig
+    from docqa_tpu_torch.index.store import VectorStore
+    from docqa_tpu_torch.runtime import native
+
+    cfg = StoreConfig(dim=64, token_width=16)  # bf16 on the card
+    rng = np.random.default_rng(4)
+    store = VectorStore(cfg, device=dev)
+    store.add(rng.standard_normal((3000, 64)).astype(np.float32),
+              [{"doc_id": f"d{i // 3}", "source": f"s{i}"} for i in range(3000)],
+              token_rows=rng.integers(1, 500, (3000, 16)))
+    store.delete_docs(["d5", "d77"])
+    store.snapshot(str(tmp_path))
+    restored = VectorStore.restore(str(tmp_path), cfg, device=dev)
+    assert native.RUNS[("read", "native")] >= 1
+    q = rng.standard_normal((8, 64)).astype(np.float32)
+    assert ([[h.row_id for h in r] for r in restored.search(q, k=10)]
+            == [[h.row_id for h in r] for r in store.search(q, k=10)])
+    for a, b in zip(store.token_sidecar(), restored.token_sidecar()):
+        assert torch.equal(a[: store.count], b[: store.count])
+    assert restored.version == store.version

@@ -18,7 +18,7 @@ from docqa_tpu_torch.config import (
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "docqa_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "docqa_tpu")
+FORBIDDEN = ("jax", "jaxlib", "docqa_tpu", "ml_dtypes")
 # the card's Python has neither: the app's server and schemas are stdlib
 NOT_ON_THE_CARD = ("aiohttp", "pydantic")
 
@@ -36,7 +36,7 @@ import importlib.util
 spec = importlib.util.spec_from_file_location("chip_smoke", {os.path.join(REPO, "chip_smoke.py")!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "aiohttp", "pydantic")
+                if m.split(".")[0] in ("jax", "jaxlib", "aiohttp", "pydantic", "ml_dtypes")
                 and sys.modules[m] is not None)
 print("LOADED", loaded)
 print("PORT", sorted(m for m in sys.modules if m.startswith("docqa_tpu_torch.")))
@@ -98,6 +98,19 @@ APP_MODULES = (
     "docqa_tpu_torch.service.wire",
 )
 
+# the store-lifecycle and fused /ask slice's new and touched modules, held
+# to the same two checks
+LIFECYCLE_MODULES = (
+    "docqa_tpu_torch.engines.encoder",
+    "docqa_tpu_torch.engines.generate",
+    "docqa_tpu_torch.engines.rag_fused",
+    "docqa_tpu_torch.runtime.native",
+    "docqa_tpu_torch.service.pipeline",
+    "docqa_tpu_torch.service.bootstrap",
+)
+SLICE_MODULES = (BATCHER_MODULES + INGEST_MODULES + OBS_MODULES + APP_MODULES
+                 + LIFECYCLE_MODULES)
+
 
 def _python_files():
     files = [
@@ -118,13 +131,13 @@ def test_imports_with_jax_and_reference_blocked():
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout
     port_line = next(line for line in out.stdout.splitlines() if line.startswith("PORT"))
-    for mod in BATCHER_MODULES + INGEST_MODULES + OBS_MODULES + APP_MODULES:
+    for mod in SLICE_MODULES:
         assert f"'{mod}'" in port_line, mod
 
 
 def test_ast_scan_covers_the_batcher_modules():
     scanned = {os.path.relpath(p, REPO) for p in _python_files()}
-    for mod in BATCHER_MODULES + INGEST_MODULES + OBS_MODULES + APP_MODULES:
+    for mod in SLICE_MODULES:
         path = mod.replace(".", os.sep)
         assert path + ".py" in scanned or os.path.join(path, "__init__.py") in scanned, mod
 
@@ -208,6 +221,12 @@ def _build(entry):
     store = VectorStore(store_cfg, device="cpu")
     if entry == "FusedRetriever":
         return FusedRetriever(enc, store)
+    if entry == "FusedRAG":
+        from docqa_tpu_torch.engines.rag_fused import FusedRAG
+
+        gen = GenerateEngine(dec_cfg, GenerateConfig(), device="cpu")
+        store = VectorStore(StoreConfig(dim=32, token_width=8), device="cpu")
+        return FusedRAG(enc, store, gen, "{context} {question}")
     if entry == "LexicalIndex":
         from docqa_tpu_torch.index.lexical import LexicalIndex
 
@@ -232,7 +251,8 @@ def _build(entry):
 @pytest.mark.parametrize(
     "entry",
     ["EncoderEngine", "GenerateEngine", "VectorStore", "FusedRetriever", "QAService",
-     "EnginePool", "DeidEngine", "LexicalIndex", "HashEncoder", "DocQARuntime"],
+     "EnginePool", "DeidEngine", "LexicalIndex", "HashEncoder", "DocQARuntime",
+     "FusedRAG"],
 )
 def test_entry_points_raise_without_cuda(entry):
     if torch.cuda.is_available():
