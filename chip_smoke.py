@@ -18,9 +18,9 @@ Phases, each of which fails the run on any error (nothing is caught):
    verify step through a block table: 8 and 16 lanes, K=4, shuffled blocks
    with holes, idle lanes) is held against its plain version too, and
    timed beside gather + masked SDPA and the reference's TPU route, gather
-   + K1's contiguous decode path.  The NER tagger's window batches (32
-   windows, and the pipeline's 8, of up to 512 rows, 8 heads of 32) are
-   prefill cases.
+   + K1's contiguous decode path.  The trained NER tagger's window batches
+   (about 140 windows for 32 notes, and the pipeline's ~36 for 8, of up to
+   128 rows, 8 heads of 32) are prefill cases.
 3. main path: /ask end to end through ``QAService.ask`` at full width —
    MiniLM-L6 encoder, a 1,000,000-row bf16 store, Mistral-7B-width decoder
    in bf16 with random seeded weights, greedy with K=4 speculation — with
@@ -55,18 +55,20 @@ Phases, each of which fails the run on any error (nothing is caught):
    ``decoder_error`` until the breaker trips, then ``decoder_breaker_open``;
    after the outage and the breaker's reset a plain answer comes back.
 7. ingest: ``DocumentPipeline`` over phase 3's encoder and store with the
-   NER tagger at ``NERConfig()`` (bf16, seeded random weights), the
+   NER tagger at ``NERConfig()`` that phase 11 (a) trained (bf16, loaded
+   from its cache and windowed at 128 tokens, as the runtime boots it), the
    in-memory broker and a SQLite registry.  512 generated notes (8 .docx,
    8 .pdf) with header PHI go up; each reaches INDEXED; the registry's
    chunk counts, the store's new rows and ``chunk_text`` over the masked
    texts agree; no header phone, email or date reaches the store.  The
    tagger batches the deid worker served are tapped: those of its most
-   served shape (8 windows x 512), until they hold 64 documents, give the
-   same masked texts as the port on the CPU in float32 (the regexes'
-   spans; the random tagger's stay under the 0.8 threshold on both), and
-   their served logits, like those of one 32-window batch, are within
-   ``FIRST_STEP_RTOL`` of the CPU's with word labels equal but for tied
-   words.  32 new rows find
+   served shape, until they hold 64 documents, give the same masked texts
+   as the port on the CPU in float32 but in documents holding a word whose
+   label or side of the 0.8 threshold differs between the card's logits
+   and the CPU's (the card's logits replayed through the host's span logic
+   give its masked texts exactly), and their served logits, like those of
+   the 32-note batch, are within ``FIRST_STEP_RTOL`` of the CPU's with word
+   labels equal but for tied words.  32 new rows find
    themselves first over the whole store; an /ask over an ingested chunk
    cites its document; K1 launches = 4 x tagger forwards + 6 x encoder
    forwards, all on the prefill path.  Reported: a ``deidentify_batch`` of
@@ -94,8 +96,9 @@ Phases, each of which fails the run on any error (nothing is caught):
    item pays to cross to a lane thread beside a busy Python thread.
 
 9. the app: ``DocQARuntime`` under the default ``Config`` (the decoder at
-   Mistral-7B width sharing phase 3's seeded card weights, ``ner.train_steps
-   =0``, and a 120 s /ask budget in place of 8 s, since a 256-token answer
+   Mistral-7B width sharing phase 3's seeded card weights, ``ner.params_path``
+   the tagger cache of phase 11 (a), which the boot loads, and a 120 s /ask
+   budget in place of 8 s, since a 256-token answer
    outlasts 8 s at the port's decode speed) behind its stdlib HTTP front on
    127.0.0.1, driven over real HTTP with ``urllib.request``, every JSON
    answer held to ``api_contract.json`` (the smoke's copy of the reference's
@@ -114,7 +117,8 @@ Phases, each of which fails the run on any error (nothing is caught):
    /ask in process and over HTTP), peak device memory, and whether batch
    work is deferred once the /ask rounds burn the default SLO.  Then
    ``python -m docqa_tpu_torch.service.app`` is started as a user starts it
-   (default config, ``ner.train_steps=0``, Mistral-7B width) and must serve
+   (default config with ``ner.params_path`` the same cache, Mistral-7B
+   width) and must serve
    an upload and an /ask and exit 0 on SIGTERM; and a tiny runtime (float32
    encoder and tagger, bf16 decoder behind a pool) must retrieve, route and
    cite the same on the card and the CPU, its decoded answers equal but
@@ -144,10 +148,33 @@ Phases, each of which fails the run on any error (nothing is caught):
    final snapshot: on the next boot they read ``ERROR_INDEXING``; a DELETE
    keeps one predecessor snapshot, an erasure none.
 
+11. training, in two parts.  (a) runs after phase 6 and before phase 7, so
+   that phases 7-10 serve the tagger it trains: ``DeidEngine.trained
+   (NERConfig())`` with no cache, the default config's boot path, trains
+   the tagger at full width (4 layers, hidden 256, 8 heads, float32 master
+   weights, bf16 forward) for 1500 steps at batch 32, seq 128, lr 2e-3 in
+   a child process on the card and caches it; the child's loss every 100
+   steps, the wall time and the host's share of a step (datagen against
+   the device step, timed apart over 50 steps) are printed; an in-process
+   5-step ``train_ner`` launches K1 0 times; the trained tagger clears the
+   reference's floors (``tests/test_ner_training.py``: ``evaluate_ner``
+   F1 >= 0.8, ``evaluate_deid`` and ``evaluate_deid_split`` at threshold
+   0.5), reported at 0.8 too, with K1 launched in the evaluation.  (b)-(d)
+   run last, once phase 3's weights are freed: (b) ``make_train_step`` at
+   Mistral-7B width cut to 2 layers (0.7 B float32 params; full depth
+   needs ~116 GB of state) takes 20 remat steps on one ragged 4 x 512
+   batch, whose loss must fall, remat on and off agreeing at the first
+   step (ms a step, tokens/s and peak memory printed); (c) ``train_encoder``
+   at MiniLM width, 60 steps of 16 synthetic pairs: the first batch's loss
+   falls, held-out recall@1 on 8 pairs does not, and the trained encoder's
+   embeddings through K1 match the plain attention's; (d) (b) saved at
+   step 10 by ``TrainCheckpointer``, restored into a fresh state, 5 more
+   steps give the uninterrupted run's losses, and ``max_to_keep`` prunes.
+
 The recorder is on by default, so phases 3-7 run traced too.  Prints the
 pool JSON line, the ingest JSON line, the obs JSON line, the app JSON line,
-the lifecycle JSON line, the kernels JSON line, the nvidia-smi line, and
-last the ok line.  Phases 6 and 7 also
+the lifecycle JSON line, the training JSON line, the kernels JSON line,
+the nvidia-smi line, and last the ok line.  Phases 6 and 7 also
 print each spine stage's queue wait; ``--spine-lanes N`` sets the spine's
 lane count.
 Exits non-zero when CUDA is unavailable or any phase fails.
@@ -163,6 +190,7 @@ import gc
 import io
 import itertools
 import json
+import logging
 import os
 import re
 import shutil
@@ -301,18 +329,20 @@ def kernel_cases():
              lengths=[4096], q_offset=[0], **mistral),
         dict(name="mistral_verify_4k", b=1, sq=4, skv=4224,
              lengths=[4100], q_offset=[4096], **{**mistral, "window": None}),
-        # the NER tagger's window batch on phase 7's path (NERConfig: 8
-        # heads of 32, no GQA, bidirectional): 32 windows of 300-512 rows,
-        # two of them empty lanes
-        dict(name="ner_window_batch", b=32, sq=512, skv=512, hq=8, hkv=8, d=32,
+        # the NER tagger's window batches on phase 7's path: the trained
+        # tagger (NERConfig: 8 heads of 32, no GQA, bidirectional) is served
+        # in windows of the 128 tokens it was trained at, about 4.4 a note.
+        # BASELINE config 2's batch of 32 notes: ~140 windows, two empty
+        # lanes among them
+        dict(name="ner_window_batch", b=140, sq=128, skv=128, hq=8, hkv=8, d=32,
              causal=False, window=None, q_offset=None,
-             lengths=[0, 0] + np.random.default_rng(32).integers(300, 513, 30).tolist()),
-        # the batch the pipeline's deid worker serves (prefetch 8: 8 windows
-        # of up to 512 rows), one lane empty; plan_flash gives it one
-        # warpgroup a block where the 32-window batch takes two
-        dict(name="ner_served_batch", b=8, sq=512, skv=512, hq=8, hkv=8, d=32,
+             lengths=[0, 0] + np.random.default_rng(32).integers(40, 129, 138).tolist()),
+        # the batch the pipeline's deid worker serves (prefetch 8: the ~36
+        # windows of 8 notes; past 32 windows a batch is not bucketed), one
+        # lane empty
+        dict(name="ner_served_batch", b=36, sq=128, skv=128, hq=8, hkv=8, d=32,
              causal=False, window=None, q_offset=None,
-             lengths=[0] + np.random.default_rng(8).integers(300, 513, 7).tolist()),
+             lengths=[0] + np.random.default_rng(8).integers(40, 129, 35).tolist()),
     ]
 
 
@@ -1599,8 +1629,11 @@ def _hold_tagger_batch(cpu, batch):
     labels are compared with phases 5-6's decisive-gap rule: a word whose
     two largest CPU logits differ by less than twice the largest |card -
     CPU| logit difference of its window may take either label, every other
-    word must take the same label on both.  Returns (relative RMS, words,
-    words tied, labels that differ, max |diff|)."""
+    word must take the same label on both.  A word *flips* when its label,
+    or the side of the engine's threshold its probability falls on,
+    differs between the card's logits and the CPU's; returns (relative RMS,
+    words, words tied, labels that differ, max |diff|, the texts of the
+    documents holding a flipped word)."""
     segments, ids, lengths, token_idx = cpu.windows(batch["texts"])
     if not (np.array_equal(ids, batch["ids"]) and np.array_equal(lengths, batch["lengths"])):
         raise AssertionError("a tagger batch does not repack to the ids it ran on the card")
@@ -1611,8 +1644,15 @@ def _hold_tagger_batch(cpu, batch):
         raise AssertionError(
             f"tagger logits of a {ids.shape[0]} x {ids.shape[1]} batch, card vs CPU: "
             f"relative RMS {rel:.3e} (tolerance {FIRST_STEP_RTOL})")
+
+    def decision(z):  # (label, probability of the label >= the threshold)
+        z = z.astype(np.float64)
+        p = 1.0 / np.exp(z - z.max()).sum()
+        return int(z.argmax()), p >= cpu.ner_threshold
+
     n_words = n_tied = n_flipped = 0
     max_diff = 0.0
+    flipped_docs = set()
     for si, (di, seg) in enumerate(segments):
         n = int(lengths[si])
         diff = float(np.abs(lc[si, :n] - lp[si, :n]).max())
@@ -1623,6 +1663,8 @@ def _hold_tagger_batch(cpu, batch):
             tied = top2[1] - top2[0] < 2 * diff
             n_words += 1
             n_tied += int(tied)
+            if decision(lc[si, ti]) != decision(lp[si, ti]):
+                flipped_docs.add(batch["texts"][di])
             if int(lc[si, ti].argmax()) != int(lp[si, ti].argmax()):
                 n_flipped += 1
                 if not tied:
@@ -1630,14 +1672,15 @@ def _hold_tagger_batch(cpu, batch):
                         f"the NER label of word [{s}, {e}) of document {di} differs "
                         f"between the card and the CPU past a decisive gap "
                         f"({top2[1] - top2[0]:.3e} >= 2 x {diff:.3e})")
-    return rel, n_words, n_tied, n_flipped, max_diff
+    return rel, n_words, n_tied, n_flipped, max_diff, flipped_docs
 
 
-def run_ingest_path(counts, qa_solo):
+def run_ingest_path(counts, qa_solo, tagger):
     """Phase 7: ``DocumentPipeline.ingest_document`` at full width on phase
-    3's MiniLM encoder and 1,000,000-row store, with ``DeidEngine(NERConfig())``
-    (4 layers, hidden 256, 8 heads, 512 positions, bf16; a seeded random
-    tagger: plumbing mode), ``make_broker(BrokerConfig())`` (prefetch 8) and
+    3's MiniLM encoder and 1,000,000-row store, with the tagger phase 11 (a)
+    trained and cached at ``tagger`` (``NERConfig()``: 4 layers, hidden 256,
+    8 heads, bf16 forward; loaded as the runtime's boot loads it, windowed
+    at the 128 tokens it was trained at), ``make_broker(BrokerConfig())`` (prefetch 8) and
     ``DocumentRegistry("sqlite://")``.  The launch counts are set to 0 just
     before the 512 uploads and read once all are INDEXED; then the rows,
     the masked texts against the CPU in float32, self-retrieval and an
@@ -1648,8 +1691,7 @@ def run_ingest_path(counts, qa_solo):
     encoder, store = qa_solo.retriever.encoder, qa_solo.retriever.store
     enc_layers = encoder.cfg.num_layers
     ner_cfg = NERConfig()
-    ner_params = init_ner_params(ner_cfg, seed=11)
-    deid = DeidEngine(ner_cfg, params=ner_params, device=dev)
+    deid = DeidEngine.trained(ner_cfg, params_path=tagger, device=dev)
     cfg = Config(encoder=encoder.cfg, ner=ner_cfg, store=store.cfg)
     registry = DocumentRegistry(cfg.registry.url)  # "sqlite://": in memory
     pipe = DocumentPipeline(cfg, make_broker(cfg.broker), registry, deid, encoder, store)
@@ -1800,28 +1842,44 @@ def run_ingest_path(counts, qa_solo):
                 checked.append(bt)
                 n_docs += len(bt["texts"])
         cpu_cfg = dataclasses.replace(ner_cfg, dtype="float32")
-        cpu = DeidEngine(cpu_cfg, params=ner_params, device="cpu")
+        cpu = DeidEngine.trained(cpu_cfg, params_path=tagger, device="cpu")
         _memo_logits(cpu)  # one float32 forward a batch serves both checks
+        # the host's span logic fed the card's own logits must give the
+        # pipeline's masked texts exactly
+        replay = DeidEngine.trained(cpu_cfg, params_path=tagger, device="cpu")
         t0 = time.perf_counter()
-        held = []
+        held, n_flipped_docs, n_differ = [], 0, 0
         for bt in checked:
-            if cpu.deidentify_batch(bt["texts"]) != [masked[t] for t in bt["texts"]]:
-                raise AssertionError(
-                    "the masked texts of a served batch differ between the card's "
-                    "pipeline and the CPU in float32")
             held.append(_hold_tagger_batch(cpu, bt))
+            flipped_docs = held[-1][5]
+            n_flipped_docs += len(flipped_docs)
+            replay.ner_logits = lambda ids, lengths, out=bt["logits"]: out
+            if replay.deidentify_batch(bt["texts"]) != [masked[t] for t in bt["texts"]]:
+                raise AssertionError("the card's logits, replayed through the host's span "
+                                     "logic, do not give the pipeline's masked texts")
+            for text, want in zip(bt["texts"], cpu.deidentify_batch(bt["texts"])):
+                if masked[text] != want:
+                    n_differ += 1
+                    if text not in flipped_docs:
+                        raise AssertionError(
+                            "the masked text of a served document differs between the "
+                            "card's pipeline and the CPU in float32, with no word whose "
+                            "label or threshold side differs")
         # BASELINE config 2's batch (32 notes, 32 windows x 512: two
         # warpgroups a block), on the pipeline's engine after the run
         card32 = {"texts": batch32, "ids": ids32, "lengths": len32,
                   "logits": deid.ner_logits(ids32, len32)}
-        rel32, words32, tied32, flipped32, diff32 = _hold_tagger_batch(cpu, card32)
+        rel32, words32, tied32, flipped32, diff32, _unc = _hold_tagger_batch(cpu, card32)
         cpu_s = time.perf_counter() - t0
         rel = max(h[0] for h in held)
         n_words, n_tied, n_flipped = (sum(h[i] for h in held) for i in (1, 2, 3))
         max_diff = max(h[4] for h in held)
         log(f"  served tagger batches: {len(served)}, shapes {dict(shapes)}; "
             f"{len(checked)} of shape {served_shape} holding {n_docs} documents held "
-            f"against the CPU in float32: masked texts identical, logits relative RMS "
+            f"against the CPU in float32: masked texts identical but {n_differ}, all "
+            f"among {n_flipped_docs} documents with a word whose label or threshold side "
+            f"differs (the card's logits replayed on the host give its masked texts "
+            f"exactly), logits relative RMS "
             f"<= {rel:.3e} (tolerance {FIRST_STEP_RTOL}), word labels equal but "
             f"{n_flipped} of {n_words}, all among {n_tied} tied words (max |logit diff| "
             f"{max_diff:.3e}); the 32-window batch: relative RMS {rel32:.3e}, labels "
@@ -2084,7 +2142,7 @@ def _mfu_table(stats):
     return "\n".join(lines)
 
 
-def run_obs_path(counts, qa_solo):
+def run_obs_path(counts, qa_solo, tagger):
     """Phase 8: observability over phase 6's 1-replica pool (16 slots,
     chunk 16, capacity 1,024, K=4) and round A1 (16 /ask, 64 new tokens),
     then one upload through a pipeline configured as phase 7's.
@@ -2325,7 +2383,7 @@ def run_obs_path(counts, qa_solo):
 
         # ---- one document through a pipeline configured as phase 7's
         ner_cfg = NERConfig()
-        deid = DeidEngine(ner_cfg, params=init_ner_params(ner_cfg, seed=11), device=dev)
+        deid = DeidEngine.trained(ner_cfg, params_path=tagger, device=dev)
         cfg = Config(encoder=encoder.cfg, ner=ner_cfg, store=store.cfg)
         pipe = DocumentPipeline(cfg, make_broker(cfg.broker),
                                 DocumentRegistry(cfg.registry.url), deid, encoder, store)
@@ -2558,17 +2616,27 @@ def app_notes(rng):
     return docs
 
 
-def routing_lookups(router, n=2):
+def routing_lookups(router, n=2, deid=None):
     """The first ``n`` lookups of ``data/routing_mix.jsonl`` the router
-    routes and whose own document passes its evidence gate."""
+    routes and whose own document passes its evidence gate.  With a
+    ``deid`` engine the document is gated as the store will hold it, masked,
+    and a lookup qualifies only when every word it shares with its document
+    survives the masking: a trained tagger masks the patient's name, and a
+    lookup by a masked name has nothing left to match."""
     with open(os.path.join(REPO_ROOT, "data", "routing_mix.jsonl"), encoding="utf-8") as f:
         mix = [json.loads(line) for line in f if line.strip()]
     out = []
     for row in mix:
         if "doc" not in row:
             continue
+        doc = row["doc"]
+        if deid is not None:
+            doc = deid.deidentify_batch([doc])[0]
+            words = [set(re.findall(r"\w+", t.lower())) for t in (row["question"], row["doc"], doc)]
+            if not (words[0] & words[1]) <= words[2]:
+                continue
         d = router.decide(row["question"])
-        gated, _ev = router.evidence_gate(d, row["question"], [row["doc"]])
+        gated, _ev = router.evidence_gate(d, row["question"], [doc])
         if gated.route == "extractive":
             out.append(row)
     generative = [r["question"] for r in mix if router.decide(r["question"]).route != "extractive"]
@@ -2639,10 +2707,10 @@ def _pctl(values, q):
     return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
 
 
-def run_app_path(counts, qa, ingest_docs_s=None):
+def run_app_path(counts, qa, tagger, ingest_docs_s=None):
     """Phase 9: ``DocQARuntime`` under the default ``Config`` (decoder at
-    Mistral-7B width sharing phase 3's seeded card weights,
-    ``ner.train_steps=0``) behind its stdlib HTTP front on 127.0.0.1, driven
+    Mistral-7B width sharing phase 3's seeded card weights, ``ner.params_path``
+    the tagger phase 11 (a) cached, loaded at boot) behind its stdlib HTTP front on 127.0.0.1, driven
     over real HTTP.  ``counts`` is reset around each counted run."""
     from docqa_tpu_torch.config import load_config
     from docqa_tpu_torch.engines.router import AnswerRouter
@@ -2655,23 +2723,24 @@ def run_app_path(counts, qa, ingest_docs_s=None):
     contract = load_contract()
     cfg = dataclasses.replace(
         load_config(env={}, overrides={
-            "ner.train_steps": 0,
+            "ner.params_path": tagger,
             "resilience.request_deadline_s": APP_DEADLINE_S,
         }),
         decoder=qa.generator.cfg,
     )
-    lookups, generative = routing_lookups(AnswerRouter())
-    if len(lookups) < 2 or len(generative) < APP_ASKS + 2:
-        raise AssertionError("the routing mix lacks the questions phase 9 asks")
     t0 = time.perf_counter()
     rt = DocQARuntime(cfg, device=dev, decoder_params=qa.generator.params).start()
     server = AppServer(make_app(rt)).start()
     boot_s = time.perf_counter() - t0
+    lookups, generative = routing_lookups(AnswerRouter(), deid=rt.deid)
     http = _Http(server.port, contract)
     launches = collections.Counter()
     summary = {"boot_s": boot_s}
     log(f"  runtime booted in {boot_s:.1f} s; serving on 127.0.0.1:{server.port}")
     try:
+        if len(lookups) < 2 or len(generative) < APP_ASKS + 2:
+            raise AssertionError("the routing mix lacks the questions phase 9 asks")
+        log(f"  lookups whose evidence survives the tagger: {[r['id'] for r in lookups]}")
         if http.json("GET /health", "/health") != {"status": "ok"}:
             raise AssertionError("/health is not ok")
         http.json("GET /api/status", "/api/status")
@@ -2951,6 +3020,8 @@ def run_app_reference_check(devices=("cuda", "cpu")):
         "store.dtype": "float32",
         # K1 takes head dims 32, 64 and 128: 64 / 2, 32 / 1 and 32
         "ner.hidden_dim": 32, "ner.num_layers": 1, "ner.num_heads": 1, "ner.mlp_dim": 64,
+        # a seeded random tagger (plumbing mode): this runtime is held card
+        # against CPU, it models no deployment
         "ner.dtype": "float32", "ner.train_steps": 0,
         "decoder.hidden_dim": 64, "decoder.num_layers": 1, "decoder.num_heads": 2,
         "decoder.num_kv_heads": 1, "decoder.head_dim": 32, "decoder.mlp_dim": 64,
@@ -3029,10 +3100,11 @@ def run_app_reference_check(devices=("cuda", "cpu")):
             "card_launches": card_launches}
 
 
-def run_app_module_check(boot_timeout=300.0):
+def run_app_module_check(tagger, boot_timeout=300.0):
     """``python -m docqa_tpu_torch.service.app`` as a user starts it on the
-    card (Mistral-7B width, weights drawn on the device, ``ner.train_steps
-    =0``, everything else the default config, a free port): it must serve
+    card (Mistral-7B width, weights drawn on the device, the tagger cache
+    of phase 11 (a) as ``ner.params_path``, everything else the default
+    config, a free port): it must serve
     /health, /api/status, an upload, an /ask and /api/pool, then stop on
     SIGTERM with exit code 0.  The /ask runs under the default 8 s budget;
     whether it came back degraded is reported."""
@@ -3040,7 +3112,7 @@ def run_app_module_check(boot_timeout=300.0):
 
     cmd = [sys.executable, "-m", "docqa_tpu_torch.service.app",
            "--decoder", "mistral-7b",
-           "--set", "ner.train_steps=0", "--host", "127.0.0.1", "--port", "0"]
+           "--set", f"ner.params_path={tagger}", "--host", "127.0.0.1", "--port", "0"]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=REPO_ROOT, stdout=subprocess.DEVNULL,
                             stderr=subprocess.PIPE, text=True)
@@ -3379,7 +3451,7 @@ def _registry_rows(http, names):
                   if r["doc_id"] in names)
 
 
-def run_lifecycle_restart(counts, qa):
+def run_lifecycle_restart(counts, qa, tagger):
     """Phase 10 (c): phase 9's runtime with ``data.work_dir`` and a sidecar,
     over HTTP: ingest, a fused /ask alone, stop, boot again; then a kill
     without the final snapshot, and an erasure."""
@@ -3392,7 +3464,7 @@ def run_lifecycle_restart(counts, qa):
     work = tempfile.mkdtemp(prefix="docqa_phase10_work_")
     cfg = dataclasses.replace(
         load_config(env={}, overrides={
-            "ner.train_steps": 0,
+            "ner.params_path": tagger,
             "resilience.request_deadline_s": APP_DEADLINE_S,
             "data.work_dir": work,
             "data.snapshot_every": 10_000,  # no periodic snapshot: the kill loses
@@ -3526,7 +3598,7 @@ def run_lifecycle_restart(counts, qa):
     return summary, launches
 
 
-def run_lifecycle_path(counts, qa):
+def run_lifecycle_path(counts, qa, tagger):
     """Phase 10: (a) fused against classic /ask, (b) a 1M-row snapshot and
     restore, (c) kill and restart through HTTP.  Returns the summary and
     the main path's launches."""
@@ -3536,10 +3608,386 @@ def run_lifecycle_path(counts, qa):
     fused, launches, store = run_lifecycle_fused(counts, qa)
     persist = run_lifecycle_snapshot(qa, store)
     del store
-    restart, restart_launches = run_lifecycle_restart(counts, qa)
+    restart, restart_launches = run_lifecycle_restart(counts, qa, tagger)
     launches.update(restart_launches)
     return {"summary": {"fused": fused, "snapshot": persist, "restart": restart},
             "launches": launches}
+
+
+# ---- phase 11: the training plane ------------------------------------------------
+
+HOST_SPLIT_STEPS = 50  # (a): the host's share of a step, timed over this many
+TRAIN_SMOKE_STEPS = 5  # (a): an in-process train_ner whose K1 launches must be 0
+LM_LAYERS = 2  # (b): Mistral-7B width, depth cut (full depth: ~116 GB of state)
+LM_LENGTHS = (512, 448, 301, 137)  # (b): one ragged 4 x 512 batch, repeated
+LM_STEPS = 20
+LM_SAVE_AT = 10  # (d): the checkpoint's step
+LM_RESUME_STEPS = 5
+# (b): remat on against off at the first step.  The forward runs the same
+# bf16 kernels either way; the backward's embedding gradient is summed with
+# atomics, so the global norm may differ in its last bits.
+REMAT_LOSS_RTOL = 1e-5
+REMAT_NORM_RTOL = 1e-3
+# (d): a restored state is bitwise the saved one; later steps may part by
+# the embedding backward's atomics only
+RESUME_LOSS_RTOL = 1e-4
+ENC_STEPS, ENC_BATCH, ENC_SEQ = 60, 16, 32  # (c), as tests/test_encoder_training.py
+ENC_EVAL_PAIRS = 8
+
+
+class _LogCapture(logging.Handler):
+    """Keeps the messages one logger emits while attached."""
+
+    def __init__(self, name):
+        super().__init__(logging.INFO)
+        self.messages, self.logger = [], logging.getLogger(name)
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+
+def _deid_floors(ev, split):
+    """The reference's quality floors (tests/test_ner_training.py): on the
+    dev set at threshold 0.5, and on the split evaluation's second
+    development set."""
+    misses = []
+
+    def need(name, value, floor):
+        if not value >= floor:
+            misses.append(f"{name} {value} < {floor}")
+
+    need("span_recall_any", ev["span_recall_any"], 0.85)
+    need("char_f1", ev["char_f1"], 0.75)
+    need("entity_f1", ev["entity_f1"], 0.50)
+    need("EMAIL_ADDRESS f1", ev["per_entity"]["EMAIL_ADDRESS"]["f1"], 0.99)
+    need("DATE_TIME recall", ev["per_entity"]["DATE_TIME"]["recall"], 0.99)
+    test = split["test"]
+    need("dev + test gold spans", split["dev"]["gold_spans"] + test["gold_spans"], 100)
+    need("test gold spans", test["gold_spans"], 60)
+    need("test span_recall_any", test["span_recall_any"], 0.85)
+    need("test char_f1", test["char_f1"], 0.75)
+    need("test entity_f1", test["entity_f1"], 0.70)
+    need("test EMAIL_ADDRESS f1", test["per_entity"]["EMAIL_ADDRESS"]["f1"], 0.99)
+    need("test PHONE_NUMBER recall", test["per_entity"]["PHONE_NUMBER"]["recall"], 0.99)
+    lo, hi = test["entity_f1_ci95"]
+    if not lo <= test["entity_f1"] <= hi:
+        misses.append(f"test entity_f1 {test['entity_f1']} outside its CI {lo, hi}")
+    return misses
+
+
+def _deid_summary(ev, split):
+    return {
+        "dev": {k: ev[k] for k in ("span_recall_any", "char_f1", "entity_f1")},
+        **{name: {k: split[name][k] for k in (
+            "span_recall_any", "char_f1", "entity_f1", "entity_f1_ci95")}
+           for name in ("test", "heldout")},
+    }
+
+
+def run_training_tagger(counts, workdir):
+    """Phase 11 (a): the tagger at ``NERConfig()`` trained as the default
+    config's boot trains it (``DeidEngine.trained`` with no cache: 1500
+    steps at batch 32, seq 128, lr 2e-3 in a child process on the card),
+    then held to the reference's quality floors; returns the cache's path
+    for phases 7-10 and the summary."""
+    from docqa_tpu_torch.deid.evalset import evaluate_deid, evaluate_deid_split
+    from docqa_tpu_torch.training import ner as ner_train
+
+    dev = torch.device("cuda")
+    cfg = NERConfig()
+    path = os.path.join(workdir, "ner.npz")
+    summary = {"steps": cfg.train_steps}
+    with _LogCapture("docqa.train.ner") as cap:
+        t0 = time.perf_counter()
+        DeidEngine.trained(cfg, params_path=path, device=dev)
+        wall = time.perf_counter() - t0
+    losses = {int(m.split()[3].split("/")[0]): float(m.split()[-1])
+              for m in cap.messages if m.startswith("child: ner step")}
+    if sorted(losses) != list(range(100, cfg.train_steps + 1, 100)):
+        raise AssertionError(f"the child's loss log is not every 100 steps: {cap.messages}")
+    if not any("loaded ner params from child train" in m for m in cap.messages):
+        raise AssertionError(f"the tagger did not train in its child process: {cap.messages}")
+    summary.update(wall_s=wall, steps_per_s=cfg.train_steps / wall, losses=losses,
+                   final_loss=losses[cfg.train_steps])
+    log(f"  tagger trained at boot in a child process: {cfg.train_steps} steps in "
+        f"{wall:.1f} s wall ({cfg.train_steps / wall:.1f} steps/s, start-up included); "
+        f"loss every 100 steps {[round(losses[s], 4) for s in sorted(losses)]}, final "
+        f"{losses[cfg.train_steps]:.4f}")
+
+    # the host's share of a step: datagen + encode_example, and the device
+    # step (synchronised), timed apart over the same batches
+    tok = datagen.ner_tokenizer(cfg)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    batches = [datagen.sample_batch(rng, tok, cfg, 32, 128) for _ in range(HOST_SPLIT_STEPS)]
+    host_ms = (time.perf_counter() - t0) * 1e3 / HOST_SPLIT_STEPS
+    opt = ner_train.default_ner_optimizer(2e-3, steps=cfg.train_steps)
+    params = ner_train.trainable(init_ner_params(cfg, 0), cfg, dev)
+    state = opt.init(params)
+    step = ner_train.make_ner_train_step(cfg, opt)
+    params, state, _loss = step(params, state, *batches[0])  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        params, state, _loss = step(params, state, *b)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / HOST_SPLIT_STEPS
+    del params, state
+    summary.update(host_ms=host_ms, device_step_ms=step_ms,
+                   host_share=host_ms / (host_ms + step_ms))
+    log(f"  a step's parts over {HOST_SPLIT_STEPS} steps: host datagen + encode_example "
+        f"{host_ms:.2f} ms, device step (synchronised wall) {step_ms:.2f} ms; host share "
+        f"{host_ms / (host_ms + step_ms):.3f}")
+
+    # K1 is never launched in training: an in-process train_ner, counted
+    counts.clear()
+    ner_train.train_ner(cfg, steps=TRAIN_SMOKE_STEPS, log_every=0, device=dev)
+    torch.cuda.synchronize()
+    if counts.get("flash_attention", 0):
+        raise AssertionError(f"K1 launched during training: {dict(counts)}")
+
+    # the reference's quality floors, and K1 in the evaluation's forwards
+    counts.clear()
+    loaded = DeidEngine.trained(cfg, params_path=path, device=dev)
+    ner08 = ner_train.evaluate_ner(loaded.params, cfg, n_examples=48, device=dev)
+    ner05 = ner_train.evaluate_ner(loaded.params, cfg, n_examples=48, threshold=0.5,
+                                   device=dev)
+    at05 = DeidEngine.trained(cfg, params_path=path, ner_threshold=0.5, device=dev)
+    ev05, split05 = evaluate_deid(at05), evaluate_deid_split(at05, n_boot=100)
+    ev08, split08 = evaluate_deid(loaded), evaluate_deid_split(loaded, n_boot=100)
+    torch.cuda.synchronize()
+    eval_launches = dict(counts)
+    if not eval_launches.get("flash_attention.prefill", 0):
+        raise AssertionError(f"the evaluation's tagger forwards launched no K1: {eval_launches}")
+    summary.update(
+        train_launches=0, eval_launches=eval_launches,
+        evaluate_ner={"threshold_0.8": ner08, "threshold_0.5": ner05},
+        evaluate_deid={"threshold_0.5": _deid_summary(ev05, split05),
+                       "threshold_0.8": _deid_summary(ev08, split08)},
+        window=loaded._window,
+    )
+    log(f"  evaluate_ner (48 notes of the eval lexicons): F1 {ner08['f1']:.3f} at 0.8 "
+        f"(floor 0.8), {ner05['f1']:.3f} at 0.5; evaluate_deid at 0.5 "
+        f"{_deid_summary(ev05, split05)}; at 0.8 {_deid_summary(ev08, split08)}; K1 "
+        f"launches: 0 in {TRAIN_SMOKE_STEPS} training steps, {eval_launches} in the "
+        f"evaluation")
+    misses = ([] if ner08["f1"] >= 0.8 else [f"evaluate_ner f1 {ner08['f1']} < 0.8"])
+    misses += _deid_floors(ev05, split05)
+    if misses:
+        raise AssertionError(f"the trained tagger misses the reference's floors: {misses}")
+    return path, summary
+
+
+def _grad_norm(params):
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(p.grad.float()) for p in params.values()]))
+
+
+def run_training_lm(counts, workdir):
+    """Phase 11 (b) and (d): make_train_step at Mistral-7B width cut to
+    ``LM_LAYERS`` layers, float32 master weights, one ragged 4 x 512 batch
+    repeated for ``LM_STEPS`` steps with remat; remat on against off at the
+    first step; a ``TrainCheckpointer`` save at ``LM_SAVE_AT``, restored
+    into a fresh state that takes ``LM_RESUME_STEPS`` more steps."""
+    from docqa_tpu_torch.training.checkpoint import TrainCheckpointer
+    from docqa_tpu_torch.training.train import init_train_state, lm_loss, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(DecoderConfig.mistral_7b(), num_layers=LM_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, opt = init_train_state(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in state["params"].values())
+    rng = np.random.default_rng(7)
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, (len(LM_LENGTHS), max(LM_LENGTHS)),
+                                        dtype=np.int32)).to(dev)
+    lengths = torch.tensor(LM_LENGTHS, dtype=torch.int32, device=dev)
+    counts.clear()
+
+    # remat on against off: the first step's loss and global grad norm
+    first = {}
+    for remat in (False, True):
+        loss = lm_loss(state["params"], cfg, ids, lengths, remat=remat)
+        loss.backward()
+        first[remat] = (float(loss.detach()), float(_grad_norm(state["params"])))
+        for p in state["params"].values():
+            p.grad = None
+    (l_off, n_off), (l_on, n_on) = first[False], first[True]
+    if not (abs(l_on - l_off) <= REMAT_LOSS_RTOL * abs(l_off)
+            and abs(n_on - n_off) <= REMAT_NORM_RTOL * n_off):
+        raise AssertionError(f"remat on {first[True]} against off {first[False]} at step 1")
+
+    ckpt_dir = os.path.join(workdir, "lm_ckpt")
+    ckpt = TrainCheckpointer(ckpt_dir, max_to_keep=1)
+    step = make_train_step(cfg, opt)
+    losses, times, save_s = [], [], None
+    for i in range(LM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, ids, lengths)
+        losses.append(float(loss))  # synchronises
+        times.append(time.perf_counter() - t0)
+        if state["step"] == LM_SAVE_AT:
+            free = shutil.disk_usage(workdir).free
+            t0 = time.perf_counter()
+            ckpt.save(state)
+            save_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if counts.get("flash_attention", 0):
+        raise AssertionError(f"K1 launched during LM training: {dict(counts)}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the LM loss did not fall over {LM_STEPS} steps: {losses}")
+    step_ms = statistics.median(times[1:]) * 1e3
+    tokens = sum(LM_LENGTHS)
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt_dir, str(LM_SAVE_AT), f))
+                     for f in os.listdir(os.path.join(ckpt_dir, str(LM_SAVE_AT))))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d): restore into a fresh state and take the next steps
+    template, opt2 = init_train_state(cfg, seed=1, device=dev)
+    t0 = time.perf_counter()
+    restored = TrainCheckpointer(ckpt_dir, max_to_keep=1).restore(template)
+    restore_s = time.perf_counter() - t0
+    if restored["step"] != LM_SAVE_AT:
+        raise AssertionError(f"restored step {restored['step']}, saved {LM_SAVE_AT}")
+    step2 = make_train_step(cfg, opt2)
+    resumed = []
+    for _ in range(LM_RESUME_STEPS):
+        restored, loss = step2(restored, ids, lengths)
+        resumed.append(float(loss))
+    want = losses[LM_SAVE_AT:LM_SAVE_AT + LM_RESUME_STEPS]
+    if not all(abs(a - b) <= RESUME_LOSS_RTOL * abs(b) for a, b in zip(resumed, want)):
+        raise AssertionError(f"resumed losses {resumed} against uninterrupted {want}")
+    del restored, template
+    shutil.rmtree(ckpt_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {
+        "layers": LM_LAYERS, "params": n_params, "batch": [len(LM_LENGTHS), max(LM_LENGTHS)],
+        "tokens_per_step": tokens, "losses": losses, "ms_per_step": step_ms,
+        "tokens_per_s": tokens / step_ms * 1e3, "peak_gib": peak_gib,
+        "remat": {"off": first[False], "on": first[True]},
+        "checkpoint": {"bytes": ckpt_bytes, "save_s": save_s, "restore_s": restore_s,
+                       "disk_free_before": free, "resumed_losses": resumed},
+    }
+    log(f"  LM at Mistral-7B width, {LM_LAYERS} layers ({n_params / 1e9:.3f} B float32 "
+        f"params): {LM_STEPS} steps on a {len(LM_LENGTHS)} x {max(LM_LENGTHS)} batch "
+        f"({tokens} tokens), loss {losses[0]:.4f} -> {losses[-1]:.3e}; {step_ms:.1f} ms a "
+        f"step (median, remat on), {tokens / step_ms * 1e3:.0f} tokens/s, peak "
+        f"{peak_gib:.2f} GiB; remat off/on at step 1: loss {l_off:.6f}/{l_on:.6f}, grad "
+        f"norm {n_off:.6f}/{n_on:.6f}")
+    log(f"  checkpoint at step {LM_SAVE_AT}: {ckpt_bytes / 2**30:.2f} GiB written in "
+        f"{save_s:.1f} s ({free / 2**30:.0f} GiB free before), restored in "
+        f"{restore_s:.1f} s; resumed losses {resumed} against {want}")
+    return summary
+
+
+def _recall_at_1(params, cfg, tok, pairs, use_flash):
+    from docqa_tpu_torch.models.encoder import encode_batch
+
+    dev = next(iter(params.values())).device
+    emb = []
+    for texts in ([q for q, _ in pairs], [p for _, p in pairs]):
+        ids, lens = tok.batch(texts, max_len=ENC_SEQ)
+        with torch.no_grad():
+            emb.append(encode_batch(params, cfg, torch.from_numpy(ids).long().to(dev),
+                                    torch.from_numpy(lens).to(dev), use_flash=use_flash))
+    pred = (emb[0] @ emb[1].T).argmax(dim=1).cpu().numpy()
+    return float(np.mean(pred == np.arange(len(pairs)))), emb[1]
+
+
+def run_training_encoder(counts, workdir):
+    """Phase 11 (c): ``train_encoder`` at MiniLM width (``EncoderConfig()``,
+    bf16) for ``ENC_STEPS`` steps of batch ``ENC_BATCH`` on synthetic pairs;
+    the loss on the first batch must fall and held-out recall@1 must not;
+    the trained params encoded through K1 must match the plain attention;
+    a ``TrainCheckpointer`` with ``max_to_keep=2`` must prune."""
+    from docqa_tpu_torch.text.tokenizer import default_tokenizer
+    from docqa_tpu_torch.training.checkpoint import TrainCheckpointer
+    from docqa_tpu_torch.training.encoder import (
+        encode_pair_batch, info_nce_loss, init_encoder_train_state,
+        make_encoder_train_step, synthetic_pairs, train_encoder,
+    )
+    from docqa_tpu_torch.weights import host_init_encoder_params, to_torch
+
+    dev = torch.device("cuda")
+    cfg = EncoderConfig()
+    tok = default_tokenizer(cfg.vocab_size)
+    eval_pairs = synthetic_pairs(np.random.default_rng(123), ENC_EVAL_PAIRS)
+    init = to_torch(host_init_encoder_params(cfg, 0), dev, torch.float32)
+    first = [torch.as_tensor(a, device=dev) for a in encode_pair_batch(
+        tok, synthetic_pairs(np.random.default_rng(1), ENC_BATCH), ENC_SEQ)]
+
+    def first_loss(params):
+        with torch.no_grad():
+            return float(info_nce_loss(params, cfg, first[0].long(), first[1],
+                                       first[2].long(), first[3]))
+
+    acc0, _ = _recall_at_1(init, cfg, tok, eval_pairs, use_flash=False)
+    loss0 = first_loss(init)
+    counts.clear()
+    t0 = time.perf_counter()
+    trained = train_encoder(cfg, steps=ENC_STEPS, batch_size=ENC_BATCH, seq=ENC_SEQ,
+                            seed=1, params=init, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if counts.get("flash_attention", 0):
+        raise AssertionError(f"K1 launched during encoder training: {dict(counts)}")
+    loss1 = first_loss(trained)
+    acc1, plain = _recall_at_1(trained, cfg, tok, eval_pairs, use_flash=False)
+    if not loss1 < loss0:
+        raise AssertionError(f"the encoder's loss did not fall: {loss0} -> {loss1}")
+    if not acc1 >= acc0:
+        raise AssertionError(f"held-out recall@1 fell: {acc0} -> {acc1}")
+    counts.clear()
+    acc_k1, served = _recall_at_1(trained, cfg, tok, eval_pairs, use_flash=True)
+    torch.cuda.synchronize()
+    k1 = dict(counts)
+    if not k1.get("flash_attention.prefill", 0):
+        raise AssertionError(f"the trained encoder's serving encode launched no K1: {k1}")
+    atol, rtol = TOL[torch.bfloat16]
+    err = (served - plain).abs()
+    if not bool((err <= atol + rtol * plain.abs()).all()):
+        raise AssertionError(f"K1 embeddings part from the plain ones by {float(err.max())}")
+
+    # max_to_keep prunes, and restore places the state on the card
+    ck_dir = os.path.join(workdir, "enc_ckpt")
+    state, opt = init_encoder_train_state(cfg, params=trained, device=dev)
+    step = make_encoder_train_step(cfg, opt)
+    ckpt = TrainCheckpointer(ck_dir, max_to_keep=2)
+    batch = encode_pair_batch(tok, synthetic_pairs(np.random.default_rng(2), ENC_BATCH),
+                              ENC_SEQ)
+    for _ in range(3):
+        state, _loss = step(state, *batch)
+        ckpt.save(state)
+    kept = sorted(os.listdir(ck_dir))
+    if kept != ["2", "3"]:
+        raise AssertionError(f"max_to_keep=2 kept {kept}")
+    template, _opt = init_encoder_train_state(cfg, device=dev)
+    ckpt.restore(template)
+    if not all(torch.equal(template["params"][k], v) for k, v in state["params"].items()):
+        raise AssertionError("the restored encoder state differs from the saved one")
+    shutil.rmtree(ck_dir)
+    summary = {"steps": ENC_STEPS, "batch": ENC_BATCH, "train_s": train_s,
+               "first_batch_loss": [loss0, loss1], "recall_at_1": [acc0, acc1],
+               "recall_at_1_k1": acc_k1, "k1_launches": k1,
+               "k1_vs_plain_max_abs_err": float(err.max()), "checkpoints_kept": kept}
+    log(f"  encoder at MiniLM width: {ENC_STEPS} steps of {ENC_BATCH} pairs in "
+        f"{train_s:.1f} s; first-batch loss {loss0:.4f} -> {loss1:.4f}; held-out recall@1 "
+        f"on {ENC_EVAL_PAIRS} pairs {acc0:.3f} -> {acc1:.3f} (through K1 {acc_k1:.3f}, "
+        f"embeddings within {float(err.max()):.2e} of the plain path, K1 launches {k1}); "
+        f"checkpoints kept {kept}")
+    return summary
 
 
 def main(argv=None) -> int:
@@ -3562,7 +4010,7 @@ def main(argv=None) -> int:
     t_smoke = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/10] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[1/11] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     build_logs = _kernels.build()
     build_s = time.perf_counter() - t0
@@ -3571,25 +4019,25 @@ def main(argv=None) -> int:
         for kernel, regs, spills in ptxas_summary(text):
             log(f"    {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
 
-    log("[2/10] kernels against their plain versions (bf16 and float32)")
+    log("[2/11] kernels against their plain versions (bf16 and float32)")
     cases = run_kernel_cases()
     cases += run_paged_cases()
 
-    log("[3/10] main path: QAService.ask at full width")
+    log("[3/11] main path: QAService.ask at full width")
     t_main = time.perf_counter()
     qa, params, enc_launches = build_main_path(_kernels.LAUNCHES)
     per_q, launches = run_main_path(_kernels.LAUNCHES, qa, params, enc_launches)
     main_s = time.perf_counter() - t_main
 
-    log("[4/10] reference: tiny float32 /ask on the card against the CPU")
+    log("[4/11] reference: tiny float32 /ask on the card against the CPU")
     reference = run_reference_check()
 
-    log("[5/10] main path: QAService.ask through the continuous batcher at full width")
+    log("[5/11] main path: QAService.ask through the continuous batcher at full width")
     t_batch = time.perf_counter()
     batcher_path = run_batcher_path(_kernels.LAUNCHES, qa, per_q)
     batcher_s = time.perf_counter() - t_batch
 
-    log("[6/10] main path: QAService.ask through the replica pool at full width")
+    log("[6/11] main path: QAService.ask through the replica pool at full width")
     t_pool = time.perf_counter()
     get_spine().reset_stats()
     pool_path = run_pool_path(_kernels.LAUNCHES, qa)
@@ -3597,45 +4045,63 @@ def main(argv=None) -> int:
     pool_path["summary"]["spine"] = _spine_waits(get_spine().stats())
     _log_spine_waits("phase 6", pool_path["summary"]["spine"])
 
-    log("[7/10] ingest: DocumentPipeline at full width, then /ask over what it indexed")
+    log("[11/11 (a)] training: the tagger at NERConfig() trained as the default config's "
+        "boot trains it, then held to the reference's quality floors")
+    t_train = time.perf_counter()
+    train_dir = tempfile.mkdtemp(prefix="docqa_phase11_")
+    tagger, tagger_summary = run_training_tagger(_kernels.LAUNCHES, train_dir)
+    train_s = time.perf_counter() - t_train
+
+    log("[7/11] ingest: DocumentPipeline at full width, then /ask over what it indexed")
     t_ingest = time.perf_counter()
     get_spine().reset_stats()
-    ingest_path = run_ingest_path(_kernels.LAUNCHES, qa)
+    ingest_path = run_ingest_path(_kernels.LAUNCHES, qa, tagger)
     ingest_s = time.perf_counter() - t_ingest
     ingest_path["summary"]["spine"] = _spine_waits(get_spine().stats())
     _log_spine_waits("phase 7", ingest_path["summary"]["spine"])
 
-    log("[8/10] obs: traces, stage device time, MFU and costs over the pool, "
+    log("[8/11] obs: traces, stage device time, MFU and costs over the pool, "
         "and an ingested document's timeline")
     t_obs = time.perf_counter()
-    obs_path = run_obs_path(_kernels.LAUNCHES, qa)
+    obs_path = run_obs_path(_kernels.LAUNCHES, qa, tagger)
     obs_s = time.perf_counter() - t_obs
 
-    log("[9/10] the app: DocQARuntime behind its stdlib HTTP front at full width, "
+    log("[9/11] the app: DocQARuntime behind its stdlib HTTP front at full width, "
         "driven over HTTP")
     t_app = time.perf_counter()
     get_spine().reset_stats()
-    app_path = run_app_path(_kernels.LAUNCHES, qa, ingest_path["summary"]["docs_per_s"])
+    app_path = run_app_path(_kernels.LAUNCHES, qa, tagger,
+                            ingest_path["summary"]["docs_per_s"])
     app_s = time.perf_counter() - t_app
 
-    log("[10/10] the store's lifecycle and the single-sync /ask: fused against classic "
+    log("[10/11] the store's lifecycle and the single-sync /ask: fused against classic "
         "/ask over a 1M-row store with a token sidecar, its snapshot and restore, and a "
         "runtime killed and restarted through HTTP")
     t_life = time.perf_counter()
     get_spine().reset_stats()
-    life_path = run_lifecycle_path(_kernels.LAUNCHES, qa)
+    life_path = run_lifecycle_path(_kernels.LAUNCHES, qa, tagger)
     life_s = time.perf_counter() - t_life
     log(f"  phase 10 took {life_s:.1f} s")
 
-    log("[9/10, continued] the app module as a user starts it, and a tiny runtime on the "
+    log("[9/11, continued] the app module as a user starts it, and a tiny runtime on the "
         "card against the CPU")
     t_app = time.perf_counter()
     del qa, params
     gc.collect()
     torch.cuda.empty_cache()
-    app_path["summary"]["module"] = run_app_module_check()
+    app_path["summary"]["module"] = run_app_module_check(tagger)
     app_path["summary"]["reference"] = run_app_reference_check()
     app_s += time.perf_counter() - t_app
+
+    log("[11/11 (b)-(d)] training: LM steps at Mistral-7B width with remat and a "
+        "checkpoint resumed, and the encoder at MiniLM width")
+    t_train = time.perf_counter()
+    training = {"tagger": tagger_summary,
+                "lm": run_training_lm(_kernels.LAUNCHES, train_dir),
+                "encoder": run_training_encoder(_kernels.LAUNCHES, train_dir)}
+    shutil.rmtree(train_dir)
+    train_s += time.perf_counter() - t_train
+    log(f"  phase 11 took {train_s:.1f} s")
     # launches of the main-path runs (each counted from 0 around its run)
     path_launches = collections.Counter(launches["total"])
     path_launches.update(batcher_path["launches"])
@@ -3645,6 +4111,8 @@ def main(argv=None) -> int:
     path_launches.update(obs_path["launches"])
     path_launches.update(app_path["launches"])
     path_launches.update(life_path["launches"])
+    path_launches.update(training["tagger"]["eval_launches"])
+    path_launches.update(training["encoder"]["k1_launches"])
 
     def entry(name, source, counter, timed, path=None):
         head = next(c for c in cases if c["case"] == timed)
@@ -3694,6 +4162,7 @@ def main(argv=None) -> int:
                 "obs_path": obs_path, "obs_path_s": obs_s,
                 "app_path": app_path, "app_path_s": app_s,
                 "lifecycle_path": life_path, "lifecycle_path_s": life_s,
+                "training": training, "training_s": train_s,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
     print(json.dumps({"ingest": {
@@ -3711,6 +4180,7 @@ def main(argv=None) -> int:
     } | {"phase_s": obs_s}}))
     print(json.dumps({"app": {**app_path["summary"], "phase_s": app_s}}))
     print(json.dumps({"lifecycle": {**life_path["summary"], "phase_s": life_s}}))
+    print(json.dumps({"training": {**training, "phase_s": train_s}}))
     log(f"smoke: {time.perf_counter() - t_smoke:.1f} s from the card query to the kernels line")
     print(json.dumps({"kernels": kernels}))
     print(smi)

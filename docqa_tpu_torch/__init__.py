@@ -9,5 +9,6 @@ Every entry point (``EncoderEngine``, ``GenerateEngine``, ``VectorStore``,
 ``"cuda"``; without a card it raises unless the caller passes
 ``device="cpu"``.  On a CUDA tensor attention runs the hand-written Hopper
 kernel in ``csrc/flash_attention.cu``; on a CPU tensor it runs the plain
-PyTorch version the kernel is held against.
+PyTorch version the kernel is held against.  The kernel is forward-only:
+the trainers (``training/``) run the plain version under autograd.
 """

@@ -55,7 +55,9 @@ class NERConfig:
     )
     dtype: str = "bfloat16"
     # the trained tagger's cache (training/ner.py) and the steps it must
-    # have been trained with; a missing or mismatched cache raises
+    # have been trained with; a missing or mismatched cache retrains (at
+    # boot too); train_steps=0 with no params_path is plumbing mode, a
+    # seeded random tagger
     params_path: Optional[str] = None
     train_steps: int = 1500
     # document-register language of the pattern recognizers: "fr" keeps

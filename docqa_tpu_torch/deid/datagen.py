@@ -1,6 +1,6 @@
 """Synthetic labeled-PHI generator, counterpart of ``docqa_tpu/deid/datagen.py``
-(verbatim up to ``word_bio_labels``; ``encode_example`` / ``sample_batch``
-come with NER training).
+(verbatim, down to ``encode_example`` and ``sample_batch``, the padded
+training batches of ``training/ner.py``).
 
 The notes are clinical sentences templated over PHI lexicons.  A fraction
 of PERSON/LOCATION fills are random pronounceable syllable strings, the
@@ -22,7 +22,7 @@ import numpy as np
 
 from docqa_tpu_torch.config import NERConfig
 from docqa_tpu_torch.models.ner import label_ids
-from docqa_tpu_torch.text.tokenizer import ShapeHashTokenizer, _WORD_RE
+from docqa_tpu_torch.text.tokenizer import ShapeHashTokenizer, Tokenizer, _WORD_RE
 
 
 def ner_tokenizer(cfg: NERConfig) -> ShapeHashTokenizer:
@@ -387,3 +387,55 @@ def word_bio_labels(
                 break
         labels.append(label)
     return words, wspans, labels
+
+
+def encode_example(
+    tokenizer: Tokenizer,
+    cfg: NERConfig,
+    text: str,
+    spans: Sequence[Tuple[int, int, str]],
+    seq: int,
+) -> Tuple[np.ndarray, int, np.ndarray, np.ndarray]:
+    """(ids[seq], length, labels[seq], mask[seq]) — label/mask on the first
+    token of each word, mirroring the read position in
+    ``deid/engine.py:_ner_results``."""
+    words, _, wlabels = word_bio_labels(text, spans, cfg)
+    ids = np.zeros((seq,), np.int32)
+    labels = np.zeros((seq,), np.int32)
+    mask = np.zeros((seq,), np.float32)
+    row: List[int] = [tokenizer.cls_id]
+    supervise: List[Tuple[int, int]] = []  # (token_idx, label)
+    for word, lab in zip(words, wlabels):
+        wids = tokenizer.word_to_ids(word)
+        if len(row) + len(wids) > seq - 1:
+            break
+        supervise.append((len(row), lab))
+        row.extend(wids)
+    row.append(tokenizer.sep_id)
+    ids[: len(row)] = row
+    for ti, lab in supervise:
+        labels[ti] = lab
+        mask[ti] = 1.0
+    return ids, len(row), labels, mask
+
+
+def sample_batch(
+    rng: np.random.Generator,
+    tokenizer: Tokenizer,
+    cfg: NERConfig,
+    batch_size: int,
+    seq: int,
+    lexicons: Dict[str, Sequence[str]] = TRAIN_LEXICONS,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """A padded training batch: ids [b,s], lengths [b], labels [b,s],
+    mask [b,s]."""
+    ids = np.zeros((batch_size, seq), np.int32)
+    lengths = np.zeros((batch_size,), np.int32)
+    labels = np.zeros((batch_size, seq), np.int32)
+    mask = np.zeros((batch_size, seq), np.float32)
+    for i in range(batch_size):
+        text, spans = generate_example(rng, lexicons)
+        ids[i], lengths[i], labels[i], mask[i] = encode_example(
+            tokenizer, cfg, text, spans, seq
+        )
+    return ids, lengths, labels, mask

@@ -437,6 +437,10 @@ class DeidEngine:
         # the served acceptance threshold of model spans (see
         # DEFAULT_NER_THRESHOLD)
         ner_threshold: float = DEFAULT_NER_THRESHOLD,
+        # evaluate_ner turns the deny-list veto OFF: the recipe gate must
+        # score the tagger alone, not the tagger hidden behind a list
+        # built from its past false positives.
+        ner_deny_list: bool = True,
         max_window: Optional[int] = None,
         device="cuda",
     ):
@@ -448,6 +452,7 @@ class DeidEngine:
         self.language = getattr(cfg, "language", "fr")
         self.use_ner_model = use_ner_model
         self.ner_threshold = ner_threshold
+        self.ner_deny_list = ner_deny_list
         # Window bound for NER batching: position embeddings beyond the
         # tagger's training seq are untrained, so serving must not pack
         # windows longer than it.
@@ -468,19 +473,24 @@ class DeidEngine:
         *,
         params_path: Optional[str] = None,
         steps: Optional[int] = None,
+        seed: int = 0,
         **engine_kw,
     ) -> "DeidEngine":
-        """An engine with a *functional* contextual-PHI tagger, loaded from
-        the npz cache at ``params_path`` (``cfg.params_path`` when None),
-        windowed at the length it was trained at.  Raises
-        ``training.ner.NERCacheError`` when no matching cache exists: it
-        never trains and never serves random weights, since random-init
-        NER must never mask production documents."""
+        """An engine with a *functional* contextual-PHI tagger: the cached
+        params at ``params_path`` (``cfg.params_path`` when None) if their
+        fingerprint matches, else a tagger trained on the synthetic
+        generator from ``seed`` on the engine's device (and cached there),
+        windowed at the length it was trained at.  This is what the serving
+        runtime uses — random-init NER must never mask production
+        documents."""
         from docqa_tpu_torch.deid.datagen import ner_tokenizer
         from docqa_tpu_torch.training.ner import load_or_train
 
+        train_kw = {"seed": seed, "device": engine_kw.get("device", "cuda")}
+        if steps is not None:
+            train_kw["steps"] = steps
         params, train_seq = load_or_train(
-            cfg, params_path or cfg.params_path, steps=steps
+            cfg, params_path or cfg.params_path, **train_kw
         )
         return cls(
             cfg,
@@ -589,7 +599,7 @@ class DeidEngine:
                 RecognizerResult(ent, s, e, sc)
                 for ent, s, e, sc in spans
                 if sc >= self.ner_threshold
-                and not _deny_listed(texts[di][s:e])
+                and not (self.ner_deny_list and _deny_listed(texts[di][s:e]))
             )
         return out
 

@@ -17,9 +17,10 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from docqa_tpu_torch.config import DecoderConfig
-from docqa_tpu_torch.ops.attention import attention
+from docqa_tpu_torch.ops.attention import attention, attention_reference
 from docqa_tpu_torch.ops.norms import rms_norm
 from docqa_tpu_torch.ops.rope import apply_rope, rope_angles
 from docqa_tpu_torch.utils import torch_dtype
@@ -112,16 +113,23 @@ def decoder_layer_stack(
     positions: torch.Tensor,  # [b, s] absolute position per token (RoPE)
     rope_len: int,  # RoPE table length (>= max position + 1)
     attend,  # attend(layer, q, k, v) -> [b, s, num_heads, head_dim]
+    *,
+    remat: bool = False,
 ) -> torch.Tensor:
     """The shared trunk: embed, then per layer project q/k/v, apply RoPE at
     ``positions``, delegate the KV-cache write AND attention to ``attend``
     (which owns the cache layout), then wo and the SwiGLU MLP.  Returns the
-    final hidden states [b, s, hidden] before the final norm."""
+    final hidden states [b, s, hidden] before the final norm.
+
+    ``remat``: each layer runs under ``torch.utils.checkpoint`` (non-
+    reentrant), so its activations are recomputed in the backward pass
+    instead of stored — the training step's per-layer counterpart of the
+    reference's ``jax.checkpoint``."""
     b, s = ids.shape
     dtype = torch_dtype(cfg.dtype)
     cos, sin = rope_angles(cfg.head_dim, rope_len, cfg.rope_theta, ids.device)
-    x = params["tok_emb"][ids].to(dtype)
-    for i in range(cfg.num_layers):
+
+    def layer(i: int, x: torch.Tensor) -> torch.Tensor:
         y = rms_norm(x, params[f"l{i}_attn_norm_g"], cfg.norm_eps)
         q = _matmul(y, params, f"l{i}_wq", dtype).reshape(
             b, s, cfg.num_heads, cfg.head_dim
@@ -143,7 +151,14 @@ def decoder_layer_stack(
         gate = _matmul(y, params, f"l{i}_w_gate", dtype)
         up = _matmul(y, params, f"l{i}_w_up", dtype)
         act = F.silu(gate.float()).to(dtype) * up
-        x = x + _matmul(act, params, f"l{i}_w_down", dtype)
+        return x + _matmul(act, params, f"l{i}_w_down", dtype)
+
+    x = params["tok_emb"][ids].to(dtype)
+    for i in range(cfg.num_layers):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(layer, i, x, use_reentrant=False)
+        else:
+            x = layer(i, x)
     return x
 
 
@@ -173,6 +188,8 @@ def decoder_forward(
     attn_lengths: Optional[torch.Tensor] = None,  # [b] valid kv after this step
     *,
     last_token_only: bool = False,
+    use_flash: bool = True,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Run s new tokens through the stack, writing their K/V into ``cache``
     in place.  Prefill: cache_lengths = 0 and ``attn_lengths`` = the true
@@ -180,7 +197,12 @@ def decoder_forward(
     s = 1, ``attn_lengths`` defaults to cache_lengths + s.
 
     Returns logits [b, s, vocab] f32 ([b, 1, vocab] with last_token_only).
-    Attention goes through :func:`attention`: the flash kernel on a card.
+    Attention goes through :func:`attention` (the flash kernel on a card)
+    when ``use_flash``, else through :func:`attention_reference` on either
+    device: the training path, which also takes ``remat``
+    (:func:`decoder_layer_stack`).  Under autograd the cache write is an
+    in-place ``index_put_`` into a tensor that needs no grad; gradients
+    flow through it to k and v.
     """
     b, s = ids.shape
     max_len = cache["k0"].shape[1]
@@ -188,10 +210,12 @@ def decoder_forward(
     positions = (cache_lengths.long()[:, None] + steps).clamp(max=max_len - 1)
     new_lengths = cache_lengths + s if attn_lengths is None else attn_lengths
 
+    attn_fn = attention if use_flash else attention_reference
+
     def attend(i, q, k, v):
         write_cache(cache[f"k{i}"], k, cache_lengths)
         write_cache(cache[f"v{i}"], v, cache_lengths)
-        return attention(
+        return attn_fn(
             q,
             cache[f"k{i}"],
             cache[f"v{i}"],
@@ -201,5 +225,6 @@ def decoder_forward(
             sliding_window=cfg.sliding_window,
         )
 
-    x = decoder_layer_stack(params, cfg, ids, positions, max_len, attend)
+    x = decoder_layer_stack(params, cfg, ids, positions, max_len, attend,
+                            remat=remat)
     return decoder_head(params, cfg, x, new_lengths, last_token_only)

@@ -4,9 +4,12 @@ token-type embeddings; masked mean pooling + L2 normalization.
 
 Parameters are a flat dict of float32 tensors with the reference's names
 (weights [in, out]); each matmul casts its weight to ``cfg.dtype`` as the
-reference does.  Attention goes through :func:`attention` (non-causal,
-``lengths``-masked): the flash kernel on a card, with head_dim 32 at the
-MiniLM width.  Padded batch lanes have length 0 and come out as zeros.
+reference does.  Attention (non-causal, ``lengths``-masked) goes through
+:func:`attention` when ``use_flash`` (the default, serving): the flash
+kernel on a card, with head_dim 32 at the MiniLM width.  ``use_flash=False``
+calls :func:`attention_reference` on either device: the path training
+takes, since the kernel has no backward (the reference trains on its plain
+attention too).  Padded batch lanes have length 0 and come out as zeros.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from docqa_tpu_torch.config import EncoderConfig
-from docqa_tpu_torch.ops.attention import attention
+from docqa_tpu_torch.ops.attention import attention, attention_reference
 from docqa_tpu_torch.ops.norms import layer_norm
 from docqa_tpu_torch.utils import torch_dtype
 
@@ -29,12 +32,15 @@ def encoder_forward(
     cfg: EncoderConfig,
     ids: torch.Tensor,  # [b, s] right-padded
     lengths: torch.Tensor,  # [b]
+    *,
+    use_flash: bool = True,
 ) -> torch.Tensor:
     """Token-level hidden states [b, s, hidden]."""
     b, s = ids.shape
     h, nh = cfg.hidden_dim, cfg.num_heads
     hd = h // nh
     dtype = torch_dtype(cfg.dtype)
+    attend = attention if use_flash else attention_reference
 
     def dense(x, name):
         return x @ params[f"{name}_w"].to(dtype) + params[f"{name}_b"].to(dtype)
@@ -50,7 +56,7 @@ def encoder_forward(
         q = dense(x, f"l{i}_q").reshape(b, s, nh, hd)
         k = dense(x, f"l{i}_k").reshape(b, s, nh, hd)
         v = dense(x, f"l{i}_v").reshape(b, s, nh, hd)
-        attn = attention(q, k, v, lengths=lengths).reshape(b, s, h)
+        attn = attend(q, k, v, lengths=lengths).reshape(b, s, h)
         attn = dense(attn, f"l{i}_o")
         x = layer_norm(
             x + attn, params[f"l{i}_attn_ln_g"], params[f"l{i}_attn_ln_b"]
@@ -80,11 +86,12 @@ def mean_pool_normalize(hidden, lengths, normalize: bool = True):
 
 
 def encode_batch(
-    params: Params, cfg: EncoderConfig, ids: torch.Tensor, lengths: torch.Tensor
+    params: Params, cfg: EncoderConfig, ids: torch.Tensor, lengths: torch.Tensor,
+    *, use_flash: bool = True,
 ) -> torch.Tensor:
     """[b, s] ids -> [b, embed_dim] f32 embeddings (normalized when
     ``cfg.normalize``)."""
-    hidden = encoder_forward(params, cfg, ids, lengths)
+    hidden = encoder_forward(params, cfg, ids, lengths, use_flash=use_flash)
     pooled = mean_pool_normalize(hidden, lengths, normalize=False)
     if cfg.embed_dim != cfg.hidden_dim:
         pooled = pooled @ params["proj_w"].float() + params["proj_b"].float()

@@ -1,8 +1,9 @@
 """Token-classification NER for PHI detection, counterpart of
 ``docqa_tpu/models/ner.py``: the encoder trunk (``models/encoder.py``,
-attention through K1 on a card) with a per-token classification head in
-float32, BIO labels over the reference's 6-entity contract.  Span
-extraction is host-side (``deid/engine.py``).
+attention through K1 on a card unless ``use_flash=False``, as training
+asks) with a per-token classification head in float32, BIO labels over
+the reference's 6-entity contract.  Span extraction is host-side
+(``deid/engine.py``).
 """
 
 from __future__ import annotations
@@ -51,10 +52,12 @@ def init_ner_params(cfg: NERConfig, seed: int = 0) -> Dict[str, np.ndarray]:
 
 
 def ner_forward(
-    params: Params, cfg: NERConfig, ids: torch.Tensor, lengths: torch.Tensor
+    params: Params, cfg: NERConfig, ids: torch.Tensor, lengths: torch.Tensor,
+    *, use_flash: bool = True,
 ) -> torch.Tensor:
     """[b, s] ids -> [b, s, num_labels] f32 logits."""
-    hidden = encoder_forward(params, _trunk_cfg(cfg), ids, lengths)
+    hidden = encoder_forward(params, _trunk_cfg(cfg), ids, lengths,
+                             use_flash=use_flash)
     return hidden.float() @ params["head_w"].float() + params["head_b"].float()
 
 

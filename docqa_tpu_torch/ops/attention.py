@@ -272,7 +272,19 @@ def flash_attention(
     :func:`attention_reference`; CUDA tensors launch the Hopper kernel of
     :func:`plan_flash`'s path or raise — there is no fallback on the card.
     Counts one launch under ``flash_attention`` and one under
-    ``flash_attention.<path>``."""
+    ``flash_attention.<path>``.
+
+    The kernel has no backward (the reference's has none either), so an
+    input that requires grad while grad mode is on raises on both devices:
+    on the card its output would carry no ``grad_fn`` and every gradient
+    through attention would be dropped silently.  Training passes
+    ``use_flash=False`` to the trunks, which calls
+    :func:`attention_reference` directly."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise ValueError(
+            "flash_attention is forward-only and cannot be differentiated: "
+            "train with use_flash=False (attention_reference under autograd)"
+        )
     if q.device.type == "cpu":
         return attention_reference(
             q, k, v, causal=causal, lengths=lengths, q_offset=q_offset,

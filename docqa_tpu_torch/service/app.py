@@ -228,8 +228,10 @@ class DocQARuntime:
             self.store.register_index_sink(self.lexical)
         self.search_index = self.store
         if cfg.ner.train_steps > 0 or cfg.ner.params_path:
-            # loads the trained tagger's cache or raises: the port does
-            # not train at boot (ROADMAP queue 1, item 6)
+            # loads the trained tagger's cache, or trains it (in a child
+            # process on a card) and caches it there: restarts load
+            # instead of retrain; the npz fingerprint invalidates the
+            # cache on any architecture or recipe change
             params_path = cfg.ner.params_path or (
                 os.path.join(work_dir, "ner.npz") if work_dir
                 else os.path.join(

@@ -1,3 +1,12 @@
-"""Training-side modules of the port.  Only the NER tagger's cache
-(``ner.py``: save / load / fingerprint) is here so far; training itself
-comes later."""
+"""The training plane of the port, counterpart of ``docqa_tpu/training``:
+the causal-LM step (``train.py``), the NER tagger's trainer and cache
+(``ner.py``), contrastive encoder fine-tuning (``encoder.py``),
+train-state checkpoints (``checkpoint.py``) and the optimizer chain they
+share (``optim.py``)."""
+
+from docqa_tpu_torch.training.train import (  # noqa: F401
+    TrainState,
+    init_train_state,
+    lm_loss,
+    make_train_step,
+)

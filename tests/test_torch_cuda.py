@@ -522,3 +522,50 @@ def test_card_snapshot_restores_to_equal_ids(dev, tmp_path):
     for a, b in zip(store.token_sidecar(), restored.token_sidecar()):
         assert torch.equal(a[: store.count], b[: store.count])
     assert restored.version == store.version
+
+
+def test_flash_wrapper_refuses_autograd_on_the_card(dev):
+    """K1 has no backward: a grad-requiring input raises before any launch
+    (the CPU test pins the same refusal), and the serving forward of a
+    tagger whose params need grad raises; no_grad launches as usual."""
+    from docqa_tpu_torch.config import NERConfig
+    from docqa_tpu_torch.models.ner import init_ner_params, ner_forward
+    from docqa_tpu_torch.training.ner import trainable
+
+    q, k, v, kw = _inputs(dev, CASES[1], torch.bfloat16)
+    before = _kernels.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="use_flash=False"):
+        flash_attention(q.requires_grad_(), k, v, **kw)
+    assert _kernels.LAUNCHES["flash_attention"] == before
+    cfg = NERConfig(vocab_size=512, hidden_dim=64, num_layers=1, num_heads=2,
+                    mlp_dim=128, max_seq_len=64)
+    params = trainable(init_ner_params(cfg, 0), cfg, dev)
+    ids = torch.randint(5, 500, (2, 64), device=dev)
+    lengths = torch.tensor([64, 30], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="use_flash=False"):
+        ner_forward(params, cfg, ids, lengths)
+    with torch.no_grad():
+        ner_forward(params, cfg, ids, lengths)
+    assert _kernels.LAUNCHES["flash_attention"] == before + 1
+
+
+def test_train_ner_on_the_card_equals_the_cpu(dev):
+    """Five steps of train_ner in float32 from one tree and one batch
+    stream: the card (plain attention under autograd, no K1 launch) and
+    the CPU agree within 1e-4 on every param (float32, other reduction
+    orders; Adam turns an eps-sized gradient's rounding into up to a
+    step's lr, 2e-3 x the warmup's factor here)."""
+    from docqa_tpu_torch.config import NERConfig
+    from docqa_tpu_torch.models.ner import init_ner_params
+    from docqa_tpu_torch.training.ner import train_ner
+
+    cfg = NERConfig(vocab_size=512, hidden_dim=64, num_layers=2, num_heads=2,
+                    mlp_dim=128, max_seq_len=64, dtype="float32")
+    init = init_ner_params(cfg, 3)
+    kw = dict(steps=5, batch_size=8, seq=48, seed=0, log_every=0, params=init)
+    before = _kernels.LAUNCHES["flash_attention"]
+    card = train_ner(cfg, device=dev, **kw)
+    assert _kernels.LAUNCHES["flash_attention"] == before
+    cpu = train_ner(cfg, device="cpu", **kw)
+    for name, value in cpu.items():
+        torch.testing.assert_close(card[name].cpu(), value, rtol=0, atol=1e-4)

@@ -18,7 +18,7 @@ from docqa_tpu_torch.config import (
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "docqa_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "docqa_tpu", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "docqa_tpu", "ml_dtypes", "optax", "orbax")
 # the card's Python has neither: the app's server and schemas are stdlib
 NOT_ON_THE_CARD = ("aiohttp", "pydantic")
 
@@ -36,7 +36,8 @@ import importlib.util
 spec = importlib.util.spec_from_file_location("chip_smoke", {os.path.join(REPO, "chip_smoke.py")!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "aiohttp", "pydantic", "ml_dtypes")
+                if m.split(".")[0] in ("jax", "jaxlib", "aiohttp", "pydantic", "ml_dtypes",
+                                       "optax", "orbax")
                 and sys.modules[m] is not None)
 print("LOADED", loaded)
 print("PORT", sorted(m for m in sys.modules if m.startswith("docqa_tpu_torch.")))
@@ -108,8 +109,20 @@ LIFECYCLE_MODULES = (
     "docqa_tpu_torch.service.pipeline",
     "docqa_tpu_torch.service.bootstrap",
 )
+# the training slice's new and touched modules, held to the same two checks
+TRAINING_MODULES = (
+    "docqa_tpu_torch.deid.evalset",
+    "docqa_tpu_torch.models.decoder",
+    "docqa_tpu_torch.models.encoder",
+    "docqa_tpu_torch.ops.attention",
+    "docqa_tpu_torch.training",
+    "docqa_tpu_torch.training.checkpoint",
+    "docqa_tpu_torch.training.encoder",
+    "docqa_tpu_torch.training.optim",
+    "docqa_tpu_torch.training.train",
+)
 SLICE_MODULES = (BATCHER_MODULES + INGEST_MODULES + OBS_MODULES + APP_MODULES
-                 + LIFECYCLE_MODULES)
+                 + LIFECYCLE_MODULES + TRAINING_MODULES)
 
 
 def _python_files():
