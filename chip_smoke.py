@@ -171,9 +171,34 @@ Phases, each of which fails the run on any error (nothing is caught):
    step 10 by ``TrainCheckpointer``, restored into a fresh state, 5 more
    steps give the uninterrupted run's losses, and ``max_to_keep`` prunes.
 
+12. tiered retrieval, run after phase 10 and before phase 9's module and
+   tiny-runtime checks: (a) a 1,000,000 x 384 bf16 store of phase 3's 20
+   encoded notes and 999,980 clustered rows (4,096 seeded centres, noise
+   0.35 x sqrt(32/384) a dimension: the reference tests' recipe at d=384;
+   uniform rows are IVF's degenerate case), its int8 IVF tier built by
+   ``TieredIndex.rebuild()`` at the default config (nprobe 8, n_assign 2),
+   ``index_bytes``, the spill and the build's split printed; (b) recall@10
+   against the exact store (tie rule, Wilson intervals) at nprobe 2-32 over
+   256 perturbed rows and the four questions, tiered against exact
+   ``search_texts`` latency (batch 1 and 16, alternating pairs, host and
+   CUDA-event ms), the plain IVF probe (q 16, nprobe 8) and the plain
+   lexical scoring (1M rows) against their byte bounds; (c) 1,000 fresh
+   rows each first for its own vector, then a tail past a lowered
+   ``rebuild_tail_rows`` rebuilds in the background while the questions
+   keep being served; (d) ``QAService`` over the tier and a 1-replica pool
+   at Mistral-7B width: the four questions, none degraded, sources equal to
+   the exact path's (tie rule), K1's launch identity, the retrieval
+   observatory (every retrieval sampled) drained into a ``tiered_fused@
+   nprobe=8`` estimate, frontier rows and the recall SLO's counters; (e)
+   phase 9's runtime with ``store.serving_index="tiered"`` over HTTP, an
+   /ask with the tier's default mode dense, then hybrid, and
+   ``/api/retrieval`` the running observatory's; (f) a tiny float32 tier
+   gives the same dense and hybrid top-k on the card and the CPU.
+
 The recorder is on by default, so phases 3-7 run traced too.  Prints the
 pool JSON line, the ingest JSON line, the obs JSON line, the app JSON line,
-the lifecycle JSON line, the training JSON line, the kernels JSON line,
+the lifecycle JSON line, the training JSON line, the tiered JSON line, the
+kernels JSON line,
 the nvidia-smi line, and last the ok line.  Phases 6 and 7 also
 print each spine stage's queue wait; ``--spine-lanes N`` sets the spine's
 lane count.
@@ -227,6 +252,7 @@ from docqa_tpu_torch.models.decoder import (
 )
 from docqa_tpu_torch.models.ner import init_ner_params, ner_forward
 from docqa_tpu_torch.obs.expo import lint_prometheus_text, prometheus_text
+from docqa_tpu_torch.obs.retrieval_observatory import compare_topk, wilson_interval
 from docqa_tpu_torch.ops import _kernels
 from docqa_tpu_torch.ops import attention as attn
 from docqa_tpu_torch.resilience import (
@@ -3614,6 +3640,531 @@ def run_lifecycle_path(counts, qa, tagger):
             "launches": launches}
 
 
+# ---- phase 12: tiered retrieval at full width ---------------------------------
+
+# the clustered filler rows: seeded centres, per-dimension noise scaled from
+# the reference tests' 0.35 at d=32 to keep its angle to the centre at d=384
+TIER_CENTERS = 4096
+TIER_NOISE = 0.35 * (32 / 384) ** 0.5
+TIER_QUERIES = 256
+TIER_QUERY_NOISE = 0.02  # a query row's noise a dimension (~21 degrees off)
+TIER_NPROBES = (2, 4, 8, 16, 32)
+TIER_K = 10
+TIER_PAIRS = 6  # alternating tiered / exact latency pairs a batch size
+TIER_FRESH = 1000  # rows appended to the tail, each must find itself first
+TIER_REBUILD_TAIL = 2000  # rebuild_tail_rows lowered so (c) rebuilds (a cut)
+TIER_PACE_S = 0.05  # one question every 50 ms while the rebuild runs
+LEX_ROWS = 1_000_000  # the lexical scoring's synthetic tiles
+# the re-ranked tiered scores are float32 host cosines, the exact store's
+# float32 sums of bf16 rows: a row within this of the exact k-th score is a
+# tie, not a miss (bf16 rounds each component to 2^-9 relative)
+TIER_TIE_TOL = 1e-2
+
+
+def tiered_store(qa, dev):
+    """Phase 12's 1,000,000 x 384 bf16 store: phase 3's 20 encoded notes,
+    then clustered filler rows (module constants above).  Returns (store,
+    each row's centre id (-1 for a note), the seeded generator)."""
+    notes = qa.store.metadata_rows()[:N_NOTES]
+    store = VectorStore(StoreConfig(), device=dev)
+    store.add(qa.store.host_rows(np.arange(N_NOTES)), notes)
+    rng = np.random.default_rng(12)
+    d = store.cfg.dim
+    centres = rng.standard_normal((TIER_CENTERS, d), dtype=np.float32)
+    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
+    n_fill = STORE_ROWS - N_NOTES
+    which = rng.integers(0, TIER_CENTERS, n_fill)
+    for start in range(0, n_fill, 1 << 18):
+        idx = which[start : start + (1 << 18)]
+        rows = centres[idx] + TIER_NOISE * rng.standard_normal((len(idx), d), dtype=np.float32)
+        store.add(rows, [{"source": f"cluster-{start + i:07d}"} for i in range(len(idx))])
+    return store, np.concatenate([np.full(N_NOTES, -1), which]), rng
+
+
+def _ranked(rows):
+    return [[(r.row_id, r.score) for r in row] for row in rows]
+
+
+def _recall(served, exact, k):
+    hits = expected = 0
+    for s, e in zip(served, exact):
+        h, n = compare_topk(s, e, k)
+        hits, expected = hits + h, expected + n
+    lo, hi = wilson_interval(hits, expected)
+    return {"recall": hits / max(expected, 1), "hits": hits, "expected": expected,
+            "ci_lo": lo, "ci_hi": hi}
+
+
+def _same_sources(served, exact, tol=TIER_TIE_TOL):
+    """Every served row is in the exact top list or scores within ``tol``
+    of its last row (the tie rule)."""
+    ids = {r.row_id for r in exact}
+    last = exact[-1].score
+    return len(served) == len(exact) and all(
+        r.row_id in ids or r.score >= last - tol for r in served)
+
+
+def _retrieve_device_ms():
+    return get_spine().telemetry_counters().get("dispatch_device_ms_retrieve", 0.0)
+
+
+def _timed_search(retr, texts):
+    """One ``search_texts``: host ms around it, and the device ms its
+    ``retrieve`` item took (CUDA events, the spine's series)."""
+    d0 = _retrieve_device_ms()
+    t0 = time.perf_counter()
+    out = retr.search_texts(texts, k=TIER_K)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    return out, host_ms, _retrieve_device_ms() - d0
+
+
+def _latency_pairs(tiered_retr, exact_retr, texts):
+    """Alternating tiered / exact ``search_texts`` pairs after one warm-up
+    each: medians and spreads of host and device ms."""
+    for retr in (tiered_retr, exact_retr):
+        retr.search_texts(texts, k=TIER_K)
+    rows = {"tiered": [], "exact": []}
+    for _ in range(TIER_PAIRS):
+        for name, retr in (("tiered", tiered_retr), ("exact", exact_retr)):
+            _out, host_ms, dev_ms = _timed_search(retr, texts)
+            rows[name].append((host_ms, dev_ms))
+    out = {}
+    for name, samples in rows.items():
+        host = [h for h, _ in samples]
+        devt = [d for _, d in samples]
+        out[name] = {"host_ms_p50": statistics.median(host), "host_ms_min": min(host),
+                     "host_ms_max": max(host), "device_ms_p50": statistics.median(devt),
+                     "device_ms_min": min(devt), "device_ms_max": max(devt)}
+    return out
+
+
+def time_plain_probe(ivf, queries, nprobe, flush):
+    """The plain IVF probe (``index/ivf._probe_kernel``) alone at ``len(
+    queries)`` queries, with the bound of its bytes: each query's probed
+    tiles, scales and ids plus the centroids and spill, read once."""
+    from docqa_tpu_torch.index.ivf import _probe_kernel
+
+    q = torch.from_numpy(queries).to(ivf.device, ivf._dtype)
+    fetch = TIER_K * (ivf.n_assign + 1)
+
+    def probe():
+        return _probe_kernel(ivf._cells, ivf._cell_scale, ivf._cell_ids, ivf._centroids,
+                             ivf._spill, ivf._spill_ids, q, nprobe=nprobe, k=fetch,
+                             n_real_cells=ivf.n_real_cells)
+
+    with torch.inference_mode():
+        # the spin outlasts the host's ~100 launches of the plain probe
+        ms = time_ms(probe, flush, reps=10, warmup=2, spin_cycles=40_000_000)
+    d = ivf.dim
+    per_query = nprobe * ivf.cap * (d * ivf._cells.element_size() + 4 + 4)
+    fixed = (ivf._centroids.numel() * ivf._centroids.element_size()
+             + ivf._spill.numel() * ivf._spill.element_size() + ivf._spill_ids.numel() * 4)
+    nbytes = len(queries) * per_query + fixed
+    flops = 2.0 * len(queries) * (nprobe * ivf.cap + ivf.n_clusters) * d
+    bound_ms = max(nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS) * 1e3
+    return {"queries": len(queries), "nprobe": nprobe, "plain_ms": ms,
+            "bytes": nbytes, "bytes_per_query": per_query, "bound_ms": bound_ms,
+            "bound_by": "bytes" if nbytes / PEAK_BYTES_S >= flops / PEAK_BF16_FLOPS
+            else "operations", "library_ms": None}
+
+
+def time_plain_lexical(dev, flush, n_queries=1, terms=8):
+    """The plain lexical scoring (``index/lexical.score_lexical``) plus its
+    top-k over ``LEX_ROWS`` synthetic rows of 32-slot impact tiles, with the
+    bound of its bytes: the tiles, liveness and queries read once, the
+    scores written once."""
+    from docqa_tpu_torch.index.lexical import score_lexical
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    width, vocab = 32, 1 << 17
+    term_ids = torch.randint(0, vocab, (LEX_ROWS, width), generator=gen, device=dev,
+                             dtype=torch.int32)
+    impacts = torch.randint(1, 128, (LEX_ROWS, width), generator=gen, device=dev,
+                            dtype=torch.int8)
+    live = torch.ones(LEX_ROWS, dtype=torch.bool, device=dev)
+    q_terms = term_ids[:n_queries, :terms].clone()
+    q_weights = torch.rand((n_queries, terms), generator=gen, device=dev)
+
+    def score():
+        return torch.topk(score_lexical(term_ids, impacts, live, q_terms, q_weights),
+                          TIER_K, dim=-1)
+
+    with torch.inference_mode():
+        ms = time_ms(score, flush, reps=5, warmup=1, spin_cycles=40_000_000)
+    nbytes = LEX_ROWS * (width * 5 + 1) + n_queries * LEX_ROWS * 4
+    flops = 2.0 * n_queries * terms * LEX_ROWS * width
+    return {"rows": LEX_ROWS, "queries": n_queries, "terms": terms, "plain_ms": ms,
+            "bytes": nbytes, "bound_ms": max(nbytes / PEAK_BYTES_S,
+                                             flops / PEAK_BF16_FLOPS) * 1e3,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def run_tiered_recall(qa, store, tiered, centre_of, rng, flush):
+    """(b): recall@10 against exact at each nprobe, beside the share of
+    queries whose own row comes first and the share of the exact top-10's
+    other rows from the query row's own centre; tiered against exact
+    retrieval latency; the plain probe and lexical scoring alone."""
+    from docqa_tpu_torch.engines.retrieve import FusedRetriever, FusedTieredRetriever
+
+    enc = qa.retriever.encoder
+    dev = store.device
+    pick = rng.choice(np.arange(N_NOTES, store.count), TIER_QUERIES, replace=False)
+    q = store.host_rows(pick) + TIER_QUERY_NOISE * rng.standard_normal(
+        (TIER_QUERIES, store.cfg.dim), dtype=np.float32)
+    exact_rows = _ranked(store.search(q, k=TIER_K))
+    others = [[rid for rid, _s in row if rid != src] for row, src in zip(exact_rows, pick)]
+    same_centre = sum(int((centre_of[r] == centre_of[src]).sum())
+                      for r, src in zip(others, pick)) / max(sum(len(r) for r in others), 1)
+    tiered_retr = FusedTieredRetriever(enc, tiered, device=dev)
+    exact_retr = FusedRetriever(enc, store, device=dev)
+    exact_q = _ranked(exact_retr.search_texts(list(QUESTIONS), k=TIER_K))
+    sweep = {}
+    for nprobe in TIER_NPROBES:
+        tiered.set_nprobe(nprobe)
+        t0 = time.perf_counter()
+        rows = _ranked(tiered.search(q, k=TIER_K))
+        wall = time.perf_counter() - t0
+        rec = _recall(rows, exact_rows, TIER_K)
+        rec["questions"] = _recall(
+            _ranked(tiered_retr.search_texts(list(QUESTIONS), k=TIER_K)), exact_q, TIER_K)
+        rec["batch_wall_s"] = wall
+        rec["own_row_first"] = float(np.mean([bool(r) and r[0][0] == src
+                                              for r, src in zip(rows, pick)]))
+        sweep[nprobe] = rec
+        log(f"  nprobe {nprobe:2d}: recall@{TIER_K} {rec['recall']:.4f} "
+            f"[{rec['ci_lo']:.4f}, {rec['ci_hi']:.4f}] over {TIER_QUERIES} perturbed rows "
+            f"({rec['hits']}/{rec['expected']}), own row first {rec['own_row_first']:.3f}, "
+            f"the 4 questions {rec['questions']['recall']:.3f}; "
+            f"{TIER_QUERIES} queries in {wall:.2f} s (two-step, one probe item)")
+    tiered.set_nprobe(8)
+    log(f"  the exact top-{TIER_K}'s rows past the query's own: {same_centre:.3f} from its "
+        f"own centre (the rest are the corpus' extreme-value draws)")
+    latency = {}
+    for batch in (1, 16):
+        texts = (list(QUESTIONS) * 4)[:batch]
+        latency[batch] = _latency_pairs(tiered_retr, exact_retr, texts)
+        t, e = latency[batch]["tiered"], latency[batch]["exact"]
+        log(f"  retrieval latency, batch {batch}, {TIER_PAIRS} alternating pairs, p50 "
+            f"[min, max]: tiered host {t['host_ms_p50']:.2f} [{t['host_ms_min']:.2f}, "
+            f"{t['host_ms_max']:.2f}] ms, device {t['device_ms_p50']:.3f} ms; exact host "
+            f"{e['host_ms_p50']:.2f} [{e['host_ms_min']:.2f}, {e['host_ms_max']:.2f}] ms, "
+            f"device {e['device_ms_p50']:.3f} ms")
+    ivf = tiered._tier[0]
+    probe = time_plain_probe(ivf, q[:16] / np.linalg.norm(q[:16], axis=1, keepdims=True),
+                             8, flush)
+    log(f"  plain IVF probe (_probe_kernel), q 16, nprobe 8: {probe['plain_ms']:.4f} ms, "
+        f"bound {probe['bound_ms']:.4f} ms ({probe['bound_by']}: "
+        f"{probe['bytes_per_query'] / 1e6:.2f} MB a query at 3.35 TB/s), "
+        f"{probe['bound_ms'] / probe['plain_ms']:.1%} of the bound")
+    lexical = time_plain_lexical(dev, flush)
+    log(f"  plain lexical scoring (score_lexical + top-k), {LEX_ROWS} rows x 32 slots, "
+        f"1 query x 8 terms: {lexical['plain_ms']:.3f} ms, bound {lexical['bound_ms']:.4f} ms "
+        f"({lexical['bound_ms'] / lexical['plain_ms']:.2%} of it)")
+    return {"sweep": sweep, "latency": latency, "probe": probe, "lexical": lexical,
+            "exact_same_centre_share": same_centre}
+
+
+def run_tiered_tail(qa, store, tiered, rng, latency_b1):
+    """(c): fresh rows find themselves first in the exact tail; then a tail
+    past the lowered ``rebuild_tail_rows`` starts the background rebuild,
+    while the four questions keep being served."""
+    from docqa_tpu_torch.engines.retrieve import FusedTieredRetriever
+
+    covered = tiered.covered
+    fresh = rng.standard_normal((TIER_FRESH, store.cfg.dim), dtype=np.float32)
+    store.add(fresh, [{"source": f"fresh-{i:04d}"} for i in range(TIER_FRESH)])
+    got = tiered.search(fresh, k=1)
+    missed = [i for i, row in enumerate(got) if not row or row[0].row_id != covered + i]
+    if missed:
+        raise AssertionError(f"{len(missed)} of {TIER_FRESH} fresh rows not first for "
+                             f"their own vector: {missed[:5]}")
+    log(f"  {TIER_FRESH} fresh rows in the exact tail: each first for its own vector "
+        f"(recall 1.0 on fresh rows)")
+    tiered.rebuild_tail_rows = TIER_REBUILD_TAIL
+    more = rng.standard_normal((TIER_REBUILD_TAIL, store.cfg.dim), dtype=np.float32)
+    store.add(more, [{"source": f"tail-{i:04d}"} for i in range(TIER_REBUILD_TAIL)])
+    retr = FusedTieredRetriever(qa.retriever.encoder, tiered, device=store.device)
+    t0 = time.perf_counter()
+    during = []
+    retr.search_texts([QUESTIONS[0]], k=TIER_K)  # starts the rebuild
+    if not tiered.rebuilding and tiered.covered == covered:
+        raise AssertionError("a tail past rebuild_tail_rows started no rebuild")
+    i = 0
+    while tiered.rebuilding:
+        _out, host_ms, dev_ms = _timed_search(retr, [QUESTIONS[i % len(QUESTIONS)]])
+        if tiered.rebuilding:
+            during.append((host_ms, dev_ms))
+        i += 1
+        time.sleep(TIER_PACE_S)
+    rebuild_s = time.perf_counter() - t0
+    tiered.close()
+    if tiered.covered != store.count:
+        raise AssertionError(f"the rebuilt tier covers {tiered.covered} of {store.count}")
+    ivf = tiered._tier[0]
+    host = [h for h, _ in during]
+    rec = {"fresh_rows": TIER_FRESH, "rebuild_s": rebuild_s, "served_during": len(during),
+           "host_ms_p50": statistics.median(host) if host else None,
+           "host_ms_max": max(host) if host else None,
+           "device_ms_p50": statistics.median(d for _, d in during) if during else None,
+           "before_host_ms_p50": latency_b1["tiered"]["host_ms_p50"],
+           "covered": tiered.covered, "build_seconds": ivf.build_seconds}
+    if not during:
+        raise AssertionError("no retrieval was served while the tier rebuilt")
+    log(f"  background rebuild over {store.count} rows: {rebuild_s:.1f} s; "
+        f"{len(during)} single-question retrievals served meanwhile, host p50 "
+        f"{rec['host_ms_p50']:.2f} ms (max {rec['host_ms_max']:.2f}) against "
+        f"{rec['before_host_ms_p50']:.2f} ms in (b); the tier swapped to {tiered.covered} rows")
+    return rec
+
+
+def run_tiered_ask(counts, qa, store, tiered):
+    """(d): ``QAService`` over the tiered index (its fused tiered retriever)
+    and a 1-replica pool at Mistral-7B width: the four questions, none
+    degraded, sources equal to the exact path's under the tie rule, K1's
+    launch identity, and the observatory's shadows (every retrieval
+    sampled) drained into an (ivf, 8) estimate, frontier rows and the
+    recall SLO's counters."""
+    from docqa_tpu_torch.engines.retrieve import FusedRetriever
+
+    gen = qa.generator
+    dev = gen.device
+    enc = qa.retriever.encoder
+    res_cfg = ResilienceConfig()
+    robs = obs.RetrievalObservatory(sample_every=1, frontier_every=1, min_frontier_n=1,
+                                    registry=DEFAULT_REGISTRY).start()
+    prev = obs.set_retrieval_observatory(robs)
+    pool1 = EnginePool(gen, cfg=PoolConfig(replicas=1, n_slots=16), qos=QoSConfig(),
+                       chunk=16, cache_len=1024, device=dev)
+    try:
+        qa_t = QAService(enc, tiered, gen, k=3, device=dev, batcher=pool1,
+                         breakers=BreakerBoard(res_cfg.breaker_failure_threshold,
+                                               res_cfg.breaker_reset_s),
+                         resilience=res_cfg)
+        if type(qa_t.retriever).__name__ != "FusedTieredRetriever":
+            raise AssertionError(f"the tiered service retrieves through {qa_t.retriever}")
+        exact = FusedRetriever(enc, store, device=dev)
+        expected0 = DEFAULT_REGISTRY.counter("retrieve_shadow_expected").value
+        stats0 = pool1.stats()
+        counts.clear()
+        t0 = time.perf_counter()
+        results = _resolve_all(_submit_round(qa_t, list(QUESTIONS)))
+        wall = time.perf_counter() - t0
+        launches = dict(counts)
+        steps = pool1.stats() - stats0
+        _no_degraded("phase 12 /ask", [r[1] for r in results])
+        for q, out, _lat in results:
+            served = qa_t.retriever.search_texts([q], k=3)[0]
+            want = exact.search_texts([q], k=3)[0]
+            if not _same_sources(served, want):
+                raise AssertionError(f"tiered sources for {q!r} differ from exact: "
+                                     f"{_ranked([served])} vs {_ranked([want])}")
+            if out["sources"] != [h.metadata.get("source", "") for h in served]:
+                raise AssertionError(f"/ask sources {out['sources']} are not its hits")
+        dec_layers, enc_layers = gen.cfg.num_layers, enc.cfg.num_layers
+        want = {
+            "flash_attention.decode_paged": dec_layers * (
+                steps["verify_steps"] + steps["decode_steps"] + steps["warmup_steps"]),
+            "flash_attention.prefill": enc_layers * len(QUESTIONS),
+            "flash_attention.decode": 0,
+            "flash_attention.simt": 0,
+        }
+        got = {key: launches.get(key, 0) for key in want}
+        if got != want or steps["verify_steps"] < 1:
+            raise AssertionError(f"tiered /ask launches {got}, expected {want}")
+        if not robs.drain(120):
+            raise AssertionError("the observatory did not drain its shadows")
+        st = robs.status()
+        key = "tiered_fused@nprobe=8"
+        if key not in st["estimates"] or not st["frontier"] or st["counts"]["errors"]:
+            raise AssertionError(f"observatory status lacks {key} or frontier rows: {st}")
+        stamped = DEFAULT_REGISTRY.counter("retrieve_shadow_expected").value - expected0
+        if stamped <= 0:
+            raise AssertionError("the recall SLO's counters were not stamped")
+        rec = _round_record(results, wall)
+        rec.update(launches=got, verify_steps=steps["verify_steps"],
+                   estimate=st["estimates"][key], frontier=st["frontier"],
+                   shadow_expected=stamped, sources=[r[1]["sources"] for r in results])
+        log(f"  tiered /ask through a 1-replica pool: 4 asks p50 {rec['latency_p50_s']:.3f} s, "
+            f"{rec['tokens_per_s']:.1f} answer tok/s, none degraded, sources equal to exact "
+            f"(tie rule); K1 {got} = 6 prefill an encode, 32 x {steps['verify_steps']} verify "
+            f"(+ {steps['decode_steps'] + steps['warmup_steps']} other) steps")
+        log(f"  observatory: {key} {st['estimates'][key]}, frontier "
+            + ", ".join(f"{r['nprobe']}: {r['recall']} ({r['probe_ms_p50']} ms)"
+                        for r in st["frontier"])
+            + f"; {stamped} expected comparisons stamped for the recall SLO")
+        return rec
+    finally:
+        pool1.stop()
+        obs.set_retrieval_observatory(prev)
+        robs.stop()
+
+
+def run_tiered_app(counts, qa, tagger):
+    """(e): phase 9's runtime under ``store.serving_index="tiered"``
+    (``ivf_min_rows`` lowered so its small corpus gets a tier, 64 new
+    tokens: cuts), over HTTP: one /ask with the tier's default mode dense,
+    then one with it hybrid (``lexical.serving_mode``, set live on the
+    tier), and ``/api/retrieval`` answering the running observatory's
+    payload."""
+    from docqa_tpu_torch.config import load_config
+    from docqa_tpu_torch.service.app import AppServer, DocQARuntime, make_app
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = qa.generator.device
+    contract = load_contract()
+    cfg = dataclasses.replace(
+        load_config(env={}, overrides={
+            "ner.params_path": tagger,
+            "resilience.request_deadline_s": APP_DEADLINE_S,
+            "store.serving_index": "tiered", "store.ivf_min_rows": 32,
+            "generate.max_new_tokens": 64,
+        }),
+        decoder=qa.generator.cfg,
+    )
+    rt = DocQARuntime(cfg, device=dev, decoder_params=qa.generator.params).start()
+    server = AppServer(make_app(rt)).start()
+    http = _Http(server.port, contract)
+    launches = collections.Counter()
+    try:
+        docs = app_notes(np.random.default_rng(21))
+        ids = []
+        for d in docs:
+            body, ctype = _multipart(d["filename"], d["data"], d["fields"])
+            ids.append(http.json("POST /ingest/", "/ingest/", body=body, ctype=ctype)["doc_id"])
+        _wait_indexed(http, ids)
+        asks = {}
+        deadline = time.perf_counter() + 120
+        for mode in ("dense", "hybrid"):
+            rt.search_index.default_mode = mode
+            counts.clear()
+            t0 = time.perf_counter()
+            out = http.json("POST /ask/", "/ask/", payload={"question": QUESTIONS[1]})
+            asks[mode] = {"latency_s": time.perf_counter() - t0, "sources": out["sources"],
+                          "degraded": bool(out.get("degraded"))}
+            launches.update(counts)
+            if out.get("degraded") or not out["answer"].strip():
+                raise AssertionError(f"tiered app /ask ({mode}) degraded: {out}")
+            while rt.search_index.covered == 0 and time.perf_counter() < deadline:
+                time.sleep(0.05)  # the first ask started the tier's build
+        if rt.search_index.covered != rt.store.count:
+            raise AssertionError(f"the app's tier covers {rt.search_index.covered} of "
+                                 f"{rt.store.count} rows")
+        counts.clear()
+        out = http.json("POST /ask/", "/ask/", payload={"question": QUESTIONS[2]})
+        launches.update(counts)
+        if out.get("degraded"):
+            raise AssertionError(f"tiered app /ask over the tier degraded: {out}")
+        rt.retrieval_obs.drain(60)
+        payload = http.json("GET /api/retrieval", "/api/retrieval")
+        if not payload["running"] or not payload["serving"]["index"]["active"]:
+            raise AssertionError(f"/api/retrieval is not the running tier's: {payload}")
+        # the first ask, served exact before the tier, is not counted
+        if payload["counts"]["served"] < 2 or payload["serving"]["serving_index"] != "tiered":
+            raise AssertionError(f"/api/retrieval counted {payload['counts']}")
+        rec = {"asks": asks, "rows": rt.store.count, "launches": dict(launches),
+               "retrieval": {k: payload[k] for k in ("counts", "estimates", "serving")}}
+        log(f"  tiered app over HTTP: {rt.store.count} rows, tier over "
+            f"{payload['serving']['covered']}; /ask dense {asks['dense']['latency_s']:.2f} s, "
+            f"hybrid {asks['hybrid']['latency_s']:.2f} s, not degraded; /api/retrieval counts "
+            f"{payload['counts']}, estimates {sorted(payload['estimates'])}")
+        return rec
+    finally:
+        server.close(timeout=10)
+        rt.stop()
+
+
+def run_tiered_reference_check(devices=("cuda", "cpu")):
+    """(f): a tiered store of a few thousand float32 rows (a tiny encoder's
+    note embeddings plus noise) on the card and on the CPU.  The CPU's tier
+    is carried to the card (``ivf_from_arrays``), then dense and hybrid
+    fused searches give the same top-k ids but for a tie at the k-th score.
+    Whether the card's own k-means gave the CPU's cells is reported."""
+    from docqa_tpu_torch.engines.retrieve import FusedTieredRetriever
+    from docqa_tpu_torch.index.ivf import ivf_from_arrays
+    from docqa_tpu_torch.index.lexical import LexicalIndex
+    from docqa_tpu_torch.index.tiered import TieredIndex
+
+    enc_cfg = EncoderConfig(vocab_size=512, hidden_dim=64, num_layers=2, num_heads=2,
+                            mlp_dim=128, max_seq_len=64, embed_dim=64, dtype="float32")
+    texts = [f"note {i}: drug-{i % 13} for condition-{i % 7} ward {i % 11}"
+             for i in range(3000)]
+    stacks = {}
+    for dev in devices:
+        enc = EncoderEngine(enc_cfg, seed=1, device=dev)
+        emb = enc.encode_texts(texts)
+        emb = emb + 0.05 * np.random.default_rng(0).standard_normal(emb.shape).astype(np.float32)
+        store = VectorStore(StoreConfig(dim=64, dtype="float32", shard_capacity=4096), device=dev)
+        lex = LexicalIndex(vocab_size=4096, tile_width=8, device=dev)
+        store.register_index_sink(lex)
+        store.add(emb, [{"doc_id": f"d{i}", "text_content": t} for i, t in enumerate(texts)])
+        tier = TieredIndex(store, nprobe=4, min_rows=1000, lexical=lex)
+        if not tier.rebuild():
+            raise AssertionError("the tiny tier did not build")
+        stacks[dev] = (tier, FusedTieredRetriever(enc, tier, device=dev))
+    card, cpu = (stacks[d] for d in devices)
+    same_cells = bool(np.array_equal(card[0]._tier[0]._cell_ids.cpu().numpy(),
+                                     cpu[0]._tier[0]._cell_ids.cpu().numpy()))
+    ivf, covered = cpu[0]._tier
+    carried = ivf_from_arrays(ivf.arrays(), ivf._meta, nprobe=ivf.nprobe, dtype="float32",
+                              device=card[0].device)
+    carried._store_compactions = card[0].store.compactions
+    card[0]._tier = (carried, covered)
+    qs = ["drug-3 for condition-3", "ward 7 drug-12", "note 42", "condition-5"]
+    for mode in ("dense", "hybrid"):
+        for got, want in zip(card[1].search_texts(qs, k=8, mode=mode),
+                             cpu[1].search_texts(qs, k=8, mode=mode)):
+            gs = np.array([h.score for h in got])
+            ws = np.array([h.score for h in want])
+            cut = ws[-1] + 2e-5
+            if (len(got) != len(want) or np.abs(gs - ws).max() > 1e-5
+                    or {h.row_id for h in got if h.score > cut}
+                    != {h.row_id for h in want if h.score > cut}):
+                raise AssertionError(f"tiny tier, {mode}: card {_ranked([got])} vs CPU "
+                                     f"{_ranked([want])}")
+    log(f"  tiny float32 tier: dense and hybrid top-8 equal on card and CPU over the CPU's "
+        f"carried tier; the card's own k-means gave the CPU's cells: {same_cells}")
+    return {"rows": len(texts), "same_cells_from_own_kmeans": same_cells}
+
+
+def run_tiered_path(counts, qa, tagger):
+    """Phase 12: tiered retrieval at full width (the module docstring)."""
+    from docqa_tpu_torch.index.tiered import TieredIndex
+
+    dev = qa.generator.device
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    t0 = time.perf_counter()
+    store, centre_of, rng = tiered_store(qa, dev)
+    store_s = time.perf_counter() - t0
+    tiered = TieredIndex(store)
+    t0 = time.perf_counter()
+    if not tiered.rebuild():
+        raise AssertionError("the 1M-row store built no IVF tier")
+    build_s = time.perf_counter() - t0
+    ivf = tiered._tier[0]
+    summary = {"store_s": store_s, "build_s": build_s, "build_seconds": ivf.build_seconds,
+               "index_bytes": ivf.index_bytes(), "n_spilled": ivf.n_spilled, "cap": ivf.cap,
+               "n_clusters": ivf.n_clusters}
+    split = ", ".join(f"{k} {v:.2f} s" for k, v in ivf.build_seconds.items())
+    log(f"  store: {store.count} rows (20 notes + clustered fillers, {TIER_CENTERS} centres, "
+        f"noise {TIER_NOISE:.4f}) in {store_s:.1f} s; tier: C={ivf.n_clusters} cap={ivf.cap} "
+        f"n_assign={ivf.n_assign} spilled {ivf.n_spilled}, {ivf.index_bytes()}; "
+        f"rebuild() {build_s:.1f} s wall ({split})")
+    summary["recall"] = run_tiered_recall(qa, store, tiered, centre_of, rng, flush)
+    summary["tail"] = run_tiered_tail(qa, store, tiered, rng,
+                                      summary["recall"]["latency"][1])
+    launches = collections.Counter()
+    summary["ask"] = run_tiered_ask(counts, qa, store, tiered)
+    launches.update(summary["ask"]["launches"])
+    del tiered, store, ivf
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["app"] = run_tiered_app(counts, qa, tagger)
+    launches.update(summary["app"]["launches"])
+    summary["reference"] = run_tiered_reference_check()
+    return {"summary": summary, "launches": dict(launches)}
+
+
 # ---- phase 11: the training plane ------------------------------------------------
 
 HOST_SPLIT_STEPS = 50  # (a): the host's share of a step, timed over this many
@@ -4010,7 +4561,7 @@ def main(argv=None) -> int:
     t_smoke = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/11] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[1/12] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     build_logs = _kernels.build()
     build_s = time.perf_counter() - t0
@@ -4019,25 +4570,25 @@ def main(argv=None) -> int:
         for kernel, regs, spills in ptxas_summary(text):
             log(f"    {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
 
-    log("[2/11] kernels against their plain versions (bf16 and float32)")
+    log("[2/12] kernels against their plain versions (bf16 and float32)")
     cases = run_kernel_cases()
     cases += run_paged_cases()
 
-    log("[3/11] main path: QAService.ask at full width")
+    log("[3/12] main path: QAService.ask at full width")
     t_main = time.perf_counter()
     qa, params, enc_launches = build_main_path(_kernels.LAUNCHES)
     per_q, launches = run_main_path(_kernels.LAUNCHES, qa, params, enc_launches)
     main_s = time.perf_counter() - t_main
 
-    log("[4/11] reference: tiny float32 /ask on the card against the CPU")
+    log("[4/12] reference: tiny float32 /ask on the card against the CPU")
     reference = run_reference_check()
 
-    log("[5/11] main path: QAService.ask through the continuous batcher at full width")
+    log("[5/12] main path: QAService.ask through the continuous batcher at full width")
     t_batch = time.perf_counter()
     batcher_path = run_batcher_path(_kernels.LAUNCHES, qa, per_q)
     batcher_s = time.perf_counter() - t_batch
 
-    log("[6/11] main path: QAService.ask through the replica pool at full width")
+    log("[6/12] main path: QAService.ask through the replica pool at full width")
     t_pool = time.perf_counter()
     get_spine().reset_stats()
     pool_path = run_pool_path(_kernels.LAUNCHES, qa)
@@ -4045,14 +4596,14 @@ def main(argv=None) -> int:
     pool_path["summary"]["spine"] = _spine_waits(get_spine().stats())
     _log_spine_waits("phase 6", pool_path["summary"]["spine"])
 
-    log("[11/11 (a)] training: the tagger at NERConfig() trained as the default config's "
+    log("[11/12 (a)] training: the tagger at NERConfig() trained as the default config's "
         "boot trains it, then held to the reference's quality floors")
     t_train = time.perf_counter()
     train_dir = tempfile.mkdtemp(prefix="docqa_phase11_")
     tagger, tagger_summary = run_training_tagger(_kernels.LAUNCHES, train_dir)
     train_s = time.perf_counter() - t_train
 
-    log("[7/11] ingest: DocumentPipeline at full width, then /ask over what it indexed")
+    log("[7/12] ingest: DocumentPipeline at full width, then /ask over what it indexed")
     t_ingest = time.perf_counter()
     get_spine().reset_stats()
     ingest_path = run_ingest_path(_kernels.LAUNCHES, qa, tagger)
@@ -4060,13 +4611,13 @@ def main(argv=None) -> int:
     ingest_path["summary"]["spine"] = _spine_waits(get_spine().stats())
     _log_spine_waits("phase 7", ingest_path["summary"]["spine"])
 
-    log("[8/11] obs: traces, stage device time, MFU and costs over the pool, "
+    log("[8/12] obs: traces, stage device time, MFU and costs over the pool, "
         "and an ingested document's timeline")
     t_obs = time.perf_counter()
     obs_path = run_obs_path(_kernels.LAUNCHES, qa, tagger)
     obs_s = time.perf_counter() - t_obs
 
-    log("[9/11] the app: DocQARuntime behind its stdlib HTTP front at full width, "
+    log("[9/12] the app: DocQARuntime behind its stdlib HTTP front at full width, "
         "driven over HTTP")
     t_app = time.perf_counter()
     get_spine().reset_stats()
@@ -4074,7 +4625,7 @@ def main(argv=None) -> int:
                             ingest_path["summary"]["docs_per_s"])
     app_s = time.perf_counter() - t_app
 
-    log("[10/11] the store's lifecycle and the single-sync /ask: fused against classic "
+    log("[10/12] the store's lifecycle and the single-sync /ask: fused against classic "
         "/ask over a 1M-row store with a token sidecar, its snapshot and restore, and a "
         "runtime killed and restarted through HTTP")
     t_life = time.perf_counter()
@@ -4083,7 +4634,16 @@ def main(argv=None) -> int:
     life_s = time.perf_counter() - t_life
     log(f"  phase 10 took {life_s:.1f} s")
 
-    log("[9/11, continued] the app module as a user starts it, and a tiny runtime on the "
+    log("[12/12] tiered retrieval: the int8 IVF tier over a 1M-row clustered store, its "
+        "recall and latency against exact, the tail and a background rebuild, a tiered "
+        "/ask through the pool with the retrieval observatory, and the tiered app")
+    t_tier = time.perf_counter()
+    get_spine().reset_stats()
+    tiered_path = run_tiered_path(_kernels.LAUNCHES, qa, tagger)
+    tiered_s = time.perf_counter() - t_tier
+    log(f"  phase 12 took {tiered_s:.1f} s")
+
+    log("[9/12, continued] the app module as a user starts it, and a tiny runtime on the "
         "card against the CPU")
     t_app = time.perf_counter()
     del qa, params
@@ -4093,7 +4653,7 @@ def main(argv=None) -> int:
     app_path["summary"]["reference"] = run_app_reference_check()
     app_s += time.perf_counter() - t_app
 
-    log("[11/11 (b)-(d)] training: LM steps at Mistral-7B width with remat and a "
+    log("[11/12 (b)-(d)] training: LM steps at Mistral-7B width with remat and a "
         "checkpoint resumed, and the encoder at MiniLM width")
     t_train = time.perf_counter()
     training = {"tagger": tagger_summary,
@@ -4111,6 +4671,7 @@ def main(argv=None) -> int:
     path_launches.update(obs_path["launches"])
     path_launches.update(app_path["launches"])
     path_launches.update(life_path["launches"])
+    path_launches.update(tiered_path["launches"])
     path_launches.update(training["tagger"]["eval_launches"])
     path_launches.update(training["encoder"]["k1_launches"])
 
@@ -4162,6 +4723,7 @@ def main(argv=None) -> int:
                 "obs_path": obs_path, "obs_path_s": obs_s,
                 "app_path": app_path, "app_path_s": app_s,
                 "lifecycle_path": life_path, "lifecycle_path_s": life_s,
+                "tiered_path": tiered_path, "tiered_path_s": tiered_s,
                 "training": training, "training_s": train_s,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
@@ -4181,6 +4743,21 @@ def main(argv=None) -> int:
     print(json.dumps({"app": {**app_path["summary"], "phase_s": app_s}}))
     print(json.dumps({"lifecycle": {**life_path["summary"], "phase_s": life_s}}))
     print(json.dumps({"training": {**training, "phase_s": train_s}}))
+    ts = tiered_path["summary"]
+    print(json.dumps({"tiered": {
+        "build_s": ts["build_s"], "build_seconds": ts["build_seconds"],
+        "index_bytes": ts["index_bytes"], "n_spilled": ts["n_spilled"],
+        "recall": {p: {k: r[k] for k in ("recall", "ci_lo", "ci_hi", "hits", "expected",
+                                         "own_row_first")}
+                   for p, r in ts["recall"]["sweep"].items()},
+        "exact_same_centre_share": ts["recall"]["exact_same_centre_share"],
+        "latency": ts["recall"]["latency"], "probe": ts["recall"]["probe"],
+        "lexical": ts["recall"]["lexical"],
+        "tail": {k: v for k, v in ts["tail"].items() if k != "build_seconds"},
+        "ask": {k: ts["ask"][k] for k in ("latency_p50_s", "tokens_per_s", "launches",
+                                          "verify_steps", "estimate", "shadow_expected")},
+        "app": ts["app"]["asks"], "reference": ts["reference"], "phase_s": tiered_s,
+    }}))
     log(f"smoke: {time.perf_counter() - t_smoke:.1f} s from the card query to the kernels line")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -232,8 +232,15 @@ class StoreConfig:
     dtype: str = "bfloat16"
     default_k: int = 3
     # "exact" (one product over the whole store) or "tiered" (IVF over the
-    # bulk plus an exact tail), which this port does not have yet
+    # bulk plus an exact tail, index/tiered.py)
     serving_index: str = "exact"
+    # the tiered index: serving nprobe, the rows below which the IVF tier
+    # stays off, the tail that triggers a background rebuild, and the bulk
+    # tier's cells ("int8" tiles with per-row scales, or "float")
+    ivf_nprobe: int = 8
+    ivf_min_rows: int = 50_000
+    ivf_rebuild_tail: int = 100_000
+    ivf_storage: str = "int8"
     # a DELETE compacts the store once tombstones reach this share of its
     # rows; 0 disables the automatic compaction
     compact_threshold: float = 0.25
@@ -362,15 +369,25 @@ class TelemetryConfig:
 
 @dataclass(frozen=True)
 class RetrievalQualityConfig:
-    """The retrieval-quality observatory's settings.  Its shadow recall
-    estimates cover the tiered and IVF search, which this port does not
-    have yet: under exact serving the observatory idles, and the runtime
-    reports these settings on ``/api/retrieval`` and builds the recall SLO
-    from them."""
+    """The retrieval-quality observatory (``obs/retrieval_observatory.py``):
+    a seeded 1-in-``sample_every`` share of tiered retrievals gets an exact
+    shadow scan on the spine's background stream; the comparisons give
+    windowed recall@k estimates with Wilson intervals, the recall SLO and a
+    measured nprobe frontier with the nprobe that meets ``recall_target``.
+    Under exact serving the observatory idles."""
 
     enabled: bool = True
     sample_every: int = 32
     seed: int = 0
+    # per-query comparisons kept per (tier, nprobe) estimate
+    window: int = 512
+    # bounded shadow queue; a backlogged worker drops (counted)
+    max_pending: int = 8
+    # every Nth sampled shadow also probes these multiples of the nprobe
+    frontier_every: int = 4
+    frontier_factors: Tuple[float, ...] = (0.25, 0.5, 1.0, 2.0, 4.0)
+    # comparisons a frontier row needs before it backs a recommendation
+    min_frontier_n: int = 5
     recall_target: float = 0.95
     auto_apply_nprobe: bool = False
     slo_short_windows: int = 2

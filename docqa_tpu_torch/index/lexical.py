@@ -143,10 +143,17 @@ class LexicalIndex:
         self._lock = threading.RLock()
         self._term_ids = np.full((0, tile_width), _TILE_PAD, np.int32)
         self._impacts = np.zeros((0, tile_width), np.int8)
+        # the unquantized impacts: the exact host scoring (host_topk) of
+        # the retrieval observatory's lexical shadow
+        self._impacts_f = np.zeros((0, tile_width), np.float32)
         self._live = np.zeros((0,), bool)
         self._count = 0
         self._df = np.zeros((self.vocab_size,), np.int64)
         self._n_docs = 0  # docs that contributed df (deleted ones included)
+        self._slot_owner: Dict[int, str] = {}
+        self._collided_slots: set = set()
+        self._n_truncated_terms = 0
+        self._n_empty_docs = 0
         self._version = 0
         # device snapshot: (version, term_ids, impacts, row_live, count)
         self._dev: Optional[Tuple[Any, ...]] = None
@@ -183,6 +190,7 @@ class LexicalIndex:
             k = keep[: self._count]
             self._term_ids = self._term_ids[: self._count][k].copy()
             self._impacts = self._impacts[: self._count][k].copy()
+            self._impacts_f = self._impacts_f[: self._count][k].copy()
             self._live = self._live[: self._count][k].copy()
             self._count = int(k.sum())
             self._version += 1
@@ -215,6 +223,7 @@ class LexicalIndex:
 
         self._term_ids = grow(self._term_ids, _TILE_PAD)
         self._impacts = grow(self._impacts, 0)
+        self._impacts_f = grow(self._impacts_f, 0.0)
         self._live = grow(self._live, False)
 
     def _add_one_locked(self, rid: int, text: str) -> None:
@@ -222,20 +231,27 @@ class LexicalIndex:
         self._live[rid] = True
         self._term_ids[rid, :] = _TILE_PAD
         self._impacts[rid, :] = 0
+        self._impacts_f[rid, :] = 0.0
         if not toks:
+            self._n_empty_docs += 1
             return
         tf: Dict[int, int] = {}
         for tok in toks:
             s = term_slot(tok, self.vocab_size)
             tf[s] = tf.get(s, 0) + 1
+            owner = self._slot_owner.setdefault(s, tok)
+            if owner != tok:
+                self._collided_slots.add(s)
         k1, b = self.k1, self.b
         norm = k1 * (1.0 - b + b * len(toks) / self.ref_len)
         pairs = sorted(
             ((f * (k1 + 1.0) / (f + norm), s) for s, f in tf.items()),
             key=lambda p: (-p[0], p[1]),
         )
+        self._n_truncated_terms += max(0, len(pairs) - self.tile_width)
         for j, (imp, s) in enumerate(pairs[: self.tile_width]):
             self._term_ids[rid, j] = s
+            self._impacts_f[rid, j] = imp
             q = int(round(127.0 * imp / (k1 + 1.0)))
             self._impacts[rid, j] = max(1, min(127, q))
             self._df[s] += 1
@@ -356,3 +372,59 @@ class LexicalIndex:
             ]
             for qi in range(len(texts))
         ]
+
+    def host_topk(
+        self, texts: Sequence[str], k: int, count_cap: Optional[int] = None
+    ) -> List[List[Tuple[int, float]]]:
+        """Exact host scoring over the unquantized impacts: per query,
+        ``(row_id, score)`` pairs of its top ``k`` rows scoring above 0, the
+        lexical shadow's ground truth.  ``count_cap`` limits the rows to
+        those the served query could see."""
+        with self._lock:
+            count = self._count if count_cap is None else min(count_cap, self._count)
+            term_ids = self._term_ids[:count].copy()
+            impacts_f = self._impacts_f[:count].copy()
+            live = self._live[:count].copy()
+            enc = [self._encode_query_locked(t) for t in texts]
+        descale = (self.k1 + 1.0) / 127.0
+        out: List[List[Tuple[int, float]]] = []
+        for pairs in enc:
+            if count == 0 or not pairs:
+                out.append([])
+                continue
+            scores = np.zeros((count,), np.float32)
+            for s, w in pairs:
+                # w folds in the int8 descale, which full precision undoes
+                scores += (w / descale) * (impacts_f * (term_ids == s)).sum(axis=1)
+            scores[~live] = NEG_INF
+            order = np.argsort(-scores, kind="stable")[:k]
+            out.append([(int(r), float(scores[r])) for r in order if scores[r] > 0.0])
+        return out
+
+    def index_bytes(self) -> Dict[str, Any]:
+        """Device bytes of the tiles (int32 slots, int8 impacts, a live
+        flag a row); the port's tiles are not padded."""
+        count = self._count
+        total = count * (self.tile_width * (4 + 1) + 1)
+        return {
+            "total_bytes": total,
+            "bytes_per_chunk": round(total / max(count, 1), 2),
+            "per_shard_bytes": total,
+            "shards": 1,
+            "storage": "lexical_int8",
+        }
+
+    def stats(self) -> Dict[str, Any]:
+        """The ``/api/retrieval`` view of the tier."""
+        with self._lock:
+            return {
+                "rows": self._count,
+                "live_rows": int(self._live[: self._count].sum()),
+                "vocab_size": self.vocab_size,
+                "tile_width": self.tile_width,
+                "hash_collisions": len(self._collided_slots),
+                "truncated_terms": self._n_truncated_terms,
+                "empty_docs": self._n_empty_docs,
+                "version": self._version,
+                **self.index_bytes(),
+            }

@@ -139,6 +139,7 @@ class VectorStore:
         self._host = np.zeros((0, cfg.dim), np.float32)  # durable master copy
         self._count = 0
         self._version = 0
+        self._n_compactions = 0
         self._dtype = torch_dtype(cfg.dtype)
         self._capacity = max(128, round_up(cfg.shard_capacity, 128))
         self._dev = torch.zeros(
@@ -215,6 +216,14 @@ class VectorStore:
     def deleted_count(self) -> int:
         """Tombstoned rows still in the buffer (0 after a compaction)."""
         return self._n_deleted
+
+    @property
+    def compactions(self) -> int:
+        """How many times :meth:`compact_deleted` renumbered the rows.  A
+        tier built over this store records it, and its exact re-rank reads
+        host rows only while it is unchanged."""
+        with self._lock:
+            return self._n_compactions
 
     def register_index_sink(self, sink: Any) -> None:
         """Register a secondary index (``on_add(row_ids, metadata)``,
@@ -490,6 +499,7 @@ class VectorStore:
 
             spine_run("store_add", _reupload_on_device, device=self.device)
             self._version += 1
+            self._n_compactions += 1
             self._notify_sinks("on_compact", keep.copy())
             log.info("compacted %d deleted rows; %d remain", count - kept, kept)
             return count - kept
@@ -532,6 +542,33 @@ class VectorStore:
             vals, ids = spine_run(
                 "store_search", _search_on_device, device=self.device
             )
+        return self.assemble_results(vals.numpy(), ids.numpy())
+
+    def shadow_search(
+        self, queries: np.ndarray, k: int, count_cap: Optional[int] = None
+    ) -> List[List[SearchResult]]:
+        """Exact tombstone-masked top-k of host queries, the retrieval
+        observatory's ground truth: :meth:`search`'s ranking (no filters)
+        as a ``retrieve_shadow`` item on the spine's background ``probe``
+        stream.  ``count_cap`` limits the scan to the rows the served query
+        could see."""
+        qn = _normalized(queries)
+        buf, count, mask = self.search_view(None)
+        if count_cap is not None and count_cap < count:
+            count = int(count_cap)
+            mask = None if mask is None else mask[:count]
+        if count == 0:
+            return [[] for _ in qn]
+
+        def _shadow_on_device():
+            q = torch.from_numpy(qn).to(device=self.device, dtype=buf.dtype)
+            m = None if mask is None else torch.from_numpy(mask).to(self.device)
+            vals, ids = search_single(buf, q, count, min(k, count), m)
+            return to_host(vals), to_host(ids)
+
+        vals, ids = spine_run(
+            "retrieve_shadow", _shadow_on_device, stream="probe", device=self.device
+        )
         return self.assemble_results(vals.numpy(), ids.numpy())
 
     def assemble_results(

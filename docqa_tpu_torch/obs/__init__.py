@@ -18,8 +18,12 @@ of the port:
 * cost attribution: :class:`RequestCostLedger`, :class:`CostRecord`,
   :data:`DEFAULT_COST_LEDGER`, :func:`cost_open`.
 
-The reference's retrieval observatory (recall shadows of the tiered and IVF
-search) is not ported yet: it comes with that search.  Stdlib only at
+* retrieval quality: :class:`RetrievalObservatory` (recall shadows of the
+  tiered search, the nprobe frontier), :class:`ShadowJob`,
+  :func:`wilson_interval`, :func:`compare_topk` and the process hook
+  :func:`get_retrieval_observatory` / :func:`set_retrieval_observatory`.
+
+Stdlib only at
 import (torch is imported inside the profiler window, the peak detection
 and the device-memory probe), so ``runtime/metrics.py`` imports it without
 cycles.
@@ -80,6 +84,14 @@ from docqa_tpu_torch.obs.recorder import (  # noqa: F401
     from_headers,
     new_trace,
     set_enabled,
+)
+from docqa_tpu_torch.obs.retrieval_observatory import (  # noqa: F401
+    RetrievalObservatory,
+    ShadowJob,
+    compare_topk,
+    get_retrieval_observatory,
+    set_retrieval_observatory,
+    wilson_interval,
 )
 from docqa_tpu_torch.obs.slo import (  # noqa: F401
     BurnRateEvaluator,

@@ -19,8 +19,8 @@ Two probes differ from the reference, whose engine compiles programs:
 port compiles nothing; the ``hbm_decode_*`` gauges (a compiled program's
 ``memory_analysis``) become ``device_mem_*`` gauges read from
 ``torch.cuda.memory_stats`` of the engine's device.  The retrieval
-observatory's probe comes with that observatory (the tiered and IVF search
-it shadows are not ported yet).
+observatory's probe (``retrieval=``) records its ``retrieve_recall_*``
+gauges.
 
 Every probe is fenced so a dying replica never kills the sampler, except
 for a kernel or CUDA fault (``ops/_kernels.is_device_fault``): it reaches
@@ -522,6 +522,7 @@ class TelemetrySampler:
         engine=None,  # GenerateEngine (device memory probe)
         slo_evaluator=None,  # obs.slo.BurnRateEvaluator
         spine=None,  # engines.spine.DispatchSpine (duck-typed)
+        retrieval=None,  # obs.retrieval_observatory.RetrievalObservatory
         sample_every_s: float = 2.0,
         extra_probes: Sequence[Callable[[], Dict[str, float]]] = (),
     ) -> None:
@@ -534,6 +535,7 @@ class TelemetrySampler:
         self.engine = engine
         self.slo_evaluator = slo_evaluator
         self.spine = spine
+        self.retrieval = retrieval
         self.sample_every_s = float(sample_every_s)
         self.extra_probes = list(extra_probes)
         # the kernel or CUDA fault the sampler thread stopped on, if any
@@ -622,6 +624,8 @@ class TelemetrySampler:
             self._fenced("engine", lambda: self._scrape_engine(now))
         if self.spine is not None:
             self._fenced("spine", lambda: self._scrape_spine(now))
+        if self.retrieval is not None:
+            self._fenced("retrieval", lambda: self._scrape_retrieval(now))
         for probe in self.extra_probes:
             self._fenced(
                 getattr(probe, "__name__", "extra"),
@@ -771,6 +775,14 @@ class TelemetrySampler:
             self.store.record_gauge(name, float(value), now=now)
         for name, value in self.spine.telemetry_counters().items():
             self.store.record_counter(name, float(value), now=now)
+
+    def _scrape_retrieval(self, now: Optional[float]) -> None:
+        """The retrieval observatory's gauges (``retrieve_recall_*``:
+        estimate, Wilson bounds, pending shadows, current and recommended
+        nprobe).  Its per-comparison counters, the recall SLO's inputs,
+        ride the registry scrape."""
+        for name, value in self.retrieval.telemetry_gauges().items():
+            self.store.record_gauge(name, float(value), now=now)
 
     def _scrape_extra(self, probe, now: Optional[float]) -> None:
         for name, value in (probe() or {}).items():

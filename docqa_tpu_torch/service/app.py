@@ -44,13 +44,18 @@ documents, after a DELETE (an erasure keeps no predecessor) and at
 encoder and decoder) ``/ask`` takes the single-sync fused chain while the
 pool is idle (``engines/rag_fused.py``).
 
+With ``store.serving_index="tiered"`` the store is served through a
+``TieredIndex`` (IVF over the bulk, an exact tail, the lexical tier's modes)
+and ``/ask`` retrieves through ``FusedTieredRetriever``.  The retrieval
+observatory (``retrieval_quality.enabled``) is the process hook the tiered
+paths offer shadow jobs to; ``/api/retrieval`` serves its ``status()``
+(under exact serving it idles).
+
 Configuration that needs a part of the reference this port does not have
 yet raises at boot and names its ROADMAP item (:func:`refuse_unported`).
 Routes whose subsystem is not ported answer as the reference does when
-that subsystem is idle or absent: ``/api/retrieval`` with the idle
-observatory's payload (exact serving draws no recall shadows),
-``/api/witness`` and ``/api/ledger`` with 404; the checkpoint loader's
-breaker stays closed on ``/api/status``.
+that subsystem is idle or absent: ``/api/witness`` and ``/api/ledger`` with
+404; the checkpoint loader's breaker stays closed on ``/api/status``.
 
 Entry point: ``python -m docqa_tpu_torch.service.app`` (see :func:`main`).
 """
@@ -104,9 +109,6 @@ def refuse_unported(cfg: Config) -> None:
     of the reference this port does not have yet, naming the ROADMAP item
     (queue 1) that brings it."""
     refusals = [
-        (cfg.store.serving_index == "tiered",
-         "store.serving_index='tiered' needs the IVF and tiered search "
-         "(ROADMAP queue 1, item 5)"),
         (cfg.summarizer.backend == "seq2seq" and not cfg.flags.use_fake_llm,
          "summarizer.backend='seq2seq' needs the seq2seq summarizer "
          "(ROADMAP queue 1, item 7)"),
@@ -148,11 +150,15 @@ class DocQARuntime:
         from docqa_tpu_torch.engines.generate import GenerateEngine
         from docqa_tpu_torch.engines.pool import EnginePool
         from docqa_tpu_torch.engines.rag_fused import FusedRAG
-        from docqa_tpu_torch.engines.retrieve import FusedRetriever
+        from docqa_tpu_torch.engines.retrieve import (
+            FusedRetriever,
+            FusedTieredRetriever,
+        )
         from docqa_tpu_torch.engines.router import AnswerRouter
         from docqa_tpu_torch.engines.summarize import SummarizeEngine
         from docqa_tpu_torch.index.lexical import LexicalIndex
         from docqa_tpu_torch.index.store import VectorStore
+        from docqa_tpu_torch.index.tiered import TieredIndex
         from docqa_tpu_torch.service.broker import make_broker
         from docqa_tpu_torch.service.pipeline import DocumentPipeline
         from docqa_tpu_torch.service.qa import QA_TEMPLATE, QAService
@@ -227,6 +233,14 @@ class DocQARuntime:
             )
             self.store.register_index_sink(self.lexical)
         self.search_index = self.store
+        if cfg.store.serving_index == "tiered":
+            sc = cfg.store
+            self.search_index = TieredIndex(
+                self.store, nprobe=sc.ivf_nprobe, min_rows=sc.ivf_min_rows,
+                rebuild_tail_rows=sc.ivf_rebuild_tail, storage=sc.ivf_storage,
+                lexical=self.lexical, hybrid_alpha=cfg.lexical.hybrid_alpha,
+                default_mode=cfg.lexical.serving_mode,
+            )
         if cfg.ner.train_steps > 0 or cfg.ner.params_path:
             # loads the trained tagger's cache, or trains it (in a child
             # process on a card) and caches it there: restarts load
@@ -293,11 +307,16 @@ class DocQARuntime:
             )
             if n and self._index_dir:
                 self._snapshot()
-        # exact serving retrieves dense, as the reference's does: its
-        # retrieve modes ride on the tiered index (ROADMAP queue 1, item 5)
+        # exact serving retrieves dense, as the reference's does; the
+        # retrieve modes ride on the tiered index
         retriever = None
         if not cfg.flags.use_fake_encoder:
-            retriever = FusedRetriever(self.encoder, self.store, device=dev)
+            if self.search_index is self.store:
+                retriever = FusedRetriever(self.encoder, self.store, device=dev)
+            else:
+                retriever = FusedTieredRetriever(
+                    self.encoder, self.search_index, device=dev
+                )
         # the single-sync ask needs the sidecar, device encoder params and
         # a real decoder, over exact serving on one device
         fused_rag = None
@@ -318,7 +337,7 @@ class DocQARuntime:
                 evidence_min=cfg.router.evidence_min,
             )
         self.qa = QAService(
-            self.encoder, self.store, self.generator,
+            self.encoder, self.search_index, self.generator,
             k=cfg.store.default_k, device=dev, batcher=self.batcher,
             breakers=self.breakers, resilience=cfg.resilience,
             use_fake_llm=cfg.flags.use_fake_llm,
@@ -329,6 +348,22 @@ class DocQARuntime:
             else self.qa.patient_snippets
         )
         self.synthesis = SynthesisService(retrieval=retrieval, summarizer=self.summarizer)
+        # the retrieval observatory, installed as the process hook the
+        # tiered paths offer shadow jobs to; its worker starts in start()
+        rq = cfg.retrieval_quality
+        self.retrieval_obs = None
+        if rq.enabled:
+            self.retrieval_obs = obs.RetrievalObservatory(
+                sample_every=rq.sample_every, seed=rq.seed, window=rq.window,
+                max_pending=rq.max_pending, frontier_every=rq.frontier_every,
+                frontier_factors=rq.frontier_factors,
+                min_frontier_n=rq.min_frontier_n,
+                recall_target=rq.recall_target,
+                auto_apply=rq.auto_apply_nprobe,
+                apply_nprobe=getattr(self.search_index, "set_nprobe", None),
+                registry=DEFAULT_REGISTRY,
+            )
+            obs.set_retrieval_observatory(self.retrieval_obs)
         self.costs = obs.DEFAULT_COST_LEDGER
         self.costs.set_pressure_probe(self._cost_pressure)
         self.telemetry = None
@@ -350,8 +385,7 @@ class DocQARuntime:
                 long_windows=tcfg.slo_long_windows,
                 burn_threshold=tcfg.slo_burn_threshold,
             )
-            rq = cfg.retrieval_quality
-            if rq.enabled:
+            if self.retrieval_obs is not None:
                 slos += obs.default_retrieval_slos(
                     recall_target=rq.recall_target,
                     short_windows=rq.slo_short_windows,
@@ -376,6 +410,7 @@ class DocQARuntime:
                 engine=self.generator if self.batcher is not None else None,
                 slo_evaluator=self.slo,
                 spine=self.spine,
+                retrieval=self.retrieval_obs,
                 sample_every_s=tcfg.sample_every_s,
                 extra_probes=(self.costs.telemetry_gauges,),
             )
@@ -445,6 +480,8 @@ class DocQARuntime:
 
     def start(self) -> "DocQARuntime":
         self.pipeline.start()
+        if self.retrieval_obs is not None:
+            self.retrieval_obs.start()
         if self.sampler is not None:
             self.sampler.start()
         if self.batcher is not None:
@@ -473,36 +510,25 @@ class DocQARuntime:
             log.exception("decode warmup failed (serving continues cold)")
 
     def retrieval_status(self) -> Dict[str, Any]:
-        """``/api/retrieval``: the idle observatory's payload (exact serving
-        draws no recall shadows), the serving tier and the router's
-        posture and route split."""
-        rq = self.cfg.retrieval_quality
+        """``/api/retrieval``: the observatory's ``status()`` (estimates,
+        drift, the frontier, the recommended nprobe), the serving tier and
+        the router's posture and route split.  Needs the observatory
+        (``retrieval_quality.enabled``)."""
+        index = self.search_index
+        stats_fn = getattr(index, "index_stats", None)
         return {
-            "enabled": True,
-            "running": self._started,
-            "sample_every": rq.sample_every,
-            "seed": rq.seed,
-            "recall_target": rq.recall_target,
-            "counts": {
-                "served": 0, "sampled": 0, "shadows": 0,
-                "dropped": 0, "errors": 0, "pending": 0,
-            },
-            "estimate": None,
-            "current": None,
-            "estimates": {},
-            "frontier": [],
-            "recommended_nprobe": None,
-            "auto_apply": rq.auto_apply_nprobe,
-            "applied_nprobe": None,
-            "drift": {},
+            **self.retrieval_obs.status(),
             "serving": {
                 "serving_index": self.cfg.store.serving_index,
                 "rows": self.store.count,
-                "nprobe": None,
-                "covered": None,
-                "tail_rows": None,
-                "index": None,
-                "offmesh_fallbacks": 0,  # one device: nothing is off the mesh
+                "nprobe": getattr(index, "nprobe", None),
+                "covered": getattr(index, "covered", None),
+                "tail_rows": getattr(index, "tail_rows", None),
+                "index": stats_fn() if stats_fn is not None else None,
+                # one device: nothing is ever served off a mesh
+                "offmesh_fallbacks": DEFAULT_REGISTRY.counter(
+                    "retrieve_offmesh_fallback"
+                ).value,
             },
             "routing": {
                 "enabled": self.router is not None,
@@ -541,6 +567,9 @@ class DocQARuntime:
         compacted = 0
         if erase or auto:
             compacted = self.store.compact_deleted()
+            # compaction renumbers the rows a tier was built over
+            if compacted and self.search_index is not self.store:
+                self.search_index.reset()
         try:
             self.registry.set_status(doc_id, reg.DELETED)
         except Exception:
@@ -552,12 +581,33 @@ class DocQARuntime:
     def stop(self) -> None:
         """Join every worker (each with a bound) and release the process
         hooks this runtime installed; raises a device fault the warm-up
-        thread kept."""
+        thread, the retrieval observatory or a tier rebuild kept."""
+        faults_kept: List[BaseException] = []
+
+        def keep_fault(fn):
+            try:
+                fn()
+            except Exception as e:
+                if not is_device_fault(e):
+                    raise
+                faults_kept.append(e)
+
         if self.sampler is not None:
             self.sampler.stop()
+        # the observatory's worker submits work against the store and the
+        # tier: join it before the index plane; uninstall the hook only if
+        # it is still this runtime's
+        if self.retrieval_obs is not None:
+            keep_fault(self.retrieval_obs.stop)
+            if obs.get_retrieval_observatory() is self.retrieval_obs:
+                obs.set_retrieval_observatory(None)
         self.pipeline.stop()
         if self.batcher is not None:
             self.batcher.stop()
+        # a tiered index may have a background rebuild in flight
+        index_close = getattr(self.search_index, "close", None)
+        if index_close is not None:
+            keep_fault(index_close)
         warmup = self._warmup_thread
         if warmup is not None:
             warmup.join(timeout=5)
@@ -573,6 +623,8 @@ class DocQARuntime:
             _faults.uninstall(self._fault_plan)
         if self._warmup_fault is not None:
             raise self._warmup_fault
+        if faults_kept:
+            raise faults_kept[0]
 
 
 # ---------------------------------------------------------------------------

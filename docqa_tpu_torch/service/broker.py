@@ -524,6 +524,6 @@ def make_broker(cfg: Optional[BrokerConfig] = None, journal_dir: Optional[str] =
     if cfg.backend == "amqp":
         raise NotImplementedError(
             "the AMQP broker is not in the PyTorch port yet (ROADMAP.md queue 1, "
-            "item 5: what the ingest slice left); use backend='memory'"
+            "its own line: AmqpBroker); use backend='memory'"
         )
     return MemoryBroker(cfg, journal_dir=journal_dir)

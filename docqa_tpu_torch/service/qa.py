@@ -16,7 +16,8 @@ keeps the reference's two steps, host embeddings then ``store.search``.
 
 With an answer router (``engines/router.py``), a lookup question asks the
 retriever for the ``hybrid`` mode (honoured where the retriever declares
-``supports_modes``) and, when the evidence gate passes, is answered with
+``supports_modes``: the tiered index and its fused retriever) and, when
+the evidence gate passes, is answered with
 the retrieved chunks verbatim: no prompt, no batcher, no decode.  The
 answer then carries ``route: "extractive"``.
 
@@ -59,7 +60,7 @@ from docqa_tpu_torch import obs
 from docqa_tpu_torch.engines.encoder import EncoderEngine
 from docqa_tpu_torch.engines.generate import GenerateEngine
 from docqa_tpu_torch.engines.rag_fused import EmptyStoreError
-from docqa_tpu_torch.engines.retrieve import FusedRetriever
+from docqa_tpu_torch.engines.retrieve import FusedRetriever, FusedTieredRetriever
 from docqa_tpu_torch.engines.router import ROUTE_EXTRACTIVE, extractive_answer
 from docqa_tpu_torch.engines.serve import (
     DEFAULT_RESULT_TIMEOUT,
@@ -221,7 +222,7 @@ class QAService:
     def __init__(
         self,
         encoder,  # EncoderEngine, or the fake encoder (HashEncoder)
-        store: VectorStore,
+        store,  # VectorStore, or a TieredIndex over one
         generator: GenerateEngine,
         k: int = 3,
         device="cuda",
@@ -229,7 +230,7 @@ class QAService:
         breakers=None,  # resilience.BreakerBoard: "decoder" gates generation
         resilience=None,  # config.ResilienceConfig: degrade thresholds
         use_fake_llm: bool = False,
-        retriever: Optional[FusedRetriever] = None,
+        retriever=None,  # FusedRetriever or FusedTieredRetriever
         router=None,  # engines.router.AnswerRouter
         fused_rag=None,  # engines.rag_fused.FusedRAG: the single-sync ask
     ) -> None:
@@ -241,7 +242,10 @@ class QAService:
                     f"{self.device}"
                 )
         if retriever is None and isinstance(encoder, EncoderEngine):
-            retriever = FusedRetriever(encoder, store, device=self.device)
+            if isinstance(store, VectorStore):
+                retriever = FusedRetriever(encoder, store, device=self.device)
+            else:  # a TieredIndex
+                retriever = FusedTieredRetriever(encoder, store, device=self.device)
         self.retriever = retriever
         self.encoder = encoder
         self.store = store
@@ -264,11 +268,11 @@ class QAService:
     def _retrieve(self, text: str, k: int, filters=None, deadline=None,
                   mode: Optional[str] = None):
         """The fused retriever when one is wired, else host embeddings and
-        ``store.search``; ``mode`` reaches only a retriever that declares
-        ``supports_modes`` (everything else serves dense)."""
+        ``store.search``; ``mode`` reaches only a retriever or store that
+        declares ``supports_modes`` (everything else serves dense)."""
         if self.retriever is not None:
             kw = {}
-            if mode is not None and self.retriever.supports_modes:
+            if mode is not None and getattr(self.retriever, "supports_modes", False):
                 kw["mode"] = mode
             return self.retriever.search_texts(
                 [text], k=k, filters=filters, deadline=deadline, **kw
@@ -276,6 +280,10 @@ class QAService:
         if deadline is not None:
             deadline.check("retrieve")
         emb = self.encoder.encode_texts([text])
+        if mode is not None and getattr(self.store, "supports_modes", False):
+            return self.store.search(
+                emb, k=k, filters=filters, mode=mode, query_texts=[text]
+            )[0]
         return self.store.search(emb, k=k, filters=filters)[0]
 
     def _degraded_pending(

@@ -38,6 +38,7 @@ import io
 import json
 import logging
 import threading
+import time
 import urllib.error
 import urllib.request
 import zipfile
@@ -581,6 +582,23 @@ def test_routing_mix_over_a_real_encoder_equals_reference(apps):
     assert "extractive" in routes and None in routes
 
 
+DRIFT_NAMES = {
+    "retrieve_score_margin", "retrieve_query_norm", "retrieve_tier_ms_bulk_ivf",
+    "retrieve_tier_ms_tail_exact", "retrieve_tier_ms_merge", "retrieve_tier_ms_fused_probe",
+}
+
+
+def _assert_drift_shape(tree, jtree):
+    """Hold both ``/api/retrieval`` drift sections to the reference's shape,
+    then take them (and the NaN paths they may carry) out of both trees."""
+    for t in (tree, jtree):
+        nonfinite = t.pop("_nonfinite_fields", [])
+        assert all(p.startswith("drift.") for p in nonfinite), nonfinite
+        drift = t.pop("drift")
+        assert set(drift) <= DRIFT_NAMES, drift
+        assert all(set(entry) == {"count", "p50", "p95"} for entry in drift.values())
+
+
 def test_key_trees_equal_reference(apps):
     for key in ("GET /api/status", "GET /api/retrieval"):
         (raw,) = [r for k, _s, _h, r, _n in apps.trecords if k == key]
@@ -594,15 +612,16 @@ def test_key_trees_equal_reference(apps):
             assert tree["pool"] is None and jtree["pool"] is None
             assert [s["name"] for s in tree["slo"]] == [s["name"] for s in jtree["slo"]]
         else:
-            # the reference's drift section names the retrieval histograms
-            # its process registry has counts for, whichever test file in
-            # this worker recorded them; exact serving records none here
-            assert tree.pop("drift") == {}
-            jtree.pop("drift")
-            nonfinite = jtree.pop("_nonfinite_fields", [])  # the drift's NaNs
-            assert all(p.startswith("drift.") for p in nonfinite), nonfinite
+            # both payloads are the running observatory's status().  Its
+            # drift section names the retrieval histograms the process
+            # registry has samples in: which test files of this worker
+            # recorded them decides the names on each side (exact serving
+            # records none), so the names are held to the six the section
+            # reads and each entry's key tree to the reference's
+            _assert_drift_shape(tree, jtree)
             assert _keys(tree) == _keys(jtree)
             assert tree["routing"]["enabled"] and tree["serving"]["rows"] == 3
+            assert tree["running"] is True and tree["serving"]["index"] is None
 
 
 def test_concurrent_asks_over_http_equal_sequential(apps):
@@ -649,10 +668,11 @@ def test_oversized_body_is_refused(apps):
 
 
 @pytest.mark.parametrize("cfg, item", [
-    ({"store.serving_index": "tiered"}, "item 5"),
-    # data.work_dir (item 5's store lifecycle) and store.token_width (item
-    # 4's fused RAG) are ported: both now boot past the refusals.  The
-    # cases keep the ids they had while refused.
+    # store.serving_index="tiered" (item 5's tiered retrieval), data.work_dir
+    # (item 5's store lifecycle) and store.token_width (item 4's fused RAG)
+    # are ported: all three now boot past the refusals.  The cases keep the
+    # ids they had while refused.
+    pytest.param({"store.serving_index": "tiered"}, None, id="cfg0-item 5"),
     pytest.param({"data.work_dir": "/nonexistent"}, None, id="cfg1-item 5"),
     pytest.param({"store.token_width": 8}, None, id="cfg2-item 4"),
     ({"summarizer.backend": "seq2seq"}, "item 7"),
@@ -819,8 +839,82 @@ def test_key_trees_with_work_dir_and_sidecar_equal_reference(tmp_path):
     assert set(status) == set(jstatus)
     assert set(status["breakers"]) == set(jstatus["breakers"])
     retrieval, jretrieval = trees["port"]["/api/retrieval"], trees["ref"]["/api/retrieval"]
-    retrieval.pop("drift")
-    jretrieval.pop("drift")
-    jretrieval.pop("_nonfinite_fields", None)
+    _assert_drift_shape(retrieval, jretrieval)  # why: test_key_trees_equal_reference
     assert _keys(retrieval) == _keys(jretrieval)
     assert retrieval["serving"]["rows"] == jretrieval["serving"]["rows"] == 1
+
+
+def test_tiered_runtime_answers_the_routing_mix_like_the_reference():
+    """``store.serving_index="tiered"`` boots: both runtimes ingest the
+    routing mix, build their IVF tier in the background (``ivf_min_rows``
+    lowered for the small corpus), and answer every question alike through
+    their fused tiered retrievers, the router's lookups hybrid.  nprobe 8
+    covers every cell of so small a tier, so the probe plus the exact
+    re-rank is exact search whatever the clustering.  ``/api/retrieval`` is
+    the running observatory's payload, with the tier's stats, and the
+    shadows it drew found recall 1.0.  Both packages' counters, recorders
+    and observatory hooks are put back."""
+    tiered = {**ENCODED, "store.serving_index": "tiered", "store.ivf_min_rows": 8,
+              "retrieval_quality.sample_every": 1}
+    saved = ([(rec, _recorder_state(rec)) for rec in (jobs.DEFAULT_RECORDER, obs.DEFAULT_RECORDER)],
+             [(reg, _counters(reg))
+              for reg in (jmetrics.DEFAULT_REGISTRY, metrics.DEFAULT_REGISTRY)],
+             jobs.get_retrieval_observatory(), obs.get_retrieval_observatory(),
+             jobs.DEFAULT_COST_LEDGER._pressure_probe)
+    results = {}
+    try:
+        for side in ("ref", "port"):
+            if side == "ref":
+                rt = JDocQARuntime(j_load_config(env={}, overrides=tiered)).start()
+                client = _RefClient(rt)
+                call, close = client, client.close
+            else:
+                app = _PortApp(tiered)
+                rt, call, close = app.rt, app.call, app.close
+                assert type(rt.qa.retriever).__name__ == "FusedTieredRetriever"
+            try:
+                asked, docs = _routing_scenario(call)
+                deadline = time.time() + 120
+                while rt.search_index.covered == 0 and time.time() < deadline:
+                    time.sleep(0.05)
+                assert rt.search_index.covered == rt.store.count
+                # once the tier covers the corpus, the mix again
+                again = [call("POST", "/ask/", _j({"question": row["question"]}))
+                         for row in MIX]
+                assert rt.retrieval_obs.drain(60)
+                payload = json.loads(call("GET", "/api/retrieval")[2])
+                results[side] = (asked, docs, again, payload)
+            finally:
+                close()
+                if side == "ref":
+                    rt.stop()
+                else:  # the runtime joined its own workers
+                    assert not rt.retrieval_obs.running and not rt.search_index.rebuilding
+    finally:
+        for rec, state in saved[0]:
+            _restore_recorder(rec, state)
+        for reg, counts in saved[1]:
+            _restore_counters(reg, counts)
+        jobs.set_retrieval_observatory(saved[2])
+        obs.set_retrieval_observatory(saved[3])
+        jobs.DEFAULT_COST_LEDGER.set_pressure_probe(saved[4])
+    (jasked, jdocs, jagain, jpayload), (asked, docs, again, payload) = (
+        results["ref"], results["port"])
+    routes = []
+    for (q, status, raw), (_q, jstatus, jraw) in zip(asked, jasked):
+        assert status == jstatus == 200, q
+        got = _normalize(raw, docs)
+        assert got == _normalize(jraw, jdocs), q
+        routes.append(got.get("route"))
+    assert "extractive" in routes and None in routes
+    for (status, _h, raw), (jstatus, _jh, jraw) in zip(again, jagain):
+        assert status == jstatus == 200
+        assert _normalize(raw, docs) == _normalize(jraw, jdocs)
+    assert payload["serving"]["index"]["active"] and jpayload["serving"]["index"]["active"]
+    assert payload["serving"]["covered"] == jpayload["serving"]["covered"]
+    assert payload["counts"]["shadows"] > 0 and payload["counts"]["errors"] == 0
+    assert all(est["recall"] == 1.0 for est in payload["estimates"].values())
+    assert set(payload["estimates"]) <= set(jpayload["estimates"]) | {
+        f"{t}@nprobe={p}" for t in ("tiered_fused", "hybrid") for p in (0, 8)}
+    _assert_drift_shape(payload, jpayload)
+    assert _keys(payload) == _keys(jpayload)

@@ -569,3 +569,81 @@ def test_train_ner_on_the_card_equals_the_cpu(dev):
     cpu = train_ner(cfg, device="cpu", **kw)
     for name, value in cpu.items():
         torch.testing.assert_close(card[name].cpu(), value, rtol=0, atol=1e-4)
+
+
+def _tiered_stack(dev, n=3000, seed=0):
+    """A float32 store of clustered rows with a lexical tier and a tiered
+    index over it, on ``dev``: the same seeded inputs on every device."""
+    import numpy as np
+
+    from docqa_tpu_torch.config import EncoderConfig, StoreConfig
+    from docqa_tpu_torch.engines.encoder import EncoderEngine
+    from docqa_tpu_torch.engines.retrieve import FusedTieredRetriever
+    from docqa_tpu_torch.index.lexical import LexicalIndex
+    from docqa_tpu_torch.index.store import VectorStore
+    from docqa_tpu_torch.index.tiered import TieredIndex
+
+    enc = EncoderEngine(EncoderConfig(vocab_size=512, hidden_dim=64, num_layers=1,
+                                      num_heads=2, mlp_dim=128, max_seq_len=64,
+                                      embed_dim=64, dtype="float32"), seed=1, device=dev)
+    texts = [f"note {i}: drug-{i % 13} for condition-{i % 7} ward {i % 11}" for i in range(n)]
+    emb = enc.encode_texts(texts)
+    rng = np.random.default_rng(seed)
+    emb = emb + 0.05 * rng.standard_normal(emb.shape).astype(np.float32)
+    store = VectorStore(StoreConfig(dim=64, dtype="float32", shard_capacity=4096), device=dev)
+    lex = LexicalIndex(vocab_size=4096, tile_width=8, device=dev)
+    store.register_index_sink(lex)
+    store.add(emb, [{"doc_id": f"d{i}", "text_content": t} for i, t in enumerate(texts)])
+    tiered = TieredIndex(store, nprobe=4, min_rows=1000, lexical=lex)
+    return enc, tiered, FusedTieredRetriever(enc, tiered, device=dev)
+
+
+def carry_tier(src, dst):
+    """Publish ``src``'s IVF tier (built on its device) as ``dst``'s."""
+    from docqa_tpu_torch.index.ivf import ivf_from_arrays
+
+    ivf, covered = src._tier
+    carried = ivf_from_arrays(ivf.arrays(), ivf._meta, nprobe=ivf.nprobe,
+                              dtype=str(dst.store.cfg.dtype), device=dst.device)
+    carried._store_compactions = dst.store.compactions
+    dst._tier = (carried, covered)
+
+
+def test_tiered_search_on_the_card_equals_the_cpu_in_float32(dev):
+    """The CPU's tier carried to the card, then dense and hybrid fused
+    searches: the same top-k ids but for a tie at the k-th score, scores
+    within 1e-5 (float32 sums in another order).  The card's own build
+    runs too and serves."""
+    import numpy as np
+
+    (_e, card_tier, card), (_c, cpu_tier, cpu) = _tiered_stack(dev), _tiered_stack("cpu")
+    assert card_tier.rebuild() and cpu_tier.rebuild()
+    assert card.search_texts(["drug-3"], k=3)[0]
+    carry_tier(cpu_tier, card_tier)
+    qs = ["drug-3 for condition-3", "ward 7 drug-12", "note 42", "condition-5"]
+    for mode in ("dense", "hybrid"):
+        for got, want in zip(card.search_texts(qs, k=8, mode=mode),
+                             cpu.search_texts(qs, k=8, mode=mode)):
+            gs, ws = np.array([h.score for h in got]), np.array([h.score for h in want])
+            np.testing.assert_allclose(gs, ws, atol=1e-5, rtol=0)
+            cut = ws[-1] + 2e-5
+            assert ({h.row_id for h in got if h.score > cut}
+                    == {h.row_id for h in want if h.score > cut})
+
+
+def test_tier_rebuild_device_fault_reaches_search_on_the_card(dev, monkeypatch):
+    from docqa_tpu_torch.index import tiered as tiered_mod
+
+    _e, tier, retr = _tiered_stack(dev)
+    tier.rebuild_tail_rows = 100
+
+    def broken(*a, **kw):
+        raise _kernels.KernelError("probe kernel failed to launch")
+
+    monkeypatch.setattr(tiered_mod, "IVFIndex", broken)
+    retr.search_texts(["drug-1"], k=3)  # starts the rebuild, served exact
+    tier._rebuild_thread.join(60)
+    with pytest.raises(_kernels.KernelError):
+        retr.search_texts(["drug-1"], k=3)
+    with pytest.raises(_kernels.KernelError):
+        tier.close()

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -121,8 +122,20 @@ TRAINING_MODULES = (
     "docqa_tpu_torch.training.optim",
     "docqa_tpu_torch.training.train",
 )
+# the tiered retrieval slice's new and touched modules, held to the same
+# two checks
+RETRIEVAL_MODULES = (
+    "docqa_tpu_torch.engines.retrieve",
+    "docqa_tpu_torch.index.ivf",
+    "docqa_tpu_torch.index.lexical",
+    "docqa_tpu_torch.index.store",
+    "docqa_tpu_torch.index.tiered",
+    "docqa_tpu_torch.obs.retrieval_observatory",
+    "docqa_tpu_torch.obs.telemetry",
+    "docqa_tpu_torch.service.app",
+)
 SLICE_MODULES = (BATCHER_MODULES + INGEST_MODULES + OBS_MODULES + APP_MODULES
-                 + LIFECYCLE_MODULES + TRAINING_MODULES)
+                 + LIFECYCLE_MODULES + TRAINING_MODULES + RETRIEVAL_MODULES)
 
 
 def _python_files():
@@ -234,6 +247,15 @@ def _build(entry):
     store = VectorStore(store_cfg, device="cpu")
     if entry == "FusedRetriever":
         return FusedRetriever(enc, store)
+    if entry == "IVFIndex":
+        from docqa_tpu_torch.index.ivf import IVFIndex
+
+        return IVFIndex(np.eye(32, dtype=np.float32), [{}] * 32, n_clusters=2)
+    if entry == "FusedTieredRetriever":
+        from docqa_tpu_torch.engines.retrieve import FusedTieredRetriever
+        from docqa_tpu_torch.index.tiered import TieredIndex
+
+        return FusedTieredRetriever(enc, TieredIndex(store))
     if entry == "FusedRAG":
         from docqa_tpu_torch.engines.rag_fused import FusedRAG
 
@@ -265,7 +287,7 @@ def _build(entry):
     "entry",
     ["EncoderEngine", "GenerateEngine", "VectorStore", "FusedRetriever", "QAService",
      "EnginePool", "DeidEngine", "LexicalIndex", "HashEncoder", "DocQARuntime",
-     "FusedRAG"],
+     "FusedRAG", "IVFIndex", "FusedTieredRetriever"],
 )
 def test_entry_points_raise_without_cuda(entry):
     if torch.cuda.is_available():

@@ -1,7 +1,7 @@
 """Port parity, the lexical tier: docqa_tpu_torch's ``clinical_tokens``,
-``term_slot`` and ``LexicalIndex`` against docqa_tpu's, and the port's
-``FusedRetriever`` lexical / hybrid modes against the reference's
-``TieredIndex`` modes (below its IVF threshold, so its dense tier is the
+``term_slot`` and ``LexicalIndex`` against docqa_tpu's, and the retrieve
+modes of the port's ``TieredIndex`` / ``FusedTieredRetriever`` against the
+reference's same classes (below the IVF threshold, so the dense tier is the
 exact store) on the same corpus and encoder weights.
 
 Tokens, slots and encoded query operands must be equal outright.  Lexical
@@ -31,9 +31,10 @@ from docqa_tpu.index.store import VectorStore as JVectorStore
 from docqa_tpu.index.tiered import TieredIndex as JTieredIndex
 from docqa_tpu_torch.config import EncoderConfig, StoreConfig
 from docqa_tpu_torch.engines.encoder import EncoderEngine
-from docqa_tpu_torch.engines.retrieve import FusedRetriever
+from docqa_tpu_torch.engines.retrieve import FusedRetriever, FusedTieredRetriever
 from docqa_tpu_torch.index.lexical import LexicalIndex, clinical_tokens, term_slot
 from docqa_tpu_torch.index.store import VectorStore
+from docqa_tpu_torch.index.tiered import TieredIndex
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY
 
 torch.set_num_threads(1)
@@ -113,7 +114,8 @@ def test_lexical_search_equals_reference(k):
 def _stacks():
     """Both packages' store with the same rows (the mix's documents encoded
     by the reference encoder), a lexical tier fed through the store's sink,
-    and the reference's tiered facade / the port's retriever over them."""
+    the reference's tiered facade and the port's fused tiered retriever over
+    its own tiered facade."""
     jenc = JEncoderEngine(JEncoderConfig(**ENC), seed=1)
     tenc = EncoderEngine(EncoderConfig(**ENC), seed=1, device="cpu")
     emb = jenc.encode_texts(DOCS)
@@ -132,8 +134,10 @@ def _stacks():
     jstore.add(emb, meta)
     tstore.add(emb, meta)
     tiered = JTieredIndex(jstore, min_rows=10**9, lexical=jlex, hybrid_alpha=0.6)
-    retriever = FusedRetriever(tenc, tstore, device="cpu", lexical=tlex,
-                               hybrid_alpha=0.6)
+    retriever = FusedTieredRetriever(
+        tenc, TieredIndex(tstore, min_rows=10**9, lexical=tlex, hybrid_alpha=0.6),
+        device="cpu",
+    )
     return jenc, tiered, retriever
 
 
@@ -167,7 +171,7 @@ def test_retrieve_modes_equal_reference(mode):
         # after tombstones and a compaction both tiers stay row-aligned
         for mutate in (lambda st: st.delete_docs(["doc-0", "doc-5", "doc-17"]),
                        lambda st: st.compact_deleted()):
-            for store in (tiered.store, retriever.store):
+            for store in (tiered.store, retriever.tiered.store):
                 mutate(store)
             _assert_same_pairs(
                 _hits(tiered.search(q_emb, k=5, mode=mode, query_texts=QUESTIONS)),
@@ -198,12 +202,27 @@ def test_filters_fall_back_to_dense_like_reference():
 
 
 def test_retriever_without_lexical_tier_serves_dense():
+    """With no lexical tier a lexical request serves dense and counts the
+    fallback, as the reference's tiered index does; the exact-serving
+    retriever is dense only and takes no mode at all."""
     tenc = EncoderEngine(EncoderConfig(**ENC), seed=1, device="cpu")
     store = VectorStore(StoreConfig(dim=ENC["embed_dim"], dtype="float32"),
                         device="cpu")
-    store.add(tenc.encode_texts(DOCS), [{"doc_id": str(i)} for i in range(len(DOCS))])
-    retriever = FusedRetriever(tenc, store, device="cpu")
-    assert not retriever.supports_modes
-    assert _hits(retriever.search_texts(QUESTIONS[:2], mode="lexical")) == _hits(
-        retriever.search_texts(QUESTIONS[:2])
+    emb = tenc.encode_texts(DOCS)
+    meta = [{"doc_id": str(i)} for i in range(len(DOCS))]
+    store.add(emb, meta)
+    jstore = JVectorStore(JStoreConfig(dim=ENC["embed_dim"], dtype="float32"))
+    jstore.add(emb, meta)
+    jtiered = JTieredIndex(jstore, min_rows=10**9)
+    retriever = FusedTieredRetriever(tenc, TieredIndex(store, min_rows=10**9), device="cpu")
+    before = DEFAULT_REGISTRY.counter("retrieve_mode_fallback").value
+    got = retriever.search_texts(QUESTIONS[:2], mode="lexical")
+    assert DEFAULT_REGISTRY.counter("retrieve_mode_fallback").value == before + 1
+    assert _hits(got) == _hits(retriever.search_texts(QUESTIONS[:2]))
+    q_emb = tenc.encode_texts(QUESTIONS[:2])
+    _assert_same_pairs(
+        _hits(jtiered.search(q_emb, mode="lexical", query_texts=QUESTIONS[:2])), _hits(got)
     )
+    exact = FusedRetriever(tenc, store, device="cpu")
+    assert not hasattr(exact, "supports_modes")
+    assert _hits(exact.search_texts(QUESTIONS[:2])) == _hits(got)
