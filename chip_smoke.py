@@ -20,7 +20,11 @@ Phases, each of which fails the run on any error (nothing is caught):
    timed beside gather + masked SDPA and the reference's TPU route, gather
    + K1's contiguous decode path.  The trained NER tagger's window batches
    (about 140 windows for 32 notes, and the pipeline's ~36 for 8, of up to
-   128 rows, 8 heads of 32) are prefill cases.
+   128 rows, 8 heads of 32) are prefill cases, and BART-large-cnn's three
+   attentions on phase 13's path (16 heads of 64) are cases too: the
+   encoder over 8 sources in the 1,024 bucket (``prefill``, not causal),
+   the cross-attention of 32 beam lanes over them and the self-attention
+   over the 143-row cache (``decode``, not causal and causal).
 3. main path: /ask end to end through ``QAService.ask`` at full width —
    MiniLM-L6 encoder, a 1,000,000-row bf16 store, Mistral-7B-width decoder
    in bf16 with random seeded weights, greedy with K=4 speculation — with
@@ -194,11 +198,39 @@ Phases, each of which fails the run on any error (nothing is caught):
    /ask with the tier's default mode dense, then hybrid, and
    ``/api/retrieval`` the running observatory's; (f) a tiny float32 tier
    gives the same dense and hybrid top-k on the card and the CPU.
+13. checkpoints and the seq2seq summarizer, run last (it needs phase 11
+   (a)'s tagger and the memory of the freed phases): (a) BART-large-cnn
+   at full width and depth (406 M parameters) from the port's seeded host
+   init, written as an HF directory (config.json with the shipped policy:
+   4 beams, length penalty 2.0, min length 56, no repeated trigram, forced
+   BOS; a 1.63 GB float32 ``model.safetensors`` by this script's writer; a
+   byte-level BPE ``tokenizer.json`` built from the notes), read back
+   through ``load_checkpoint_dir`` (every leaf equal to the written one in
+   its serving dtype), then 8 generated notes summarised as one batch (32
+   beam lanes, 142 new tokens) and 1 greedy (``num_beams=1`` over the
+   shipped 4): K1 launched 12 times on ``prefill`` an encode and 24 times
+   on ``decode`` a decoder step, the termination flag read at most
+   ceil(steps / 16) + 1 times; wall, ms a step, tokens/s, peak memory and
+   the host's share of a step printed; (b) a float32 BART at the reference
+   test's widths gives identical greedy and beam-4 tokens on the card and
+   the CPU; (c) phase 3's MiniLM weights as a ``bert`` directory with a
+   WordPiece ``vocab.txt``: the 20 notes' embeddings bit-equal to phase 3's
+   encoder's on the same ids; (d) a Mistral-7B-layout decoder at 2 of 32
+   layers in two bf16 shards with a metaspace BPE ``tokenizer.json``:
+   first-step logits bit-equal to an engine built from the same tree, a
+   64-token greedy answer through the real vocabulary; (e)
+   ``DocQARuntime`` under the default config with the three directories
+   and ``summarizer.backend="seq2seq"``: boots with the ``checkpoint``
+   breaker on ``/api/status``, 4 uploads, an /ask and a patient synthesis
+   over HTTP, the synthesis through one ``seq2seq_generate`` item and no
+   paged decode.
 
 The recorder is on by default, so phases 3-7 run traced too.  Prints the
 pool JSON line, the ingest JSON line, the obs JSON line, the app JSON line,
 the lifecycle JSON line, the training JSON line, the tiered JSON line, the
-kernels JSON line,
+checkpoints JSON line, the launches-by-phase JSON line (each main-path
+run's K1 counters, whose sums are the kernels line's launches; each run's
+K1 total must equal the sum of its paths), the kernels JSON line,
 the nvidia-smi line, and last the ok line.  Phases 6 and 7 also
 print each spine stage's queue wait; ``--spine-lanes N`` sets the spine's
 lane count.
@@ -216,10 +248,12 @@ import io
 import itertools
 import json
 import logging
+import math
 import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -369,6 +403,20 @@ def kernel_cases():
         dict(name="ner_served_batch", b=36, sq=128, skv=128, hq=8, hkv=8, d=32,
              causal=False, window=None, q_offset=None,
              lengths=[0] + np.random.default_rng(8).integers(40, 129, 35).tolist()),
+        # BART-large-cnn's summaries on phase 13's path (16 heads of 64, no
+        # GQA): the encoder over 8 sources padded to the 1,024 bucket, the
+        # decoder's cross-attention from 32 beam lanes (8 sources x 4 beams)
+        # over them, not causal, and its causal self-attention over the
+        # 143-row cache (142 new tokens + the start token) mid-summary
+        dict(name="bart_encoder", b=8, sq=1024, skv=1024, hq=16, hkv=16, d=64,
+             causal=False, window=None, q_offset=None,
+             lengths=[300, 1024, 517, 1024, 811, 402, 1024, 655]),
+        dict(name="bart_cross", b=32, sq=1, skv=1024, hq=16, hkv=16, d=64,
+             causal=False, window=None, q_offset=None,
+             lengths=[n for n in (300, 1024, 517, 1024, 811, 402, 1024, 655)
+                      for _ in range(4)]),
+        dict(name="bart_self", b=32, sq=1, skv=143, hq=16, hkv=16, d=64,
+             causal=True, window=None, q_offset=[70] * 32, lengths=[71] * 32),
     ]
 
 
@@ -3981,7 +4029,8 @@ def run_tiered_ask(counts, qa, store, tiered):
         if stamped <= 0:
             raise AssertionError("the recall SLO's counters were not stamped")
         rec = _round_record(results, wall)
-        rec.update(launches=got, verify_steps=steps["verify_steps"],
+        # every counter of the round, K1's total with its paths
+        rec.update(launches=launches, verify_steps=steps["verify_steps"],
                    estimate=st["estimates"][key], frontier=st["frontier"],
                    shadow_expected=stamped, sources=[r[1]["sources"] for r in results])
         log(f"  tiered /ask through a 1-replica pool: 4 asks p50 {rec['latency_p50_s']:.3f} s, "
@@ -4162,6 +4211,739 @@ def run_tiered_path(counts, qa, tagger):
     summary["app"] = run_tiered_app(counts, qa, tagger)
     launches.update(summary["app"]["launches"])
     summary["reference"] = run_tiered_reference_check()
+    return {"summary": summary, "launches": dict(launches)}
+
+
+# ---- phase 13: checkpoints and the seq2seq summarizer -------------------------------
+
+S2S_NOTES = 8  # (a): one batch of generated notes, 32 beam lanes under the shipped policy
+S2S_NEW = 142  # (a): bart-large-cnn's max_length
+S2S_MIN_CHARS = (600, 1000, 1400, 1800, 2200, 2600, 3000, 3400)  # source lengths ~300-1024
+S2S_MERGES = 300  # merges the phase's BPE vocabularies learn from the notes
+S2S_TINY_NEW = 12  # (b)
+CKPT_LAYERS = 2  # (d): the Mistral layout at 2 of 32 layers (full depth: 14.5 GB of shards)
+CKPT_ASK_TOKENS = 64  # (d)
+CKPT_UPLOADS = 4  # (e)
+CKPT_PATIENT = "P001"
+STEP_SPIN_CYCLES = 80_000_000  # ~40 ms of spin ahead of a timed BART forward
+
+
+def _bpe_merges(words, n_merges):
+    """Learn ``n_merges`` BPE merges from {tuple(symbols): count}: each
+    round merges the most frequent adjacent pair (ties: the smallest
+    pair), everywhere it occurs."""
+    words = dict(words)
+    merges = []
+    for _ in range(n_merges):
+        pairs = collections.Counter()
+        for sym, n in words.items():
+            for a, b in zip(sym, sym[1:]):
+                pairs[(a, b)] += n
+        if not pairs:
+            break
+        best = min(pairs, key=lambda p: (-pairs[p], p))
+        merges.append(best)
+        merged = {}
+        for sym, n in words.items():
+            out, i = [], 0
+            while i < len(sym):
+                if i + 1 < len(sym) and (sym[i], sym[i + 1]) == best:
+                    out.append(sym[i] + sym[i + 1])
+                    i += 2
+                else:
+                    out.append(sym[i])
+                    i += 1
+            merged[tuple(out)] = merged.get(tuple(out), 0) + n
+        words = merged
+    return merges
+
+
+def byte_level_tokenizer_json(texts, path, n_merges=S2S_MERGES):
+    """A BART-style byte-level BPE ``tokenizer.json`` built in code: the
+    specials ``<s> <pad> </s> <unk>`` at 0-3, the 256-byte alphabet, then
+    merges counted from ``texts``."""
+    from docqa_tpu_torch.text import bpe
+
+    words = collections.Counter()
+    for text in texts:
+        for pre in bpe.gpt2_pre_tokenize(text):
+            words[tuple(bpe._BYTE_TO_CHAR[b] for b in pre.encode("utf-8"))] += 1
+    merges = _bpe_merges(words, n_merges)
+    vocab = {t: i for i, t in enumerate(["<s>", "<pad>", "</s>", "<unk>"])}
+    for b in range(256):
+        vocab.setdefault(bpe._BYTE_TO_CHAR[b], len(vocab))
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    blob = {
+        "added_tokens": [{"id": i, "content": t, "special": True}
+                         for i, t in enumerate(["<s>", "<pad>", "</s>", "<unk>"])],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False},
+        "post_processor": {"type": "RobertaProcessing", "sep": ["</s>", 2], "cls": ["<s>", 0]},
+        "decoder": {"type": "ByteLevel"},
+        "model": {"type": "BPE", "vocab": vocab, "unk_token": "<unk>",
+                  "merges": [f"{a} {b}" for a, b in merges]},
+    }
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(blob, f, ensure_ascii=False)
+    return path
+
+
+def metaspace_tokenizer_json(texts, path, n_merges=S2S_MERGES):
+    """A Mistral-style metaspace BPE ``tokenizer.json`` built in code:
+    ``<unk> <s> </s>`` at 0-2, the 256 ``<0xNN>`` byte-fallback pieces,
+    the notes' characters, then merges counted from them."""
+    words = collections.Counter()
+    for text in texts:
+        marked = "▁" + text.replace(" ", "▁")
+        for seg in re.split(r"(?=▁)", marked):
+            if seg:
+                words[tuple(seg)] += 1
+    merges = _bpe_merges(words, n_merges)
+    specials = ["<unk>", "<s>", "</s>"]
+    vocab = {t: i for i, t in enumerate(specials)}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    for ch in sorted({c for w in words for c in w}):
+        vocab.setdefault(ch, len(vocab))
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    blob = {
+        "added_tokens": [{"id": i, "content": t, "special": True}
+                         for i, t in enumerate(specials)],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"},
+            {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]},
+        "pre_tokenizer": None,
+        "post_processor": {"type": "TemplateProcessing", "single": [
+            {"SpecialToken": {"id": "<s>", "type_id": 0}},
+            {"Sequence": {"id": "A", "type_id": 0}}]},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"}]},
+        "model": {"type": "BPE", "vocab": vocab, "unk_token": "<unk>",
+                  "byte_fallback": True, "merges": [f"{a} {b}" for a, b in merges]},
+    }
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(blob, f, ensure_ascii=False)
+    return path
+
+
+def wordpiece_vocab(texts, path):
+    """A BERT ``vocab.txt`` built in code: the five specials, every word
+    of ``texts`` (lowercased, the encoder's pre-tokenizer), then each
+    character bare and as a ``##`` continuation."""
+    from docqa_tpu_torch.text.tokenizer import _SPECIALS, _WORD_RE
+
+    words = sorted({w for t in texts for w in _WORD_RE.findall(t.lower())})
+    chars = sorted({c for w in words for c in w})
+    vocab = list(_SPECIALS) + words
+    seen = set(vocab)
+    vocab += [c for c in chars if c not in seen] + ["##" + c for c in chars]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    return path
+
+
+# safetensors dtype codes by dtype name (torch's and numpy's names agree)
+ST_CODES = {"float64": "F64", "float32": "F32", "float16": "F16", "bfloat16": "BF16",
+            "int64": "I64", "int32": "I32", "int16": "I16", "int8": "I8",
+            "uint8": "U8", "bool": "BOOL"}
+
+
+def save_safetensors(tensors, path, metadata=None):
+    """Write CPU tensors or numpy arrays as one safetensors file, in name
+    order: the 8-byte little-endian header length, the JSON header padded
+    with spaces to a multiple of 8 bytes, then the raw bytes.  The card's
+    machine has no ``safetensors`` package; the port reads these files with
+    ``models/safetensors_io.py``."""
+    header = {"__metadata__": dict(metadata)} if metadata else {}
+    raws, pos = [], 0
+    for name in sorted(tensors):
+        t = tensors[name]
+        if isinstance(t, torch.Tensor):
+            t = t.detach().cpu().contiguous()
+            code = ST_CODES[str(t.dtype).removeprefix("torch.")]
+            raw = t.reshape(-1).view(torch.uint8).numpy() if t.numel() else np.zeros(0, np.uint8)
+        else:
+            t = np.ascontiguousarray(t)
+            code = ST_CODES[t.dtype.name]
+            raw = t.reshape(-1).view(np.uint8)
+        header[name] = {"dtype": code, "shape": list(t.shape),
+                        "data_offsets": [pos, pos + raw.nbytes]}
+        raws.append(raw)
+        pos += raw.nbytes
+    blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for raw in raws:
+            f.write(raw.data)
+
+
+def _write_config(path, hf):
+    with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(hf, f, indent=1)
+
+
+def bart_hf_tensors(tree, cfg):
+    """A seq2seq tree (the reference's names, [in, out]) under
+    ``BartForConditionalGeneration``'s names, Linear weights [out, in]."""
+    def t(name):
+        return np.ascontiguousarray(np.asarray(tree[name]).T)
+
+    raw = {
+        "model.shared.weight": tree["shared_emb"],
+        "model.encoder.embed_positions.weight": tree["enc_pos"],
+        "model.decoder.embed_positions.weight": tree["dec_pos"],
+        "model.encoder.layernorm_embedding.weight": tree["enc_ln_emb_g"],
+        "model.encoder.layernorm_embedding.bias": tree["enc_ln_emb_b"],
+        "model.decoder.layernorm_embedding.weight": tree["dec_ln_emb_g"],
+        "model.decoder.layernorm_embedding.bias": tree["dec_ln_emb_b"],
+        "final_logits_bias": np.asarray(tree["final_logits_bias"]).reshape(1, -1),
+    }
+    proj = {"q": "q_proj", "k": "k_proj", "v": "v_proj", "o": "out_proj"}
+    for side, hf_side, n in (("e", "encoder", cfg.enc_layers), ("d", "decoder", cfg.dec_layers)):
+        for i in range(n):
+            pre = f"model.{hf_side}.layers.{i}."
+            attns = [("", "self_attn", "ln")] + ([("x", "encoder_attn", "xln")] if side == "d" else [])
+            for mark, attn, ln in attns:
+                for ours, theirs in proj.items():
+                    raw[pre + f"{attn}.{theirs}.weight"] = t(f"{side}{i}_{mark}{ours}w")
+                    raw[pre + f"{attn}.{theirs}.bias"] = tree[f"{side}{i}_{mark}{ours}b"]
+                raw[pre + f"{attn}_layer_norm.weight"] = tree[f"{side}{i}_{ln}_g"]
+                raw[pre + f"{attn}_layer_norm.bias"] = tree[f"{side}{i}_{ln}_b"]
+            for fc in ("fc1", "fc2"):
+                raw[pre + f"{fc}.weight"] = t(f"{side}{i}_{fc}_w")
+                raw[pre + f"{fc}.bias"] = tree[f"{side}{i}_{fc}_b"]
+            raw[pre + "final_layer_norm.weight"] = tree[f"{side}{i}_lnf_g"]
+            raw[pre + "final_layer_norm.bias"] = tree[f"{side}{i}_lnf_b"]
+    return raw
+
+
+def write_bart_dir(path, cfg, tree, texts):
+    """A bart-large-cnn-layout directory: config.json with ``cfg``'s
+    hyper-parameters and the shipped generation policy, the tree as
+    ``model.safetensors`` (float32, as the published file) and a byte-level
+    BPE ``tokenizer.json``."""
+    os.makedirs(path, exist_ok=True)
+    _write_config(path, {
+        "model_type": "bart", "architectures": ["BartForConditionalGeneration"],
+        "vocab_size": cfg.vocab_size, "d_model": cfg.d_model,
+        "encoder_layers": cfg.enc_layers, "decoder_layers": cfg.dec_layers,
+        "encoder_attention_heads": cfg.num_heads, "decoder_attention_heads": cfg.num_heads,
+        "encoder_ffn_dim": cfg.mlp_dim, "decoder_ffn_dim": cfg.mlp_dim,
+        "max_position_embeddings": cfg.max_src_len, "activation_function": "gelu",
+        "scale_embedding": False, "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2,
+        "decoder_start_token_id": 2, "forced_bos_token_id": 0, "forced_eos_token_id": 2,
+        "num_beams": 4, "length_penalty": 2.0, "min_length": 56, "max_length": 142,
+        "no_repeat_ngram_size": 3, "early_stopping": True,
+    })
+    save_safetensors(bart_hf_tensors(tree, cfg), os.path.join(path, "model.safetensors"))
+    byte_level_tokenizer_json(texts, os.path.join(path, "tokenizer.json"))
+    return path
+
+
+def write_bert_dir(path, cfg, tree, texts):
+    """A MiniLM directory under ``BertModel``'s names (no ``bert.``
+    prefix), float32, with a WordPiece ``vocab.txt``."""
+    os.makedirs(path, exist_ok=True)
+    _write_config(path, {
+        "model_type": "bert", "architectures": ["BertModel"], "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_dim, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads, "intermediate_size": cfg.mlp_dim,
+        "max_position_embeddings": cfg.max_seq_len, "type_vocab_size": 2,
+        "hidden_act": "gelu", "layer_norm_eps": 1e-12,
+    })
+    names = {"q": "attention.self.query", "k": "attention.self.key",
+             "v": "attention.self.value", "o": "attention.output.dense",
+             "up": "intermediate.dense", "down": "output.dense"}
+    raw = {
+        "embeddings.word_embeddings.weight": tree["tok_emb"],
+        "embeddings.position_embeddings.weight": tree["pos_emb"],
+        "embeddings.token_type_embeddings.weight": tree["type_emb"],
+        "embeddings.LayerNorm.weight": tree["emb_ln_g"],
+        "embeddings.LayerNorm.bias": tree["emb_ln_b"],
+    }
+    for i in range(cfg.num_layers):
+        pre = f"encoder.layer.{i}."
+        for ours, theirs in names.items():
+            raw[pre + theirs + ".weight"] = np.ascontiguousarray(tree[f"l{i}_{ours}_w"].T)
+            raw[pre + theirs + ".bias"] = tree[f"l{i}_{ours}_b"]
+        raw[pre + "attention.output.LayerNorm.weight"] = tree[f"l{i}_attn_ln_g"]
+        raw[pre + "attention.output.LayerNorm.bias"] = tree[f"l{i}_attn_ln_b"]
+        raw[pre + "output.LayerNorm.weight"] = tree[f"l{i}_mlp_ln_g"]
+        raw[pre + "output.LayerNorm.bias"] = tree[f"l{i}_mlp_ln_b"]
+    save_safetensors(raw, os.path.join(path, "model.safetensors"))
+    wordpiece_vocab(texts, os.path.join(path, "vocab.txt"))
+    return path
+
+
+def write_mistral_dir(path, cfg, tree, texts):
+    """A Mistral-layout directory: config.json, two bf16 shards
+    ``model-0000{1,2}-of-00002.safetensors`` (layer 0 and the embedding in
+    the first; the rest, the final norm and ``lm_head.weight`` in the
+    second) and a metaspace BPE ``tokenizer.json``."""
+    os.makedirs(path, exist_ok=True)
+    _write_config(path, {
+        "model_type": "mistral", "architectures": ["MistralForCausalLM"],
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_dim,
+        "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "intermediate_size": cfg.mlp_dim, "max_position_embeddings": 32768,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps,
+        "sliding_window": cfg.sliding_window, "tie_word_embeddings": False,
+        "torch_dtype": "bfloat16",
+    })
+
+    def t(name):
+        return tree[name].T.contiguous().cpu()
+
+    shards = [{"model.embed_tokens.weight": tree["tok_emb"].cpu()}, {}]
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        shards[min(i, 1)].update({
+            pre + "input_layernorm.weight": tree[f"l{i}_attn_norm_g"].cpu(),
+            pre + "self_attn.q_proj.weight": t(f"l{i}_wq"),
+            pre + "self_attn.k_proj.weight": t(f"l{i}_wk"),
+            pre + "self_attn.v_proj.weight": t(f"l{i}_wv"),
+            pre + "self_attn.o_proj.weight": t(f"l{i}_wo"),
+            pre + "post_attention_layernorm.weight": tree[f"l{i}_mlp_norm_g"].cpu(),
+            pre + "mlp.gate_proj.weight": t(f"l{i}_w_gate"),
+            pre + "mlp.up_proj.weight": t(f"l{i}_w_up"),
+            pre + "mlp.down_proj.weight": t(f"l{i}_w_down"),
+        })
+    shards[1]["model.norm.weight"] = tree["final_norm_g"].cpu()
+    shards[1]["lm_head.weight"] = t("lm_head")
+    for k, shard in enumerate(shards):
+        save_safetensors(
+            shard, os.path.join(path, f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"))
+    metaspace_tokenizer_json(texts, os.path.join(path, "tokenizer.json"))
+    return path
+
+
+def summary_notes(rng):
+    """``S2S_NOTES`` notes of phase 7's generator (the training lexicons),
+    note i taking sentences until ``S2S_MIN_CHARS[i]`` characters."""
+    notes = []
+    for n_chars in S2S_MIN_CHARS[:S2S_NOTES]:
+        lines = []
+        while len(" ".join(lines)) < n_chars:
+            text, _spans = datagen.generate_example(rng, datagen.TRAIN_LEXICONS)
+            lines.append(text.replace("(", " ").replace(")", " "))
+        notes.append(" ".join(lines))
+    return notes
+
+
+def _launch_check(where, delta, encodes, decoder_forwards, enc_layers, dec_layers):
+    """K1 launches of a summary: the encoder's self-attention on
+    ``prefill`` once a layer an encode, the decoder's self- and
+    cross-attention on ``decode`` twice a layer a decoder forward."""
+    want = {"flash_attention": encodes * enc_layers + 2 * dec_layers * decoder_forwards,
+            "flash_attention.prefill": encodes * enc_layers,
+            "flash_attention.decode": 2 * dec_layers * decoder_forwards,
+            "flash_attention.simt": 0, "flash_attention.decode_paged": 0}
+    got = {k: delta.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{where}: K1 launches {got}, expected {want}")
+
+
+def _timed_summary(eng, counts, src, max_new):
+    """One ``generate_ids`` batch, synchronised: (outputs, wall s, launch
+    delta, stats)."""
+    torch.cuda.synchronize()
+    before = collections.Counter(counts)
+    t0 = time.perf_counter()
+    outs = eng.generate_ids(src, max_new_tokens=max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = collections.Counter(counts)
+    delta.subtract(before)
+    return outs, wall, dict(delta), dict(eng.last_stats)
+
+
+def run_checkpoint_bart(counts, workdir, flush):
+    """(a): bart-large-cnn at full width and depth, written as an HF
+    directory from the port's seeded host init, imported, then 8 notes
+    summarised at once under the shipped policy and 1 greedy."""
+    from docqa_tpu_torch import weights
+    from docqa_tpu_torch.config import Seq2SeqConfig
+    from docqa_tpu_torch.engines.seq2seq import Seq2SeqEngine
+    from docqa_tpu_torch.models import seq2seq as s2s
+    from docqa_tpu_torch.models.hf_checkpoint import load_checkpoint_dir
+
+    dev = torch.device("cuda")
+    base = Seq2SeqConfig.bart_large_cnn()
+    notes = summary_notes(np.random.default_rng(13))
+    t0 = time.perf_counter()
+    tree = weights.host_init_seq2seq_params(base, seed=13)
+    init_s = time.perf_counter() - t0
+    path = os.path.join(workdir, "bart-large-cnn")
+    t0 = time.perf_counter()
+    write_bart_dir(path, base, tree, notes)
+    write_s = time.perf_counter() - t0
+    file_bytes = os.path.getsize(os.path.join(path, "model.safetensors"))
+    n_params = sum(a.size for a in tree.values())
+
+    t0 = time.perf_counter()
+    cfg, params, tok_path = load_checkpoint_dir(path, expect=Seq2SeqConfig)
+    read_s = time.perf_counter() - t0
+    want_policy = dict(num_beams=4, length_penalty=2.0, min_length=56, no_repeat_ngram=3,
+                       forced_bos_id=0)
+    got_policy = {k: getattr(cfg, k) for k in want_policy}
+    shape = ("vocab_size", "d_model", "enc_layers", "dec_layers", "num_heads", "mlp_dim",
+             "max_src_len", "max_tgt_len")
+    if got_policy != want_policy or any(getattr(cfg, k) != getattr(base, k) for k in shape):
+        raise AssertionError(f"imported BART config {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Seq2SeqEngine(cfg, params=params, device=dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    del params
+    mismatched = [
+        name for name, arr in tree.items()
+        if not torch.equal(eng.params[name],
+                           torch.from_numpy(arr).to(dev, eng.params[name].dtype))
+    ]
+    if mismatched or not torch.equal(
+            eng.params["lm_head"], torch.from_numpy(tree["shared_emb"]).to(dev, torch.bfloat16)):
+        raise AssertionError(f"imported BART leaves differ from the written ones: {mismatched[:5]}")
+    del tree
+    src = [eng.tokenizer.encode(n) for n in notes]
+    src_lengths = [min(len(s), cfg.max_src_len) for s in src]
+    log(f"  BART-large-cnn: {n_params / 1e6:.1f} M params, host init {init_s:.1f} s, "
+        f"{file_bytes / 1e9:.2f} GB float32 written in {write_s:.1f} s, read in {read_s:.2f} s, "
+        f"uploaded (bf16 projections) in {upload_s:.1f} s; every leaf equal to the written "
+        f"one in its serving dtype; sources {src_lengths} tokens")
+
+    # 8 notes under the shipped policy: 32 beam lanes
+    summaries, wall, delta, st = _timed_summary(eng, counts, src, S2S_NEW)
+    _launch_check("beam summary", delta, 1, st["steps"] + 1, cfg.enc_layers, cfg.dec_layers)
+    reads_cap = math.ceil(st["steps"] / eng.check_every) + 1
+    if st["flag_reads"] > reads_cap:
+        raise AssertionError(f"beam summary read its flag {st['flag_reads']} times > {reads_cap}")
+    if len(summaries) != S2S_NOTES or any(
+            not 56 - 1 <= len(s) <= S2S_NEW or max(s) >= cfg.vocab_size for s in summaries):
+        raise AssertionError(f"beam summaries {[len(s) for s in summaries]}")
+    for s in summaries:  # no_repeat_ngram_size=3: no trigram twice
+        grams = list(zip(s, s[1:], s[2:]))
+        if len(grams) != len(set(grams)):
+            raise AssertionError("a beam summary repeats a trigram")
+    short, wall_short, _d, st_short = _timed_summary(eng, counts, src, 2)
+    step_ms = (wall - wall_short) / max(1, st["steps"] - st_short["steps"]) * 1e3
+    n_tokens = sum(len(s) for s in summaries)
+    beam = {
+        "lanes": S2S_NOTES * cfg.num_beams, "wall_s": wall, "steps": st["steps"],
+        "flag_reads": st["flag_reads"], "ms_per_step": step_ms,
+        "summary_tokens": n_tokens, "summary_tokens_per_s": n_tokens / wall,
+        "summary_lengths": [len(s) for s in summaries], "source_tokens": src_lengths,
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": delta,
+    }
+    # one decoder step alone, device time (the host's launches hidden
+    # behind a spin): what a step costs the card
+    b = S2S_NOTES * cfg.num_beams
+    ids_h = np.full((S2S_NOTES, cfg.max_src_len), cfg.pad_id, np.int64)
+    for i, s in enumerate(src):
+        ids_h[i, : src_lengths[i]] = s[: cfg.max_src_len]
+    ids = torch.from_numpy(ids_h).to(dev)
+    lens = torch.tensor(src_lengths, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        enc_h = s2s.encode_source(eng.params, cfg, ids, lens)
+        xkv = {k: v.repeat_interleave(cfg.num_beams, 0)
+               for k, v in s2s.precompute_cross_kv(eng.params, cfg, enc_h).items()}
+        srcl = lens.repeat_interleave(cfg.num_beams)
+        cache = s2s.init_self_cache(cfg, b, S2S_NEW + 1, device=dev)
+        tok = torch.full((b, 1), 5, dtype=torch.long, device=dev)
+        pos = torch.full((b,), 70, dtype=torch.int32, device=dev)
+        # a forward is ~800 launches: the spin (~40 ms) outlasts their
+        # enqueue, so the events bracket device work only
+        beam["decoder_forward_device_ms"] = time_ms(
+            lambda: s2s.decoder_forward(eng.params, cfg, tok, cache, pos, xkv, srcl),
+            flush, reps=10, spin_cycles=STEP_SPIN_CYCLES)
+        beam["encode_device_ms"] = time_ms(
+            lambda: s2s.encode_source(eng.params, cfg, ids, lens), flush, reps=5,
+            spin_cycles=STEP_SPIN_CYCLES)
+    del enc_h, xkv, cache
+    beam["host_share_of_step"] = 1.0 - beam["decoder_forward_device_ms"] / step_ms
+    log(f"  beam summary: {S2S_NOTES} notes x {cfg.num_beams} beams = {b} lanes, "
+        f"{st['steps']} steps in {wall:.2f} s ({step_ms:.2f} ms a step; the decoder "
+        f"forward alone {beam['decoder_forward_device_ms']:.3f} ms of device time, so "
+        f"{100 * beam['host_share_of_step']:.0f} % of a step is the host), "
+        f"{n_tokens} summary tokens = {beam['summary_tokens_per_s']:.0f} tok/s, "
+        f"flag read {st['flag_reads']} times (cap {reads_cap}), peak "
+        f"{beam['peak_device_gib']:.2f} GiB, encode {beam['encode_device_ms']:.2f} ms device")
+
+    # 1 note greedy: num_beams=1 set by the operator over the shipped 4
+    eng.cfg = dataclasses.replace(cfg, num_beams=1)
+    (one,), wall1, delta1, st1 = _timed_summary(eng, counts, src[:1], S2S_NEW)
+    _launch_check("greedy summary", delta1, 1, st1["steps"] + 1, cfg.enc_layers,
+                  cfg.dec_layers)
+    cap1 = math.ceil(st1["steps"] / eng.check_every) + 1
+    if st1["flag_reads"] > cap1 or not 55 <= len(one) <= S2S_NEW:
+        raise AssertionError(f"greedy summary: {len(one)} tokens, {st1['flag_reads']} reads")
+    greedy = {"wall_s": wall1, "steps": st1["steps"], "flag_reads": st1["flag_reads"],
+              "ms_per_step": wall1 * 1e3 / (st1["steps"] + 1), "summary_tokens": len(one),
+              "summary_tokens_per_s": len(one) / wall1, "launches": delta1}
+    log(f"  greedy summary (num_beams=1 by the operator): {len(one)} tokens, "
+        f"{st1['steps']} steps in {wall1:.2f} s ({greedy['ms_per_step']:.2f} ms a step, "
+        f"encode included), flag read {st1['flag_reads']} times (cap {cap1})")
+    launches = collections.Counter(delta)
+    launches.update(delta1)
+    summary = {"params_m": n_params / 1e6, "file_gb": file_bytes / 1e9, "init_s": init_s,
+               "write_s": write_s, "read_s": read_s, "upload_s": upload_s,
+               "tokenizer": tok_path, "beam": beam, "greedy": greedy,
+               "text_sample": eng.tokenizer.decode_ids(summaries[0])[:120]}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path, summary, launches
+
+
+def run_checkpoint_tiny(devices=("cuda", "cpu")):
+    """(b): a float32 BART at the reference test's widths (2 heads of 32,
+    K1's smallest head_dim) gives identical greedy and beam-4 tokens on the
+    card's kernels and the CPU's plain versions."""
+    from docqa_tpu_torch import weights
+    from docqa_tpu_torch.config import Seq2SeqConfig
+    from docqa_tpu_torch.engines.seq2seq import Seq2SeqEngine
+
+    cfg = Seq2SeqConfig(vocab_size=256, d_model=64, enc_layers=2, dec_layers=2, num_heads=2,
+                        mlp_dim=128, max_src_len=64, max_tgt_len=32, dtype="float32")
+    tree = weights.host_init_seq2seq_params(cfg, seed=5)
+    quiet = dict(tree, final_logits_bias=tree["final_logits_bias"].copy())
+    quiet["final_logits_bias"][cfg.eos_id] = -1e9  # greedy runs its whole horizon
+    rng = np.random.default_rng(6)
+    src = [rng.integers(3, cfg.vocab_size, int(n)).tolist() for n in (9, 40, 23)]
+    runs = {
+        "greedy": (cfg, quiet),
+        "beam4": (dataclasses.replace(cfg, num_beams=4, length_penalty=2.0, min_length=6,
+                                      no_repeat_ngram=2), tree),
+    }
+    out = {}
+    for name, (c, params) in runs.items():
+        got = {dev: Seq2SeqEngine(c, params=params, device=dev).generate_ids(
+            src, max_new_tokens=S2S_TINY_NEW) for dev in devices}
+        a, b = (got[d] for d in devices)
+        if a != b or not any(a):
+            raise AssertionError(f"tiny BART {name}: card {a} vs CPU {b}")
+        out[name] = {"lengths": [len(x) for x in a]}
+    log(f"  tiny float32 BART: greedy {out['greedy']['lengths']} and beam-4 "
+        f"{out['beam4']['lengths']} tokens identical on {devices[0]} and {devices[1]}")
+    return {"tokens_identical": True, **out}
+
+
+def run_checkpoint_minilm(counts, workdir):
+    """(c): phase 3's MiniLM weights (seed 0) as a ``bert`` directory,
+    imported; the 20 notes' embeddings equal phase 3's encoder's, bit for
+    bit, on the same token ids."""
+    from docqa_tpu_torch import weights
+    from docqa_tpu_torch.engines.encoder import marshal_texts
+    from docqa_tpu_torch.models.hf_checkpoint import load_checkpoint_dir
+
+    dev = torch.device("cuda")
+    base = EncoderConfig()
+    texts = [t for _, t in clinical_notes(np.random.default_rng(7))]
+    path = write_bert_dir(os.path.join(workdir, "minilm"), base,
+                          weights.host_init_encoder_params(base, 0), texts)
+    t0 = time.perf_counter()
+    cfg, params, tok_path = load_checkpoint_dir(path, expect=EncoderConfig)
+    read_s = time.perf_counter() - t0
+    phase3 = EncoderEngine(base, seed=0, device=dev)
+    imported = EncoderEngine(cfg, params=params, device=dev)
+    ids, lengths = marshal_texts(phase3.tokenizer, base, texts)
+    before = collections.Counter(counts)
+    a, b = phase3.encode_ids(ids, lengths), imported.encode_ids(ids, lengths)
+    delta = collections.Counter(counts)
+    delta.subtract(before)
+    if not torch.equal(a, b):
+        raise AssertionError(
+            f"imported MiniLM embeddings differ: max |err| {float((a - b).abs().max()):.3e}")
+    real = imported.encode_texts(texts)  # through the checkpoint's WordPiece vocabulary
+    if not np.allclose(np.linalg.norm(real, axis=1), 1.0, atol=1e-3):
+        raise AssertionError("WordPiece-tokenized embeddings are not unit vectors")
+    wp_tokens = [len(imported.tokenizer.encode(t)) for t in texts]
+    log(f"  MiniLM-L6 (bert dir, vocab.txt of {imported.tokenizer.vocab_size} pieces) read in "
+        f"{read_s:.2f} s: 20 notes' embeddings bit-equal to phase 3's encoder on the same "
+        f"ids; through WordPiece {min(wp_tokens)}-{max(wp_tokens)} tokens a note")
+    return path, {"read_s": read_s, "bit_equal": True, "tokenizer": tok_path,
+                  "wordpiece_tokens": wp_tokens}, dict(delta)
+
+
+def run_checkpoint_mistral(counts, workdir):
+    """(d): a Mistral-7B-layout decoder at full width and 2 of 32 layers
+    in two bf16 shards, imported; first-step logits bit-equal to an engine
+    built from the same tree carried in directly; a 64-token greedy answer
+    through the checkpoint's vocabulary."""
+    from docqa_tpu_torch.models.hf_checkpoint import load_checkpoint_dir
+
+    dev = torch.device("cuda")
+    base = dataclasses.replace(DecoderConfig.mistral_7b(), num_layers=CKPT_LAYERS)
+    texts = [t for _, t in clinical_notes(np.random.default_rng(7))] + list(QUESTIONS)
+    tree = init_decoder_params(base, seed=0, device=dev, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    path = write_mistral_dir(os.path.join(workdir, "mistral"), base, tree, texts)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)
+                 if f.endswith(".safetensors"))
+    t0 = time.perf_counter()
+    cfg, params, tok_path = load_checkpoint_dir(path, expect=DecoderConfig)
+    read_s = time.perf_counter() - t0
+    if not all(torch.equal(params[k].to(dev), tree[k]) for k in tree):
+        raise AssertionError("imported Mistral-layout leaves differ from the written ones")
+    gen = GenerateConfig(max_new_tokens=CKPT_ASK_TOKENS)
+    direct = GenerateEngine(base, gen, params=tree, device=dev)
+    imported = GenerateEngine(cfg, gen, params=params, device=dev)
+    del params
+    prompt = imported.tokenizer.encode(QA_TEMPLATE.format(context=texts[3], question=QUESTIONS[0]))
+    ids = torch.tensor([prompt], device=dev)
+    logits = []
+    for eng in (direct, imported):
+        cache = init_kv_cache(eng.cfg, 1, max_len=round_up(len(prompt), 128),
+                              dtype=torch.bfloat16, device=dev)
+        with torch.inference_mode():
+            logits.append(decoder_forward(
+                eng.params, eng.cfg, ids, cache, torch.zeros(1, dtype=torch.int32, device=dev),
+                last_token_only=True))
+    if not torch.equal(*logits) or not torch.isfinite(logits[0]).all():
+        raise AssertionError("imported first-step logits differ from the direct engine's")
+    if imported.gen.eos_id != imported.tokenizer.eos_id:
+        raise AssertionError(f"eos {imported.gen.eos_id} is not the tokenizer's "
+                             f"{imported.tokenizer.eos_id}")
+    before = collections.Counter(counts)
+    t0 = time.perf_counter()
+    (answer_ids,) = imported.generate_ids([prompt], max_new_tokens=CKPT_ASK_TOKENS)
+    answer_s = time.perf_counter() - t0
+    delta = collections.Counter(counts)
+    delta.subtract(before)
+    answer = imported.tokenizer.decode_ids(answer_ids)
+    if not answer_ids or max(answer_ids) >= cfg.vocab_size or not isinstance(answer, str):
+        raise AssertionError(f"the imported decoder's answer {answer_ids[:8]}")
+    eos_id = imported.gen.eos_id
+    log(f"  Mistral layout ({CKPT_LAYERS} of 32 layers, 2 bf16 shards, {nbytes / 1e9:.2f} GB "
+        f"written in {write_s:.1f} s, read in {read_s:.2f} s): first-step logits bit-equal "
+        f"to the direct engine's; {len(answer_ids)}-token greedy answer in {answer_s:.2f} s "
+        f"through the metaspace BPE (eos {imported.gen.eos_id}, prompt {len(prompt)} tokens)")
+    del direct, imported, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path, {"shard_gb": nbytes / 1e9, "write_s": write_s, "read_s": read_s,
+                  "logits_bit_equal": True, "answer_tokens": len(answer_ids),
+                  "answer_s": answer_s, "eos_id": eos_id, "tokenizer": tok_path}, dict(delta)
+
+
+def run_checkpoint_runtime(counts, dirs, tagger):
+    """(e): ``DocQARuntime`` under the default config with all three
+    ``checkpoint_dir``s and ``summarizer.backend="seq2seq"``, over HTTP: 4
+    uploads, one /ask, one patient synthesis whose summary is the seq2seq
+    engine's (its ``seq2seq_generate`` spine item ran, no paged decode)."""
+    from docqa_tpu_torch.config import load_config
+    from docqa_tpu_torch.engines.seq2seq import Seq2SeqEngine
+    from docqa_tpu_torch.service.app import AppServer, DocQARuntime, make_app
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    contract = load_contract()
+    cfg = load_config(env={}, overrides={
+        "ner.params_path": tagger,
+        "encoder.checkpoint_dir": dirs["encoder"],
+        "decoder.checkpoint_dir": dirs["decoder"],
+        "seq2seq.checkpoint_dir": dirs["seq2seq"],
+        "summarizer.backend": "seq2seq",
+        "resilience.request_deadline_s": APP_DEADLINE_S,
+        # no canary decodes while the synthesis is counted
+        "pool.canary_interval_s": 3600.0,
+    })
+    t0 = time.perf_counter()
+    rt = DocQARuntime(cfg, device="cuda").start()
+    server = AppServer(make_app(rt)).start()
+    boot_s = time.perf_counter() - t0
+    summary = {"boot_s": boot_s, "load_s": dict(rt.load_seconds)}
+    log(f"  runtime with three checkpoints booted in {boot_s:.1f} s (loads "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in rt.load_seconds.items()) + ")")
+    http = _Http(server.port, contract)
+    delta = collections.Counter()
+    try:
+        if not isinstance(rt.summarizer.generator, Seq2SeqEngine):
+            raise AssertionError("the runtime's summarizer is not the seq2seq engine")
+        if rt.summarizer.cfg.max_input_tokens != 1024 or rt.summarizer.instruction_prompts:
+            raise AssertionError(f"summarizer config {rt.summarizer.cfg}")
+        status = http.json("GET /api/status", "/api/status")
+        if "checkpoint" not in status["breakers"]:
+            raise AssertionError(f"/api/status breakers {sorted(status['breakers'])}")
+        docs = app_notes(np.random.default_rng(31))[:CKPT_UPLOADS]
+        ids = []
+        for i, d in enumerate(docs):
+            fields = dict(d["fields"], patient_id=CKPT_PATIENT if i % 2 == 0 else "P002")
+            body, ctype = _multipart(d["filename"], d["data"], fields)
+            ids.append(http.json("POST /ingest/", "/ingest/", body=body, ctype=ctype)["doc_id"])
+        _wait_indexed(http, ids)
+        if rt._warmup_thread is not None:
+            rt._warmup_thread.join(timeout=300)
+        t0 = time.perf_counter()
+        out = http.json("POST /ask/", "/ask/", payload={"question": QUESTIONS[0]})
+        ask_s = time.perf_counter() - t0
+        # random weights may decode to an empty text; degraded is the fault
+        if out.get("degraded") or not isinstance(out.get("answer"), str) or not out["sources"]:
+            raise AssertionError(f"checkpoint /ask: {out}")
+        stages = rt.spine.stats()["stages"]
+        n_s2s = stages.get("seq2seq_generate", {}).get("count", 0)
+        before = collections.Counter(counts)
+        t0 = time.perf_counter()
+        synth = http.json("POST /api/synthese/patient", "/api/synthese/patient",
+                          {"patient_id": CKPT_PATIENT})
+        synth_s = time.perf_counter() - t0
+        delta = collections.Counter(counts)
+        delta.subtract(before)
+        st = dict(rt.summarizer.generator.last_stats)
+        n_s2s_after = rt.spine.stats()["stages"].get("seq2seq_generate", {}).get("count", 0)
+        if n_s2s_after != n_s2s + 1 or delta.get("flash_attention.decode_paged", 0):
+            raise AssertionError(
+                f"the synthesis ran {n_s2s_after - n_s2s} seq2seq items and "
+                f"{delta.get('flash_attention.decode_paged', 0)} paged decodes")
+        s2s_cfg = rt.summarizer.generator.cfg
+        _launch_check("runtime synthesis", dict(delta), 1, st["steps"] + 1,
+                      s2s_cfg.enc_layers, s2s_cfg.dec_layers)
+        text = "".join(s["content"] for s in synth.get("sections", []))
+        if synth.get("patient_id") != CKPT_PATIENT or not text:
+            raise AssertionError(f"empty synthesis {synth}")
+        summary.update(ask_s=ask_s, ask_route=out.get("route"), synthesis_s=synth_s,
+                       synthesis_steps=st["steps"], synthesis_flag_reads=st["flag_reads"],
+                       synthesis_chars=len(text), uploads=len(ids),
+                       breakers=sorted(status["breakers"]))
+        log(f"  over HTTP: {len(ids)} uploads INDEXED, /ask in {ask_s:.2f} s (not degraded), "
+            f"/api/synthese/patient in {synth_s:.2f} s through Seq2SeqEngine "
+            f"({st['steps']} steps, flag read {st['flag_reads']} times, no paged decode)")
+    finally:
+        if not server.close(timeout=30):
+            raise AssertionError("the app server's threads did not end")
+        rt.stop()
+    return summary, dict(delta)
+
+
+def run_checkpoint_path(counts, tagger):
+    """Phase 13 (the module docstring): (a)-(e) in a scratch directory that
+    is removed at the end."""
+    work = tempfile.mkdtemp(prefix="docqa_phase13_")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    launches = collections.Counter()
+    try:
+        bart_dir, bart, la = run_checkpoint_bart(counts, work, flush)
+        launches.update(la)
+        tiny = run_checkpoint_tiny()
+        bert_dir, minilm, lc = run_checkpoint_minilm(counts, work)
+        launches.update(lc)
+        mistral_dir, mistral, ld = run_checkpoint_mistral(counts, work)
+        launches.update(ld)
+        runtime, le = run_checkpoint_runtime(
+            counts, {"encoder": bert_dir, "decoder": mistral_dir, "seq2seq": bart_dir}, tagger)
+        launches.update(le)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    summary = {"bart": bart, "tiny": tiny, "minilm": minilm, "mistral": mistral,
+               "runtime": runtime}
     return {"summary": summary, "launches": dict(launches)}
 
 
@@ -4561,7 +5343,7 @@ def main(argv=None) -> int:
     t_smoke = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/12] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[1/13] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     build_logs = _kernels.build()
     build_s = time.perf_counter() - t0
@@ -4570,25 +5352,25 @@ def main(argv=None) -> int:
         for kernel, regs, spills in ptxas_summary(text):
             log(f"    {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
 
-    log("[2/12] kernels against their plain versions (bf16 and float32)")
+    log("[2/13] kernels against their plain versions (bf16 and float32)")
     cases = run_kernel_cases()
     cases += run_paged_cases()
 
-    log("[3/12] main path: QAService.ask at full width")
+    log("[3/13] main path: QAService.ask at full width")
     t_main = time.perf_counter()
     qa, params, enc_launches = build_main_path(_kernels.LAUNCHES)
     per_q, launches = run_main_path(_kernels.LAUNCHES, qa, params, enc_launches)
     main_s = time.perf_counter() - t_main
 
-    log("[4/12] reference: tiny float32 /ask on the card against the CPU")
+    log("[4/13] reference: tiny float32 /ask on the card against the CPU")
     reference = run_reference_check()
 
-    log("[5/12] main path: QAService.ask through the continuous batcher at full width")
+    log("[5/13] main path: QAService.ask through the continuous batcher at full width")
     t_batch = time.perf_counter()
     batcher_path = run_batcher_path(_kernels.LAUNCHES, qa, per_q)
     batcher_s = time.perf_counter() - t_batch
 
-    log("[6/12] main path: QAService.ask through the replica pool at full width")
+    log("[6/13] main path: QAService.ask through the replica pool at full width")
     t_pool = time.perf_counter()
     get_spine().reset_stats()
     pool_path = run_pool_path(_kernels.LAUNCHES, qa)
@@ -4596,14 +5378,14 @@ def main(argv=None) -> int:
     pool_path["summary"]["spine"] = _spine_waits(get_spine().stats())
     _log_spine_waits("phase 6", pool_path["summary"]["spine"])
 
-    log("[11/12 (a)] training: the tagger at NERConfig() trained as the default config's "
+    log("[11/13 (a)] training: the tagger at NERConfig() trained as the default config's "
         "boot trains it, then held to the reference's quality floors")
     t_train = time.perf_counter()
     train_dir = tempfile.mkdtemp(prefix="docqa_phase11_")
     tagger, tagger_summary = run_training_tagger(_kernels.LAUNCHES, train_dir)
     train_s = time.perf_counter() - t_train
 
-    log("[7/12] ingest: DocumentPipeline at full width, then /ask over what it indexed")
+    log("[7/13] ingest: DocumentPipeline at full width, then /ask over what it indexed")
     t_ingest = time.perf_counter()
     get_spine().reset_stats()
     ingest_path = run_ingest_path(_kernels.LAUNCHES, qa, tagger)
@@ -4611,13 +5393,13 @@ def main(argv=None) -> int:
     ingest_path["summary"]["spine"] = _spine_waits(get_spine().stats())
     _log_spine_waits("phase 7", ingest_path["summary"]["spine"])
 
-    log("[8/12] obs: traces, stage device time, MFU and costs over the pool, "
+    log("[8/13] obs: traces, stage device time, MFU and costs over the pool, "
         "and an ingested document's timeline")
     t_obs = time.perf_counter()
     obs_path = run_obs_path(_kernels.LAUNCHES, qa, tagger)
     obs_s = time.perf_counter() - t_obs
 
-    log("[9/12] the app: DocQARuntime behind its stdlib HTTP front at full width, "
+    log("[9/13] the app: DocQARuntime behind its stdlib HTTP front at full width, "
         "driven over HTTP")
     t_app = time.perf_counter()
     get_spine().reset_stats()
@@ -4625,7 +5407,7 @@ def main(argv=None) -> int:
                             ingest_path["summary"]["docs_per_s"])
     app_s = time.perf_counter() - t_app
 
-    log("[10/12] the store's lifecycle and the single-sync /ask: fused against classic "
+    log("[10/13] the store's lifecycle and the single-sync /ask: fused against classic "
         "/ask over a 1M-row store with a token sidecar, its snapshot and restore, and a "
         "runtime killed and restarted through HTTP")
     t_life = time.perf_counter()
@@ -4634,7 +5416,7 @@ def main(argv=None) -> int:
     life_s = time.perf_counter() - t_life
     log(f"  phase 10 took {life_s:.1f} s")
 
-    log("[12/12] tiered retrieval: the int8 IVF tier over a 1M-row clustered store, its "
+    log("[12/13] tiered retrieval: the int8 IVF tier over a 1M-row clustered store, its "
         "recall and latency against exact, the tail and a background rebuild, a tiered "
         "/ask through the pool with the retrieval observatory, and the tiered app")
     t_tier = time.perf_counter()
@@ -4643,7 +5425,7 @@ def main(argv=None) -> int:
     tiered_s = time.perf_counter() - t_tier
     log(f"  phase 12 took {tiered_s:.1f} s")
 
-    log("[9/12, continued] the app module as a user starts it, and a tiny runtime on the "
+    log("[9/13, continued] the app module as a user starts it, and a tiny runtime on the "
         "card against the CPU")
     t_app = time.perf_counter()
     del qa, params
@@ -4653,27 +5435,44 @@ def main(argv=None) -> int:
     app_path["summary"]["reference"] = run_app_reference_check()
     app_s += time.perf_counter() - t_app
 
-    log("[11/12 (b)-(d)] training: LM steps at Mistral-7B width with remat and a "
+    log("[11/13 (b)-(d)] training: LM steps at Mistral-7B width with remat and a "
         "checkpoint resumed, and the encoder at MiniLM width")
     t_train = time.perf_counter()
     training = {"tagger": tagger_summary,
                 "lm": run_training_lm(_kernels.LAUNCHES, train_dir),
                 "encoder": run_training_encoder(_kernels.LAUNCHES, train_dir)}
-    shutil.rmtree(train_dir)
     train_s += time.perf_counter() - t_train
     log(f"  phase 11 took {train_s:.1f} s")
-    # launches of the main-path runs (each counted from 0 around its run)
-    path_launches = collections.Counter(launches["total"])
-    path_launches.update(batcher_path["launches"])
-    path_launches.update(pool_path["launches"])
-    path_launches.update(ingest_path["launches"])
-    path_launches.update(ingest_path["round_launches"])
-    path_launches.update(obs_path["launches"])
-    path_launches.update(app_path["launches"])
-    path_launches.update(life_path["launches"])
-    path_launches.update(tiered_path["launches"])
-    path_launches.update(training["tagger"]["eval_launches"])
-    path_launches.update(training["encoder"]["k1_launches"])
+
+    log("[13/13] checkpoints and the seq2seq summarizer: BART-large-cnn, MiniLM and a "
+        "Mistral-layout decoder imported from HF directories, beam-search summaries on K1, "
+        "and the runtime serving all three over HTTP")
+    t_ckpt = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_path = run_checkpoint_path(_kernels.LAUNCHES, tagger)
+    shutil.rmtree(train_dir)
+    ckpt_s = time.perf_counter() - t_ckpt
+    log(f"  phase 13 took {ckpt_s:.1f} s")
+    # launches of the main-path runs (each counted from 0 around its run);
+    # the wrapper counts every call under K1 and under its path, so each
+    # run's K1 total must be the sum of its paths
+    phase_launches = {
+        "3": launches["total"], "5": batcher_path["launches"],
+        "6": pool_path["launches"], "7": ingest_path["launches"],
+        "7 rounds": ingest_path["round_launches"], "8": obs_path["launches"],
+        "9": app_path["launches"], "10": life_path["launches"],
+        "11 tagger eval": training["tagger"]["eval_launches"],
+        "11 encoder": training["encoder"]["k1_launches"],
+        "12": tiered_path["launches"], "13": ckpt_path["launches"],
+    }
+    path_launches = collections.Counter()
+    for phase, counted in phase_launches.items():
+        paths = sum(n for key, n in counted.items() if key.startswith("flash_attention."))
+        if counted.get("flash_attention", 0) != paths:
+            raise AssertionError(f"phase {phase}: K1 counted {counted.get('flash_attention', 0)} "
+                                 f"launches, its paths {paths}: {counted}")
+        path_launches.update(counted)
 
     def entry(name, source, counter, timed, path=None):
         head = next(c for c in cases if c["case"] == timed)
@@ -4725,6 +5524,8 @@ def main(argv=None) -> int:
                 "lifecycle_path": life_path, "lifecycle_path_s": life_s,
                 "tiered_path": tiered_path, "tiered_path_s": tiered_s,
                 "training": training, "training_s": train_s,
+                "checkpoint_path": ckpt_path, "checkpoint_path_s": ckpt_s,
+                "launches_by_phase": phase_launches,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
     print(json.dumps({"ingest": {
@@ -4758,6 +5559,21 @@ def main(argv=None) -> int:
                                           "verify_steps", "estimate", "shadow_expected")},
         "app": ts["app"]["asks"], "reference": ts["reference"], "phase_s": tiered_s,
     }}))
+    cs = ckpt_path["summary"]
+    print(json.dumps({"checkpoints": {
+        "bart": {k: cs["bart"][k] for k in ("params_m", "file_gb", "write_s", "read_s",
+                                            "upload_s", "beam", "greedy")},
+        "tiny": cs["tiny"], "minilm": {k: cs["minilm"][k] for k in ("read_s", "bit_equal")},
+        "mistral": {k: cs["mistral"][k] for k in ("shard_gb", "read_s", "logits_bit_equal",
+                                                  "answer_tokens", "answer_s", "eos_id")},
+        "runtime": cs["runtime"], "launches": ckpt_path["launches"], "phase_s": ckpt_s,
+        **{c["case"]: {key: c[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err_bf16")}
+           for c in cases if c["case"].startswith("bart_")},
+    }}))
+    print(json.dumps({"launches_by_phase": {
+        phase: {key: n for key, n in counted.items() if n}
+        for phase, counted in phase_launches.items()}}))
     log(f"smoke: {time.perf_counter() - t_smoke:.1f} s from the card query to the kernels line")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,8 +2,8 @@
 (``docqa_tpu/config.py``), holding only the fields this package reads.
 
 Field names and defaults match the reference exactly, so one dict of
-overrides builds the same configuration in both packages; the one
-exception is ``DispatchConfig.n_lanes`` (see there).  :func:`load_config`
+overrides builds the same configuration in both packages; the exceptions
+is ``DispatchConfig.n_lanes`` (see there).  :func:`load_config`
 is the reference's: defaults, then the ``DOCQA_<SECTION>__<FIELD>``
 environment overlay, then explicit ``section.field`` overrides.
 """
@@ -29,8 +29,13 @@ class EncoderConfig:
     embed_dim: int = 384  # pooled output dim
     dtype: str = "bfloat16"
     normalize: bool = True  # cosine == dot product on normalized vectors
-    # a Hugging Face checkpoint directory: the import is not in this port
-    # yet, so the runtime refuses a set value
+    # real-vocabulary file for imported checkpoints: vocab.txt (WordPiece),
+    # tokenizer.json or tokenizer.model; None -> the hash fallback
+    tokenizer_path: Optional[str] = None
+    # a Hugging Face checkpoint directory (config.json + model.safetensors
+    # + vocabulary): the runtime loads architecture, weights and
+    # vocabulary from it (models/hf_checkpoint.py) and ignores this
+    # config's architecture fields
     checkpoint_dir: Optional[str] = None
 
 
@@ -91,9 +96,19 @@ class DecoderConfig:
     # instruction wrapper for text prompts: a named alias ("mistral-inst")
     # or a format string containing "{prompt}"; None = raw prompts
     chat_template: Optional[str] = None
-    # a Hugging Face checkpoint directory (refused by the runtime, as the
-    # encoder's is)
+    # real-vocabulary file for imported checkpoints: tokenizer.json
+    # (byte-level or metaspace BPE) or tokenizer.model (SentencePiece);
+    # None -> the hash fallback
+    tokenizer_path: Optional[str] = None
+    # a Hugging Face Llama/Mistral checkpoint directory: the runtime loads
+    # architecture, weights and vocabulary from it, with max_seq_len capped
+    # at this config's
     checkpoint_dir: Optional[str] = None
+    # the reference's weight-only quantisation (ROADMAP queue 1, item 8):
+    # not in this port, so a GenerateEngine with quantize_weights set
+    # raises NotImplementedError instead of serving unquantised weights
+    quantize_weights: bool = False
+    quant_bits: int = 8
 
     @staticmethod
     def mistral_7b() -> "DecoderConfig":
@@ -108,6 +123,66 @@ class DecoderConfig:
             max_seq_len=4096,
             rope_theta=1000000.0,
             sliding_window=4096,
+        )
+
+
+@dataclass(frozen=True)
+class Seq2SeqConfig:
+    """BART-class encoder-decoder (the summarizer BASELINE config 4 names,
+    bart-large-cnn), laid out as HF ``BartForConditionalGeneration``:
+    post-LN residuals, learned positions with the +2 padding offset, GELU,
+    tied lm_head + ``final_logits_bias`` (``models/seq2seq.py``).  Defaults
+    are a smoke size; ``bart_large_cnn()`` is the target checkpoint's
+    shape."""
+
+    vocab_size: int = 1024
+    d_model: int = 128
+    enc_layers: int = 2
+    dec_layers: int = 2
+    num_heads: int = 4
+    mlp_dim: int = 256
+    max_src_len: int = 256
+    max_tgt_len: int = 128
+    pos_offset: int = 2  # BART's learned-position padding offset
+    pad_id: int = 1  # BART convention: pad=1, bos=0, eos=2
+    bos_id: int = 0
+    eos_id: int = 2
+    decoder_start_id: int = 2  # HF BART: decoding starts from eos
+    # HF BART generation forces BOS as the first decoded token
+    forced_bos_id: Optional[int] = None
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    # generation policy; None = unset (greedy, unconstrained, and a
+    # checkpoint directory's shipped policy applies); a set value always
+    # wins, the engine default included (num_beams=1 forces greedy over a
+    # checkpoint that ships 4)
+    num_beams: Optional[int] = None  # effective default 1 (greedy)
+    length_penalty: Optional[float] = None  # effective default 1.0
+    min_length: Optional[int] = None  # EOS masked below this; default 0
+    no_repeat_ngram: Optional[int] = None  # n bans repeated n-grams; default 0
+    # real-vocabulary file (bart-large-cnn ships a byte-level BPE
+    # tokenizer.json); None -> the hash fallback
+    tokenizer_path: Optional[str] = None
+    # a bart-large-cnn-layout checkpoint directory for the runtime's
+    # seq2seq summarizer
+    checkpoint_dir: Optional[str] = None
+
+    @staticmethod
+    def bart_large_cnn() -> "Seq2SeqConfig":
+        return Seq2SeqConfig(
+            vocab_size=50264,
+            d_model=1024,
+            enc_layers=12,
+            dec_layers=12,
+            num_heads=16,
+            mlp_dim=4096,
+            max_src_len=1024,
+            max_tgt_len=1024,
+            forced_bos_id=0,
+            num_beams=4,
+            length_penalty=2.0,
+            min_length=56,
+            no_repeat_ngram=3,
         )
 
 
@@ -264,7 +339,7 @@ class BrokerConfig:
     """The ingest pipeline's message bus (two queues, batched consumers,
     redelivery with backoff, then a dead-letter queue)."""
 
-    backend: str = "memory"  # "memory"; "amqp" is not in this port yet
+    backend: str = "memory"  # "memory"; "amqp" is the next slice of the port
     raw_queue: str = "raw_documents_queue"
     clean_queue: str = "clean_documents_queue"
     prefetch: int = 8  # messages a consumer pulls per batch
@@ -282,14 +357,15 @@ class RegistryConfig:
 
 @dataclass(frozen=True)
 class SummarizerConfig:
-    """Clinical summarizer: instruction-prompted decoding on the generator,
-    within a prompt and summary token budget."""
+    """Clinical summarizer within a prompt and summary token budget:
+    instruction-prompted decoding on the generator, or the seq2seq
+    summarizer on the raw packed documents."""
 
     max_input_tokens: int = 3072
     max_summary_tokens: int = 512
     max_chunks: int = 5
     # "decoder": instruction prompts on the causal LM, through its batcher;
-    # "seq2seq" (a BART-class encoder-decoder) is not in this port yet
+    # "seq2seq": the BART-class encoder-decoder of the seq2seq section
     backend: str = "decoder"
 
 
@@ -426,13 +502,14 @@ class RouterConfig:
 @dataclass(frozen=True)
 class Config:
     """Every section the app's runtime (``service/app.py``) and the
-    components it builds read; the reference's mesh and seq2seq sections
-    have no reader in this port."""
+    components it builds read; the reference's mesh section has no reader
+    in this port."""
 
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     ner: NERConfig = field(default_factory=NERConfig)
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
     summarizer: SummarizerConfig = field(default_factory=SummarizerConfig)
+    seq2seq: Seq2SeqConfig = field(default_factory=Seq2SeqConfig)
     store: StoreConfig = field(default_factory=StoreConfig)
     chunk: ChunkConfig = field(default_factory=ChunkConfig)
     broker: BrokerConfig = field(default_factory=BrokerConfig)

@@ -65,12 +65,16 @@ class EncoderEngine:
         device="cuda",
     ):
         """``params``: a tree of numpy arrays or tensors with the
-        reference's names; None draws the reference's seeded host init.
-        Parameters stay float32 (matmuls cast to ``cfg.dtype``).
+        reference's names (an imported checkpoint's among them); None draws
+        the reference's seeded host init.  Parameters keep their dtype
+        (matmuls cast to ``cfg.dtype``).  The tokenizer reads
+        ``cfg.tokenizer_path`` when set (the hash fallback otherwise).
         ``forwards`` counts encoder forwards (one per marshalled batch)."""
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.tokenizer = tokenizer or default_tokenizer(cfg.vocab_size)
+        self.tokenizer = tokenizer or default_tokenizer(
+            cfg.vocab_size, vocab_path=cfg.tokenizer_path
+        )
         if params is None:
             params = weights.host_init_encoder_params(cfg, seed)
         self.params = weights.to_torch(params, self.device)

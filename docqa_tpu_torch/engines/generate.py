@@ -19,6 +19,7 @@ the device, which is never copied to the host.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import time
 from typing import Dict, List, Optional, Sequence
@@ -90,10 +91,33 @@ class GenerateEngine:
         reference's names; None draws the reference's seeded numpy host
         init (bit-equal to ``docqa_tpu``'s engine with the same seed).
         Weights are stored in ``cfg.dtype``."""
+        if cfg.quantize_weights:
+            raise NotImplementedError(
+                "decoder.quantize_weights: weight-only quantisation is not in "
+                "the PyTorch port yet (ROADMAP queue 1, item 8)"
+            )
         self.device = resolve_device(device)
         self.cfg = cfg
         self.gen = gen or GenerateConfig()
-        self.tokenizer = tokenizer or default_tokenizer(cfg.vocab_size)
+        self.tokenizer = tokenizer or default_tokenizer(
+            cfg.vocab_size, vocab_path=cfg.tokenizer_path
+        )
+        # a real vocabulary carries the checkpoint's own special ids: the
+        # decode loop must stop on that eos, not the hash fallback's 2.
+        # Only ids left at their defaults are replaced (a caller's custom
+        # eos_id stays)
+        tok_eos = getattr(self.tokenizer, "eos_id", None)
+        tok_pad = getattr(self.tokenizer, "pad_id", None)
+        if (tokenizer is not None or cfg.tokenizer_path) and tok_eos is not None:
+            defaults = GenerateConfig()
+            updates = {}
+            if self.gen.eos_id == defaults.eos_id and tok_eos != self.gen.eos_id:
+                updates["eos_id"] = int(tok_eos)
+            if (self.gen.pad_id == defaults.pad_id and tok_pad is not None
+                    and tok_pad != self.gen.pad_id):
+                updates["pad_id"] = int(tok_pad)
+            if updates:
+                self.gen = dataclasses.replace(self.gen, **updates)
         if cfg.chat_template:
             resolved = CHAT_TEMPLATES.get(cfg.chat_template, cfg.chat_template)
             if "{prompt}" not in resolved:

@@ -1,8 +1,10 @@
 """Clinical summarization engine, counterpart of
-``docqa_tpu/engines/summarize.py`` on its default ``decoder`` backend:
+``docqa_tpu/engines/summarize.py``.  On the default ``decoder`` backend:
 instruction-prompted decoding on the port's ``GenerateEngine``, through its
 batcher (the runtime's ``EnginePool``) when one is wired, as batch-class
-work.
+work.  On the ``seq2seq`` backend (``instruction_prompts=False``): the raw
+packed documents go to a ``Seq2SeqEngine``, which is trained to summarize
+source text (a template would be summarized as content).
 
 Inputs are packed token-aware: each document block gets a share of the
 token budget by water-filling (shortest first) and is trimmed at a word
@@ -40,17 +42,22 @@ MULTI_PATIENT_TEMPLATE = (
 class SummarizeEngine:
     def __init__(
         self,
-        generator,  # GenerateEngine (tokenizer + generate_texts)
+        generator,  # GenerateEngine or Seq2SeqEngine (tokenizer + generate_texts)
         cfg: Optional[SummarizerConfig] = None,
         use_fake: bool = False,
         fake_max_chars: int = 1200,
         batcher=None,  # EnginePool or ContinuousBatcher
+        instruction_prompts: bool = True,
     ) -> None:
+        """``instruction_prompts``: wrap inputs in the clinical instruction
+        templates (right for an instruction-following causal LM); the
+        seq2seq backend passes False and feeds the packed documents."""
         self.generator = generator
         self.cfg = cfg or SummarizerConfig()
         self.use_fake = use_fake
         self.fake_max_chars = fake_max_chars
         self.batcher = batcher
+        self.instruction_prompts = instruction_prompts
 
     def _pack_documents(
         self, docs: Sequence[Tuple[str, str]], budget_tokens: int
@@ -112,8 +119,15 @@ class SummarizeEngine:
         docs: Sequence[Tuple[str, str]],
         max_tokens: Optional[int] = None,
     ):
-        body = self._pack_documents(docs, self._doc_budget(SINGLE_PATIENT_TEMPLATE))
-        prompt = SINGLE_PATIENT_TEMPLATE.format(patient_id=patient_id, documents=body)
+        template = (
+            SINGLE_PATIENT_TEMPLATE if self.instruction_prompts else "{documents}"
+        )
+        body = self._pack_documents(docs, self._doc_budget(template))
+        prompt = (
+            template.format(patient_id=patient_id, documents=body)
+            if self.instruction_prompts
+            else body
+        )
         return self.submit_prompt(prompt, max_tokens)
 
     def submit_compare(
@@ -123,10 +137,32 @@ class SummarizeEngine:
     ):
         """[(patient_id, [(doc_id, text)])] -> pending comparative summary,
         one ``=== PATIENT x ===`` block per patient."""
-        per_patient = self._doc_budget(MULTI_PATIENT_TEMPLATE) // max(1, len(patient_docs))
+        template = (
+            MULTI_PATIENT_TEMPLATE if self.instruction_prompts else "{documents}"
+        )
+        per_patient = self._doc_budget(template) // max(1, len(patient_docs))
         sections = [
             f"=== PATIENT {pid} ===\n{self._pack_documents(docs, per_patient)}"
             for pid, docs in patient_docs
         ]
-        prompt = MULTI_PATIENT_TEMPLATE.format(documents="\n\n".join(sections))
+        prompt = template.format(documents="\n\n".join(sections))
         return self.submit_prompt(prompt, max_tokens)
+
+    def summarize_prompt(self, prompt: str, max_tokens: Optional[int] = None) -> str:
+        """Free-form prompt -> summary text."""
+        return self.resolve(self.submit_prompt(prompt, max_tokens))
+
+    def summarize_patient(
+        self,
+        patient_id: str,
+        docs: Sequence[Tuple[str, str]],
+        max_tokens: Optional[int] = None,
+    ) -> str:
+        return self.resolve(self.submit_patient(patient_id, docs, max_tokens))
+
+    def compare_patients(
+        self,
+        patient_docs: Sequence[Tuple[str, Sequence[Tuple[str, str]]]],
+        max_tokens: Optional[int] = None,
+    ) -> str:
+        return self.resolve(self.submit_compare(patient_docs, max_tokens))

@@ -9,6 +9,9 @@ KV cache: preallocated [b, max_len, kv_heads, head_dim] per layer, written
 IN PLACE at a per-lane row offset (the reference returns an updated copy
 from ``vmap`` + ``dynamic_update_slice``) — each lane carries its own
 write offset, so lanes at different positions share one step.
+
+:func:`load_hf_llama_weights` maps HF Llama/Mistral ``model*.safetensors``
+shards onto the tree (the port's own safetensors reader).
 """
 
 from __future__ import annotations
@@ -228,3 +231,47 @@ def decoder_forward(
     x = decoder_layer_stack(params, cfg, ids, positions, max_len, attend,
                             remat=remat)
     return decoder_head(params, cfg, x, new_lengths, last_token_only)
+
+
+# --------------------------------------------------------------------------
+# HF weight import (Mistral / Llama ``model*.safetensors`` shards)
+# --------------------------------------------------------------------------
+
+def load_hf_llama_weights(paths, cfg: DecoderConfig) -> Params:
+    """HF ``model*.safetensors`` shards (one path or a list) as the
+    reference's tree of CPU tensors in the files' dtype.  Torch Linear
+    stores [out, in]; the tree is [in, out] (GQA's k/v projections are
+    [hidden, kv_heads * head_dim]).  A file with no ``lm_head.weight``
+    ties the head to the embedding (``lm_head`` = ``embed_tokens``ᵀ).
+    Rotary rows are taken in the Llama/Mistral split-halves order."""
+    from docqa_tpu_torch.models.safetensors_io import load_file
+
+    raw: Dict[str, torch.Tensor] = {}
+    if isinstance(paths, str):
+        paths = [paths]
+    for path in paths:
+        raw.update(load_file(path))
+
+    def t(name):
+        return raw[name].T.contiguous()
+
+    p: Params = {
+        "tok_emb": raw["model.embed_tokens.weight"],
+        "final_norm_g": raw["model.norm.weight"],
+        "lm_head": (
+            t("lm_head.weight") if "lm_head.weight" in raw
+            else t("model.embed_tokens.weight")
+        ),
+    }
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        p[f"l{i}_attn_norm_g"] = raw[pre + "input_layernorm.weight"]
+        p[f"l{i}_wq"] = t(pre + "self_attn.q_proj.weight")
+        p[f"l{i}_wk"] = t(pre + "self_attn.k_proj.weight")
+        p[f"l{i}_wv"] = t(pre + "self_attn.v_proj.weight")
+        p[f"l{i}_wo"] = t(pre + "self_attn.o_proj.weight")
+        p[f"l{i}_mlp_norm_g"] = raw[pre + "post_attention_layernorm.weight"]
+        p[f"l{i}_w_gate"] = t(pre + "mlp.gate_proj.weight")
+        p[f"l{i}_w_up"] = t(pre + "mlp.up_proj.weight")
+        p[f"l{i}_w_down"] = t(pre + "mlp.down_proj.weight")
+    return p

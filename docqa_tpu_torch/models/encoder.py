@@ -2,7 +2,8 @@
 ``docqa_tpu/models/encoder.py``: post-LN, GELU, learned positions,
 token-type embeddings; masked mean pooling + L2 normalization.
 
-Parameters are a flat dict of float32 tensors with the reference's names
+Parameters are a flat dict of tensors (float32 unless a checkpoint ships
+another dtype) with the reference's names
 (weights [in, out]); each matmul casts its weight to ``cfg.dtype`` as the
 reference does.  Attention (non-causal, ``lengths``-masked) goes through
 :func:`attention` when ``use_flash`` (the default, serving): the flash
@@ -10,6 +11,10 @@ kernel on a card, with head_dim 32 at the MiniLM width.  ``use_flash=False``
 calls :func:`attention_reference` on either device: the path training
 takes, since the kernel has no backward (the reference trains on its plain
 attention too).  Padded batch lanes have length 0 and come out as zeros.
+
+:func:`load_hf_bert_weights` maps a HF BERT/MiniLM ``model.safetensors``
+onto the tree (the port's own safetensors reader, no ``safetensors``
+package).
 """
 
 from __future__ import annotations
@@ -98,3 +103,49 @@ def encode_batch(
     if cfg.normalize:
         pooled = _l2_normalize(pooled)
     return pooled
+
+
+# --------------------------------------------------------------------------
+# HF weight import (BERT / MiniLM ``model.safetensors``)
+# --------------------------------------------------------------------------
+
+_HF_LAYER_MAP = {
+    "attention.self.query": ("q_w", "q_b"),
+    "attention.self.key": ("k_w", "k_b"),
+    "attention.self.value": ("v_w", "v_b"),
+    "attention.output.dense": ("o_w", "o_b"),
+    "intermediate.dense": ("up_w", "up_b"),
+    "output.dense": ("down_w", "down_b"),
+}
+
+
+def load_hf_bert_weights(path: str, cfg: EncoderConfig) -> Params:
+    """A HF BERT/MiniLM ``model.safetensors`` (``BertModel`` names, with or
+    without the ``bert.`` prefix) as the reference's tree of CPU tensors
+    in the file's dtype.  Torch ``nn.Linear`` stores [out, in]; the tree
+    is [in, out], so 2-d weights are transposed (and made contiguous)."""
+    from docqa_tpu_torch.models.safetensors_io import load_file
+
+    raw = {k.replace("bert.", ""): v for k, v in load_file(path).items()}
+
+    def t(name):
+        w = raw[name]
+        return w.T.contiguous() if w.dim() == 2 else w
+
+    p: Params = {
+        "tok_emb": raw["embeddings.word_embeddings.weight"],
+        "pos_emb": raw["embeddings.position_embeddings.weight"],
+        "type_emb": raw["embeddings.token_type_embeddings.weight"],
+        "emb_ln_g": raw["embeddings.LayerNorm.weight"],
+        "emb_ln_b": raw["embeddings.LayerNorm.bias"],
+    }
+    for i in range(cfg.num_layers):
+        pre = f"encoder.layer.{i}."
+        for hf_name, (w_key, b_key) in _HF_LAYER_MAP.items():
+            p[f"l{i}_{w_key}"] = t(pre + hf_name + ".weight")
+            p[f"l{i}_{b_key}"] = raw[pre + hf_name + ".bias"]
+        p[f"l{i}_attn_ln_g"] = raw[pre + "attention.output.LayerNorm.weight"]
+        p[f"l{i}_attn_ln_b"] = raw[pre + "attention.output.LayerNorm.bias"]
+        p[f"l{i}_mlp_ln_g"] = raw[pre + "output.LayerNorm.weight"]
+        p[f"l{i}_mlp_ln_b"] = raw[pre + "output.LayerNorm.bias"]
+    return p

@@ -51,11 +51,20 @@ observatory (``retrieval_quality.enabled``) is the process hook the tiered
 paths offer shadow jobs to; ``/api/retrieval`` serves its ``status()``
 (under exact serving it idles).
 
+Checkpoints, as in the reference: ``encoder.checkpoint_dir`` (BERT),
+``decoder.checkpoint_dir`` (Llama/Mistral, its context capped at the
+configured ``decoder.max_seq_len``) and ``seq2seq.checkpoint_dir`` (BART,
+for ``summarizer.backend="seq2seq"``) load architecture, weights and
+vocabulary from an HF directory (``models/hf_checkpoint.py``); the
+loader's ``checkpoint`` breaker is on the runtime's board, so
+``/api/status`` shows it.  The seq2seq summarizer packs the raw documents
+(no instruction template) within ``min(max_input_tokens, max_src_len)``.
+
 Configuration that needs a part of the reference this port does not have
 yet raises at boot and names its ROADMAP item (:func:`refuse_unported`).
 Routes whose subsystem is not ported answer as the reference does when
 that subsystem is idle or absent: ``/api/witness`` and ``/api/ledger`` with
-404; the checkpoint loader's breaker stays closed on ``/api/status``.
+404.
 
 Entry point: ``python -m docqa_tpu_torch.service.app`` (see :func:`main`).
 """
@@ -82,9 +91,10 @@ from docqa_tpu_torch import obs
 from docqa_tpu_torch.config import Config, coerce_value, load_config
 from docqa_tpu_torch.engines import spine as _spine
 from docqa_tpu_torch.engines.serve import QueueFull
+from docqa_tpu_torch.models import hf_checkpoint
 from docqa_tpu_torch.ops._kernels import is_device_fault
 from docqa_tpu_torch.resilience import faults as _faults
-from docqa_tpu_torch.resilience.breaker import BreakerBoard, CircuitBreaker
+from docqa_tpu_torch.resilience.breaker import BreakerBoard
 from docqa_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
 from docqa_tpu_torch.resilience.faults import FaultPlan
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger
@@ -109,18 +119,9 @@ def refuse_unported(cfg: Config) -> None:
     of the reference this port does not have yet, naming the ROADMAP item
     (queue 1) that brings it."""
     refusals = [
-        (cfg.summarizer.backend == "seq2seq" and not cfg.flags.use_fake_llm,
-         "summarizer.backend='seq2seq' needs the seq2seq summarizer "
-         "(ROADMAP queue 1, item 7)"),
-        (bool(cfg.encoder.checkpoint_dir) and not cfg.flags.use_fake_encoder,
-         "encoder.checkpoint_dir needs the checkpoint import "
-         "(ROADMAP queue 1, item 7)"),
-        (bool(cfg.decoder.checkpoint_dir) and not cfg.flags.use_fake_llm,
-         "decoder.checkpoint_dir needs the checkpoint import "
-         "(ROADMAP queue 1, item 7)"),
         (cfg.broker.backend == "amqp",
          "broker.backend='amqp' needs the AMQP broker (ROADMAP queue 1, "
-         "its own line)"),
+         "the next item)"),
     ]
     for refused, why in refusals:
         if refused:
@@ -135,8 +136,11 @@ class DocQARuntime:
     ``decoder_params``: the generator's weights (a tree with the
     reference's names, e.g. ``models.decoder.init_decoder_params`` drawn on
     the card); None draws the reference's seeded host init, which is slow
-    at full width.  The reference loads a checkpoint here instead, which
-    this port cannot yet (ROADMAP queue 1, item 7)."""
+    at full width, unless ``decoder.checkpoint_dir`` names a checkpoint
+    (then passing weights too is an error).
+
+    ``load_seconds`` holds the seconds each checkpoint load took (keys
+    ``encoder``, ``decoder``, ``seq2seq``)."""
 
     def __init__(
         self,
@@ -155,7 +159,6 @@ class DocQARuntime:
             FusedTieredRetriever,
         )
         from docqa_tpu_torch.engines.router import AnswerRouter
-        from docqa_tpu_torch.engines.summarize import SummarizeEngine
         from docqa_tpu_torch.index.lexical import LexicalIndex
         from docqa_tpu_torch.index.store import VectorStore
         from docqa_tpu_torch.index.tiered import TieredIndex
@@ -170,16 +173,21 @@ class DocQARuntime:
 
         self.cfg = cfg = cfg or load_config()
         refuse_unported(cfg)
+        if (cfg.decoder.checkpoint_dir and not cfg.flags.use_fake_llm
+                and decoder_params is not None):
+            raise ValueError(
+                "decoder.checkpoint_dir and decoder_params both give the "
+                "generator's weights; pass one"
+            )
         self.device = resolve_device(device)
         self.breakers = BreakerBoard(
             failure_threshold=cfg.resilience.breaker_failure_threshold,
             reset_timeout_s=cfg.resilience.breaker_reset_s,
         )
-        # the reference adopts its checkpoint loader's breaker so that
-        # /api/status shows it; the loader is not ported, so it idles
-        self.breakers.adopt(
-            CircuitBreaker("checkpoint", failure_threshold=6, reset_timeout_s=60.0)
-        )
+        # the loader's breaker is a module singleton (loads happen outside
+        # the runtime too), adopted so that /api/status shows it
+        self.breakers.adopt(hf_checkpoint._LOAD_BREAKER)
+        self.load_seconds: Dict[str, float] = {}
         self._fault_plan = FaultPlan.from_env()
         if self._fault_plan is not None:
             _faults.install(self._fault_plan)
@@ -195,7 +203,30 @@ class DocQARuntime:
         )
         dev = self.device
         if cfg.flags.use_fake_encoder:
+            if cfg.encoder.checkpoint_dir:
+                # a real checkpoint configured, yet hash embeddings served
+                log.warning(
+                    "flags.use_fake_encoder=true shadows encoder.checkpoint_dir"
+                    "=%s — serving HASH embeddings", cfg.encoder.checkpoint_dir,
+                )
             self.encoder = HashEncoder(cfg.encoder, device=dev)
+        elif cfg.encoder.checkpoint_dir:
+            from docqa_tpu_torch.config import EncoderConfig
+
+            t0 = time.perf_counter()
+            enc_cfg, enc_params, _ = hf_checkpoint.load_checkpoint_dir(
+                cfg.encoder.checkpoint_dir, expect=EncoderConfig,
+                tokenizer_fallback=cfg.encoder.tokenizer_path,
+            )
+            if enc_cfg.embed_dim != cfg.store.dim:
+                raise ValueError(
+                    f"encoder checkpoint embeds {enc_cfg.embed_dim}-d but "
+                    f"store.dim is {cfg.store.dim} — set "
+                    f"DOCQA_STORE__DIM={enc_cfg.embed_dim} (an existing "
+                    "index snapshot of the old dim cannot be reused)"
+                )
+            self.encoder = EncoderEngine(enc_cfg, params=enc_params, device=dev)
+            self.load_seconds["encoder"] = time.perf_counter() - t0
         else:
             self.encoder = EncoderEngine(cfg.encoder, device=dev)
         work_dir = cfg.data.work_dir
@@ -258,18 +289,46 @@ class DocQARuntime:
             )
         else:  # plumbing mode: a seeded random tagger
             self.deid = DeidEngine(cfg.ner, device=dev)
+        dec_cfg = cfg.decoder
+        if dec_cfg.checkpoint_dir and cfg.flags.use_fake_llm:
+            # the fake path never decodes: no multi-GB load for it
+            log.warning(
+                "flags.use_fake_llm=true: decoder.checkpoint_dir=%s is NOT "
+                "loaded (fake answers are served)", dec_cfg.checkpoint_dir,
+            )
+        elif dec_cfg.checkpoint_dir:
+            import dataclasses
+
+            from docqa_tpu_torch.config import DecoderConfig
+
+            if dec_cfg.quantize_weights:
+                # refused before a shard is read, not after a 14.5 GB load
+                raise NotImplementedError(hf_checkpoint.QUANT_NOT_PORTED)
+            t0 = time.perf_counter()
+            loaded_cfg, decoder_params, _ = hf_checkpoint.load_checkpoint_dir(
+                dec_cfg.checkpoint_dir, expect=DecoderConfig,
+                tokenizer_fallback=dec_cfg.tokenizer_path,
+            )
+            # the batcher sizes its KV pool from max_seq_len: a checkpoint's
+            # 32k context is capped at the configured window
+            dec_cfg = dataclasses.replace(
+                loaded_cfg,
+                max_seq_len=min(loaded_cfg.max_seq_len, dec_cfg.max_seq_len),
+                chat_template=dec_cfg.chat_template,
+            )
+            self.load_seconds["decoder"] = time.perf_counter() - t0
         self.generator = GenerateEngine(
-            cfg.decoder, gen=cfg.generate, params=decoder_params, device=dev
+            dec_cfg, gen=cfg.generate, params=decoder_params, device=dev
         )
+        # the seq2seq summarizer's checkpoint loads before the pool starts
+        # its workers, so a bad directory fails the boot with none running
+        seq2seq = self._build_seq2seq()
         self.batcher = None
         if not cfg.flags.use_fake_llm:
             self.batcher = EnginePool(
                 self.generator, cfg=cfg.pool, qos=cfg.qos, device=dev
             )
-        self.summarizer = SummarizeEngine(
-            self.generator, cfg.summarizer,
-            use_fake=cfg.flags.use_fake_llm, batcher=self.batcher,
-        )
+        self.summarizer = self._build_summarizer(seq2seq)
         if journal_dir is None and work_dir:
             # un-acked pipeline messages replay after a crash
             journal_dir = os.path.join(work_dir, "journal")
@@ -417,6 +476,58 @@ class DocQARuntime:
         self._started = False
         self._warmup_thread: Optional[threading.Thread] = None
         self._warmup_fault: Optional[BaseException] = None
+
+    def _build_seq2seq(self):
+        """The seq2seq summarizer's engine (``summarizer.backend="seq2seq"``
+        and a decoding runtime), else None: from ``seq2seq.checkpoint_dir``
+        when set (architecture, weights, vocabulary and the shipped policy;
+        a policy knob the operator set wins, so ``num_beams=1`` forces
+        greedy over a checkpoint's 4), else the seeded init."""
+        cfg = self.cfg
+        if cfg.summarizer.backend != "seq2seq" or cfg.flags.use_fake_llm:
+            return None  # the fake path never decodes: no BART for it
+        from docqa_tpu_torch.config import Seq2SeqConfig
+        from docqa_tpu_torch.engines.seq2seq import Seq2SeqEngine
+
+        s2s = cfg.seq2seq
+        if not s2s.checkpoint_dir:
+            return Seq2SeqEngine(s2s, device=self.device)
+        knobs = ("num_beams", "length_penalty", "min_length", "no_repeat_ngram")
+        t0 = time.perf_counter()
+        s2s, params, _ = hf_checkpoint.load_checkpoint_dir(
+            s2s.checkpoint_dir, expect=Seq2SeqConfig,
+            keep={k: getattr(s2s, k) for k in knobs if getattr(s2s, k) is not None},
+            tokenizer_fallback=s2s.tokenizer_path,
+        )
+        model = Seq2SeqEngine(s2s, params=params, device=self.device)
+        self.load_seconds["seq2seq"] = time.perf_counter() - t0
+        return model
+
+    def _build_summarizer(self, seq2seq):
+        """The decoder backend through the pool, or ``seq2seq`` (its own
+        weights and decode loop, no batcher) on the raw packed documents,
+        whose source window caps the packing budget: otherwise the engine
+        would cut a packed prompt at ``max_src_len`` and drop documents
+        silently."""
+        import dataclasses
+
+        from docqa_tpu_torch.engines.summarize import SummarizeEngine
+
+        cfg = self.cfg
+        if seq2seq is None:
+            return SummarizeEngine(
+                self.generator, cfg.summarizer,
+                use_fake=cfg.flags.use_fake_llm, batcher=self.batcher,
+            )
+        return SummarizeEngine(
+            seq2seq,
+            dataclasses.replace(
+                cfg.summarizer,
+                max_input_tokens=min(cfg.summarizer.max_input_tokens,
+                                     seq2seq.cfg.max_src_len),
+            ),
+            instruction_prompts=False,  # BART summarizes raw source text
+        )
 
     def _reconcile_registry(self) -> None:
         """Re-mark ``ERROR_INDEXING`` every registry row INDEXED whose
@@ -1540,7 +1651,10 @@ def main(argv=None) -> None:
     # reference's host init takes minutes at full width
     from docqa_tpu_torch.models.decoder import init_decoder_params
 
-    params = init_decoder_params(cfg.decoder, seed=0, device=resolve_device(args.device))
+    params = None
+    if not cfg.decoder.checkpoint_dir:
+        params = init_decoder_params(cfg.decoder, seed=0,
+                                     device=resolve_device(args.device))
     # SIGTERM stops the server like Ctrl-C, so the runtime joins its workers
     signal.signal(signal.SIGTERM, signal.default_int_handler)
     serve(cfg, port=args.port, host=args.host, device=args.device, decoder_params=params)

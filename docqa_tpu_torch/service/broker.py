@@ -1,6 +1,6 @@
 """Service-plane message bus, counterpart of ``docqa_tpu/service/broker.py``
 (``Delivery``, ``MemoryBroker`` with its journal, ``Consumer``,
-``make_broker``; the AMQP adapter is not in this port yet).
+``make_broker``; the AMQP adapter is the port's next item).
 
 Replaces the reference's RabbitMQ deployment (`doc-ingestor/processing.py:21-44`,
 `deid-service/anonymizer.py:89-110`, `semantic-indexer/indexer.py:131-143`)
@@ -524,6 +524,6 @@ def make_broker(cfg: Optional[BrokerConfig] = None, journal_dir: Optional[str] =
     if cfg.backend == "amqp":
         raise NotImplementedError(
             "the AMQP broker is not in the PyTorch port yet (ROADMAP.md queue 1, "
-            "its own line: AmqpBroker); use backend='memory'"
+            "the next item: AmqpBroker); use backend='memory'"
         )
     return MemoryBroker(cfg, journal_dir=journal_dir)

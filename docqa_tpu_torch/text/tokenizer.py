@@ -1,7 +1,10 @@
-"""Hash-fallback tokenizers: a verbatim copy of ``docqa_tpu/text/tokenizer.py``
-(``Tokenizer``, ``HashTokenizer`` and the NER tagger's
-``ShapeHashTokenizer``), so token ids match the reference bit for bit.
-Word -> stable FNV-1a hash bucket; no vocabulary file needed.
+"""Tokenizers: a verbatim copy of ``docqa_tpu/text/tokenizer.py``
+(``Tokenizer``, ``HashTokenizer``, the NER tagger's ``ShapeHashTokenizer``
+and ``WordPieceTokenizer``), so token ids match the reference bit for bit.
+The hash tokenizers map a word to a stable FNV-1a bucket and need no
+vocabulary file; ``WordPieceTokenizer`` reads a BERT ``vocab.txt``, and
+:func:`default_tokenizer` hands ``tokenizer.json`` / ``*.model`` files to
+``text/bpe.py``.
 
 Output contract: right-padded ``ids [batch, max_len]`` plus ``lengths
 [batch]`` — the padding convention the attention ``lengths`` masks expect.
@@ -147,7 +150,67 @@ class ShapeHashTokenizer(HashTokenizer):
         return [bucket] if shape is None else [shape, int(bucket)]
 
 
-def default_tokenizer(vocab_size: int = 30522) -> Tokenizer:
-    """The hash fallback — the only tokenizer this slice ports (real
-    vocabularies arrive with the checkpoint-import slice)."""
+class WordPieceTokenizer(Tokenizer):
+    """Greedy longest-match-first WordPiece over a BERT ``vocab.txt``."""
+
+    def __init__(
+        self,
+        vocab: Sequence[str],
+        lowercase: bool = True,
+        max_word_chars: int = 100,
+    ):
+        super().__init__(len(vocab), lowercase)
+        self.vocab = {tok: i for i, tok in enumerate(vocab)}
+        self._inv_vocab = {i: tok for tok, i in self.vocab.items()}
+        self.max_word_chars = max_word_chars
+        for name, attr in (
+            ("[PAD]", "pad_id"),
+            ("[UNK]", "unk_id"),
+            ("[CLS]", "cls_id"),
+            ("[SEP]", "sep_id"),
+        ):
+            if name in self.vocab:
+                setattr(self, attr, self.vocab[name])
+
+    @classmethod
+    def from_file(cls, path: str, **kwargs) -> "WordPieceTokenizer":
+        with open(path, encoding="utf-8") as f:
+            vocab = [line.rstrip("\n") for line in f]
+        return cls(vocab, **kwargs)
+
+    def word_to_ids(self, word: str) -> List[int]:
+        if len(word) > self.max_word_chars:
+            return [self.unk_id]
+        ids: List[int] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            piece_id = None
+            while end > start:
+                piece = word[start:end]
+                if start > 0:
+                    piece = "##" + piece
+                if piece in self.vocab:
+                    piece_id = self.vocab[piece]
+                    break
+                end -= 1
+            if piece_id is None:
+                return [self.unk_id]
+            ids.append(piece_id)
+            start = end
+        return ids
+
+
+def default_tokenizer(
+    vocab_size: int = 30522, vocab_path: Optional[str] = None
+) -> Tokenizer:
+    """The real vocabulary when a file is given, else the hash fallback.
+    Dispatch: ``*.txt`` -> WordPiece, ``tokenizer.json`` -> byte-level or
+    metaspace BPE, ``*.model`` -> SentencePiece (``text/bpe.py``)."""
+    if vocab_path:
+        if vocab_path.endswith((".json", ".model")):
+            from docqa_tpu_torch.text.bpe import load_tokenizer
+
+            return load_tokenizer(vocab_path)
+        return WordPieceTokenizer.from_file(vocab_path)
     return HashTokenizer(vocab_size)

@@ -9,6 +9,10 @@ Two routes, both numpy-only on the way in:
   (``docqa_tpu/models/decoder.py`` init_decoder_params) and for the
   encoder ``standard_normal(shape) * 0.02`` cast to float32
   (``docqa_tpu/models/encoder.py`` init_encoder_params).
+* :func:`host_init_seq2seq_params` does the same for the BART-class
+  summarizer: ``standard_normal(shape, float32) * 0.02`` for each "normal"
+  leaf of ``seq2seq_param_schema`` in its order, ones and zeros drawing
+  nothing (``docqa_tpu/models/seq2seq.py`` init_seq2seq_params).
 * :func:`to_torch` turns any such tree of numpy arrays — including one
   exported from ``docqa_tpu`` with ``np.asarray`` on each leaf, bfloat16
   leaves too — into tensors on a device; :func:`ner_params_to_torch` does
@@ -27,8 +31,11 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from docqa_tpu_torch.config import DecoderConfig, EncoderConfig, NERConfig
+from docqa_tpu_torch.config import (
+    DecoderConfig, EncoderConfig, NERConfig, Seq2SeqConfig,
+)
 from docqa_tpu_torch.models.decoder import decoder_param_schema
+from docqa_tpu_torch.models.seq2seq import seq2seq_param_schema
 
 HostTree = Dict[str, np.ndarray]
 
@@ -94,6 +101,34 @@ def host_init_encoder_params(cfg: EncoderConfig, seed: int) -> HostTree:
     return p
 
 
+def host_init_seq2seq_params(cfg: Seq2SeqConfig, seed: int) -> HostTree:
+    """float32 numpy seq2seq tree equal to the reference's
+    ``init_seq2seq_params(PRNGKey(seed), cfg, param_dtype=float32,
+    host_init=True, host_seed=seed)``."""
+    rng = _host_rng(seed)
+    p: HostTree = {}
+    for name, kind, shape in seq2seq_param_schema(cfg):
+        if kind == "ones":
+            p[name] = np.ones(shape, np.float32)
+        elif kind == "zeros":
+            p[name] = np.zeros(shape, np.float32)
+        else:
+            p[name] = rng.standard_normal(shape, np.float32) * 0.02
+    return p
+
+
+def seq2seq_params_to_torch(
+    tree: Mapping[str, object], cfg: Seq2SeqConfig, device
+) -> Dict[str, torch.Tensor]:
+    """A seq2seq tree (numpy, e.g. exported from the reference with
+    ``np.asarray`` on each leaf, or tensors from
+    ``models.seq2seq.load_hf_bart_weights``) -> tensors on ``device`` in
+    their own dtypes.  Raises on a missing, extra or misshapen leaf."""
+    _check_shapes(tree, {name: tuple(shape) for name, _k, shape in
+                         seq2seq_param_schema(cfg)}, "seq2seq")
+    return to_torch(tree, device)
+
+
 def _leaf_to_tensor(arr) -> torch.Tensor:
     if isinstance(arr, torch.Tensor):
         return arr
@@ -148,14 +183,18 @@ def ner_params_to_torch(
     """A NER tagger tree (numpy or tensors, the reference's names, head
     included) -> float32 tensors on ``device``.  Raises on a missing,
     extra or misshapen leaf."""
-    want = ner_param_shapes(cfg)
+    _check_shapes(tree, ner_param_shapes(cfg), "NER")
+    return to_torch(tree, device, dtype=torch.float32)
+
+
+def _check_shapes(tree: Mapping[str, object], want: Dict[str, tuple], what: str) -> None:
+    """Raise ``ValueError`` naming every missing, extra or misshapen leaf."""
     got = {name: tuple(np.shape(arr)) for name, arr in tree.items()}
     if got != want:
         missing = sorted(set(want) - set(got))
         extra = sorted(set(got) - set(want))
         shape = sorted(n for n in set(want) & set(got) if want[n] != got[n])
         raise ValueError(
-            f"not a NER tree for this config: missing {missing}, extra "
+            f"not a {what} tree for this config: missing {missing}, extra "
             f"{extra}, wrong shape {shape}"
         )
-    return to_torch(tree, device, dtype=torch.float32)

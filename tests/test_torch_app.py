@@ -669,14 +669,15 @@ def test_oversized_body_is_refused(apps):
 
 @pytest.mark.parametrize("cfg, item", [
     # store.serving_index="tiered" (item 5's tiered retrieval), data.work_dir
-    # (item 5's store lifecycle) and store.token_width (item 4's fused RAG)
-    # are ported: all three now boot past the refusals.  The cases keep the
-    # ids they had while refused.
+    # (item 5's store lifecycle), store.token_width (item 4's fused RAG),
+    # the seq2seq summarizer and the checkpoint import (item 7) are ported:
+    # all five now boot past the refusals.  The cases keep the ids they had
+    # while refused.
     pytest.param({"store.serving_index": "tiered"}, None, id="cfg0-item 5"),
     pytest.param({"data.work_dir": "/nonexistent"}, None, id="cfg1-item 5"),
     pytest.param({"store.token_width": 8}, None, id="cfg2-item 4"),
-    ({"summarizer.backend": "seq2seq"}, "item 7"),
-    ({"encoder.checkpoint_dir": "/nonexistent"}, "item 7"),
+    pytest.param({"summarizer.backend": "seq2seq"}, None, id="cfg3-item 7"),
+    pytest.param({"encoder.checkpoint_dir": "/nonexistent"}, None, id="cfg4-item 7"),
     ({"broker.backend": "amqp"}, "AMQP"),
 ])
 def test_unported_config_raises_at_boot(cfg, item):

@@ -8,6 +8,7 @@ Tolerances: float32 5e-5 (only the summation order differs); bf16
 ``1e-2 + 1e-2 * |plain|`` (both sides round a float32 result to bf16).
 """
 
+import dataclasses
 import zlib
 
 import pytest
@@ -647,3 +648,88 @@ def test_tier_rebuild_device_fault_reaches_search_on_the_card(dev, monkeypatch):
         retr.search_texts(["drug-1"], k=3)
     with pytest.raises(_kernels.KernelError):
         tier.close()
+
+
+# BART's attentions on the seq2seq path (16 heads of 64, no GQA): the
+# decoder's cross-attention is K1's decode path NOT causal, over a source
+# padded to its bucket with short live lengths; the encoder is prefill, not
+# causal; the self-attention over the cache is decode, causal
+BART_CASES = [
+    (32, 1, 1024, 16, 16, 64, False, None,
+     [n for n in (300, 1024, 517, 1024, 811, 402, 1024, 655) for _ in range(4)], None),
+    (4, 1, 256, 16, 16, 64, False, None, [1, 17, 64, 200], None),
+    (4, 1, 1024, 16, 16, 64, False, None, [0, 5, 63, 64], None),
+    (8, 1024, 1024, 16, 16, 64, False, None, [300, 1024, 517, 1024, 811, 402, 1024, 655],
+     None),
+    (32, 1, 143, 16, 16, 64, True, None, [71] * 32, [70] * 32),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BART_CASES)
+def test_kernel_matches_plain_at_bart_shapes(dev, case, dtype):
+    test_kernel_matches_plain(dev, case, dtype)
+
+
+def _tiny_bart(**policy):
+    from docqa_tpu_torch import weights
+    from docqa_tpu_torch.config import Seq2SeqConfig
+
+    cfg = Seq2SeqConfig(vocab_size=256, d_model=64, enc_layers=2, dec_layers=2,
+                        num_heads=2, mlp_dim=128, max_src_len=64, max_tgt_len=40,
+                        dtype="float32", **policy)
+    tree = weights.host_init_seq2seq_params(cfg, seed=5)
+    tree["final_logits_bias"][cfg.eos_id] = -1e9  # run the whole horizon
+    return cfg, tree
+
+
+@pytest.mark.parametrize("policy", [
+    {}, {"num_beams": 4, "length_penalty": 2.0, "min_length": 6, "no_repeat_ngram": 2},
+], ids=["greedy", "beam4"])
+def test_seq2seq_on_the_card_equals_the_cpu_in_float32(dev, policy):
+    from docqa_tpu_torch.engines.seq2seq import Seq2SeqEngine
+
+    cfg, tree = _tiny_bart(**policy)
+    src = [[5, 9, 11, 7, 3], list(range(3, 40)), [8] * 20]
+    before = dict(_kernels.LAUNCHES)
+    card = Seq2SeqEngine(cfg, params=tree, device=dev)
+    got = card.generate_ids(src, max_new_tokens=30)
+    steps = card.last_stats["steps"]
+    cpu = Seq2SeqEngine(cfg, params=tree, device="cpu").generate_ids(src, max_new_tokens=30)
+    assert got == cpu and all(len(x) == 30 for x in got)
+    # 2 encoder layers on the f32 path, then 2 x 2 per decoder forward
+    launched = _kernels.LAUNCHES["flash_attention"] - before.get("flash_attention", 0)
+    assert launched == 2 + 4 * (steps + 1)
+    assert card.last_stats["flag_reads"] <= -(-steps // card.check_every) + 1
+
+
+def test_seq2seq_loop_makes_no_host_sync_between_checks(dev, monkeypatch):
+    """bf16 beam search: between two reads of the termination flag the
+    loop makes no host sync (CUDA's sync debug mode raises on one)."""
+    from docqa_tpu_torch import weights
+    from docqa_tpu_torch.models import seq2seq as s2s
+
+    cfg, tree = _tiny_bart()
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    params = s2s.serving_params(weights.to_torch(tree, dev), cfg)
+    real, windows = s2s._done_check, []
+
+    def check(done, step, every, stats):
+        torch.cuda.set_sync_debug_mode(0)
+        out = real(done, step, every, stats)
+        windows.append(step)
+        torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    monkeypatch.setattr(s2s, "_done_check", check)
+    ids = torch.tensor([[5, 9, 11, 7, 3, 1], [4, 8, 2, 6, 10, 12]], device=dev)
+    lens = torch.tensor([5, 6], dtype=torch.int32, device=dev)
+    try:
+        with torch.inference_mode():
+            out, n = s2s.beam_summarize(params, cfg, ids, lens, max_new=36, n_beams=4,
+                                        length_penalty=2.0, min_length=4,
+                                        no_repeat_ngram=3, check_every=16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert windows == list(range(1, 36))
+    assert n.tolist() == [36, 36] and out.shape == (2, 36)

@@ -20,8 +20,11 @@ from docqa_tpu_torch.config import (
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "docqa_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "docqa_tpu", "ml_dtypes", "optax", "orbax")
-# the card's Python has neither: the app's server and schemas are stdlib
-NOT_ON_THE_CARD = ("aiohttp", "pydantic")
+# the card's Python has none of these: the app's server and schemas are
+# stdlib, and the checkpoint import reads safetensors and tokenizer files
+# with the port's own code
+NOT_ON_THE_CARD = ("aiohttp", "pydantic", "safetensors", "tokenizers", "transformers",
+                   "sentencepiece")
 
 torch.set_num_threads(1)
 
@@ -38,7 +41,8 @@ spec = importlib.util.spec_from_file_location("chip_smoke", {os.path.join(REPO, 
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "aiohttp", "pydantic", "ml_dtypes",
-                                       "optax", "orbax")
+                                       "optax", "orbax", "safetensors", "tokenizers",
+                                       "transformers", "sentencepiece")
                 and sys.modules[m] is not None)
 print("LOADED", loaded)
 print("PORT", sorted(m for m in sys.modules if m.startswith("docqa_tpu_torch.")))
@@ -134,8 +138,26 @@ RETRIEVAL_MODULES = (
     "docqa_tpu_torch.obs.telemetry",
     "docqa_tpu_torch.service.app",
 )
+# the checkpoint and seq2seq slice's new and touched modules, held to the
+# same two checks
+CHECKPOINT_MODULES = (
+    "docqa_tpu_torch.engines.encoder",
+    "docqa_tpu_torch.engines.generate",
+    "docqa_tpu_torch.engines.seq2seq",
+    "docqa_tpu_torch.engines.summarize",
+    "docqa_tpu_torch.models",
+    "docqa_tpu_torch.models.hf_checkpoint",
+    "docqa_tpu_torch.models.safetensors_io",
+    "docqa_tpu_torch.models.seq2seq",
+    "docqa_tpu_torch.service.app",
+    "docqa_tpu_torch.text",
+    "docqa_tpu_torch.text.bpe",
+    "docqa_tpu_torch.text.tokenizer",
+    "docqa_tpu_torch.weights",
+)
 SLICE_MODULES = (BATCHER_MODULES + INGEST_MODULES + OBS_MODULES + APP_MODULES
-                 + LIFECYCLE_MODULES + TRAINING_MODULES + RETRIEVAL_MODULES)
+                 + LIFECYCLE_MODULES + TRAINING_MODULES + RETRIEVAL_MODULES
+                 + CHECKPOINT_MODULES)
 
 
 def _python_files():
@@ -270,6 +292,17 @@ def _build(entry):
         from docqa_tpu_torch.engines.encoder import HashEncoder
 
         return HashEncoder(enc_cfg)
+    if entry == "Seq2SeqEngine":
+        from docqa_tpu_torch.config import Seq2SeqConfig
+        from docqa_tpu_torch.engines.seq2seq import Seq2SeqEngine
+
+        return Seq2SeqEngine(Seq2SeqConfig(vocab_size=64, d_model=32, enc_layers=1,
+                                           dec_layers=1, num_heads=1, mlp_dim=32,
+                                           dtype="float32"))
+    if entry == "generate_engine_from_dir":
+        from docqa_tpu_torch.models.hf_checkpoint import generate_engine_from_dir
+
+        return generate_engine_from_dir("/nonexistent")
     if entry == "DocQARuntime":
         from docqa_tpu_torch.config import load_config
         from docqa_tpu_torch.service.app import DocQARuntime
@@ -287,7 +320,8 @@ def _build(entry):
     "entry",
     ["EncoderEngine", "GenerateEngine", "VectorStore", "FusedRetriever", "QAService",
      "EnginePool", "DeidEngine", "LexicalIndex", "HashEncoder", "DocQARuntime",
-     "FusedRAG", "IVFIndex", "FusedTieredRetriever"],
+     "FusedRAG", "IVFIndex", "FusedTieredRetriever", "Seq2SeqEngine",
+     "generate_engine_from_dir"],
 )
 def test_entry_points_raise_without_cuda(entry):
     if torch.cuda.is_available():
