@@ -224,13 +224,40 @@ Phases, each of which fails the run on any error (nothing is caught):
    breaker on ``/api/status``, 4 uploads, an /ask and a patient synthesis
    over HTTP, the synthesis through one ``seq2seq_generate`` item and no
    paged decode.
+14. the quantised decoder, (a)-(c) after phase 12 (they need phase 3's
+   weights), (d) inside phase 13 (it needs its Mistral directory): (a) K4
+   (``csrc/qmatmul.cu``) alone at the five Mistral-7B projection shapes at
+   4, 64 and 2,048 rows, int8 and (but ``lm_head``) int4, against its plain
+   version at the bf16 tolerance and bit for bit on one-hot rows, timed
+   beside the plain version and ``torch.matmul`` on the unquantised bf16
+   weight, with its byte / operation bound, and the host's cost of a
+   product; the reference's quantised-forward criteria asserted where they
+   were set (a float32 model of hidden 64, vocabulary 256, 2 layers) with
+   K4 under the quantised side; (b) phase 3's bf16 tree
+   quantised on the card tensor by tensor, int8 then int4: tree bytes,
+   seconds and what quantising held beyond the tree; every quantised leaf
+   within its dequantisation bound of its bf16 weight; first-step logits of
+   the four questions' prompts against the bf16 engine at 32 layers and at
+   2 (max|d|/std and the argmax, printed beside bf16's own gap to float32
+   and the scheme's in float32 at 2 layers) and against the same quantised
+   tree through the plain version (within ``FIRST_STEP_RTOL``); the four questions at 64 new
+   tokens, K4 launched (7 L + 1) x forwards each; (c) round A1's shape
+   through a 1-replica pool over the int8 engine (p50, tok/s, verify
+   steps, device ms a step beside phase 6's bf16 A1), K4 launches
+   (7 L + 1) x the forwards the batcher dispatched, warm-ups included;
+   (d) ``DocQARuntime`` with ``decoder.checkpoint_dir`` the 2-layer
+   Mistral directory and ``decoder.quantize_weights`` at ``quant_bits`` 8
+   and 4: the tree bit-equal to ``quantize_decoder_params`` of the carried
+   tree, the boot's peak memory, an /ask over HTTP not degraded.  AMQP is
+   not driven: neither pika nor a broker is on the card's machine.
 
 The recorder is on by default, so phases 3-7 run traced too.  Prints the
 pool JSON line, the ingest JSON line, the obs JSON line, the app JSON line,
 the lifecycle JSON line, the training JSON line, the tiered JSON line, the
-checkpoints JSON line, the launches-by-phase JSON line (each main-path
-run's K1 counters, whose sums are the kernels line's launches; each run's
-K1 total must equal the sum of its paths), the kernels JSON line,
+checkpoints JSON line, the quant JSON line, the launches-by-phase JSON
+line (each main-path run's K1 and K4 counters, whose sums are the kernels
+line's launches; each run's K1 total must equal the sum of its paths), the
+kernels JSON line (K1 and its paths, then K4 and its int8 / int4 modes),
 the nvidia-smi line, and last the ok line.  Phases 6 and 7 also
 print each spine stage's queue wait; ``--spine-lanes N`` sets the spine's
 lane count.
@@ -281,14 +308,17 @@ from docqa_tpu_torch.engines.retrieve import FusedRetriever
 from docqa_tpu_torch.engines.serve import ContinuousBatcher
 from docqa_tpu_torch.engines.spine import DispatchSpine, configure, get_spine
 from docqa_tpu_torch.index.store import VectorStore, sidecar_rows
+from docqa_tpu_torch.models import quant
 from docqa_tpu_torch.models.decoder import (
     decoder_forward, init_decoder_params, init_kv_cache,
 )
 from docqa_tpu_torch.models.ner import init_ner_params, ner_forward
 from docqa_tpu_torch.obs.expo import lint_prometheus_text, prometheus_text
+from docqa_tpu_torch.obs.observatory import decoder_weight_bytes
 from docqa_tpu_torch.obs.retrieval_observatory import compare_topk, wilson_interval
 from docqa_tpu_torch.ops import _kernels
 from docqa_tpu_torch.ops import attention as attn
+from docqa_tpu_torch.ops import qmatmul as qm
 from docqa_tpu_torch.resilience import (
     BreakerBoard, Deadline, FaultPlan, FaultRule, faults,
 )
@@ -343,12 +373,12 @@ def ptxas_summary(log_text: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             kernel = m.group(1)
-            name = re.search(r"(flash_[a-z]+(?:_[a-z]+)*_kernel)I(\S+)", kernel)
+            name = re.search(r"(flash_[a-z]+(?:_[a-z]+)*_kernel|qmatmul_kernel)I(\S+)", kernel)
             if name:
                 rest = name.group(2)
                 dtype = ("bf16," if rest.startswith("13__nv_bfloat16")
                          else "f32," if rest.startswith("f") else "")
-                nums = ",".join(re.findall(r"Li(\d+)E", rest))
+                nums = ",".join(re.findall(r"L[ib](\d+)E", rest))
                 kernel = f"{name.group(1)}<{dtype}{nums}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -894,18 +924,20 @@ def first_step_prompt(qa, question, usable):
     return prompt, qa.generator.encode_prompt(prompt, usable)
 
 
-def solo_first_step(gen, ids):
+def solo_first_step(gen, ids, params=None, cfg=None):
     """First-step logits of ``ids`` from the solo engine's bucketed prefill
-    through K1, bf16 on the card."""
-    cfg, dev, n = gen.cfg, gen.device, len(ids)
+    through K1 on the card, at the engine's weights and config or at
+    ``params`` / ``cfg`` (a cut of its depth, another compute dtype)."""
+    params, cfg = params or gen.params, cfg or gen.cfg
+    dev, n = gen.device, len(ids)
     with torch.inference_mode():
         bucket = pick_bucket(n, gen.gen.prefill_buckets)
         solo_ids = torch.full((1, bucket), gen.gen.pad_id, dtype=torch.long, device=dev)
         solo_ids[0, :n] = torch.tensor(ids, device=dev)
         cache = init_kv_cache(cfg, 1, max_len=round_up(bucket + 64 + 4, 128),
-                              dtype=gen.params["tok_emb"].dtype, device=dev)
+                              dtype=getattr(torch, cfg.dtype), device=dev)
         solo = decoder_forward(
-            gen.params, cfg, solo_ids, cache, torch.zeros(1, dtype=torch.int32, device=dev),
+            params, cfg, solo_ids, cache, torch.zeros(1, dtype=torch.int32, device=dev),
             attn_lengths=torch.tensor([n], dtype=torch.int32, device=dev),
             last_token_only=True,
         )[0, 0]
@@ -4923,9 +4955,10 @@ def run_checkpoint_runtime(counts, dirs, tagger):
     return summary, dict(delta)
 
 
-def run_checkpoint_path(counts, tagger):
+def run_checkpoint_path(counts, tagger, then=None):
     """Phase 13 (the module docstring): (a)-(e) in a scratch directory that
-    is removed at the end."""
+    is removed at the end; ``then(dirs)``, when given, runs on the three
+    directories before that (phase 14 (d) boots on the Mistral one)."""
     work = tempfile.mkdtemp(prefix="docqa_phase13_")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     launches = collections.Counter()
@@ -4937,9 +4970,11 @@ def run_checkpoint_path(counts, tagger):
         launches.update(lc)
         mistral_dir, mistral, ld = run_checkpoint_mistral(counts, work)
         launches.update(ld)
-        runtime, le = run_checkpoint_runtime(
-            counts, {"encoder": bert_dir, "decoder": mistral_dir, "seq2seq": bart_dir}, tagger)
+        dirs = {"encoder": bert_dir, "decoder": mistral_dir, "seq2seq": bart_dir}
+        runtime, le = run_checkpoint_runtime(counts, dirs, tagger)
         launches.update(le)
+        if then is not None:
+            then(dirs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     summary = {"bart": bart, "tiny": tiny, "minilm": minilm, "mistral": mistral,
@@ -5323,6 +5358,564 @@ def run_training_encoder(counts, workdir):
     return summary
 
 
+# ---- phase 14: the quantised decoder -------------------------------------------
+
+# K4's cases: the Mistral-7B projections ([in, out]) at the main path's rows:
+# the solo verify (K = 4), a 16-lane batcher verify, a packed prefill
+QUANT_SHAPES = (("wq", 4096, 4096), ("wk", 4096, 1024), ("w_gate", 4096, 14336),
+                ("w_down", 14336, 4096), ("lm_head", 4096, 32000))
+QUANT_ROWS = (4, 64, 2048)
+QUANT_TIMED = "w_gate_m4"  # the case each K4 entry of the kernels line reports
+# the reference's criteria for a quantised forward against its float one,
+# max |logits - float logits| / std(float logits): int8 under 0.15 with the
+# same argmax (tests/test_quant.py:63-86), int4 finite and under 3.0, which
+# "only guards against a broken dequant" (tests/test_quant.py:244-265).
+# They were set on a float32 model of hidden 64 and vocabulary 256, and are
+# asserted on the card there (``check_reference_config``).  At Mistral-7B
+# width they are printed, at 2 layers (``QUANT_CUT_LAYERS``) and at 32,
+# beside bf16's own gap to float32 at the same weights (the depth baseline)
+# and the reference's scheme computed in float32 (the width control); at
+# that width each quantised leaf is held to its bf16 weight elementwise
+# (``check_dequant_bound``)
+QUANT_LOGIT_CRITERION = {8: 0.15, 4: 3.0}
+QUANT_CUT_LAYERS = 2
+QUANT_ASK_TOKENS = 64
+QUANT_PROJECTIONS = 7  # q, k, v, o, gate, up, down: K4 launches a layer
+
+
+def run_qmatmul_cases(flush):
+    """(a) K4 alone: each Mistral-7B projection at 4, 64 and 2,048 rows,
+    int8 and (but ``lm_head``, int8 in both modes) int4: against its plain
+    version at K1's bf16 tolerance and, on one-hot rows of x, bit for bit
+    against the dequantised weight rows; the kernel, the plain version and
+    ``torch.matmul`` on the unquantised bf16 weight (what the bf16 engine
+    runs) timed as phase 2 times K1; the bound max(bytes / 3.35 TB/s,
+    2 m in out / 989 TFLOP/s), the bytes the packed weights, scales, x and y
+    once each."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    atol, rtol = TOL[torch.bfloat16]
+    results = []
+    for name, k, n in QUANT_SHAPES:
+        w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        wb = w.to(torch.bfloat16)
+        packs = [("int8", *quant.quantize_array(w))]
+        if name != "lm_head":
+            packs.append(("int4", *quant.quantize_array_int4(w)))
+        del w
+        for m in QUANT_ROWS:
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            library = time_ms(lambda: x @ wb, flush)
+            rows = torch.randint(0, k, (m,), generator=gen, device=dev)
+            onehot = torch.zeros((m, k), dtype=torch.bfloat16, device=dev)
+            onehot[torch.arange(m, device=dev), rows] = 1
+            for mode, q, sc in packs:
+                got = qm.qmatmul(x, q, sc)
+                want = qm.qmatmul_reference(x, q, sc)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs()
+                ok = bool((err <= atol + rtol * want.float().abs()).all())
+                if not ok or not torch.isfinite(got.float()).all():
+                    raise AssertionError(
+                        f"qmatmul {name} m{m} {mode}: max |err| {float(err.max()):.3e} "
+                        f"over atol {atol} rtol {rtol}")
+                exact = torch.equal(qm.qmatmul(onehot, q, sc),
+                                    qm.dequantize(q, sc, torch.bfloat16, k)[rows])
+                if not exact:
+                    raise AssertionError(f"qmatmul {name} m{m} {mode}: one-hot rows differ "
+                                         "from the dequantised weight rows")
+                group = qm.int4_group(q, k) if mode == "int4" else 0
+                plan = qm.plan_qmatmul(mode, m, k, n, group)
+                nbytes = q.numel() + 4 * sc.numel() + 2 * m * k + 2 * m * n
+                t_bytes = nbytes / PEAK_BYTES_S * 1e3
+                t_flops = 2 * m * k * n / PEAK_BF16_FLOPS * 1e3
+                rec = {
+                    "case": f"{name}_m{m}_{mode}", "weight": name, "m": m, "mode": mode,
+                    "shape": f"m{m} in{k} out{n}", "plan": plan._asdict(),
+                    "max_abs_err": float(err.max()), "onehot_exact": True,
+                    "ms": time_ms(lambda: qm.qmatmul(x, q, sc), flush),
+                    "plain_ms": time_ms(lambda: qm.qmatmul_reference(x, q, sc), flush),
+                    "library_ms": library,
+                    "bound_ms": max(t_bytes, t_flops),
+                    "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+                    "weight_bytes": q.numel() + 4 * sc.numel(),
+                    "tolerance": TOL[torch.bfloat16],
+                }
+                rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+                log(f"  qmatmul {rec['case']:20s} splits {plan.splits:2d}  err "
+                    f"{rec['max_abs_err']:.2e} one-hot exact  kernel {rec['ms']:.4f} ms  "
+                    f"plain {rec['plain_ms']:.4f} ms  cuBLAS bf16 {library:.4f} ms  bound "
+                    f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}, "
+                    f"{100 * rec['bound_share']:.1f} % of it)")
+                results.append(rec)
+        del wb, packs
+    return results
+
+
+def host_us_a_call(n=200, rounds=2):
+    """Host microseconds to enqueue one product at the solo verify's ``wq``
+    shape (m = 4, 4,096 x 4,096), no sync inside: K4 int8 and int4 against
+    ``torch.matmul`` on the bf16 weight, in turns, behind a long spin so the
+    host never waits on the device.  A verify step enqueues 225 products
+    and is host-bound, so this, not the device time, is what a step
+    feels."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    w = torch.randn((4096, 4096), generator=gen, device=dev) * 4096 ** -0.5
+    x = torch.randn((4, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    wb = w.to(torch.bfloat16)
+    fns = [("torch.matmul bf16", lambda: x @ wb)]
+    for mode, (q, sc) in (("int8", quant.quantize_array(w)),
+                          ("int4", quant.quantize_array_int4(w))):
+        fns.append((f"K4 {mode}", lambda q=q, sc=sc: qm.qmatmul(x, q, sc)))
+    out = collections.defaultdict(list)
+    for r in range(rounds):
+        for name, fn in fns if r % 2 == 0 else fns[::-1]:
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(50_000_000)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            out[name].append((time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+    log("  host us to enqueue one wq product at m = 4 (rounds): " + "; ".join(
+        f"{name} " + ", ".join(f"{us:.1f}" for us in v) for name, v in out.items()))
+    return dict(out)
+
+
+def _logit_gap(got, ref):
+    """The reference's quantised-forward criterion, max |got - ref| over
+    std(ref), and whether the argmax agrees."""
+    max_abs = float((got - ref).abs().max())
+    return max_abs / max(float(ref.std()), 1e-6), int(got.argmax()) == int(ref.argmax())
+
+
+def check_dequant_bound(qtree, params):
+    """Each quantised leaf of ``qtree``, dequantised by the plain version
+    (which K4 equals bit for bit on one-hot rows, (a)), against the bf16
+    weight of ``params`` it was quantised from: |W~ - W| <= s / 2 (the
+    rounding to a level) + 2^-7 |q| s (1 + 2^-8) (bf16's rounding of the
+    scale and of the product) + 2^-22 |W| (float32's of W / s), elementwise,
+    s the element's scale.  A wrong scale axis, group or packing breaks it
+    at any depth.  Returns the largest |W~ - W| / s and the leaves held."""
+    worst, leaves = 0.0, 0
+    for name, w in params.items():
+        sc = qtree.get(name + quant.SCALE_SUFFIX)
+        if sc is None:
+            continue
+        q, in_dim = qtree[name], w.shape[0]
+        if q.dtype == torch.int8:
+            qv, s = q.float(), sc[None, :]
+        else:
+            g = qm.int4_group(q, in_dim)
+            qv = qm.unpack_int4(q, g).reshape(in_dim, -1).float()
+            s = sc.repeat_interleave(g, dim=0)
+        w32 = w.float()
+        err = (qm.dequantize(q, sc, torch.bfloat16, in_dim).float() - w32).abs()
+        bound = 0.5 * s + 2.0 ** -7 * (1 + 2.0 ** -8) * qv.abs() * s + 2.0 ** -22 * w32.abs()
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{name}: dequantised weight off its bf16 weight by "
+                                 f"{float((err - bound).max()):.3e} past the bound")
+        worst = max(worst, float((err / s).max()))
+        leaves += 1
+        del qv, s, w32, err, bound
+    return worst, leaves
+
+
+def _k4_identity(where, delta, layers, forwards):
+    want = (QUANT_PROJECTIONS * layers + 1) * forwards
+    if delta.get("qmatmul", 0) != want or forwards < 1:
+        raise AssertionError(f"{where}: K4 launched {delta.get('qmatmul', 0)} times, expected "
+                             f"({QUANT_PROJECTIONS} x {layers} + 1) x {forwards} forwards = {want}")
+    return want
+
+
+def _counted_ask(counts, qa, question, enc_layers, k4):
+    """One solo /ask with its launch identities: K1 encoder layers +
+    forwards x decoder layers, and (a quantised engine) K4 (7 L + 1) x
+    forwards, or none."""
+    gen = qa.generator
+    layers = gen.cfg.num_layers
+    before = collections.Counter(counts)
+    t0 = time.perf_counter()
+    out = qa.ask(question)
+    latency = time.perf_counter() - t0
+    _no_degraded("phase 14 /ask", [out])
+    delta = collections.Counter(counts)
+    delta.subtract(before)
+    st = dict(gen.last_stats)
+    if k4:
+        _k4_identity("phase 14 /ask", delta, layers, st["forwards"])
+    elif delta.get("qmatmul", 0):
+        raise AssertionError(f"a bf16 /ask launched K4 {delta['qmatmul']} times")
+    if delta["flash_attention"] != enc_layers + st["forwards"] * layers:
+        raise AssertionError(f"phase 14 /ask: K1 launched {delta['flash_attention']}")
+    return {"latency_s": latency, "forwards": st["forwards"],
+            "decode_tokens": st["decode_tokens"],
+            "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+            "verify_step_ms": st["decode_s"] / max(st["forwards"] - 1, 1) * 1e3}
+
+
+def check_reference_config(counts):
+    """The reference's own quantised-forward tests on the card, where their
+    criteria were set (tests/test_quant.py:63-86 and 244-265): a float32
+    model of vocabulary 256, hidden 64, mlp 128, 2 layers (its 4 heads of
+    16 regrouped into 2 of 32, K1's smallest head_dim: every weight shape
+    the same), seeded random weights, the prompt [3, 9, 17, 4].  Its logits
+    in float32 against the int8 and int4 trees' through K4 in bf16 (7 x 2 +
+    1 launches): max|d|/std over every position under 0.15 with the last
+    position's argmax kept (int8), finite and under 3.0 (int4)."""
+    dev = torch.device("cuda")
+    rcfg = DecoderConfig(vocab_size=256, hidden_dim=64, num_layers=2, num_heads=2,
+                         num_kv_heads=1, head_dim=32, mlp_dim=128, max_seq_len=128,
+                         dtype="float32")
+    params = init_decoder_params(rcfg, 0, dev)
+    ids = torch.tensor([[3, 9, 17, 4]], device=dev)
+
+    def run(p, c):
+        cache = init_kv_cache(c, 1, max_len=32, dtype=getattr(torch, c.dtype), device=dev)
+        with torch.inference_mode():
+            return decoder_forward(
+                p, c, ids, cache, torch.zeros(1, dtype=torch.int32, device=dev),
+                attn_lengths=torch.tensor([4], dtype=torch.int32, device=dev))[0].float()
+
+    full = run(params, rcfg)
+    out = {}
+    for bits in (8, 4):
+        qcfg = dataclasses.replace(rcfg, dtype="bfloat16", quantize_weights=True,
+                                   quant_bits=bits)
+        before = counts.get("qmatmul", 0)
+        got = run(quant.quantize_decoder_params(params, bits), qcfg)
+        launched = counts.get("qmatmul", 0) - before
+        rel = _logit_gap(got, full)[0]
+        same = int(got[-1].argmax()) == int(full[-1].argmax())
+        out[f"int{bits}"] = {"max_abs_over_std": rel, "same_argmax": same}
+        log(f"  the reference's config (hidden 64, vocabulary 256, 2 layers), int{bits} "
+            f"through K4 in bf16 vs float32: max|d|/std {rel:.4f} (criterion "
+            f"{QUANT_LOGIT_CRITERION[bits]}), last argmax {'kept' if same else 'differs'}, "
+            f"K4 launches {launched}")
+        if launched != QUANT_PROJECTIONS * rcfg.num_layers + 1:
+            raise AssertionError(f"int{bits} at the reference's config: K4 launched {launched}")
+        if not (math.isfinite(rel) and rel < QUANT_LOGIT_CRITERION[bits]
+                and (same or bits == 4)):
+            raise AssertionError(f"int{bits} at the reference's config fails its criterion: "
+                                 f"{out[f'int{bits}']}")
+    return out
+
+
+def run_quant_solo(counts, qa, params):
+    """(b) phase 3's Mistral-7B bf16 tree quantised on the card tensor by
+    tensor, int8 then int4: tree bytes, seconds and peak memory above what
+    was allocated; every quantised leaf within ``check_dequant_bound`` of
+    its bf16 weight; first-step logits of the four questions' prompts
+    against the bf16 engine's on the same weights at all layers and at the
+    first ``QUANT_CUT_LAYERS`` (printed beside bf16's own gap to float32 and,
+    at the cut, the scheme's in float32), and against the same quantised
+    tree through the plain version (within ``FIRST_STEP_RTOL``); the four
+    questions at 64 new tokens, asked of the
+    bf16 engine and the quantised one in turns, each quantised /ask's K4
+    launches (7 L + 1) x its forwards.  Returns the summary, the
+    launches of each mode's asks and the int8 engine (for (c))."""
+    dev = torch.device("cuda")
+    gen16 = qa.generator
+    cfg = gen16.cfg
+    enc_layers = qa.retriever.encoder.cfg.num_layers
+    prompts = [first_step_prompt(qa, q, 1024 - 2 - gen16.gen.speculative_k)[1]
+               for q in QUESTIONS]
+    bf16_logits = [solo_first_step(gen16, ids) for ids in prompts]
+    # the depth baseline: bf16 against float32 compute at the same weights
+    # (each projection's weight cast on the fly; TF32 is off), at all 32
+    # layers and at the first QUANT_CUT_LAYERS
+    def cut(tree):
+        return {k: v for k, v in tree.items()
+                if not (m := re.match(r"l(\d+)_", k)) or int(m.group(1)) < QUANT_CUT_LAYERS}
+
+    cut_cfg = dataclasses.replace(cfg, num_layers=QUANT_CUT_LAYERS)
+    cut_logits = [solo_first_step(gen16, ids, cut(params), cut_cfg) for ids in prompts]
+    cut32_cfg = dataclasses.replace(cut_cfg, dtype="float32")
+    cut32_logits = [solo_first_step(gen16, ids, cut(params), cut32_cfg) for ids in prompts]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    f32 = {str(cfg.num_layers): [_logit_gap(ref, solo_first_step(gen16, ids, cfg=cfg32))[0]
+                                 for ids, ref in zip(prompts, bf16_logits)],
+           str(QUANT_CUT_LAYERS): [_logit_gap(ref, r32)[0]
+                                   for ref, r32 in zip(cut_logits, cut32_logits)]}
+    log(f"  depth baseline, bf16 vs float32 first-step logits max|d|/std: {cfg.num_layers} "
+        f"layers " + ", ".join(f"{g:.3f}" for g in f32[str(cfg.num_layers)])
+        + f"; {QUANT_CUT_LAYERS} layers "
+        + ", ".join(f"{g:.3f}" for g in f32[str(QUANT_CUT_LAYERS)]))
+    summary, launches, engine8 = {"bf16_vs_f32": f32}, {}, None
+    for bits in (8, 4):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        qtree = quant.quantize_decoder_params(params, bits)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        # what quantising held beyond the finished tree: one tensor's
+        # temporaries
+        peak = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+        qcfg = dataclasses.replace(cfg, quantize_weights=True, quant_bits=bits)
+        qgen = GenerateEngine(qcfg, GenerateConfig(max_new_tokens=QUANT_ASK_TOKENS,
+                                                   speculative_k=4),
+                              params=qtree, device=dev)
+        del qtree
+        rec = {"tree_bytes": quant.tree_bytes(qgen.params), "quantise_s": quant_s,
+               "quantise_transient_gib": peak / 2**30,
+               "weight_bytes_a_forward": decoder_weight_bytes(qcfg)}
+        worst, leaves = check_dequant_bound(qgen.params, params)
+        rec["dequant_bound"] = {"max_err_over_scale": worst, "leaves": leaves}
+        # first-step logits: against bf16 at all layers and at the cut, and
+        # the kernel against the plain path
+        gaps, plain_rel = [], []
+        kernel_fn = qm.qmatmul
+        for ids, ref in zip(prompts, bf16_logits):
+            got = solo_first_step(qgen, ids)
+            gaps.append(_logit_gap(got, ref))
+            qm.qmatmul = qm.qmatmul_reference
+            try:
+                plain = solo_first_step(qgen, ids)
+            finally:
+                qm.qmatmul = kernel_fn
+            plain_rel.append(float((got - plain).norm() / plain.norm()))
+        qcut_cfg = dataclasses.replace(qcfg, num_layers=QUANT_CUT_LAYERS)
+        cut_gaps = [_logit_gap(solo_first_step(qgen, ids, cut(qgen.params), qcut_cfg), ref)
+                    for ids, ref in zip(prompts, cut_logits)]
+        # the width control: the reference's scheme as its tests run it, the
+        # dequantisation q * s and every product in float32 (the plain
+        # version), against the float32 model, at the cut
+        qm.qmatmul = qm.qmatmul_reference
+        try:
+            qcut32_cfg = dataclasses.replace(qcut_cfg, dtype="float32")
+            ref32_gaps = [_logit_gap(solo_first_step(qgen, ids, cut(qgen.params), qcut32_cfg), r)
+                          for ids, r in zip(prompts, cut32_logits)]
+        finally:
+            qm.qmatmul = kernel_fn
+        rec["logits_vs_bf16"] = [{"max_abs_over_std": g, "same_argmax": a} for g, a in gaps]
+        rec["logits_vs_bf16_cut"] = [{"max_abs_over_std": g, "same_argmax": a}
+                                     for g, a in cut_gaps]
+        rec["float32_scheme_vs_float32_cut"] = [{"max_abs_over_std": g, "same_argmax": a}
+                                                for g, a in ref32_gaps]
+        rec["kernel_vs_plain_rel_rms"] = plain_rel
+        rec["reference_criterion"] = QUANT_LOGIT_CRITERION[bits]
+
+        def gap_text(gs):
+            return ", ".join(f"{g:.3f}{'' if a else ' (argmax differs)'}" for g, a in gs)
+
+        log(f"  int{bits}: tree {rec['tree_bytes'] / 1e9:.3f} GB (a forward reads "
+            f"{rec['weight_bytes_a_forward'] / 1e9:.3f} GB), quantised in {quant_s:.2f} s, "
+            f"{rec['quantise_transient_gib']:.2f} GiB held beyond the tree; {leaves} leaves "
+            f"within the dequantisation bound of their bf16 weights (max |W~ - W| / s "
+            f"{worst:.4f}); first-step logits vs bf16 max|d|/std, {cfg.num_layers} layers "
+            f"{gap_text(gaps)}; {QUANT_CUT_LAYERS} layers {gap_text(cut_gaps)}; the scheme in "
+            f"float32 vs float32 at {QUANT_CUT_LAYERS} layers {gap_text(ref32_gaps)} (the "
+            f"reference's criterion at hidden 64, vocabulary 256: "
+            f"{QUANT_LOGIT_CRITERION[bits]}); kernel vs plain relative RMS "
+            + ", ".join(f"{r:.2e}" for r in plain_rel) + f" (tolerance {FIRST_STEP_RTOL})")
+        if max(plain_rel) > FIRST_STEP_RTOL:
+            raise AssertionError(f"int{bits}: K4 engine vs the plain path {plain_rel}")
+        if not all(math.isfinite(g) for g, _a in gaps + cut_gaps + ref32_gaps):
+            raise AssertionError(f"int{bits} first-step logits not finite: {gaps} {cut_gaps}")
+        # the four questions, counted, each asked of the bf16 engine and the
+        # quantised one in turns (bf16 first on even questions), so a step's
+        # time is compared on the host as it is at that moment
+        qa_q = QAService(qa.retriever.encoder, qa.retriever.store, qgen, k=3, device=dev)
+        per_q = []
+        counts.clear()
+        for i, question in enumerate(QUESTIONS):
+            order = (("bf16", qa), (f"int{bits}", qa_q))
+            rec_q = {}
+            for mode, service in order if i % 2 == 0 else order[::-1]:
+                rec_q[mode] = _counted_ask(counts, service, question, enc_layers,
+                                           k4=mode != "bf16")
+            got, ref = rec_q[f"int{bits}"], rec_q["bf16"]
+            per_q.append({**got, **{f"bf16_{k}": v for k, v in ref.items()}})
+            log(f"    int{bits} ask {i}: {got['latency_s']:.3f} s (bf16 "
+                f"{ref['latency_s']:.3f}), {got['forwards']} forwards (bf16 {ref['forwards']}), "
+                f"{got['verify_step_ms']:.2f} ms a verify step (bf16 "
+                f"{ref['verify_step_ms']:.2f}), decode {got['decode_tok_s']:.1f} tok/s (bf16 "
+                f"{ref['decode_tok_s']:.1f})")
+        launches[bits] = dict(counts)
+        rec["asks"] = per_q
+        summary[f"int{bits}"] = rec
+        if bits == 8:
+            engine8 = qgen
+        del qa_q, qgen
+    return summary, launches, engine8
+
+
+def run_quant_pool(counts, qa, gen8, bf16_a1):
+    """(c) round A1's shape (1 replica, 16 slots, 16 /ask, 64 new tokens)
+    through a pool over the int8 engine: p50, answer tok/s, verify steps
+    and device ms a verify step (the spine's ``serve_decode_chunk``), beside
+    phase 6's bf16 round; K4 launches (7 L + 1) x the forwards the batcher
+    dispatched (a tap on its prefill and decode forwards; warm-ups and
+    canaries included)."""
+    dev = gen8.device
+    layers = gen8.cfg.num_layers
+    encoder, store = qa.retriever.encoder, qa.retriever.store
+    res_cfg = ResilienceConfig()
+    calls = collections.Counter()
+    prefill_fn, decode_fn = serve_mod.ragged_prefill_forward, serve_mod.paged_decode_forward
+
+    def tap_prefill(*a, **kw):
+        calls["prefill"] += 1
+        return prefill_fn(*a, **kw)
+
+    def tap_decode(*a, **kw):
+        calls["decode"] += 1
+        return decode_fn(*a, **kw)
+
+    serve_mod.ragged_prefill_forward, serve_mod.paged_decode_forward = tap_prefill, tap_decode
+    pool = None
+    try:
+        counts.clear()
+        pool = EnginePool(gen8, cfg=PoolConfig(replicas=1, n_slots=16), qos=QoSConfig(),
+                          chunk=16, cache_len=1024, device=dev)
+        qa1 = QAService(encoder, store, gen8, k=3, device=dev, batcher=pool,
+                        breakers=BreakerBoard(res_cfg.breaker_failure_threshold,
+                                              res_cfg.breaker_reset_s),
+                        resilience=res_cfg)
+        spine = get_spine()
+        spine.reset_stats()
+        stats0 = pool.stats()
+        t0 = time.perf_counter()
+        res = _resolve_all(_submit_round(qa1, QUESTIONS * 4))
+        wall = time.perf_counter() - t0
+        if not pool.drain(0, timeout=120)["drained"]:
+            raise AssertionError("the int8 pool did not drain")
+        steps = pool.stats()
+        steps.subtract(stats0)
+        chunk = spine.stats()["stages"].get("serve_decode_chunk", {})
+        launches = dict(counts)
+        forwards = calls["prefill"] + calls["decode"]
+        all_steps = pool.stats()  # since the pool's construction, warm-ups included
+    finally:
+        serve_mod.ragged_prefill_forward, serve_mod.paged_decode_forward = prefill_fn, decode_fn
+        if pool is not None:
+            pool.stop()
+    if calls["decode"] != (all_steps["verify_steps"] + all_steps["decode_steps"]
+                           + all_steps["warmup_steps"]):
+        raise AssertionError(f"decode forwards {calls['decode']} against the pool's steps "
+                             f"{dict(all_steps)}")
+    want = _k4_identity("int8 pool", launches, layers, forwards)
+    rec = _round_record(res, wall)
+    if rec["degraded"]:
+        raise AssertionError(f"int8 pool round degraded: {rec['degraded']}")
+    rec.update(verify_steps=steps["verify_steps"],
+               device_ms_a_verify_step=chunk.get("device_s", 0.0) * 1e3 / max(
+                   steps["verify_steps"], 1),
+               forwards=forwards, prefill_forwards=calls["prefill"],
+               decode_forwards=calls["decode"], k4_launches=want,
+               bf16_A1={k: bf16_a1.get(k) for k in ("latency_p50_s", "tokens_per_s",
+                                                    "verify_steps")})
+    log(f"  int8 pool (1 replica x 16 slots): 16 /ask in {wall:.3f} s, p50 "
+        f"{rec['latency_p50_s']:.3f} s (phase 6's bf16 A1 {bf16_a1['latency_p50_s']:.3f}), "
+        f"{rec['tokens_per_s']:.1f} answer tok/s (bf16 {bf16_a1['tokens_per_s']:.1f}), "
+        f"{rec['verify_steps']} verify steps (bf16 {bf16_a1['verify_steps']}), "
+        f"{rec['device_ms_a_verify_step']:.2f} device ms a verify step; K4 launches "
+        f"{want} = ({QUANT_PROJECTIONS} x {layers} + 1) x {forwards} forwards "
+        f"({calls['prefill']} prefill, {calls['decode']} decode, warm-ups included)")
+    return rec, launches
+
+
+def run_quant_runtime(counts, mistral_dir, tagger):
+    """(d) ``DocQARuntime`` under the default config with phase 13's
+    two-layer Mistral directory as ``decoder.checkpoint_dir`` and
+    ``decoder.quantize_weights``, at ``quant_bits`` 8 then 4: the loaded tree
+    equal, bit for bit, to ``quantize_decoder_params`` of the directly
+    carried tree; the boot's peak memory above what was allocated; two
+    uploads, then one /ask over HTTP answered and not degraded."""
+    from docqa_tpu_torch.config import load_config
+    from docqa_tpu_torch.models.hf_checkpoint import load_checkpoint_dir
+    from docqa_tpu_torch.service.app import AppServer, DocQARuntime, make_app
+
+    dev = torch.device("cuda")
+    contract = load_contract()
+    summary, launches = {}, {}
+    for bits in (8, 4):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cfg = load_config(env={}, overrides={
+            "ner.params_path": tagger, "decoder.checkpoint_dir": mistral_dir,
+            "decoder.quantize_weights": True, "decoder.quant_bits": bits,
+            "resilience.request_deadline_s": APP_DEADLINE_S,
+            "pool.canary_interval_s": 3600.0,
+        })
+        counts.clear()
+        t0 = time.perf_counter()
+        rt = DocQARuntime(cfg, device=dev).start()
+        server = AppServer(make_app(rt)).start()
+        boot_s = time.perf_counter() - t0
+        try:
+            peak = torch.cuda.max_memory_allocated() - base
+            _c, carried, _t = load_checkpoint_dir(mistral_dir, expect=DecoderConfig)
+            want = quant.quantize_decoder_params(carried, bits, device=dev)
+            del carried
+            got = rt.generator.params
+            if set(got) != set(want) or not all(torch.equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"int{bits} runtime tree differs from "
+                                     "quantize_decoder_params of the carried tree")
+            del want
+            http = _Http(server.port, contract)
+            docs = app_notes(np.random.default_rng(41))[:2]
+            ids = []
+            for d in docs:
+                body, ctype = _multipart(d["filename"], d["data"], d["fields"])
+                ids.append(http.json("POST /ingest/", "/ingest/", body=body,
+                                     ctype=ctype)["doc_id"])
+            _wait_indexed(http, ids)
+            if rt._warmup_thread is not None:
+                rt._warmup_thread.join(timeout=300)
+            t0 = time.perf_counter()
+            out = http.json("POST /ask/", "/ask/", payload={"question": QUESTIONS[0]})
+            ask_s = time.perf_counter() - t0
+            if out.get("degraded") or not isinstance(out.get("answer"), str) or not out["sources"]:
+                raise AssertionError(f"int{bits} runtime /ask: {out}")
+            if not counts.get(f"qmatmul.int{bits}"):
+                raise AssertionError(f"int{bits} runtime: K4 not launched {dict(counts)}")
+        finally:
+            if not server.close(timeout=30):
+                raise AssertionError("the app server's threads did not end")
+            rt.stop()
+        launches[bits] = dict(counts)
+        summary[f"int{bits}"] = {"boot_s": boot_s, "boot_peak_gib": peak / 2**30,
+                                 "load_s": dict(rt.load_seconds), "ask_s": ask_s,
+                                 "tree_equal": True, "uploads": len(ids)}
+        log(f"  runtime, decoder.checkpoint_dir 2-layer Mistral, int{bits}: booted in "
+            f"{boot_s:.1f} s, peak +{peak / 2**30:.2f} GiB, tree bit-equal to "
+            f"quantize_decoder_params of the carried tree; /ask over HTTP {ask_s:.2f} s "
+            f"(not degraded); K4 launches {counts.get('qmatmul', 0)}")
+    return summary, launches
+
+
+def run_quant_path(counts, qa, params, bf16_a1):
+    """Phase 14 (a)-(c), while phase 3's weights are on the card; (d) runs
+    with phase 13's directory (``run_quant_runtime``)."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    cases = run_qmatmul_cases(flush)
+    del flush
+    host = host_us_a_call()
+    calibrated = check_reference_config(counts)
+    solo, solo_launches, gen8 = run_quant_solo(counts, qa, params)
+    pool, pool_launches = run_quant_pool(counts, qa, gen8, bf16_a1)
+    del gen8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cases": cases, "summary": {"solo": solo, "pool": pool, "host_us_a_call": host,
+                                        "reference_config": calibrated},
+            "launches": {"solo int8": solo_launches[8], "solo int4": solo_launches[4],
+                         "pool int8": pool_launches}}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -5343,7 +5936,7 @@ def main(argv=None) -> int:
     t_smoke = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/13] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[1/14] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     build_logs = _kernels.build()
     build_s = time.perf_counter() - t0
@@ -5352,25 +5945,25 @@ def main(argv=None) -> int:
         for kernel, regs, spills in ptxas_summary(text):
             log(f"    {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
 
-    log("[2/13] kernels against their plain versions (bf16 and float32)")
+    log("[2/14] kernels against their plain versions (bf16 and float32)")
     cases = run_kernel_cases()
     cases += run_paged_cases()
 
-    log("[3/13] main path: QAService.ask at full width")
+    log("[3/14] main path: QAService.ask at full width")
     t_main = time.perf_counter()
     qa, params, enc_launches = build_main_path(_kernels.LAUNCHES)
     per_q, launches = run_main_path(_kernels.LAUNCHES, qa, params, enc_launches)
     main_s = time.perf_counter() - t_main
 
-    log("[4/13] reference: tiny float32 /ask on the card against the CPU")
+    log("[4/14] reference: tiny float32 /ask on the card against the CPU")
     reference = run_reference_check()
 
-    log("[5/13] main path: QAService.ask through the continuous batcher at full width")
+    log("[5/14] main path: QAService.ask through the continuous batcher at full width")
     t_batch = time.perf_counter()
     batcher_path = run_batcher_path(_kernels.LAUNCHES, qa, per_q)
     batcher_s = time.perf_counter() - t_batch
 
-    log("[6/13] main path: QAService.ask through the replica pool at full width")
+    log("[6/14] main path: QAService.ask through the replica pool at full width")
     t_pool = time.perf_counter()
     get_spine().reset_stats()
     pool_path = run_pool_path(_kernels.LAUNCHES, qa)
@@ -5378,14 +5971,14 @@ def main(argv=None) -> int:
     pool_path["summary"]["spine"] = _spine_waits(get_spine().stats())
     _log_spine_waits("phase 6", pool_path["summary"]["spine"])
 
-    log("[11/13 (a)] training: the tagger at NERConfig() trained as the default config's "
+    log("[11/14 (a)] training: the tagger at NERConfig() trained as the default config's "
         "boot trains it, then held to the reference's quality floors")
     t_train = time.perf_counter()
     train_dir = tempfile.mkdtemp(prefix="docqa_phase11_")
     tagger, tagger_summary = run_training_tagger(_kernels.LAUNCHES, train_dir)
     train_s = time.perf_counter() - t_train
 
-    log("[7/13] ingest: DocumentPipeline at full width, then /ask over what it indexed")
+    log("[7/14] ingest: DocumentPipeline at full width, then /ask over what it indexed")
     t_ingest = time.perf_counter()
     get_spine().reset_stats()
     ingest_path = run_ingest_path(_kernels.LAUNCHES, qa, tagger)
@@ -5393,13 +5986,13 @@ def main(argv=None) -> int:
     ingest_path["summary"]["spine"] = _spine_waits(get_spine().stats())
     _log_spine_waits("phase 7", ingest_path["summary"]["spine"])
 
-    log("[8/13] obs: traces, stage device time, MFU and costs over the pool, "
+    log("[8/14] obs: traces, stage device time, MFU and costs over the pool, "
         "and an ingested document's timeline")
     t_obs = time.perf_counter()
     obs_path = run_obs_path(_kernels.LAUNCHES, qa, tagger)
     obs_s = time.perf_counter() - t_obs
 
-    log("[9/13] the app: DocQARuntime behind its stdlib HTTP front at full width, "
+    log("[9/14] the app: DocQARuntime behind its stdlib HTTP front at full width, "
         "driven over HTTP")
     t_app = time.perf_counter()
     get_spine().reset_stats()
@@ -5407,7 +6000,7 @@ def main(argv=None) -> int:
                             ingest_path["summary"]["docs_per_s"])
     app_s = time.perf_counter() - t_app
 
-    log("[10/13] the store's lifecycle and the single-sync /ask: fused against classic "
+    log("[10/14] the store's lifecycle and the single-sync /ask: fused against classic "
         "/ask over a 1M-row store with a token sidecar, its snapshot and restore, and a "
         "runtime killed and restarted through HTTP")
     t_life = time.perf_counter()
@@ -5416,7 +6009,7 @@ def main(argv=None) -> int:
     life_s = time.perf_counter() - t_life
     log(f"  phase 10 took {life_s:.1f} s")
 
-    log("[12/13] tiered retrieval: the int8 IVF tier over a 1M-row clustered store, its "
+    log("[12/14] tiered retrieval: the int8 IVF tier over a 1M-row clustered store, its "
         "recall and latency against exact, the tail and a background rebuild, a tiered "
         "/ask through the pool with the retrieval observatory, and the tiered app")
     t_tier = time.perf_counter()
@@ -5425,7 +6018,16 @@ def main(argv=None) -> int:
     tiered_s = time.perf_counter() - t_tier
     log(f"  phase 12 took {tiered_s:.1f} s")
 
-    log("[9/13, continued] the app module as a user starts it, and a tiny runtime on the "
+    log("[14/14 (a)-(c)] the quantised decoder: K4 against its plain version at the "
+        "Mistral-7B projections, phase 3's tree quantised int8 and int4 on the card and "
+        "served solo, and the int8 engine behind a 1-replica pool")
+    t_quant = time.perf_counter()
+    get_spine().reset_stats()
+    quant_path = run_quant_path(_kernels.LAUNCHES, qa, params,
+                                pool_path["summary"]["rounds"]["A1"])
+    quant_s = time.perf_counter() - t_quant
+
+    log("[9/14, continued] the app module as a user starts it, and a tiny runtime on the "
         "card against the CPU")
     t_app = time.perf_counter()
     del qa, params
@@ -5435,7 +6037,7 @@ def main(argv=None) -> int:
     app_path["summary"]["reference"] = run_app_reference_check()
     app_s += time.perf_counter() - t_app
 
-    log("[11/13 (b)-(d)] training: LM steps at Mistral-7B width with remat and a "
+    log("[11/14 (b)-(d)] training: LM steps at Mistral-7B width with remat and a "
         "checkpoint resumed, and the encoder at MiniLM width")
     t_train = time.perf_counter()
     training = {"tagger": tagger_summary,
@@ -5444,16 +6046,30 @@ def main(argv=None) -> int:
     train_s += time.perf_counter() - t_train
     log(f"  phase 11 took {train_s:.1f} s")
 
-    log("[13/13] checkpoints and the seq2seq summarizer: BART-large-cnn, MiniLM and a "
+    log("[13/14] checkpoints and the seq2seq summarizer: BART-large-cnn, MiniLM and a "
         "Mistral-layout decoder imported from HF directories, beam-search summaries on K1, "
         "and the runtime serving all three over HTTP")
     t_ckpt = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    ckpt_path = run_checkpoint_path(_kernels.LAUNCHES, tagger)
+    quant_rt = {}
+
+    def quant_runtime(dirs):
+        log("[14/14 (d)] the quantised decoder in the runtime: phase 13's Mistral directory "
+            "booted with decoder.quantize_weights at quant_bits 8 and 4, /ask over HTTP")
+        t0 = time.perf_counter()
+        quant_rt["summary"], quant_rt["launches"] = run_quant_runtime(
+            _kernels.LAUNCHES, dirs["decoder"], tagger)
+        quant_rt["s"] = time.perf_counter() - t0
+
+    ckpt_path = run_checkpoint_path(_kernels.LAUNCHES, tagger, then=quant_runtime)
     shutil.rmtree(train_dir)
-    ckpt_s = time.perf_counter() - t_ckpt
-    log(f"  phase 13 took {ckpt_s:.1f} s")
+    ckpt_s = time.perf_counter() - t_ckpt - quant_rt["s"]
+    quant_s += quant_rt["s"]
+    quant_path["summary"]["runtime"] = quant_rt["summary"]
+    quant_path["launches"].update({f"runtime int{b}": n
+                                   for b, n in quant_rt["launches"].items()})
+    log(f"  phase 13 took {ckpt_s:.1f} s; phase 14 {quant_s:.1f} s")
     # launches of the main-path runs (each counted from 0 around its run);
     # the wrapper counts every call under K1 and under its path, so each
     # run's K1 total must be the sum of its paths
@@ -5465,6 +6081,7 @@ def main(argv=None) -> int:
         "11 tagger eval": training["tagger"]["eval_launches"],
         "11 encoder": training["encoder"]["k1_launches"],
         "12": tiered_path["launches"], "13": ckpt_path["launches"],
+        **{f"14 {run}": n for run, n in quant_path["launches"].items()},
     }
     path_launches = collections.Counter()
     for phase, counted in phase_launches.items():
@@ -5507,6 +6124,25 @@ def main(argv=None) -> int:
         entry("flash_attention.decode_paged", "docqa_tpu_torch/csrc/flash_decode.cuh",
               "flash_attention.decode_paged", "mistral_paged_verify", "decode_paged"),
     ]
+
+    def k4_entry(name, mode):
+        own = [c for c in quant_path["cases"] if mode is None or c["mode"] == mode]
+        head = next(c for c in own if c["case"].startswith(QUANT_TIMED))
+        return {
+            "name": name, "route": "cuda", "source": "docqa_tpu_torch/csrc/qmatmul.cu",
+            # no Pallas kernel: the reference's dequantising product is XLA
+            "replaces": "docqa_tpu/models/decoder.py:132",
+            "launches": path_launches.get(name, 0),
+            "max_abs_err": max(c["max_abs_err"] for c in own),
+            "tolerance": "bf16 |err| <= 1e-2 + 1e-2*|plain|; one-hot rows bit-equal",
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library": "torch.matmul on the unquantised bf16 weight",
+            "timed_case": head["case"], "cases": [c["case"] for c in own],
+        }
+
+    kernels += [k4_entry("qmatmul", None), k4_entry("qmatmul.int8", "int8"),
+                k4_entry("qmatmul.int4", "int4")]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -5525,6 +6161,7 @@ def main(argv=None) -> int:
                 "tiered_path": tiered_path, "tiered_path_s": tiered_s,
                 "training": training, "training_s": train_s,
                 "checkpoint_path": ckpt_path, "checkpoint_path_s": ckpt_s,
+                "quant_path": quant_path, "quant_path_s": quant_s,
                 "launches_by_phase": phase_launches,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
@@ -5570,6 +6207,20 @@ def main(argv=None) -> int:
         **{c["case"]: {key: c[key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err_bf16")}
            for c in cases if c["case"].startswith("bart_")},
+    }}))
+    qs = quant_path["summary"]
+    print(json.dumps({"quant": {
+        "solo": {mode: {k: v for k, v in r.items() if k != "asks"} | {
+            "verify_step_ms": [a["verify_step_ms"] for a in r["asks"]],
+            "bf16_verify_step_ms": [a["bf16_verify_step_ms"] for a in r["asks"]],
+            "decode_tok_s": [a["decode_tok_s"] for a in r["asks"]]}
+            for mode, r in qs["solo"].items() if mode != "bf16_vs_f32"},
+        "bf16_vs_f32": qs["solo"]["bf16_vs_f32"], "reference_config": qs["reference_config"],
+        "pool": qs["pool"], "runtime": qs["runtime"], "host_us_a_call": qs["host_us_a_call"],
+        "phase_s": quant_s,
+        **{c["case"]: {key: c[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+           for c in quant_path["cases"] if c["m"] != 2048 or c["weight"] == "w_gate"},
     }}))
     print(json.dumps({"launches_by_phase": {
         phase: {key: n for key, n in counted.items() if n}

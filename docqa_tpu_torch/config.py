@@ -104,9 +104,9 @@ class DecoderConfig:
     # architecture, weights and vocabulary from it, with max_seq_len capped
     # at this config's
     checkpoint_dir: Optional[str] = None
-    # the reference's weight-only quantisation (ROADMAP queue 1, item 8):
-    # not in this port, so a GenerateEngine with quantize_weights set
-    # raises NotImplementedError instead of serving unquantised weights
+    # weight-only quantisation, as the reference's (models/quant.py):
+    # int8 per column (quant_bits=8) or int4 in groups of 128 along the
+    # input axis (4); the projections then run on K4 (ops/qmatmul.py)
     quantize_weights: bool = False
     quant_bits: int = 8
 
@@ -339,12 +339,14 @@ class BrokerConfig:
     """The ingest pipeline's message bus (two queues, batched consumers,
     redelivery with backoff, then a dead-letter queue)."""
 
-    backend: str = "memory"  # "memory"; "amqp" is the next slice of the port
+    backend: str = "memory"  # "memory" | "amqp" (RabbitMQ through pika)
     raw_queue: str = "raw_documents_queue"
     clean_queue: str = "clean_documents_queue"
     prefetch: int = 8  # messages a consumer pulls per batch
     max_redelivery: int = 3
     retry_backoff_s: float = 0.5  # base redelivery delay (doubles per attempt)
+    amqp_host: str = "localhost"
+    amqp_port: int = 5672
 
 
 @dataclass(frozen=True)

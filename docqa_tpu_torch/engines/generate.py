@@ -30,6 +30,7 @@ import torch
 from docqa_tpu_torch import weights
 from docqa_tpu_torch.config import DecoderConfig, GenerateConfig
 from docqa_tpu_torch.engines.spine import spine_run, to_host
+from docqa_tpu_torch.models import quant
 from docqa_tpu_torch.models.decoder import (
     KVCache,
     Params,
@@ -90,12 +91,16 @@ class GenerateEngine:
         """``params``: a tree of numpy arrays or tensors with the
         reference's names; None draws the reference's seeded numpy host
         init (bit-equal to ``docqa_tpu``'s engine with the same seed).
-        Weights are stored in ``cfg.dtype``."""
-        if cfg.quantize_weights:
-            raise NotImplementedError(
-                "decoder.quantize_weights: weight-only quantisation is not in "
-                "the PyTorch port yet (ROADMAP queue 1, item 8)"
-            )
+        Floating weights are stored in ``cfg.dtype``.
+
+        ``cfg.quantize_weights`` serves a weight-only quantised decoder
+        (``cfg.quant_bits`` 8 or 4, ``models/quant.py``), as the
+        reference's engine does: no ``params`` draws the reference's
+        quantised host init; a float tree is quantised tensor by tensor as
+        it is uploaded, from its values as given and in their own dtype,
+        before the remaining float leaves take ``cfg.dtype``; a tree
+        already quantised passes through.  Quantised weights and their
+        scales are never cast."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.gen = gen or GenerateConfig()
@@ -130,7 +135,17 @@ class GenerateEngine:
         else:
             self._chat_template = None
         if params is None:
-            params = weights.host_init_decoder_params(cfg, seed)
+            params = (
+                weights.host_init_quantized_decoder_params(cfg, seed, cfg.quant_bits)
+                if cfg.quantize_weights
+                else weights.host_init_decoder_params(cfg, seed)
+            )
+        elif cfg.quantize_weights and not quant.is_quantized(params):
+            # one float tensor on the device at a time: the quantised tree
+            # plus one float tensor at the peak
+            params = quant.quantize_decoder_params(
+                params, cfg.quant_bits, device=self.device
+            )
         self.params = weights.to_torch(params, self.device, torch_dtype(cfg.dtype))
         # timings and counts of the last generation
         self.last_stats: Dict[str, float] = {}

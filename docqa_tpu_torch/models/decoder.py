@@ -2,8 +2,11 @@
 ``docqa_tpu/models/decoder.py``.
 
 Parameters are a flat dict of tensors with the reference's names and
-layouts (weights stored [in, out]).  Architecture: RMSNorm pre-norm, GQA
-attention with split-halves RoPE, SwiGLU MLP, optional sliding window.
+layouts (weights stored [in, out]); a weight-only quantised tree
+(``models/quant.py``) carries int8 or packed int4 projections with their
+``__scale`` leaves, and every projection goes through :func:`_qmatmul`.
+Architecture: RMSNorm pre-norm, GQA attention with split-halves RoPE,
+SwiGLU MLP, optional sliding window.
 
 KV cache: preallocated [b, max_len, kv_heads, head_dim] per layer, written
 IN PLACE at a per-lane row offset (the reference returns an updated copy
@@ -23,6 +26,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from docqa_tpu_torch.config import DecoderConfig
+from docqa_tpu_torch.models.quant import SCALE_SUFFIX
+from docqa_tpu_torch.ops import qmatmul as _qm
 from docqa_tpu_torch.ops.attention import attention, attention_reference
 from docqa_tpu_torch.ops.norms import rms_norm
 from docqa_tpu_torch.ops.rope import apply_rope, rope_angles
@@ -103,10 +108,18 @@ def write_cache(cache_layer: torch.Tensor, new: torch.Tensor,
     cache_layer[lanes, rows] = new.to(cache_layer.dtype)
 
 
-def _matmul(x: torch.Tensor, params: Params, name: str, dtype) -> torch.Tensor:
-    """``x [..., in] @ W`` — the unquantised branch of the reference's
-    ``_qmatmul`` (weight-only int8/int4 is a later slice)."""
-    return x @ params[name].to(dtype)
+def _qmatmul(x: torch.Tensor, params: Params, name: str, dtype) -> torch.Tensor:
+    """``x [..., in] @ W``, the reference's ``_qmatmul``: a float weight is
+    cast to ``dtype``; a quantised one (``<name>__scale`` beside it: int8
+    ``[in, out]`` or packed int4 ``[groups, g/2, out]``) goes through
+    :func:`~docqa_tpu_torch.ops.qmatmul.qmatmul`, which dequantises inside
+    K4 on a card (``dtype(q) * dtype(scale)``, never materialised) and
+    through the plain version on the CPU."""
+    w = params[name]
+    scale = params.get(name + SCALE_SUFFIX)
+    if scale is None:
+        return x @ w.to(dtype)
+    return _qm.qmatmul(x.to(dtype), w, scale)
 
 
 def decoder_layer_stack(
@@ -134,13 +147,13 @@ def decoder_layer_stack(
 
     def layer(i: int, x: torch.Tensor) -> torch.Tensor:
         y = rms_norm(x, params[f"l{i}_attn_norm_g"], cfg.norm_eps)
-        q = _matmul(y, params, f"l{i}_wq", dtype).reshape(
+        q = _qmatmul(y, params, f"l{i}_wq", dtype).reshape(
             b, s, cfg.num_heads, cfg.head_dim
         )
-        k = _matmul(y, params, f"l{i}_wk", dtype).reshape(
+        k = _qmatmul(y, params, f"l{i}_wk", dtype).reshape(
             b, s, cfg.num_kv_heads, cfg.head_dim
         )
-        v = _matmul(y, params, f"l{i}_wv", dtype).reshape(
+        v = _qmatmul(y, params, f"l{i}_wv", dtype).reshape(
             b, s, cfg.num_kv_heads, cfg.head_dim
         )
         q = apply_rope(q, cos, sin, positions)
@@ -148,13 +161,13 @@ def decoder_layer_stack(
 
         attn = attend(i, q, k, v)
         attn = attn.reshape(b, s, cfg.num_heads * cfg.head_dim)
-        x = x + _matmul(attn, params, f"l{i}_wo", dtype)
+        x = x + _qmatmul(attn, params, f"l{i}_wo", dtype)
 
         y = rms_norm(x, params[f"l{i}_mlp_norm_g"], cfg.norm_eps)
-        gate = _matmul(y, params, f"l{i}_w_gate", dtype)
-        up = _matmul(y, params, f"l{i}_w_up", dtype)
+        gate = _qmatmul(y, params, f"l{i}_w_gate", dtype)
+        up = _qmatmul(y, params, f"l{i}_w_up", dtype)
         act = F.silu(gate.float()).to(dtype) * up
-        return x + _matmul(act, params, f"l{i}_w_down", dtype)
+        return x + _qmatmul(act, params, f"l{i}_w_down", dtype)
 
     x = params["tok_emb"][ids].to(dtype)
     for i in range(cfg.num_layers):
@@ -179,7 +192,7 @@ def decoder_head(
         idx = (new_lengths.long() - 1)[:, None, None].expand(-1, 1, x.shape[2])
         x = torch.gather(x, 1, idx)
     x = rms_norm(x, params["final_norm_g"], cfg.norm_eps)
-    return _matmul(x, params, "lm_head", dtype).float()
+    return _qmatmul(x, params, "lm_head", dtype).float()
 
 
 def decoder_forward(

@@ -47,14 +47,6 @@ _LOAD_BREAKER = CircuitBreaker(
     "checkpoint", failure_threshold=6, reset_timeout_s=60.0
 )
 
-# the weight-only quantisation of the reference (quantize on load) is
-# ROADMAP queue 1, item 8
-QUANT_NOT_PORTED = (
-    "weight-only quantisation (quant_bits / quantize_weights) is not in the "
-    "PyTorch port yet (ROADMAP queue 1, item 8)"
-)
-
-
 def _load_weights(loader, *args):
     """One retried, breaker-guarded weight read (fault site
     ``checkpoint.load``)."""
@@ -245,15 +237,19 @@ def generate_engine_from_dir(
 ):
     """A ready :class:`~docqa_tpu_torch.engines.generate.GenerateEngine`
     from an HF Llama/Mistral checkpoint directory, on ``device``.
+    ``quant_bits`` 8 / 4 quantises the float tree on load, tensor by tensor
+    as each is uploaded (the engine's ``quantize_weights`` path: the
+    quantised tree plus one float tensor on the device at the peak).
     ``tokenizer_path`` supplies the vocabulary of a weights-only
-    directory.  ``quant_bits`` raises: quantisation is not ported."""
+    directory."""
     from docqa_tpu_torch.engines.generate import GenerateEngine
     from docqa_tpu_torch.utils import resolve_device
 
-    if quant_bits:
-        raise NotImplementedError(QUANT_NOT_PORTED)
     device = resolve_device(device)
+    keep = (
+        {"quantize_weights": True, "quant_bits": quant_bits} if quant_bits else None
+    )
     cfg, params, _tok = load_checkpoint_dir(
-        path, expect=DecoderConfig, tokenizer_fallback=tokenizer_path
+        path, expect=DecoderConfig, keep=keep, tokenizer_fallback=tokenizer_path
     )
     return GenerateEngine(cfg, gen=gen, params=params, device=device)

@@ -135,13 +135,32 @@ def decoder_linear_flops(cfg, rows: int, logit_rows: int) -> float:
     )
 
 
+def _projection_bytes(cfg, in_dim: int, out_dim: int, name: str) -> int:
+    """Bytes of one ``[in, out]`` projection as the engine stores it: the
+    compute dtype, or quantised as ``models/quant.py`` stores it."""
+    if not cfg.quantize_weights:
+        return in_dim * out_dim * _dtype_bytes(cfg.dtype)
+    from docqa_tpu_torch.models.quant import quantized_bytes
+
+    return quantized_bytes(name, in_dim, out_dim, cfg.quant_bits)
+
+
 def decoder_weight_bytes(cfg) -> float:
+    """Bytes a decoder forward reads in weights: every layer's projections
+    and norm gains, the final norm and ``lm_head`` (the embedding is
+    gathered, a few rows a step, and not counted), at the precision the
+    engine stores them, quantised or not."""
     h = cfg.hidden_dim
     qd = cfg.num_heads * cfg.head_dim
     kvd = cfg.num_kv_heads * cfg.head_dim
-    per_layer = h * (qd + 2 * kvd) + qd * h + 3 * h * cfg.mlp_dim + 2 * h
-    n = cfg.num_layers * per_layer + h * cfg.vocab_size + h
-    return float(n * _dtype_bytes(cfg.dtype))
+    shapes = (("wq", h, qd), ("wk", h, kvd), ("wv", h, kvd), ("wo", qd, h),
+              ("w_gate", h, cfg.mlp_dim), ("w_up", h, cfg.mlp_dim),
+              ("w_down", cfg.mlp_dim, h))
+    per_layer = sum(_projection_bytes(cfg, i, o, n) for n, i, o in shapes)
+    per_layer += 2 * h * _dtype_bytes(cfg.dtype)
+    n = (cfg.num_layers * per_layer + _projection_bytes(cfg, h, cfg.vocab_size, "lm_head")
+         + h * _dtype_bytes(cfg.dtype))
+    return float(n)
 
 
 def decoder_cost(

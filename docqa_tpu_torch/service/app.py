@@ -61,7 +61,8 @@ loader's ``checkpoint`` breaker is on the runtime's board, so
 (no instruction template) within ``min(max_input_tokens, max_src_len)``.
 
 Configuration that needs a part of the reference this port does not have
-yet raises at boot and names its ROADMAP item (:func:`refuse_unported`).
+yet raises at boot and names its ROADMAP item (:func:`refuse_unported`);
+since the AMQP broker and weight-only quantisation were ported, none does.
 Routes whose subsystem is not ported answer as the reference does when
 that subsystem is idle or absent: ``/api/witness`` and ``/api/ledger`` with
 404.
@@ -117,12 +118,9 @@ UI_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ui.html")
 def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a configuration that needs a part
     of the reference this port does not have yet, naming the ROADMAP item
-    (queue 1) that brings it."""
-    refusals = [
-        (cfg.broker.backend == "amqp",
-         "broker.backend='amqp' needs the AMQP broker (ROADMAP queue 1, "
-         "the next item)"),
-    ]
+    (queue 1) that brings it.  Every configuration the default config can
+    name is ported: the list is empty."""
+    refusals: List[Tuple[bool, str]] = []
     for refused, why in refusals:
         if refused:
             raise NotImplementedError(f"not in the PyTorch port yet: {why}")
@@ -301,12 +299,14 @@ class DocQARuntime:
 
             from docqa_tpu_torch.config import DecoderConfig
 
-            if dec_cfg.quantize_weights:
-                # refused before a shard is read, not after a 14.5 GB load
-                raise NotImplementedError(hf_checkpoint.QUANT_NOT_PORTED)
+            # the configured quantize_weights / quant_bits still govern the
+            # serving precision: the engine quantises on load, tensor by
+            # tensor as it uploads
             t0 = time.perf_counter()
             loaded_cfg, decoder_params, _ = hf_checkpoint.load_checkpoint_dir(
                 dec_cfg.checkpoint_dir, expect=DecoderConfig,
+                keep={"quantize_weights": dec_cfg.quantize_weights,
+                      "quant_bits": dec_cfg.quant_bits},
                 tokenizer_fallback=dec_cfg.tokenizer_path,
             )
             # the batcher sizes its KV pool from max_seq_len: a checkpoint's
@@ -1648,13 +1648,19 @@ def main(argv=None) -> None:
     args = _parse_args(argv)
     cfg = config_from_args(args)
     # random decoder weights drawn on the device from a seed: the
-    # reference's host init takes minutes at full width
+    # reference's host init takes minutes at full width; a quantised
+    # decoder is quantised tensor by tensor as it is drawn
     from docqa_tpu_torch.models.decoder import init_decoder_params
+    from docqa_tpu_torch.models.quant import init_quantized_decoder_params
 
     params = None
     if not cfg.decoder.checkpoint_dir:
-        params = init_decoder_params(cfg.decoder, seed=0,
-                                     device=resolve_device(args.device))
+        dev = resolve_device(args.device)
+        params = (
+            init_quantized_decoder_params(cfg.decoder, 0, dev, bits=cfg.decoder.quant_bits)
+            if cfg.decoder.quantize_weights
+            else init_decoder_params(cfg.decoder, seed=0, device=dev)
+        )
     # SIGTERM stops the server like Ctrl-C, so the runtime joins its workers
     signal.signal(signal.SIGTERM, signal.default_int_handler)
     serve(cfg, port=args.port, host=args.host, device=args.device, decoder_params=params)

@@ -13,9 +13,13 @@ Two routes, both numpy-only on the way in:
   summarizer: ``standard_normal(shape, float32) * 0.02`` for each "normal"
   leaf of ``seq2seq_param_schema`` in its order, ones and zeros drawing
   nothing (``docqa_tpu/models/seq2seq.py`` init_seq2seq_params).
+* :func:`host_init_quantized_decoder_params` is the reference's quantised
+  host init (``docqa_tpu/models/quant.py`` init_quantized_decoder_params
+  with ``host_init=True``): the same draws, quantised on the host.
 * :func:`to_torch` turns any such tree of numpy arrays — including one
   exported from ``docqa_tpu`` with ``np.asarray`` on each leaf, bfloat16
-  leaves too — into tensors on a device; :func:`ner_params_to_torch` does
+  and int4 leaves too — into tensors on a device, never casting a
+  quantised weight or its scale; :func:`ner_params_to_torch` does
   so for a NER tagger tree after checking its names and shapes (the
   reference draws its tagger with ``jax.random``, so a tagger reaches the
   port only this way or through ``training/ner.py``'s npz).
@@ -35,7 +39,9 @@ from docqa_tpu_torch.config import (
     DecoderConfig, EncoderConfig, NERConfig, Seq2SeqConfig,
 )
 from docqa_tpu_torch.models.decoder import decoder_param_schema
+from docqa_tpu_torch.models.quant import SCALE_SUFFIX, _quantize_leaf, should_quantize
 from docqa_tpu_torch.models.seq2seq import seq2seq_param_schema
+from docqa_tpu_torch.ops.qmatmul import pack_int4
 
 HostTree = Dict[str, np.ndarray]
 
@@ -129,7 +135,12 @@ def seq2seq_params_to_torch(
     return to_torch(tree, device)
 
 
-def _leaf_to_tensor(arr) -> torch.Tensor:
+def leaf_to_tensor(arr) -> torch.Tensor:
+    """One leaf as a tensor on the host (a tensor passes as it is).  numpy
+    bfloat16 is reinterpreted from its 16-bit payload; an exported int4
+    array (``ml_dtypes.int4``, recognised by its dtype's name, stored
+    ``[groups, g, out]`` by the reference) becomes the port's packed uint8
+    store (``ops/qmatmul.py``)."""
     if isinstance(arr, torch.Tensor):
         return arr
     arr = np.asarray(arr)
@@ -141,19 +152,63 @@ def _leaf_to_tensor(arr) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)).view(
             torch.bfloat16
         )
+    if arr.dtype.name == "int4":
+        return pack_int4(torch.from_numpy(np.ascontiguousarray(arr.astype(np.int8))))
     return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def _keeps_dtype(name: str, t: torch.Tensor) -> bool:
+    """A quantised weight or its scale: never cast to the compute dtype."""
+    return t.dtype in (torch.int8, torch.uint8) or name.endswith(SCALE_SUFFIX)
 
 
 def to_torch(
     tree: Mapping[str, object], device, dtype: Optional[torch.dtype] = None
 ) -> Dict[str, torch.Tensor]:
-    """numpy (or tensor) tree -> tensors on ``device``, each cast to
-    ``dtype`` when given (one tensor at a time: a full-width float32 tree
-    never sits on the device)."""
+    """numpy (or tensor) tree -> tensors on ``device``, each floating leaf
+    cast to ``dtype`` when given (one tensor at a time: a full-width float32
+    tree never sits on the device).  Quantised weights (int8, packed int4)
+    and their ``__scale`` leaves keep their dtypes, as the reference's
+    engine never casts them."""
     out = {}
     for name, arr in tree.items():
-        t = _leaf_to_tensor(arr)
-        out[name] = t.to(device=device, dtype=dtype or t.dtype)
+        t = leaf_to_tensor(arr)
+        keep = dtype is None or _keeps_dtype(name, t)
+        out[name] = t.to(device=device, dtype=t.dtype if keep else dtype)
+    return out
+
+
+def _bf16_values(w: np.ndarray) -> np.ndarray:
+    """float32 array rounded to bfloat16's values (round to nearest even),
+    kept as float32."""
+    return torch.from_numpy(w).to(torch.bfloat16).float().numpy()
+
+
+def host_init_quantized_decoder_params(
+    cfg: DecoderConfig, seed: int, bits: int = 8
+) -> Dict[str, object]:
+    """The reference's ``init_quantized_decoder_params(PRNGKey(seed), cfg,
+    host_init=True, bits=bits, host_seed=seed)``, integer for integer and
+    scale for scale: the float32 draws of :func:`host_init_decoder_params`
+    quantised on the host by ``models/quant.py`` dividing the absmax as
+    numpy does, int8 per column or int4 in groups (``lm_head`` int8 in both
+    modes), as CPU tensors; int4 leaves come packed (``ops/qmatmul.py``).
+    The other leaves hold bfloat16 values (as float32 arrays), as the
+    reference stores them in bfloat16."""
+    if bits not in (4, 8):
+        raise ValueError(f"quantization bits must be 4 or 8, got {bits}")
+    rng = _host_rng(seed)
+    out: Dict[str, object] = {}
+    for name, kind, shape, fan_in in decoder_param_schema(cfg):
+        if kind == "ones":
+            out[name] = np.ones(shape, np.float32)
+            continue
+        w = rng.standard_normal(shape, np.float32) * (fan_in ** -0.5)
+        if should_quantize(name):
+            _quantize_leaf(name, torch.from_numpy(w), bits, out, divide=True)
+        else:
+            out[name] = _bf16_values(w)
+        del w
     return out
 
 

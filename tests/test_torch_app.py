@@ -670,15 +670,17 @@ def test_oversized_body_is_refused(apps):
 @pytest.mark.parametrize("cfg, item", [
     # store.serving_index="tiered" (item 5's tiered retrieval), data.work_dir
     # (item 5's store lifecycle), store.token_width (item 4's fused RAG),
-    # the seq2seq summarizer and the checkpoint import (item 7) are ported:
-    # all five now boot past the refusals.  The cases keep the ids they had
-    # while refused.
+    # the seq2seq summarizer, the checkpoint import (item 7) and the AMQP
+    # broker (item 1) are ported: all six now boot past the refusals.  The
+    # cases keep the ids they had while refused.
     pytest.param({"store.serving_index": "tiered"}, None, id="cfg0-item 5"),
     pytest.param({"data.work_dir": "/nonexistent"}, None, id="cfg1-item 5"),
     pytest.param({"store.token_width": 8}, None, id="cfg2-item 4"),
     pytest.param({"summarizer.backend": "seq2seq"}, None, id="cfg3-item 7"),
     pytest.param({"encoder.checkpoint_dir": "/nonexistent"}, None, id="cfg4-item 7"),
-    ({"broker.backend": "amqp"}, "AMQP"),
+    # the AMQP broker (item 1) is ported too (tests/test_torch_amqp.py boots
+    # a runtime on it)
+    pytest.param({"broker.backend": "amqp"}, None, id="cfg5-AMQP"),
 ])
 def test_unported_config_raises_at_boot(cfg, item):
     if item is None:

@@ -232,15 +232,58 @@ def test_engine_from_dir_serves_real_text(llama_dir):
         hf.generate_engine_from_dir(llama_dir)  # the card unless the CPU is asked for
 
 
+def _quantised_leaves_equal(tree, jtree):
+    """Every quantised weight and scale of the port's tree equal to the
+    reference's (int4 compared after unpacking the port's store)."""
+    from docqa_tpu_torch.models.quant import SCALE_SUFFIX
+    from docqa_tpu_torch.ops.qmatmul import unpack_int4
+
+    assert set(tree) == set(jtree)
+    for name, jw in jtree.items():
+        jw = np.asarray(jw)
+        w = tree[name]
+        if name.endswith(SCALE_SUFFIX):
+            np.testing.assert_array_equal(w.numpy(), jw, err_msg=name)
+        elif str(jw.dtype) == "int4":
+            np.testing.assert_array_equal(
+                unpack_int4(w, jw.shape[1]).numpy(), jw.astype(np.int8), err_msg=name)
+        elif str(jw.dtype) == "int8":
+            np.testing.assert_array_equal(w.numpy(), jw, err_msg=name)
+
+
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quantisation_is_refused_naming_item_8(llama_dir, bits):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        hf.generate_engine_from_dir(llama_dir, quant_bits=bits, device="cpu")
-    cfg = DecoderConfig(quantize_weights=True, quant_bits=bits)
+    """Weight-only quantisation is served now (the case keeps the id it had
+    while refused): ``generate_engine_from_dir(quant_bits=)`` quantises the
+    checkpoint on load as the reference's does, integer for integer and
+    scale for scale, and in float32 the two engines' greedy tokens are
+    identical; an engine with ``quantize_weights`` and no tree draws the
+    quantised host init."""
+    eng = hf.generate_engine_from_dir(llama_dir, quant_bits=bits,
+                                      gen=GenerateConfig(max_new_tokens=8), device="cpu")
+    jeng = jhf.generate_engine_from_dir(llama_dir, quant_bits=bits)
+    assert (eng.cfg.quantize_weights, eng.cfg.quant_bits) == (True, bits)
+    _quantised_leaves_equal(eng.params, jeng.params)
+    assert eng.params["lm_head"].dtype == torch.int8
+    assert isinstance(eng.generate_texts(["the patient was admitted"])[0], str)
+
+    keep = {"quantize_weights": True, "quant_bits": bits, "dtype": "float32"}
+    cfg, tree, _ = hf.load_checkpoint_dir(llama_dir, expect=DecoderConfig, keep=keep)
+    jcfg, jtree, _ = jhf.load_checkpoint_dir(llama_dir, expect=JDecoderConfig, keep=keep)
+    from docqa_tpu.config import GenerateConfig as JGenerateConfig
+    from docqa_tpu.engines.generate import GenerateEngine as JGenerateEngine
     from docqa_tpu_torch.engines.generate import GenerateEngine
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        GenerateEngine(cfg, device="cpu")
+    prompts = [[5, 9, 11, 40], [7, 7, 7]]
+    mine = GenerateEngine(cfg, GenerateConfig(max_new_tokens=12), params=tree, device="cpu")
+    ref = JGenerateEngine(jcfg, JGenerateConfig(max_new_tokens=12), params=jtree)
+    assert mine.generate_ids(prompts) == ref.generate_ids(prompts)
+
+    small = DecoderConfig(vocab_size=512, hidden_dim=64, num_layers=1, num_heads=4,
+                          num_kv_heads=2, head_dim=16, mlp_dim=128,
+                          quantize_weights=True, quant_bits=bits)
+    drawn = GenerateEngine(small, device="cpu")
+    assert drawn.params["l0_wq"].dtype == (torch.int8 if bits == 8 else torch.uint8)
 
 
 def test_a_device_fault_passes_the_load_unretried(llama_dir, monkeypatch):
@@ -370,8 +413,9 @@ def test_runtime_serves_all_three_checkpoints(llama_dir, bart_dir, bert_dir):
     ({"encoder.checkpoint_dir": "BERT"}, ValueError, "store.dim is 64"),
     ({"seq2seq.checkpoint_dir": "LLAMA", "summarizer.backend": "seq2seq"}, ValueError,
      "not a BART-family"),
-    ({"decoder.checkpoint_dir": "LLAMA", "decoder.quantize_weights": True},
-     NotImplementedError, "item 8"),
+    # served since quantisation is ported; the case keeps its id
+    pytest.param({"decoder.checkpoint_dir": "LLAMA", "decoder.quantize_weights": True},
+                 None, None, id="quantised-decoder"),
 ], ids=["encoder-wrong-family", "store-dim", "seq2seq-wrong-family", "quantised-decoder"])
 def test_runtime_rejects(llama_dir, bert_dir, overrides, exc, match):
     from docqa_tpu_torch.config import load_config
@@ -379,25 +423,48 @@ def test_runtime_rejects(llama_dir, bert_dir, overrides, exc, match):
 
     dirs = {"LLAMA": llama_dir, "BERT": bert_dir}
     o = {k: dirs.get(v, v) if isinstance(v, str) else v for k, v in overrides.items()}
+    cfg = load_config(env={}, overrides=_overrides(**o))
+    if exc is None:
+        rt = DocQARuntime(cfg, device="cpu")
+        try:
+            assert rt.generator.cfg.quantize_weights
+            assert rt.generator.params["l0_wq"].dtype == torch.int8
+        finally:
+            rt.stop()
+        return
     with pytest.raises(exc, match=match):
-        DocQARuntime(load_config(env={}, overrides=_overrides(**o)), device="cpu")
+        DocQARuntime(cfg, device="cpu")
 
 
-def test_quantised_decoder_refused_before_any_shard_is_read(llama_dir, monkeypatch):
-    """``decoder.quantize_weights`` fails the boot before the checkpoint
-    directory is opened: no config, shard or vocabulary is read."""
+def test_quantised_decoder_refused_before_any_shard_is_read(llama_dir):
+    """``decoder.quantize_weights`` with a checkpoint is served now (the
+    case keeps its id): the runtime reads the directory once, quantises on
+    load at the configured ``quant_bits`` (4 here; ``test_runtime_rejects
+    [quantised-decoder]`` boots the default 8), equal to the reference's
+    quantise-on-load (its runtime would shard this 2-kv-head checkpoint over
+    the tests' 8 virtual devices, which it cannot, so its engine from the
+    directory stands in), and answers an /ask over an ingested note."""
     from docqa_tpu_torch.config import load_config
-    from docqa_tpu_torch.models import safetensors_io
     from docqa_tpu_torch.service.app import DocQARuntime
 
-    reads = []
-    monkeypatch.setattr(safetensors_io, "load_file", lambda *a, **k: reads.append(a))
-    monkeypatch.setattr(hf, "load_checkpoint_dir", lambda *a, **k: reads.append(a))
-    cfg = load_config(env={}, overrides=_overrides(**{
-        "decoder.checkpoint_dir": llama_dir, "decoder.quantize_weights": True}))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        DocQARuntime(cfg, device="cpu")
-    assert reads == []
+    bits = 4
+    o = _overrides(**{"decoder.checkpoint_dir": llama_dir,
+                      "decoder.quantize_weights": True, "decoder.quant_bits": bits})
+    rt = DocQARuntime(load_config(env={}, overrides=o), device="cpu").start()
+    try:
+        assert set(rt.load_seconds) == {"decoder"}
+        assert (rt.generator.cfg.quantize_weights, rt.generator.cfg.quant_bits) == (True, bits)
+        _quantised_leaves_equal(rt.generator.params,
+                                jhf.generate_engine_from_dir(llama_dir, quant_bits=bits).params)
+        rec = rt.pipeline.ingest_document(
+            "note.txt", b"the patient was admitted with chest pain", patient_id="p1")
+        assert rt.pipeline.wait_indexed(rec.doc_id, timeout=60)
+        res = rt.qa.ask("what happened to the patient?")
+        assert isinstance(res["answer"], str) and res["sources"]
+        assert not res.get("degraded")
+    finally:
+        rt._warmup_thread.join(60)
+        rt.stop()
 
 
 def test_checkpoint_dirs_from_the_environment(bert_dir):

@@ -733,3 +733,149 @@ def test_seq2seq_loop_makes_no_host_sync_between_checks(dev, monkeypatch):
         torch.cuda.set_sync_debug_mode(0)
     assert windows == list(range(1, 36))
     assert n.tolist() == [36, 36] and out.shape == (2, 36)
+
+
+# ---- K4: the weight-only quantised matmul ------------------------------------
+
+# (m, in, out, bits, group): the solo verify and a batcher verify at
+# Mistral-7B widths, a prefill past 64 rows, and ragged shapes (rows and
+# columns off the 16-byte vectors, an odd int4 group padded by the wrapper,
+# a degraded group of 2)
+QCASES = [
+    (4, 4096, 1024, 8, None), (4, 4096, 1024, 4, None), (64, 4096, 4096, 4, None),
+    (300, 1024, 512, 8, None), (300, 1024, 512, 4, None),
+    (5, 64, 40, 8, None), (37, 100, 130, 8, None), (3, 45, 24, 4, None),
+    (70, 96, 200, 4, 48), (17, 298, 20, 4, None),
+]
+
+
+def _qinputs(dev, m, k, n, bits, group):
+    from docqa_tpu_torch.models import quant
+
+    gen = torch.Generator(device=dev).manual_seed(m * 7919 + k + n + bits)
+    w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+    q, s = quant.quantize_array(w) if bits == 8 else quant.quantize_array_int4(w, group)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    return x, q, s
+
+
+@pytest.mark.parametrize("case", QCASES)
+def test_qmatmul_kernel_matches_plain(dev, case):
+    """K4 against its plain version at K1's bf16 tolerance (both sum in
+    float32 and round once to bf16), one launch counted a call."""
+    from docqa_tpu_torch.ops import qmatmul as qm
+
+    x, q, s = _qinputs(dev, *case)
+    mode = "int8" if case[3] == 8 else "int4"
+    before = dict(_kernels.LAUNCHES)
+    got = qm.qmatmul(x, q, s)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["qmatmul"] == before.get("qmatmul", 0) + 1
+    assert _kernels.LAUNCHES[f"qmatmul.{mode}"] == before.get(f"qmatmul.{mode}", 0) + 1
+    want = qm.qmatmul_reference(x, q, s)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("case", [QCASES[0], QCASES[2], QCASES[7], QCASES[8]])
+def test_qmatmul_one_hot_rows_are_the_dequantised_weight_rows(dev, case):
+    """x a batch of one-hot rows: K4's output is the dequantised weight's
+    rows bit for bit (one nonzero product a sum, W~ already bf16)."""
+    from docqa_tpu_torch.ops import qmatmul as qm
+
+    m, k, n, bits, group = case
+    _x, q, s = _qinputs(dev, *case)
+    rows = torch.arange(m, device=dev) * 7 % k
+    onehot = torch.zeros((m, k), dtype=torch.bfloat16, device=dev)
+    onehot[torch.arange(m, device=dev), rows] = 1
+    got = qm.qmatmul(onehot, q, s)
+    assert torch.equal(got, qm.dequantize(q, s, torch.bfloat16, k)[rows])
+
+
+def test_qmatmul_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from docqa_tpu_torch.ops import qmatmul as qm
+
+    x, q, s = _qinputs(dev, 4, 64, 32, 8, None)
+    with pytest.raises(ValueError, match="bf16"):
+        qm.qmatmul(x.float(), q, s)
+    with pytest.raises(ValueError, match="forward-only"):
+        qm.qmatmul(x.float().requires_grad_(), q, s)
+    with pytest.raises(ValueError, match="does not fit"):
+        qm.qmatmul(x[:, :32], q, s)
+
+
+def test_qmatmul_store_is_validated_once_and_renewed_for_a_copy(dev):
+    """A leaf is validated at its first product and its store kept on the
+    weight: products at other row counts (the thread's split-K partials
+    reused at several sizes, back to back) stay within K1's bf16 tolerance
+    of the plain version; a copy of the weight or another scale gets a
+    store of its own; a misfitting x still raises after a product."""
+    import copy
+
+    from docqa_tpu_torch.ops import qmatmul as qm
+
+    x, q, s = _qinputs(dev, 4, 4096, 1024, 8, None)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    qm.qmatmul(x, q, s)
+    store = getattr(q, qm._STORE)
+    outs = []
+    for m in (4, 64, 1, 17, 300):
+        xm = torch.randn((m, 4096), generator=gen, device=dev).to(torch.bfloat16)
+        outs.append((qm.qmatmul(xm, q, s), qm.qmatmul_reference(xm, q, s)))
+    for got, want in outs:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+    assert getattr(q, qm._STORE) is store
+    q2 = copy.deepcopy(q)
+    torch.testing.assert_close(qm.qmatmul(x, q2, s).float(), qm.qmatmul(x, q, s).float(),
+                               atol=0, rtol=0)
+    assert getattr(q2, qm._STORE).w_ptr == q2.data_ptr() != store.w_ptr
+    s2 = s * 2
+    torch.testing.assert_close(qm.qmatmul(x, q, s2).float(),
+                               qm.qmatmul_reference(x, q, s2).float(), atol=1e-2, rtol=1e-2)
+    assert getattr(q, qm._STORE).scale is s2
+    with pytest.raises(ValueError, match="does not fit"):
+        qm.qmatmul(x[:, :32], q, s)
+
+
+def test_quantised_engine_on_the_card_equals_its_plain_path(dev):
+    """A quantised engine's first-step logits through K4 within 5e-2
+    relative RMS of the same tree through the plain version, int8 and
+    int4, and (7 L + 1) K4 launches a forward."""
+    import dataclasses
+
+    from docqa_tpu_torch.config import DecoderConfig, GenerateConfig
+    from docqa_tpu_torch.engines.generate import GenerateEngine
+    from docqa_tpu_torch.models.decoder import decoder_forward, init_kv_cache
+    from docqa_tpu_torch.ops import qmatmul as qm
+
+    base = DecoderConfig(vocab_size=512, hidden_dim=256, num_layers=2, num_heads=4,
+                         num_kv_heads=2, head_dim=64, mlp_dim=512, max_seq_len=256)
+    ids = torch.tensor([[3, 9, 17, 4, 8, 1, 2, 30]], device=dev)
+    for bits in (8, 4):
+        cfg = dataclasses.replace(base, quantize_weights=True, quant_bits=bits)
+        eng = GenerateEngine(cfg, GenerateConfig(max_new_tokens=4), seed=3, device=dev)
+
+        def first():
+            cache = init_kv_cache(cfg, 1, max_len=64, device=dev)
+            return decoder_forward(eng.params, cfg, ids, cache,
+                                   torch.zeros(1, dtype=torch.int32, device=dev),
+                                   last_token_only=True).float()
+
+        before = _kernels.LAUNCHES["qmatmul"]
+        got = first()
+        assert _kernels.LAUNCHES["qmatmul"] - before == 7 * cfg.num_layers + 1
+        kernel = qm.qmatmul
+        qm.qmatmul = qm.qmatmul_reference
+        try:
+            want = first()
+        finally:
+            qm.qmatmul = kernel
+        assert float((got - want).norm() / want.norm()) < 5e-2
+        assert eng.generate_ids([[3, 5, 9]])[0] is not None
+
+
+def test_probe_int4_support_launches_k4_on_the_card(dev):
+    from docqa_tpu_torch.models import quant
+
+    before = _kernels.LAUNCHES["qmatmul.int4"]
+    assert quant.probe_int4_support(dev) == (True, "")
+    assert _kernels.LAUNCHES["qmatmul.int4"] == before + 1

@@ -25,12 +25,15 @@ FORBIDDEN = ("jax", "jaxlib", "docqa_tpu", "ml_dtypes", "optax", "orbax")
 # with the port's own code
 NOT_ON_THE_CARD = ("aiohttp", "pydantic", "safetensors", "tokenizers", "transformers",
                    "sentencepiece")
+# imported inside the function that needs it, never at module level: the
+# AMQP broker's pika (on neither machine; AmqpBroker raises without it)
+CALL_TIME_ONLY = ("pika",)
 
 torch.set_num_threads(1)
 
 _BLOCKED_IMPORT = f"""
 import importlib, pkgutil, sys
-for name in {FORBIDDEN + NOT_ON_THE_CARD!r}:
+for name in {FORBIDDEN + NOT_ON_THE_CARD + CALL_TIME_ONLY!r}:
     sys.modules[name] = None  # any import of it now raises ImportError
 sys.path.insert(0, {REPO!r})
 import docqa_tpu_torch
@@ -42,7 +45,7 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "aiohttp", "pydantic", "ml_dtypes",
                                        "optax", "orbax", "safetensors", "tokenizers",
-                                       "transformers", "sentencepiece")
+                                       "transformers", "sentencepiece", "pika")
                 and sys.modules[m] is not None)
 print("LOADED", loaded)
 print("PORT", sorted(m for m in sys.modules if m.startswith("docqa_tpu_torch.")))
@@ -155,9 +158,24 @@ CHECKPOINT_MODULES = (
     "docqa_tpu_torch.text.tokenizer",
     "docqa_tpu_torch.weights",
 )
+# the quantised decoder and AMQP slice's new and touched modules, held to
+# the same two checks (ml_dtypes and pika above: neither is imported at
+# module level, pika only inside AmqpBroker)
+QUANT_MODULES = (
+    "docqa_tpu_torch.config",
+    "docqa_tpu_torch.engines.generate",
+    "docqa_tpu_torch.models.decoder",
+    "docqa_tpu_torch.models.hf_checkpoint",
+    "docqa_tpu_torch.models.quant",
+    "docqa_tpu_torch.obs.observatory",
+    "docqa_tpu_torch.ops.qmatmul",
+    "docqa_tpu_torch.service.app",
+    "docqa_tpu_torch.service.broker",
+    "docqa_tpu_torch.weights",
+)
 SLICE_MODULES = (BATCHER_MODULES + INGEST_MODULES + OBS_MODULES + APP_MODULES
                  + LIFECYCLE_MODULES + TRAINING_MODULES + RETRIEVAL_MODULES
-                 + CHECKPOINT_MODULES)
+                 + CHECKPOINT_MODULES + QUANT_MODULES)
 
 
 def _python_files():
@@ -238,6 +256,33 @@ def test_ast_scan_finds_no_forbidden_import():
     assert offenders == []
 
 
+def _module_level_imports(tree):
+    """Import statements that run when the module is imported: everywhere
+    but inside function bodies."""
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            yield node
+        stack.extend(ast.iter_child_nodes(node))
+
+
+def test_ast_scan_finds_no_module_level_pika():
+    offenders = []
+    for path in _python_files():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in _module_level_imports(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""])
+            for name in names:
+                if name.split(".")[0] in CALL_TIME_ONLY:
+                    offenders.append(f"{os.path.relpath(path, REPO)}:{node.lineno} {name}")
+    assert offenders == []
+
+
 def _build(entry):
     from docqa_tpu_torch.engines.encoder import EncoderEngine
     from docqa_tpu_torch.engines.generate import GenerateEngine
@@ -256,6 +301,11 @@ def _build(entry):
         return EncoderEngine(enc_cfg)
     if entry == "GenerateEngine":
         return GenerateEngine(dec_cfg, GenerateConfig())
+    if entry == "quantised GenerateEngine":
+        import dataclasses
+
+        return GenerateEngine(dataclasses.replace(dec_cfg, quantize_weights=True,
+                                                  quant_bits=4), GenerateConfig())
     if entry == "VectorStore":
         return VectorStore(store_cfg)
     if entry == "DeidEngine":
@@ -321,7 +371,7 @@ def _build(entry):
     ["EncoderEngine", "GenerateEngine", "VectorStore", "FusedRetriever", "QAService",
      "EnginePool", "DeidEngine", "LexicalIndex", "HashEncoder", "DocQARuntime",
      "FusedRAG", "IVFIndex", "FusedTieredRetriever", "Seq2SeqEngine",
-     "generate_engine_from_dir"],
+     "generate_engine_from_dir", "quantised GenerateEngine"],
 )
 def test_entry_points_raise_without_cuda(entry):
     if torch.cuda.is_available():

@@ -400,9 +400,27 @@ def test_memory_broker_and_consumer_identical(tmp_path):
     assert got[-1] == ([0, 1, 3], [{"i": 2, "poison": True}], [{"i": 2, "poison": True}])
 
 
-def test_make_broker_memory_and_amqp_refused():
+def test_make_broker_memory_and_amqp_refused(monkeypatch):
+    """The memory backend, and since the AMQP broker is ported an
+    ``AmqpBroker`` for ``backend="amqp"`` (the case keeps the id it had
+    while refused): over a stand-in pika module it connects to the
+    configured host; with no pika it raises the reference's error."""
+    import sys
+    from types import SimpleNamespace
+
     assert isinstance(tbroker.make_broker(BrokerConfig()), tbroker.MemoryBroker)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    seen = []
+    channel = SimpleNamespace(basic_qos=lambda prefetch_count: seen.append(prefetch_count))
+    fake = SimpleNamespace(
+        ConnectionParameters=lambda host, port: (host, port),
+        BlockingConnection=lambda params: seen.append(params) or SimpleNamespace(
+            channel=lambda: channel, close=lambda: None),
+    )
+    monkeypatch.setitem(sys.modules, "pika", fake)
+    b = tbroker.make_broker(BrokerConfig(backend="amqp"))
+    assert isinstance(b, tbroker.AmqpBroker) and seen == [("localhost", 5672), 8]
+    monkeypatch.setitem(sys.modules, "pika", None)
+    with pytest.raises(RuntimeError, match="requires pika"):
         tbroker.make_broker(BrokerConfig(backend="amqp"))
 
 

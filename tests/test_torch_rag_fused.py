@@ -136,6 +136,26 @@ def test_fused_equals_the_reference(stacks, question):
     assert got.resolve() == want.resolve()
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+def test_fused_over_a_quantised_decoder_equals_the_reference(stacks, bits):
+    """The device-prompt path through a weight-only quantised engine (each
+    projection through K4's plain version here) packs the reference's
+    prompt and answers its tokens, int8 and int4 (both packages' quantised
+    host init)."""
+    jenc, jstore, _jgen = stacks["ref"]
+    tenc, tstore, _tgen = stacks["port"]
+    cfg = dict(DEC, quantize_weights=True, quant_bits=bits)
+    jgen = JGenerateEngine(JDecoderConfig(**cfg), JGenerateConfig(**GEN), seed=11)
+    tgen = GenerateEngine(DecoderConfig(**cfg), GenerateConfig(**GEN), seed=11,
+                          device="cpu")
+    jrag = JFusedRAG(jenc, jstore, jgen, QA_TEMPLATE, k=3)
+    rag = FusedRAG(tenc, tstore, tgen, QA_TEMPLATE, k=3, device="cpu")
+    for question in QUESTIONS:
+        want, got = jrag.ask_submit(question), rag.ask_submit(question)
+        assert got.prompt_tokens() == want.prompt_tokens()
+        assert got.resolve() == want.resolve()
+
+
 @pytest.mark.parametrize("question", QUESTIONS)
 def test_fused_equals_the_classic_text_path(stacks, question):
     enc, store, gen = stacks["port"]
