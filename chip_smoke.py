@@ -227,11 +227,12 @@ Phases, each of which fails the run on any error (nothing is caught):
 14. the quantised decoder, (a)-(c) after phase 12 (they need phase 3's
    weights), (d) inside phase 13 (it needs its Mistral directory): (a) K4
    (``csrc/qmatmul.cu``) alone at the five Mistral-7B projection shapes at
-   4, 64 and 2,048 rows, int8 and (but ``lm_head``) int4, against its plain
-   version at the bf16 tolerance and bit for bit on one-hot rows, timed
-   beside the plain version and ``torch.matmul`` on the unquantised bf16
-   weight, with its byte / operation bound, and the host's cost of a
-   product; the reference's quantised-forward criteria asserted where they
+   4, 16, 32, 64 and 2,048 rows, int8 and (but ``lm_head``) int4, each
+   case's kernel mode and launch printed, against its plain version at the
+   bf16 tolerance, bit for bit on one-hot rows and run to run, timed beside
+   the plain version, ``torch.matmul`` on the unquantised bf16 weight and
+   the int-weight library call where the card's torch has one, with its
+   byte / operation bound, and the host's cost of a product; the reference's quantised-forward criteria asserted where they
    were set (a float32 model of hidden 64, vocabulary 256, 2 layers) with
    K4 under the quantised side; (b) phase 3's bf16 tree
    quantised on the card tensor by tensor, int8 then int4: tree bytes,
@@ -256,11 +257,16 @@ pool JSON line, the ingest JSON line, the obs JSON line, the app JSON line,
 the lifecycle JSON line, the training JSON line, the tiered JSON line, the
 checkpoints JSON line, the quant JSON line, the launches-by-phase JSON
 line (each main-path run's K1 and K4 counters, whose sums are the kernels
-line's launches; each run's K1 total must equal the sum of its paths), the
-kernels JSON line (K1 and its paths, then K4 and its int8 / int4 modes),
-the nvidia-smi line, and last the ok line.  Phases 6 and 7 also
-print each spine stage's queue wait; ``--spine-lanes N`` sets the spine's
-lane count.
+line's launches; each run's K1 total must equal the sum of its paths, and
+its K4 total the sum of its weight modes and of its kernel modes), the
+kernels JSON line (K1 and its paths, then K4, its int8 / int4 modes and
+its ring / wgmma / simple kernels; each launched on the main path, the
+simple kernel at the reference's own configuration), the nvidia-smi
+line, and last the ok line.  Phases 6 and 7 also print each spine stage's
+queue wait; ``--spine-lanes N`` sets the spine's lane count.
+``--k4-ab ROOT`` runs only phase 14 (a)'s cases and ``host_us_a_call``,
+this K4 against the K4 of the checkout at ROOT (a parent unpacked with
+``git archive``) in turns.
 Exits non-zero when CUDA is unavailable or any phase fails.
 """
 
@@ -373,7 +379,8 @@ def ptxas_summary(log_text: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             kernel = m.group(1)
-            name = re.search(r"(flash_[a-z]+(?:_[a-z]+)*_kernel|qmatmul_kernel)I(\S+)", kernel)
+            name = re.search(r"(flash_[a-z]+(?:_[a-z]+)*_kernel|qmatmul_[a-z]+_kernel)I(\S+)",
+                             kernel)
             if name:
                 rest = name.group(2)
                 dtype = ("bf16," if rest.startswith("13__nv_bfloat16")
@@ -1331,6 +1338,10 @@ def run_pool_path(counts, qa_solo):
     # ---- A1, reported and not asserted: round A's 16 /ask through ONE
     # replica of 16 slots (the reference's default replica count), the same
     # work on one worker thread
+    def chunk_device_s():
+        return get_spine().stats()["stages"].get("serve_decode_chunk", {}).get("device_s", 0.0)
+
+    chunk_s0 = chunk_device_s()
     pool1 = EnginePool(gen, cfg=PoolConfig(replicas=1, n_slots=16), qos=QoSConfig(),
                        chunk=16, cache_len=1024, device=dev)
     try:
@@ -1347,10 +1358,15 @@ def run_pool_path(counts, qa_solo):
     n_encodes += len(res)
     rec = _round_record(res, wall)
     rec["verify_steps"] = stats_1["verify_steps"]
+    # the spine's decode-chunk device time over A1 (its pool's warm-up
+    # included), as phase 14 (c) reads the int8 pool's
+    rec["device_ms_a_verify_step"] = (chunk_device_s() - chunk_s0) * 1e3 / max(
+        rec["verify_steps"], 1)
     rounds["A1"] = rec
     log(f"  round A1 (1 replica x 16 slots, reported): 16 /ask in {wall:.3f} s, p50 "
         f"{rec['latency_p50_s']:.3f} s max {rec['latency_max_s']:.3f} s, "
         f"{rec['tokens_per_s']:.1f} answer tok/s, {rec['verify_steps']} verify steps, "
+        f"{rec['device_ms_a_verify_step']:.2f} device ms a verify step, "
         f"degraded {rec['degraded']}")
 
     t0 = time.perf_counter()
@@ -5361,11 +5377,23 @@ def run_training_encoder(counts, workdir):
 # ---- phase 14: the quantised decoder -------------------------------------------
 
 # K4's cases: the Mistral-7B projections ([in, out]) at the main path's rows:
-# the solo verify (K = 4), a 16-lane batcher verify, a packed prefill
+# the solo verify (K = 4), a 4-, 8- and 16-lane batcher verify, a packed
+# prefill
 QUANT_SHAPES = (("wq", 4096, 4096), ("wk", 4096, 1024), ("w_gate", 4096, 14336),
                 ("w_down", 14336, 4096), ("lm_head", 4096, 32000))
-QUANT_ROWS = (4, 64, 2048)
+QUANT_ROWS = (4, 16, 32, 64, 2048)
 QUANT_TIMED = "w_gate_m4"  # the case each K4 entry of the kernels line reports
+QUANT_TIMED_MODE = {"ring": "w_gate_m4", "wgmma": "w_gate_m2048",  # and each kernel's
+                    "simple": "ref_w_gate_m4"}
+# shapes the TMA kernels refuse, so K4's simple kernel takes them, as
+# (name, m, in, out, bits, int4 group or None): the reference's own
+# configuration at its 4-token prompt (hidden 64, so int4 groups of 64;
+# ``check_reference_config`` runs its projections there), and card-test
+# shapes with ragged edges (in 100, out 130; out 1,000 with K split 64 ways;
+# 70 rows over int4 groups of 48)
+QUANT_SIMPLE = (("ref_wq", 4, 64, 64, 4, None), ("ref_wk", 4, 64, 32, 4, None),
+                ("ref_w_gate", 4, 64, 128, 4, None), ("ragged", 37, 100, 130, 8, None),
+                ("ragged_split", 4, 4096, 1000, 8, None), ("ragged_g48", 70, 96, 200, 4, 48))
 # the reference's criteria for a quantised forward against its float one,
 # max |logits - float logits| / std(float logits): int8 under 0.15 with the
 # same argmax (tests/test_quant.py:63-86), int4 finite and under 3.0, which
@@ -5383,20 +5411,152 @@ QUANT_ASK_TOKENS = 64
 QUANT_PROJECTIONS = 7  # q, k, v, o, gate, up, down: K4 launches a layer
 
 
-def run_qmatmul_cases(flush):
-    """(a) K4 alone: each Mistral-7B projection at 4, 64 and 2,048 rows,
-    int8 and (but ``lm_head``, int8 in both modes) int4: against its plain
-    version at K1's bf16 tolerance and, on one-hot rows of x, bit for bit
-    against the dequantised weight rows; the kernel, the plain version and
-    ``torch.matmul`` on the unquantised bf16 weight (what the bf16 engine
-    runs) timed as phase 2 times K1; the bound max(bytes / 3.35 TB/s,
-    2 m in out / 989 TFLOP/s), the bytes the packed weights, scales, x and y
-    once each."""
+def _has_cuda_kernel(op):
+    try:
+        return torch._C._dispatch_has_kernel_for_dispatch_key(op, "CUDA")
+    except RuntimeError:
+        return False
+
+
+def int_weight_library(mode, q, sc, k):
+    """The one PyTorch call that computes the same int-weight product on the
+    card, as ``(fn(x), None)``, or ``(None, why not)``: int8
+    ``torch._weight_int8pack_mm`` (``[N, K]`` int8, bf16 scales applied
+    after the dot), int4 ``torch._weight_int4pack_mm`` on the weight
+    converted by ``torch._convert_weight_to_int4pack`` (unsigned nibbles
+    q + 8, even k in the high nibble, scale and zero point a group and
+    column, zero 0).  A yardstick only: the port never calls either."""
+    try:
+        if mode == "int8":
+            if not _has_cuda_kernel("aten::_weight_int8pack_mm"):
+                return None, "not available (no CUDA kernel)"
+            w_nk = q.t().contiguous()
+            scales = sc.to(torch.bfloat16)
+            return (lambda x: torch._weight_int8pack_mm(x, w_nk, scales)), None
+        if not (_has_cuda_kernel("aten::_weight_int4pack_mm")
+                and _has_cuda_kernel("aten::_convert_weight_to_int4pack")):
+            return None, "not available (no CUDA kernel)"
+        g = qm.int4_group(q, k)
+        u = (qm.unpack_int4(q, g).reshape(k, -1).to(torch.int32) + 8).t().contiguous()
+        packed = torch._convert_weight_to_int4pack(
+            (u[:, 0::2] << 4 | u[:, 1::2]).to(torch.uint8), 8)
+        sz = torch.stack((sc, torch.zeros_like(sc)), dim=-1).to(torch.bfloat16).contiguous()
+        return (lambda x: torch._weight_int4pack_mm(x, packed, g, sz)), None
+    except (RuntimeError, TypeError) as e:
+        return None, f"not available ({type(e).__name__}: {str(e).splitlines()[0][:120]})"
+
+
+def _k4_case(case, x, q, sc, flush, library, lib, onehot, rows, parent=None):
+    """One case of ``run_qmatmul_cases``: K4 on ``x`` and the store ``q``,
+    ``sc`` against its plain version, on one-hot rows bit for bit and
+    twice bit for bit, one launch counted under ``qmatmul``, its weight
+    mode and the kernel its plan names; then timed (with ``parent``, the
+    parent's K4 on a copy of the store too, in turns: parent, this, this,
+    parent)."""
+    m, k = x.shape
+    n = q.shape[-1]
+    mode = "int8" if q.dtype == torch.int8 else "int4"
+    atol, rtol = TOL[torch.bfloat16]
+    before = collections.Counter(_kernels.LAUNCHES)
+    got = qm.qmatmul(x, q, sc)
+    torch.cuda.synchronize()
+    launched = collections.Counter(_kernels.LAUNCHES)
+    launched.subtract(before)
+    launched = {key: v for key, v in launched.items() if v}
+    plan = getattr(q, qm._STORE).plan(m)
+    if launched != {"qmatmul": 1, f"qmatmul.{mode}": 1, f"qmatmul.{plan.kernel}": 1}:
+        raise AssertionError(f"qmatmul {case}: one product counted {launched}, "
+                             f"plan {plan.kernel}")
+    want = qm.qmatmul_reference(x, q, sc).float()
+
+    def check(who, y):
+        err = (y.float() - want).abs()
+        if not bool((err <= atol + rtol * want.abs()).all()) or not torch.isfinite(y).all():
+            raise AssertionError(f"qmatmul {case} {who}: max |err| {float(err.max()):.3e} "
+                                 f"over atol {atol} rtol {rtol}")
+        return float(err.max())
+
+    max_err = check("K4", got)
+    if not torch.equal(qm.qmatmul(x, q, sc), got):
+        raise AssertionError(f"qmatmul {case}: a second product differs from the first")
+    if not torch.equal(qm.qmatmul(onehot, q, sc), qm.dequantize(q, sc, torch.bfloat16, k)[rows]):
+        raise AssertionError(f"qmatmul {case}: one-hot rows differ from the dequantised "
+                             "weight rows")
+    ab = None
+    if parent is None:
+        ms = time_ms(lambda: qm.qmatmul(x, q, sc), flush)
+    else:
+        qp = q.clone()  # the parent's store lives on its own tensor
+        check("parent", parent.qmatmul(x, qp, sc))
+        t = [time_ms(lambda: parent.qmatmul(x, qp, sc), flush),
+             time_ms(lambda: qm.qmatmul(x, q, sc), flush),
+             time_ms(lambda: qm.qmatmul(x, q, sc), flush),
+             time_ms(lambda: parent.qmatmul(x, qp, sc), flush)]
+        ms, ab = t[1], {"parent_ms": [t[0], t[3]], "this_ms": [t[1], t[2]]}
+    lib_fn, lib_why = lib
+    int_ms = int_err = None
+    if lib_fn is not None:
+        try:
+            # a yardstick only; at m = 2,048 a call takes up to 0.6 s
+            int_ms = time_ms(lambda: lib_fn(x), flush, reps=5, warmup=1)
+            int_err = float((lib_fn(x).float() - want).abs().max())
+        except RuntimeError as e:
+            lib_why = f"not available (RuntimeError: {str(e).splitlines()[0][:120]})"
+    nbytes = q.numel() + 4 * sc.numel() + 2 * m * k + 2 * m * n
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_flops = 2 * m * k * n / PEAK_BF16_FLOPS * 1e3
+    rec = {
+        "case": case, "weight": case.split(f"_m{m}_")[0], "m": m, "mode": mode,
+        "kernel": plan.kernel, "launched": launched, "shape": f"m{m} in{k} out{n}",
+        "plan": plan._asdict(), "max_abs_err": max_err, "onehot_exact": True,
+        "repeat_exact": True, "ms": ms,
+        "plain_ms": time_ms(lambda: qm.qmatmul_reference(x, q, sc), flush),
+        "library_ms": library, "int_library_ms": int_ms, "int_library_max_abs_err": int_err,
+        "int_library": lib_why or ("torch._weight_int8pack_mm" if mode == "int8"
+                                   else "torch._weight_int4pack_mm"),
+        "bound_ms": max(t_bytes, t_flops),
+        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "weight_bytes": q.numel() + 4 * sc.numel(), "tolerance": TOL[torch.bfloat16],
+    }
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    if ab:
+        rec["ab"] = ab
+    int_lib = ("not available" if int_ms is None
+               else f"{int_ms:.4f} ms (|err| {int_err:.2e})")
+    vs = "" if ab is None else (
+        f"  parent {ab['parent_ms'][0]:.4f}, {ab['parent_ms'][1]:.4f} ms  this "
+        f"{ab['this_ms'][0]:.4f}, {ab['this_ms'][1]:.4f} ms ("
+        f"{min(ab['parent_ms']) / max(ab['this_ms']):.2f}x or better)")
+    log(f"  qmatmul {case:20s} {plan.kernel:6s} splits {plan.splits:2d} grid {plan.grid:4d}, "
+        f"1 launch  err {max_err:.2e} one-hot and repeat exact  kernel {ms:.4f} ms  plain "
+        f"{rec['plain_ms']:.4f} ms  cuBLAS bf16 {library:.4f} ms  int-weight library "
+        f"{int_lib}  bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}, "
+        f"{100 * rec['bound_share']:.1f} % of it){vs}")
+    return rec
+
+
+def run_qmatmul_cases(flush, parent=None):
+    """(a) K4 alone: each Mistral-7B projection at 4, 16, 32, 64 and 2,048
+    rows, int8 and (but ``lm_head``, int8 in both modes) int4, then the
+    shapes of ``QUANT_SIMPLE`` (the simple kernel's), each through
+    ``_k4_case``.  Timed as phase 2 times K1: the kernel, the plain
+    version, ``torch.matmul`` on the unquantised bf16 weight (what the bf16
+    engine runs) and the int-weight library call where the card's torch
+    has one (``int_weight_library``); the bound max(bytes / 3.35 TB/s,
+    2 m in out / 989 TFLOP/s), the bytes the packed weights, scales, x and
+    y once each.  ``parent`` (``load_parent_k4``) times another
+    checkout's K4 beside each case, in turns."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(14)
-    atol, rtol = TOL[torch.bfloat16]
     results = []
+
+    def onehot_of(m, k):
+        rows = torch.randint(0, k, (m,), generator=gen, device=dev)
+        onehot = torch.zeros((m, k), dtype=torch.bfloat16, device=dev)
+        onehot[torch.arange(m, device=dev), rows] = 1
+        return onehot, rows
+
     for name, k, n in QUANT_SHAPES:
         w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
         wb = w.to(torch.bfloat16)
@@ -5404,62 +5564,40 @@ def run_qmatmul_cases(flush):
         if name != "lm_head":
             packs.append(("int4", *quant.quantize_array_int4(w)))
         del w
+        libs = {mode: int_weight_library(mode, q, sc, k) for mode, q, sc in packs}
         for m in QUANT_ROWS:
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
             library = time_ms(lambda: x @ wb, flush)
-            rows = torch.randint(0, k, (m,), generator=gen, device=dev)
-            onehot = torch.zeros((m, k), dtype=torch.bfloat16, device=dev)
-            onehot[torch.arange(m, device=dev), rows] = 1
+            onehot, rows = onehot_of(m, k)
             for mode, q, sc in packs:
-                got = qm.qmatmul(x, q, sc)
-                want = qm.qmatmul_reference(x, q, sc)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs()
-                ok = bool((err <= atol + rtol * want.float().abs()).all())
-                if not ok or not torch.isfinite(got.float()).all():
-                    raise AssertionError(
-                        f"qmatmul {name} m{m} {mode}: max |err| {float(err.max()):.3e} "
-                        f"over atol {atol} rtol {rtol}")
-                exact = torch.equal(qm.qmatmul(onehot, q, sc),
-                                    qm.dequantize(q, sc, torch.bfloat16, k)[rows])
-                if not exact:
-                    raise AssertionError(f"qmatmul {name} m{m} {mode}: one-hot rows differ "
-                                         "from the dequantised weight rows")
-                group = qm.int4_group(q, k) if mode == "int4" else 0
-                plan = qm.plan_qmatmul(mode, m, k, n, group)
-                nbytes = q.numel() + 4 * sc.numel() + 2 * m * k + 2 * m * n
-                t_bytes = nbytes / PEAK_BYTES_S * 1e3
-                t_flops = 2 * m * k * n / PEAK_BF16_FLOPS * 1e3
-                rec = {
-                    "case": f"{name}_m{m}_{mode}", "weight": name, "m": m, "mode": mode,
-                    "shape": f"m{m} in{k} out{n}", "plan": plan._asdict(),
-                    "max_abs_err": float(err.max()), "onehot_exact": True,
-                    "ms": time_ms(lambda: qm.qmatmul(x, q, sc), flush),
-                    "plain_ms": time_ms(lambda: qm.qmatmul_reference(x, q, sc), flush),
-                    "library_ms": library,
-                    "bound_ms": max(t_bytes, t_flops),
-                    "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-                    "weight_bytes": q.numel() + 4 * sc.numel(),
-                    "tolerance": TOL[torch.bfloat16],
-                }
-                rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-                log(f"  qmatmul {rec['case']:20s} splits {plan.splits:2d}  err "
-                    f"{rec['max_abs_err']:.2e} one-hot exact  kernel {rec['ms']:.4f} ms  "
-                    f"plain {rec['plain_ms']:.4f} ms  cuBLAS bf16 {library:.4f} ms  bound "
-                    f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}, "
-                    f"{100 * rec['bound_share']:.1f} % of it)")
-                results.append(rec)
-        del wb, packs
+                results.append(_k4_case(f"{name}_m{m}_{mode}", x, q, sc, flush, library,
+                                        libs[mode], onehot, rows, parent))
+        for mode, (_fn, why) in libs.items():
+            if why:
+                log(f"  int-weight library for {name} {mode}: {why}")
+        del wb, packs, libs
+    for name, m, k, n, bits, group in QUANT_SIMPLE:
+        w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        wb = w.to(torch.bfloat16)
+        mode = f"int{bits}"
+        q, sc = quant.quantize_array(w) if bits == 8 else quant.quantize_array_int4(w, group)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        onehot, rows = onehot_of(m, k)
+        rec = _k4_case(f"{name}_m{m}_{mode}", x, q, sc, flush, time_ms(lambda: x @ wb, flush),
+                       int_weight_library(mode, q, sc, k), onehot, rows, parent)
+        if rec["kernel"] != "simple":
+            raise AssertionError(f"qmatmul {rec['case']}: planned {rec['kernel']}, not simple")
+        results.append(rec)
     return results
 
 
-def host_us_a_call(n=200, rounds=2):
+def host_us_a_call(parent=None, n=200, rounds=2):
     """Host microseconds to enqueue one product at the solo verify's ``wq``
     shape (m = 4, 4,096 x 4,096), no sync inside: K4 int8 and int4 against
-    ``torch.matmul`` on the bf16 weight, in turns, behind a long spin so the
-    host never waits on the device.  A verify step enqueues 225 products
-    and is host-bound, so this, not the device time, is what a step
-    feels."""
+    ``torch.matmul`` on the bf16 weight (and ``parent``'s K4 on copies of
+    the stores), in turns, behind a long spin so the host never waits on
+    the device.  A verify step enqueues 225 products and is host-bound, so
+    this, not the device time, is what a step feels."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(15)
@@ -5469,13 +5607,16 @@ def host_us_a_call(n=200, rounds=2):
     fns = [("torch.matmul bf16", lambda: x @ wb)]
     for mode, (q, sc) in (("int8", quant.quantize_array(w)),
                           ("int4", quant.quantize_array_int4(w))):
+        if parent is not None:
+            fns.append((f"parent {mode}",
+                        lambda qp=q.clone(), sc=sc: parent.qmatmul(x, qp, sc)))
         fns.append((f"K4 {mode}", lambda q=q, sc=sc: qm.qmatmul(x, q, sc)))
     out = collections.defaultdict(list)
     for r in range(rounds):
         for name, fn in fns if r % 2 == 0 else fns[::-1]:
             fn()
             torch.cuda.synchronize()
-            torch.cuda._sleep(50_000_000)
+            torch.cuda._sleep(250_000 * n)  # ~0.13 ms a call of spin
             t0 = time.perf_counter()
             for _ in range(n):
                 fn()
@@ -5484,6 +5625,39 @@ def host_us_a_call(n=200, rounds=2):
     log("  host us to enqueue one wq product at m = 4 (rounds): " + "; ".join(
         f"{name} " + ", ".join(f"{us:.1f}" for us in v) for name, v in out.items()))
     return dict(out)
+
+
+def load_parent_k4(root):
+    """The K4 wrapper of another checkout at ``root`` (its
+    ``ops/qmatmul.py``, its ``csrc/qmatmul.cu`` built here with this
+    tree's flags), bound to its own library and counting into its own
+    counter, for an A/B in one process (``run_qmatmul_cases`` and
+    ``host_us_a_call`` with ``parent``): the wrapper's module is loaded
+    under another name, so the two keep their stores apart only if they
+    are given separate weight tensors."""
+    import importlib.util
+    import types
+
+    src = os.path.join(root, "docqa_tpu_torch", "csrc", "qmatmul.cu")
+    lib_path = _kernels.BUILD_DIR / "libqmatmul-parent.so"
+    _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(lib_path), src],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    spec = importlib.util.spec_from_file_location(
+        "k4_parent_qmatmul", os.path.join(root, "docqa_tpu_torch", "ops", "qmatmul.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    counted, lock = collections.Counter(), threading.Lock()
+
+    def count(*names):
+        with lock:
+            for name in names:
+                counted[name] += 1
+
+    mod._kernels = types.SimpleNamespace(load=lambda name: lib, count=count,
+                                         KernelError=_kernels.KernelError)
+    return mod
 
 
 def _logit_gap(got, ref):
@@ -5525,11 +5699,25 @@ def check_dequant_bound(qtree, params):
     return worst, leaves
 
 
+K4_MODES = ("qmatmul.ring", "qmatmul.wgmma", "qmatmul.simple")
+
+
+def _k4_split_ok(counts):
+    """The wrapper counts a product under ``qmatmul``, its weight mode and
+    its kernel mode: both splits of a run sum to its total."""
+    total = counts.get("qmatmul", 0)
+    return (counts.get("qmatmul.int8", 0) + counts.get("qmatmul.int4", 0) == total
+            == sum(counts.get(name, 0) for name in K4_MODES))
+
+
 def _k4_identity(where, delta, layers, forwards):
     want = (QUANT_PROJECTIONS * layers + 1) * forwards
     if delta.get("qmatmul", 0) != want or forwards < 1:
         raise AssertionError(f"{where}: K4 launched {delta.get('qmatmul', 0)} times, expected "
                              f"({QUANT_PROJECTIONS} x {layers} + 1) x {forwards} forwards = {want}")
+    if not _k4_split_ok(delta):
+        raise AssertionError(f"{where}: K4's weight and kernel modes do not sum to its "
+                             f"launches: {dict(delta)}")
     return want
 
 
@@ -5567,7 +5755,9 @@ def check_reference_config(counts):
     the same), seeded random weights, the prompt [3, 9, 17, 4].  Its logits
     in float32 against the int8 and int4 trees' through K4 in bf16 (7 x 2 +
     1 launches): max|d|/std over every position under 0.15 with the last
-    position's argmax kept (int8), finite and under 3.0 (int4)."""
+    position's argmax kept (int8), finite and under 3.0 (int4).  Returns
+    the gaps and the run's launches: its int4 groups of 64 take K4's
+    simple kernel, which the Mistral-7B runs never launch."""
     dev = torch.device("cuda")
     rcfg = DecoderConfig(vocab_size=256, hidden_dim=64, num_layers=2, num_heads=2,
                          num_kv_heads=1, head_dim=32, mlp_dim=128, max_seq_len=128,
@@ -5584,6 +5774,7 @@ def check_reference_config(counts):
 
     full = run(params, rcfg)
     out = {}
+    start = collections.Counter(counts)
     for bits in (8, 4):
         qcfg = dataclasses.replace(rcfg, dtype="bfloat16", quantize_weights=True,
                                    quant_bits=bits)
@@ -5603,7 +5794,9 @@ def check_reference_config(counts):
                 and (same or bits == 4)):
             raise AssertionError(f"int{bits} at the reference's config fails its criterion: "
                                  f"{out[f'int{bits}']}")
-    return out
+    launched = collections.Counter(counts)
+    launched.subtract(start)
+    return out, {key: n for key, n in launched.items() if n}
 
 
 def run_quant_solo(counts, qa, params):
@@ -5812,12 +6005,14 @@ def run_quant_pool(counts, qa, gen8, bf16_a1):
                forwards=forwards, prefill_forwards=calls["prefill"],
                decode_forwards=calls["decode"], k4_launches=want,
                bf16_A1={k: bf16_a1.get(k) for k in ("latency_p50_s", "tokens_per_s",
-                                                    "verify_steps")})
+                                                    "verify_steps",
+                                                    "device_ms_a_verify_step")})
     log(f"  int8 pool (1 replica x 16 slots): 16 /ask in {wall:.3f} s, p50 "
         f"{rec['latency_p50_s']:.3f} s (phase 6's bf16 A1 {bf16_a1['latency_p50_s']:.3f}), "
         f"{rec['tokens_per_s']:.1f} answer tok/s (bf16 {bf16_a1['tokens_per_s']:.1f}), "
         f"{rec['verify_steps']} verify steps (bf16 {bf16_a1['verify_steps']}), "
-        f"{rec['device_ms_a_verify_step']:.2f} device ms a verify step; K4 launches "
+        f"{rec['device_ms_a_verify_step']:.2f} device ms a verify step (bf16 "
+        f"{bf16_a1['device_ms_a_verify_step']:.2f}); K4 launches "
         f"{want} = ({QUANT_PROJECTIONS} x {layers} + 1) x {forwards} forwards "
         f"({calls['prefill']} prefill, {calls['decode']} decode, warm-ups included)")
     return rec, launches
@@ -5903,7 +6098,7 @@ def run_quant_path(counts, qa, params, bf16_a1):
     cases = run_qmatmul_cases(flush)
     del flush
     host = host_us_a_call()
-    calibrated = check_reference_config(counts)
+    calibrated, calibrated_launches = check_reference_config(counts)
     solo, solo_launches, gen8 = run_quant_solo(counts, qa, params)
     pool, pool_launches = run_quant_pool(counts, qa, gen8, bf16_a1)
     del gen8
@@ -5911,7 +6106,8 @@ def run_quant_path(counts, qa, params, bf16_a1):
     torch.cuda.empty_cache()
     return {"cases": cases, "summary": {"solo": solo, "pool": pool, "host_us_a_call": host,
                                         "reference_config": calibrated},
-            "launches": {"solo int8": solo_launches[8], "solo int4": solo_launches[4],
+            "launches": {"reference config": calibrated_launches,
+                         "solo int8": solo_launches[8], "solo int4": solo_launches[4],
                          "pool int8": pool_launches}}
 
 
@@ -5922,6 +6118,9 @@ def main(argv=None) -> int:
                     help="also write the full results as JSON to this path")
     ap.add_argument("--spine-lanes", type=int, default=None,
                     help="the dispatch spine's lane count (default: the spine's own)")
+    ap.add_argument("--k4-ab", metavar="ROOT", default=None,
+                    help="only run phase 14 (a)'s K4 cases and host_us_a_call with the "
+                         "K4 of the checkout at ROOT beside this one, in turns, and exit")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5944,6 +6143,19 @@ def main(argv=None) -> int:
     for name, text in build_logs.items():
         for kernel, regs, spills in ptxas_summary(text):
             log(f"    {name}: {kernel}: {regs} registers, spill stores/loads {spills}")
+    if args.k4_ab:
+        parent = load_parent_k4(args.k4_ab)
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        ab = {"cases": run_qmatmul_cases(flush, parent)}
+        del flush
+        ab["host_us"] = host_us_a_call(parent, n=500, rounds=4)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump({"card": smi, "torch": torch.__version__, "k4_ab": ab}, f, indent=1)
+        print(json.dumps({"k4_ab_host_us": ab["host_us"]}))
+        print(smi)
+        return 0
 
     log("[2/14] kernels against their plain versions (bf16 and float32)")
     cases = run_kernel_cases()
@@ -6089,6 +6301,9 @@ def main(argv=None) -> int:
         if counted.get("flash_attention", 0) != paths:
             raise AssertionError(f"phase {phase}: K1 counted {counted.get('flash_attention', 0)} "
                                  f"launches, its paths {paths}: {counted}")
+        if not _k4_split_ok(counted):
+            raise AssertionError(f"phase {phase}: K4's weight and kernel modes do not sum "
+                                 f"to its launches: {counted}")
         path_launches.update(counted)
 
     def entry(name, source, counter, timed, path=None):
@@ -6125,9 +6340,11 @@ def main(argv=None) -> int:
               "flash_attention.decode_paged", "mistral_paged_verify", "decode_paged"),
     ]
 
-    def k4_entry(name, mode):
-        own = [c for c in quant_path["cases"] if mode is None or c["mode"] == mode]
-        head = next(c for c in own if c["case"].startswith(QUANT_TIMED))
+    def k4_entry(name, mode, kernel=None):
+        own = [c for c in quant_path["cases"] if (mode is None or c["mode"] == mode)
+               and (kernel is None or c["kernel"] == kernel)]
+        timed = QUANT_TIMED_MODE.get(kernel, QUANT_TIMED)
+        head = next(c for c in own if c["case"].startswith(timed))
         return {
             "name": name, "route": "cuda", "source": "docqa_tpu_torch/csrc/qmatmul.cu",
             # no Pallas kernel: the reference's dequantising product is XLA
@@ -6138,11 +6355,17 @@ def main(argv=None) -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "library": "torch.matmul on the unquantised bf16 weight",
+            "int_library_ms": head["int_library_ms"], "int_library": head["int_library"],
             "timed_case": head["case"], "cases": [c["case"] for c in own],
         }
 
     kernels += [k4_entry("qmatmul", None), k4_entry("qmatmul.int8", "int8"),
-                k4_entry("qmatmul.int4", "int4")]
+                k4_entry("qmatmul.int4", "int4"), k4_entry("qmatmul.ring", None, "ring"),
+                k4_entry("qmatmul.wgmma", None, "wgmma"),
+                k4_entry("qmatmul.simple", None, "simple")]
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main path: {idle}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -6219,7 +6442,8 @@ def main(argv=None) -> int:
         "pool": qs["pool"], "runtime": qs["runtime"], "host_us_a_call": qs["host_us_a_call"],
         "phase_s": quant_s,
         **{c["case"]: {key: c[key] for key in (
-            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+            "kernel", "ms", "plain_ms", "library_ms", "int_library_ms", "bound_ms",
+            "bound_by", "max_abs_err")}
            for c in quant_path["cases"] if c["m"] != 2048 or c["weight"] == "w_gate"},
     }}))
     print(json.dumps({"launches_by_phase": {

@@ -737,25 +737,38 @@ def test_seq2seq_loop_makes_no_host_sync_between_checks(dev, monkeypatch):
 
 # ---- K4: the weight-only quantised matmul ------------------------------------
 
-# (m, in, out, bits, group): the solo verify and a batcher verify at
+# (m, in, out, bits, group[, ldx]): the solo verify and a batcher verify at
 # Mistral-7B widths, a prefill past 64 rows, and ragged shapes (rows and
 # columns off the 16-byte vectors, an odd int4 group padded by the wrapper,
-# a degraded group of 2)
+# a degraded group of 2); then each mode's edges: the ring's 16-, 32- and
+# 64-row tiles (m 1 to 64) and the wgmma units past 64 rows, a K tile cut
+# short, int4 groups that do and do not span a stage, x as a strided view
+# (ldx a 16-byte multiple, read in place; and not, copied), and m = 0
 QCASES = [
     (4, 4096, 1024, 8, None), (4, 4096, 1024, 4, None), (64, 4096, 4096, 4, None),
     (300, 1024, 512, 8, None), (300, 1024, 512, 4, None),
     (5, 64, 40, 8, None), (37, 100, 130, 8, None), (3, 45, 24, 4, None),
     (70, 96, 200, 4, 48), (17, 298, 20, 4, None),
+    (1, 1024, 1024, 8, None), (1, 1024, 1024, 4, None), (8, 1024, 1024, 4, None),
+    (16, 4096, 1024, 8, None), (17, 1024, 512, 4, None), (17, 1024, 512, 8, None),
+    (63, 1024, 1024, 8, None), (64, 1024, 1024, 8, None), (65, 1024, 1024, 8, None),
+    (65, 1024, 1024, 4, None), (128, 1024, 1024, 4, None), (129, 1024, 1024, 8, None),
+    (300, 4096, 1024, 4, None), (4, 256, 20, 8, None), (70, 256, 130, 4, None),
+    (4, 1000, 1024, 8, None), (100, 1000, 512, 8, None), (4, 1004, 256, 8, None),
+    (9, 1000, 128, 4, None), (4, 512, 256, 4, 64), (4, 512, 256, 4, 256),
+    (100, 512, 256, 4, 256), (4, 1024, 1024, 8, None, 1032),
+    (80, 1024, 512, 4, None, 1030), (4, 96, 40, 8, None, 100), (0, 1024, 1024, 8, None),
+    (4, 4096, 1000, 8, None),
 ]
 
 
-def _qinputs(dev, m, k, n, bits, group):
+def _qinputs(dev, m, k, n, bits, group, ldx=None):
     from docqa_tpu_torch.models import quant
 
     gen = torch.Generator(device=dev).manual_seed(m * 7919 + k + n + bits)
     w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
     q, s = quant.quantize_array(w) if bits == 8 else quant.quantize_array_int4(w, group)
-    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((m, ldx or k), generator=gen, device=dev).to(torch.bfloat16)[:, :k]
     return x, q, s
 
 
@@ -770,9 +783,12 @@ def test_qmatmul_kernel_matches_plain(dev, case):
     before = dict(_kernels.LAUNCHES)
     got = qm.qmatmul(x, q, s)
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["qmatmul"] == before.get("qmatmul", 0) + 1
-    assert _kernels.LAUNCHES[f"qmatmul.{mode}"] == before.get(f"qmatmul.{mode}", 0) + 1
+    launched = int(x.shape[0] > 0)  # m = 0 returns an empty product unlaunched
+    kernel = getattr(q, qm._STORE).plan(max(x.shape[0], 1)).kernel
+    for name in ("qmatmul", f"qmatmul.{mode}", f"qmatmul.{kernel}"):
+        assert _kernels.LAUNCHES[name] == before.get(name, 0) + launched
     want = qm.qmatmul_reference(x, q, s)
+    assert got.shape == want.shape
     torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
 
 
@@ -789,6 +805,49 @@ def test_qmatmul_one_hot_rows_are_the_dequantised_weight_rows(dev, case):
     onehot[torch.arange(m, device=dev), rows] = 1
     got = qm.qmatmul(onehot, q, s)
     assert torch.equal(got, qm.dequantize(q, s, torch.bfloat16, k)[rows])
+
+
+# one case a mode: the ring's three tile heights with and without split K,
+# wgmma with and without split K, int8 and int4, and the simple mode
+QMODES = [
+    (4, 4096, 1024, 8, None), (4, 4096, 1024, 4, None), (32, 1024, 4096, 8, None),
+    (64, 4096, 4096, 4, None), (64, 1024, 14336, 8, None), (2048, 1024, 1024, 8, None),
+    (100, 4096, 256, 8, None), (128, 8192, 256, 4, None), (200, 1024, 4096, 4, None),
+    (37, 100, 130, 8, None), (4, 4096, 1000, 8, None),
+    (70, 96, 200, 4, 48), (4, 4096, 1024, 8, None, 4104),
+]
+
+
+@pytest.mark.parametrize("case", QMODES)
+def test_qmatmul_one_hot_rows_in_every_mode(dev, case):
+    """The one-hot identity in each kernel mode, split or not: an output row
+    is one dequantised weight row, bit for bit, whichever block sums it."""
+    from docqa_tpu_torch.ops import qmatmul as qm
+
+    m, k = case[0], case[1]
+    _x, q, s = _qinputs(dev, *case)
+    rows = torch.arange(m, device=dev) * 131 % k
+    onehot = torch.zeros((m, case[5] if len(case) > 5 else k), dtype=torch.bfloat16,
+                         device=dev)[:, :k]
+    onehot[torch.arange(m, device=dev), rows] = 1
+    got = qm.qmatmul(onehot, q, s)
+    assert torch.equal(got, qm.dequantize(q, s, torch.bfloat16, k)[rows])
+
+
+@pytest.mark.parametrize("case", [(4, 4096, 1024, 8, None), (4, 4096, 1024, 4, None),
+                                  (100, 4096, 256, 8, None), (2048, 4096, 1024, 4, None),
+                                  (4, 4096, 1000, 8, None)])
+def test_qmatmul_repeats_bit_for_bit(dev, case):
+    """Two products of the same inputs are equal bit for bit: at the split
+    shape (wk at the solo verify, K summed by the last block in split order),
+    at prefill shapes (persistent units, split and not) and at a ragged
+    split the simple kernel takes."""
+    from docqa_tpu_torch.ops import qmatmul as qm
+
+    x, q, s = _qinputs(dev, *case)
+    first = qm.qmatmul(x, q, s)
+    for _ in range(3):
+        assert torch.equal(qm.qmatmul(x, q, s), first)
 
 
 def test_qmatmul_wrapper_refuses_what_the_kernel_does_not_take(dev):

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_cuda import QCASES
 
 from docqa_tpu.config import DecoderConfig as JDecoderConfig
 from docqa_tpu.config import GenerateConfig as JGenerateConfig
@@ -302,15 +303,19 @@ class TestKernelWrapper:
             qm.qmatmul(torch.ones(2, 8, device="meta"), q, s)
 
     def test_plan_fills_the_grid_without_outgrowing_the_weights(self):
-        # Mistral-7B wk at the solo verify: 8 column blocks split K at
-        # least 16 ways, every tile in some split
+        # Mistral-7B wk at the solo verify: 8 column blocks of the ring mode
+        # split K at least 16 ways, every tile in some split, no split empty,
+        # and the blocks fill the card without passing two an SM
         p = qm.plan_qmatmul("int8", 4, 4096, 1024)
-        assert p.splits * p.tiles_per_split >= 4096 // qm.TILE_K and p.splits >= 16
+        assert p.kernel == "ring" and p.tiles == 4096 // qm.RING_K["int8"]
+        assert p.splits * p.tiles_per_split >= p.tiles > (p.splits - 1) * p.tiles_per_split
+        assert p.splits >= 16 and qm.H100_SMS // 2 < p.grid == 8 * p.splits <= 2 * qm.H100_SMS
         # the partials' traffic stays under the weight bytes at 64 rows
-        p = qm.plan_qmatmul("int8", 64, 4096, 14336)
-        assert 1 < p.splits and 2 * p.splits * 64 * 14336 * 4 <= 4096 * 14336
-        # prefill rows fill the grid alone
-        assert qm.plan_qmatmul("int8", 2048, 4096, 14336).splits == 1
+        p = qm.plan_qmatmul("int8", 64, 4096, 1024)
+        assert 1 < p.splits and 2 * p.splits * 64 * 1024 * 4 <= 4096 * 1024
+        # prefill rows fill the grid alone: one persistent block an SM
+        p = qm.plan_qmatmul("int8", 2048, 4096, 14336)
+        assert (p.kernel, p.splits, p.grid) == ("wgmma", 1, qm.H100_SMS)
         # an odd int4 group is walked padded to even
         p4 = qm.plan_qmatmul("int4", 4, 45, 64, group=45)
         assert (p4.k, p4.group) == (46, 46)
@@ -330,3 +335,47 @@ def test_decoder_weight_bytes_counts_the_stored_tree(bits, dec):
     tree = weights.to_torch(host, "cpu", torch_dtype(cfg.dtype))
     nbytes = sum(t.numel() * t.element_size() for k, t in tree.items() if k != "tok_emb")
     assert decoder_weight_bytes(cfg) == nbytes
+
+
+def _plan_case(m, in_dim, out, bits, group):
+    """The plan the wrapper takes for a product, as ``_Store.plan`` asks."""
+    mode = "int8" if bits == 8 else "int4"
+    g = quant._int4_group(in_dim, group) if bits == 4 else 0
+    return qm.plan_qmatmul(mode, m, in_dim, out, g)
+
+
+MISTRAL_K4 = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 32000)]
+
+
+@pytest.mark.parametrize("case", [c[:5] for c in QCASES]
+                         + [(m, k, n, bits, None) for m in (4, 64, 2048)
+                            for k, n in MISTRAL_K4 for bits in (8, 4)])
+def test_plan_meets_its_mode_constraints(case):
+    """Every card test's K4 shape and every Mistral-7B projection at the
+    solo verify, a 16-lane verify and a prefill gets a mode whose rules
+    hold: the TMA modes read 16-byte-multiple weight and x rows, an int4
+    group never splits a stage, the ring takes m <= 64 and wgmma the rest;
+    the splits cover every K tile with none empty; the partials' traffic
+    stays under the weight bytes; Mistral's shapes all take a TMA mode."""
+    m, in_dim, out, bits, group = case
+    p = _plan_case(m, in_dim, out, bits, group)
+    stage = {"simple": qm.STAGE_K, "wgmma": qm.STAGE_K, "ring": qm.RING_K[p.mode]}[p.kernel]
+    assert p.tiles == -(-p.k // stage)
+    assert p.splits * p.tiles_per_split >= p.tiles
+    assert p.splits == 1 or (p.splits - 1) * p.tiles_per_split < p.tiles
+    w_bytes = p.k * out // (2 if bits == 4 else 1)
+    assert p.splits == 1 or 2 * p.splits * m * out * 4 <= w_bytes
+    if p.kernel == "simple":
+        assert not qm.tma_ok(p.mode, p.k, out, p.group)
+        return
+    assert out % 16 == 0 and (p.k * 2) % 16 == 0  # x rows; weight rows are out bytes
+    if bits == 4:
+        assert p.group % 128 == 0 and p.group % stage == 0 and p.k % 2 == 0
+    assert p.kernel == ("ring" if m <= qm.RING_ROWS else "wgmma")
+    if p.kernel == "ring":
+        assert p.grid == -(-out // qm.TILE_N) * p.splits
+    else:
+        assert p.grid <= qm.H100_SMS and p.rows in (qm.WGMMA_ROWS, 2 * qm.WGMMA_ROWS)
+    if (in_dim, out) in MISTRAL_K4:
+        assert p.kernel != "simple"
+
