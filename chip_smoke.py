@@ -251,11 +251,30 @@ Phases, each of which fails the run on any error (nothing is caught):
    and 4: the tree bit-equal to ``quantize_decoder_params`` of the carried
    tree, the boot's peak memory, an /ask over HTTP not degraded.  AMQP is
    not driven: neither pika nor a broker is on the card's machine.
+15. the device plane on a mesh, after phase 14 (a)-(c) (it needs phase 3's
+   weights): (a) a world of one rank over NCCL (``multihost_init`` over a
+   file store in a temporary directory, ``make_mesh`` -> (1, 1), a direct
+   NCCL all-reduce and all-gather, the NCCL version printed); a
+   ``GenerateEngine`` on that mesh over phase 3's bf16 tree (the same
+   storage, checked by ``data_ptr``) answers phase 3's first question
+   greedily, 64 new tokens with K = 4: ids equal phase 3's engine's bit for
+   bit, K1 launches equal, 0 collectives; ``sharded_topk`` over phase 3's
+   store's scores equals ``torch.topk`` (tie rule); ``ulysses_attention``
+   (its attention on K1, one launch) and ``ring_attention`` at 32 / 8 heads
+   x 4,096 tokens within 1e-2 + 1e-2 |plain| of the plain attention; (b)
+   one rank's shard shapes at TP 1 (the row beside), 2, 4 and 8: K1's
+   verify (K = 4, 233 live) and 256-token prefill at 32/n q and 8/n kv
+   heads, K4 int8 and int4 at 4 and 2,048 rows on the column shards (wq,
+   wk, w_gate, lm_head int8) and the row shards (wo, w_down, int4 on whole
+   groups), sliced by ``parallel/sharding.py``, each held to its plain
+   version and timed with its plan and bound, and the sum of one rank's
+   225 products a step at m = 4 (one rank's work: no collective time).
+   The phase must take at most 90 s.
 
 The recorder is on by default, so phases 3-7 run traced too.  Prints the
 pool JSON line, the ingest JSON line, the obs JSON line, the app JSON line,
 the lifecycle JSON line, the training JSON line, the tiered JSON line, the
-checkpoints JSON line, the quant JSON line, the launches-by-phase JSON
+checkpoints JSON line, the quant JSON line, the mesh JSON line, the launches-by-phase JSON
 line (each main-path run's K1 and K4 counters, whose sums are the kernels
 line's launches; each run's K1 total must equal the sum of its paths, and
 its K4 total the sum of its weight modes and of its kernel modes), the
@@ -300,8 +319,8 @@ import torch
 
 from docqa_tpu_torch import obs
 from docqa_tpu_torch.config import (
-    Config, DecoderConfig, EncoderConfig, GenerateConfig, NERConfig, PoolConfig,
-    QoSConfig, ResilienceConfig, StoreConfig,
+    Config, DecoderConfig, EncoderConfig, GenerateConfig, MeshConfig, NERConfig,
+    PoolConfig, QoSConfig, ResilienceConfig, StoreConfig,
 )
 from docqa_tpu_torch.deid import datagen
 from docqa_tpu_torch.deid.engine import DeidEngine
@@ -325,9 +344,13 @@ from docqa_tpu_torch.obs.retrieval_observatory import compare_topk, wilson_inter
 from docqa_tpu_torch.ops import _kernels
 from docqa_tpu_torch.ops import attention as attn
 from docqa_tpu_torch.ops import qmatmul as qm
+from docqa_tpu_torch.ops import topk as ttopk
+from docqa_tpu_torch.parallel.ring_attention import ring_attention, ulysses_attention
+from docqa_tpu_torch.parallel import sharding as shard_mod
 from docqa_tpu_torch.resilience import (
     BreakerBoard, Deadline, FaultPlan, FaultRule, faults,
 )
+from docqa_tpu_torch.runtime import mesh as mesh_mod
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY
 from docqa_tpu_torch.service import registry as reg
 from docqa_tpu_torch.service.broker import make_broker
@@ -1156,9 +1179,9 @@ def run_batcher_path(counts, qa_solo, solo_per_q):
                     f"prefill passes; blocks after drain {occ['blocks_used']} / "
                     f"{occ['blocks_total']} (prefix cache {occ.get('prefix_blocks')})")
             wall_all = time.perf_counter() - t_all
-            launches = dict(counts)
+            launches, stats = _quiescent(counts, lambda: collections.Counter(batcher.stats))
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
-            stats = collections.Counter(batcher.stats) - stats0
+            stats = stats - stats0
         finally:
             for (mod, name), fn in originals.items():
                 setattr(mod, name, fn)
@@ -1303,6 +1326,21 @@ def _pool_prompt(qa, question):
     hits = qa.retriever.search_texts([question], k=qa.k)[0]
     chunks = [h.metadata.get("text_content", h.metadata.get("source", "")) for h in hits]
     return QA_TEMPLATE.format(context="\n\n".join(chunks), question=question)
+
+
+def _quiescent(counts, stats, settle_s=0.25, timeout_s=30.0):
+    """``(dict(counts), stats())`` once two reads ``settle_s`` apart agree:
+    no worker is issuing launches or finishing steps any more."""
+    deadline = time.perf_counter() + timeout_s
+    last = (dict(counts), stats())
+    while True:
+        time.sleep(settle_s)
+        now = (dict(counts), stats())
+        if now == last:
+            return now
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"launch counts still moving after {timeout_s} s")
+        last = now
 
 
 def run_pool_path(counts, qa_solo):
@@ -1624,9 +1662,12 @@ def run_pool_path(counts, qa_solo):
             f"{{answer, sources}}, breaker {board.states()}")
 
         # ---- the launch identity over the whole phase, all three pools
-        # (their construction warm-ups included)
-        launches = dict(counts)
-        steps = pool.stats() + stats_d + stats_1
+        # (their construction warm-ups included), read once the pool's
+        # workers are idle: a batcher issues its next chunk before it reads
+        # the last one's results, so the last answer can arrive while a
+        # step's launches are still being issued
+        launches, steps = _quiescent(counts, pool.stats)
+        steps = steps + stats_d + stats_1
         want = {
             "flash_attention.decode_paged": dec_cfg.num_layers * (
                 steps["verify_steps"] + steps["decode_steps"] + steps["warmup_steps"]),
@@ -2350,8 +2391,8 @@ def run_obs_path(counts, qa_solo, tagger):
                 "max": on["latency_max_s"] / off["latency_max_s"] - 1.0,
                 "tokens_per_s": 1.0 - on["tokens_per_s"] / off["tokens_per_s"],
             }})
-        launches = dict(counts)
-        steps = pool1.stats() - stats0
+        launches, steps = _quiescent(counts, pool1.stats)
+        steps = steps - stats0
         for pair in pairs:
             for r in (pair["off"], pair["on"]):
                 if r["degraded"]:
@@ -4045,8 +4086,8 @@ def run_tiered_ask(counts, qa, store, tiered):
         t0 = time.perf_counter()
         results = _resolve_all(_submit_round(qa_t, list(QUESTIONS)))
         wall = time.perf_counter() - t0
-        launches = dict(counts)
-        steps = pool1.stats() - stats0
+        launches, steps = _quiescent(counts, pool1.stats)
+        steps = steps - stats0
         _no_degraded("phase 12 /ask", [r[1] for r in results])
         for q, out, _lat in results:
             served = qa_t.retriever.search_texts([q], k=3)[0]
@@ -5981,10 +6022,9 @@ def run_quant_pool(counts, qa, gen8, bf16_a1):
         wall = time.perf_counter() - t0
         if not pool.drain(0, timeout=120)["drained"]:
             raise AssertionError("the int8 pool did not drain")
-        steps = pool.stats()
+        launches, steps = _quiescent(counts, pool.stats)
         steps.subtract(stats0)
         chunk = spine.stats()["stages"].get("serve_decode_chunk", {})
-        launches = dict(counts)
         forwards = calls["prefill"] + calls["decode"]
         all_steps = pool.stats()  # since the pool's construction, warm-ups included
     finally:
@@ -6109,6 +6149,283 @@ def run_quant_path(counts, qa, params, bf16_a1):
             "launches": {"reference config": calibrated_launches,
                          "solo int8": solo_launches[8], "solo int4": solo_launches[4],
                          "pool int8": pool_launches}}
+
+
+# ---- phase 15: the device plane on a mesh -----------------------------------
+
+MESH_NEW_TOKENS = 64  # (a): phase 3's first question, greedy, K = 4
+MESH_TOPK = 10  # (a): the sharded top-k over phase 3's store
+MESH_SEQ = 4096  # (a): ring and Ulysses at 32 / 8 heads over this many tokens
+MESH_TP = (1, 2, 4, 8)  # (b): one rank's shards at each model axis (1: the row beside)
+MESH_ROWS = (4, 2048)  # (b): K4 at the solo verify's rows and at a packed prefill
+MESH_PHASE_LIMIT_S = 90.0
+# (b) the projections a rank serves, Mistral-7B: (name, in, out, split axis)
+MESH_PROJECTIONS = (("wq", 4096, 4096, "out"), ("wk", 4096, 1024, "out"),
+                    ("w_gate", 4096, 14336, "out"), ("lm_head", 4096, 32000, "out"),
+                    ("wo", 4096, 4096, "in"), ("w_down", 14336, 4096, "in"))
+# one decode step's products, 225 at Mistral-7B: per layer wq, wk, wv
+# (= wk's shape), wo, w_gate, w_up (= w_gate's), w_down; then lm_head
+MESH_STEP_PRODUCTS = {"wq": 32, "wk": 64, "wo": 32, "w_gate": 64, "w_down": 32,
+                      "lm_head": 1}
+
+
+def _rank0_of(n):
+    """Model rank 0's place on a (1, n) mesh, with no process group: the
+    shard shapes of one rank, sliced by the port's own sharding rule."""
+    return mesh_mod.MeshContext(None, "data", "model", 1, n, 0, 0, torch.device("cuda"))
+
+
+def _same_ids_tie_rule(vals, ids, want_vals, want_ids, where):
+    """Equal scores, and equal ids among rows scoring clear of the k-th
+    score (a row tied with the k-th score is not a miss)."""
+    if not torch.equal(vals, want_vals):
+        raise AssertionError(f"{where}: top-k scores differ")
+    cut = want_vals[:, -1:]
+    for row in range(ids.shape[0]):
+        a = set(ids[row][vals[row] > cut[row]].tolist())
+        b = set(want_ids[row][want_vals[row] > cut[row]].tolist())
+        if a != b:
+            raise AssertionError(f"{where}: top-k ids differ in row {row}")
+
+
+def run_mesh_world(counts, qa, params, workdir):
+    """(a) a world of one rank over NCCL: the (1, 1) mesh's engine over
+    phase 3's tree (the same storage), phase 3's first question against
+    the unsharded engine, a direct NCCL all-reduce and all-gather, the
+    sharded top-k over phase 3's store, Ulysses (on K1) and ring attention
+    at 4,096 tokens.  Returns (summary, launches by run)."""
+    dev = torch.device("cuda")
+    if not mesh_mod.multihost_init(f"file://{workdir}/nccl_init", 1, 0, local_rank=0,
+                                   device="cuda"):
+        raise AssertionError("multihost_init did not start the world")
+    import torch.distributed as dist
+
+    mesh = mesh_mod.make_mesh(MeshConfig(), device="cuda")
+    if (mesh.n_data, mesh.n_model, dist.get_backend()) != (1, 1, "nccl"):
+        raise AssertionError(f"mesh {mesh.n_data}x{mesh.n_model} over {dist.get_backend()}")
+    nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+    # NCCL itself, outside the port's wrappers (a group of one rank issues
+    # none through them)
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    y = x.clone()
+    dist.all_reduce(y)
+    parts = [torch.empty_like(x)]
+    dist.all_gather(parts, x)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, x) and torch.equal(parts[0], x)):
+        raise AssertionError("NCCL all_reduce / all_gather over one rank changed the data")
+    log(f"  world of 1 rank over NCCL {nccl}: mesh {mesh.n_data}x{mesh.n_model} on "
+        f"{mesh.device}; all_reduce and all_gather round-trip")
+
+    solo_gen = qa.generator
+    eng = GenerateEngine(solo_gen.cfg, solo_gen.gen, params=params, mesh=mesh)
+    shared = all(eng.params[k].data_ptr() == params[k].data_ptr() for k in params)
+    if not shared or set(eng.params) != set(params):
+        raise AssertionError("the 1x1 mesh engine copied phase 3's tree")
+    _prompt, ids = first_step_prompt(qa, QUESTIONS[0], solo_gen.gen.prefill_buckets[-1])
+    counts.clear()
+    want = solo_gen.generate_ids([ids], MESH_NEW_TOKENS)[0]
+    solo_k1 = counts["flash_attention"]
+    counts.clear()
+    mesh_mod.COLLECTIVES.clear()
+    t0 = time.perf_counter()
+    got = eng.generate_ids([ids], MESH_NEW_TOKENS)[0]
+    mesh_s = time.perf_counter() - t0
+    launches = {"15 mesh": dict(counts)}
+    collectives = dict(mesh_mod.COLLECTIVES)
+    if got != want:
+        raise AssertionError(f"the 1x1 mesh engine's tokens differ from phase 3's: "
+                             f"{got[:8]}... against {want[:8]}...")
+    if counts["flash_attention"] != solo_k1 or collectives:
+        raise AssertionError(f"mesh engine: K1 {counts['flash_attention']} launches against "
+                             f"phase 3's {solo_k1}; collectives {collectives}")
+    log(f"  1x1 mesh engine: {len(got)} tokens equal phase 3's bit for bit in "
+        f"{mesh_s:.2f} s, K1 {solo_k1} launches on both, 0 collectives, weights shared")
+
+    # the sharded top-k over the 1M-row store's scores
+    buf, count = qa.store.device_view()
+    emb = qa.retriever.encoder.encode_texts([QUESTIONS[0]])
+    with torch.inference_mode():
+        q = torch.from_numpy(emb).to(dev).to(buf.dtype).float()
+        scores = torch.cat([q @ buf[s:min(s + (1 << 18), count)].float().T
+                            for s in range(0, count, 1 << 18)], dim=1)
+        vals, top = ttopk.sharded_topk(scores, 0, MESH_TOPK, mesh.model_group)
+        want_vals, want_top = torch.topk(scores, MESH_TOPK, dim=-1)
+    _same_ids_tie_rule(vals, top, want_vals, want_top, "sharded_topk")
+    log(f"  sharded_topk over {count} rows: ids equal torch.topk's (tie rule)")
+
+    # Ulysses (K1 on the local heads) and ring attention at 4,096 tokens
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    q, k, v = (torch.randn((1, MESH_SEQ, h, 128), generator=gen, device=dev
+                           ).to(torch.bfloat16) for h in (32, 8, 8))
+    lengths = torch.tensor([MESH_SEQ], dtype=torch.int32, device=dev)
+    atol, rtol = TOL[torch.bfloat16]
+    seq = {}
+    with torch.inference_mode():
+        plain = attn.attention_reference(q, k, v, causal=True, lengths=lengths,
+                                         q_offset=torch.zeros_like(lengths)).float()
+        for name, fn in (("ulysses", ulysses_attention), ("ring", ring_attention)):
+            counts.clear()
+            mesh_mod.COLLECTIVES.clear()
+            out = fn(q, k, v, mesh, causal=True, lengths=lengths)
+            torch.cuda.synchronize()
+            launches[f"15 {name}"] = dict(counts)
+            err = (out.float() - plain).abs()
+            if not bool((err <= atol + rtol * plain.abs()).all()):
+                raise AssertionError(f"{name} attention: max |err| {float(err.max()):.3e}")
+            if mesh_mod.COLLECTIVES:
+                raise AssertionError(f"{name}: collectives at 1x1 {dict(mesh_mod.COLLECTIVES)}")
+            seq[name] = {"max_abs_err": float(err.max()), "k1_launches": counts["flash_attention"]}
+        del plain
+    if seq["ulysses"]["k1_launches"] != 1 or seq["ring"]["k1_launches"] != 0:
+        raise AssertionError(f"K1 launches: Ulysses {seq['ulysses']['k1_launches']} (want 1), "
+                             f"ring {seq['ring']['k1_launches']} (plain PyTorch, want 0)")
+    log(f"  Ulysses (K1) and ring at 32/8 heads x {MESH_SEQ} tokens within "
+        f"{atol} + {rtol}|plain|: max |err| {seq['ulysses']['max_abs_err']:.2e}, "
+        f"{seq['ring']['max_abs_err']:.2e}")
+    dist.destroy_process_group()
+    return {"nccl": nccl, "tokens": len(got), "engine_s": mesh_s, "k1_launches": solo_k1,
+            "collectives": collectives, "weights_shared": shared,
+            "topk_rows": count, "sequence": seq}, launches
+
+
+def _mesh_k1_case(n, case, flush):
+    """K1 at one rank's heads (32/n q, 8/n kv) of a phase 2 case."""
+    dev = torch.device("cuda")
+    hq, hkv = 32 // n, 8 // n
+    b, sq, skv, d = case["b"], case["sq"], case["skv"], case["d"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(150 + n)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    lengths = torch.tensor(case["lengths"], dtype=torch.int32, device=dev)
+    q_offset = torch.tensor(case["q_offset"], dtype=torch.int32, device=dev)
+    kw = dict(causal=True, lengths=lengths, q_offset=q_offset, sliding_window=case["window"])
+    got = attn.flash_attention(q, k, v, **kw)
+    want = attn.attention_reference(q, k, v, **kw).float()
+    err = (got.float() - want).abs()
+    atol, rtol = TOL[torch.bfloat16]
+    if not bool((err <= atol + rtol * want.abs()).all()):
+        raise AssertionError(f"K1 {case['name']} at TP {n}: max |err| {float(err.max()):.3e}")
+    ms = time_ms(lambda: attn.flash_attention(q, k, v, **kw), flush)
+    mask = attn.live_mask(b, sq, skv, lengths, q_offset, True, case["window"], dev)
+    live_pairs, live_kv = int(mask.sum()), int(mask.any(dim=1).sum())
+    t_bytes = ((2 * b * sq * hq * d + 2 * live_kv * hkv * d) * 2 + 8 * b) / PEAK_BYTES_S * 1e3
+    t_flops = 4 * d * hq * live_pairs / PEAK_BF16_FLOPS * 1e3
+    plan = attn.plan_flash(torch.bfloat16, b, sq, skv, hq, hkv,
+                           torch.cuda.get_device_properties(dev).multi_processor_count)
+    return {"case": f"k1_{case['name']}_tp{n}", "tp": n, "kernel": "flash_attention",
+            "shape": f"b{b} sq{sq} skv{skv} hq{hq} hkv{hkv} d{d}", "plan": plan._asdict(),
+            "path": plan.path, "max_abs_err": float(err.max()), "ms": ms,
+            "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def _mesh_k4_case(n, name, mode, m, q, sc, flush, gen):
+    """K4 at one rank's store ``q``, ``sc`` (a shard) and ``m`` rows."""
+    k = q.shape[0] if q.dim() == 2 else sc.shape[0] * (2 * q.shape[1])
+    out = q.shape[-1]
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    got = qm.qmatmul(x, q, sc)
+    want = qm.qmatmul_reference(x, q, sc).float()
+    err = (got.float() - want).abs()
+    atol, rtol = TOL[torch.bfloat16]
+    if not bool((err <= atol + rtol * want.abs()).all()) or not torch.isfinite(got).all():
+        raise AssertionError(f"K4 {name} {mode} m{m} at TP {n}: max |err| "
+                             f"{float(err.max()):.3e}")
+    plan = getattr(q, qm._STORE).plan(m)
+    ms = time_ms(lambda: qm.qmatmul(x, q, sc), flush)
+    nbytes = q.numel() + 4 * sc.numel() + 2 * m * k + 2 * m * out
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_flops = 2 * m * k * out / PEAK_BF16_FLOPS * 1e3
+    return {"case": f"{name}_m{m}_{mode}_tp{n}", "tp": n, "weight": name, "mode": mode,
+            "m": m, "shape": f"m{m} in{k} out{out}", "kernel": plan.kernel,
+            "splits": plan.splits, "grid": plan.grid, "max_abs_err": float(err.max()),
+            "ms": ms, "bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def run_mesh_shards(counts):
+    """(b) one rank's work at TP 1, 2, 4 and 8 of Mistral-7B: K1's verify
+    (K = 4, 233 live) and 256-token prefill at 32/n q and 8/n kv heads, and
+    K4 int8 and int4 at 4 and 2,048 rows on the column shards (wq, wk,
+    w_gate, lm_head int8) and the row shards (wo, w_down, int4 on whole
+    groups), each sliced by ``parallel/sharding.py`` from a full weight
+    quantised on the card, held to its plain version and timed; then the
+    sum of one rank's 225 products a step at m = 4.  One rank's work only:
+    no collective time.  Returns (cases, step sums, launches)."""
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1515)
+    by_name = {c["name"]: c for c in kernel_cases()}
+    counts.clear()
+    cases = []
+    for n in MESH_TP:
+        for name in ("mistral_verify", "mistral_prefill"):
+            rec = _mesh_k1_case(n, by_name[name], flush)
+            cases.append(rec)
+            log(f"  K1 {rec['case']:26s} {rec['shape']:30s} {rec['path']:7s} splits "
+                f"{rec['plan']['num_splits']}  err {rec['max_abs_err']:.2e}  "
+                f"{rec['ms']:.4f} ms  bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    for name, k, out, axis in MESH_PROJECTIONS:
+        w = torch.randn((k, out), generator=gen, device=dev) * k ** -0.5
+        packs = [("int8", *quant.quantize_array(w))]
+        if name != "lm_head":
+            packs.append(("int4", *quant.quantize_array_int4(w)))
+        del w
+        spec = "lm_head" if name == "lm_head" else f"l0_{name}"
+        for mode, q_full, sc_full in packs:
+            for n in MESH_TP:
+                mesh = _rank0_of(n)
+                specs = shard_mod.decoder_param_pspecs(DecoderConfig.mistral_7b(), "model")
+                q = shard_mod.shard_leaf(q_full, shard_mod.spec_for(spec, q_full, specs, n), mesh)
+                sc = shard_mod.shard_leaf(sc_full, shard_mod.spec_for(
+                    spec + quant.SCALE_SUFFIX, sc_full, specs, n), mesh)
+                for m in MESH_ROWS:
+                    rec = _mesh_k4_case(n, name, mode, m, q, sc, flush, gen)
+                    cases.append(rec)
+                    log(f"  K4 {rec['case']:26s} {rec['shape']:22s} {rec['kernel']:6s} "
+                        f"splits {rec['splits']:2d} grid {rec['grid']:4d}  err "
+                        f"{rec['max_abs_err']:.2e}  {rec['ms']:.4f} ms  bound "
+                        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}, "
+                        f"{100 * rec['bound_ms'] / rec['ms']:.1f} %)")
+                del q, sc
+        del packs
+    launches = dict(counts)
+    del flush
+    step = {}
+    for mode in ("int8", "int4"):
+        for n in MESH_TP:
+            total = 0.0
+            for name, times in MESH_STEP_PRODUCTS.items():
+                leaf_mode = "int8" if name == "lm_head" else mode
+                rec = next(c for c in cases if c.get("weight") == name and c["m"] == 4
+                           and c["mode"] == leaf_mode and c["tp"] == n)
+                total += times * rec["ms"]
+            step[f"{mode}_tp{n}"] = total
+        log(f"  one rank's 225 products a step at m = 4, {mode}: " + ", ".join(
+            f"TP {n} {step[f'{mode}_tp{n}']:.3f} ms" for n in MESH_TP))
+    return cases, step, launches
+
+
+def run_mesh_path(counts, qa, params):
+    """Phase 15, while phase 3's weights are on the card."""
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="docqa_phase15_")
+    try:
+        world, launches = run_mesh_world(counts, qa, params, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    cases, step, shard_launches = run_mesh_shards(counts)
+    launches["15 shards"] = shard_launches
+    phase_s = time.perf_counter() - t0
+    log(f"  phase 15 took {phase_s:.1f} s (limit {MESH_PHASE_LIMIT_S:.0f} s)")
+    if phase_s > MESH_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 15 took {phase_s:.1f} s, over {MESH_PHASE_LIMIT_S} s")
+    return {"summary": {**world, "step_m4_ms": step, "phase_s": phase_s},
+            "cases": cases, "launches": launches}
 
 
 
@@ -6239,6 +6556,13 @@ def main(argv=None) -> int:
                                 pool_path["summary"]["rounds"]["A1"])
     quant_s = time.perf_counter() - t_quant
 
+    log("[15/15] the device plane on a mesh: a world of one rank over NCCL, the (1, 1) mesh's "
+        "engine over phase 3's tree, the sharded top-k, Ulysses and ring attention; then one "
+        "rank's K1 and K4 shard shapes at TP 1, 2, 4 and 8 of Mistral-7B")
+    get_spine().reset_stats()
+    mesh_path = run_mesh_path(_kernels.LAUNCHES, qa, params)
+    mesh_s = mesh_path["summary"]["phase_s"]
+
     log("[9/14, continued] the app module as a user starts it, and a tiny runtime on the "
         "card against the CPU")
     t_app = time.perf_counter()
@@ -6294,6 +6618,7 @@ def main(argv=None) -> int:
         "11 encoder": training["encoder"]["k1_launches"],
         "12": tiered_path["launches"], "13": ckpt_path["launches"],
         **{f"14 {run}": n for run, n in quant_path["launches"].items()},
+        **mesh_path["launches"],
     }
     path_launches = collections.Counter()
     for phase, counted in phase_launches.items():
@@ -6385,6 +6710,7 @@ def main(argv=None) -> int:
                 "training": training, "training_s": train_s,
                 "checkpoint_path": ckpt_path, "checkpoint_path_s": ckpt_s,
                 "quant_path": quant_path, "quant_path_s": quant_s,
+                "mesh_path": mesh_path, "mesh_path_s": mesh_s,
                 "launches_by_phase": phase_launches,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
@@ -6445,6 +6771,16 @@ def main(argv=None) -> int:
             "kernel", "ms", "plain_ms", "library_ms", "int_library_ms", "bound_ms",
             "bound_by", "max_abs_err")}
            for c in quant_path["cases"] if c["m"] != 2048 or c["weight"] == "w_gate"},
+    }}))
+    ms = mesh_path["summary"]
+    print(json.dumps({"mesh": {
+        **{k: ms[k] for k in ("nccl", "tokens", "engine_s", "k1_launches", "collectives",
+                              "weights_shared", "topk_rows", "sequence", "step_m4_ms")},
+        "phase_s": mesh_s,
+        **{c["case"]: {key: c[key] for key in ("ms", "bound_ms", "bound_by", "max_abs_err")}
+           | ({"plan": c["path"], "splits": c["plan"]["num_splits"]} if "path" in c
+              else {"plan": c["kernel"], "splits": c["splits"]})
+           for c in mesh_path["cases"]},
     }}))
     print(json.dumps({"launches_by_phase": {
         phase: {key: n for key, n in counted.items() if n}

@@ -17,6 +17,21 @@ from typing import Any, Mapping, Optional, Tuple
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh (``runtime/mesh.py``): axes ``data`` (batch-axis data
+    parallelism) and ``model`` (tensor parallelism, and the store's row
+    shards), the reference's names and defaults.  ``-1`` takes every rank
+    of the world left on that axis; ``platform="cpu"`` builds the mesh on
+    the CPU over gloo (the tests' worlds), else on the card over NCCL."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = 1
+    model_parallel: int = -1
+    platform: Optional[str] = None
+
+
+@dataclass(frozen=True)
 class EncoderConfig:
     """MiniLM-class sentence encoder (all-MiniLM-L6-v2 widths)."""
 
@@ -504,9 +519,11 @@ class RouterConfig:
 @dataclass(frozen=True)
 class Config:
     """Every section the app's runtime (``service/app.py``) and the
-    components it builds read; the reference's mesh section has no reader
-    in this port."""
+    components it builds read.  The runtime refuses a mesh of more than one
+    rank (``service/app.py``'s ``refuse_unported``); the engines take one
+    (``runtime/mesh.py``)."""
 
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     ner: NERConfig = field(default_factory=NERConfig)
     decoder: DecoderConfig = field(default_factory=DecoderConfig)

@@ -7,6 +7,11 @@ dispatch-spine work item (stage ``encode``: upload, forward, fetch) inside
 an ``encode_batch`` span; :meth:`EncoderEngine.encode_ids` is the forward
 alone, for callers that run it inside their own item (the fused
 retriever).
+
+On a mesh (``mesh=``) the parameters are replicated on every rank and
+each marshalled batch, padded to a multiple of the data axis, splits over
+it: every data rank encodes its rows and the embeddings are gathered (one
+``all_gather`` a forward), so every rank holds the whole batch's.
 """
 
 from __future__ import annotations
@@ -22,9 +27,10 @@ from docqa_tpu_torch.config import EncoderConfig
 from docqa_tpu_torch.engines.spine import spine_run, to_host
 from docqa_tpu_torch.models.encoder import Params, encode_batch
 from docqa_tpu_torch.obs.observatory import DEFAULT_OBSERVATORY, encoder_cost
+from docqa_tpu_torch.runtime.mesh import MeshContext, all_gather
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, span
 from docqa_tpu_torch.text.tokenizer import Tokenizer, default_tokenizer
-from docqa_tpu_torch.utils import pick_bucket, resolve_device
+from docqa_tpu_torch.utils import pick_bucket, resolve_device, round_up
 
 SEQ_BUCKETS = (64, 128, 256, 512)
 BATCH_BUCKETS = (8, 32, 128)
@@ -35,11 +41,13 @@ def marshal_texts(
     cfg: EncoderConfig,
     texts: Sequence[str],
     batch_buckets: Tuple[int, ...] = BATCH_BUCKETS,
+    n_data: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Tokenize + seq/batch bucket + pad — the one marshalling path, shared
     by :class:`EncoderEngine` and the fused retriever, with the reference's
     buckets.  Returns (ids [B, S] int32, lengths [B] int32); rows beyond
-    ``len(texts)`` are zero-length lanes."""
+    ``len(texts)`` are zero-length lanes; ``n_data`` rounds the batch up to
+    a multiple of the mesh's data axis."""
     n = len(texts)
     ids, lengths = tokenizer.batch(
         texts, max_len=min(cfg.max_seq_len, SEQ_BUCKETS[-1])
@@ -48,6 +56,8 @@ def marshal_texts(
         pick_bucket(int(lengths.max()) if n else 1, SEQ_BUCKETS), ids.shape[1]
     )
     batch_b = pick_bucket(n, batch_buckets) if n <= batch_buckets[-1] else n
+    if n_data is not None:
+        batch_b = round_up(batch_b, n_data)
     ids_p = np.zeros((batch_b, seq_b), np.int32)
     len_p = np.zeros((batch_b,), np.int32)
     ids_p[:n] = ids[:, :seq_b]
@@ -63,14 +73,18 @@ class EncoderEngine:
         params: Optional[Params] = None,
         seed: int = 0,
         device="cuda",
+        mesh: Optional[MeshContext] = None,
     ):
         """``params``: a tree of numpy arrays or tensors with the
         reference's names (an imported checkpoint's among them); None draws
         the reference's seeded host init.  Parameters keep their dtype
         (matmuls cast to ``cfg.dtype``).  The tokenizer reads
         ``cfg.tokenizer_path`` when set (the hash fallback otherwise).
-        ``forwards`` counts encoder forwards (one per marshalled batch)."""
-        self.device = resolve_device(device)
+        ``forwards`` counts encoder forwards (one per marshalled batch).
+        ``mesh``: encode data-parallel on the mesh's device (module
+        docstring)."""
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.tokenizer = tokenizer or default_tokenizer(
             cfg.vocab_size, vocab_path=cfg.tokenizer_path
@@ -80,6 +94,11 @@ class EncoderEngine:
         self.params = weights.to_torch(params, self.device)
         self.forwards = 0
         self._count_lock = threading.Lock()
+
+    @property
+    def n_data(self) -> Optional[int]:
+        """The data axis a marshalled batch must divide (None alone)."""
+        return None if self.mesh is None else self.mesh.n_data
 
     def cost_key(self, ids: np.ndarray, lengths: np.ndarray) -> tuple:
         """The analytic cost key of one forward over a marshalled batch:
@@ -97,11 +116,17 @@ class EncoderEngine:
     def encode_ids(self, ids, lengths) -> torch.Tensor:
         """Marshalled [B, S] ids and [B] lengths (numpy arrays, or tensors
         already on the device) -> [B, embed_dim] f32 embeddings, left on
-        the device (the forward alone: no spine item)."""
-        ids_t = torch.as_tensor(ids).long().to(self.device)
-        len_t = torch.as_tensor(lengths).to(self.device)
+        the device (the forward alone: no spine item).  On a mesh this rank
+        encodes its rows of the batch (a multiple of the data axis) and
+        the embeddings are gathered."""
+        mesh = self.mesh
+        lanes = slice(None) if mesh is None else mesh.data_lanes(len(ids))
+        ids_t = torch.as_tensor(ids)[lanes].long().to(self.device)
+        len_t = torch.as_tensor(lengths)[lanes].to(self.device)
         with torch.inference_mode():
             out = encode_batch(self.params, self.cfg, ids_t, len_t)
+            if mesh is not None:
+                out = all_gather(out, mesh.data_group, "encode")
         with self._count_lock:
             self.forwards += 1
         return out
@@ -115,7 +140,8 @@ class EncoderEngine:
         max_b = BATCH_BUCKETS[-1]
         for start in range(0, len(texts), max_b):
             chunk = texts[start : start + max_b]
-            ids_p, len_p = marshal_texts(self.tokenizer, self.cfg, chunk)
+            ids_p, len_p = marshal_texts(self.tokenizer, self.cfg, chunk,
+                                         n_data=self.n_data)
 
             def _encode_on_device(ids_p=ids_p, len_p=len_p):
                 return to_host(self.encode_ids(ids_p, len_p).float())

@@ -1,6 +1,15 @@
 """Solo decode engine: bucketed prefill, then a decode loop over the KV
 cache.  Counterpart of ``docqa_tpu/engines/generate.py`` (GenerateEngine
-without the mesh, the batcher hooks or the memory probe).
+without the batcher hooks or the memory probe).
+
+On a mesh (``mesh=``, ``runtime/mesh.py``) the engine serves a Megatron
+tensor-parallel decoder: the weights are sharded at construction
+(``parallel/sharding.py``), the KV cache holds this rank's kv heads, every
+forward all-reduces twice a layer over the model axis (the trunk) and its
+vocabulary-local logits are gathered once before sampling, so every rank
+of a model group draws the same token.  Lanes split over the data axis;
+each data rank decodes its own with no collective inside the loop, and the
+token streams, padded to a fixed width, are gathered once at the end.
 
 The reference runs the loop on device (``lax.while_loop``); here it is a
 Python loop whose only host sync per step is the all-lanes-done exit test.
@@ -38,6 +47,8 @@ from docqa_tpu_torch.models.decoder import (
     init_kv_cache,
 )
 from docqa_tpu_torch.ops.sampling import sample
+from docqa_tpu_torch.parallel.sharding import shard_decoder_params
+from docqa_tpu_torch.runtime.mesh import MeshContext, all_gather
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, span
 from docqa_tpu_torch.text.tokenizer import Tokenizer, default_tokenizer
 from docqa_tpu_torch.utils import pick_bucket, resolve_device, round_up, torch_dtype
@@ -87,11 +98,16 @@ class GenerateEngine:
         tokenizer: Optional[Tokenizer] = None,
         seed: int = 0,
         device="cuda",
+        mesh: Optional[MeshContext] = None,
     ):
         """``params``: a tree of numpy arrays or tensors with the
         reference's names; None draws the reference's seeded numpy host
         init (bit-equal to ``docqa_tpu``'s engine with the same seed).
         Floating weights are stored in ``cfg.dtype``.
+
+        ``mesh``: serve tensor- and data-parallel (module docstring); the
+        engine runs on the mesh's device and keeps this rank's shards only
+        (at 1x1 the tree itself, storage and all).
 
         ``cfg.quantize_weights`` serves a weight-only quantised decoder
         (``cfg.quant_bits`` 8 or 4, ``models/quant.py``), as the
@@ -101,7 +117,8 @@ class GenerateEngine:
         before the remaining float leaves take ``cfg.dtype``; a tree
         already quantised passes through.  Quantised weights and their
         scales are never cast."""
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.gen = gen or GenerateConfig()
         self.tokenizer = tokenizer or default_tokenizer(
@@ -146,7 +163,15 @@ class GenerateEngine:
             params = quant.quantize_decoder_params(
                 params, cfg.quant_bits, device=self.device
             )
+        if mesh is not None:
+            # slice on the leaves' own device, then upload the slices only
+            params = shard_decoder_params(
+                {k: weights.leaf_to_tensor(v) for k, v in params.items()}, cfg, mesh
+            )
         self.params = weights.to_torch(params, self.device, torch_dtype(cfg.dtype))
+        # the kv heads this rank's cache holds (all of them without a mesh)
+        self.kv_heads = (self.params["l0_wk"].shape[-1] // cfg.head_dim
+                         if cfg.num_layers else cfg.num_kv_heads)
         # timings and counts of the last generation
         self.last_stats: Dict[str, float] = {}
         self._seed = seed
@@ -158,14 +183,31 @@ class GenerateEngine:
         get distinct seeds (``next`` on ``itertools.count`` is atomic)."""
         return self._seed * 100_003 + next(self._request_counter)
 
+    # ---- the forward ------------------------------------------------------
+
+    def forward(self, ids, cache, cache_lengths, **kwargs) -> torch.Tensor:
+        """:func:`decoder_forward` over this engine's tree and ``cache``,
+        returning logits over the whole vocabulary: on a model axis of n > 1
+        the vocabulary-local logits are gathered (one ``all_gather`` a
+        forward, a vocabulary that does not divide padded for it)."""
+        logits = decoder_forward(self.params, self.cfg, ids, cache, cache_lengths,
+                                 mesh=self.mesh, **kwargs)
+        mesh = self.mesh
+        if mesh is None or mesh.n_model == 1:
+            return logits
+        vocab = self.cfg.vocab_size
+        chunk = -(-vocab // mesh.n_model)
+        if logits.shape[-1] < chunk:
+            logits = torch.nn.functional.pad(logits, (0, chunk - logits.shape[-1]))
+        return all_gather(logits, mesh.model_group, "logits", dim=-1)[..., :vocab]
+
     # ---- plain decode ---------------------------------------------------
 
     def _generate_plain(self, ids, lengths, max_new, temperature, generator):
         b, bucket = ids.shape
         cache = self._new_cache(b, round_up(bucket + max_new, 128))
-        logits = decoder_forward(
-            self.params, self.cfg, ids, cache,
-            torch.zeros_like(lengths), attn_lengths=lengths,
+        logits = self.forward(
+            ids, cache, torch.zeros_like(lengths), attn_lengths=lengths,
             last_token_only=True,
         )
         gen = self.gen
@@ -179,9 +221,7 @@ class GenerateEngine:
         lengths = lengths.clone()
         step = 1
         while step < max_new and not bool(done.all()):
-            logits = decoder_forward(
-                self.params, self.cfg, out[:, step - 1 : step], cache, lengths
-            )
+            logits = self.forward(out[:, step - 1 : step], cache, lengths)
             nxt = sample(logits[:, 0], generator, temperature, gen.top_k, gen.top_p)
             nxt = torch.where(done, torch.full_like(nxt, gen.pad_id), nxt)
             out[:, step] = nxt
@@ -214,10 +254,7 @@ class GenerateEngine:
         ``(g, m, cand, is_eos, eos_pos)`` from :func:`accept_drafts`."""
         drafts = draft_tokens(table, cur, K)
         verify_in = torch.cat([cur[:, None], drafts], dim=1)
-        logits = decoder_forward(
-            self.params, self.cfg, verify_in, cache, lengths,
-            attn_lengths=lengths + K,
-        )
+        logits = self.forward(verify_in, cache, lengths, attn_lengths=lengths + K)
         return accept_drafts(logits, drafts, self.gen.eos_id)
 
     def confirm_bigrams(self, table, cur, g, emit_valid):
@@ -238,9 +275,9 @@ class GenerateEngine:
         lane = torch.arange(b, device=dev)
         karange = torch.arange(K, device=dev)[None, :]
 
-        logits = decoder_forward(
-            self.params, self.cfg, ids, cache, torch.zeros_like(lengths),
-            attn_lengths=lengths, last_token_only=True,
+        logits = self.forward(
+            ids, cache, torch.zeros_like(lengths), attn_lengths=lengths,
+            last_token_only=True,
         )
         first = torch.argmax(logits[:, -1], dim=-1)
         table = self._build_bigram(ids, lengths)
@@ -291,6 +328,7 @@ class GenerateEngine:
         return init_kv_cache(
             self.cfg, b, max_len=cache_len,
             dtype=self.params["tok_emb"].dtype, device=self.device,
+            num_kv_heads=self.kv_heads,
         )
 
     def _mark_prefill(self) -> None:
@@ -350,9 +388,11 @@ class GenerateEngine:
             else round_up(longest, 128),
             usable,
         )
-        # pad the batch to a bucket; dummy lanes get length-1 prompts and
-        # their outputs are dropped
+        # pad the batch to a bucket and to a multiple of the data axis;
+        # dummy lanes get length-1 prompts and their outputs are dropped
         b_pad = pick_bucket(b, BATCH_BUCKETS) if b <= BATCH_BUCKETS[-1] else b
+        if self.mesh is not None:
+            b_pad = round_up(b_pad, self.mesh.n_data)
         ids = np.full((b_pad, bucket), self.gen.pad_id, np.int64)
         lengths = np.ones((b_pad,), np.int32)
         for i, p in enumerate(prompts_ids):
@@ -360,14 +400,22 @@ class GenerateEngine:
             ids[i, : len(p)] = p
             lengths[i] = max(len(p), 1)
 
+        lanes = slice(None) if self.mesh is None else self.mesh.data_lanes(b_pad)
+
         def _generate_on_device():
             """The device phase (one spine work item): upload, the whole
-            generation, and the start of the copy to the host."""
+            generation of this data rank's lanes, the gather of every data
+            rank's streams, and the start of the copy to the host."""
             o, n = self.generate_device(
-                torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(lengths).to(self.device),
+                torch.from_numpy(ids[lanes]).to(self.device),
+                torch.from_numpy(lengths[lanes]).to(self.device),
                 max_new, temperature, seed,
             )
+            if self.mesh is not None and self.mesh.n_data > 1:
+                # the streams' width is the same on every data rank
+                both = all_gather(torch.cat([o, n[:, None].to(o.dtype)], dim=1),
+                                  self.mesh.data_group, "generate")
+                o, n = both[:, :-1], both[:, -1]
             return to_host(o[:b]), to_host(n[:b])
 
         with span("generate", DEFAULT_REGISTRY):

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from docqa_tpu_torch.engines.encoder import marshal_texts
 from docqa_tpu_torch.engines.spine import spine_run, to_host
 from docqa_tpu_torch.index.store import NEG_INF, SearchResult, search_single
+from docqa_tpu_torch.runtime.mesh import refuse_sharded
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, span
 from docqa_tpu_torch.utils import pick_bucket, resolve_device, round_up
 
@@ -148,6 +149,8 @@ class FusedRAG:
                 )
         if not store.cfg.token_width:
             raise ValueError("FusedRAG needs StoreConfig.token_width > 0")
+        refuse_sharded("FusedRAG", "item 9c", *(getattr(part, "mesh", None)
+                                                for part in (encoder, store, generator)))
         self.encoder = encoder
         self.store = store
         self.generator = generator

@@ -4,6 +4,9 @@ dispatch-spine work item with one host fetch at its end.
 
 * :class:`FusedRetriever` (exact serving, dense only): encoder forward ->
   L2 re-normalize -> cast to the store's dtype -> exact scores -> top-k.
+  Over a row-sharded store (``VectorStore(mesh=)``) the top-k is the
+  store's sharded search (local block, then the exact merge), and a
+  data-parallel encoder splits the query batch over the data axis.
   A metadata filter or a tombstone rides as a row mask, built from the
   store under the same lock as the buffer it masks.
 * :class:`FusedTieredRetriever` (``store.serving_index="tiered"``): the
@@ -35,9 +38,10 @@ from docqa_tpu_torch.engines.encoder import EncoderEngine, marshal_texts
 from docqa_tpu_torch.engines.spine import spine_run, to_host
 from docqa_tpu_torch.index.ivf import _probe_kernel
 from docqa_tpu_torch.index.lexical import score_lexical
-from docqa_tpu_torch.index.store import SearchResult, VectorStore, search_single
+from docqa_tpu_torch.index.store import SearchResult, VectorStore
 from docqa_tpu_torch.index.tiered import _tail_kernel
 from docqa_tpu_torch.obs.observatory import DEFAULT_OBSERVATORY, encoder_cost
+from docqa_tpu_torch.runtime.mesh import refuse_sharded
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger, span
 from docqa_tpu_torch.utils import resolve_device
 
@@ -75,7 +79,9 @@ class FusedRetriever:
     tiered index."""
 
     def __init__(self, encoder: EncoderEngine, store: VectorStore, device="cuda"):
-        self.device = resolve_device(device)
+        """On a mesh the retriever runs on the store's device (the mesh's)."""
+        self.device = (store.device if getattr(store, "mesh", None) is not None
+                       else resolve_device(device))
         if encoder.device != self.device or store.device != self.device:
             raise ValueError(
                 f"encoder on {encoder.device} and store on {store.device}; "
@@ -128,7 +134,7 @@ class FusedRetriever:
         n = len(texts)
         ids_p, len_p = marshal_texts(
             self.encoder.tokenizer, self.encoder.cfg, texts,
-            batch_buckets=QUERY_BATCH_BUCKETS,
+            batch_buckets=QUERY_BATCH_BUCKETS, n_data=self.encoder.n_data,
         )
         _tag, batch, seq, pairs = self.encoder.cost_key(ids_p, len_p)
 
@@ -150,7 +156,7 @@ class FusedRetriever:
             emb = _encode_normalized(self.encoder, ids_p, len_p)
             with torch.inference_mode():
                 live = None if mask is None else torch.from_numpy(mask).to(self.device)
-                vals, row_ids = search_single(
+                vals, row_ids = store.search_rows(
                     buf, emb.to(buf.dtype), count, min(k, count), live
                 )
             return to_host(vals[:n]), to_host(row_ids[:n]), to_host(emb[:n].float())
@@ -222,6 +228,9 @@ class FusedTieredRetriever:
     supports_modes = True
 
     def __init__(self, encoder: EncoderEngine, tiered, device="cuda"):
+        refuse_sharded("the tiered and hybrid programs", "item 9c",
+                       getattr(encoder, "mesh", None),
+                       getattr(getattr(tiered, "store", None), "mesh", None))
         self.device = resolve_device(device)
         if encoder.device != self.device or tiered.device != self.device:
             raise ValueError(

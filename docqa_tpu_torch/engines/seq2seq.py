@@ -11,6 +11,11 @@ batch is one dispatch-spine work item (stage ``seq2seq_generate``: upload,
 encode, the whole decode loop, the copy back) inside a
 ``seq2seq_generate`` span; the loop reads its termination flag once every
 ``GenerateConfig.decode_chunk`` (16) steps.
+
+On a mesh (``mesh=``) the weights are replicated and a batch, padded to a
+multiple of the data axis, splits over it as the encoder engine's does:
+each data rank decodes its sources with no collective inside the loop, and
+the summaries (``[b, max_new]`` on every rank) are gathered once.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from docqa_tpu_torch.models.seq2seq import (
     greedy_summarize,
     serving_params,
 )
+from docqa_tpu_torch.runtime.mesh import MeshContext, all_gather
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, span
 from docqa_tpu_torch.text.tokenizer import Tokenizer, default_tokenizer
 from docqa_tpu_torch.utils import pick_bucket, resolve_device, round_up, torch_dtype
@@ -45,13 +51,16 @@ class Seq2SeqEngine:
         tokenizer: Optional[Tokenizer] = None,
         seed: int = 0,
         device="cuda",
+        mesh: Optional[MeshContext] = None,
     ) -> None:
         """``params``: a tree with the reference's names (numpy arrays, or
         tensors from ``load_hf_bart_weights``), kept in its own dtypes; None
         draws the reference's seeded host init, stored in ``cfg.dtype`` as
         the reference stores it.  ``last_stats`` holds the last batch's
-        decode ``steps`` and host ``flag_reads``."""
-        self.device = resolve_device(device)
+        decode ``steps`` and host ``flag_reads``.  ``mesh``: split batches
+        over its data axis on the mesh's device (module docstring)."""
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.tokenizer = tokenizer or default_tokenizer(
             cfg.vocab_size, vocab_path=cfg.tokenizer_path
@@ -125,6 +134,8 @@ class Seq2SeqEngine:
             self.cfg.max_src_len,
         )
         b_pad = pick_bucket(b, BATCH_BUCKETS) if b <= BATCH_BUCKETS[-1] else b
+        if self.mesh is not None:
+            b_pad = round_up(b_pad, self.mesh.n_data)
         ids = np.full((b_pad, bucket), self.cfg.pad_id, np.int64)
         lengths = np.ones((b_pad,), np.int32)
         for i, s in enumerate(src_ids):
@@ -132,13 +143,20 @@ class Seq2SeqEngine:
             ids[i, : len(s)] = s
             lengths[i] = max(len(s), 1)
 
+        lanes = slice(None) if self.mesh is None else self.mesh.data_lanes(b_pad)
+
         def _summarize_on_device():
-            """The device phase: upload, encode, the decode loop, and the
+            """The device phase: upload, encode, the decode loop of this
+            data rank's sources, the gather over the data axis, and the
             start of the copy to the host."""
             o, n = self.summarize_device(
-                torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(lengths).to(self.device), max_new,
+                torch.from_numpy(ids[lanes]).to(self.device),
+                torch.from_numpy(lengths[lanes]).to(self.device), max_new,
             )
+            if self.mesh is not None and self.mesh.n_data > 1:
+                both = all_gather(torch.cat([o, n[:, None].to(o.dtype)], dim=1),
+                                  self.mesh.data_group, "seq2seq")
+                o, n = both[:, :-1], both[:, -1]
             return to_host(o[:b]), to_host(n[:b])
 
         with span("seq2seq_generate", DEFAULT_REGISTRY):

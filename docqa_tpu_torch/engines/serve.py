@@ -133,6 +133,7 @@ from docqa_tpu_torch.ops.attention import RAGGED_ALIGN
 from docqa_tpu_torch.ops.sampling import sample
 from docqa_tpu_torch.resilience import faults
 from docqa_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
+from docqa_tpu_torch.runtime.mesh import refuse_sharded
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger, span
 from docqa_tpu_torch.utils import round_up
 
@@ -443,6 +444,7 @@ class ContinuousBatcher:
         prefix_cache: Optional[bool] = None,
         qos=None,  # config.QoSConfig | qos.QoSPolicy | None (FIFO)
     ) -> None:
+        refuse_sharded("the continuous batcher", "item 9b", getattr(engine, "mesh", None))
         self.engine = engine
         self.cfg = engine.cfg
         self.gen = engine.gen

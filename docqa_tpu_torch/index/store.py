@@ -27,6 +27,18 @@ metadata as JSON, the sidecar as ``.npy``, a manifest, then ``LATEST``);
 index sinks see restored rows as any others.  Both directions read the
 reference's snapshot layout.
 
+On a mesh (``mesh=``, ``runtime/mesh.py``) the rows are sharded over the
+model axis, as the reference's ``row_sharded`` buffer: the capacity is a
+multiple of ``128 * n_model`` and model rank ``m`` holds the contiguous
+block of rows ``[m * capacity / n, (m + 1) * capacity / n)`` of the vectors
+and of the token sidecar (one placement rule for both).  Every rank keeps
+the host master copy, and a growth or a compaction re-places the blocks
+from it.  A search scores the local block, masks dead, tombstoned and
+filtered rows (the mask sliced at the block's offset) and merges the
+shards' top-k exactly (``ops/topk.py``: two gathers a search); every rank
+gets the whole result.  :meth:`VectorStore.search_view` then returns the
+local block.
+
 Device writes are dispatch-spine work items (``store_add``), the host-query
 search (:meth:`VectorStore.search`) a ``store_search`` item; the text-query
 search is the fused retriever's ``retrieve`` item.
@@ -48,7 +60,9 @@ import torch
 from docqa_tpu_torch.config import StoreConfig
 from docqa_tpu_torch.engines.spine import spine_run, to_host
 from docqa_tpu_torch.ops._kernels import is_device_fault
+from docqa_tpu_torch.ops.topk import sharded_topk
 from docqa_tpu_torch.runtime import native
+from docqa_tpu_torch.runtime.mesh import MeshContext
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger, span
 from docqa_tpu_torch.utils import resolve_device, round_up, torch_dtype
 
@@ -93,6 +107,30 @@ def search_single(vectors: torch.Tensor, queries: torch.Tensor, count: int,
     return vals, ids
 
 
+def search_sharded(block: torch.Tensor, queries: torch.Tensor, count: int, k: int,
+                   mask: Optional[torch.Tensor], offset: int, group
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a row-sharded buffer: this rank's ``block`` holds
+    global rows ``[offset, offset + len(block))``; rows at or past
+    ``count``, and rows where ``mask`` [count] is False, score ``NEG_INF``;
+    the shards' candidates merge through :func:`sharded_topk` over
+    ``group``.  Returns (vals [q, k] f32, global row ids [q, k]) on every
+    rank, the reference's ``_search_kernel``."""
+    n_local = block.shape[0]
+    qf = queries.float()
+    scores = torch.cat(
+        [qf @ block[start : start + SCORE_CHUNK].float().T
+         for start in range(0, n_local, SCORE_CHUNK)],
+        dim=1,
+    )
+    live = torch.zeros((n_local,), dtype=torch.bool, device=block.device)
+    n_live = max(0, min(count - offset, n_local))
+    if n_live:
+        live[:n_live] = True if mask is None else mask[offset : offset + n_live]
+    scores = scores.masked_fill(~live[None, :], NEG_INF)
+    return sharded_topk(scores, offset, k, group)
+
+
 def sidecar_rows(tokenizer, texts: Sequence[str], width: int
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """Each text's generator tokens (no specials) cut to ``width``: the
@@ -131,8 +169,14 @@ class VectorStore:
     """Append, exact search, filters and tombstones over device vectors
     with host metadata."""
 
-    def __init__(self, cfg: StoreConfig, device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, cfg: StoreConfig, device="cuda",
+                 mesh: Optional[MeshContext] = None):
+        """``mesh``: shard the rows over its model axis on the mesh's
+        device (module docstring)."""
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.mesh = mesh
+        self._n_shards = mesh.n_model if mesh is not None else 1
+        self._shard = mesh.model_index if mesh is not None else 0
         self.cfg = cfg
         self._lock = threading.RLock()
         self._meta: List[Dict[str, Any]] = []
@@ -141,9 +185,10 @@ class VectorStore:
         self._version = 0
         self._n_compactions = 0
         self._dtype = torch_dtype(cfg.dtype)
-        self._capacity = max(128, round_up(cfg.shard_capacity, 128))
+        self._capacity = self._round_capacity(cfg.shard_capacity)
         self._dev = torch.zeros(
-            (self._capacity, cfg.dim), dtype=self._dtype, device=self.device
+            (self._capacity // self._n_shards, cfg.dim), dtype=self._dtype,
+            device=self.device,
         )
         self._reset_columns()
         # secondary indexes kept row-aligned with this store (on_add /
@@ -154,11 +199,57 @@ class VectorStore:
             self._tok_host = np.zeros((0, W), np.int32)
             self._tok_len_host = np.zeros((0,), np.int32)
             self._tok_dev = torch.zeros(
-                (self._capacity, W), dtype=torch.int32, device=self.device
+                (self._capacity // self._n_shards, W), dtype=torch.int32,
+                device=self.device,
             )
             self._tok_len_dev = torch.zeros(
-                (self._capacity,), dtype=torch.int32, device=self.device
+                (self._capacity // self._n_shards,), dtype=torch.int32,
+                device=self.device,
             )
+
+    def _round_capacity(self, n: int) -> int:
+        """Round up to a multiple of ``128 * n_shards`` (equal shards)."""
+        quantum = 128 * self._n_shards
+        return max(quantum, round_up(n, quantum))
+
+    def _block_rows(self) -> Tuple[int, int]:
+        """The global rows [lo, hi) of this rank's block at the current
+        capacity (every row without a mesh)."""
+        per = self._capacity // self._n_shards
+        return self._shard * per, (self._shard + 1) * per
+
+    def _place_rows(self, count: int) -> None:
+        """Rebuild this rank's device blocks of the vectors and the token
+        sidecar at the current capacity from the host master copy's rows
+        [0, count): the one placement rule for both."""
+        lo, hi = self._block_rows()
+        top = min(hi, count)
+        buf = torch.zeros((hi - lo, self.cfg.dim), dtype=self._dtype, device=self.device)
+        if top > lo:
+            buf[: top - lo] = torch.from_numpy(self._host[lo:top]).to(
+                device=self.device, dtype=self._dtype
+            )
+        self._dev = buf
+        if self.cfg.token_width:
+            tok = torch.zeros((hi - lo, self.cfg.token_width), dtype=torch.int32,
+                              device=self.device)
+            tok_len = torch.zeros((hi - lo,), dtype=torch.int32, device=self.device)
+            if top > lo:
+                tok[: top - lo] = torch.from_numpy(self._tok_host[lo:top]).to(self.device)
+                tok_len[: top - lo] = torch.from_numpy(self._tok_len_host[lo:top]).to(
+                    self.device
+                )
+            self._tok_dev, self._tok_len_dev = tok, tok_len
+
+    def search_rows(self, buf: torch.Tensor, q: torch.Tensor, count: int, k: int,
+                    mask: Optional[torch.Tensor]):
+        """Exact top-k over ``buf`` (this rank's block on a mesh):
+        :func:`search_single`, or :func:`search_sharded` over the model
+        group."""
+        if self._n_shards == 1:
+            return search_single(buf, q, count, k, mask)
+        lo = self._shard * buf.shape[0]
+        return search_sharded(buf, q, count, k, mask, lo, self.mesh.model_group)
 
     def _reset_columns(self) -> None:
         # columnar metadata: code -1 == absent, one code space per column
@@ -256,7 +347,8 @@ class VectorStore:
             self._call_sink(sink, method, *args)
 
     def device_view(self) -> Tuple[torch.Tensor, int]:
-        """(device buffer, row count) read under one lock acquisition.
+        """(device buffer, row count) read under one lock acquisition (on a
+        mesh, this rank's block).
         Rows below the count never change until a compaction, which swaps
         in a new buffer, so a search may use the pair after the lock is
         released."""
@@ -267,7 +359,8 @@ class VectorStore:
         self, filters: Optional[Dict[str, Any]] = None
     ) -> Tuple[torch.Tensor, int, Optional[np.ndarray]]:
         """(device buffer, row count, live mask [count] or None) under one
-        lock acquisition: the mask folds ``filters`` (patient_id /
+        lock acquisition (on a mesh the buffer is this rank's block, which
+        :meth:`search_rows` searches): the mask folds ``filters`` (patient_id /
         doc_type / date_from / date_to) and the tombstones; None when
         neither applies."""
         with self._lock:
@@ -285,6 +378,11 @@ class VectorStore:
         while new_cap < needed:
             new_cap *= 2
         if new_cap == self._capacity:
+            return
+        if self._n_shards > 1:
+            # the blocks' rows change with the capacity: re-place them
+            self._capacity = new_cap
+            self._place_rows(self._count)
             return
         buf = torch.zeros((new_cap, self.cfg.dim), dtype=self._dtype,
                           device=self.device)
@@ -376,16 +474,21 @@ class VectorStore:
 
             def _append_on_device():
                 self._grow_to(start + n)
-                # in-place write of the new rows into the device buffer
-                self._dev[start : start + n] = torch.from_numpy(vectors).to(
-                    device=self.device, dtype=self._dtype
-                )
+                # in-place write of the new rows that fall in this rank's
+                # block (every row without a mesh)
+                lo, hi = self._block_rows()
+                a, z = max(start, lo), min(start + n, hi)
+                if z <= a:
+                    return
+                self._dev[a - lo : z - lo] = torch.from_numpy(
+                    vectors[a - start : z - start]
+                ).to(device=self.device, dtype=self._dtype)
                 if self.cfg.token_width:
-                    self._tok_dev[start : start + n] = torch.from_numpy(block).to(
-                        self.device
-                    )
-                    self._tok_len_dev[start : start + n] = torch.from_numpy(
-                        lens
+                    self._tok_dev[a - lo : z - lo] = torch.from_numpy(
+                        block[a - start : z - start]
+                    ).to(self.device)
+                    self._tok_len_dev[a - lo : z - lo] = torch.from_numpy(
+                        lens[a - start : z - start]
                     ).to(self.device)
 
             # the submitter holds the lock while blocked; the item takes
@@ -477,27 +580,8 @@ class VectorStore:
             self._reset_columns()
             self._append_columns(0, self._meta)
             self._count = kept
-            self._capacity = max(128, round_up(kept, 128))
-
-            def _reupload_on_device():
-                buf = torch.zeros((self._capacity, self.cfg.dim),
-                                  dtype=self._dtype, device=self.device)
-                buf[:kept] = torch.from_numpy(self._host[:kept]).to(
-                    device=self.device, dtype=self._dtype
-                )
-                self._dev = buf
-                if self.cfg.token_width:
-                    tok = torch.zeros((self._capacity, self.cfg.token_width),
-                                      dtype=torch.int32, device=self.device)
-                    tok[:kept] = torch.from_numpy(self._tok_host[:kept]).to(self.device)
-                    tok_len = torch.zeros((self._capacity,), dtype=torch.int32,
-                                          device=self.device)
-                    tok_len[:kept] = torch.from_numpy(
-                        self._tok_len_host[:kept]
-                    ).to(self.device)
-                    self._tok_dev, self._tok_len_dev = tok, tok_len
-
-            spine_run("store_add", _reupload_on_device, device=self.device)
+            self._capacity = self._round_capacity(kept)
+            spine_run("store_add", lambda: self._place_rows(kept), device=self.device)
             self._version += 1
             self._n_compactions += 1
             self._notify_sinks("on_compact", keep.copy())
@@ -535,7 +619,7 @@ class VectorStore:
         def _search_on_device():
             q = torch.from_numpy(qn).to(device=self.device, dtype=buf.dtype)
             m = None if mask is None else torch.from_numpy(mask).to(self.device)
-            vals, ids = search_single(buf, q, count, min(k, count), m)
+            vals, ids = self.search_rows(buf, q, count, min(k, count), m)
             return to_host(vals), to_host(ids)
 
         with span("store_search", DEFAULT_REGISTRY):
@@ -563,7 +647,7 @@ class VectorStore:
         def _shadow_on_device():
             q = torch.from_numpy(qn).to(device=self.device, dtype=buf.dtype)
             m = None if mask is None else torch.from_numpy(mask).to(self.device)
-            vals, ids = search_single(buf, q, count, min(k, count), m)
+            vals, ids = self.search_rows(buf, q, count, min(k, count), m)
             return to_host(vals), to_host(ids)
 
         vals, ids = spine_run(
@@ -675,7 +759,8 @@ class VectorStore:
         return base
 
     @classmethod
-    def restore(cls, directory: str, cfg: StoreConfig, device="cuda") -> "VectorStore":
+    def restore(cls, directory: str, cfg: StoreConfig, device="cuda",
+                mesh: Optional[MeshContext] = None) -> "VectorStore":
         """A new store holding the snapshot ``LATEST`` names under
         ``directory``, its version included.  The sidecar is restored when
         both the config and the snapshot have one."""
@@ -688,7 +773,7 @@ class VectorStore:
         )
         with open(os.path.join(base, "metadata.json")) as f:
             meta = json.load(f)
-        store = cls(cfg, device=device)
+        store = cls(cfg, device=device, mesh=mesh)
         tokens = token_lens = None
         if cfg.token_width and manifest.get("tokens"):
             tokens = np.load(os.path.join(base, manifest["tokens"]))

@@ -8,6 +8,14 @@ layouts (weights stored [in, out]); a weight-only quantised tree
 Architecture: RMSNorm pre-norm, GQA attention with split-halves RoPE,
 SwiGLU MLP, optional sliding window.
 
+Tensor parallelism (``mesh=`` with a model axis of ``n`` > 1): the tree
+holds this rank's shards (``parallel/sharding.py``), the trunk reads its
+head counts off the shards' own widths, and the row-parallel ``wo`` and
+``w_down`` products are summed over the model group: exactly two
+all-reduces a layer, in the activation's dtype, and no other collective
+in the forward.  :func:`decoder_head` returns vocabulary-local logits (the
+engine gathers them).  At ``n`` = 1 nothing is inserted.
+
 KV cache: preallocated [b, max_len, kv_heads, head_dim] per layer, written
 IN PLACE at a per-lane row offset (the reference returns an updated copy
 from ``vmap`` + ``dynamic_update_slice``) — each lane carries its own
@@ -31,6 +39,7 @@ from docqa_tpu_torch.ops import qmatmul as _qm
 from docqa_tpu_torch.ops.attention import attention, attention_reference
 from docqa_tpu_torch.ops.norms import rms_norm
 from docqa_tpu_torch.ops.rope import apply_rope, rope_angles
+from docqa_tpu_torch.runtime.mesh import MeshContext, all_reduce
 from docqa_tpu_torch.utils import torch_dtype
 
 Params = Dict[str, torch.Tensor]
@@ -85,10 +94,13 @@ def init_decoder_params(
 def init_kv_cache(
     cfg: DecoderConfig, batch: int, max_len: Optional[int] = None,
     dtype: Optional[torch.dtype] = None, device=None,
+    num_kv_heads: Optional[int] = None,
 ) -> KVCache:
+    """``num_kv_heads``: the heads this rank holds (default
+    ``cfg.num_kv_heads``; a tensor-parallel shard holds its own share)."""
     max_len = max_len or cfg.max_seq_len
     dtype = dtype or torch_dtype(cfg.dtype)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    shape = (batch, max_len, num_kv_heads or cfg.num_kv_heads, cfg.head_dim)
     cache: KVCache = {}
     for i in range(cfg.num_layers):
         cache[f"k{i}"] = torch.zeros(shape, dtype=dtype, device=device)
@@ -122,6 +134,35 @@ def _qmatmul(x: torch.Tensor, params: Params, name: str, dtype) -> torch.Tensor:
     return _qm.qmatmul(x.to(dtype), w, scale)
 
 
+def _int4_replicated(w: torch.Tensor, full_in: int, n: int) -> bool:
+    """Whether a row-parallel int4 store is the whole store: its groups do
+    not divide the model axis, so the sharding replicated them."""
+    groups = w.shape[0]
+    return (groups % n != 0 and full_in % groups == 0
+            and w.shape[1] == -(-(full_in // groups) // 2))
+
+
+def _row_parallel(x: torch.Tensor, params: Params, name: str, dtype, full_in: int,
+                  mesh: Optional[MeshContext]) -> torch.Tensor:
+    """A row-parallel product (``wo``, ``w_down``) summed over the model
+    group.  An int4 store replicated on whole groups serves its rank's rows
+    ``x`` through the groups that cover them, ``x`` zero-padded to their
+    edges: the added products are exact zeros and K4 still runs."""
+    if mesh is None or mesh.n_model == 1:
+        return _qmatmul(x, params, name, dtype)
+    w, scale = params[name], params.get(name + SCALE_SUFFIX)
+    if scale is not None and w.dim() == 3 and _int4_replicated(w, full_in, mesh.n_model):
+        g = full_in // w.shape[0]
+        start = mesh.model_index * x.shape[-1]
+        end = start + x.shape[-1]
+        g0, g1 = start // g, -(-end // g)
+        x = F.pad(x.to(dtype), (start - g0 * g, g1 * g - end))
+        out = _qm.qmatmul(x, w[g0:g1], scale[g0:g1])
+    else:
+        out = _qmatmul(x, params, name, dtype)
+    return all_reduce(out, mesh.model_group, "decoder")
+
+
 def decoder_layer_stack(
     params: Params,
     cfg: DecoderConfig,
@@ -131,6 +172,7 @@ def decoder_layer_stack(
     attend,  # attend(layer, q, k, v) -> [b, s, num_heads, head_dim]
     *,
     remat: bool = False,
+    mesh: Optional[MeshContext] = None,
 ) -> torch.Tensor:
     """The shared trunk: embed, then per layer project q/k/v, apply RoPE at
     ``positions``, delegate the KV-cache write AND attention to ``attend``
@@ -140,34 +182,34 @@ def decoder_layer_stack(
     ``remat``: each layer runs under ``torch.utils.checkpoint`` (non-
     reentrant), so its activations are recomputed in the backward pass
     instead of stored — the training step's per-layer counterpart of the
-    reference's ``jax.checkpoint``."""
+    reference's ``jax.checkpoint``.
+
+    ``mesh``: the tree holds this rank's tensor-parallel shards; heads are
+    read off their widths and the row-parallel products all-reduced over
+    the model axis (module docstring)."""
     b, s = ids.shape
     dtype = torch_dtype(cfg.dtype)
     cos, sin = rope_angles(cfg.head_dim, rope_len, cfg.rope_theta, ids.device)
 
     def layer(i: int, x: torch.Tensor) -> torch.Tensor:
         y = rms_norm(x, params[f"l{i}_attn_norm_g"], cfg.norm_eps)
-        q = _qmatmul(y, params, f"l{i}_wq", dtype).reshape(
-            b, s, cfg.num_heads, cfg.head_dim
-        )
-        k = _qmatmul(y, params, f"l{i}_wk", dtype).reshape(
-            b, s, cfg.num_kv_heads, cfg.head_dim
-        )
-        v = _qmatmul(y, params, f"l{i}_wv", dtype).reshape(
-            b, s, cfg.num_kv_heads, cfg.head_dim
-        )
+        # heads from the widths: a tensor-parallel shard holds its share
+        q = _qmatmul(y, params, f"l{i}_wq", dtype).reshape(b, s, -1, cfg.head_dim)
+        k = _qmatmul(y, params, f"l{i}_wk", dtype).reshape(b, s, -1, cfg.head_dim)
+        v = _qmatmul(y, params, f"l{i}_wv", dtype).reshape(b, s, -1, cfg.head_dim)
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
 
         attn = attend(i, q, k, v)
-        attn = attn.reshape(b, s, cfg.num_heads * cfg.head_dim)
-        x = x + _qmatmul(attn, params, f"l{i}_wo", dtype)
+        attn = attn.reshape(b, s, -1)
+        x = x + _row_parallel(attn, params, f"l{i}_wo", dtype,
+                              cfg.num_heads * cfg.head_dim, mesh)
 
         y = rms_norm(x, params[f"l{i}_mlp_norm_g"], cfg.norm_eps)
         gate = _qmatmul(y, params, f"l{i}_w_gate", dtype)
         up = _qmatmul(y, params, f"l{i}_w_up", dtype)
         act = F.silu(gate.float()).to(dtype) * up
-        return x + _qmatmul(act, params, f"l{i}_w_down", dtype)
+        return x + _row_parallel(act, params, f"l{i}_w_down", dtype, cfg.mlp_dim, mesh)
 
     x = params["tok_emb"][ids].to(dtype)
     for i in range(cfg.num_layers):
@@ -185,7 +227,9 @@ def decoder_head(
     new_lengths: Optional[torch.Tensor] = None,
     last_token_only: bool = False,
 ) -> torch.Tensor:
-    """Final norm + lm_head over the trunk's hidden states (f32 logits)."""
+    """Final norm + lm_head over the trunk's hidden states (f32 logits;
+    a tensor-parallel ``lm_head`` shard gives this rank's vocabulary
+    block)."""
     dtype = torch_dtype(cfg.dtype)
     if last_token_only and x.shape[1] > 1:
         # prefill: only the last valid row per lane feeds sampling
@@ -206,6 +250,7 @@ def decoder_forward(
     last_token_only: bool = False,
     use_flash: bool = True,
     remat: bool = False,
+    mesh: Optional[MeshContext] = None,
 ) -> torch.Tensor:
     """Run s new tokens through the stack, writing their K/V into ``cache``
     in place.  Prefill: cache_lengths = 0 and ``attn_lengths`` = the true
@@ -216,7 +261,8 @@ def decoder_forward(
     Attention goes through :func:`attention` (the flash kernel on a card)
     when ``use_flash``, else through :func:`attention_reference` on either
     device: the training path, which also takes ``remat``
-    (:func:`decoder_layer_stack`).  Under autograd the cache write is an
+    (:func:`decoder_layer_stack`).  ``mesh``: a tensor-parallel tree and
+    cache (local heads); the logits are then vocabulary-local.  Under autograd the cache write is an
     in-place ``index_put_`` into a tensor that needs no grad; gradients
     flow through it to k and v.
     """
@@ -242,7 +288,7 @@ def decoder_forward(
         )
 
     x = decoder_layer_stack(params, cfg, ids, positions, max_len, attend,
-                            remat=remat)
+                            remat=remat, mesh=mesh)
     return decoder_head(params, cfg, x, new_lengths, last_token_only)
 
 

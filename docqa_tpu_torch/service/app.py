@@ -118,9 +118,20 @@ UI_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ui.html")
 def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a configuration that needs a part
     of the reference this port does not have yet, naming the ROADMAP item
-    (queue 1) that brings it.  Every configuration the default config can
-    name is ported: the list is empty."""
-    refusals: List[Tuple[bool, str]] = []
+    (queue 1) that brings it: the runtime on a mesh (item 9b; the engines
+    take a mesh, the runtime's single-controller serving does not yet) is
+    refused for a world of more than one rank or a ``mesh`` section that
+    asks for more than one device."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh_devices = (max(cfg.mesh.data_parallel, 1) * max(cfg.mesh.model_parallel, 1))
+    refusals: List[Tuple[bool, str]] = [
+        (world > 1 or mesh_devices > 1,
+         f"the runtime on a mesh (world of {world} ranks, mesh.data_parallel="
+         f"{cfg.mesh.data_parallel}, mesh.model_parallel={cfg.mesh.model_parallel}): "
+         "ROADMAP queue 1 item 9b"),
+    ]
     for refused, why in refusals:
         if refused:
             raise NotImplementedError(f"not in the PyTorch port yet: {why}")

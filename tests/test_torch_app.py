@@ -681,6 +681,10 @@ def test_oversized_body_is_refused(apps):
     # the AMQP broker (item 1) is ported too (tests/test_torch_amqp.py boots
     # a runtime on it)
     pytest.param({"broker.backend": "amqp"}, None, id="cfg5-AMQP"),
+    # the runtime on a mesh (item 9b): the engines take a mesh, the runtime
+    # refuses one of more than one device (a world of more than one rank
+    # is refused the same way: tests/test_torch_mesh.py)
+    pytest.param({"mesh.model_parallel": 2}, "item 9b", id="cfg6-item 9b"),
 ])
 def test_unported_config_raises_at_boot(cfg, item):
     if item is None:

@@ -297,6 +297,10 @@ def _build(entry):
                             num_heads=1, num_kv_heads=1, head_dim=32,
                             mlp_dim=32, dtype="float32")
     store_cfg = StoreConfig(dim=32, shard_capacity=128)
+    if entry in ("make_mesh", "multihost_init"):
+        from docqa_tpu_torch.runtime import mesh
+
+        return getattr(mesh, entry)()
     if entry == "EncoderEngine":
         return EncoderEngine(enc_cfg)
     if entry == "GenerateEngine":
@@ -371,13 +375,26 @@ def _build(entry):
     ["EncoderEngine", "GenerateEngine", "VectorStore", "FusedRetriever", "QAService",
      "EnginePool", "DeidEngine", "LexicalIndex", "HashEncoder", "DocQARuntime",
      "FusedRAG", "IVFIndex", "FusedTieredRetriever", "Seq2SeqEngine",
-     "generate_engine_from_dir", "quantised GenerateEngine"],
+     "generate_engine_from_dir", "quantised GenerateEngine", "make_mesh",
+     "multihost_init"],
 )
 def test_entry_points_raise_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the no-CUDA guard cannot be exercised")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _build(entry)
+
+
+def test_mesh_entry_points_run_on_the_cpu_when_asked(monkeypatch):
+    """``make_mesh`` and ``multihost_init`` take the CPU (gloo) only when
+    the caller asks for it: alone, a (1, 1) mesh and no world."""
+    from docqa_tpu_torch.runtime import mesh
+
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    assert mesh.multihost_init(device="cpu") is False
+    m = mesh.make_mesh(device="cpu")
+    assert (m.n_devices, m.device) == (1, torch.device("cpu"))
 
 
 def test_flash_wrapper_rejects_other_devices():
