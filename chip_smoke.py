@@ -269,12 +269,31 @@ Phases, each of which fails the run on any error (nothing is caught):
    groups), sliced by ``parallel/sharding.py``, each held to its plain
    version and timed with its plan and bound, and the sum of one rank's
    225 products a step at m = 4 (one rank's work: no collective time).
-   The phase must take at most 90 s.
+   The phase must take at most 90 s.  Its world stays up for phase 16.
+16. the runtime on a mesh, in phase 15's world of one NCCL rank: (a)
+   ``DocQARuntime`` under the default config (phase 9's, over phase 3's
+   tree, shared) builds the (1, 1) mesh and the leader's command stream;
+   8 of phase 9's notes ingested over HTTP, then 4 generative questions one
+   at a time and 4 at once, with every count from 0 around them: the
+   first answer's first-step logits against the solo engine within
+   ``FIRST_STEP_RTOL`` and the delivered token their argmax, the commands
+   by name, every mirrored spine item (prefill round, decode chunk,
+   retrieval) one published command, 0 collectives, K1's ``decode_paged``
+   and ``prefill`` launched through the runtime, the /ask p50 beside phase
+   9's and the mesh slot's waits; (b) K1's paged mode at one rank's kv
+   heads: the table's 8-lane and 16-lane paged rows at TP 1, 2, 4 and 8
+   (32/n q, 8/n kv heads), each held to its plain version within 1e-2 +
+   1e-2 |plain| and timed beside gather + masked SDPA with its plan and
+   bound; (c) the lexical program over ``LEX_ROWS`` rows of 32-slot tiles,
+   1 query x 8 terms, split into 2, 4 and 8 row shards run in turn on the
+   card and merged: ids and scores equal the whole search's (tie rule),
+   each shard timed.  The phase must take at most 120 s.
 
 The recorder is on by default, so phases 3-7 run traced too.  Prints the
 pool JSON line, the ingest JSON line, the obs JSON line, the app JSON line,
 the lifecycle JSON line, the training JSON line, the tiered JSON line, the
-checkpoints JSON line, the quant JSON line, the mesh JSON line, the launches-by-phase JSON
+checkpoints JSON line, the quant JSON line, the mesh JSON line, the mesh runtime JSON
+line, the launches-by-phase JSON
 line (each main-path run's K1 and K4 counters, whose sums are the kernels
 line's launches; each run's K1 total must equal the sum of its paths, and
 its K4 total the sum of its weight modes and of its kernel modes), the
@@ -654,94 +673,105 @@ def run_paged_cases():
     rng = np.random.default_rng(4321)
     results = []
     for case in paged_cases():
-        S, sq, nb, bs = case["lanes"], case["sq"], case["nb"], case["block_size"]
-        hq, hkv, d = case["hq"], case["hkv"], case["d"]
-        n_blocks = S * nb  # every lane could fill its table
-        lengths_np = rng.integers(case["live"][0], case["live"][1] + 1, S)
-        perm = rng.permutation(n_blocks)
-        tables_np = np.full((S, nb), n_blocks, np.int32)  # holes past the live blocks
-        busy = S - case.get("idle", 0)  # the last lanes idle: no block, any length
-        for lane, n in enumerate(lengths_np[:busy]):
-            used = -(-int(n) // bs)
-            tables_np[lane, :used] = perm[lane * nb: lane * nb + used]
-        if busy < S:
-            lengths_np[busy:] = rng.integers(sq, case["live"][1] + 1, S - busy)
-        tables = torch.from_numpy(tables_np).to(dev)
-        lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(dev)
-        q_offset = lengths - sq
-        q = torch.randn((S, sq, hq, d), generator=gen, device=dev).to(torch.bfloat16)
-        k_pool, v_pool = (
-            torch.randn((n_blocks * bs, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(2)
-        )
-        kw = dict(block_size=bs, q_offset=q_offset, sliding_window=case["window"])
-        dense_kw = dict(causal=True, lengths=lengths, q_offset=q_offset,
-                        sliding_window=case["window"])
-
-        def kernel():
-            return attn.paged_decode_attention(q, k_pool, v_pool, tables, lengths, **kw)
-
-        def gathered():
-            return (attn.gather_paged_kv(k_pool, tables, bs),
-                    attn.gather_paged_kv(v_pool, tables, bs))
-
-        def plain():
-            k, v = gathered()
-            return attn.attention_reference(q, k, v, **dense_kw)
-
-        skv = nb * bs
-        mask = attn.live_mask(S, sq, skv, lengths, q_offset, True, case["window"], dev)
-
-        def library():
-            k, v = gathered()
-            return torch.nn.functional.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=mask[:, None], enable_gqa=hq != hkv,
-            )
-
-        def gather_k1():
-            k, v = gathered()
-            return attn.flash_attention(q, k, v, **dense_kw)
-
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        atol, rtol = TOL[torch.bfloat16]
-        if not torch.isfinite(got.float()).all() or not bool(
-            (err <= atol + rtol * want.float().abs()).all()
-        ):
-            raise AssertionError(
-                f"paged_decode_attention {case['name']}: max |err| "
-                f"{float(err.max()):.3e} over atol {atol} rtol {rtol}"
-            )
-        plan = attn.plan_flash(torch.bfloat16, S, sq, skv, hq, hkv,
-                               torch.cuda.get_device_properties(dev).multi_processor_count)
-        rec = {"case": case["name"], "path": "decode_paged",
-               "shape": f"S{S} sq{sq} NB{nb} bs{bs} hq{hq} hkv{hkv} d{d}",
-               "plan": plan._asdict(), "lengths": lengths_np.tolist(),
-               "max_abs_err_bf16": float(err.max())}
-        rec["ms"] = time_ms(kernel, flush)
-        rec["plain_ms"] = time_ms(plain, flush)
-        rec["library_ms"] = time_ms(library, flush)
-        rec["gather_k1_ms"] = time_ms(gather_k1, flush)
-        es = 2  # bf16
-        live_pairs = int(mask.sum())
-        live_kv_rows = int(mask.any(dim=1).sum())
-        flops = 4 * d * hq * live_pairs
-        nbytes = ((2 * S * sq * hq * d + 2 * live_kv_rows * hkv * d) * es
-                  + 4 * S * nb + 8 * S)  # + the block table, lengths, q_offset
-        t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_flops = flops / PEAK_BF16_FLOPS * 1e3
-        rec["bound_ms"] = max(t_bytes, t_flops)
-        rec["bound_by"] = "bytes" if t_bytes >= t_flops else "operations"
-        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-        log(f"  {rec['case']:24s} {rec['shape']:38s} {plan.num_splits} splits  err bf16 "
-            f"{rec['max_abs_err_bf16']:.2e}  kernel {rec['ms']:.4f} ms  plain "
+        rec = paged_case(case, flush, gen, rng)
+        log(f"  {rec['case']:24s} {rec['shape']:38s} {rec['plan']['num_splits']} splits  "
+            f"err bf16 {rec['max_abs_err_bf16']:.2e}  kernel {rec['ms']:.4f} ms  plain "
             f"{rec['plain_ms']:.4f} ms  gather+sdpa {rec['library_ms']:.4f} ms  "
             f"gather+K1 {rec['gather_k1_ms']:.4f} ms  bound {rec['bound_ms']:.5f} ms "
             f"({rec['bound_by']}, {100 * rec['bound_share']:.1f} % of it)")
         results.append(rec)
     return results
+
+
+def paged_case(case, flush, gen, rng, library_only=False):
+    """One paged case (``paged_cases``'s keys; ``hq`` / ``hkv`` may be one
+    rank's heads): the kernel held to its plain version, then the kernel,
+    the plain version, gather + masked SDPA and (unless ``library_only``)
+    gather + K1 timed, with the bound of its live work."""
+    dev = torch.device("cuda")
+    S, sq, nb, bs = case["lanes"], case["sq"], case["nb"], case["block_size"]
+    hq, hkv, d = case["hq"], case["hkv"], case["d"]
+    n_blocks = S * nb  # every lane could fill its table
+    lengths_np = rng.integers(case["live"][0], case["live"][1] + 1, S)
+    perm = rng.permutation(n_blocks)
+    tables_np = np.full((S, nb), n_blocks, np.int32)  # holes past the live blocks
+    busy = S - case.get("idle", 0)  # the last lanes idle: no block, any length
+    for lane, n in enumerate(lengths_np[:busy]):
+        used = -(-int(n) // bs)
+        tables_np[lane, :used] = perm[lane * nb: lane * nb + used]
+    if busy < S:
+        lengths_np[busy:] = rng.integers(sq, case["live"][1] + 1, S - busy)
+    tables = torch.from_numpy(tables_np).to(dev)
+    lengths = torch.from_numpy(lengths_np.astype(np.int32)).to(dev)
+    q_offset = lengths - sq
+    q = torch.randn((S, sq, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    k_pool, v_pool = (
+        torch.randn((n_blocks * bs, hkv, d), generator=gen, device=dev).to(torch.bfloat16)
+        for _ in range(2)
+    )
+    kw = dict(block_size=bs, q_offset=q_offset, sliding_window=case["window"])
+    dense_kw = dict(causal=True, lengths=lengths, q_offset=q_offset,
+                    sliding_window=case["window"])
+
+    def kernel():
+        return attn.paged_decode_attention(q, k_pool, v_pool, tables, lengths, **kw)
+
+    def gathered():
+        return (attn.gather_paged_kv(k_pool, tables, bs),
+                attn.gather_paged_kv(v_pool, tables, bs))
+
+    def plain():
+        k, v = gathered()
+        return attn.attention_reference(q, k, v, **dense_kw)
+
+    skv = nb * bs
+    mask = attn.live_mask(S, sq, skv, lengths, q_offset, True, case["window"], dev)
+
+    def library():
+        k, v = gathered()
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask[:, None], enable_gqa=hq != hkv,
+        )
+
+    def gather_k1():
+        k, v = gathered()
+        return attn.flash_attention(q, k, v, **dense_kw)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    atol, rtol = TOL[torch.bfloat16]
+    if not torch.isfinite(got.float()).all() or not bool(
+        (err <= atol + rtol * want.float().abs()).all()
+    ):
+        raise AssertionError(
+            f"paged_decode_attention {case['name']}: max |err| "
+            f"{float(err.max()):.3e} over atol {atol} rtol {rtol}"
+        )
+    plan = attn.plan_flash(torch.bfloat16, S, sq, skv, hq, hkv,
+                           torch.cuda.get_device_properties(dev).multi_processor_count)
+    rec = {"case": case["name"], "path": "decode_paged",
+           "shape": f"S{S} sq{sq} NB{nb} bs{bs} hq{hq} hkv{hkv} d{d}",
+           "plan": plan._asdict(), "lengths": lengths_np.tolist(),
+           "max_abs_err_bf16": float(err.max())}
+    rec["ms"] = time_ms(kernel, flush)
+    rec["plain_ms"] = time_ms(plain, flush)
+    rec["library_ms"] = time_ms(library, flush)
+    if not library_only:
+        rec["gather_k1_ms"] = time_ms(gather_k1, flush)
+    es = 2  # bf16
+    live_pairs = int(mask.sum())
+    live_kv_rows = int(mask.any(dim=1).sum())
+    flops = 4 * d * hq * live_pairs
+    nbytes = ((2 * S * sq * hq * d + 2 * live_kv_rows * hkv * d) * es
+              + 4 * S * nb + 8 * S)  # + the block table, lengths, q_offset
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_flops = flops / PEAK_BF16_FLOPS * 1e3
+    rec["bound_ms"] = max(t_bytes, t_flops)
+    rec["bound_by"] = "bytes" if t_bytes >= t_flops else "operations"
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    return rec
 
 
 # ---- phase 3: the main path at full width ---------------------------------
@@ -6284,7 +6314,7 @@ def run_mesh_world(counts, qa, params, workdir):
     log(f"  Ulysses (K1) and ring at 32/8 heads x {MESH_SEQ} tokens within "
         f"{atol} + {rtol}|plain|: max |err| {seq['ulysses']['max_abs_err']:.2e}, "
         f"{seq['ring']['max_abs_err']:.2e}")
-    dist.destroy_process_group()
+    # the world stays up for phase 16 (one process group a process)
     return {"nccl": nccl, "tokens": len(got), "engine_s": mesh_s, "k1_launches": solo_k1,
             "collectives": collectives, "weights_shared": shared,
             "topk_rows": count, "sequence": seq}, launches
@@ -6410,14 +6440,11 @@ def run_mesh_shards(counts):
     return cases, step, launches
 
 
-def run_mesh_path(counts, qa, params):
-    """Phase 15, while phase 3's weights are on the card."""
+def run_mesh_path(counts, qa, params, workdir):
+    """Phase 15, while phase 3's weights are on the card; the world of one
+    rank it starts (its file store under ``workdir``) stays up."""
     t0 = time.perf_counter()
-    workdir = tempfile.mkdtemp(prefix="docqa_phase15_")
-    try:
-        world, launches = run_mesh_world(counts, qa, params, workdir)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+    world, launches = run_mesh_world(counts, qa, params, workdir)
     cases, step, shard_launches = run_mesh_shards(counts)
     launches["15 shards"] = shard_launches
     phase_s = time.perf_counter() - t0
@@ -6427,6 +6454,262 @@ def run_mesh_path(counts, qa, params):
     return {"summary": {**world, "step_m4_ms": step, "phase_s": phase_s},
             "cases": cases, "launches": launches}
 
+
+
+# ---- phase 16: the runtime on a mesh ---------------------------------------
+
+MRT_NOTES = 8  # (a): phase 9's notes ingested over HTTP
+MRT_ASKS = 4  # (a): asked one at a time, then at once
+MRT_STAGES = {"serve_prefill_fetch": "prefill_round", "serve_decode_chunk": "decode_chunk",
+              "retrieve": "search_texts"}  # (a): the mirrored spine items and their commands
+LEX_SHARDS = (2, 4, 8)  # (c): row shards of the lexical program
+MESH_RT_PHASE_LIMIT_S = 120.0
+
+
+def run_mesh_runtime(counts, qa, tagger, app_p50_s):
+    """(a) ``DocQARuntime`` under the default config in the world of one
+    NCCL rank phase 15 started: the (1, 1) mesh and the leader's command
+    stream (commands counted and published to no one) over phase 3's tree
+    as phase 9 passes it.  Ingests phase 9's first notes over HTTP, asks 4
+    generative questions one at a time, then 4 at once; the first one's
+    first-step logits against the solo engine.  Returns (summary,
+    launches)."""
+    from docqa_tpu_torch.config import load_config
+    from docqa_tpu_torch.engines.router import AnswerRouter
+    from docqa_tpu_torch.service.app import AppServer, DocQARuntime, make_app
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = qa.generator.device
+    cfg = dataclasses.replace(
+        load_config(env={}, overrides={
+            "ner.params_path": tagger,
+            "resilience.request_deadline_s": APP_DEADLINE_S,
+        }),
+        decoder=qa.generator.cfg,
+    )
+    t0 = time.perf_counter()
+    rt = DocQARuntime(cfg, device=dev, decoder_params=qa.generator.params).start()
+    server = AppServer(make_app(rt)).start()
+    boot_s = time.perf_counter() - t0
+    if rt.mesh is None or rt.stream is None or (rt.mesh.n_data, rt.mesh.n_model) != (1, 1):
+        raise AssertionError("the runtime built no (1, 1) mesh in the world of one rank")
+    shared = all(rt.generator.params[k].data_ptr() == qa.generator.params[k].data_ptr()
+                 for k in qa.generator.params)
+    if not shared:
+        raise AssertionError("the mesh runtime copied phase 3's tree")
+    _lookups, generative = routing_lookups(AnswerRouter(), deid=rt.deid)
+    http = _Http(server.port, load_contract())
+    summary = {"boot_s": boot_s, "weights_shared": shared}
+    log(f"  runtime on the (1, 1) mesh booted in {boot_s:.1f} s; serving on "
+        f"127.0.0.1:{server.port}")
+    try:
+        docs = app_notes(np.random.default_rng(21))[:MRT_NOTES]
+        ids = []
+        for d in docs:
+            body, ctype = _multipart(d["filename"], d["data"], d["fields"])
+            ids.append(http.json("POST /ingest/", "/ingest/", body=body, ctype=ctype)["doc_id"])
+        _wait_indexed(http, ids)
+        ingest_commands = dict(mesh_mod.COMMANDS)
+        for name in ("encoder.encode_texts", "store.add"):
+            if not ingest_commands.get(name):
+                raise AssertionError(f"ingest published no {name}: {ingest_commands}")
+
+        # the main path: every count from 0 just before it, read just after
+        get_spine().reset_stats()
+        rt.stream.reset_stats()
+        mesh_mod.reset_commands()
+        mesh_mod.COLLECTIVES.clear()
+        counts.clear()
+        lat_one, outs = [], []
+        with _Capture(rt.qa) as cap:
+            for i, q in enumerate(generative[:MRT_ASKS]):
+                # the first answer's prefill lanes only (a warm-up's 3-token
+                # lane may ride beside it)
+                lanes, untap = _tap_prefill() if i == 0 else ([], lambda: None)
+                t = time.perf_counter()
+                try:
+                    outs.append(http.json("POST /ask/", "/ask/", payload={"question": q}))
+                finally:
+                    untap()
+                lat_one.append(time.perf_counter() - t)
+                if i == 0:
+                    first = max(lanes, key=lambda lane: len(lane[0]))
+        tokens = cap.pending[0].handle.result(timeout=60)
+        results = [None] * MRT_ASKS
+
+        def ask(i, q):
+            t = time.perf_counter()
+            results[i] = (http.json("POST /ask/", "/ask/", payload={"question": q}),
+                          time.perf_counter() - t)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=ask, args=(i, q))
+                   for i, q in enumerate(generative[MRT_ASKS:2 * MRT_ASKS])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=APP_HTTP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        # the pipelined worker may still be issuing (and counting) a chunk
+        # after the last answer: read once the counts stand still
+        launches, (commands, collectives, _items) = _quiescent(counts, lambda: (
+            dict(mesh_mod.COMMANDS), dict(mesh_mod.COLLECTIVES),
+            {k: v.get("count", 0) for k, v in get_spine().stats()["stages"].items()}))
+        stages = get_spine().stats()["stages"]
+        if any(r is None for r in results):
+            raise AssertionError("a concurrent /ask on the mesh runtime did not answer")
+        outs += [r[0] for r in results]
+        _no_degraded("mesh runtime /ask", outs)
+        summary["first_step"] = check_first_step(
+            "mesh runtime over HTTP", solo_first_step(qa.generator, first[0]), first[1],
+            tokens[0], len(first[0]))
+        if collectives:
+            raise AssertionError(f"collectives in a world of one rank: {collectives}")
+        # every mirrored spine item ran inside a published command
+        published = {}
+        for stage, method in MRT_STAGES.items():
+            items = int(stages.get(stage, {}).get("count", 0))
+            cmds = sum(n for name, n in commands.items() if name.endswith("." + method))
+            published[stage] = {"spine_items": items, "commands": cmds}
+            if items == 0 or items != cmds:
+                raise AssertionError(f"{stage}: {items} spine items against {cmds} "
+                                     f"{method} commands: {commands}")
+        for key in ("flash_attention.decode_paged", "flash_attention.prefill"):
+            if not launches.get(key):
+                raise AssertionError(f"the mesh runtime launched no {key}: {launches}")
+        n_tok = sum(len(_tokens(o["answer"])) for o in outs)
+        lat_all = [r[1] for r in results]
+        # the mesh section is the port's own (a process group up): the rest of
+        # the surface is held to the reference's contract
+        code, _h, raw = http.raw("GET", "/api/status")
+        body = json.loads(raw)
+        status = body.pop("mesh", None)
+        contract_check(http.contract, "GET /api/status", code, body)
+        if not status or status["shape"] != [1, 1] or status["ranks"] != 1:
+            raise AssertionError(f"/api/status has no (1, 1) mesh section: {status}")
+        summary.update({
+            "commands": commands, "ingest_commands": ingest_commands,
+            "published": published, "collectives": collectives,
+            "k1_decode_paged": launches.get("flash_attention.decode_paged", 0),
+            "k1_prefill": launches.get("flash_attention.prefill", 0),
+            "ask_one_p50_s": _pctl(lat_one, 0.5), "ask_at_once_p50_s": _pctl(lat_all, 0.5),
+            "ask_at_once_wall_s": wall, "answer_tokens": n_tok,
+            "phase9_ask_p50_s": app_p50_s,
+            "slot_wait_ms": {k: v["slot_wait_mean_ms"] for k, v in status["commands"].items()},
+            "spine_wait_ms": {k: v["queue_wait_mean_ms"] for k, v in stages.items()},
+        })
+        log(f"  commands: {commands}; collectives {collectives or 0}")
+        log(f"  mirrored spine items published: " + ", ".join(
+            f"{k} {v['spine_items']} = {v['commands']}" for k, v in published.items()))
+        log(f"  K1 decode_paged {summary['k1_decode_paged']}, prefill {summary['k1_prefill']} "
+            f"launches through the runtime; {launches}")
+        log(f"  /ask p50 one at a time {summary['ask_one_p50_s']:.2f} s, {MRT_ASKS} at once "
+            f"{summary['ask_at_once_p50_s']:.2f} s (phase 9, 8 at once without a process "
+            f"group: {app_p50_s:.2f} s); mesh slot waits {summary['slot_wait_ms']}")
+    finally:
+        if not server.close(timeout=30):
+            raise AssertionError("the mesh runtime's server threads did not end")
+        rt.stop()
+    return summary, launches
+
+
+def run_paged_shards():
+    """(b) K1's paged mode at one rank's heads: the table's two paged rows
+    (8 lanes NB 64; 16 lanes with 8 idle) at TP 1, 2, 4 and 8 (32/n q and
+    8/n kv heads, as ``_rank0_of`` slices them), each held to its plain
+    version and timed beside masked SDPA.  Returns the records."""
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = []
+    for case in paged_cases():
+        if case["name"] == "mistral_paged_verify_4k":
+            continue
+        for n in MESH_TP:
+            shard = dict(case, name=f"{case['name']}_tp{n}", hq=case["hq"] // n,
+                         hkv=case["hkv"] // n)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(4321 + n)
+            rec = paged_case(shard, flush, gen, np.random.default_rng(4321 + n),
+                             library_only=True)
+            rec["tp"] = n
+            out.append(rec)
+    del flush
+    return out
+
+
+def run_lexical_shards():
+    """(c) the sharded lexical program on the one card: ``LEX_ROWS`` rows of
+    32-slot tiles and 1 query x 8 terms (phase 12's case), split into n =
+    2, 4 and 8 row shards of whole 64-row buckets; each shard's local
+    program (``lexical_search_program`` under a group-less mesh context of
+    its model index) run in turn and merged with ``ops/topk.merge_topk``.
+    Ids and scores equal the unsharded search's (tie rule)."""
+    from docqa_tpu_torch.index.lexical import _ROW_BUCKET, lexical_search_program
+
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    width, vocab, terms = 32, 1 << 17, 8
+    term_ids = torch.randint(0, vocab, (LEX_ROWS, width), generator=gen, device=dev,
+                             dtype=torch.int32)
+    impacts = torch.randint(1, 128, (LEX_ROWS, width), generator=gen, device=dev,
+                            dtype=torch.int8)
+    live = torch.ones(LEX_ROWS, dtype=torch.bool, device=dev)
+    q_terms = term_ids[:1, :terms].clone()
+    q_weights = torch.rand((1, terms), generator=gen, device=dev)
+    out = {}
+    with torch.inference_mode():
+        want_vals, want_ids = lexical_search_program(term_ids, impacts, live, q_terms,
+                                                     q_weights, TIER_K)
+        whole_ms = time_ms(lambda: lexical_search_program(
+            term_ids, impacts, live, q_terms, q_weights, TIER_K), flush,
+            reps=5, warmup=1, spin_cycles=40_000_000)
+        out["whole_ms"] = whole_ms
+        for n in LEX_SHARDS:
+            chunk = _ROW_BUCKET * n
+            per = -(-LEX_ROWS // chunk) * chunk // n
+            pad = per * n - LEX_ROWS
+            tid = torch.nn.functional.pad(term_ids, (0, 0, 0, pad), value=-1)
+            imp = torch.nn.functional.pad(impacts, (0, 0, 0, pad))
+            liv = torch.nn.functional.pad(live, (0, pad))
+            parts, shard_ms = [], []
+            for m in range(n):
+                ctx = mesh_mod.MeshContext(None, "data", "model", 1, n, 0, m, dev)
+                block = [t[m * per:(m + 1) * per] for t in (tid, imp, liv)]
+                parts.append(lexical_search_program(*block, q_terms, q_weights, TIER_K, ctx))
+                shard_ms.append(time_ms(lambda: lexical_search_program(
+                    *block, q_terms, q_weights, TIER_K, ctx), flush, reps=5, warmup=1,
+                    spin_cycles=40_000_000))
+            vals, ids = ttopk.merge_topk(torch.stack([p[0] for p in parts]),
+                                         torch.stack([p[1] for p in parts]), TIER_K)
+            _same_ids_tie_rule(vals, ids, want_vals, want_ids, f"lexical over {n} shards")
+            out[f"shards{n}"] = {"rows_a_shard": per, "shard_ms": shard_ms,
+                                 "sum_ms": sum(shard_ms), "max_ms": max(shard_ms)}
+            log(f"  lexical over {n} row shards of {per}: ids and scores equal the whole "
+                f"search's; a shard {min(shard_ms):.3f}-{max(shard_ms):.3f} ms "
+                f"(the whole {whole_ms:.3f} ms here)")
+    del flush, term_ids, impacts
+    return out
+
+
+def run_mesh_runtime_path(counts, qa, tagger, app_p50_s):
+    """Phase 16, in phase 15's world of one rank."""
+    t0 = time.perf_counter()
+    runtime, launches = run_mesh_runtime(counts, qa, tagger, app_p50_s)
+    paged = run_paged_shards()
+    for rec in paged:
+        log(f"  K1 {rec['case']:30s} {rec['shape']:38s} {rec['plan']['num_splits']} splits  "
+            f"err {rec['max_abs_err_bf16']:.2e}  {rec['ms']:.4f} ms  plain "
+            f"{rec['plain_ms']:.4f} ms  gather+sdpa {rec['library_ms']:.4f} ms  bound "
+            f"{rec['bound_ms']:.5f} ms ({100 * rec['bound_share']:.1f} %)")
+    lexical = run_lexical_shards()
+    phase_s = time.perf_counter() - t0
+    log(f"  phase 16 took {phase_s:.1f} s (limit {MESH_RT_PHASE_LIMIT_S:.0f} s)")
+    if phase_s > MESH_RT_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 16 took {phase_s:.1f} s, over {MESH_RT_PHASE_LIMIT_S} s")
+    return {"summary": {"runtime": runtime, "lexical": lexical, "phase_s": phase_s},
+            "paged": paged, "launches": {"16 runtime": launches}}
 
 
 def main(argv=None) -> int:
@@ -6560,8 +6843,23 @@ def main(argv=None) -> int:
         "engine over phase 3's tree, the sharded top-k, Ulysses and ring attention; then one "
         "rank's K1 and K4 shard shapes at TP 1, 2, 4 and 8 of Mistral-7B")
     get_spine().reset_stats()
-    mesh_path = run_mesh_path(_kernels.LAUNCHES, qa, params)
-    mesh_s = mesh_path["summary"]["phase_s"]
+    mesh_dir = tempfile.mkdtemp(prefix="docqa_phase15_")
+    try:
+        mesh_path = run_mesh_path(_kernels.LAUNCHES, qa, params, mesh_dir)
+        mesh_s = mesh_path["summary"]["phase_s"]
+
+        log("[16/16] the runtime on a mesh: DocQARuntime in the world of one NCCL rank (the "
+            "leader's command stream) at full width over HTTP; K1's paged mode at one rank's "
+            "kv heads at TP 1, 2, 4 and 8; the lexical program over 2, 4 and 8 row shards")
+        mrt_path = run_mesh_runtime_path(_kernels.LAUNCHES, qa, tagger,
+                                         app_path["summary"]["ask"]["p50_s"])
+        mrt_s = mrt_path["summary"]["phase_s"]
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(mesh_dir, ignore_errors=True)
 
     log("[9/14, continued] the app module as a user starts it, and a tiny runtime on the "
         "card against the CPU")
@@ -6619,6 +6917,7 @@ def main(argv=None) -> int:
         "12": tiered_path["launches"], "13": ckpt_path["launches"],
         **{f"14 {run}": n for run, n in quant_path["launches"].items()},
         **mesh_path["launches"],
+        **mrt_path["launches"],
     }
     path_launches = collections.Counter()
     for phase, counted in phase_launches.items():
@@ -6711,6 +7010,7 @@ def main(argv=None) -> int:
                 "checkpoint_path": ckpt_path, "checkpoint_path_s": ckpt_s,
                 "quant_path": quant_path, "quant_path_s": quant_s,
                 "mesh_path": mesh_path, "mesh_path_s": mesh_s,
+                "mesh_runtime_path": mrt_path, "mesh_runtime_path_s": mrt_s,
                 "launches_by_phase": phase_launches,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
@@ -6781,6 +7081,15 @@ def main(argv=None) -> int:
            | ({"plan": c["path"], "splits": c["plan"]["num_splits"]} if "path" in c
               else {"plan": c["kernel"], "splits": c["splits"]})
            for c in mesh_path["cases"]},
+    }}))
+    mr = mrt_path["summary"]
+    print(json.dumps({"mesh_runtime": {
+        "runtime": {k: v for k, v in mr["runtime"].items() if k != "first_step"}
+        | {"first_step_rel_rms": mr["runtime"]["first_step"]["rel_rms_diff"]},
+        "lexical": mr["lexical"], "phase_s": mrt_s,
+        **{c["case"]: {key: c[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                               "bound_by", "bound_share", "max_abs_err_bf16")}
+           | {"splits": c["plan"]["num_splits"]} for c in mrt_path["paged"]},
     }}))
     print(json.dumps({"launches_by_phase": {
         phase: {key: n for key, n in counted.items() if n}

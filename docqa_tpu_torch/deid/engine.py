@@ -474,6 +474,7 @@ class DeidEngine:
         params_path: Optional[str] = None,
         steps: Optional[int] = None,
         seed: int = 0,
+        mesh=None,
         **engine_kw,
     ) -> "DeidEngine":
         """An engine with a *functional* contextual-PHI tagger: the cached
@@ -482,11 +483,15 @@ class DeidEngine:
         generator from ``seed`` on the engine's device (and cached there),
         windowed at the length it was trained at.  This is what the serving
         runtime uses — random-init NER must never mask production
-        documents."""
+        documents.  ``mesh`` (``runtime/mesh.py``): train in process, data
+        parallel over its data axis (``training/ner.py``); the tagger's
+        forward stays off the mesh, as the reference's does."""
         from docqa_tpu_torch.deid.datagen import ner_tokenizer
         from docqa_tpu_torch.training.ner import load_or_train
 
         train_kw = {"seed": seed, "device": engine_kw.get("device", "cuda")}
+        if mesh is not None:
+            train_kw["mesh"] = mesh
         if steps is not None:
             train_kw["steps"] = steps
         params, train_seq = load_or_train(

@@ -11,7 +11,9 @@ retriever).
 On a mesh (``mesh=``) the parameters are replicated on every rank and
 each marshalled batch, padded to a multiple of the data axis, splits over
 it: every data rank encodes its rows and the embeddings are gathered (one
-``all_gather`` a forward), so every rank holds the whole batch's.
+``all_gather`` a forward), so every rank holds the whole batch's.  Under a
+mesh's command stream :meth:`EncoderEngine.encode_texts` is a command (the
+texts cross to every rank).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from docqa_tpu_torch.config import EncoderConfig
 from docqa_tpu_torch.engines.spine import spine_run, to_host
 from docqa_tpu_torch.models.encoder import Params, encode_batch
 from docqa_tpu_torch.obs.observatory import DEFAULT_OBSERVATORY, encoder_cost
-from docqa_tpu_torch.runtime.mesh import MeshContext, all_gather
+from docqa_tpu_torch.runtime.mesh import MeshContext, all_gather, mirrored
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, span
 from docqa_tpu_torch.text.tokenizer import Tokenizer, default_tokenizer
 from docqa_tpu_torch.utils import pick_bucket, resolve_device, round_up
@@ -133,7 +135,11 @@ class EncoderEngine:
 
     def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
         """[n] texts -> [n, embed_dim] float32 embeddings (host).  Splits
-        oversized requests into max-bucket batches."""
+        oversized requests into max-bucket batches.  A command on a mesh."""
+        return mirrored(self, "encode_texts", self._encode_texts,
+                        [str(t) for t in texts])
+
+    def _encode_texts(self, texts: Sequence[str]) -> np.ndarray:
         if not len(texts):
             return np.zeros((0, self.cfg.embed_dim), np.float32)
         out = []

@@ -23,7 +23,9 @@ A generation is one dispatch-spine work item (stage ``generate``: upload,
 the whole loop, the fetch) inside a ``generate`` span.
 :meth:`GenerateEngine.generate_device` is the device-prompt entry of the
 fused RAG path: prefill and decode start from a prompt that is already on
-the device, which is never copied to the host.
+the device, which is never copied to the host.  Under a mesh's command
+stream :meth:`GenerateEngine.generate_ids` (and so ``generate_texts``) is
+a command: the prompt ids and the seed cross to every rank.
 """
 
 from __future__ import annotations
@@ -44,11 +46,12 @@ from docqa_tpu_torch.models.decoder import (
     KVCache,
     Params,
     decoder_forward,
+    gather_logits,
     init_kv_cache,
 )
 from docqa_tpu_torch.ops.sampling import sample
 from docqa_tpu_torch.parallel.sharding import shard_decoder_params
-from docqa_tpu_torch.runtime.mesh import MeshContext, all_gather
+from docqa_tpu_torch.runtime.mesh import MeshContext, all_gather, mirrored
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, span
 from docqa_tpu_torch.text.tokenizer import Tokenizer, default_tokenizer
 from docqa_tpu_torch.utils import pick_bucket, resolve_device, round_up, torch_dtype
@@ -192,14 +195,7 @@ class GenerateEngine:
         forward, a vocabulary that does not divide padded for it)."""
         logits = decoder_forward(self.params, self.cfg, ids, cache, cache_lengths,
                                  mesh=self.mesh, **kwargs)
-        mesh = self.mesh
-        if mesh is None or mesh.n_model == 1:
-            return logits
-        vocab = self.cfg.vocab_size
-        chunk = -(-vocab // mesh.n_model)
-        if logits.shape[-1] < chunk:
-            logits = torch.nn.functional.pad(logits, (0, chunk - logits.shape[-1]))
-        return all_gather(logits, mesh.model_group, "logits", dim=-1)[..., :vocab]
+        return gather_logits(logits, self.cfg.vocab_size, self.mesh)
 
     # ---- plain decode ---------------------------------------------------
 
@@ -365,7 +361,14 @@ class GenerateEngine:
         temperature: Optional[float] = None,
         seed: int = 0,
     ) -> List[List[int]]:
-        """Token-id prompts -> generated token ids (EOS excluded)."""
+        """Token-id prompts -> generated token ids (EOS excluded).  A
+        command on a mesh (the ids and the seed cross to every rank)."""
+        return mirrored(self, "generate_ids", self._generate_ids,
+                        [[int(t) for t in p] for p in prompts_ids],
+                        max_new_tokens, temperature, int(seed))
+
+    def _generate_ids(self, prompts_ids, max_new_tokens=None, temperature=None,
+                      seed=0) -> List[List[int]]:
         max_new = (
             self.gen.max_new_tokens if max_new_tokens is None else max_new_tokens
         )

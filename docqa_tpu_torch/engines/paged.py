@@ -16,7 +16,11 @@ KV lives in ONE flat pool of fixed-size blocks shared by every decode slot:
   :func:`paged_decode_forward` advances lanes 1 (plain) or K (verify)
   tokens through the tables.  Both compose the shared decoder trunk
   (``models/decoder.decoder_layer_stack``) with the ragged/paged attention
-  ops, so the layer math is the solo engine's.
+  ops, so the layer math is the solo engine's.  With ``mesh=`` they run
+  one rank's tensor-parallel shard over its pools' kv heads: two
+  all-reduces a layer over the model axis and one logits gather a forward
+  (the reference's ``decoder_paged_decode`` / ``decoder_ragged_prefill``
+  budgets), none over the data axis.
 
 Two departures from the reference, both forced by PyTorch:
 
@@ -45,12 +49,14 @@ from docqa_tpu_torch.models.decoder import (
     Params,
     decoder_head,
     decoder_layer_stack,
+    gather_logits,
 )
 from docqa_tpu_torch.ops.attention import (
     RAGGED_ALIGN,
     paged_decode_attention,
     ragged_prefill_attention,
 )
+from docqa_tpu_torch.runtime.mesh import MeshContext
 from docqa_tpu_torch.utils import torch_dtype
 
 PagedPools = Dict[str, torch.Tensor]  # "k0".."k{L-1}", "v0".."v{L-1}"
@@ -510,13 +516,20 @@ def share_alignment(block_size: int) -> int:
 def init_paged_pools(
     cfg: DecoderConfig, n_blocks: int, block_size: int,
     dtype: Optional[torch.dtype] = None, device=None,
+    mesh: Optional[MeshContext] = None,
 ) -> PagedPools:
     """Flat per-layer K/V block pools ``[n_blocks * block_size + 1,
     kv_heads, head_dim]``, zero-filled.  Row ``b * block_size + o`` is
     offset ``o`` of block ``b``; the last row is the drop row that takes
-    every write the reference's ``mode="drop"`` scatter would discard."""
+    every write the reference's ``mode="drop"`` scatter would discard.
+
+    ``mesh``: this rank's shard of the pools, as
+    ``parallel/sharding.shard_paged_pools`` cuts them (kv heads over the
+    model axis, rows replicated over data), allocated at its own width:
+    the whole pool of zeros is never made."""
     dtype = dtype or torch_dtype(cfg.dtype)
-    shape = (n_blocks * block_size + 1, cfg.num_kv_heads, cfg.head_dim)
+    n_model = 1 if mesh is None else mesh.n_model
+    shape = (n_blocks * block_size + 1, cfg.num_kv_heads // n_model, cfg.head_dim)
     pools: PagedPools = {}
     for i in range(cfg.num_layers):
         pools[f"k{i}"] = torch.zeros(shape, dtype=dtype, device=device)
@@ -550,6 +563,7 @@ def ragged_prefill_forward(
     prefix_lens: Optional[torch.Tensor] = None,  # [B] (warm mode)
     n_prefix_rows: int = 0,  # static prefix window (warm mode)
     block_size: Optional[int] = None,
+    mesh: Optional[MeshContext] = None,
 ) -> torch.Tensor:
     """Prefill a whole admission round of MIXED-length prompts in one pass:
     every token computes through the shared trunk, its K/V is written into
@@ -583,10 +597,12 @@ def ragged_prefill_forward(
         )[None]
 
     x = decoder_layer_stack(
-        params, cfg, ids[None, :], positions[None, :], rope_len, attend
+        params, cfg, ids[None, :], positions[None, :], rope_len, attend,
+        mesh=mesh,
     )
     x_last = x[0][last_rows.long()]  # [B, hidden]
-    return decoder_head(params, cfg, x_last[:, None, :])[:, 0]
+    logits = decoder_head(params, cfg, x_last[:, None, :])[:, 0]
+    return gather_logits(logits, cfg.vocab_size, mesh)
 
 
 def paged_decode_forward(
@@ -599,6 +615,7 @@ def paged_decode_forward(
     *,
     block_size: int,
     rope_len: int,
+    mesh: Optional[MeshContext] = None,
 ) -> torch.Tensor:
     """Advance every lane ``s`` tokens against the block pool: write each
     new token's K/V at its table-mapped row (in place), attend through the
@@ -631,5 +648,5 @@ def paged_decode_forward(
             sliding_window=cfg.sliding_window,
         )
 
-    x = decoder_layer_stack(params, cfg, tok, rope_pos, rope_len, attend)
-    return decoder_head(params, cfg, x)
+    x = decoder_layer_stack(params, cfg, tok, rope_pos, rope_len, attend, mesh=mesh)
+    return gather_logits(decoder_head(params, cfg, x), cfg.vocab_size, mesh)

@@ -49,6 +49,14 @@ fail over to.  The pool rebuilds nothing around it; it fails every waiter
 on every replica with the original error, marks every replica ``failed``
 in :meth:`status`, and raises that error to every later submission.
 
+On a mesh with a command stream (``runtime/mesh.py``) every rank builds the
+pool over its shard of the one engine, and the leader's pool alone routes,
+monitors and runs canaries: a follower's pool starts no thread, and its
+batchers run only the commands the leader publishes.  The startup warm-up
+runs the replicas one after another (every rank issues the same
+collectives in one order), and a rebuild (:meth:`EnginePool._build_replica`)
+is a command, so a follower replaces its replica too.
+
 Observability, as in the reference: requests are pool-managed (a replica's
 refusal is routing, so only the pool's terminal shed leaves a snapshot in the
 cost ledger and retires the record); routing, parking, failover and hedging
@@ -70,6 +78,7 @@ import numpy as np
 import torch
 
 from docqa_tpu_torch.engines.qos import QoSPolicy, request_class
+from docqa_tpu_torch.runtime.mesh import mirrored
 from docqa_tpu_torch.engines.serve import (
     DEFAULT_RESULT_TIMEOUT,
     ContinuousBatcher,
@@ -347,6 +356,11 @@ class EnginePool:
         # the burn probe batch deferral reads (set_slo_probe); None = off
         self._slo_probe = None
         self._replicas: List[_Replica] = []
+        stream = getattr(engine, "_command_stream", None)
+        self._stream = stream
+        self._follower = stream is not None and stream.follower
+        if stream is not None:
+            stream.register_auto("pool", self)
         try:
             for i in range(self.n_replicas):
                 self._replicas.append(self._build_replica(i))
@@ -362,11 +376,22 @@ class EnginePool:
         self._monitor = threading.Thread(
             target=self._monitor_loop, daemon=True, name="pool-monitor"
         )
-        self._monitor.start()
+        if not self._follower:
+            self._monitor.start()
 
     # ---- replica lifecycle ---------------------------------------------------
 
     def _build_replica(self, idx: int, generation: int = 0) -> _Replica:
+        """A fresh replica ``idx`` of ``generation`` (a command on a mesh: a
+        follower swaps its own replica's batcher for the new one)."""
+        return mirrored(self, "_build_replica", self._new_replica, idx, generation)
+
+    def _new_replica(self, idx: int, generation: int = 0) -> _Replica:
+        if self._follower and idx < len(self._replicas):
+            old = self._replicas[idx]
+            old.batcher.stop()
+            self._stream.unregister(old.batcher)
+            self._release_device_state(old.batcher)
         batcher = ContinuousBatcher(
             self.engine,
             n_slots=self._n_slots,
@@ -387,6 +412,8 @@ class EnginePool:
         batcher.on_preempt = lambda b, req, _i=idx: self._requeue(req, from_idx=_i)
         r = _Replica(idx, batcher, self._breakers[idx])
         r.generation = generation
+        if self._follower and idx < len(self._replicas):
+            self._replicas[idx] = r
         return r
 
     def _startup_warm(self) -> None:
@@ -397,6 +424,11 @@ class EnginePool:
         if depth <= 0:
             return
         buckets = list(self.gen.prefill_token_buckets[:depth])
+        if self._stream is not None:
+            # one after another: every rank's collectives in one order
+            for r in self._replicas:
+                r.batcher.warmup(buckets=buckets)
+            return
         errors: List[BaseException] = []
 
         def warm(b):
@@ -1250,7 +1282,8 @@ class EnginePool:
             self._stopped = True
             self._cv.notify_all()
         self._monitor_stop.set()
-        self._monitor.join(timeout=30)
+        if self._monitor.ident is not None:
+            self._monitor.join(timeout=30)
         if self._monitor.is_alive():
             log.warning("pool monitor still alive after stop() join")
         with self._lock:

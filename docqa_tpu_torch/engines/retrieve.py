@@ -41,7 +41,7 @@ from docqa_tpu_torch.index.lexical import score_lexical
 from docqa_tpu_torch.index.store import SearchResult, VectorStore
 from docqa_tpu_torch.index.tiered import _tail_kernel
 from docqa_tpu_torch.obs.observatory import DEFAULT_OBSERVATORY, encoder_cost
-from docqa_tpu_torch.runtime.mesh import refuse_sharded
+from docqa_tpu_torch.runtime.mesh import mirrored, refuse_sharded
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger, span
 from docqa_tpu_torch.utils import resolve_device
 
@@ -124,13 +124,22 @@ class FusedRetriever:
         date_to).  ``stage`` / ``stream`` relabel the spine item (a
         background caller passes ``("retrieve_shadow", "probe")``);
         ``return_emb=True`` returns ``(results, embeddings [n, d] float32)``,
-        the normalized query embeddings of the same item."""
-        store = self.store
-        k = k or store.cfg.default_k
+        the normalized query embeddings of the same item.  A command on a
+        mesh: the deadline is checked before it is published, and only
+        the leader's item carries it."""
         if not len(texts):
             return ([], np.zeros((0, 0), np.float32)) if return_emb else []
         if deadline is not None:
             deadline.check("retrieve")
+        return mirrored(self, "search_texts", self._search_texts,
+                        [str(t) for t in texts], k, filters, stage=stage,
+                        stream=stream, return_emb=return_emb,
+                        local={"deadline": deadline})
+
+    def _search_texts(self, texts, k=None, filters=None, stage="retrieve",
+                      stream="serve", return_emb=False, deadline=None):
+        store = self.store
+        k = k or store.cfg.default_k
         n = len(texts)
         ids_p, len_p = marshal_texts(
             self.encoder.tokenizer, self.encoder.cfg, texts,

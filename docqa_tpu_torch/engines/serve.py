@@ -86,8 +86,23 @@ per-class sums of the cost ledger equal the spine's series for those
 stages.  Sheds leave a pressure snapshot in the ledger
 (``_record_shed``).  :meth:`ContinuousBatcher.annotate_costs` registers the
 analytic cost models (``obs/observatory.py``); ``set_slo_probe`` wires the
-burn probe that defers batch admission.  Not in this port: the mesh.  A
-plain ``stats`` counter stands beside the metrics registry's counters.
+burn probe that defers batch admission.  A plain ``stats`` counter stands
+beside the metrics registry's counters.
+
+On a mesh (the engine's ``mesh``, ``runtime/mesh.py``) the batcher serves
+the engine's tensor-parallel shards, as the reference's does: its slots
+round up to a multiple of the data axis, its paged pools hold this rank's
+kv heads (``parallel/sharding.shard_paged_pools``: kv heads over model, the
+block rows replicated over data, so every data rank runs every slot), and
+each forward all-reduces twice a layer over the model axis and gathers its
+logits once.  Every device phase is a named entry point whose arguments
+are the host's decisions (:meth:`ContinuousBatcher.prefill_round`,
+:meth:`~ContinuousBatcher.decode_chunk`, :meth:`~ContinuousBatcher.reset_state`,
+:meth:`~ContinuousBatcher.warmup`): packed ids, positions, destination
+rows, slots, block tables, the slots to deactivate and the per-dispatch
+sampling seed.  Registered with a command stream, the leader publishes each
+before it runs and a follower's batcher (no worker thread) replays it on
+its own pools, so every rank samples the same tokens.
 """
 
 from __future__ import annotations
@@ -133,7 +148,7 @@ from docqa_tpu_torch.ops.attention import RAGGED_ALIGN
 from docqa_tpu_torch.ops.sampling import sample
 from docqa_tpu_torch.resilience import faults
 from docqa_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
-from docqa_tpu_torch.runtime.mesh import refuse_sharded
+from docqa_tpu_torch.runtime.mesh import mirrored
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger, span
 from docqa_tpu_torch.utils import round_up
 
@@ -444,12 +459,14 @@ class ContinuousBatcher:
         prefix_cache: Optional[bool] = None,
         qos=None,  # config.QoSConfig | qos.QoSPolicy | None (FIFO)
     ) -> None:
-        refuse_sharded("the continuous batcher", "item 9b", getattr(engine, "mesh", None))
         self.engine = engine
         self.cfg = engine.cfg
         self.gen = engine.gen
         self.device = engine.device
+        self.mesh = getattr(engine, "mesh", None)
         self.n_slots = n_slots or self.gen.max_concurrent
+        if self.mesh is not None and self.n_slots % self.mesh.n_data:
+            self.n_slots = round_up(self.n_slots, self.mesh.n_data)
         self.chunk = chunk or self.gen.decode_chunk
         self.cache_len = round_up(cache_len or self.cfg.max_seq_len, 128)
         self._seed = seed
@@ -513,6 +530,13 @@ class ContinuousBatcher:
         self._lane = Lane(self.device)
         # the burn probe batch deferral reads (set_slo_probe); None = off
         self._slo_probe = None
+        # on a mesh with a command stream: a target of its own (replicas and
+        # rebuilds register in one order on every rank); a follower's
+        # batcher runs no worker, only the leader's commands
+        stream = getattr(engine, "_command_stream", None)
+        self._follower = stream is not None and stream.follower
+        if stream is not None:
+            stream.register_auto("batcher", self)
         self._on_lane("serve_alloc", self._init_device_state).result()
 
         # host-side slot bookkeeping (worker-thread state)
@@ -574,7 +598,8 @@ class ContinuousBatcher:
         self._worker = threading.Thread(
             target=self._run, daemon=True, name="continuous-batcher"
         )
-        self._worker.start()
+        if not self._follower:
+            self._worker.start()
 
     # ---- device programs -----------------------------------------------------
 
@@ -588,13 +613,19 @@ class ContinuousBatcher:
                 device=self.device,
             )
 
-    def _next_generator(self) -> Optional[torch.Generator]:
-        """A generator per dispatch, seeded from the batcher's seed and a
-        counter (``next`` on itertools.count is atomic); None when greedy."""
+    def _next_seed(self) -> Optional[int]:
+        """The sampling seed of one dispatch, from the batcher's seed and a
+        counter (``next`` on itertools.count is atomic); None when greedy.
+        It rides the dispatch's command, so every rank draws alike."""
         if self.gen.temperature == 0.0:
             return None
+        return self._seed * 100_003 + next(self._rng_counter)
+
+    def _generator(self, seed: Optional[int]) -> Optional[torch.Generator]:
+        if seed is None:
+            return None
         g = torch.Generator(device=self.device)
-        g.manual_seed(self._seed * 100_003 + next(self._rng_counter))
+        g.manual_seed(seed)
         return g
 
     def _prefill_program(self, ids, seg, pos, dest, last_rows, slots,
@@ -620,7 +651,7 @@ class ContinuousBatcher:
             )
         logits = ragged_prefill_forward(
             self.engine.params, self.cfg, self._pools, ids, seg, pos, dest,
-            last_rows, rope_len=self.seq_capacity, **warm_kw,
+            last_rows, rope_len=self.seq_capacity, mesh=self.mesh, **warm_kw,
         )
         toks = sample(
             logits, generator, self.gen.temperature, self.gen.top_k,
@@ -655,7 +686,7 @@ class ContinuousBatcher:
             logits = paged_decode_forward(
                 self.engine.params, self.cfg, self._pools, tables,
                 tok[:, None], lengths, block_size=self.block_size,
-                rope_len=self.seq_capacity,
+                rope_len=self.seq_capacity, mesh=self.mesh,
             )
             self.stats["decode_steps"] += 1
             nxt = sample(
@@ -703,6 +734,7 @@ class ContinuousBatcher:
             logits = paged_decode_forward(
                 self.engine.params, self.cfg, self._pools, tables, verify_in,
                 lengths, block_size=self.block_size, rope_len=self.seq_capacity,
+                mesh=self.mesh,
             )
             self.stats["verify_steps"] += 1
             g, m, cand, is_eos, eos_pos = accept_drafts(
@@ -738,7 +770,7 @@ class ContinuousBatcher:
         S, dev = self.n_slots, self.device
         self._pools = init_paged_pools(
             self.cfg, self.n_blocks, self.block_size,
-            dtype=self.engine.params["tok_emb"].dtype, device=dev,
+            dtype=self.engine.params["tok_emb"].dtype, device=dev, mesh=self.mesh,
         )
         self._table = (
             torch.full((S + 1, self.cfg.vocab_size + 1), -1, dtype=torch.long, device=dev)
@@ -749,6 +781,11 @@ class ContinuousBatcher:
         self._active = torch.zeros((S,), dtype=torch.bool, device=dev)
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
+        """:meth:`_warmup` as a command: every rank of a mesh warms alike."""
+        mirrored(self, "warmup", self._warmup,
+                 None if buckets is None else [int(b) for b in buckets])
+
+    def _warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run the admission path's shapes once on throwaway state before
         traffic, each as a background spine item (``serve_warmup``): one
         ragged prefill per packed token budget (and its warm variant with
@@ -768,6 +805,7 @@ class ContinuousBatcher:
             return init_paged_pools(
                 self.cfg, nb, self.block_size,
                 dtype=self.engine.params["tok_emb"].dtype, device=dev,
+                mesh=self.mesh,
             )
 
         def sentinel():
@@ -788,7 +826,7 @@ class ContinuousBatcher:
                 torch.full((T,), -1, dtype=torch.long, device=dev), zeros,
                 torch.full((T,), nb * self.block_size, device=dev),
                 torch.zeros((S,), dtype=torch.long, device=dev),
-                rope_len=self.seq_capacity, **kw,
+                rope_len=self.seq_capacity, mesh=self.mesh, **kw,
             )
 
         def warm_decode():
@@ -798,6 +836,7 @@ class ContinuousBatcher:
                 torch.zeros((S, s), dtype=torch.long, device=dev),
                 torch.zeros((S,), dtype=torch.int32, device=dev),
                 block_size=self.block_size, rope_len=self.seq_capacity,
+                mesh=self.mesh,
             ).sum().item()
 
         for T in warm:
@@ -1012,7 +1051,8 @@ class ContinuousBatcher:
         with self._cv:
             self._stopped = True
             self._cv.notify_all()
-        self._worker.join(timeout=10)
+        if self._worker.ident is not None:
+            self._worker.join(timeout=10)
         # sweep under the lock, the admission window included
         with self._cv:
             swept = (
@@ -1631,43 +1671,13 @@ class ContinuousBatcher:
             [self._slot_budget[e[0]] >= 2 for e in ordered], bool
         )
 
-        # the spine item: pending lane deactivations, one packed prefill per
-        # group, the slot-state scatter on the device (alive = first != eos
-        # and budget >= 2 needs no fetch), then the first tokens to the host
-        dev = self.device
-
-        def _prefill_on_lane():
-            self._apply_deact_on_lane()
-            parts = []
-            for (ids_flat, seg, pos, dest, last_rows, slots_arr, n_lanes,
-                 tables_np, plens_np) in group_inputs:
-                warm_kw = {}
-                if tables_np is not None:
-                    warm_kw = dict(
-                        block_tables=_to_device(tables_np, dev),
-                        prefix_lens=_to_device(plens_np, dev),
-                    )
-                toks = self._prefill_program(
-                    _to_device(ids_flat, dev), _to_device(seg, dev),
-                    _to_device(pos, dev), _to_device(dest, dev),
-                    _to_device(last_rows, dev), _to_device(slots_arr, dev),
-                    self._next_generator(), **warm_kw,
-                )
-                parts.append(toks[:n_lanes])
-            first = torch.cat(parts)
-            idx = _to_device(slots_np, dev)
-            self._tok[idx] = first
-            self._lengths[idx] = _to_device(lens_np, dev)
-            self._active[idx] = (first != self.gen.eos_id) & _to_device(budget_ok, dev)
-            return to_host(first)
-
+        deact = self._take_deact()
+        seeds = [self._next_seed() for _ in group_inputs]
         t_prefill0 = _now()
         with span("serve_prefill", DEFAULT_REGISTRY):
-            # the prefill rides the spine's prefill stream: decode items of
-            # other replicas schedule ahead of it
-            ticket = self._on_lane(
-                "serve_prefill_fetch", _prefill_on_lane, stream="prefill",
-                cost_key=cost_keys,
+            ticket = self.prefill_round(
+                deact, group_inputs, slots_np, lens_np, budget_ok, seeds,
+                cost_keys,
             )
             firsts = ticket.result().numpy()
         t_prefill1 = _now()
@@ -1687,6 +1697,55 @@ class ContinuousBatcher:
             for slot, req, ids, _t, shared in ordered
         ]
         return meta, firsts, ticket, cost_keys
+
+    def prefill_round(self, deact, group_inputs, slots, lens, budget_ok,
+                      seeds, cost_keys):
+        """Issue one admission round (a command on a mesh; the arguments are
+        the host's decisions) as the spine item ``serve_prefill_fetch``:
+        the slots ``deact`` deactivated, one packed prefill per group of
+        ``group_inputs`` (``(ids, seg, pos, dest, last_rows, slots, lanes,
+        tables, prefix_lens)`` arrays, sampled with its seed of ``seeds``),
+        the slot-state scatter on the device (alive = first != eos and
+        ``budget_ok``, no fetch), then the first tokens' copy to the host.
+        Returns the item's ticket once it has issued."""
+        return mirrored(self, "prefill_round", self._prefill_round, deact,
+                        group_inputs, slots, lens, budget_ok, seeds, cost_keys)
+
+    def _prefill_round(self, deact, group_inputs, slots_np, lens_np, budget_ok,
+                       seeds, cost_keys):
+        dev = self.device
+
+        def _prefill_on_lane():
+            self._apply_deact(deact)
+            parts = []
+            for (ids_flat, seg, pos, dest, last_rows, slots_arr, n_lanes,
+                 tables_np, plens_np), seed in zip(group_inputs, seeds):
+                warm_kw = {}
+                if tables_np is not None:
+                    warm_kw = dict(
+                        block_tables=_to_device(tables_np, dev),
+                        prefix_lens=_to_device(plens_np, dev),
+                    )
+                toks = self._prefill_program(
+                    _to_device(ids_flat, dev), _to_device(seg, dev),
+                    _to_device(pos, dev), _to_device(dest, dev),
+                    _to_device(last_rows, dev), _to_device(slots_arr, dev),
+                    self._generator(seed), **warm_kw,
+                )
+                parts.append(toks[:n_lanes])
+            first = torch.cat(parts)
+            idx = _to_device(slots_np, dev)
+            self._tok[idx] = first
+            self._lengths[idx] = _to_device(lens_np, dev)
+            self._active[idx] = (first != self.gen.eos_id) & _to_device(budget_ok, dev)
+            return to_host(first)
+
+        # the prefill rides the spine's prefill stream: decode items of
+        # other replicas schedule ahead of it
+        return self._on_lane(
+            "serve_prefill_fetch", _prefill_on_lane, stream="prefill",
+            cost_key=cost_keys,
+        )
 
     def _finalize_admissions(self, admitted) -> None:
         """Per-request cost attribution and delivery (or retirement) of an
@@ -1734,13 +1793,18 @@ class ContinuousBatcher:
                 if len(req.tokens) >= budget:
                     self._retire(slot)
 
-    def _apply_deact_on_lane(self) -> None:
-        """Clear device ``active`` lanes of host-retired slots (called first
-        inside every device work item)."""
-        if self._deact_pending:
-            idx = torch.tensor(self._deact_pending, dtype=torch.long, device=self.device)
+    def _take_deact(self) -> List[int]:
+        """The host-retired slots whose device ``active`` lane is still set,
+        handed to the next device phase (the worker's thread)."""
+        deact, self._deact_pending = self._deact_pending, []
+        return deact
+
+    def _apply_deact(self, slots: List[int]) -> None:
+        """Clear the device ``active`` lanes of ``slots`` (first inside
+        every device work item)."""
+        if slots:
+            idx = torch.tensor(slots, dtype=torch.long, device=self.device)
             self._active[idx] = False
-            self._deact_pending = []
 
     def _release_slot_blocks(
         self, slot: int, req: Optional[_Request] = None
@@ -1786,7 +1850,13 @@ class ContinuousBatcher:
         if self._stopped:
             return
         self._deact_pending = []
-        self._on_lane("serve_reset", self._init_device_state).result()
+        self.reset_state()
+
+    def reset_state(self) -> None:
+        """Fresh pools and zeroed slot state (``serve_reset``; a command on a
+        mesh)."""
+        mirrored(self, "reset_state",
+                 lambda: self._on_lane("serve_reset", self._init_device_state).result())
 
     def _retire(self, slot: int) -> None:
         req = self._slot_req[slot]
@@ -2187,33 +2257,15 @@ class ContinuousBatcher:
         ]
         pairs = sum(causal_pairs(n, n + q, window) for n in lens)
         kv_rows = sum(n + q for n in lens)
-
-        def cost_key(result):
-            steps = result[1]
-            return ("decode", self.n_slots, q, steps, steps * pairs,
-                    steps * kv_rows)
-
-        def _decode_on_lane():
-            self._apply_deact_on_lane()
-            if self._tables_dirty:
-                self._tables_dev = _to_device(self._block_rows, self.device)
-                self._caps_dev = _to_device(self._caps_np, self.device)
-                self._tables_dirty = False
-            if self.spec_k:
-                packed, steps = self._decode_spec_program(
-                    self._tables_dev, self._caps_dev
-                )
-            else:
-                packed = self._decode_program(
-                    self._tables_dev, self._caps_dev, self._next_generator()
-                )
-                steps = self.chunk
-            return to_host(packed), steps
+        deact = self._take_deact()
+        tables = caps = None
+        if self._tables_dirty:
+            tables, caps = self._block_rows.copy(), self._caps_np.copy()
+            self._tables_dirty = False
+        seed = None if self.spec_k else self._next_seed()
 
         def issue():
-            return self._on_lane(
-                "serve_decode_chunk", _decode_on_lane, cost_key=cost_key
-            )
+            return self.decode_chunk(deact, tables, caps, seed, pairs, kv_rows)
 
         t0 = _now()
         if self.spec_k:
@@ -2223,7 +2275,53 @@ class ContinuousBatcher:
                 ticket = issue()
         else:
             ticket = issue()
-        return ticket, cost_key, t0, _now()
+        return ticket, self._decode_cost_key(pairs, kv_rows), t0, _now()
+
+    def _decode_cost_key(self, pairs: int, kv_rows: int):
+        """The decode chunk's cost key: the steps the device ran and, per
+        step, the live pairs and K/V rows of the occupied lanes."""
+        q = self.spec_k or 1
+
+        def cost_key(result):
+            steps = result[1]
+            return ("decode", self.n_slots, q, steps, steps * pairs,
+                    steps * kv_rows)
+
+        return cost_key
+
+    def decode_chunk(self, deact, tables, caps, seed, pairs, kv_rows):
+        """Issue one decode chunk for every live slot (a command on a mesh;
+        the arguments are the host's decisions) as the spine item
+        ``serve_decode_chunk``: the slots ``deact`` deactivated, the block
+        tables and capacities uploaded when given (None: unchanged since
+        the last chunk), the plain chunk sampled with ``seed`` or the
+        speculative one, and the start of its packed results' copy to the
+        host.  ``pairs`` / ``kv_rows`` feed the item's cost key.  Returns
+        the ticket once the item has issued."""
+        return mirrored(self, "decode_chunk", self._decode_chunk, deact,
+                        tables, caps, seed, pairs, kv_rows)
+
+    def _decode_chunk(self, deact, tables, caps, seed, pairs, kv_rows):
+        def _decode_on_lane():
+            self._apply_deact(deact)
+            if tables is not None:
+                self._tables_dev = _to_device(tables, self.device)
+                self._caps_dev = _to_device(caps, self.device)
+            if self.spec_k:
+                packed, steps = self._decode_spec_program(
+                    self._tables_dev, self._caps_dev
+                )
+            else:
+                packed = self._decode_program(
+                    self._tables_dev, self._caps_dev, self._generator(seed)
+                )
+                steps = self.chunk
+            return to_host(packed), steps
+
+        return self._on_lane(
+            "serve_decode_chunk", _decode_on_lane,
+            cost_key=self._decode_cost_key(pairs, kv_rows),
+        )
 
     def _run_loop(self) -> None:
         # the one issued-but-unfetched decode chunk: (its ticket, cost key

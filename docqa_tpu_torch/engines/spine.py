@@ -67,6 +67,14 @@ fail an item.
 
 Closures are pure device phases: no app lock is taken inside one (a
 submitter may hold locks while it waits).
+
+On a mesh of ranks (``runtime/mesh.py``'s command stream) the mirrored
+entry points take the mesh slot and publish their command before they
+issue their items, so the mesh slot is always taken before a spine slot.
+An item issued inside a command carries that scope to the thread it runs
+on, and is never shed, neither by its deadline nor by a full queue: once
+a command is published, every rank must issue its collectives.  Off a mesh
+nothing changes.
 """
 
 from __future__ import annotations
@@ -86,6 +94,7 @@ from docqa_tpu_torch.obs.costs import DEFAULT_COST_LEDGER
 from docqa_tpu_torch.obs.observatory import DEFAULT_OBSERVATORY
 from docqa_tpu_torch.ops._kernels import is_device_fault
 from docqa_tpu_torch.resilience.deadline import DeadlineExceeded
+from docqa_tpu_torch.runtime.mesh import command_scope, in_command
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger
 
 log = get_logger("docqa.spine")
@@ -183,6 +192,7 @@ class _Item:
         "trace", "span_parent", "t_submit", "done", "result", "error",
         "queue_wait_s", "device_s", "cuda_stream", "inference", "grad",
         "t_start", "t_issued", "events", "settle_lock", "settled",
+        "in_command",
     )
 
     def __init__(self, stage, stream, fn, args, kwargs, cost_key, deadline,
@@ -215,6 +225,9 @@ class _Item:
         )
         self.inference = torch.is_inference_mode_enabled()
         self.grad = torch.is_grad_enabled()
+        # issued inside a mesh command: it must run, whatever its deadline
+        # or the queue's depth, or the ranks' collectives part ways
+        self.in_command = in_command()
 
 
 class SpineTicket:
@@ -228,10 +241,11 @@ class SpineTicket:
         """Wait until the closure has returned (on a card its work is
         enqueued, not finished), the wait clamped to the item's deadline."""
         it = self._item
-        if it.deadline is not None:
+        if it.deadline is not None and not it.in_command:
             timeout = it.deadline.bound(timeout)
         if not it.done.wait(timeout):
-            if it.deadline is not None and it.deadline.expired:
+            if (it.deadline is not None and it.deadline.expired
+                    and not it.in_command):
                 # the deadline was the binding constraint: pull the item off
                 # the queue if no lane reached it, else wait it out (a
                 # running closure never outlives its submitter's lock
@@ -370,10 +384,11 @@ class DispatchSpine:
     @staticmethod
     @contextlib.contextmanager
     def _submitter_context(item: _Item):
-        """The submitting thread's grad/inference mode and CUDA stream."""
+        """The submitting thread's grad/inference mode, CUDA stream and
+        mesh command scope."""
         with torch.inference_mode(item.inference), torch.set_grad_enabled(
             item.grad
-        ):
+        ), command_scope(item.in_command and not in_command()):
             if item.cuda_stream is None:
                 yield
                 return
@@ -405,7 +420,8 @@ class DispatchSpine:
     def _run_item(self, item: _Item) -> None:
         item.t_start = _now()
         try:
-            if item.deadline is not None and item.deadline.expired:
+            if (item.deadline is not None and item.deadline.expired
+                    and not item.in_command):
                 # shed before issuing: nobody can use this answer
                 raise DeadlineExceeded(
                     f"spine:{item.stage}", -item.deadline.remaining()
@@ -555,7 +571,7 @@ class DispatchSpine:
                 self._busy_bg += bg
             elif not inline:
                 depth = self._depth_locked()
-                if depth >= self.max_depth:
+                if depth >= self.max_depth and not item.in_command:
                     self._submitted -= 1
                     rec = getattr(item.trace, "cost_record", None)
                     DEFAULT_COST_LEDGER.record_shed(
@@ -642,7 +658,11 @@ class DispatchSpine:
             stage, fn, args, kwargs, stream, cost_key, deadline, device
         )
         ticket = self._dispatch(item, on_caller=True)
-        ticket._wait_issued(None if deadline is None else deadline.bound(None))
+        # an item of a mesh command is waited for until it has issued: its
+        # collectives must precede the next command's
+        ticket._wait_issued(
+            None if deadline is None or item.in_command else deadline.bound(None)
+        )
         if item.error is not None:
             self._settle(item)
             raise item.error

@@ -23,8 +23,18 @@ stay aligned with the store.
 The device copy is a version-checked snapshot uploaded on the
 ``lexical_search`` spine stage; scoring (:func:`score_lexical`) is plain
 PyTorch on the device, as the reference leaves it to XLA (ROADMAP queue 2
-lists its kernel, K8).  The reference's sharded program (tiles row-sharded
-over a mesh) is multi-GPU work, not here.
+lists its kernel, K8).
+
+On a mesh (``mesh=``, ``runtime/mesh.py``) the tiles, impacts and
+liveness are row-sharded over the model axis, as the reference's
+``build_lexical_search_program`` shards them: the rows pad to a multiple of
+``64 * n_model`` and model rank ``m`` holds the ``m``-th contiguous block.
+A search scores the local block (:func:`score_lexical`) and merges the
+shards' top-k exactly through ``ops/topk.py``'s :func:`sharded_topk`: two
+all-gathers a search, none at 1x1 (``shard_budget.json``
+``retrieve_lexical_sharded``).  Every rank keeps the whole host copy (the
+store's sink feeds it on every rank); :meth:`LexicalIndex.search` and
+:meth:`LexicalIndex.add` are commands of a mesh's command stream.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ import numpy as np
 import torch
 
 from docqa_tpu_torch.engines.spine import spine_run, to_host
+from docqa_tpu_torch.ops.topk import sharded_topk
+from docqa_tpu_torch.runtime.mesh import MeshContext, mirrored
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, span
 from docqa_tpu_torch.utils import resolve_device
 
@@ -53,6 +65,10 @@ _QUERY_PAD = -2
 # shapes, kept so encode_queries gives the same operands)
 _QUERY_TERM_BUCKETS = (8, 16, 32, 64)
 _QUERY_BATCH_BUCKETS = (1, 4, 16)
+
+# a sharded tier pads its rows to a multiple of this times the model axis
+# (the reference's _ROW_BUCKET)
+_ROW_BUCKET = 64
 
 # rows scored per pass in score_lexical: bounds the [terms, rows, width]
 # compare to a few hundred MB at the largest query
@@ -113,6 +129,20 @@ def score_lexical(term_ids: torch.Tensor, impacts: torch.Tensor,
     return out.masked_fill(~row_live[None, :], NEG_INF)
 
 
+def lexical_search_program(term_ids, impacts, row_live, q_terms, q_weights,
+                           k: int, mesh: Optional[MeshContext] = None):
+    """The lexical search program, the reference's
+    ``build_lexical_search_program``: score -> exact top-``k``; on a model
+    axis of n > 1 the tiles are this rank's row block and the shards'
+    candidates merge through :func:`sharded_topk` (two all-gathers).
+    Returns (vals [Q, k], row ids [Q, k]) on every rank."""
+    scores = score_lexical(term_ids, impacts, row_live, q_terms, q_weights)
+    if mesh is None or mesh.n_model == 1:
+        return torch.topk(scores, k, dim=-1)
+    offset = mesh.model_index * term_ids.shape[0]
+    return sharded_topk(scores, offset, k, mesh.model_group)
+
+
 class LexicalIndex:
     """Incremental lexical tier over hashed impact tiles.
 
@@ -129,12 +159,17 @@ class LexicalIndex:
         b: float = 0.75,
         ref_len: int = 64,
         device="cuda",
+        mesh: Optional[MeshContext] = None,
     ) -> None:
+        """``mesh``: row-shard the device tiles over its model axis, on the
+        mesh's device (module docstring)."""
         if vocab_size < 2:
             raise ValueError("vocab_size must be >= 2")
         if tile_width < 1:
             raise ValueError("tile_width must be >= 1")
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.mesh = mesh
+        self._sharded = mesh is not None and mesh.n_model > 1
         self.vocab_size = int(vocab_size)
         self.tile_width = int(tile_width)
         self.k1 = float(k1)
@@ -197,7 +232,11 @@ class LexicalIndex:
 
     def add(self, row_ids: Sequence[int], texts: Sequence[str]) -> None:
         """Tokenize, count per-slot term frequencies, keep each row's top
-        ``tile_width`` impacts."""
+        ``tile_width`` impacts.  A command on a mesh."""
+        mirrored(self, "add", self._add, [int(r) for r in row_ids],
+                 [str(t) for t in texts])
+
+    def _add(self, row_ids: Sequence[int], texts: Sequence[str]) -> None:
         if len(row_ids) != len(texts):
             raise ValueError("row_ids and texts must align")
         if not row_ids:
@@ -302,21 +341,43 @@ class LexicalIndex:
 
     # -- device snapshot ----------------------------------------------------
 
+    def _padded_rows(self, count: int) -> int:
+        """The rows of the sharded tiles: ``count`` padded to equal shards
+        of whole ``_ROW_BUCKET``s."""
+        chunk = _ROW_BUCKET * self.mesh.n_model
+        return max(chunk, -(-count // chunk) * chunk)
+
     def device_tiles(self) -> Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]]:
         """``(term_ids, impacts, row_live, count)`` on the device, uploaded
         only when the host copy moved since the last upload; None while the
-        tier is empty."""
+        tier is empty.  Sharded: this rank's row block of the padded
+        tiles (pad rows dead)."""
         with self._lock:
             count, version = self._count, self._version
             if count == 0:
                 return None
             if self._dev is not None and self._dev[0] == version:
                 return self._dev[1:]
-            host = (
-                self._term_ids[:count].copy(),
-                self._impacts[:count].copy(),
-                self._live[:count].copy(),
-            )
+            if self._sharded:
+                per = self._padded_rows(count) // self.mesh.n_model
+                lo = self.mesh.model_index * per
+                hi = min(lo + per, count)
+                w = self.tile_width
+                host = (
+                    np.full((per, w), _TILE_PAD, np.int32),
+                    np.zeros((per, w), np.int8),
+                    np.zeros((per,), bool),
+                )
+                if hi > lo:
+                    host[0][: hi - lo] = self._term_ids[lo:hi]
+                    host[1][: hi - lo] = self._impacts[lo:hi]
+                    host[2][: hi - lo] = self._live[lo:hi]
+            else:
+                host = (
+                    self._term_ids[:count].copy(),
+                    self._impacts[:count].copy(),
+                    self._live[:count].copy(),
+                )
 
         def _upload_on_device():
             return tuple(torch.from_numpy(a).to(self.device) for a in host)
@@ -338,7 +399,10 @@ class LexicalIndex:
     def search(self, texts: Sequence[str], k: int = 10) -> List[List[Tuple[float, int]]]:
         """Per query, ``(score, row_id)`` pairs by impact score; rows with
         no term overlap (score <= 0) are dropped.  One ``lexical_search``
-        item on the device."""
+        item on the device; a command on a mesh."""
+        return mirrored(self, "search", self._search, [str(t) for t in texts], int(k))
+
+    def _search(self, texts: Sequence[str], k: int = 10) -> List[List[Tuple[float, int]]]:
         if not len(texts):
             return []
         tiles = self.device_tiles()
@@ -351,12 +415,12 @@ class LexicalIndex:
         k_eff = min(k, count)
 
         def _lexical_on_device():
-            scores = score_lexical(
+            vals, ids = lexical_search_program(
                 term_ids, impacts, row_live,
                 torch.from_numpy(q_terms).to(self.device),
                 torch.from_numpy(q_weights).to(self.device),
+                k_eff, self.mesh,
             )
-            vals, ids = torch.topk(scores, k_eff, dim=-1)
             return to_host(vals), to_host(ids)
 
         with span("lexical_search", DEFAULT_REGISTRY):
@@ -403,14 +467,16 @@ class LexicalIndex:
 
     def index_bytes(self) -> Dict[str, Any]:
         """Device bytes of the tiles (int32 slots, int8 impacts, a live
-        flag a row); the port's tiles are not padded."""
+        flag a row); unsharded tiles are not padded, sharded ones are."""
         count = self._count
-        total = count * (self.tile_width * (4 + 1) + 1)
+        n_shards = self.mesh.n_model if self._sharded else 1
+        rows = self._padded_rows(count) if self._sharded and count else count
+        total = rows * (self.tile_width * (4 + 1) + 1)
         return {
             "total_bytes": total,
             "bytes_per_chunk": round(total / max(count, 1), 2),
-            "per_shard_bytes": total,
-            "shards": 1,
+            "per_shard_bytes": total // n_shards,
+            "shards": n_shards,
             "storage": "lexical_int8",
         }
 

@@ -42,6 +42,15 @@ local block.
 Device writes are dispatch-spine work items (``store_add``), the host-query
 search (:meth:`VectorStore.search`) a ``store_search`` item; the text-query
 search is the fused retriever's ``retrieve`` item.
+
+Registered with a mesh's command stream (``runtime/mesh.py``), every
+mutation (:meth:`~VectorStore.add`, :meth:`~VectorStore.delete_docs`,
+:meth:`~VectorStore.compact_deleted`) and search is a command: the leader
+publishes its rows, metadata, row ids or queries, and every follower's
+store applies it to its own host copy and block, so the row ids, the
+tombstones and the index sinks agree on every rank.  Snapshots are the
+caller's to write once (the runtime's leader); :meth:`VectorStore.restore`
+runs on every rank from the same ``LATEST``.
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ from docqa_tpu_torch.engines.spine import spine_run, to_host
 from docqa_tpu_torch.ops._kernels import is_device_fault
 from docqa_tpu_torch.ops.topk import sharded_topk
 from docqa_tpu_torch.runtime import native
-from docqa_tpu_torch.runtime.mesh import MeshContext
+from docqa_tpu_torch.runtime.mesh import MeshContext, mirrored
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger, span
 from docqa_tpu_torch.utils import resolve_device, round_up, torch_dtype
 
@@ -449,7 +458,11 @@ class VectorStore:
         ``token_rows`` / ``token_lens``: each row's generator token ids for
         the sidecar (``cfg.token_width``); ignored when the sidecar is off.
         Without ``token_lens`` a row's length is its count of nonzero
-        ids."""
+        ids.  A command on a mesh."""
+        return mirrored(self, "add", self._add, np.asarray(vectors, np.float32),
+                        [dict(m) for m in metadata], token_rows, token_lens)
+
+    def _add(self, vectors, metadata, token_rows=None, token_lens=None) -> List[int]:
         vectors = np.asarray(vectors, np.float32)
         if vectors.ndim != 2 or vectors.shape[1] != self.cfg.dim:
             raise ValueError(
@@ -538,7 +551,11 @@ class VectorStore:
     def delete_docs(self, doc_ids: Sequence[str]) -> int:
         """Tombstone every chunk of the given documents: the rows vanish
         from every search and listing at once; their bytes stay until
-        :meth:`compact_deleted`.  Returns the rows tombstoned."""
+        :meth:`compact_deleted`.  Returns the rows tombstoned.  A command
+        on a mesh."""
+        return mirrored(self, "delete_docs", self._delete_docs, list(doc_ids))
+
+    def _delete_docs(self, doc_ids: Sequence[str]) -> int:
         with self._lock:
             count = self._count
             codes = [
@@ -565,7 +582,10 @@ class VectorStore:
     def compact_deleted(self) -> int:
         """Remove the tombstoned rows for real: the host copy, the columns
         and a fresh device buffer.  Row ids change (the sinks get the keep
-        mask).  Returns the rows removed."""
+        mask).  Returns the rows removed.  A command on a mesh."""
+        return mirrored(self, "compact_deleted", self._compact_deleted)
+
+    def _compact_deleted(self) -> int:
         with self._lock:
             count = self._count
             if not self._n_deleted:
@@ -609,7 +629,12 @@ class VectorStore:
     ) -> List[List[SearchResult]]:
         """Exact top-k of host query vectors (L2-normalized here) over the
         live rows matching ``filters``: the search of the runtime's
-        fake-encoder mode and of the reference's ``store.search``."""
+        fake-encoder mode and of the reference's ``store.search``.  A
+        command on a mesh."""
+        return mirrored(self, "search", self._search,
+                        np.asarray(queries, np.float32), k, filters)
+
+    def _search(self, queries, k=None, filters=None) -> List[List[SearchResult]]:
         k = k or self.cfg.default_k
         qn = _normalized(queries)
         buf, count, mask = self.search_view(filters)
@@ -635,7 +660,11 @@ class VectorStore:
         observatory's ground truth: :meth:`search`'s ranking (no filters)
         as a ``retrieve_shadow`` item on the spine's background ``probe``
         stream.  ``count_cap`` limits the scan to the rows the served query
-        could see."""
+        could see.  A command on a mesh."""
+        return mirrored(self, "shadow_search", self._shadow_search,
+                        np.asarray(queries, np.float32), int(k), count_cap)
+
+    def _shadow_search(self, queries, k, count_cap=None) -> List[List[SearchResult]]:
         qn = _normalized(queries)
         buf, count, mask = self.search_view(None)
         if count_cap is not None and count_cap < count:

@@ -39,7 +39,7 @@ from docqa_tpu_torch.ops import qmatmul as _qm
 from docqa_tpu_torch.ops.attention import attention, attention_reference
 from docqa_tpu_torch.ops.norms import rms_norm
 from docqa_tpu_torch.ops.rope import apply_rope, rope_angles
-from docqa_tpu_torch.runtime.mesh import MeshContext, all_reduce
+from docqa_tpu_torch.runtime.mesh import MeshContext, all_gather, all_reduce
 from docqa_tpu_torch.utils import torch_dtype
 
 Params = Dict[str, torch.Tensor]
@@ -237,6 +237,19 @@ def decoder_head(
         x = torch.gather(x, 1, idx)
     x = rms_norm(x, params["final_norm_g"], cfg.norm_eps)
     return _qmatmul(x, params, "lm_head", dtype).float()
+
+
+def gather_logits(logits: torch.Tensor, vocab: int,
+                  mesh: Optional[MeshContext]) -> torch.Tensor:
+    """Whole-vocabulary logits from this rank's ``lm_head`` block: on a
+    model axis of n > 1 one ``all_gather`` (site ``logits``), a vocabulary
+    that does not divide padded for it; otherwise ``logits`` itself."""
+    if mesh is None or mesh.n_model == 1:
+        return logits
+    chunk = -(-vocab // mesh.n_model)
+    if logits.shape[-1] < chunk:
+        logits = F.pad(logits, (0, chunk - logits.shape[-1]))
+    return all_gather(logits, mesh.model_group, "logits", dim=-1)[..., :vocab]
 
 
 def decoder_forward(

@@ -19,7 +19,9 @@ A kernel that fails to build, load or launch raises :class:`KernelError`.
 card, as the faults no serving policy may hide: the degraded answer, the
 breakers and the replica pool's failover all let them through to the
 caller (after a CUDA error the context is poisoned, so failing over inside
-the process would serve nothing).
+the process would serve nothing).  A collective that fails or times out on
+a mesh (:class:`MeshFault`, raised by ``runtime/mesh.py``) is one too: a
+rank is gone, and no rank may go on alone.
 """
 
 from __future__ import annotations
@@ -56,11 +58,17 @@ class KernelError(RuntimeError):
     """A hand-written kernel failed to build, load or launch."""
 
 
+class MeshFault(RuntimeError):
+    """A collective or a published command failed or timed out: a rank of
+    the mesh is gone or unreachable, and the mesh is broken for good."""
+
+
 def is_device_fault(exc: BaseException) -> bool:
-    """True for a :class:`KernelError` and for a CUDA error raised by torch
-    (``torch.AcceleratorError``, or a ``RuntimeError`` whose message starts
-    with "CUDA error"): errors that reach the caller unchanged."""
-    if isinstance(exc, KernelError):
+    """True for a :class:`KernelError`, a :class:`MeshFault` and a CUDA
+    error raised by torch (``torch.AcceleratorError``, or a
+    ``RuntimeError`` whose message starts with "CUDA error"): errors that
+    reach the caller unchanged."""
+    if isinstance(exc, (KernelError, MeshFault)):
         return True
     accel = getattr(torch, "AcceleratorError", None)
     if accel is not None and isinstance(exc, accel):

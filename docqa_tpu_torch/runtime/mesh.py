@@ -21,29 +21,70 @@ and no collective runs, as the reference's single chip shards nothing.
 the kernels' ``ops/_kernels.LAUNCHES``, so tests and the chip smoke can pin
 each entry point's budget.  A collective over a group of one rank is never
 issued and never counted.  A collective that fails or outlives the process
-group's timeout raises; nothing continues on one rank.
+group's timeout raises :class:`~docqa_tpu_torch.ops._kernels.MeshFault`
+(a device fault: every serving catch-all lets it through), and the mesh is
+broken from then on: every later collective and command raises at once.
+That holds where a collective blocks until it is done: gloo, the CPU
+worlds.  An NCCL collective returns once it is enqueued, and the port sets
+neither blocking wait nor async error handling, so a peer lost during an
+NCCL collective is seen by NCCL's watchdog, which ends the process after
+the group's timeout: no ``MeshFault``, no 503.  A peer lost between
+commands is seen at the next command's publish, which goes over gloo
+(:class:`CommandStream`), and raises there.
+
+A serving runtime (``service/app.py``) cannot be SPMD by itself: HTTP
+requests reach one process, and device work starts on many threads (the
+batchers' workers, ingest, warm-ups).  :class:`CommandStream` makes it so.
+Rank 0, the leader, serves and decides one total order of device-plane
+commands; every other rank, a follower, builds the same engines and runs
+:meth:`CommandStream.follow`, which replays each command on its own objects
+of the same name.  A command is a mirrored entry point (:func:`mirrored`):
+a method that issues a collective or writes a sharded tensor, called with
+the leader's host decisions as plain arguments (arrays, ids, seeds).  The
+leader takes the mesh slot (one command at a time), publishes the command
+(target, method, arguments, pickled over a gloo group made beside the
+device group), then runs it, and releases the slot once its collectives are
+issued.  Followers receive commands in that order, so every rank issues
+every collective in one order.  A mirrored call made inside a command runs
+where it is (every rank makes it inside the same outer command), and the
+dispatch spine carries that context to its lane threads.  Before
+:meth:`CommandStream.open` (the boot, where every rank runs the same code on
+one thread) a command runs locally on every rank.  ``COMMANDS`` counts top-level
+commands by name on every rank, and :func:`command_digest` hashes their
+sequence: equal on every rank of a healthy mesh.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import threading
 from collections import Counter
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import List, Optional
+from time import monotonic as _mono
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from docqa_tpu_torch.config import MeshConfig
+from docqa_tpu_torch.ops._kernels import MeshFault, is_device_fault
+from docqa_tpu_torch.runtime.metrics import get_logger
 from docqa_tpu_torch.utils import resolve_device
+
+log = get_logger("docqa.mesh")
 
 # a collective that waits longer than this on a peer raises
 DEFAULT_TIMEOUT = timedelta(minutes=5)
 
 COLLECTIVES: Counter = Counter()
 _COUNT_LOCK = threading.Lock()
+
+
+# the first collective or command failure of this process: the mesh is
+# broken from then on
+_BROKEN: Optional[BaseException] = None
 
 
 def count_collective(op: str, site: str) -> None:
@@ -55,11 +96,33 @@ def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def _check_whole(what: str) -> None:
+    if _BROKEN is not None:
+        raise MeshFault(f"{what}: the mesh is broken ({_BROKEN})") from _BROKEN
+
+
+def _collective(what: str, fn) -> None:
+    """Run one collective (or a command's publish or receipt); a failure (a
+    lost peer, a timeout) breaks the mesh and raises :class:`MeshFault`."""
+    global _BROKEN
+    _check_whole(what)
+    try:
+        fn()
+    except Exception as e:
+        if isinstance(e, MeshFault):
+            raise
+        fault = MeshFault(f"{what} failed: {type(e).__name__}: {e}")
+        with _COUNT_LOCK:
+            if _BROKEN is None:
+                _BROKEN = fault
+        raise fault from e
+
+
 def all_reduce(t: torch.Tensor, group, site: str) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place (its dtype) and return it."""
     if group_size(group) == 1:
         return t
-    dist.all_reduce(t, group=group)
+    _collective(f"all_reduce.{site}", lambda: dist.all_reduce(t, group=group))
     count_collective("all_reduce", site)
     return t
 
@@ -72,7 +135,7 @@ def all_gather(t: torch.Tensor, group, site: str, dim: int = 0) -> torch.Tensor:
         return t
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t, group=group)
+    _collective(f"all_gather.{site}", lambda: dist.all_gather(parts, t, group=group))
     count_collective("all_gather", site)
     return torch.cat(parts, dim=dim)
 
@@ -84,7 +147,8 @@ def all_to_all(t: torch.Tensor, group, site: str) -> torch.Tensor:
         return t
     t = t.contiguous()
     out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=group)
+    _collective(f"all_to_all.{site}",
+                lambda: dist.all_to_all_single(out, t, group=group))
     count_collective("all_to_all", site)
     return out
 
@@ -276,3 +340,243 @@ def refuse_sharded(what: str, item: str, *meshes: Optional[MeshContext]) -> None
                 f"not in the PyTorch port yet: {what} on a {mesh.n_data}x"
                 f"{mesh.n_model} mesh ({item})"
             )
+
+
+# ---------------------------------------------------------------------------
+# the command stream (module docstring)
+# ---------------------------------------------------------------------------
+
+COMMANDS: Counter = Counter()
+_DIGEST = hashlib.sha256()
+_LOCAL = threading.local()
+# the header group waits this long for the leader's next command: a
+# follower idles in it between requests
+HEADER_TIMEOUT = timedelta(days=7)
+_STOP = "__stop__"
+
+
+def command_digest() -> str:
+    """Hex digest of the sequence of commands this process counted."""
+    with _COUNT_LOCK:
+        return _DIGEST.copy().hexdigest()
+
+
+def reset_commands() -> None:
+    """Zero ``COMMANDS`` and the digest (tests, measurement windows)."""
+    global _DIGEST
+    with _COUNT_LOCK:
+        COMMANDS.clear()
+        _DIGEST = hashlib.sha256()
+
+
+def _count_command(name: str) -> None:
+    with _COUNT_LOCK:
+        COMMANDS[name] += 1
+        _DIGEST.update(name.encode() + b"\n")
+
+
+def in_command() -> bool:
+    """True on a thread running inside a command (its own, a replayed one,
+    or a spine item issued from one)."""
+    return getattr(_LOCAL, "depth", 0) > 0
+
+
+class command_scope:
+    """Mark this thread as inside a command (``active``) for a block: the
+    spine re-enters its submitter's scope on a lane thread."""
+
+    def __init__(self, active: bool = True) -> None:
+        self.active = active
+
+    def __enter__(self):
+        if self.active:
+            _LOCAL.depth = getattr(_LOCAL, "depth", 0) + 1
+        return self
+
+    def __exit__(self, *exc):
+        if self.active:
+            _LOCAL.depth -= 1
+        return False
+
+
+def mirrored(obj: Any, method: str, fn: Callable, *args,
+             local: Optional[Dict[str, Any]] = None, **kwargs) -> Any:
+    """Run ``fn(*args, **kwargs, **local)`` as the command ``method`` of
+    ``obj``: published to every follower first when ``obj`` is registered
+    with a live :class:`CommandStream`, else run as it is.  ``args`` and
+    ``kwargs`` are plain host values (they cross processes); ``local``
+    holds what only the leader passes (a deadline).  On a follower the
+    command arrives as ``getattr(obj, method)(*args, **kwargs)``, which
+    reaches ``fn`` here."""
+    stream = getattr(obj, "_command_stream", None)
+    if stream is None:
+        return fn(*args, **kwargs, **(local or {}))
+    return stream.call(obj, method, fn, args, kwargs, local or {})
+
+
+class CommandStream:
+    """The leader's ordered stream of device-plane commands and the
+    followers' replay of it (module docstring).  Built on every rank at the
+    same point of the boot (making its gloo group is a collective); in a
+    world of one rank commands are counted and published to no one."""
+
+    def __init__(self, mesh: MeshContext):
+        self.mesh = mesh
+        self.world = dist.get_world_size() if dist.is_initialized() else 1
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.leader = self.rank == 0
+        self._group = (dist.new_group(backend="gloo", timeout=HEADER_TIMEOUT)
+                       if self.world > 1 else None)
+        self._targets: Dict[str, Any] = {}
+        self._auto: Counter = Counter()
+        self._slot = threading.Lock()
+        self._live = False
+        self._stopped = False
+        self._stats_lock = threading.Lock()
+        # per command: [count, seconds waited for the mesh slot]
+        self._waits: Dict[str, List[float]] = {}
+
+    @property
+    def follower(self) -> bool:
+        return not self.leader
+
+    # ---- targets -------------------------------------------------------------
+
+    def register(self, name: str, obj: Any) -> Any:
+        """Make ``obj`` the target ``name`` on this rank (every rank
+        registers the same names in the same order)."""
+        if name in self._targets:
+            raise ValueError(f"command target {name!r} registered twice")
+        obj._command_stream = self
+        obj._command_name = name
+        self._targets[name] = obj
+        return obj
+
+    def register_auto(self, prefix: str, obj: Any) -> Any:
+        """Register ``obj`` as ``<prefix>#<n>``, ``n`` counting this
+        prefix's registrations (the batchers: replicas and rebuilds)."""
+        with self._stats_lock:
+            n = self._auto[prefix]
+            self._auto[prefix] += 1
+        return self.register(f"{prefix}#{n}", obj)
+
+    def unregister(self, obj: Any) -> None:
+        self._targets.pop(getattr(obj, "_command_name", None), None)
+
+    # ---- the leader's side ---------------------------------------------------
+
+    def open(self) -> "CommandStream":
+        """End of the boot: from here the leader publishes its commands and
+        followers take them in :meth:`follow`."""
+        self._live = True
+        return self
+
+    def _check(self, what: str) -> None:
+        _check_whole(what)
+        if self._stopped:
+            raise MeshFault(f"{what}: the command stream is stopped")
+
+    def _publish(self, header: Tuple) -> None:
+        what = f"publish {header[0]}.{header[1]}" if header[0] != _STOP else "publish stop"
+        _collective(what, lambda: dist.broadcast_object_list(
+            [header], src=0, group=self._group))
+
+    def call(self, obj: Any, method: str, fn: Callable, args: tuple,
+             kwargs: Dict[str, Any], local: Dict[str, Any]) -> Any:
+        """:func:`mirrored`'s dispatch (module docstring)."""
+        if in_command():
+            return fn(*args, **kwargs, **local)
+        name = f"{obj._command_name}.{method}"
+        if not self._live:
+            # the boot: every rank runs the same code on one thread
+            _count_command(name)
+            with command_scope():
+                return fn(*args, **kwargs, **local)
+        if self.follower:
+            raise RuntimeError(
+                f"{name}: a follower runs commands only from follow()")
+        t0 = _mono()
+        with self._slot:
+            waited = _mono() - t0
+            self._check(name)
+            if self.world > 1:
+                self._publish((obj._command_name, method, args, kwargs))
+            _count_command(name)
+            with self._stats_lock:
+                row = self._waits.setdefault(name, [0, 0.0])
+                row[0] += 1
+                row[1] += waited
+            with command_scope():
+                return fn(*args, **kwargs, **local)
+
+    def stop(self) -> None:
+        """Publish ``stop`` (the leader; followers leave :meth:`follow`)
+        and refuse every later command.  A broken mesh publishes nothing."""
+        if self._stopped:
+            return
+        with self._slot:
+            self._stopped = True
+            if self.leader and self.world > 1 and self._live and _BROKEN is None:
+                try:
+                    self._publish((_STOP, "", (), {}))
+                except MeshFault:
+                    log.exception("stop not published: the mesh is broken")
+
+    # ---- the followers' side -------------------------------------------------
+
+    def follow(self) -> int:
+        """Replay the leader's commands until it publishes ``stop``; returns
+        the commands replayed.  A command that raises what the leader's run
+        raised too (a host error) is logged and the replay goes on; a
+        device fault (a kernel, CUDA, a lost rank) raises."""
+        if not self.follower:
+            raise RuntimeError("the leader does not follow")
+        self._live = True
+        n = 0
+        while True:
+            box = [None]
+            _collective("receive a command", lambda: dist.broadcast_object_list(
+                box, src=0, group=self._group))
+            target, method, args, kwargs = box[0]
+            if target == _STOP:
+                self._stopped = True
+                return n
+            _count_command(f"{target}.{method}")
+            n += 1
+            obj = self._targets[target]
+            with command_scope():
+                try:
+                    getattr(obj, method)(*args, **kwargs)
+                except Exception as e:
+                    if is_device_fault(e):
+                        raise
+                    log.warning("command %s.%s raised %r (the leader's run "
+                                "raised it too)", target, method, e)
+
+    # ---- observability -------------------------------------------------------
+
+    def reset_stats(self) -> None:
+        """Zero the per-command slot waits (measurement windows)."""
+        with self._stats_lock:
+            self._waits.clear()
+
+    def status(self) -> Dict[str, Any]:
+        """The ``/api/status`` mesh section: shape, backend, ranks, role,
+        and the commands counted with their mean wait for the mesh slot."""
+        with self._stats_lock:
+            waits = {
+                k: {"count": int(c), "slot_wait_mean_ms": round(w / max(c, 1) * 1e3, 3)}
+                for k, (c, w) in sorted(self._waits.items())
+            }
+        with _COUNT_LOCK:
+            issued = int(sum(COMMANDS.values()))
+        return {
+            "shape": [self.mesh.n_data, self.mesh.n_model],
+            "backend": dist.get_backend() if dist.is_initialized() else None,
+            "ranks": self.world,
+            "rank": self.rank,
+            "role": "leader" if self.leader else "follower",
+            "commands_issued": issued,
+            "commands": waits,
+            "broken": None if _BROKEN is None else str(_BROKEN),
+        }

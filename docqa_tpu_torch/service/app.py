@@ -60,14 +60,39 @@ loader's ``checkpoint`` breaker is on the runtime's board, so
 ``/api/status`` shows it.  The seq2seq summarizer packs the raw documents
 (no instruction template) within ``min(max_input_tokens, max_src_len)``.
 
+On a mesh of ranks (a ``torch.distributed`` process group is up: torchrun,
+or :func:`~docqa_tpu_torch.runtime.mesh.multihost_init`) the runtime builds
+its mesh with ``make_mesh(cfg.mesh)`` and hands it to the encoder (data
+parallel), the store and the lexical tier (rows over the model axis), the
+tagger's trainer (data parallel) and the decoder and its pool (Megatron
+tensor parallel, the paged pools' kv heads over the model axis), as the
+reference's runtime does.  Every rank builds those parts from the same
+config and weights, in the same order, with a command stream
+(``runtime/mesh.py``).  Rank 0, the leader, then builds the rest and alone
+serves HTTP, runs the ingest workers, the pool's monitor and canaries,
+the telemetry sampler, the journal, the registry and the snapshots; every
+device-plane call that issues a collective or writes a sharded tensor is
+a command it publishes before it runs.  Every other rank, a follower,
+runs :meth:`DocQARuntime.follow` until the leader's :meth:`DocQARuntime.stop`
+publishes ``stop``.  A lost rank breaks the mesh: the collective or the
+publish raises ``MeshFault``, a device fault, so ``/ask`` answers 503 and
+the front stops serving.  That holds where collectives block (gloo); over
+NCCL a rank lost during a collective ends the process through NCCL's
+watchdog instead (``runtime/mesh.py``).  ``/api/status`` gains a ``mesh`` section.  In a
+world of one rank the leader's path runs alike, its commands counted and
+published to no one.  The seq2seq summarizer and the tagger's forward stay
+off the mesh on the leader, as in the reference.
+
 Configuration that needs a part of the reference this port does not have
-yet raises at boot and names its ROADMAP item (:func:`refuse_unported`);
-since the AMQP broker and weight-only quantisation were ported, none does.
+yet raises at boot and names its ROADMAP item (:func:`refuse_unported`):
+tiered serving on a mesh (queue 1 item 9c).
 Routes whose subsystem is not ported answer as the reference does when
 that subsystem is idle or absent: ``/api/witness`` and ``/api/ledger`` with
 404.
 
-Entry point: ``python -m docqa_tpu_torch.service.app`` (see :func:`main`).
+Entry point: ``python -m docqa_tpu_torch.service.app`` (see :func:`main`),
+or ``torchrun --nproc-per-node N -m docqa_tpu_torch.service.app`` on a mesh
+(rank 0 binds ``--port``, the others bind nothing).
 """
 
 from __future__ import annotations
@@ -93,7 +118,7 @@ from docqa_tpu_torch.config import Config, coerce_value, load_config
 from docqa_tpu_torch.engines import spine as _spine
 from docqa_tpu_torch.engines.serve import QueueFull
 from docqa_tpu_torch.models import hf_checkpoint
-from docqa_tpu_torch.ops._kernels import is_device_fault
+from docqa_tpu_torch.ops._kernels import MeshFault, is_device_fault
 from docqa_tpu_torch.resilience import faults as _faults
 from docqa_tpu_torch.resilience.breaker import BreakerBoard
 from docqa_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
@@ -118,8 +143,8 @@ UI_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ui.html")
 def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a configuration that needs a part
     of the reference this port does not have yet, naming the ROADMAP item
-    (queue 1) that brings it: the runtime on a mesh (item 9b; the engines
-    take a mesh, the runtime's single-controller serving does not yet) is
+    (queue 1) that brings it: tiered serving on a mesh (item 9c: the IVF
+    probe and the tiered and hybrid programs have no mesh path yet) is
     refused for a world of more than one rank or a ``mesh`` section that
     asks for more than one device."""
     import torch.distributed as dist
@@ -127,10 +152,10 @@ def refuse_unported(cfg: Config) -> None:
     world = dist.get_world_size() if dist.is_initialized() else 1
     mesh_devices = (max(cfg.mesh.data_parallel, 1) * max(cfg.mesh.model_parallel, 1))
     refusals: List[Tuple[bool, str]] = [
-        (world > 1 or mesh_devices > 1,
-         f"the runtime on a mesh (world of {world} ranks, mesh.data_parallel="
+        (cfg.store.serving_index == "tiered" and (world > 1 or mesh_devices > 1),
+         f"tiered serving on a mesh (world of {world} ranks, mesh.data_parallel="
          f"{cfg.mesh.data_parallel}, mesh.model_parallel={cfg.mesh.model_parallel}): "
-         "ROADMAP queue 1 item 9b"),
+         "ROADMAP queue 1 item 9c"),
     ]
     for refused, why in refusals:
         if refused:
@@ -210,7 +235,19 @@ class DocQARuntime:
             max_depth=cfg.dispatch.max_depth,
             inline=cfg.dispatch.inline,
         )
-        dev = self.device
+        # a process group up: the mesh over it and the command stream every
+        # rank builds at this same point (module docstring)
+        self.mesh = self.stream = None
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            from docqa_tpu_torch.runtime.mesh import CommandStream, make_mesh
+
+            self.mesh = make_mesh(cfg.mesh, device=self.device)
+            self.device = self.mesh.device
+            self.stream = CommandStream(self.mesh)
+        dev, mesh = self.device, self.mesh
+        follower = self.stream is not None and self.stream.follower
         if cfg.flags.use_fake_encoder:
             if cfg.encoder.checkpoint_dir:
                 # a real checkpoint configured, yet hash embeddings served
@@ -234,10 +271,13 @@ class DocQARuntime:
                     f"DOCQA_STORE__DIM={enc_cfg.embed_dim} (an existing "
                     "index snapshot of the old dim cannot be reused)"
                 )
-            self.encoder = EncoderEngine(enc_cfg, params=enc_params, device=dev)
+            self.encoder = EncoderEngine(enc_cfg, params=enc_params, device=dev,
+                                         mesh=mesh)
             self.load_seconds["encoder"] = time.perf_counter() - t0
         else:
-            self.encoder = EncoderEngine(cfg.encoder, device=dev)
+            self.encoder = EncoderEngine(cfg.encoder, device=dev, mesh=mesh)
+        if self.stream is not None and not cfg.flags.use_fake_encoder:
+            self.stream.register("encoder", self.encoder)
         work_dir = cfg.data.work_dir
         # restore on boot; a corrupt or mismatched snapshot logs and serves
         # a fresh store, as the reference's does, but a device fault raises
@@ -250,7 +290,7 @@ class DocQARuntime:
         ):
             try:
                 self.store = VectorStore.restore(
-                    self._index_dir, cfg.store, device=dev
+                    self._index_dir, cfg.store, device=dev, mesh=mesh
                 )
                 log.info(
                     "restored index v%d (%d rows) from %s",
@@ -261,7 +301,9 @@ class DocQARuntime:
                     raise
                 log.exception("index restore failed; starting with an empty store")
         if self.store is None:
-            self.store = VectorStore(cfg.store, device=dev)
+            self.store = VectorStore(cfg.store, device=dev, mesh=mesh)
+        if self.stream is not None:
+            self.stream.register("store", self.store)
         # the lexical tier is fed by the store's sink seam, registered
         # before any bootstrap indexing
         self.lexical = None
@@ -269,8 +311,10 @@ class DocQARuntime:
             lx = cfg.lexical
             self.lexical = LexicalIndex(
                 vocab_size=lx.vocab_size, tile_width=lx.tile_width,
-                k1=lx.k1, b=lx.b, ref_len=lx.ref_len, device=dev,
+                k1=lx.k1, b=lx.b, ref_len=lx.ref_len, device=dev, mesh=mesh,
             )
+            if self.stream is not None:
+                self.stream.register("lexical", self.lexical)
             self.store.register_index_sink(self.lexical)
         self.search_index = self.store
         if cfg.store.serving_index == "tiered":
@@ -294,7 +338,7 @@ class DocQARuntime:
             )
             self.deid = DeidEngine.trained(
                 cfg.ner, params_path=params_path, steps=cfg.ner.train_steps,
-                device=dev,
+                device=dev, mesh=mesh,
             )
         else:  # plumbing mode: a seeded random tagger
             self.deid = DeidEngine(cfg.ner, device=dev)
@@ -329,16 +373,45 @@ class DocQARuntime:
             )
             self.load_seconds["decoder"] = time.perf_counter() - t0
         self.generator = GenerateEngine(
-            dec_cfg, gen=cfg.generate, params=decoder_params, device=dev
+            dec_cfg, gen=cfg.generate, params=decoder_params, device=dev,
+            mesh=mesh,
         )
+        if self.stream is not None:
+            self.stream.register("generator", self.generator)
         # the seq2seq summarizer's checkpoint loads before the pool starts
-        # its workers, so a bad directory fails the boot with none running
-        seq2seq = self._build_seq2seq()
+        # its workers, so a bad directory fails the boot with none running;
+        # it stays off the mesh, on the leader
+        seq2seq = None if follower else self._build_seq2seq()
         self.batcher = None
         if not cfg.flags.use_fake_llm:
             self.batcher = EnginePool(
                 self.generator, cfg=cfg.pool, qos=cfg.qos, device=dev
             )
+        # exact serving retrieves dense, as the reference's does; the
+        # retrieve modes ride on the tiered index
+        retriever = None
+        if not cfg.flags.use_fake_encoder:
+            if self.search_index is self.store:
+                retriever = FusedRetriever(self.encoder, self.store, device=dev)
+                if self.stream is not None:
+                    self.stream.register("retriever", retriever)
+            else:
+                retriever = FusedTieredRetriever(
+                    self.encoder, self.search_index, device=dev
+                )
+        self._started = False
+        self._warmup_thread: Optional[threading.Thread] = None
+        self._warmup_fault: Optional[BaseException] = None
+        if follower:
+            # a follower serves nothing: it replays the leader's commands
+            # (follow()) on the parts above
+            for name in ("summarizer", "broker", "registry", "pipeline",
+                         "router", "qa", "synthesis", "retrieval_obs",
+                         "costs", "telemetry", "slo", "sampler"):
+                setattr(self, name, None)
+            return
+        if self.stream is not None:
+            self.stream.open()
         self.summarizer = self._build_summarizer(seq2seq)
         if journal_dir is None and work_dir:
             # un-acked pipeline messages replay after a crash
@@ -377,16 +450,6 @@ class DocQARuntime:
             )
             if n and self._index_dir:
                 self._snapshot()
-        # exact serving retrieves dense, as the reference's does; the
-        # retrieve modes ride on the tiered index
-        retriever = None
-        if not cfg.flags.use_fake_encoder:
-            if self.search_index is self.store:
-                retriever = FusedRetriever(self.encoder, self.store, device=dev)
-            else:
-                retriever = FusedTieredRetriever(
-                    self.encoder, self.search_index, device=dev
-                )
         # the single-sync ask needs the sidecar, device encoder params and
         # a real decoder, over exact serving on one device
         fused_rag = None
@@ -395,6 +458,7 @@ class DocQARuntime:
             and not cfg.flags.use_fake_llm
             and not cfg.flags.use_fake_encoder
             and cfg.store.serving_index == "exact"
+            and (mesh is None or mesh.n_devices == 1)
         ):
             fused_rag = FusedRAG(
                 self.encoder, self.store, self.generator, QA_TEMPLATE,
@@ -484,9 +548,6 @@ class DocQARuntime:
                 sample_every_s=tcfg.sample_every_s,
                 extra_probes=(self.costs.telemetry_gauges,),
             )
-        self._started = False
-        self._warmup_thread: Optional[threading.Thread] = None
-        self._warmup_fault: Optional[BaseException] = None
 
     def _build_seq2seq(self):
         """The seq2seq summarizer's engine (``summarizer.backend="seq2seq"``
@@ -562,10 +623,16 @@ class DocQARuntime:
         except Exception:
             log.exception("registry/index reconciliation failed")
 
+    @property
+    def follower(self) -> bool:
+        """True on a rank of a mesh other than the leader."""
+        return self.stream is not None and self.stream.follower
+
     def _snapshot(self, keep_previous: bool = True) -> None:
-        """Snapshot the store under ``<work_dir>/index`` (one at a time);
-        a failure is logged, a device fault raised."""
-        if not self._index_dir:
+        """Snapshot the store under ``<work_dir>/index`` (one at a time, the
+        leader alone on a mesh); a failure is logged, a device fault
+        raised."""
+        if not self._index_dir or self.follower:
             return
         with self._snapshot_lock:
             try:
@@ -600,7 +667,16 @@ class DocQARuntime:
         out["spine_queue_depth"] = self.spine.queue_depth
         return out
 
+    def follow(self) -> int:
+        """A follower's serving loop: replay the leader's commands until it
+        stops (``runtime/mesh.py``); returns the commands replayed."""
+        if not self.follower:
+            raise RuntimeError("only a follower rank of a mesh follows")
+        return self.stream.follow()
+
     def start(self) -> "DocQARuntime":
+        if self.follower:
+            raise RuntimeError("a follower rank starts nothing; call follow()")
         self.pipeline.start()
         if self.retrieval_obs is not None:
             self.retrieval_obs.start()
@@ -714,6 +790,11 @@ class DocQARuntime:
                     raise
                 faults_kept.append(e)
 
+        if self.follower:
+            if self.batcher is not None:
+                self.batcher.stop()
+            return
+
         if self.sampler is not None:
             self.sampler.stop()
         # the observatory's worker submits work against the store and the
@@ -735,8 +816,13 @@ class DocQARuntime:
             warmup.join(timeout=5)
             if warmup.is_alive():
                 log.warning("decode warmup thread still alive after stop()")
-        # a restart resumes exactly here
-        self._snapshot()
+        try:
+            # a restart resumes exactly here
+            self._snapshot()
+        finally:
+            if self.stream is not None:
+                # after every thread that publishes: followers leave follow()
+                self.stream.stop()
         self.broker.close()
         self.registry.close()
         if self.costs._pressure_probe == self._cost_pressure:
@@ -964,6 +1050,8 @@ class App:
                 "spine": rt.spine.stats(),
                 "observatory": obs.DEFAULT_OBSERVATORY.stats(),
             },
+            # on a mesh only: off one, the surface is the reference's
+            **({"mesh": rt.stream.status()} if rt.stream is not None else {}),
         })
 
     def metrics(self, req: Request) -> Response:
@@ -1467,6 +1555,11 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             resp = self.server.app.handle(req)
         except Exception as e:
+            if isinstance(e, MeshFault):
+                # a rank is gone: answer 503 at once, then stop serving
+                self._send(Response(503, {"detail": f"mesh lost: {e}"}))
+                self.server.on_device_fault(e)
+                return
             if is_device_fault(e):
                 self.server.on_device_fault(e)
                 return  # no response: the connection closes
@@ -1656,8 +1749,25 @@ def config_from_args(args) -> Config:
 
 
 def main(argv=None) -> None:
+    """Serve under the arguments; under torchrun's environment (a world of
+    ``WORLD_SIZE`` ranks, :func:`~docqa_tpu_torch.runtime.mesh.multihost_init`)
+    rank 0 serves on ``--port`` and every other rank follows it, and the
+    process group is destroyed on every rank at the end."""
+    import torch.distributed as dist
+
+    from docqa_tpu_torch.runtime.mesh import multihost_init
+
     args = _parse_args(argv)
     cfg = config_from_args(args)
+    on_mesh = multihost_init(device=args.device)
+    try:
+        _serve_main(args, cfg, on_mesh and dist.get_rank() != 0)
+    finally:
+        if on_mesh and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _serve_main(args, cfg: Config, follower: bool) -> None:
     # random decoder weights drawn on the device from a seed: the
     # reference's host init takes minutes at full width; a quantised
     # decoder is quantised tensor by tensor as it is drawn
@@ -1674,6 +1784,13 @@ def main(argv=None) -> None:
         )
     # SIGTERM stops the server like Ctrl-C, so the runtime joins its workers
     signal.signal(signal.SIGTERM, signal.default_int_handler)
+    if follower:
+        rt = DocQARuntime(cfg, device=args.device, decoder_params=params)
+        try:
+            rt.follow()
+        finally:
+            rt.stop()
+        return
     serve(cfg, port=args.port, host=args.host, device=args.device, decoder_params=params)
 
 

@@ -8,8 +8,16 @@ an entity-weighted masked token-classification cross-entropy
 linear warmup + cosine decay from 0).  Training runs the trunk's plain
 attention under autograd (``use_flash=False``): the flash kernel is
 forward-only, as the reference's is, and the reference trains on its plain
-attention too.  The single-device step is ported; the reference's
-data-parallel ``mesh`` branch waits for the multi-GPU slice.
+attention too.
+
+On a mesh (``mesh=``, ``runtime/mesh.py``) the step is data parallel, as
+the reference's ``make_ner_train_step(mesh=)``: the parameters are
+replicated, every data rank takes its rows of the batch (a multiple of the
+data axis), and one all-reduce over the data axis sums the gradients of
+the masked loss's numerator with its numerator and denominator, so the
+update is the one-device update of the whole batch.  The model axis holds
+replicas that compute alike.  A mesh trains in process; the cache is
+written by rank 0 alone.
 
 The trained tagger is cached as a flat ``.npz`` of its leaves under the
 reference's names, plus ``__fingerprint__`` (architecture, training steps,
@@ -31,6 +39,7 @@ import torch
 from docqa_tpu_torch.config import NERConfig
 from docqa_tpu_torch.models.ner import init_ner_params, ner_forward
 from docqa_tpu_torch.ops._kernels import is_device_fault
+from docqa_tpu_torch.runtime.mesh import MeshContext, all_reduce
 from docqa_tpu_torch.runtime.metrics import get_logger
 from docqa_tpu_torch.training.optim import AdamWChain, ChainState
 from docqa_tpu_torch.utils import resolve_device
@@ -52,11 +61,8 @@ def ner_loss(
     """Masked NLL over the supervised positions, entity positions weighted
     by ``cfg.entity_loss_weight`` (they are ~18 % of the supervision; the
     weight keeps the optimizer out of the all-O collapse)."""
-    logits = ner_forward(params, cfg, ids, lengths, use_flash=False)  # [b, s, L] f32
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-    w = torch.where(labels > 0, cfg.entity_loss_weight, 1.0) * mask
-    return (nll * w).sum() / w.sum().clamp_min(1.0)
+    num, den = _ner_loss_terms(params, cfg, ids, lengths, labels, mask)
+    return num / den.clamp_min(1.0)
 
 
 def default_ner_optimizer(
@@ -68,12 +74,17 @@ def default_ner_optimizer(
     return AdamWChain(lr, weight_decay=0.01, steps=steps, warmup=warmup)
 
 
-def make_ner_train_step(cfg: NERConfig, optimizer: AdamWChain):
+def make_ner_train_step(cfg: NERConfig, optimizer: AdamWChain,
+                        mesh: Optional[MeshContext] = None):
     """``step(params, opt_state, ids, lengths, labels, mask) -> (params,
     opt_state, loss)``: loss, backward, one update of ``opt_state`` (built
     by ``optimizer.init(params)``).  The parameters are updated in place
     and returned; the loss stays on the device (no host sync).  Batches may
-    be numpy arrays or tensors."""
+    be numpy arrays or tensors.
+
+    ``mesh``: data parallel over its data axis (module docstring); the
+    batch's rows must divide it.  Every rank returns the whole batch's
+    loss."""
 
     def step(params, opt_state: ChainState, ids, lengths, labels, mask):
         if opt_state.chain != optimizer:
@@ -82,12 +93,38 @@ def make_ner_train_step(cfg: NERConfig, optimizer: AdamWChain):
         ids, lengths, labels, mask = (
             torch.as_tensor(a, device=dev) for a in (ids, lengths, labels, mask)
         )
-        loss = ner_loss(params, cfg, ids.long(), lengths, labels, mask)
-        loss.backward()
+        if mesh is None or mesh.n_data == 1:
+            loss = ner_loss(params, cfg, ids.long(), lengths, labels, mask)
+            loss.backward()
+            opt_state.update()
+            return params, opt_state, loss.detach()
+        rows = mesh.data_lanes(ids.shape[0])
+        num, den = _ner_loss_terms(params, cfg, ids[rows].long(), lengths[rows],
+                                   labels[rows], mask[rows])
+        num.backward()
+        leaves = list(params.values())
+        flat = torch.cat([p.grad.reshape(-1) for p in leaves]
+                         + [num.detach().reshape(1), den.detach().reshape(1)])
+        all_reduce(flat, mesh.data_group, "ner_grads")
+        den_all = flat[-1].clamp_min(1.0)
+        off = 0
+        for p in leaves:
+            n = p.numel()
+            p.grad.copy_((flat[off: off + n] / den_all).reshape(p.shape))
+            off += n
         opt_state.update()
-        return params, opt_state, loss.detach()
+        return params, opt_state, flat[-2] / den_all
 
     return step
+
+
+def _ner_loss_terms(params, cfg: NERConfig, ids, lengths, labels, mask):
+    """:func:`ner_loss`'s numerator and denominator over these rows."""
+    logits = ner_forward(params, cfg, ids, lengths, use_flash=False)  # [b, s, L] f32
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    w = torch.where(labels > 0, cfg.entity_loss_weight, 1.0) * mask
+    return (nll * w).sum(), w.sum()
 
 
 def trainable(tree, cfg: NERConfig, device) -> Params:
@@ -113,6 +150,7 @@ def train_ner(
     log_every: int = 100,
     params=None,
     device="cuda",
+    mesh: Optional[MeshContext] = None,
 ) -> Params:
     """Fit the tagger on the synthetic PHI generator; returns its float32
     params (detached tensors on ``device``).
@@ -124,10 +162,16 @@ def train_ner(
     must window documents at the ``seq`` used here — position embeddings
     beyond it never receive gradient (``DeidEngine.trained`` wires this
     through ``max_window``).
+
+    ``mesh``: train data parallel on the mesh's device (module docstring);
+    the batch rounds up to a multiple of the data axis, as the
+    reference's does.
     """
     from docqa_tpu_torch.deid.datagen import ner_tokenizer, sample_batch
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    if mesh is not None and batch_size % mesh.n_data:
+        batch_size += mesh.n_data - batch_size % mesh.n_data
     if steps is None:
         steps = cfg.train_steps
     if steps < 1:
@@ -140,7 +184,7 @@ def train_ner(
     params = trainable(init_ner_params(cfg, seed) if params is None else params, cfg, dev)
     optimizer = default_ner_optimizer(lr, steps=steps)
     opt_state = optimizer.init(params)
-    step_fn = make_ner_train_step(cfg, optimizer)
+    step_fn = make_ner_train_step(cfg, optimizer, mesh=mesh)
     rng = np.random.default_rng(seed)
     for i in range(steps):
         batch = sample_batch(rng, tokenizer, cfg, batch_size, seq)
@@ -376,7 +420,12 @@ def load_or_train(
             log.info("loaded ner params from %s", path)
             return params, load_ner_train_seq(path) or 128
     seq = min(train_kw.get("seq", 128), cfg.max_seq_len)
-    dev = resolve_device(train_kw.get("device", "cuda"))
+    mesh = train_kw.get("mesh")
+    dev = mesh.device if mesh is not None else resolve_device(train_kw.get("device", "cuda"))
+    if mesh is not None:
+        # a mesh cannot cross a process boundary: in process, as the
+        # reference's sharded trainers
+        train_in_subprocess = False
     if train_in_subprocess is None:
         train_in_subprocess = bool(path) and steps >= 500 and dev.type == "cuda"
     if path and train_in_subprocess:
@@ -393,7 +442,8 @@ def load_or_train(
                 return params, load_ner_train_seq(path) or seq
         log.warning("falling back to in-process NER training")
     params = train_ner(cfg, **train_kw)
-    if path:
+    if path and (mesh is None or mesh.rank == 0):
+        # every rank trained the same tagger: one writes the cache
         save_ner_params(path, params, cfg, train_seq=seq, train_steps=steps)
         log.info("saved ner params to %s", path)
     return params, seq

@@ -347,9 +347,11 @@ def test_seq2seq_engine_data_parallel_equals_the_reference(worlds):
 # ---- failure paths ----------------------------------------------------------------
 
 def test_runtime_refuses_a_world_of_more_than_one_rank(worlds):
+    # the runtime on a mesh is ported (tests/test_torch_mesh_runtime.py):
+    # what a world of 2 still refuses is tiered serving (item 9c)
     for r in range(2):
         msg = str(worlds[2].result("runtime_refused", r)["message"])
-        assert "item 9b" in msg and "world of 2 ranks" in msg
+        assert "item 9c" in msg and "world of 2 ranks" in msg and "tiered" in msg
 
 
 def test_a_failing_rank_makes_the_others_raise_not_hang(tmp_path):
@@ -366,10 +368,23 @@ def test_a_failing_rank_makes_the_others_raise_not_hang(tmp_path):
 
 
 def test_no_mesh_path_yet_refuses_a_sharded_engine():
-    from docqa_tpu_torch.engines.serve import ContinuousBatcher
+    # the batcher serves a sharded engine now (test_torch_mesh_runtime.py);
+    # the tiered and fused-RAG programs still refuse a sharded part (item 9c)
+    from docqa_tpu_torch.config import EncoderConfig, StoreConfig
+    from docqa_tpu_torch.engines.encoder import EncoderEngine
+    from docqa_tpu_torch.engines.rag_fused import FusedRAG
+    from docqa_tpu_torch.engines.retrieve import FusedTieredRetriever
+    from docqa_tpu_torch.index.store import VectorStore
+    from docqa_tpu_torch.index.tiered import TieredIndex
 
     mesh2 = tmesh.MeshContext(None, "data", "model", 1, 2, 0, 0, torch.device("cpu"))
+    enc = EncoderEngine(EncoderConfig(**W.ENC_WIDTHS), device="cpu")
+    store = VectorStore(StoreConfig(dim=64, shard_capacity=256), device="cpu")
+    store.mesh = mesh2
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        FusedTieredRetriever(enc, TieredIndex(store), device="cpu")
     eng = GenerateEngine(TP_CFG, GenerateConfig(), device="cpu")
     eng.mesh = mesh2
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        ContinuousBatcher(eng)
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        FusedRAG(enc, VectorStore(StoreConfig(dim=64, shard_capacity=256, token_width=8),
+                                  device="cpu"), eng, "{context} {question}", device="cpu")

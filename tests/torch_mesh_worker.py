@@ -96,6 +96,134 @@ def mesh_shapes(world):
     return [(1, 2)] if world == 2 else [(1, 4), (2, 2)]
 
 
+# ---- the runtime on a mesh (tests/test_torch_mesh_runtime.py) --------------
+
+# tests/test_torch_app.py's tiny runtime over a real (seeded) encoder and a
+# decoder that decodes: 8 q and 8 kv heads divide every model axis here
+RT_CFG = {
+    "encoder.embed_dim": 64, "store.dim": 64, "store.shard_capacity": 256,
+    "store.dtype": "float32",
+    "encoder.vocab_size": 512, "encoder.hidden_dim": 64, "encoder.num_layers": 2,
+    "encoder.num_heads": 8, "encoder.mlp_dim": 128, "encoder.max_seq_len": 128,
+    "encoder.dtype": "float32",
+    "ner.hidden_dim": 32, "ner.num_layers": 1, "ner.num_heads": 2,
+    "ner.mlp_dim": 64, "ner.train_steps": 0,
+    "decoder.hidden_dim": 64, "decoder.num_layers": 2, "decoder.num_heads": 8,
+    "decoder.num_kv_heads": 8, "decoder.head_dim": 8, "decoder.mlp_dim": 128,
+    "decoder.vocab_size": 512, "decoder.max_seq_len": 512,
+    "decoder.dtype": "float32",
+    "generate.max_new_tokens": 8, "generate.max_concurrent": 2,
+    "generate.prefill_buckets": (64, 128, 256, 512),
+    "generate.startup_warm_buckets": 1,
+    "summarizer.max_summary_tokens": 8, "summarizer.max_input_tokens": 448,
+    "pool.canary_interval_s": 3600.0,
+    "resilience.request_deadline_s": 0.0,
+    "qos.defer_batch_on_burn": False,
+}
+RT_NOTES = [
+    ("okafor.txt", "p1", "admission", "2024-03-05",
+     "Admission note: patient Okafor admitted to ward B for observation after "
+     "a fall at home. Aspirin 100 mg daily."),
+    ("nguyen.txt", "p2", "registration", "2024-04-10",
+     "Registration sheet: patient Nguyen, next of kin listed as spouse. "
+     "Metformin 850 mg twice daily."),
+    ("silva.txt", "p1", "medication", "2023-11-30",
+     "Medication list for patient Silva: metformin 850 mg twice daily with "
+     "meals, dosage reviewed at last visit."),
+    ("lavoie.txt", "p3", None, None,
+     "Compte rendu: la patiente Lavoie presente une tension arterielle de "
+     "150/95 mmHg, lisinopril 10 mg par jour."),
+]
+RT_QUESTIONS = [
+    "Why was patient Okafor admitted for observation?",
+    "What is the dosage of metformin for patient Silva?",
+    "Which medication lowers the blood pressure of patient Lavoie?",
+]
+# the runs of a world of 2, of a world of 4, and their overrides
+RT_RUNS = {
+    "greedy": {"pool.replicas": 2},
+    "sampled": {"generate.temperature": 0.8, "generate.speculative_k": 0},
+    "wide": {"mesh.data_parallel": 2},
+}
+N_CONCURRENT = 8
+LEX_WORDS = ("metformin aspirin lisinopril insulin diabete hypertension asthme fracture "
+             "chute observation dose mg daily twice patient ward admission sortie "
+             "tension arterielle glycemie mrn 40081223 01.42.34.56.78 co-amoxiclav "
+             "anti-inflammatoire renal hepatique cardiaque pulmonaire").split()
+
+
+def lex_texts(n=150, seed=4):
+    """Seeded notes of 4 to 24 words of LEX_WORDS: few rows tie."""
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(LEX_WORDS, size=int(rng.integers(4, 25))))
+            for _ in range(n)]
+
+
+LEX_TEXTS = lex_texts()
+LEX_QUERIES = ["metformin dose twice daily", "mrn 40081223 hypertension",
+               "tension arterielle 01.42.34.56.78", "unknown words only"]
+LEX_DELETED = [3, 50, 149]
+LEX_VOCAB, LEX_WIDTH, LEX_K = 4096, 8, 7
+NER_WIDTHS = dict(vocab_size=512, hidden_dim=32, num_layers=2, num_heads=2,
+                  mlp_dim=64, max_seq_len=64, dtype="float32")
+NER_BATCH, NER_SEQ, NER_LR, NER_STEPS = 8, 48, 2e-3, 3
+
+
+def rt_post(base, path, payload, timeout=120):
+    """POST ``payload`` as JSON; (status, decoded body)."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                 method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read() or b"null")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def rt_call(base, method, path, timeout=60):
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read() or b"null")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def rt_ingest(call_post):
+    """Every note of RT_NOTES through /ingest/?wait=1; their doc ids."""
+    ids = []
+    for filename, pid, dtype, date, text in RT_NOTES:
+        status, body = call_post("/ingest/?wait=1", {
+            "filename": filename, "text": text, "patient_id": pid,
+            "doc_type": dtype, "doc_date": date})
+        assert status == 200, body
+        ids.append(body["doc_id"])
+    return ids
+
+
+def rt_answer(status, body):
+    """The parts of an /ask answer the tests compare."""
+    if status != 200:
+        return {"status": status}
+    return {"status": status, "answer": body.get("answer"),
+            "degraded": bool(body.get("degraded")),
+            "sources": list(body.get("sources") or [])}
+
+
+def retrieval_rows(results):
+    """A retrieval's [(row id, score)] per query."""
+    return [[(int(r.row_id), float(r.score)) for r in row] for row in results]
+
+
 class Worker:
     def __init__(self, world, rank, out):
         import torch
@@ -360,11 +488,251 @@ class Worker:
         from docqa_tpu_torch.service.app import DocQARuntime
 
         try:
-            DocQARuntime(load_config(env={}, overrides={"ner.train_steps": 0}), device="cpu")
+            DocQARuntime(load_config(env={}, overrides={
+                "ner.train_steps": 0, "store.serving_index": "tiered"}), device="cpu")
         except NotImplementedError as e:
             self.save("runtime_refused", message=np.array(str(e)))
             return
-        raise AssertionError("DocQARuntime booted in a world of more than one rank")
+        raise AssertionError("tiered serving booted in a world of more than one rank")
+
+    # ---- the runtime on a mesh --------------------------------------------
+
+    def _record_batches(self):
+        """Every batcher dispatch's fetched result on this rank, by batcher,
+        and every retrieval's rows and scores: the leader's and a
+        follower's must be equal."""
+        from docqa_tpu_torch.engines import retrieve, serve
+
+        rec = []
+        search = retrieve.FusedRetriever._search_texts
+
+        def rec_search(r, *a, **k):
+            res = search(r, *a, **k)
+            rec.append(("retriever", "search", retrieval_rows(
+                res[0] if k.get("return_emb") else res)))
+            return res
+        prefill, decode = (serve.ContinuousBatcher._prefill_round,
+                           serve.ContinuousBatcher._decode_chunk)
+
+        def rec_prefill(b, *a, **k):
+            t = prefill(b, *a, **k)
+            rec.append((b._command_name, "prefill", t.result().numpy().tolist()))
+            return t
+
+        def rec_decode(b, *a, **k):
+            t = decode(b, *a, **k)
+            rec.append((b._command_name, "decode", t.result()[0].numpy().tolist()))
+            return t
+
+        serve.ContinuousBatcher._prefill_round = rec_prefill
+        serve.ContinuousBatcher._decode_chunk = rec_decode
+        retrieve.FusedRetriever._search_texts = rec_search
+
+        def restore():
+            serve.ContinuousBatcher._prefill_round = prefill
+            serve.ContinuousBatcher._decode_chunk = decode
+            retrieve.FusedRetriever._search_texts = search
+
+        return rec, restore
+
+    def _runtime(self, run, work_dir, script):
+        """Boot DocQARuntime under RT_CFG + RT_RUNS[run]; the leader serves
+        on 127.0.0.1 port 0 and runs ``script(base)``, every other rank
+        follows.  Saves ``runtime_<run>`` with the rank's command digest,
+        its batches and its store."""
+        import json
+
+        from docqa_tpu_torch.config import load_config
+        from docqa_tpu_torch.index.store import VectorStore
+        from docqa_tpu_torch.service.app import AppServer, DocQARuntime, make_app
+
+        snapshots = []
+        snap = VectorStore.snapshot
+
+        def counted_snapshot(st, *a, **k):
+            snapshots.append(1)
+            return snap(st, *a, **k)
+
+        VectorStore.snapshot = counted_snapshot
+        overrides = {**RT_CFG, **RT_RUNS.get(run, {})}
+        if work_dir:
+            overrides["data.work_dir"] = work_dir
+        self.M.reset_commands()
+        self.M.COLLECTIVES.clear()
+        rec, restore = self._record_batches()
+        rt = DocQARuntime(load_config(env={}, overrides=overrides), device="cpu")
+        out = {}
+        if rt.follower:
+            rt.follow()
+            rt.stop()
+        else:
+            rt.start()
+            server = AppServer(make_app(rt), "127.0.0.1", 0).start()
+            try:
+                out = script(f"http://127.0.0.1:{server.port}", rt)
+            finally:
+                server.close()
+                rt.stop()
+        restore()
+        VectorStore.snapshot = snap
+        st = rt.store
+        live = [m.get("doc_id") for m in st.metadata_select()]
+        self.save(f"runtime_{run}", digest=np.array(self.M.command_digest()),
+                  commands=np.array(json.dumps(dict(self.M.COMMANDS))),
+                  collectives=np.array(json.dumps(dict(self.M.COLLECTIVES))),
+                  batches=np.array(json.dumps(rec)), results=np.array(json.dumps(out)),
+                  count=np.array(st.count), deleted=np.array(st.deleted_count),
+                  live_docs=np.array(json.dumps(sorted(set(live)))),
+                  snapshots=np.array(len(snapshots)))
+
+    def _serve_script(self, n_concurrent):
+        """The leader's requests: ingest, ask each question, ``n_concurrent``
+        asks at once, delete the first document, ask again, /api/status."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        def script(base, rt):
+            post = lambda path, payload: rt_post(base, path, payload)  # noqa: E731
+            ids = rt_ingest(post)
+            out = {"doc_ids": ids, "asks": [rt_answer(*post("/ask/", {"question": q}))
+                                            for q in RT_QUESTIONS]}
+            if n_concurrent:
+                qs = [RT_QUESTIONS[i % len(RT_QUESTIONS)] for i in range(n_concurrent)]
+                with ThreadPoolExecutor(n_concurrent) as pool:
+                    futs = [pool.submit(post, "/ask/", {"question": q}) for q in qs]
+                    out["concurrent"] = [rt_answer(*f.result(timeout=300)) for f in futs]
+            out["delete"] = rt_call(base, "DELETE", f"/documents/{ids[0]}")[0]
+            out["after_delete"] = [rt_answer(*post("/ask/", {"question": q}))
+                                   for q in RT_QUESTIONS]
+            out["status_mesh"] = rt_call(base, "GET", "/api/status")[1].get("mesh")
+            return out
+
+        return script
+
+    def runtime_greedy(self):
+        self._runtime("greedy", os.path.join(self.out, "work"),
+                      self._serve_script(N_CONCURRENT))
+
+    def runtime_restart(self):
+        """A second boot over runtime_greedy's work dir: every rank
+        restores the leader's snapshot; the questions again."""
+        def script(base, rt):
+            return {"asks": [rt_answer(*rt_post(base, "/ask/", {"question": q}))
+                             for q in RT_QUESTIONS], "restored": rt.store.count}
+
+        self._runtime("restart", os.path.join(self.out, "work"), script)
+
+    def runtime_sampled(self):
+        self._runtime("sampled", None, self._serve_script(0))
+
+    def runtime_wide(self):
+        self._runtime("wide", None, self._serve_script(0))
+
+    def runtime_lost_rank(self):
+        """The leader serves; once it has answered, rank 1 kills itself
+        mid-serve; the leader's next /ask must fail 5xx within the process
+        group's timeout, and its stop() must return."""
+        import signal
+        import threading
+        import time as _time
+
+        from docqa_tpu_torch.config import load_config
+        from docqa_tpu_torch.service.app import AppServer, DocQARuntime, make_app
+
+        flag = os.path.join(self.out, "kill_rank1")
+        rt = DocQARuntime(load_config(env={}, overrides=dict(RT_CFG)), device="cpu")
+        if rt.follower:
+            def watchdog():
+                while not os.path.exists(flag):
+                    _time.sleep(0.05)
+                os.kill(os.getpid(), signal.SIGKILL)
+
+            threading.Thread(target=watchdog, daemon=True).start()
+            rt.follow()
+            return
+        rt.start()
+        server = AppServer(make_app(rt), "127.0.0.1", 0).start()
+        base = f"http://127.0.0.1:{server.port}"
+        post = lambda path, payload: rt_post(base, path, payload)  # noqa: E731
+        rt_ingest(post)
+        first = post("/ask/", {"question": RT_QUESTIONS[0]})[0]
+        open(flag, "w").close()
+        _time.sleep(1.0)
+        t0 = _time.perf_counter()
+        try:
+            status = post("/ask/", {"question": RT_QUESTIONS[1]})[0]
+        except Exception as e:  # noqa: BLE001 - a dropped connection is a result too
+            status = f"{type(e).__name__}: {e}"
+        ask_s = _time.perf_counter() - t0
+        t1 = _time.perf_counter()
+        server.close()
+        try:
+            rt.stop()
+        except Exception as e:  # noqa: BLE001 - the kept fault is expected
+            stop_error = f"{type(e).__name__}"
+        else:
+            stop_error = ""
+        self.save("runtime_lost_rank", first=np.array(first), status=np.array(str(status)),
+                  ask_s=np.array(ask_s), stop_s=np.array(_time.perf_counter() - t1),
+                  stop_error=np.array(stop_error))
+        os._exit(0)  # the process group cannot be torn down with a rank gone
+
+    # ---- the sharded lexical tier ------------------------------------------
+
+    def lexical_sharded(self):
+        from docqa_tpu_torch.index.lexical import LexicalIndex
+
+        out = {}
+        for shape in mesh_shapes(self.world):
+            m = self.mesh(shape)
+            tag = f"{shape[0]}x{shape[1]}"
+            lx = LexicalIndex(vocab_size=LEX_VOCAB, tile_width=LEX_WIDTH, device="cpu",
+                              mesh=m)
+            lx.add(list(range(len(LEX_TEXTS))), LEX_TEXTS)
+            lx.on_delete(LEX_DELETED)
+            res, c = self.counted(lambda: lx.search(LEX_QUERIES, k=LEX_K))
+            q_terms, q_weights = lx.encode_queries(LEX_QUERIES)
+            out[tag + "/q_terms"], out[tag + "/q_weights"] = q_terms, q_weights
+            for qi, row in enumerate(res):
+                out[f"{tag}/ids{qi}"] = np.array([r for _s, r in row], np.int64)
+                out[f"{tag}/scores{qi}"] = np.array([sc for sc, _r in row], np.float32)
+            out[tag + "/rows"] = np.array(lx.device_tiles()[0].shape[0])
+            out.update(self.counts(c, tag + "/"))
+        self.save("lexical_sharded", **out)
+
+    # ---- the tagger's data-parallel step -------------------------------------
+
+    def ner_dp(self):
+        from docqa_tpu_torch.config import NERConfig
+        from docqa_tpu_torch.deid import datagen
+        from docqa_tpu_torch.training import ner
+
+        inputs = np.load(os.path.join(self.out, "ner_init.npz"))
+        init = {k: inputs[k] for k in inputs.files}
+        cfg = NERConfig(**NER_WIDTHS)
+        shape = (2, self.world // 2)
+        m = self.mesh(shape)
+        params = ner.trainable(init, cfg, "cpu")
+        opt = ner.default_ner_optimizer(NER_LR, steps=NER_STEPS)
+        state = opt.init(params)
+        step = ner.make_ner_train_step(cfg, opt, mesh=m)
+        rng = np.random.default_rng(0)
+        tok = datagen.ner_tokenizer(cfg)
+        losses = []
+        self.M.COLLECTIVES.clear()
+        for _ in range(NER_STEPS):
+            batch = datagen.sample_batch(rng, tok, cfg, NER_BATCH, NER_SEQ)
+            params, state, loss = step(params, state, *batch)
+            losses.append(float(loss))
+        c = dict(self.M.COLLECTIVES)
+        # the runtime's entry: trained in process over the mesh, cached once
+        from docqa_tpu_torch.deid.engine import DeidEngine
+
+        cache = os.path.join(self.out, f"ner_{shape[0]}x{shape[1]}.npz")
+        eng = DeidEngine.trained(cfg, params_path=cache, steps=2, device="cpu", mesh=m)
+        self.save(f"ner_dp_{shape[0]}x{shape[1]}", losses=np.array(losses),
+                  **{"p/" + k: v.detach().numpy() for k, v in params.items()},
+                  **{"trained/" + k: np.asarray(v) for k, v in eng.params.items()},
+                  **self.counts(c))
 
     def rank_fails(self):
         """Rank 1 raises before the collective; rank 0's all_reduce must
