@@ -288,12 +288,29 @@ Phases, each of which fails the run on any error (nothing is caught):
    1 query x 8 terms, split into 2, 4 and 8 row shards run in turn on the
    card and merged: ids and scores equal the whole search's (tie rule),
    each shard timed.  The phase must take at most 120 s.
+17. tiered retrieval on a mesh, in phase 15's world of one NCCL rank, after
+   phase 16: (a) ``DocQARuntime`` under phase 9's config with
+   ``store.serving_index="tiered"`` (phase 12 (e)'s cuts), over phase 3's
+   tree: phase 9's notes ingested over HTTP, then phase 12 (e)'s asks (dense
+   before the tier, hybrid after it, dense over it) with every count from 0
+   around them: none degraded, sources equal phase 12 (e)'s by upload index
+   and in order, the tier staged and
+   switched by one ``tiered.stage`` and one ``tiered.switch`` command,
+   every mirrored spine item one published command, 0 collectives, each
+   retrieval's encoder forward on K1 ``prefill``; then 200,000 random rows
+   and 4 questions while the background rebuild covers them (none
+   degraded), the commands' mesh-slot waits in that window printed, the
+   rebuild's time split; (b) phase 12's 1M-row tier, kept as host arrays,
+   split into 2, 4 and 8 cell shards, each uploaded and probed alone on the
+   card (16 queries, nprobe 8, the shard's masking) and merged with
+   ``merge_topk``: scores and ids equal the whole probe's (tie rule), each
+   shard timed beside its byte bound.  The phase must take at most 120 s.
 
 The recorder is on by default, so phases 3-7 run traced too.  Prints the
 pool JSON line, the ingest JSON line, the obs JSON line, the app JSON line,
 the lifecycle JSON line, the training JSON line, the tiered JSON line, the
 checkpoints JSON line, the quant JSON line, the mesh JSON line, the mesh runtime JSON
-line, the launches-by-phase JSON
+line, the mesh tiered JSON line, the launches-by-phase JSON
 line (each main-path run's K1 and K4 counters, whose sums are the kernels
 line's launches; each run's K1 total must equal the sum of its paths, and
 its K4 total the sum of its weight modes and of its kernel modes), the
@@ -4231,7 +4248,8 @@ def run_tiered_app(counts, qa, tagger):
         if payload["counts"]["served"] < 2 or payload["serving"]["serving_index"] != "tiered":
             raise AssertionError(f"/api/retrieval counted {payload['counts']}")
         rec = {"asks": asks, "rows": rt.store.count, "launches": dict(launches),
-               "retrieval": {k: payload[k] for k in ("counts", "estimates", "serving")}}
+               "retrieval": {k: payload[k] for k in ("counts", "estimates", "serving")},
+               "doc_ids": ids}
         log(f"  tiered app over HTTP: {rt.store.count} rows, tier over "
             f"{payload['serving']['covered']}; /ask dense {asks['dense']['latency_s']:.2f} s, "
             f"hybrid {asks['hybrid']['latency_s']:.2f} s, not degraded; /api/retrieval counts "
@@ -4324,13 +4342,15 @@ def run_tiered_path(counts, qa, tagger):
     launches = collections.Counter()
     summary["ask"] = run_tiered_ask(counts, qa, store, tiered)
     launches.update(summary["ask"]["launches"])
+    # phase 17 (b) shards this tier: its host arrays outlive the store
+    tier_arrays = ivf.arrays()
     del tiered, store, ivf
     gc.collect()
     torch.cuda.empty_cache()
     summary["app"] = run_tiered_app(counts, qa, tagger)
     launches.update(summary["app"]["launches"])
     summary["reference"] = run_tiered_reference_check()
-    return {"summary": summary, "launches": dict(launches)}
+    return {"summary": summary, "launches": dict(launches), "tier_arrays": tier_arrays}
 
 
 # ---- phase 13: checkpoints and the seq2seq summarizer -------------------------------
@@ -6712,6 +6732,282 @@ def run_mesh_runtime_path(counts, qa, tagger, app_p50_s):
             "paged": paged, "launches": {"16 runtime": launches}}
 
 
+# ---- phase 17: tiered retrieval on a mesh ---------------------------------
+
+MTR_FILLER = 200_000  # (a): random rows the background rebuild covers under load
+MTR_ASKS = 4  # (a): questions asked while it runs
+IVF_SHARDS = (2, 4, 8)  # (b): cell shards of phase 12's tier
+IVF_SHARD_QUERIES = 16  # (b)
+IVF_SHARD_NPROBE = 8  # (b)
+MESH_TIER_PHASE_LIMIT_S = 120.0
+
+
+def _doc_indexed(sources, doc_ids):
+    """Sources with each document id replaced by its upload index."""
+    text = json.dumps(sources)
+    for i, d in enumerate(doc_ids):
+        text = text.replace(d, f"DOC{i}")
+    return json.loads(text)
+
+
+def run_mesh_tiered_runtime(counts, qa, tagger, phase12_app):
+    """(a) ``DocQARuntime`` under phase 9's config with
+    ``store.serving_index="tiered"`` (phase 12 (e)'s cuts) in phase 15's
+    world of one NCCL rank: the (1, 1) mesh, the leader's command stream,
+    phase 3's tree.  Phase 12 (e)'s asks (dense before the tier, hybrid
+    after it, dense over it), with every count from 0 around them: sources
+    equal phase 12 (e)'s (upload indexes, in order), the tier built and
+    switched by commands, every mirrored spine
+    item one published command, 0 collectives, each retrieval's encoder on
+    K1 ``prefill``.  Then ``MTR_FILLER`` random rows and ``MTR_ASKS``
+    questions while the background rebuild covers them: none degraded, the
+    commands' slot waits in that window.  Returns (summary, launches)."""
+    from docqa_tpu_torch.config import load_config
+    from docqa_tpu_torch.index.tiered import TieredIndex
+    from docqa_tpu_torch.service.app import AppServer, DocQARuntime, make_app
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = qa.generator.device
+    cfg = dataclasses.replace(
+        load_config(env={}, overrides={
+            "ner.params_path": tagger,
+            "resilience.request_deadline_s": APP_DEADLINE_S,
+            "store.serving_index": "tiered", "store.ivf_min_rows": 32,
+            "generate.max_new_tokens": 64,
+        }),
+        decoder=qa.generator.cfg,
+    )
+    t0 = time.perf_counter()
+    rt = DocQARuntime(cfg, device=dev, decoder_params=qa.generator.params).start()
+    server = AppServer(make_app(rt)).start()
+    boot_s = time.perf_counter() - t0
+    tiered = rt.search_index
+    if (rt.mesh is None or (rt.mesh.n_data, rt.mesh.n_model) != (1, 1)
+            or not isinstance(tiered, TieredIndex) or tiered._stream() is not rt.stream):
+        raise AssertionError("the tiered runtime built no (1, 1) mesh with its tier a "
+                             "command target")
+    http = _Http(server.port, load_contract())
+    enc_layers = rt.encoder.cfg.num_layers
+    retr = rt.qa.retriever
+    per_retrieval = []
+    real_search = retr._search_texts
+
+    def counted_search(*a, **kw):
+        before = counts["flash_attention.prefill"]
+        out = real_search(*a, **kw)
+        per_retrieval.append(counts["flash_attention.prefill"] - before)
+        return out
+
+    retr._search_texts = counted_search
+    summary = {"boot_s": boot_s}
+    try:
+        docs = app_notes(np.random.default_rng(21))
+        ids = []
+        for d in docs:
+            body, ctype = _multipart(d["filename"], d["data"], d["fields"])
+            ids.append(http.json("POST /ingest/", "/ingest/", body=body, ctype=ctype)["doc_id"])
+        _wait_indexed(http, ids)
+        get_spine().reset_stats()
+        rt.stream.reset_stats()
+        mesh_mod.reset_commands()
+        mesh_mod.COLLECTIVES.clear()
+        counts.clear()
+        per_retrieval.clear()
+        asks = {}
+        deadline = time.perf_counter() + 120
+        for mode, question in (("dense", QUESTIONS[1]), ("hybrid", QUESTIONS[1]),
+                               ("over_tier", QUESTIONS[2])):
+            tiered.default_mode = "hybrid" if mode == "hybrid" else "dense"
+            out = http.json("POST /ask/", "/ask/", payload={"question": question})
+            asks[mode] = {"sources": out["sources"], "degraded": bool(out.get("degraded"))}
+            if out.get("degraded") or not out["answer"].strip():
+                raise AssertionError(f"tiered mesh runtime /ask ({mode}) degraded: {out}")
+            while tiered.covered == 0 and time.perf_counter() < deadline:
+                time.sleep(0.05)  # the first ask started the tier's build
+        tiered.default_mode = "dense"
+        launches, (commands, collectives) = _quiescent(counts, lambda: (
+            dict(mesh_mod.COMMANDS), dict(mesh_mod.COLLECTIVES)))
+        stages = get_spine().stats()["stages"]
+        if tiered.covered != rt.store.count or tiered.tier_generation != 1:
+            raise AssertionError(f"the tier covers {tiered.covered} of {rt.store.count} rows, "
+                                 f"generation {tiered.tier_generation}")
+        if commands.get("tiered.stage") != 1 or commands.get("tiered.switch") != 1:
+            raise AssertionError(f"the tier was not built and switched by commands: {commands}")
+        if collectives:
+            raise AssertionError(f"collectives in a world of one rank: {collectives}")
+        published = {}
+        for stage, method in MRT_STAGES.items():
+            items = int(stages.get(stage, {}).get("count", 0))
+            cmds = sum(n for name, n in commands.items() if name.endswith("." + method))
+            published[stage] = {"spine_items": items, "commands": cmds}
+            if items == 0 or items != cmds:
+                raise AssertionError(f"{stage}: {items} spine items against {cmds} "
+                                     f"{method} commands: {commands}")
+        if len(per_retrieval) != 3 or min(per_retrieval) < enc_layers:
+            raise AssertionError(f"K1 prefill launches a retrieval {per_retrieval}, want at "
+                                 f"least {enc_layers} (the encoder's layers) each")
+        # phase 12 (e)'s sources, by upload index and in order: the same
+        # tier over the same rows on the same card (the answers carry no
+        # scores, so no tie can be told from a wrong ranking)
+        ref = phase12_app["asks"]
+        for mode in ("dense", "hybrid"):
+            got = _doc_indexed(asks[mode]["sources"], ids)
+            want = _doc_indexed(ref[mode]["sources"], phase12_app["doc_ids"])
+            if got != want:
+                raise AssertionError(f"{mode} sources {got} differ from phase 12 (e)'s {want}")
+        summary.update({"asks": asks, "commands": commands,
+                        "published": published, "collectives": collectives,
+                        "k1_prefill_a_retrieval": list(per_retrieval),
+                        "k1_decode_paged": launches.get("flash_attention.decode_paged", 0),
+                        "rows": rt.store.count})
+        log(f"  tiered runtime on the (1, 1) mesh booted in {boot_s:.1f} s; {rt.store.count} "
+            f"rows; /ask dense (exact, before the tier), hybrid and dense over the tier, none "
+            f"degraded; sources equal phase 12 (e)'s")
+        log(f"  commands: {commands}; collectives {collectives or 0}; K1 prefill a "
+            f"retrieval {per_retrieval} ({enc_layers} encoder layers)")
+
+        # the background rebuild under load
+        rng = np.random.default_rng(17)
+        filler = rng.standard_normal((MTR_FILLER, rt.store.cfg.dim), dtype=np.float32)
+        t0 = time.perf_counter()
+        rt.store.add(filler, [{"source": f"filler-{i:06d}"} for i in range(MTR_FILLER)])
+        add_s = time.perf_counter() - t0
+        tiered.rebuild_tail_rows = MTR_FILLER
+        rt.stream.reset_stats()
+        mesh_mod.reset_commands()
+        counts.clear()
+        during, lat = [], []
+        t0 = time.perf_counter()
+        for i in range(MTR_ASKS):
+            t = time.perf_counter()
+            out = http.json("POST /ask/", "/ask/",
+                            payload={"question": QUESTIONS[i % len(QUESTIONS)]})
+            lat.append(time.perf_counter() - t)
+            during.append(bool(tiered._rebuilding))
+            if out.get("degraded"):
+                raise AssertionError(f"an /ask during the rebuild degraded: {out}")
+        tiered.close(timeout=300)
+        rebuild_wall = time.perf_counter() - t0
+        status = rt.stream.status()["commands"]
+        commands = dict(mesh_mod.COMMANDS)
+        if tiered.covered != rt.store.count or tiered.tier_generation != 2:
+            raise AssertionError(f"the background rebuild left the tier at {tiered.covered} of "
+                                 f"{rt.store.count} rows, generation {tiered.tier_generation}")
+        if commands.get("tiered.stage") != 1 or commands.get("tiered.switch") != 1:
+            raise AssertionError(f"the background rebuild's commands: {commands}")
+        ivf = tiered._tier[0]
+        summary["rebuild"] = {
+            "rows": rt.store.count, "filler_add_s": add_s, "asks": MTR_ASKS,
+            "asks_during": sum(during), "ask_s": lat, "wall_s": rebuild_wall,
+            "build_seconds": ivf.build_seconds, "index_bytes": ivf.index_bytes(),
+            "slot_wait_ms": {k: {"count": v["count"], "mean": v["slot_wait_mean_ms"],
+                                 "max": v["slot_wait_max_ms"]} for k, v in status.items()},
+        }
+        wait = status.get("retriever.search_texts", {})
+        log(f"  background rebuild over {rt.store.count} rows ({MTR_FILLER} random added in "
+            f"{add_s:.1f} s): {sum(during)} of {MTR_ASKS} asks landed during it, none "
+            f"degraded; build {', '.join(f'{k} {v:.2f} s' for k, v in ivf.build_seconds.items())}")
+        log(f"  mesh slot waits in that window: a retrieval mean "
+            f"{wait.get('slot_wait_mean_ms')} ms, max {wait.get('slot_wait_max_ms')} ms; "
+            + ", ".join(f"{k} {v['slot_wait_mean_ms']}/{v['slot_wait_max_ms']} ms"
+                        for k, v in status.items() if k != "retriever.search_texts"))
+    finally:
+        retr._search_texts = real_search
+        if not server.close(timeout=30):
+            raise AssertionError("the tiered mesh runtime's server threads did not end")
+        rt.stop()
+    return summary, launches
+
+
+def run_ivf_shards(arrays):
+    """(b) phase 12's 1M-row tier (its host arrays) split into 2, 4 and 8
+    cell shards: each shard uploaded alone (``ivf_from_arrays`` under a
+    group-less mesh context of its model index), probed on the card at
+    ``IVF_SHARD_QUERIES`` queries and nprobe ``IVF_SHARD_NPROBE`` with the
+    shard's masking, the shards' top lists merged with ``ops/topk.
+    merge_topk``: scores and ids equal the whole probe's (tie rule).  Each
+    shard timed beside its byte bound (the probed cells it owns, read once,
+    and the replicated centroids and spill)."""
+    from docqa_tpu_torch.index.ivf import _coarse_probe, _probe_kernel, ivf_from_arrays
+
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    meta = [{}] * (int(max(arrays["cell_ids"].max(), arrays["spill_ids"].max())) + 1)
+    whole = ivf_from_arrays(arrays, meta, nprobe=IVF_SHARD_NPROBE, device="cuda")
+    rng = np.random.default_rng(170)
+    cent = arrays["centroids"][: IVF_SHARD_QUERIES]
+    qs = cent + 0.02 * rng.standard_normal(cent.shape, dtype=np.float32)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    q = torch.from_numpy(qs).to(dev, whole._dtype)
+    fetch = TIER_K * (whole.n_assign + 1)
+    d = whole.dim
+    cell_bytes = whole.cap * (d * whole._cells.element_size() + 4 + 4)
+    fixed = (whole._centroids.numel() * whole._centroids.element_size()
+             + whole._spill.numel() * whole._spill.element_size() + whole._spill_ids.numel() * 4)
+
+    def probe(ivf, ctx):
+        return _probe_kernel(ivf._cells, ivf._cell_scale, ivf._cell_ids, ivf._centroids,
+                             ivf._spill, ivf._spill_ids, q, nprobe=IVF_SHARD_NPROBE, k=fetch,
+                             n_real_cells=ivf.n_real_cells, mesh=ctx)
+
+    out = {}
+    with torch.inference_mode():
+        want_vals, want_ids = probe(whole, None)
+        probed = _coarse_probe(q, whole._centroids, IVF_SHARD_NPROBE, whole.n_real_cells)
+        whole_ms = time_ms(lambda: probe(whole, None), flush, reps=5, warmup=1,
+                           spin_cycles=40_000_000)
+        flops = 2.0 * IVF_SHARD_QUERIES * (IVF_SHARD_NPROBE * whole.cap + whole.n_clusters) * d
+        nbytes = IVF_SHARD_QUERIES * IVF_SHARD_NPROBE * cell_bytes + fixed
+        out["whole"] = {"ms": whole_ms, "bytes": nbytes, "bound_ms": max(
+            nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS) * 1e3}
+        del whole
+        torch.cuda.empty_cache()
+        for n in IVF_SHARDS:
+            parts, rec = [], []
+            for m in range(n):
+                ctx = mesh_mod.MeshContext(None, "data", "model", 1, n, 0, m, dev)
+                shard = ivf_from_arrays(arrays, meta, nprobe=IVF_SHARD_NPROBE, device="cuda",
+                                        mesh=ctx)
+                parts.append(probe(shard, ctx))
+                ms = time_ms(lambda: probe(shard, ctx), flush, reps=5, warmup=1,
+                             spin_cycles=40_000_000)
+                lo = m * shard.cells_per_shard
+                owned = int(((probed >= lo) & (probed < lo + shard.cells_per_shard)).sum())
+                nbytes = owned * cell_bytes + fixed
+                flops = 2.0 * (owned * shard.cap + IVF_SHARD_QUERIES * shard.n_clusters) * d
+                rec.append({"ms": ms, "probed_cells": owned, "bytes": nbytes,
+                            "bound_ms": max(nbytes / PEAK_BYTES_S,
+                                            flops / PEAK_BF16_FLOPS) * 1e3})
+                del shard
+                torch.cuda.empty_cache()
+            vals, ids = ttopk.merge_topk(torch.stack([p[0] for p in parts]),
+                                         torch.stack([p[1] for p in parts]), fetch)
+            _same_ids_tie_rule(vals, ids, want_vals, want_ids, f"IVF probe over {n} shards")
+            out[f"shards{n}"] = {"cells_a_shard": -(-arrays["centroids"].shape[0] // n),
+                                 "shards": rec, "max_ms": max(r["ms"] for r in rec)}
+            log(f"  IVF probe over {n} cell shards: ids and scores equal the whole probe's; "
+                + "; ".join(f"shard {m} {r['ms']:.3f} ms (bound {r['bound_ms']:.4f} ms, "
+                            f"{r['probed_cells']} probed cells)" for m, r in enumerate(rec))
+                + f" (the whole {whole_ms:.3f} ms, bound {out['whole']['bound_ms']:.4f} ms)")
+    del flush
+    return out
+
+
+def run_mesh_tiered_path(counts, qa, tagger, phase12_app, tier_arrays):
+    """Phase 17, in phase 15's world of one rank."""
+    t0 = time.perf_counter()
+    runtime, launches = run_mesh_tiered_runtime(counts, qa, tagger, phase12_app)
+    shards = run_ivf_shards(tier_arrays)
+    phase_s = time.perf_counter() - t0
+    log(f"  phase 17 took {phase_s:.1f} s (limit {MESH_TIER_PHASE_LIMIT_S:.0f} s)")
+    if phase_s > MESH_TIER_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 17 took {phase_s:.1f} s, over "
+                             f"{MESH_TIER_PHASE_LIMIT_S} s")
+    return {"summary": {"runtime": runtime, "shards": shards, "phase_s": phase_s},
+            "launches": {"17 runtime": launches}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -6827,6 +7123,7 @@ def main(argv=None) -> int:
     t_tier = time.perf_counter()
     get_spine().reset_stats()
     tiered_path = run_tiered_path(_kernels.LAUNCHES, qa, tagger)
+    tier_arrays = tiered_path.pop("tier_arrays")  # phase 17 (b)'s
     tiered_s = time.perf_counter() - t_tier
     log(f"  phase 12 took {tiered_s:.1f} s")
 
@@ -6854,6 +7151,16 @@ def main(argv=None) -> int:
         mrt_path = run_mesh_runtime_path(_kernels.LAUNCHES, qa, tagger,
                                          app_path["summary"]["ask"]["p50_s"])
         mrt_s = mrt_path["summary"]["phase_s"]
+
+        log("[17/17] tiered retrieval on a mesh: DocQARuntime with tiered serving in the world "
+            "of one NCCL rank (the tier built and switched by commands, dense and hybrid /ask, "
+            "a background rebuild under load); phase 12's 1M-row tier probed in 2, 4 and 8 cell "
+            "shards and merged")
+        get_spine().reset_stats()
+        mtr_path = run_mesh_tiered_path(_kernels.LAUNCHES, qa, tagger,
+                                        tiered_path["summary"]["app"], tier_arrays)
+        mtr_s = mtr_path["summary"]["phase_s"]
+        del tier_arrays
     finally:
         import torch.distributed as dist
 
@@ -6918,6 +7225,7 @@ def main(argv=None) -> int:
         **{f"14 {run}": n for run, n in quant_path["launches"].items()},
         **mesh_path["launches"],
         **mrt_path["launches"],
+        **mtr_path["launches"],
     }
     path_launches = collections.Counter()
     for phase, counted in phase_launches.items():
@@ -7011,6 +7319,7 @@ def main(argv=None) -> int:
                 "quant_path": quant_path, "quant_path_s": quant_s,
                 "mesh_path": mesh_path, "mesh_path_s": mesh_s,
                 "mesh_runtime_path": mrt_path, "mesh_runtime_path_s": mrt_s,
+                "mesh_tiered_path": mtr_path, "mesh_tiered_path_s": mtr_s,
                 "launches_by_phase": phase_launches,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
@@ -7090,6 +7399,11 @@ def main(argv=None) -> int:
         **{c["case"]: {key: c[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                "bound_by", "bound_share", "max_abs_err_bf16")}
            | {"splits": c["plan"]["num_splits"]} for c in mrt_path["paged"]},
+    }}))
+    mt = mtr_path["summary"]
+    print(json.dumps({"mesh_tiered": {
+        "runtime": {k: v for k, v in mt["runtime"].items() if k != "asks"},
+        "shards": mt["shards"], "phase_s": mtr_s,
     }}))
     print(json.dumps({"launches_by_phase": {
         phase: {key: n for key, n in counted.items() if n}

@@ -519,9 +519,8 @@ class RouterConfig:
 @dataclass(frozen=True)
 class Config:
     """Every section the app's runtime (``service/app.py``) and the
-    components it builds read.  The runtime refuses a mesh of more than one
-    rank (``service/app.py``'s ``refuse_unported``); the engines take one
-    (``runtime/mesh.py``)."""
+    components it builds read.  On a mesh of ranks (``runtime/mesh.py``)
+    the runtime serves every configuration, tiered serving included."""
 
     mesh: MeshConfig = field(default_factory=MeshConfig)
     encoder: EncoderConfig = field(default_factory=EncoderConfig)

@@ -34,9 +34,17 @@ bf16 the padded shapes, and so the rounding, differ.
 
 Spans ``fused_rag_pack``, ``fused_rag_generate`` and ``qa_e2e_fused``;
 spine stages ``fused_rag_generate`` (the generation) and
-``fused_rag_fetch`` (each fetch), as in the reference.  The reference's
-sharded branch (a row-sharded store under ``shard_map``) comes with the
-multi-GPU slice.
+``fused_rag_fetch`` (each fetch), as in the reference.
+
+Over a row-sharded store (``VectorStore(mesh=)``) the search and the
+sidecar gather are the reference's sharded ``_search_gather``: the store's
+sharded search (two all-gathers), then each model rank gathers the hit rows
+it owns from its block of the sidecar, zeroes the rest, and a sum over the
+model group (two all-reduces, the reference's two psums) merges the token
+rows and lengths; the packed prompt then feeds a tensor-parallel
+generator's ``generate_device``.  Every rank of the mesh calls
+:meth:`FusedRAG.ask` with the same question (SPMD); no shard ever holds
+another's sidecar.
 """
 
 from __future__ import annotations
@@ -50,8 +58,8 @@ import torch.nn.functional as F
 
 from docqa_tpu_torch.engines.encoder import marshal_texts
 from docqa_tpu_torch.engines.spine import spine_run, to_host
-from docqa_tpu_torch.index.store import NEG_INF, SearchResult, search_single
-from docqa_tpu_torch.runtime.mesh import refuse_sharded
+from docqa_tpu_torch.index.store import NEG_INF, SearchResult
+from docqa_tpu_torch.runtime.mesh import all_reduce
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, span
 from docqa_tpu_torch.utils import pick_bucket, resolve_device, round_up
 
@@ -140,7 +148,9 @@ class FusedRAG:
 
     def __init__(self, encoder, store, generator, template: str,
                  k: int = 3, joiner: str = "\n\n", device="cuda"):
-        self.device = resolve_device(device)
+        """On a mesh it runs on the store's device (the mesh's)."""
+        self.device = (store.device if getattr(store, "mesh", None) is not None
+                       else resolve_device(device))
         for name, part in (("encoder", encoder), ("store", store),
                            ("generator", generator)):
             if part.device != self.device:
@@ -149,8 +159,6 @@ class FusedRAG:
                 )
         if not store.cfg.token_width:
             raise ValueError("FusedRAG needs StoreConfig.token_width > 0")
-        refuse_sharded("FusedRAG", "item 9c", *(getattr(part, "mesh", None)
-                                                for part in (encoder, store, generator)))
         self.encoder = encoder
         self.store = store
         self.generator = generator
@@ -243,13 +251,13 @@ class FusedRAG:
                 t.record_stream(stream)
         emb = self.encoder.encode_ids(q_ids, q_len)
         emb = emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-9)
-        vals, row_ids = search_single(buf, emb.to(buf.dtype), count, k, mask)
-        rows = row_ids[0].clamp(0, tok.shape[0] - 1)
-        chunk_toks = F.pad(tok[rows].long(), (0, seg.w_seg - W))
+        vals, row_ids, hit_toks, hit_lens = self._search_gather(
+            buf, emb.to(buf.dtype), count, tok, tok_len, mask, k)
+        chunk_toks = F.pad(hit_toks.long(), (0, seg.w_seg - W))
         # under-fill guard: with fewer than k live rows, top-k pads with
         # NEG_INF ties whose ids may be tombstoned rows; they pack nothing
         chunk_lens = torch.where(
-            vals[0] > NEG_INF / 2, tok_len[rows].long(), 0
+            vals[0] > NEG_INF / 2, hit_lens.long(), 0
         ).clamp(max=seg.chunk_cap)
         tail_ids, tail_len = tail[: seg.t_bucket], tail[seg.t_bucket]
         seg_rows, seg_lens = [seg.prefix_row], [seg.prefix_len]
@@ -275,6 +283,25 @@ class FusedRAG:
         prompt = torch.where(j < total, toks, self.generator.gen.pad_id)[None, :]
         return prompt, total, vals, row_ids
 
+    def _search_gather(self, buf, q, count, tok, tok_len, mask, k):
+        """(vals [1, k], row ids [1, k], the hits' sidecar tokens [k, W]
+        and lengths [k]).  Sharded: the store's sharded search, each model
+        rank's owned hit rows from its sidecar block (zeros elsewhere), and
+        a sum over the model group (module docstring)."""
+        store = self.store
+        vals, row_ids = store.search_rows(buf, q, count, k, mask)
+        n_local = tok.shape[0]
+        if store.mesh is None or store.mesh.n_model == 1:
+            rows = row_ids[0].clamp(0, n_local - 1)
+            return vals, row_ids, tok[rows], tok_len[rows]
+        local = row_ids[0] - store.mesh.model_index * n_local
+        owned = (local >= 0) & (local < n_local)
+        safe = local.clamp(0, n_local - 1)
+        group = store.mesh.model_group
+        toks = all_reduce(torch.where(owned[:, None], tok[safe], 0), group, "fused_rag")
+        lens = all_reduce(torch.where(owned, tok_len[safe], 0), group, "fused_rag")
+        return vals, row_ids, toks, lens
+
     def ask_submit(self, question: str,
                    max_new_tokens: Optional[int] = None) -> FusedAnswer:
         gen = self.generator
@@ -282,7 +309,7 @@ class FusedRAG:
         max_new = max_new_tokens or gen.gen.max_new_tokens
         q_ids, q_len = marshal_texts(
             self.encoder.tokenizer, self.encoder.cfg, [question],
-            batch_buckets=(1,),
+            batch_buckets=(1,), n_data=getattr(self.encoder, "n_data", None),
         )
         tail = (
             _seg_tokens(gen.tokenizer, self._mid + question + self._suffix)

@@ -1,6 +1,6 @@
-"""Fused query paths, counterpart of ``docqa_tpu/engines/retrieve.py`` on
-one device: tokenize on the host, then the whole device phase as one
-dispatch-spine work item with one host fetch at its end.
+"""Fused query paths, counterpart of ``docqa_tpu/engines/retrieve.py``:
+tokenize on the host, then the whole device phase as one dispatch-spine
+work item with one host fetch at its end.
 
 * :class:`FusedRetriever` (exact serving, dense only): encoder forward ->
   L2 re-normalize -> cast to the store's dtype -> exact scores -> top-k.
@@ -17,6 +17,13 @@ dispatch-spine work item with one host fetch at its end.
   code.  Modes are the tiered index's (``mode=``); lexical mode skips the
   encoder.  With no IVF tier yet, or a filter, it serves through
   :class:`FusedRetriever`, as ``TieredIndex`` serves through the store.
+  Over a sharded tier (``TieredIndex`` on a mesh) the probe is the
+  sharded one and the lexical scoring the sharded lexical program, in the
+  same item: two all-gathers a tiered retrieval, four a hybrid one
+  (``shard_budget.json`` ``retrieve_ivf_sharded`` /
+  ``retrieve_hybrid_sharded``), and, as the reference's, no off-mesh
+  fallback.  A data-parallel encoder splits the query batch over the data
+  axis as :class:`FusedRetriever`'s does (one more all-gather there).
 
 The device work is plain PyTorch, as the reference leaves it to XLA.
 Sampled tiered retrievals hand the process retrieval observatory a shadow
@@ -37,13 +44,13 @@ import torch
 from docqa_tpu_torch.engines.encoder import EncoderEngine, marshal_texts
 from docqa_tpu_torch.engines.spine import spine_run, to_host
 from docqa_tpu_torch.index.ivf import _probe_kernel
-from docqa_tpu_torch.index.lexical import score_lexical
+from docqa_tpu_torch.index.lexical import lexical_search_program
 from docqa_tpu_torch.index.store import SearchResult, VectorStore
-from docqa_tpu_torch.index.tiered import _tail_kernel
+from docqa_tpu_torch.index.tiered import TAIL_BUCKET, _tail_kernel, tier_generation_of
 from docqa_tpu_torch.obs.observatory import DEFAULT_OBSERVATORY, encoder_cost
-from docqa_tpu_torch.runtime.mesh import mirrored, refuse_sharded
+from docqa_tpu_torch.runtime.mesh import in_command, mirrored
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger, span
-from docqa_tpu_torch.utils import resolve_device
+from docqa_tpu_torch.utils import resolve_device, round_up
 
 log = get_logger("docqa.retrieve")
 
@@ -188,16 +195,17 @@ def tiered_search_program(
 ) -> Tuple[torch.Tensor, ...]:
     """The tiered retrieve program (inside a caller's spine item): encoder
     forward -> L2 normalize -> cast to the tier's dtype -> coarse probe
-    over the IVF cells -> cell and spill scores -> top-``fetch``, and the
-    exact tail's top-``k_tail`` (none for ``k_tail`` 0).  Returns device
-    tensors (bulk vals, bulk ids, tail vals, tail ids, embeddings)."""
+    over the IVF cells (this rank's block and the shards' merge on a
+    mesh) -> cell and spill scores -> top-``fetch``, and the exact tail's
+    top-``k_tail`` (none for ``k_tail`` 0).  Returns device tensors (bulk
+    vals, bulk ids, tail vals, tail ids, embeddings)."""
     emb = _encode_normalized(encoder, ids, lengths)
     with torch.inference_mode():
         q = emb.to(ivf._centroids.dtype)
         bulk_vals, bulk_ids = _probe_kernel(
             ivf._cells, ivf._cell_scale, ivf._cell_ids, ivf._centroids,
             ivf._spill, ivf._spill_ids, q, nprobe=nprobe, k=fetch,
-            n_real_cells=ivf.n_real_cells,
+            n_real_cells=ivf.n_real_cells, mesh=ivf.shard_mesh,
         )
         if k_tail:
             tail_vals, tail_ids = _tail_kernel(tail, q, n_live, k_tail)
@@ -210,20 +218,21 @@ def tiered_search_program(
 def hybrid_search_program(
     encoder: EncoderEngine, ids, lengths, ivf, *, nprobe: int, fetch: int,
     tail: torch.Tensor, n_live: int, k_tail: int, lex_tiles, q_terms: torch.Tensor,
-    q_weights: torch.Tensor, k_lex: int,
+    q_weights: torch.Tensor, k_lex: int, lex_mesh=None,
 ) -> Tuple[torch.Tensor, ...]:
     """:func:`tiered_search_program` plus the lexical tier's top-``k_lex``
-    over its device tiles ``(term_ids, impacts, row_live)``.  Returns (bulk
-    vals, bulk ids, tail vals, tail ids, lexical vals, lexical ids,
-    embeddings); fusion is host work on these candidates."""
+    over its device tiles ``(term_ids, impacts, row_live)`` (this rank's
+    block over ``lex_mesh``, the lexical tier's mesh).  Returns (bulk vals,
+    bulk ids, tail vals, tail ids, lexical vals, lexical ids, embeddings);
+    fusion is host work on these candidates."""
     bulk_vals, bulk_ids, tail_vals, tail_ids, emb = tiered_search_program(
         encoder, ids, lengths, ivf, nprobe=nprobe, fetch=fetch, tail=tail,
         n_live=n_live, k_tail=k_tail,
     )
     term_ids, impacts, row_live = lex_tiles
     with torch.inference_mode():
-        scores = score_lexical(term_ids, impacts, row_live, q_terms, q_weights)
-        lex_vals, lex_ids = torch.topk(scores, k_lex, dim=-1)
+        lex_vals, lex_ids = lexical_search_program(
+            term_ids, impacts, row_live, q_terms, q_weights, k_lex, lex_mesh)
     return bulk_vals, bulk_ids, tail_vals, tail_ids, lex_vals, lex_ids, emb
 
 
@@ -237,10 +246,10 @@ class FusedTieredRetriever:
     supports_modes = True
 
     def __init__(self, encoder: EncoderEngine, tiered, device="cuda"):
-        refuse_sharded("the tiered and hybrid programs", "item 9c",
-                       getattr(encoder, "mesh", None),
-                       getattr(getattr(tiered, "store", None), "mesh", None))
-        self.device = resolve_device(device)
+        """On a mesh the retriever runs on the store's device (the mesh's)."""
+        store = tiered.store
+        self.device = (store.device if getattr(store, "mesh", None) is not None
+                       else resolve_device(device))
         if encoder.device != self.device or tiered.device != self.device:
             raise ValueError(
                 f"encoder on {encoder.device} and tier on {tiered.device}; "
@@ -248,7 +257,7 @@ class FusedTieredRetriever:
             )
         self.encoder = encoder
         self.tiered = tiered
-        self._exact = FusedRetriever(encoder, tiered.store, device=self.device)
+        self._exact = FusedRetriever(encoder, store, device=self.device)
 
     def search_texts(
         self,
@@ -257,19 +266,65 @@ class FusedTieredRetriever:
         filters: Optional[Dict[str, Any]] = None,
         deadline=None,  # resilience.Deadline: shed before the dispatch
         mode: Optional[str] = None,
+        plan: Optional[Dict[str, Any]] = None,
     ) -> List[List[SearchResult]]:
         """``TieredIndex.search``'s contract from raw texts; ``mode`` is
-        dense (default), lexical or hybrid."""
+        dense (default), lexical or hybrid.  A command on a mesh: ``plan``
+        carries the leader's decisions (:meth:`plan`), and the deadline is
+        checked before it is published, never after (once published, the
+        leader issues every collective its followers do)."""
         tiered = self.tiered
-        store = tiered.store
         tiered.raise_rebuild_fault()
-        k = k or store.cfg.default_k
         if not len(texts):
             return []
         if deadline is not None:
             deadline.check("retrieve")
-        texts = list(texts)
-        mode = tiered._resolve_mode(mode, texts, filters)
+        texts = [str(t) for t in texts]
+        return mirrored(self, "search_texts", self._search_texts, texts, k, filters,
+                        mode=mode, plan=plan, local={"deadline": deadline},
+                        decide=lambda: self.plan(texts, k, filters, mode))
+
+    def plan(self, texts, k, filters, mode) -> Dict[str, Any]:
+        """The leader's host decisions for one retrieval, at the state its
+        command will find: the resolved mode, the generation of the tier
+        it reads, and for a tiered read its ``covered``, ``nprobe``,
+        ``fetch`` and ``k_tail``."""
+        # one read: (ivf, covered) stay consistent
+        return self._plan_for(self.tiered._tier, texts, k, filters, mode)
+
+    def _plan_for(self, tier, texts, k, filters, mode) -> Dict[str, Any]:
+        tiered = self.tiered
+        store = tiered.store
+        out: Dict[str, Any] = {"mode": tiered._resolve_mode(mode, texts, filters),
+                               "gen": tier_generation_of(tier)}
+        if tier is not None and not filters and out["mode"] != "lexical":
+            ivf, covered = tier
+            k = k or store.cfg.default_k
+            k_bulk = tiered._k_bulk(k, covered)
+            # one nprobe read: pool and fetch must come from the same value
+            nprobe = min(ivf.nprobe, ivf.n_clusters)
+            pool = nprobe * ivf.cap + int(ivf._spill_ids.shape[0])
+            bucket = round_up(max(store.count - covered, 1), TAIL_BUCKET)
+            out.update(covered=covered, nprobe=nprobe,
+                       fetch=min(min(k_bulk, ivf.n) * (ivf.n_assign + 1), pool),
+                       # the reference's quantized k, bounded by the padded bucket
+                       k_tail=min(max(k_bulk, k), bucket))
+        return out
+
+    def _search_texts(self, texts, k=None, filters=None, mode=None, plan=None,
+                      deadline=None) -> List[List[SearchResult]]:
+        if in_command():
+            # published: the leader issues the command's collectives as its
+            # followers do, whatever is left of its budget
+            deadline = None
+        tiered = self.tiered
+        store = tiered.store
+        k = k or store.cfg.default_k
+        tier = tiered._tier  # one read: (ivf, covered) stay consistent
+        if plan["gen"] != tier_generation_of(tier):
+            tiered.check_plan(plan)  # raises on a command stream
+            plan = self._plan_for(tier, texts, k, filters, mode)  # a local switch landed
+        mode = plan["mode"]
         DEFAULT_REGISTRY.counter(f"retrieve_mode_{mode}").inc()
         if mode == "lexical":
             return tiered._search_lexical(texts, k)
@@ -279,7 +334,6 @@ class FusedTieredRetriever:
             if lex_tiles is None:  # empty lexical tier: nothing to fuse
                 mode = "dense"
         tiered._maybe_background_rebuild()
-        tier = tiered._tier  # one read: (ivf, covered) stay consistent
         if tier is None or filters:
             if mode == "hybrid":
                 seen_count = store.count
@@ -291,21 +345,16 @@ class FusedTieredRetriever:
                 return out
             return self._exact.search_texts(texts, k=k, filters=filters, deadline=deadline)
         ivf, covered = tier
+        nprobe, fetch, k_tail = plan["nprobe"], plan["fetch"], plan["k_tail"]
 
         n = len(texts)
         ids_p, len_p = marshal_texts(
             self.encoder.tokenizer, self.encoder.cfg, texts,
-            batch_buckets=QUERY_BATCH_BUCKETS,
+            batch_buckets=QUERY_BATCH_BUCKETS, n_data=self.encoder.n_data,
         )
         _tag, batch, seq, pairs = self.encoder.cost_key(ids_p, len_p)
         k_bulk = tiered._k_bulk(k, covered)
-        # one nprobe read: pool and fetch must come from the same value
-        nprobe = min(ivf.nprobe, ivf.n_clusters)
-        pool = nprobe * ivf.cap + int(ivf._spill_ids.shape[0])
-        fetch = min(min(k_bulk, ivf.n) * (ivf.n_assign + 1), pool)
         _, _, tail_dev, n_live, tail_meta = tiered._tail_device(covered)
-        # the reference's quantized k, bounded by the padded bucket
-        k_tail = min(max(k_bulk, k), int(tail_dev.shape[0]))
         lex_count = 0
         if mode == "hybrid":
             term_ids, impacts, row_live, lex_count = lex_tiles
@@ -322,7 +371,7 @@ class FusedTieredRetriever:
                     lex_tiles=(term_ids, impacts, row_live),
                     q_terms=torch.from_numpy(q_terms).to(self.device),
                     q_weights=torch.from_numpy(q_weights).to(self.device),
-                    k_lex=k_lex,
+                    k_lex=k_lex, lex_mesh=tiered.lexical.mesh,
                 )
             else:
                 out = tiered_search_program(

@@ -1,5 +1,5 @@
 """IVF (inverted-file) coarse-quantized search, counterpart of
-``docqa_tpu/index/ivf.py`` on one device.
+``docqa_tpu/index/ivf.py``.
 
 * k-means on the device, as bounded work items on the dispatch spine's
   background ``rebuild`` stream (seeding, one item per Lloyd iteration, one
@@ -17,16 +17,36 @@
   (``storage="int8"``, :func:`quantize_rows_int8`), scored as ``(q ·
   query) * s`` with float32 accumulation: the int8 values are exact in the
   query's dtype, the products exact in float32.
+* on a mesh (``mesh=`` with a model axis of n > 1) the cell tensors (tiles,
+  scales, ids) are row-sharded over the model axis, as the reference's
+  ``ivf_cell_specs`` lays them out: the cell count rounds up to a multiple
+  of n (``cells_per_shard``; padded cells have zero centroids and id -1,
+  and the coarse score masks them with ``n_real_cells``) and model rank
+  ``m`` holds the contiguous block of cells ``[m * C / n, (m + 1) * C /
+  n)``.  Centroids, spill and queries are replicated.  A probe ranks the
+  same global probe list on every rank, scores only the probed cells it
+  owns (other slots clamp to local cell 0 and score ``NEG_INF``), scores
+  the spill on model rank 0 only, and merges the shards' top-k through
+  ``ops/topk.py``'s two gathers.  A sharded tier is int8 (HBM capacity is
+  why it shards).  Each rank places every row's cell and slot (the whole
+  cascade: it is cheap integer work) but stages, quantizes and uploads only
+  its own cells, so a shard is bit-equal to that block of a one-device
+  build of the same snapshot and seed.
 
 The probe is plain PyTorch (:func:`_probe_kernel`), as the reference leaves
 it to XLA; ROADMAP queue 2 lists its kernel (K9).  The host build (the
 placement and the quantization over the float32 staging buffer) is the
-reference's; :attr:`IVFIndex.build_seconds` splits its wall time.  The
-reference's mesh-sharded probe is multi-GPU work, not here.
+reference's; :attr:`IVFIndex.build_seconds` splits its wall time.  A build
+can take its k-means decisions from elsewhere (``fit=``, :func:`fit_cells`):
+on a mesh one rank fits and every rank places its own cells.
 
 :func:`ivf_from_arrays` builds an index from another build's arrays
 (centroids, cells, scales, ids, spill), so two implementations can be
-compared on identical tiers.
+compared on identical tiers.  Registered with a mesh's command stream
+(``index/tiered.py`` registers each tier it switches to), :meth:`IVFIndex.
+search` and :meth:`~IVFIndex.timed_probe` are commands whose host arguments
+are the raw queries, ``k`` and ``nprobe``; :meth:`~IVFIndex.probe`, their
+device body, runs inside a caller's command.
 """
 
 from __future__ import annotations
@@ -39,6 +59,8 @@ import torch
 
 from docqa_tpu_torch.engines.spine import spine_run, to_host
 from docqa_tpu_torch.index.store import _normalized
+from docqa_tpu_torch.ops.topk import merge_sharded
+from docqa_tpu_torch.runtime.mesh import MeshContext, mirrored
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger, span
 from docqa_tpu_torch.utils import resolve_device, torch_dtype
 
@@ -50,6 +72,8 @@ NEG_INF = -1e30
 _ASSIGN_BLOCK = 1 << 18
 # seed pool of the k-center seeding
 _SEED_POOL = 65536
+# cells each row is copied into (the redundant assignment)
+N_ASSIGN = 2
 
 
 def quantize_rows_int8(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -196,13 +220,15 @@ def _coarse_probe(queries: torch.Tensor, centroids: torch.Tensor, nprobe: int,
 
 def _score_probed(queries: torch.Tensor, cells: torch.Tensor,
                   cell_scale: Optional[torch.Tensor], cell_ids: torch.Tensor,
-                  probe: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                  probe: torch.Tensor, valid: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scores of each query's probed cells.  cells [C, cap, d] (int8 tiles
     or float), cell_scale [C, cap] f32 (None for float storage), cell_ids
-    [C, cap] (-1 pad), probe [q, nprobe].  The tile is converted to float32
-    (int8 and the query's dtype are exact there) and the per-row scale
-    multiplies the float32 sum.  Returns flat per-query (scores [q,
-    nprobe*cap] f32, ids)."""
+    [C, cap] (-1 pad), probe [q, nprobe] (local cell ids), valid [q,
+    nprobe] bool (None when every probed cell is live: one device).  The
+    tile is converted to float32 (int8 and the query's dtype are exact
+    there) and the per-row scale multiplies the float32 sum.  Returns flat
+    per-query (scores [q, nprobe*cap] f32, ids)."""
     scores, ids = [], []
     for qi in range(queries.shape[0]):
         p = probe[qi]
@@ -210,16 +236,19 @@ def _score_probed(queries: torch.Tensor, cells: torch.Tensor,
         if cell_scale is not None:
             s = s * cell_scale[p]
         iq = cell_ids[p]
-        scores.append(s.masked_fill(iq < 0, NEG_INF).reshape(-1))
+        dead = iq < 0
+        if valid is not None:
+            dead = dead | ~valid[qi][:, None]
+        scores.append(s.masked_fill(dead, NEG_INF).reshape(-1))
         ids.append(iq.reshape(-1))
     return torch.stack(scores), torch.stack(ids)
 
 
 def _probe_kernel(
-    cells: torch.Tensor,  # [C, cap, d] int8 tiles or float
+    cells: torch.Tensor,  # [C, cap, d] int8 tiles or float (a shard: C / n)
     cell_scale: Optional[torch.Tensor],  # [C, cap] f32 (None: float storage)
     cell_ids: torch.Tensor,  # [C, cap] int32 global row ids (-1 pad)
-    centroids: torch.Tensor,  # [C, d]
+    centroids: torch.Tensor,  # [C, d] (replicated)
     spill: torch.Tensor,  # [S, d]
     spill_ids: torch.Tensor,  # [S]
     queries: torch.Tensor,  # [q, d]
@@ -227,20 +256,36 @@ def _probe_kernel(
     nprobe: int,
     k: int,
     n_real_cells: Optional[int] = None,
+    mesh: Optional[MeshContext] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Coarse rank, score the probed cells and the spill buffer, top-``k``
-    of both.  Returns (vals [q, k] f32, row ids [q, k])."""
+    of both.  With ``mesh`` (a model axis of n > 1) the cell tensors are
+    this rank's block (module docstring): the reference's
+    ``_probe_kernel_sharded``, two all-gathers over the model group.
+    Returns (vals [q, k] f32, row ids [q, k]) on every rank."""
     probe = _coarse_probe(queries, centroids, nprobe, n_real_cells)
-    cell_s, cell_i = _score_probed(queries, cells, cell_scale, cell_ids, probe)
+    valid = None
+    spill_live = spill_ids >= 0
+    if mesh is not None:
+        c_local = cells.shape[0]
+        local = probe - mesh.model_index * c_local
+        valid = (local >= 0) & (local < c_local)
+        probe = torch.where(valid, local, 0)
+        if mesh.model_index != 0:  # the merge sees each spill row once
+            spill_live = torch.zeros_like(spill_live)
+    cell_s, cell_i = _score_probed(queries, cells, cell_scale, cell_ids, probe, valid)
     spill_s = queries.float() @ spill.float().T  # [q, S]
-    spill_s = spill_s.masked_fill(spill_ids[None, :] < 0, NEG_INF)
+    spill_s = spill_s.masked_fill(~spill_live[None, :], NEG_INF)
     q_n = queries.shape[0]
     all_s = torch.cat([cell_s, spill_s], dim=1)
     all_i = torch.cat(
         [cell_i, spill_ids[None, :].to(cell_i.dtype).expand(q_n, -1)], dim=1
     )
     vals, pos = torch.topk(all_s, k, dim=1)
-    return vals, torch.gather(all_i, 1, pos)
+    ids = torch.gather(all_i, 1, pos)
+    if mesh is None:
+        return vals, ids
+    return merge_sharded(vals, ids, k, mesh.model_group)
 
 
 # ---------------------------------------------------------------------------
@@ -248,13 +293,36 @@ def _probe_kernel(
 # ---------------------------------------------------------------------------
 
 
+def fit_cells(vectors: np.ndarray, n_clusters: int, n_assign: int = N_ASSIGN,
+              n_iters: int = 10, seed: int = 0, device="cuda",
+              timings: Optional[Dict[str, float]] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """A build's k-means decisions over rows L2-normalized as the build
+    normalizes them (:func:`l2_rows`): (centroids [C, d] float32, each
+    row's ranked cells [n, min(max(4, n_assign), C)] int32).  It ranks more
+    cells than copies: the placement cascade needs fallback cells when a
+    row's best cells are full."""
+    n_assign = max(1, min(n_assign, n_clusters))
+    n_choices = max(4, n_assign)
+    return kmeans(vectors, n_clusters, n_iters=n_iters, seed=seed,
+                  n_assign=min(n_choices, n_clusters), device=device, timings=timings)
+
+
+def l2_rows(vectors: np.ndarray) -> np.ndarray:
+    vectors = np.asarray(vectors, np.float32)
+    return vectors / np.maximum(np.linalg.norm(vectors, axis=1, keepdims=True), 1e-9)
+
+
 class IVFIndex:
     """Coarse-quantized cosine search over a fixed corpus snapshot, on one
-    device.  ``index/tiered.py``'s ``TieredIndex`` serves it beside an exact
-    tail and rebuilds it as the store grows.
+    device or row-sharded over a mesh's model axis (module docstring).
+    ``index/tiered.py``'s ``TieredIndex`` serves it beside an exact tail
+    and rebuilds it as the store grows.
 
     ``storage="int8"`` (default) keeps int8 tiles with per-row scales;
-    ``"float"`` keeps ``dtype`` cells (exact scores, twice the bytes).
+    ``"float"`` keeps ``dtype`` cells (exact scores, twice the bytes; one
+    device only: a sharded tier forces int8, as the reference's does).
+    ``fit``: (centroids, ranked cells) from :func:`fit_cells` over the same
+    rows, in place of this build's own k-means.
     """
 
     def __init__(
@@ -267,16 +335,16 @@ class IVFIndex:
         n_iters: int = 10,
         seed: int = 0,
         dtype: str = "bfloat16",
-        n_assign: int = 2,
+        n_assign: int = N_ASSIGN,
         storage: str = "int8",
         device="cuda",
+        mesh: Optional[MeshContext] = None,
+        fit: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     ) -> None:
-        self.device = resolve_device(device)
+        self._set_mesh(mesh, device)
         t_start = perf_counter()
-        vectors = np.asarray(vectors, np.float32)
+        vectors = l2_rows(vectors)
         n, d = vectors.shape
-        norms = np.linalg.norm(vectors, axis=1, keepdims=True)
-        vectors = vectors / np.maximum(norms, 1e-9)
         self._meta = list(metadata)
         self.n = n
         self.dim = d
@@ -285,23 +353,31 @@ class IVFIndex:
         self.nprobe = min(nprobe, c)
         self.n_assign = max(1, min(n_assign, c))
         self._dtype = torch_dtype(dtype)
+        if self._sharded and storage != "int8":
+            log.warning("sharded IVF tier forces int8 storage (requested %r)", storage)
+            storage = "int8"
         self.storage = storage
         self.n_real_cells = c
+        c_pad = -(-c // self.n_shards) * self.n_shards
+        self.cells_per_shard = c_pad // self.n_shards
         timings: Dict[str, float] = {}
 
         with span("ivf_build", DEFAULT_REGISTRY):
-            # rank more choices than copies: the placement cascade needs
-            # fallback cells when a row's best cells are full
-            n_choices = max(4, self.n_assign)
-            centroids, assign = kmeans(
-                vectors, c, n_iters=n_iters, seed=seed,
-                n_assign=min(n_choices, c), device=self.device, timings=timings,
-            )
+            if fit is None:
+                centroids, assign = fit_cells(vectors, c, self.n_assign, n_iters, seed,
+                                              self.device, timings)
+            else:
+                centroids, assign = (np.asarray(a) for a in fit)
+                if centroids.shape != (c, d) or len(assign) != n:
+                    raise ValueError(f"fit of {centroids.shape} centroids and {len(assign)} "
+                                     f"rows for {n} rows in {c} cells of {d}")
             t_place = perf_counter()
+            if c_pad != c:
+                centroids = np.vstack([centroids, np.zeros((c_pad - c, d), np.float32)])
             cap = max(8, int(np.ceil(cap_factor * self.n_assign * n / c)))
-            cells = np.zeros((c, cap, d), np.float32)
-            cell_ids = np.full((c, cap), -1, np.int32)
-            fill = np.zeros((c,), np.int64)
+            cell_ids = np.full((c_pad, cap), -1, np.int32)
+            fill = np.zeros((c_pad,), np.int64)
+            slots: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
 
             def place(rows: np.ndarray, target_cells: np.ndarray) -> np.ndarray:
                 """Vectorized cap-aware placement of rows[i] into
@@ -319,9 +395,9 @@ class IVFIndex:
                 slot = fill[tc] + within
                 ok = slot < cap
                 r_ok, c_ok, s_ok = rows[order][ok], tc[ok], slot[ok]
-                cells[c_ok, s_ok] = vectors[r_ok]
+                slots.append((c_ok, s_ok, r_ok))
                 cell_ids[c_ok, s_ok] = r_ok
-                fill[:] = fill + np.bincount(c_ok, minlength=c)
+                fill[:] = fill + np.bincount(c_ok, minlength=c_pad)
                 placed = np.zeros((len(rows),), bool)
                 placed[order[ok]] = True
                 return placed
@@ -350,6 +426,13 @@ class IVFIndex:
                 spill_ids[j] = i
             self.cap = cap
             self.n_spilled = len(spill_rows)
+            # the float32 staging buffer of this rank's cells only
+            lo = self.shard_index * self.cells_per_shard
+            cells = np.zeros((self.cells_per_shard, cap, d), np.float32)
+            for c_ok, s_ok, r_ok in slots:
+                own = (c_ok >= lo) & (c_ok < lo + self.cells_per_shard)
+                cells[c_ok[own] - lo, s_ok[own]] = vectors[r_ok[own]]
+            del slots
             t_quant = perf_counter()
             timings["placement"] = t_quant - t_place
             if storage == "int8":
@@ -359,17 +442,33 @@ class IVFIndex:
             del cells  # the float32 staging buffer is the build's peak
             t_up = perf_counter()
             timings["quantize"] = t_up - t_quant
-            self._upload(cells_up, cell_scale, cell_ids, centroids, spill, spill_ids)
+            self._upload(cells_up, cell_scale, cell_ids[lo : lo + self.cells_per_shard],
+                         centroids, spill, spill_ids)
             timings["upload"] = perf_counter() - t_up
         timings["total"] = perf_counter() - t_start
         self.build_seconds = timings
         self._seen_shapes: set = set()
         log.info(
             "ivf built: n=%d C=%d cap=%d spill=%d nprobe=%d storage=%s "
-            "bytes/chunk=%.0f in %.1f s",
-            n, c, cap, self.n_spilled, self.nprobe, self.storage,
+            "shards=%d bytes/chunk=%.0f in %.1f s",
+            n, c, cap, self.n_spilled, self.nprobe, self.storage, self.n_shards,
             self.index_bytes()["bytes_per_chunk"], timings["total"],
         )
+
+    def _set_mesh(self, mesh: Optional[MeshContext], device) -> None:
+        """The device, the mesh and this rank's shard of the cells."""
+        self.mesh = mesh
+        self._sharded = mesh is not None and mesh.n_model > 1
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.n_shards = mesh.n_model if self._sharded else 1
+        self.shard_index = mesh.model_index if self._sharded else 0
+        # bumped by the tiered index that publishes this tier
+        self.generation = 0
+
+    @property
+    def shard_mesh(self) -> Optional[MeshContext]:
+        """The mesh the probe merges over; None on one device."""
+        return self.mesh if self._sharded else None
 
     def _upload(self, cells, cell_scale, cell_ids, centroids, spill, spill_ids) -> None:
         dev, dt = self.device, self._dtype
@@ -398,14 +497,15 @@ class IVFIndex:
     @classmethod
     def from_store(cls, store, **kw) -> "IVFIndex":
         """An index over a consistent snapshot of a ``VectorStore``, on the
-        store's device."""
+        store's device and, as the reference's, sharded where it shards."""
         vectors, meta = store.vectors_snapshot()
         kw.setdefault("device", store.device)
+        kw.setdefault("mesh", store.mesh)
         return cls(vectors, meta, **kw)
 
     def arrays(self) -> Dict[str, Any]:
         """The tier as host numpy arrays, :func:`ivf_from_arrays`'s input
-        (float tensors as float32)."""
+        (float tensors as float32); a shard gives its own block of cells."""
         def host(t):
             if t is None:
                 return None
@@ -415,22 +515,24 @@ class IVFIndex:
             "centroids": host(self._centroids), "cells": host(self._cells),
             "cell_scale": host(self._cell_scale), "cell_ids": host(self._cell_ids),
             "spill": host(self._spill), "spill_ids": host(self._spill_ids),
-            "n_assign": self.n_assign,
+            "n_assign": self.n_assign, "n_real_cells": self.n_real_cells,
         }
 
     def index_bytes(self) -> Dict[str, Any]:
-        """Device bytes of the tier (tiles, scales, ids, centroids, spill)."""
-        total = sum(
-            t.numel() * t.element_size()
-            for t in (self._cells, self._cell_scale, self._cell_ids,
-                      self._centroids, self._spill, self._spill_ids)
-            if t is not None
-        )
+        """Device bytes of the tier (tiles, scales, ids, centroids, spill):
+        ``per_shard_bytes`` is what one rank holds (its block of the cell
+        tensors and the replicated rest), as the reference reports it."""
+        def nbytes(tensors):
+            return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+        local = nbytes((self._cells, self._cell_scale, self._cell_ids))
+        repl = nbytes((self._centroids, self._spill, self._spill_ids))
+        total = local * self.n_shards + repl
         return {
             "total_bytes": total,
             "bytes_per_chunk": round(total / max(self.n, 1), 2),
-            "per_shard_bytes": total,
-            "shards": 1,
+            "per_shard_bytes": local + repl,
+            "shards": self.n_shards,
             "storage": self.storage,
         }
 
@@ -446,12 +548,13 @@ class IVFIndex:
 
     def probe(self, qn: np.ndarray, nprobe: int, fetch: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """The raw probe of normalized host queries, inside a caller's
-        spine item: (vals [q, fetch] f32, ids [q, fetch]) on the device."""
+        spine item (and, on a mesh, inside its command): (vals [q, fetch]
+        f32, ids [q, fetch]) on the device."""
         q = torch.from_numpy(qn).to(self.device, self._dtype)
         return _probe_kernel(
             self._cells, self._cell_scale, self._cell_ids, self._centroids,
             self._spill, self._spill_ids, q, nprobe=nprobe, k=fetch,
-            n_real_cells=self.n_real_cells,
+            n_real_cells=self.n_real_cells, mesh=self.shard_mesh,
         )
 
     def search(
@@ -464,7 +567,13 @@ class IVFIndex:
         """Per query a list of (score, row_id, metadata).  ``dedup_full``
         returns every unique candidate the probe fetched (up to ``k *
         (n_assign + 1)``) instead of cutting at ``k``: the tiered exact
-        re-rank widens its pool this way."""
+        re-rank widens its pool this way.  A command on a mesh, its nprobe
+        resolved by the caller."""
+        nprobe = min(nprobe or self.nprobe, self.n_clusters)
+        return mirrored(self, "search", self._search, np.asarray(queries, np.float32),
+                        int(k), nprobe, bool(dedup_full))
+
+    def _search(self, queries, k, nprobe, dedup_full):
         qn = _normalized(queries)
         nprobe, fetch, k_eff = self._fetch(k, nprobe)
         self._seen_shapes.add((len(qn), fetch, nprobe))
@@ -508,9 +617,15 @@ class IVFIndex:
         frontier instrument.  Returns ``(rows, seconds, fresh)``: rows per
         query ``(row_id, score)``, ``seconds`` the probe's device time
         (CUDA events on a card, the closure's wall time on the CPU; queue
-        wait excluded), ``fresh`` True on the first call at a (batch, fetch,
-        nprobe) shape, which the observatory keeps off its latency axis as
-        the reference does its compiles."""
+        wait excluded; on a mesh its gathers included), ``fresh`` True on
+        the first call at a (batch, fetch, nprobe) shape, which the
+        observatory keeps off its latency axis as the reference does its
+        compiles.  A command on a mesh."""
+        nprobe = min(nprobe or self.nprobe, self.n_clusters)
+        return mirrored(self, "timed_probe", self._timed_probe,
+                        np.asarray(queries, np.float32), int(k), nprobe, bool(dedup_full))
+
+    def _timed_probe(self, queries, k, nprobe, dedup_full):
         qn = _normalized(queries)
         nprobe, fetch, k_eff = self._fetch(k, nprobe)
         key = (len(qn), fetch, nprobe)
@@ -553,34 +668,54 @@ def ivf_from_arrays(
     nprobe: int = 8,
     dtype: str = "bfloat16",
     device="cuda",
+    mesh: Optional[MeshContext] = None,
 ) -> IVFIndex:
-    """An :class:`IVFIndex` over another build's tier, as numpy arrays:
-    ``centroids`` [C, d], ``cells`` [C, cap, d] (int8 tiles, or float),
-    ``cell_scale`` [C, cap] (None for float storage), ``cell_ids`` [C,
-    cap], ``spill`` [S, d], ``spill_ids`` [S] and ``n_assign``.  Float
-    arrays are cast to ``dtype`` as the build's upload casts them, so
-    values already in ``dtype`` carry over exactly."""
+    """An :class:`IVFIndex` over another build's whole tier, as numpy
+    arrays: ``centroids`` [C, d], ``cells`` [C, cap, d] (int8 tiles, or
+    float), ``cell_scale`` [C, cap] (None for float storage), ``cell_ids``
+    [C, cap], ``spill`` [S, d], ``spill_ids`` [S], ``n_assign`` and,
+    optionally, ``n_real_cells`` (C less a padding).  Float arrays are cast
+    to ``dtype`` as the build's upload casts them, so values already in
+    ``dtype`` carry over exactly.  ``mesh``: shard it as a mesh build does
+    (a float tier is quantized to int8 there, with a warning)."""
     ivf = IVFIndex.__new__(IVFIndex)
-    ivf.device = resolve_device(device)
+    ivf._set_mesh(mesh, device)
     centroids = np.asarray(arrays["centroids"], np.float32)
     cells = np.asarray(arrays["cells"])
+    scale = arrays.get("cell_scale")
+    cell_ids = np.asarray(arrays["cell_ids"], np.int32)
     ivf._meta = list(metadata)
     ivf.n = len(ivf._meta)
-    ivf.n_clusters = ivf.n_real_cells = centroids.shape[0]
+    ivf.n_clusters = ivf.n_real_cells = int(arrays.get("n_real_cells") or centroids.shape[0])
     ivf.dim = centroids.shape[1]
     ivf.cap = cells.shape[1]
     ivf.nprobe = min(nprobe, ivf.n_clusters)
     ivf.n_assign = int(arrays["n_assign"])
     ivf._dtype = torch_dtype(dtype)
     ivf.storage = "int8" if cells.dtype == np.int8 else "float"
+    if ivf.storage == "float":
+        cells = cells.astype(np.float32)
+    scale = None if scale is None else np.asarray(scale, np.float32)
+    if ivf._sharded and ivf.storage != "int8":
+        log.warning("sharded IVF tier forces int8 storage (carried a float tier)")
+        cells, scale = quantize_rows_int8(cells)
+        ivf.storage = "int8"
+    c_pad = -(-centroids.shape[0] // ivf.n_shards) * ivf.n_shards
+    pad = c_pad - centroids.shape[0]
+    if pad:
+        centroids = np.vstack([centroids, np.zeros((pad, ivf.dim), np.float32)])
+        cells = np.concatenate([cells, np.zeros((pad,) + cells.shape[1:], cells.dtype)])
+        cell_ids = np.concatenate([cell_ids, np.full((pad, ivf.cap), -1, np.int32)])
+        if scale is not None:
+            scale = np.concatenate([scale, np.zeros((pad, ivf.cap), np.float32)])
+    ivf.cells_per_shard = c_pad // ivf.n_shards
+    block = slice(ivf.shard_index * ivf.cells_per_shard,
+                  (ivf.shard_index + 1) * ivf.cells_per_shard)
     spill_ids = np.asarray(arrays["spill_ids"], np.int32)
     ivf.n_spilled = int((spill_ids >= 0).sum())
-    scale = arrays.get("cell_scale")
     ivf._upload(
-        cells if ivf.storage == "int8" else cells.astype(np.float32),
-        None if scale is None else np.asarray(scale, np.float32),
-        np.asarray(arrays["cell_ids"], np.int32), centroids,
-        np.asarray(arrays["spill"], np.float32), spill_ids,
+        cells[block], None if scale is None else scale[block], cell_ids[block],
+        centroids, np.asarray(arrays["spill"], np.float32), spill_ids,
     )
     ivf.build_seconds = {}
     ivf._seen_shapes = set()

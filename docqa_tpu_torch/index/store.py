@@ -722,14 +722,14 @@ class VectorStore:
         return self._host[np.asarray(ids, np.int64)]
 
     def vectors_snapshot(
-        self, start: int = 0
+        self, start: int = 0, stop: Optional[int] = None
     ) -> Tuple[np.ndarray, List[Dict[str, Any]]]:
-        """Consistent (vectors, metadata) of rows [start, count) under one
-        lock acquisition."""
+        """Consistent (vectors, metadata) of rows [start, stop) (``stop``
+        at most the count, the count by default) under one lock
+        acquisition."""
         with self._lock:
-            return self._host[start : self._count].copy(), list(
-                self._meta[start : self._count]
-            )
+            stop = self._count if stop is None else min(stop, self._count)
+            return self._host[start:stop].copy(), list(self._meta[start:stop])
 
     def snapshot(self, directory: str, keep_previous: bool = True) -> str:
         """Publish the store under ``directory`` atomically and return the

@@ -1,5 +1,5 @@
 """Tiered serving index: IVF over the bulk of the store plus an exact scan
-of the tail, counterpart of ``docqa_tpu/index/tiered.py`` on one device.
+of the tail, counterpart of ``docqa_tpu/index/tiered.py``.
 
 The live ``VectorStore`` stays the source of truth (appends, metadata,
 filters, tombstones).  An ``IVFIndex`` is rebuilt from a consistent
@@ -21,6 +21,28 @@ scored exactly, so a row is findable the moment it lands.
 Each tiered search offers the process retrieval observatory a shadow job
 (``obs/retrieval_observatory.py``).
 
+On a mesh (the store's ``mesh``) the tier shards where the store shards:
+its cells ride the model axis (``index/ivf.py``), the tail stays
+replicated (each rank uploads it from its own host copy and scans it with
+no collective).  A rebuild is split so that no rank builds a tier of its
+own and nothing holds the mesh slot for a build's host work: the leader
+snapshots and runs k-means (:func:`~docqa_tpu_torch.index.ivf.fit_cells`)
+outside any command, the short command :meth:`TieredIndex.stage` hands
+every rank its centroids and each row's ranked cells, every rank then
+places the rows and quantizes and uploads its own cells on its own thread
+(a follower's ``ivf-stage``), the ranks agree over a gloo group of their
+own that every shard is ready, and the short command
+:meth:`TieredIndex.switch` swaps the tier on every rank at the same point
+of the order, bumping :attr:`TieredIndex.tier_generation`.  Registered with
+a mesh's command stream, :meth:`~TieredIndex.search`, :meth:`~TieredIndex.
+reset` and those two are commands, and each tier is a command target
+(``<name>.ivf#<generation>``) for the frontier probe; the leader's host
+decisions (the resolved mode, ``nprobe``, the tier generation) ride in a
+search command's ``plan``, so a follower never reads its own knobs.  In a
+world of ranks only the leader of a live command stream rebuilds: a
+follower never does, nor does any rank during the boot or without a
+stream.
+
 One difference from the reference: its rebuild thread logs and drops every
 exception.  Here a kernel or CUDA fault (``ops/_kernels.is_device_fault``)
 in the rebuild is kept and raised by the next :meth:`TieredIndex.search`
@@ -30,21 +52,25 @@ in the rebuild is kept and raised by the next :meth:`TieredIndex.search`
 from __future__ import annotations
 
 import threading
+from dataclasses import dataclass
+from datetime import timedelta
 from time import perf_counter
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from docqa_tpu_torch.engines.router import fuse_scores
 from docqa_tpu_torch.engines.spine import spine_run, to_host
-from docqa_tpu_torch.index.ivf import IVFIndex
+from docqa_tpu_torch.index.ivf import IVFIndex, fit_cells, l2_rows
 from docqa_tpu_torch.index.store import NEG_INF, SearchResult, VectorStore, _normalized
 from docqa_tpu_torch.obs.retrieval_observatory import (
     ShadowJob,
     get_retrieval_observatory,
 )
-from docqa_tpu_torch.ops._kernels import is_device_fault
+from docqa_tpu_torch.ops._kernels import MeshFault, is_device_fault
+from docqa_tpu_torch.runtime.mesh import all_reduce, mirrored
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY, get_logger, span
 from docqa_tpu_torch.utils import round_up
 
@@ -53,6 +79,9 @@ log = get_logger("docqa.tiered")
 MODES = ("dense", "lexical", "hybrid")
 # rows of the tail's device bucket grow in these steps
 TAIL_BUCKET = 4096
+# the ranks' agreement on a staged build waits this long for the slowest
+# rank's host work (a 1M-row build's placement and quantize take ~20 s)
+STAGE_TIMEOUT = timedelta(hours=1)
 
 
 def _tail_kernel(tail: torch.Tensor, queries: torch.Tensor, n_live: int,
@@ -64,9 +93,31 @@ def _tail_kernel(tail: torch.Tensor, queries: torch.Tensor, n_live: int,
     return torch.topk(scores, k, dim=1)
 
 
+def tier_generation_of(tier: Optional[tuple]) -> Optional[int]:
+    """The generation of a served ``(ivf, covered)`` pair (None: no tier)."""
+    return None if tier is None else tier[0].generation
+
+
+@dataclass
+class _Stage:
+    """A rebuild's decisions as :meth:`TieredIndex.stage` hands them to
+    every rank, and this rank's build of its shard."""
+
+    id: int
+    gen: int
+    comp_gen: int
+    covered: int
+    centroids: np.ndarray
+    assign: np.ndarray
+    nprobe: int
+    ivf: Optional[IVFIndex] = None
+    thread: Optional[threading.Thread] = None
+
+
 class TieredIndex:
     """Serving facade over (VectorStore, IVFIndex) with the store's search
-    signature, for ``QAService``.  The tier lives on the store's device."""
+    signature, for ``QAService``.  The tier lives on the store's device,
+    sharded over the store's mesh (module docstring)."""
 
     # search() takes mode= and query_texts= (the QA service forwards modes)
     supports_modes = True
@@ -84,6 +135,8 @@ class TieredIndex:
         hybrid_alpha: float = 0.6,
         default_mode: str = "dense",
     ) -> None:
+        """On a mesh of more than one rank every rank builds it at the same
+        point (it makes a gloo group)."""
         self.store = store
         self.device = store.device
         self.nprobe = nprobe
@@ -98,15 +151,25 @@ class TieredIndex:
         # (IVFIndex, covered rows), published as one reference so a reader
         # never pairs an old IVF with a new watermark
         self._tier: Optional[tuple] = None
+        # bumped by every switch, at the same command on every rank
+        self._tier_gen = 0
         self._rebuild_lock = threading.Lock()
+        # one rebuild at a time on the rank that decides them
+        self._build_lock = threading.Lock()
         self._rebuilding = False
         self._rebuild_thread: Optional[threading.Thread] = None
         # the kernel or CUDA fault a background rebuild stopped on
         self._rebuild_fault: Optional[BaseException] = None
         # bumped by reset(): a rebuild begun before it must not publish
         self._gen = 0
+        self._stage_seq = 0
+        self._staged: Optional[_Stage] = None
         # (covered, count, tail_dev, n_live, meta), rebuilt when the store grows
         self._tail_cache: Optional[tuple] = None
+        # the ranks of a world agree on each staged build over their own group
+        self._agree_group = None
+        if store.mesh is not None and dist.is_initialized() and dist.get_world_size() > 1:
+            self._agree_group = dist.new_group(backend="gloo", timeout=STAGE_TIMEOUT)
 
     # ---- rebuild -------------------------------------------------------------
 
@@ -119,10 +182,41 @@ class TieredIndex:
     def tail_rows(self) -> int:
         return self.store.count - self.covered
 
+    @property
+    def tier_generation(self) -> int:
+        """How many tiers this index switched to (equal on every rank)."""
+        return self._tier_gen
+
+    def _stream(self):
+        return getattr(self, "_command_stream", None)
+
+    def _follows(self) -> bool:
+        """A follower of a command stream: its tier changes only by the
+        leader's commands."""
+        stream = self._stream()
+        return stream is not None and stream.follower
+
+    def _decides(self) -> bool:
+        """Whether this rank decides rebuilds: never a follower; in a world
+        of ranks only the leader of a live command stream."""
+        stream = self._stream()
+        if stream is not None and stream.follower:
+            return False
+        return self._agree_group is None or (stream is not None and stream.live)
+
     def rebuild(self) -> bool:
         """Synchronous rebuild from a consistent snapshot; whether a tier is
         now active (False below ``min_rows``: exact search is optimal
-        there)."""
+        there).  On a mesh every rank builds its shard from the k-means
+        decisions of the leader (module docstring), which alone calls it
+        in a world of ranks."""
+        if not self._decides():
+            raise RuntimeError("in a world of ranks only the leader of a live command "
+                               "stream rebuilds the tier")
+        with self._build_lock:
+            return self._rebuild()
+
+    def _rebuild(self) -> bool:
         gen = self._gen
         # read before the snapshot: a compaction between the two makes the
         # re-rank guard skip the re-rank instead of reading renumbered rows
@@ -131,21 +225,116 @@ class TieredIndex:
         if len(vectors) < self.min_rows:
             return self._tier is not None
         with span("tiered_rebuild", DEFAULT_REGISTRY):
-            ivf = IVFIndex(
-                vectors, meta, n_clusters=self.n_clusters, nprobe=self.nprobe,
-                seed=self.seed, dtype=str(self.store.cfg.dtype),
-                storage=self.storage, device=self.device,
-            )
-        ivf._store_compactions = comp_gen
-        with self._rebuild_lock:
-            if gen != self._gen:
-                log.info("discarding rebuild begun before reset()")
-                return self._tier is not None
-            self._tier = (ivf, len(vectors))
+            t0 = perf_counter()
+            c = self.n_clusters or max(1, int(np.sqrt(len(vectors))))
+            timings: Dict[str, float] = {}
+            fit = fit_cells(l2_rows(vectors), c, seed=self.seed, device=self.device,
+                            timings=timings)
+            self._stage_seq += 1
+            stage_id = self._stage_seq
+            self.stage(stage_id, gen, comp_gen, len(vectors), fit[0], fit[1], int(self.nprobe))
+            if not self._build_stage(vectors, meta):
+                raise RuntimeError("a rank's shard of the staged tier failed to build")
+            ivf = self._staged.ivf
+            ivf.build_seconds = {**timings, **ivf.build_seconds,
+                                 "total": perf_counter() - t0}
+        if not self.switch(stage_id):
+            return self._tier is not None
         log.info("tiered: ivf tier now covers %d rows", len(vectors))
         return True
 
+    def stage(self, stage_id: int, gen: int, comp_gen: int, covered: int,
+              centroids: np.ndarray, assign: np.ndarray, nprobe: int) -> None:
+        """Hand every rank a rebuild's decisions: the snapshot's reset and
+        compaction generations, its row count, the centroids and each row's
+        ranked cells.  A follower builds its shard on its own thread; the
+        caller of :meth:`rebuild` builds on its own.  A command on a
+        mesh."""
+        mirrored(self, "stage", self._stage, int(stage_id), int(gen), int(comp_gen),
+                 int(covered), np.asarray(centroids, np.float32),
+                 np.asarray(assign, np.int32), int(nprobe))
+
+    def _stage(self, stage_id, gen, comp_gen, covered, centroids, assign, nprobe) -> None:
+        st = _Stage(stage_id, gen, comp_gen, covered, centroids, assign, nprobe)
+        self._staged = st
+        if self._follows():
+            st.thread = threading.Thread(target=self._follow_stage, args=(st,),
+                                         daemon=True, name="ivf-stage")
+            st.thread.start()
+
+    def _follow_stage(self, st: _Stage) -> None:
+        try:
+            self._build_stage(None, None, st)
+        except Exception as e:
+            if is_device_fault(e):
+                self._rebuild_fault = e
+                log.error("tier stage stopped on a device fault: %r", e)
+            else:
+                log.exception("tier stage failed")
+
+    def _build_stage(self, vectors, meta, st: Optional[_Stage] = None) -> bool:
+        """Build this rank's shard of the staged tier (a follower snapshots
+        the rows the leader did), then, in a world of ranks, agree with
+        every rank that each one's shard is ready.  Returns whether all
+        are; this rank's own failure raises."""
+        st = st or self._staged
+        ok, error = False, None
+        try:
+            if vectors is None:
+                with self.store._lock:
+                    if self.store.compactions != st.comp_gen:
+                        raise RuntimeError("the rows were renumbered since the stage")
+                    vectors, meta = self.store.vectors_snapshot(stop=st.covered)
+            ivf = IVFIndex(
+                vectors, meta, n_clusters=len(st.centroids), nprobe=st.nprobe,
+                seed=self.seed, dtype=str(self.store.cfg.dtype), storage=self.storage,
+                device=self.device, mesh=self.store.mesh, fit=(st.centroids, st.assign),
+            )
+            ivf._store_compactions = st.comp_gen
+            st.ivf = ivf
+            ok = True
+        except Exception as e:
+            error = e
+        if self._agree_group is not None:
+            flag = torch.tensor([1 if ok else 0], dtype=torch.int32)
+            ok = bool(all_reduce(flag, self._agree_group, "ivf_stage",
+                                 op=dist.ReduceOp.MIN).item())
+        if error is not None:
+            raise error
+        return ok
+
+    def switch(self, stage_id: int) -> bool:
+        """Make the staged tier the served one on every rank, unless a
+        :meth:`reset` came after its snapshot; whether it switched.  A
+        command on a mesh."""
+        return mirrored(self, "switch", self._switch, int(stage_id))
+
+    def _switch(self, stage_id: int) -> bool:
+        st = self._staged
+        if st is None or st.id != stage_id:
+            raise MeshFault(f"switch to stage {stage_id}: this rank staged "
+                            f"{None if st is None else st.id}")
+        if st.thread is not None:
+            st.thread.join()  # past the agreement: ending
+        with self._rebuild_lock:
+            self._staged = None
+            if st.gen != self._gen or st.ivf is None:
+                log.info("discarding rebuild begun before reset()")
+                return False
+            old = self._tier
+            self._tier_gen += 1
+            st.ivf.generation = self._tier_gen
+            self._tier = (st.ivf, st.covered)
+        stream = self._stream()
+        if stream is not None:
+            if old is not None:
+                stream.unregister(old[0])
+            stream.register(f"{self._command_name}.ivf#{self._tier_gen}", st.ivf)
+        return True
+
     def _maybe_background_rebuild(self) -> None:
+        if not self._decides():
+            return
         if self.tail_rows < self.rebuild_tail_rows and self._tier is not None:
             return
         if self.store.count < self.min_rows:
@@ -183,14 +372,15 @@ class TieredIndex:
         return self._rebuilding
 
     def close(self, timeout: float = 60.0) -> None:
-        """Join an in-flight background rebuild (bounded: a legitimate
-        rebuild at millions of rows takes minutes), then raise the device
-        fault one stopped on."""
-        t = self._rebuild_thread
-        if t is not None and t.is_alive():
-            t.join(timeout=timeout)
-            if t.is_alive():
-                log.warning("ivf-rebuild still alive after close() join")
+        """Join an in-flight background rebuild or stage (bounded: a
+        legitimate rebuild at millions of rows takes minutes), then raise
+        the device fault one stopped on."""
+        staged = self._staged
+        for t in (self._rebuild_thread, staged and staged.thread):
+            if t is not None and t.is_alive():
+                t.join(timeout=timeout)
+                if t.is_alive():
+                    log.warning("%s still alive after close() join", t.name)
         self.raise_rebuild_fault()
 
     # ---- search --------------------------------------------------------------
@@ -278,16 +468,42 @@ class TieredIndex:
         filters: Optional[Dict[str, Any]] = None,
         mode: Optional[str] = None,
         query_texts: Optional[List[str]] = None,
+        plan: Optional[Dict[str, Any]] = None,
     ) -> List[List[SearchResult]]:
         """Mode-aware retrieval of host query vectors (module docstring);
-        lexical evidence needs ``query_texts``."""
+        lexical evidence needs ``query_texts``.  A command on a mesh:
+        ``plan`` carries the leader's decisions (:meth:`plan`)."""
         self.raise_rebuild_fault()
+        return mirrored(self, "search", self._search, np.asarray(queries, np.float32), k,
+                        filters, mode, None if query_texts is None else list(query_texts),
+                        plan=plan, decide=lambda: self.plan(mode, query_texts, filters))
+
+    def plan(self, mode: Optional[str], query_texts, filters) -> Dict[str, Any]:
+        """The leader's host decisions for one search: the resolved mode,
+        the serving ``nprobe`` and the tier generation it reads."""
+        return {"mode": self._resolve_mode(mode, query_texts, filters),
+                "nprobe": int(self.nprobe), "gen": tier_generation_of(self._tier)}
+
+    def check_plan(self, plan: Dict[str, Any]) -> None:
+        """On a command stream every rank reads the tier the plan names (a
+        switch is a command); anything else is a mesh out of step.  With
+        no stream a background switch may land in between, and the search
+        serves the tier it reads."""
+        here = tier_generation_of(self._tier)
+        if plan["gen"] != here and self._stream() is not None:
+            raise MeshFault(f"tier generation {here} here, the leader planned on "
+                            f"{plan['gen']}")
+
+    def _search(self, queries, k=None, filters=None, mode=None, query_texts=None,
+                plan=None) -> List[List[SearchResult]]:
+        self.check_plan(plan)
         k_final = k or self.store.cfg.default_k
-        mode = self._resolve_mode(mode, query_texts, filters)
+        mode = plan["mode"]
         DEFAULT_REGISTRY.counter(f"retrieve_mode_{mode}").inc()
         if mode == "lexical":
             return self._search_lexical(query_texts, k_final)
-        dense = self._search_dense(queries, k, filters, observe=mode == "dense")
+        dense = self._search_dense(queries, k, filters, observe=mode == "dense",
+                                   nprobe=plan["nprobe"])
         if mode == "dense":
             return dense
         return self._fuse_hybrid(queries, query_texts, dense, k_final)
@@ -302,9 +518,9 @@ class TieredIndex:
             return "dense"
         return mode
 
-    def _search_dense(self, queries: np.ndarray, k: Optional[int] = None,
-                      filters: Optional[Dict[str, Any]] = None,
-                      observe: bool = True) -> List[List[SearchResult]]:
+    def _search_dense(self, queries: np.ndarray, k: Optional[int],
+                      filters: Optional[Dict[str, Any]], observe: bool, nprobe: int
+                      ) -> List[List[SearchResult]]:
         self._maybe_background_rebuild()
         tier = self._tier  # one read: (ivf, covered) stay consistent
         if tier is None or filters:
@@ -317,10 +533,8 @@ class TieredIndex:
         k_bulk = self._k_bulk(k, covered)
         with span("tiered_search", DEFAULT_REGISTRY):
             t_stage = perf_counter()
-            # one read: a set_nprobe mid-request must not relabel this one
-            nprobe_now = self.nprobe
             qn = _normalized(queries)
-            bulk = ivf.search(queries, k=k_bulk, nprobe=nprobe_now, dedup_full=True)
+            bulk = ivf.search(queries, k=k_bulk, nprobe=nprobe, dedup_full=True)
             bulk = self._rerank_bulk(qn, bulk, ivf, k_bulk)
             DEFAULT_REGISTRY.histogram("retrieve_tier_ms_bulk_ivf").observe(
                 (perf_counter() - t_stage) * 1e3
@@ -353,7 +567,7 @@ class TieredIndex:
         if observe:
             # lexical and hybrid modes submit their own shadow jobs
             self._observe_quality(
-                queries, out, ivf, covered, covered + n_live, k, nprobe_now
+                queries, out, ivf, covered, covered + n_live, k, nprobe
             )
         return out
 
@@ -526,7 +740,8 @@ class TieredIndex:
 
     def set_nprobe(self, nprobe: int) -> int:
         """Apply a serving nprobe live (the observatory's auto-apply hook
-        and the operator's knob); later rebuilds inherit it."""
+        and the operator's knob); later rebuilds inherit it.  On a mesh it
+        is the leader's: each search command carries it."""
         n = max(1, int(nprobe))
         tier = self._tier
         self.nprobe = n
@@ -538,11 +753,19 @@ class TieredIndex:
     def reset(self) -> None:
         """Drop the tier and the tail cache (exact search until the next
         rebuild); required after ``store.compact_deleted``.  A rebuild in
-        flight discards itself."""
+        flight discards itself.  A command on a mesh, so the reset
+        generation moves on every rank at once."""
+        mirrored(self, "reset", self._reset)
+
+    def _reset(self) -> None:
         with self._rebuild_lock:
             self._gen += 1
+            old = self._tier
             self._tier = None
             self._tail_cache = None
+        stream = self._stream()
+        if stream is not None and old is not None:
+            stream.unregister(old[0])
 
     def _tail_device(self, covered: int):
         """The tail rows [covered, count) on the device, padded to a

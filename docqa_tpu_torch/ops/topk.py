@@ -30,16 +30,20 @@ def merge_topk(shard_vals: torch.Tensor, shard_ids: torch.Tensor, k: int):
     return vals, torch.gather(flat_ids, 1, pos)
 
 
-def sharded_topk(scores_local: torch.Tensor, shard_offset: int, k: int, group):
-    """This rank's scores [q, n_local] (its rows start at global id
-    ``shard_offset``) -> the global exact (vals [q, k], ids [q, k]) on every
-    rank of ``group``: a local top-k, then two ``all_gather``s and the
-    merge.  A group of one rank gathers nothing."""
-    vals, idx = local_topk(scores_local, k)
-    gids = idx + shard_offset
-    n = group_size(group)
-    if n == 1:
+def merge_sharded(vals: torch.Tensor, gids: torch.Tensor, k: int, group):
+    """This rank's top candidates (vals [q, k_local], global ids) -> the
+    global exact (vals [q, k], ids [q, k]) on every rank of ``group``: two
+    ``all_gather``s and the merge.  A group of one rank gathers nothing."""
+    if group_size(group) == 1:
         return vals, gids
     all_vals = all_gather(vals[None], group, "topk")
     all_ids = all_gather(gids[None], group, "topk")
     return merge_topk(all_vals, all_ids, k)
+
+
+def sharded_topk(scores_local: torch.Tensor, shard_offset: int, k: int, group):
+    """This rank's scores [q, n_local] (its rows start at global id
+    ``shard_offset``) -> the global exact (vals [q, k], ids [q, k]) on every
+    rank of ``group``: a local top-k, then :func:`merge_sharded`."""
+    vals, idx = local_topk(scores_local, k)
+    return merge_sharded(vals, idx + shard_offset, k, group)

@@ -118,11 +118,13 @@ def _collective(what: str, fn) -> None:
         raise fault from e
 
 
-def all_reduce(t: torch.Tensor, group, site: str) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place (its dtype) and return it."""
+def all_reduce(t: torch.Tensor, group, site: str, op=None) -> torch.Tensor:
+    """Reduce ``t`` over ``group`` in place (its dtype; a sum unless ``op``
+    names another ``dist.ReduceOp``) and return it."""
     if group_size(group) == 1:
         return t
-    _collective(f"all_reduce.{site}", lambda: dist.all_reduce(t, group=group))
+    op = dist.ReduceOp.SUM if op is None else op
+    _collective(f"all_reduce.{site}", lambda: dist.all_reduce(t, op=op, group=group))
     count_collective("all_reduce", site)
     return t
 
@@ -330,18 +332,6 @@ def ranks_of(group) -> List[int]:
     return [dist.get_global_rank(group, i) for i in range(group_size(group))]
 
 
-def refuse_sharded(what: str, item: str, *meshes: Optional[MeshContext]) -> None:
-    """Raise ``NotImplementedError`` when any of ``meshes`` spans more than
-    one rank: ``what`` has no mesh path in this port yet, ``item`` names
-    the ROADMAP item (queue 1) that brings it."""
-    for mesh in meshes:
-        if mesh is not None and mesh.n_devices > 1:
-            raise NotImplementedError(
-                f"not in the PyTorch port yet: {what} on a {mesh.n_data}x"
-                f"{mesh.n_model} mesh ({item})"
-            )
-
-
 # ---------------------------------------------------------------------------
 # the command stream (module docstring)
 # ---------------------------------------------------------------------------
@@ -400,18 +390,33 @@ class command_scope:
 
 
 def mirrored(obj: Any, method: str, fn: Callable, *args,
-             local: Optional[Dict[str, Any]] = None, **kwargs) -> Any:
+             local: Optional[Dict[str, Any]] = None,
+             decide: Optional[Callable[[], Any]] = None, **kwargs) -> Any:
     """Run ``fn(*args, **kwargs, **local)`` as the command ``method`` of
     ``obj``: published to every follower first when ``obj`` is registered
     with a live :class:`CommandStream`, else run as it is.  ``args`` and
     ``kwargs`` are plain host values (they cross processes); ``local``
     holds what only the leader passes (a deadline).  On a follower the
     command arrives as ``getattr(obj, method)(*args, **kwargs)``, which
-    reaches ``fn`` here."""
+    reaches ``fn`` here.
+
+    ``decide``: the leader's host decisions that must match the state at
+    the command's place in the order (the tier a search reads, the nprobe
+    an operator set on the leader).  When ``kwargs["plan"]`` is None the
+    leader calls ``decide()`` under the mesh slot just before it publishes
+    and passes the result as ``plan``, so a follower receives it; without
+    a live stream, or inside a command, it is called in place."""
     stream = getattr(obj, "_command_stream", None)
     if stream is None:
-        return fn(*args, **kwargs, **(local or {}))
-    return stream.call(obj, method, fn, args, kwargs, local or {})
+        return fn(*args, **_planned(kwargs, decide), **(local or {}))
+    return stream.call(obj, method, fn, args, kwargs, local or {}, decide)
+
+
+def _planned(kwargs: Dict[str, Any], decide: Optional[Callable[[], Any]]) -> Dict[str, Any]:
+    """``kwargs`` with its ``plan`` decided (:func:`mirrored`)."""
+    if decide is None or kwargs.get("plan") is not None:
+        return kwargs
+    return {**kwargs, "plan": decide()}
 
 
 class CommandStream:
@@ -439,6 +444,11 @@ class CommandStream:
     @property
     def follower(self) -> bool:
         return not self.leader
+
+    @property
+    def live(self) -> bool:
+        """Opened (:meth:`open`, or :meth:`follow` on a follower)."""
+        return self._live
 
     # ---- targets -------------------------------------------------------------
 
@@ -482,16 +492,17 @@ class CommandStream:
             [header], src=0, group=self._group))
 
     def call(self, obj: Any, method: str, fn: Callable, args: tuple,
-             kwargs: Dict[str, Any], local: Dict[str, Any]) -> Any:
+             kwargs: Dict[str, Any], local: Dict[str, Any],
+             decide: Optional[Callable[[], Any]] = None) -> Any:
         """:func:`mirrored`'s dispatch (module docstring)."""
         if in_command():
-            return fn(*args, **kwargs, **local)
+            return fn(*args, **_planned(kwargs, decide), **local)
         name = f"{obj._command_name}.{method}"
         if not self._live:
             # the boot: every rank runs the same code on one thread
             _count_command(name)
             with command_scope():
-                return fn(*args, **kwargs, **local)
+                return fn(*args, **_planned(kwargs, decide), **local)
         if self.follower:
             raise RuntimeError(
                 f"{name}: a follower runs commands only from follow()")
@@ -499,13 +510,19 @@ class CommandStream:
         with self._slot:
             waited = _mono() - t0
             self._check(name)
+            if self._targets.get(obj._command_name) is not obj:
+                # unregistered since (a superseded tier): a follower could
+                # not resolve it
+                raise RuntimeError(f"{name}: the target is no longer registered")
+            kwargs = _planned(kwargs, decide)
             if self.world > 1:
                 self._publish((obj._command_name, method, args, kwargs))
             _count_command(name)
             with self._stats_lock:
-                row = self._waits.setdefault(name, [0, 0.0])
+                row = self._waits.setdefault(name, [0, 0.0, 0.0])
                 row[0] += 1
                 row[1] += waited
+                row[2] = max(row[2], waited)
             with command_scope():
                 return fn(*args, **kwargs, **local)
 
@@ -562,11 +579,13 @@ class CommandStream:
 
     def status(self) -> Dict[str, Any]:
         """The ``/api/status`` mesh section: shape, backend, ranks, role,
-        and the commands counted with their mean wait for the mesh slot."""
+        and the commands counted with their mean and longest wait for the
+        mesh slot."""
         with self._stats_lock:
             waits = {
-                k: {"count": int(c), "slot_wait_mean_ms": round(w / max(c, 1) * 1e3, 3)}
-                for k, (c, w) in sorted(self._waits.items())
+                k: {"count": int(c), "slot_wait_mean_ms": round(w / max(c, 1) * 1e3, 3),
+                    "slot_wait_max_ms": round(top * 1e3, 3)}
+                for k, (c, w, top) in sorted(self._waits.items())
             }
         with _COUNT_LOCK:
             issued = int(sum(COMMANDS.values()))

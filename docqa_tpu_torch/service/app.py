@@ -83,9 +83,11 @@ world of one rank the leader's path runs alike, its commands counted and
 published to no one.  The seq2seq summarizer and the tagger's forward stay
 off the mesh on the leader, as in the reference.
 
-Configuration that needs a part of the reference this port does not have
-yet raises at boot and names its ROADMAP item (:func:`refuse_unported`):
-tiered serving on a mesh (queue 1 item 9c).
+Every configuration the reference can name boots: :func:`refuse_unported`,
+the one place a boot would refuse a part this port lacks, refuses nothing
+since tiered serving on a mesh came (queue 1 item 9c: the int8 IVF tier
+row-sharded over the model axis, the tiered and hybrid programs as
+commands, ``index/tiered.py``).
 Routes whose subsystem is not ported answer as the reference does when
 that subsystem is idle or absent: ``/api/witness`` and ``/api/ledger`` with
 404.
@@ -142,24 +144,11 @@ UI_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ui.html")
 
 def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a configuration that needs a part
-    of the reference this port does not have yet, naming the ROADMAP item
-    (queue 1) that brings it: tiered serving on a mesh (item 9c: the IVF
-    probe and the tiered and hybrid programs have no mesh path yet) is
-    refused for a world of more than one rank or a ``mesh`` section that
-    asks for more than one device."""
-    import torch.distributed as dist
-
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    mesh_devices = (max(cfg.mesh.data_parallel, 1) * max(cfg.mesh.model_parallel, 1))
-    refusals: List[Tuple[bool, str]] = [
-        (cfg.store.serving_index == "tiered" and (world > 1 or mesh_devices > 1),
-         f"tiered serving on a mesh (world of {world} ranks, mesh.data_parallel="
-         f"{cfg.mesh.data_parallel}, mesh.model_parallel={cfg.mesh.model_parallel}): "
-         "ROADMAP queue 1 item 9c"),
-    ]
-    for refused, why in refusals:
-        if refused:
-            raise NotImplementedError(f"not in the PyTorch port yet: {why}")
+    of the reference this port does not have yet, naming its ROADMAP item.
+    None is left: every configuration the reference can name is ported,
+    tiered serving on a mesh (item 9c) last, so this refuses nothing; the
+    boot keeps calling it as the place such a refusal goes."""
+    del cfg
 
 
 class DocQARuntime:
@@ -319,12 +308,15 @@ class DocQARuntime:
         self.search_index = self.store
         if cfg.store.serving_index == "tiered":
             sc = cfg.store
+            # on a mesh the tier shards where the store shards
             self.search_index = TieredIndex(
                 self.store, nprobe=sc.ivf_nprobe, min_rows=sc.ivf_min_rows,
                 rebuild_tail_rows=sc.ivf_rebuild_tail, storage=sc.ivf_storage,
                 lexical=self.lexical, hybrid_alpha=cfg.lexical.hybrid_alpha,
                 default_mode=cfg.lexical.serving_mode,
             )
+            if self.stream is not None:
+                self.stream.register("tiered", self.search_index)
         if cfg.ner.train_steps > 0 or cfg.ner.params_path:
             # loads the trained tagger's cache, or trains it (in a child
             # process on a card) and caches it there: restarts load
@@ -393,12 +385,12 @@ class DocQARuntime:
         if not cfg.flags.use_fake_encoder:
             if self.search_index is self.store:
                 retriever = FusedRetriever(self.encoder, self.store, device=dev)
-                if self.stream is not None:
-                    self.stream.register("retriever", retriever)
             else:
                 retriever = FusedTieredRetriever(
                     self.encoder, self.search_index, device=dev
                 )
+            if self.stream is not None:
+                self.stream.register("retriever", retriever)
         self._started = False
         self._warmup_thread: Optional[threading.Thread] = None
         self._warmup_fault: Optional[BaseException] = None
@@ -451,7 +443,9 @@ class DocQARuntime:
             if n and self._index_dir:
                 self._snapshot()
         # the single-sync ask needs the sidecar, device encoder params and
-        # a real decoder, over exact serving on one device
+        # a real decoder, over exact serving on one device: as the
+        # reference's runtime, none on a mesh (FusedRAG itself takes a
+        # row-sharded store and a tensor-parallel generator)
         fused_rag = None
         if (
             cfg.store.token_width
@@ -723,7 +717,9 @@ class DocQARuntime:
                 "covered": getattr(index, "covered", None),
                 "tail_rows": getattr(index, "tail_rows", None),
                 "index": stats_fn() if stats_fn is not None else None,
-                # one device: nothing is ever served off a mesh
+                # the port has no off-mesh fallback: a tiered or hybrid
+                # retrieval on a mesh runs its sharded program, so this
+                # stays 0 on every path, as the reference's gate holds it
                 "offmesh_fallbacks": DEFAULT_REGISTRY.counter(
                     "retrieve_offmesh_fallback"
                 ).value,
@@ -793,6 +789,10 @@ class DocQARuntime:
         if self.follower:
             if self.batcher is not None:
                 self.batcher.stop()
+            # a tier's stage may be building this rank's shard
+            index_close = getattr(self.search_index, "close", None)
+            if index_close is not None:
+                index_close()
             return
 
         if self.sampler is not None:

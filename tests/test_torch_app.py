@@ -683,10 +683,13 @@ def test_oversized_body_is_refused(apps):
     pytest.param({"broker.backend": "amqp"}, None, id="cfg5-AMQP"),
     # the runtime on a mesh (item 9b) is ported: a mesh section boots past
     # the refusals (tests/test_torch_mesh_runtime.py serves worlds of 2 and
-    # 4 ranks); tiered serving on a mesh is what still refuses (item 9c)
+    # 4 ranks)
     pytest.param({"mesh.model_parallel": 2}, None, id="cfg6-item 9b"),
+    # tiered serving on a mesh (item 9c) is ported too
+    # (tests/test_torch_mesh_tiered.py serves it); the id it had while
+    # refused stays
     pytest.param({"store.serving_index": "tiered", "mesh.model_parallel": 2},
-                 "item 9c", id="cfg7-item 9c"),
+                 None, id="cfg7-item 9c"),
 ])
 def test_unported_config_raises_at_boot(cfg, item):
     if item is None:

@@ -33,6 +33,7 @@ data-parallel batch one.  Tensor-parallel decoding is in
 
 import dataclasses
 import importlib.util
+import json
 import os
 
 import jax
@@ -347,11 +348,14 @@ def test_seq2seq_engine_data_parallel_equals_the_reference(worlds):
 # ---- failure paths ----------------------------------------------------------------
 
 def test_runtime_refuses_a_world_of_more_than_one_rank(worlds):
-    # the runtime on a mesh is ported (tests/test_torch_mesh_runtime.py):
-    # what a world of 2 still refuses is tiered serving (item 9c)
-    for r in range(2):
-        msg = str(worlds[2].result("runtime_refused", r)["message"])
-        assert "item 9c" in msg and "world of 2 ranks" in msg and "tiered" in msg
+    # the name is the one this test had while the world refused: tiered
+    # serving on a mesh (item 9c) is ported, so a world of 2 boots it and
+    # the leader answers (tests/test_torch_mesh_tiered.py holds its answers)
+    ranks = [worlds[2].result("runtime_refused", r) for r in range(2)]
+    out = json.loads(str(ranks[0]["results"]))
+    assert out["index"] == "TieredIndex" and out["retriever"] == "FusedTieredRetriever"
+    assert out["ask"]["status"] == 200 and not out["ask"]["degraded"]
+    assert str(ranks[1]["digest"]) == str(ranks[0]["digest"])
 
 
 def test_a_failing_rank_makes_the_others_raise_not_hang(tmp_path):
@@ -368,8 +372,8 @@ def test_a_failing_rank_makes_the_others_raise_not_hang(tmp_path):
 
 
 def test_no_mesh_path_yet_refuses_a_sharded_engine():
-    # the batcher serves a sharded engine now (test_torch_mesh_runtime.py);
-    # the tiered and fused-RAG programs still refuse a sharded part (item 9c)
+    # the name is the one this test had while they refused: the tiered and
+    # fused-RAG programs (item 9c) now take sharded parts
     from docqa_tpu_torch.config import EncoderConfig, StoreConfig
     from docqa_tpu_torch.engines.encoder import EncoderEngine
     from docqa_tpu_torch.engines.rag_fused import FusedRAG
@@ -381,10 +385,11 @@ def test_no_mesh_path_yet_refuses_a_sharded_engine():
     enc = EncoderEngine(EncoderConfig(**W.ENC_WIDTHS), device="cpu")
     store = VectorStore(StoreConfig(dim=64, shard_capacity=256), device="cpu")
     store.mesh = mesh2
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        FusedTieredRetriever(enc, TieredIndex(store), device="cpu")
+    retr = FusedTieredRetriever(enc, TieredIndex(store), device="cpu")
+    assert retr.tiered.store.mesh is mesh2
     eng = GenerateEngine(TP_CFG, GenerateConfig(), device="cpu")
     eng.mesh = mesh2
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        FusedRAG(enc, VectorStore(StoreConfig(dim=64, shard_capacity=256, token_width=8),
-                                  device="cpu"), eng, "{context} {question}", device="cpu")
+    sidecar = VectorStore(StoreConfig(dim=64, shard_capacity=256, token_width=8), device="cpu")
+    sidecar.mesh = mesh2
+    rag = FusedRAG(enc, sidecar, eng, "{context} {question}", device="cpu")
+    assert rag.store.mesh is mesh2 and rag.generator.mesh is mesh2

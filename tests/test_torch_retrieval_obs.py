@@ -32,7 +32,7 @@ from docqa_tpu_torch.index import ivf as tivf
 from docqa_tpu_torch.index.store import VectorStore
 from docqa_tpu_torch.index.tiered import TieredIndex
 from docqa_tpu_torch.obs import retrieval_observatory as tro
-from docqa_tpu_torch.ops._kernels import KernelError
+from docqa_tpu_torch.ops._kernels import KernelError, MeshFault
 from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY
 
 torch.set_num_threads(1)
@@ -275,6 +275,23 @@ def test_device_fault_in_a_shadow_job_stops_the_worker(where):
     with pytest.raises(KernelError):
         robs.stop()
     assert _counter("retrieve_shadow_errors") == errors0
+
+
+def test_a_mesh_fault_in_a_shadow_job_stops_the_worker():
+    """On a mesh the shadow's exact scan is a command: a lost rank there
+    (``MeshFault``) stops the worker as a kernel fault does."""
+    robs = tro.RetrievalObservatory(sample_every=1, registry=DEFAULT_REGISTRY).start()
+
+    def lost():
+        raise MeshFault("publish store.shadow_search failed: peer gone")
+
+    assert robs.submit(tro.ShadowJob(tier="tiered_fused", nprobe=2, k=1,
+                                     served=[[(1, 0.9)]], shadow_fn=lost))
+    with pytest.raises(MeshFault):
+        robs.drain(30)
+    assert not robs.running
+    with pytest.raises(MeshFault):
+        robs.stop()
 
 
 def test_an_ordinary_shadow_error_is_counted_and_the_worker_goes_on():

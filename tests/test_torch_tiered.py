@@ -41,7 +41,7 @@ from docqa_tpu_torch.index import tiered as ttiered
 from docqa_tpu_torch.index.lexical import LexicalIndex
 from docqa_tpu_torch.index.store import VectorStore
 from docqa_tpu_torch.index.tiered import TieredIndex
-from docqa_tpu_torch.ops._kernels import KernelError
+from docqa_tpu_torch.ops._kernels import KernelError, MeshFault
 
 torch.set_num_threads(1)
 
@@ -330,6 +330,26 @@ def test_rebuild_device_fault_reaches_search_and_close(monkeypatch):
     with pytest.raises(KernelError):
         FusedTieredRetriever(enc, tt, device="cpu").search_texts(["a"], k=3)
     with pytest.raises(KernelError):
+        tt.close()
+
+
+def test_a_mesh_fault_in_the_rebuild_reaches_search_and_close(monkeypatch):
+    """On a mesh the leader's k-means is followed by commands and the
+    ranks' agreement: a lost rank there (``MeshFault``) is kept as a kernel
+    fault is, and raised by the next search and by close()."""
+    x = separated(1500, seed=8)
+    _, tstore, _, _ = stores(x, [{"doc_id": i} for i in range(1500)])
+    tt = TieredIndex(tstore, min_rows=1000, rebuild_tail_rows=100)
+
+    def lost(*a, **kw):
+        raise MeshFault("all_reduce.ivf_stage failed: peer gone")
+
+    monkeypatch.setattr(ttiered, "fit_cells", lost)
+    tt.search(x[:1], k=3)  # starts the rebuild, served exact
+    tt._rebuild_thread.join(30)
+    with pytest.raises(MeshFault):
+        tt.search(x[:1], k=3)
+    with pytest.raises(MeshFault):
         tt.close()
 
 

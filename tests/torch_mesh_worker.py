@@ -139,11 +139,16 @@ RT_QUESTIONS = [
     "What is the dosage of metformin for patient Silva?",
     "Which medication lowers the blood pressure of patient Lavoie?",
 ]
+# the tiered runtime: a tier over the handful of ingested chunks, probed whole
+RT_TIERED = {"store.serving_index": "tiered", "store.ivf_min_rows": 4}
 # the runs of a world of 2, of a world of 4, and their overrides
 RT_RUNS = {
     "greedy": {"pool.replicas": 2},
     "sampled": {"generate.temperature": 0.8, "generate.speculative_k": 0},
     "wide": {"mesh.data_parallel": 2},
+    "refused": {"store.serving_index": "tiered"},
+    "tiered": RT_TIERED,
+    "tiered_wide": {**RT_TIERED, "mesh.data_parallel": 2},
 }
 N_CONCURRENT = 8
 LEX_WORDS = ("metformin aspirin lisinopril insulin diabete hypertension asthme fracture "
@@ -224,6 +229,121 @@ def retrieval_rows(results):
     return [[(int(r.row_id), float(r.score)) for r in row] for row in results]
 
 
+# ---- tiered retrieval on a mesh (tests/test_torch_mesh_tiered.py) ------------
+
+IVF_DIM = 64
+IVF_C = 30  # divides none of the model axes here: padded cells are masked
+IVF_NPROBES = (2, 8, 30)
+TIER_ENC = dict(vocab_size=128, hidden_dim=32, num_layers=1, num_heads=4, mlp_dim=64,
+                max_seq_len=16, embed_dim=IVF_DIM, dtype="float32")
+TIER_TEXTS = [f"note {i}: drug-{i % 13} for condition-{i % 7}" for i in range(300)]
+TIER_QUERIES = ["drug-3 for condition-3", "drug-7 for condition-0"]
+# every other note is a letter: the filtered retrieval's exact path
+TIER_DOC_TYPES = ("note", "letter")
+TIER_FILTER = {"doc_type": "note"}
+RAG_CHUNKS = [f"chunk {i}: aspirin reduces cardiac risk {i % 5} and metformin controls "
+              f"glucose {i % 3}" for i in range(24)]
+RAG_QUESTIONS = ["what reduces cardiac risk?", "how is glucose controlled?"]
+RAG_WIDTH = 32
+# tests/test_torch_rag_fused.py's decoder with 8 q and 8 kv heads (they divide
+# the model axis); its context fits the whole QA template
+RAG_DEC = dict(vocab_size=512, hidden_dim=64, num_layers=2, num_heads=8, num_kv_heads=8,
+               head_dim=8, mlp_dim=128, max_seq_len=1024, dtype="float32")
+RAG_GEN = dict(temperature=0.0, eos_id=2, prefill_buckets=(128, 256, 512), max_new_tokens=12)
+RT_EXTRA_NOTE = ("martin.txt", "p4", "admission", "2024-05-02",
+                 "Admission note: patient Martin admitted for chest pain, aspirin "
+                 "300 mg loading dose, troponin pending.")
+REBUILD_SLOW_S = 2.0  # the leader's k-means held this long under load
+
+
+def clustered(n, d=IVF_DIM, n_centers=32, seed=0):
+    """tests/test_ivf_sharded.py's corpus."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_centers, d)).astype(np.float32) * 4
+    assign = rng.integers(0, n_centers, n)
+    x = (centers[assign] + rng.standard_normal((n, d)).astype(np.float32)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def near(x, n, seed):
+    """The first ``n`` rows of ``x`` moved a little."""
+    rng = np.random.default_rng(seed)
+    return x[:n] + 0.01 * rng.standard_normal((n, x.shape[1])).astype(np.float32)
+
+
+def ivf_rows(res, k):
+    """(ids, scores) [q, k] of IVFIndex.search's rows, padded with -1."""
+    ids = np.full((len(res), k), -1, np.int64)
+    scores = np.full((len(res), k), -1.0, np.float32)
+    for qi, row in enumerate(res):
+        for j, (s, rid, _m) in enumerate(row):
+            ids[qi, j], scores[qi, j] = rid, s
+    return ids, scores
+
+
+def result_rows(res, k):
+    """(ids, scores) [q, k] of SearchResult rows, padded with -1."""
+    return ivf_rows([[(r.score, r.row_id, r.metadata) for r in row] for row in res], k)
+
+
+def lapsing_deadline():
+    """A deadline live until its command is published and spent inside it
+    (a budget the slot wait, the marshal or the tail's upload ate)."""
+    from docqa_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
+    from docqa_tpu_torch.runtime.mesh import in_command
+
+    class Lapsing(Deadline):
+        def remaining(self):
+            return -1.0 if in_command() else 60.0
+
+        @property
+        def expired(self):
+            return in_command()
+
+        def check(self, stage=""):
+            if in_command():
+                raise DeadlineExceeded(stage, 1.0)
+
+    return Lapsing(expires_at=0.0, budget_s=60.0)
+
+
+def tier_script(base, rt):
+    """:func:`tier_requests` over HTTP to ``base``."""
+    return tier_requests(lambda path, payload: rt_post(base, path, payload),
+                         lambda path: rt_call(base, "GET", path)[1], rt)
+
+
+def tier_requests(post, get, rt):
+    """The tiered runtime's requests (the leader's, or the reference's in
+    the test process): ingest, a rebuild, the questions dense then hybrid,
+    then a background rebuild under load (the tail's threshold lowered, one
+    more note, the questions asked while it runs), /api/retrieval and
+    /api/status."""
+    ids = rt_ingest(post)
+    tiered = rt.search_index
+    out = {"doc_ids": ids, "rebuilt": bool(tiered.rebuild())}
+    out["dense"] = [rt_answer(*post("/ask/", {"question": q})) for q in RT_QUESTIONS]
+    tiered.default_mode = "hybrid"
+    out["hybrid"] = [rt_answer(*post("/ask/", {"question": q})) for q in RT_QUESTIONS]
+    tiered.default_mode = "dense"
+    tiered.rebuild_tail_rows = 1
+    filename, pid, dtype, date, text = RT_EXTRA_NOTE
+    status, body = post("/ingest/?wait=1", {"filename": filename, "text": text,
+                                            "patient_id": pid, "doc_type": dtype,
+                                            "doc_date": date})
+    assert status == 200, body
+    out["doc_ids"].append(body["doc_id"])
+    out["during"], out["rebuilding"] = [], []
+    for q in RT_QUESTIONS:
+        out["during"].append(rt_answer(*post("/ask/", {"question": q})))
+        out["rebuilding"].append(bool(tiered._rebuilding))
+    tiered.close()
+    out["covered_all"] = tiered.covered == rt.store.count
+    out["retrieval"] = get("/api/retrieval")
+    out["status_mesh"] = get("/api/status").get("mesh")
+    return out
+
+
 class Worker:
     def __init__(self, world, rank, out):
         import torch
@@ -234,6 +354,7 @@ class Worker:
         self.torch, self.M = torch, M
         self.world, self.rank, self.out = world, rank, out
         self._meshes = {}
+        self._recording = False
 
     def mesh(self, shape):
         if shape not in self._meshes:
@@ -259,6 +380,43 @@ class Worker:
     def counts(d, prefix=""):
         keys = sorted(d)
         return {f"{prefix}ckeys": np.array(keys), f"{prefix}cvals": np.array([d[k] for k in keys])}
+
+    def streamed(self, mesh, targets, lead):
+        """Register ``targets`` ((name, object) pairs, in the same order on
+        every rank) with a command stream over ``mesh``: the leader opens
+        it, runs ``lead()`` and stops it, every other rank replays its
+        commands.  Returns this rank's command digest of that run."""
+        stream = self.M.CommandStream(mesh)
+        for name, obj in targets:
+            stream.register(name, obj)
+        self.M.reset_commands()
+        if stream.leader:
+            stream.open()
+            try:
+                lead()
+            finally:
+                stream.stop()
+        else:
+            stream.follow()
+        return self.M.command_digest()
+
+    def replayed(self, obj, method, log):
+        """Record each outermost call of ``obj.<method>`` on this rank (the
+        leader's own, or a follower's replay of its command) in ``log`` as
+        (result, the collectives it issued)."""
+        fn = getattr(obj, method)
+
+        def rec(*a, **k):
+            if self._recording:
+                return fn(*a, **k)
+            self._recording = True
+            try:
+                log.append(self.counted(lambda: fn(*a, **k)))
+            finally:
+                self._recording = False
+            return log[-1][0]
+
+        setattr(obj, method, rec)
 
     # ---- scenarios -------------------------------------------------------
 
@@ -484,16 +642,16 @@ class Worker:
                   **self.counts(c))
 
     def runtime_refused(self):
-        from docqa_tpu_torch.config import load_config
-        from docqa_tpu_torch.service.app import DocQARuntime
+        """Tiered serving in a world of more than one rank, once refused:
+        it boots, and the leader ingests the notes and answers a question
+        over HTTP."""
+        def script(base, rt):
+            rt_ingest(lambda path, payload: rt_post(base, path, payload))
+            return {"index": type(rt.search_index).__name__,
+                    "retriever": type(rt.qa.retriever).__name__,
+                    "ask": rt_answer(*rt_post(base, "/ask/", {"question": RT_QUESTIONS[0]}))}
 
-        try:
-            DocQARuntime(load_config(env={}, overrides={
-                "ner.train_steps": 0, "store.serving_index": "tiered"}), device="cpu")
-        except NotImplementedError as e:
-            self.save("runtime_refused", message=np.array(str(e)))
-            return
-        raise AssertionError("tiered serving booted in a world of more than one rank")
+        self._runtime("refused", None, script)
 
     # ---- the runtime on a mesh --------------------------------------------
 
@@ -535,11 +693,11 @@ class Worker:
 
         return rec, restore
 
-    def _runtime(self, run, work_dir, script):
+    def _runtime(self, run, work_dir, script, extra=None):
         """Boot DocQARuntime under RT_CFG + RT_RUNS[run]; the leader serves
         on 127.0.0.1 port 0 and runs ``script(base)``, every other rank
         follows.  Saves ``runtime_<run>`` with the rank's command digest,
-        its batches and its store."""
+        its batches and its store, and ``extra(rt)``'s arrays."""
         import json
 
         from docqa_tpu_torch.config import load_config
@@ -583,7 +741,7 @@ class Worker:
                   batches=np.array(json.dumps(rec)), results=np.array(json.dumps(out)),
                   count=np.array(st.count), deleted=np.array(st.deleted_count),
                   live_docs=np.array(json.dumps(sorted(set(live)))),
-                  snapshots=np.array(len(snapshots)))
+                  snapshots=np.array(len(snapshots)), **(extra(rt) if extra else {}))
 
     def _serve_script(self, n_concurrent):
         """The leader's requests: ingest, ask each question, ``n_concurrent``
@@ -698,6 +856,285 @@ class Worker:
             out[tag + "/rows"] = np.array(lx.device_tiles()[0].shape[0])
             out.update(self.counts(c, tag + "/"))
         self.save("lexical_sharded", **out)
+
+    # ---- tiered retrieval on a mesh ------------------------------------------
+
+    def ivf_sharded(self):
+        """The reference's one-device tier carried onto each mesh and
+        probed; the port's own mesh build beside its one-device build; int8
+        forced; the bytes a shard holds."""
+        from docqa_tpu_torch.index.ivf import IVFIndex, ivf_from_arrays
+
+        with np.load(os.path.join(self.out, "ivf_inputs.npz")) as d:
+            arrays = {k: d[k] for k in d.files}
+        arrays["n_assign"] = int(arrays["n_assign"])
+        x = clustered(4000)
+        meta = [{"row": i} for i in range(len(x))]
+        q = near(x, 20, 1)
+        solo = IVFIndex(x, meta, n_clusters=IVF_C, nprobe=8, dtype="float32", device="cpu")
+        out = {f"solo/{k}": v for k, v in solo.arrays().items()
+               if k in ("cells", "cell_scale", "cell_ids")}
+        for p in IVF_NPROBES:
+            out[f"solo/ids{p}"], out[f"solo/scores{p}"] = ivf_rows(solo.search(q, k=10, nprobe=p), 10)
+        for shape in mesh_shapes(self.world):
+            m = self.mesh(shape)
+            tag = f"{shape[0]}x{shape[1]}"
+            carried = ivf_from_arrays(arrays, meta, nprobe=8, dtype="float32", device="cpu",
+                                      mesh=m)
+            own = IVFIndex(x, meta, n_clusters=IVF_C, nprobe=8, dtype="float32",
+                           device="cpu", mesh=m)
+            for name, ivf in (("carried", carried), ("own", own)):
+                for p in IVF_NPROBES:
+                    res, c = self.counted(lambda: ivf.search(q, k=10, nprobe=p))
+                    out[f"{tag}/{name}/ids{p}"], out[f"{tag}/{name}/scores{p}"] = ivf_rows(res, 10)
+                    out.update(self.counts(c, f"{tag}/{name}/{p}/"))
+            for k, v in own.arrays().items():
+                if k in ("cells", "cell_scale", "cell_ids"):
+                    out[f"{tag}/own/{k}"] = v
+            out[f"{tag}/cells_per_shard"] = np.array(own.cells_per_shard)
+            forced = IVFIndex(x[:1000], [{}] * 1000, n_clusters=16, dtype="float32",
+                              device="cpu", mesh=m, storage="float")
+            out[f"{tag}/forced_storage"] = np.array(forced.storage)
+            b = IVFIndex(x, [{}] * len(x), n_clusters=32, dtype="float32", device="cpu",
+                         mesh=m).index_bytes()
+            for k in ("shards", "per_shard_bytes", "total_bytes"):
+                out[f"{tag}/bytes/{k}"] = np.array(b[k])
+        self.save("ivf_sharded", **out)
+
+    def _tiered(self, x, mesh, **kw):
+        """A TieredIndex over a store of ``x`` on ``mesh``, its tier not yet
+        built (in a world of ranks the leader of a command stream builds
+        it)."""
+        from docqa_tpu_torch.config import StoreConfig
+        from docqa_tpu_torch.index.store import VectorStore
+        from docqa_tpu_torch.index.tiered import TieredIndex
+
+        store = VectorStore(StoreConfig(dim=IVF_DIM, shard_capacity=4096, dtype="float32"),
+                            device="cpu", mesh=mesh)
+        store.add(x, [{"doc_id": f"d{i}"} for i in range(len(x))])
+        return TieredIndex(store, min_rows=100, rebuild_tail_rows=10**6, **kw)
+
+    def tiered_sharded(self):
+        """tests/test_ivf_sharded.py's TieredIndex cases on each mesh, the
+        leader driving a command stream: serving and self-queries, fresh
+        rows through the tail, the ids of the one-device tiered path, no
+        shadow dispatch while sampling is off; a rebuild refused with no
+        stream."""
+        from docqa_tpu_torch.engines.spine import get_spine
+
+        def shadows():
+            row = get_spine().stats()["stages"].get("retrieve_shadow")
+            return row["count"] if row else 0
+
+        x3 = clustered(3000, seed=3)
+        x21 = clustered(3000, seed=21)
+        q21 = near(x21, 24, 2)
+        fresh = clustered(8, seed=99)
+        solo = self._tiered(x21, None, nprobe=6, n_clusters=30, seed=0)
+        assert solo.rebuild()
+        out = {}
+        out["solo/ids"], out["solo/scores"] = result_rows(solo.search(q21, k=10), 10)
+        for shape in mesh_shapes(self.world):
+            m = self.mesh(shape)
+            tag = f"{shape[0]}x{shape[1]}"
+            tiers = {"serve": self._tiered(x3, m, nprobe=8),
+                     "wide": self._tiered(x21, m, nprobe=6, n_clusters=30, seed=0),
+                     "quiet": self._tiered(clustered(2000, seed=11), m, nprobe=4)}
+            serve, wide, quiet = tiers.values()
+            try:
+                serve.rebuild()
+                out[f"{tag}/unstreamed_refused"] = np.array(False)
+            except RuntimeError:
+                out[f"{tag}/unstreamed_refused"] = np.array(True)
+            log = []
+            for t in tiers.values():
+                self.replayed(t, "search", log)
+
+            def lead():
+                for t in tiers.values():
+                    assert t.rebuild()
+                serve.search(x3[77], k=5)
+                serve.store.add(fresh, [{"doc_id": f"new{i}"} for i in range(8)])
+                serve.search(fresh, k=1)
+                wide.search(q21, k=10)
+                for _ in range(4):
+                    quiet.search(x3[:4], k=5)
+
+            before = shadows()
+            self.streamed(m, [(f"{name}_{part}", obj) for name, t in tiers.items()
+                              for part, obj in (("store", t.store), ("tiered", t))], lead)
+            assert len(log) == 7, len(log)
+            (self_res, c), (fresh_res, _c), (wide_res, _c) = log[:3]
+            st = serve.index_stats()
+            out[f"{tag}/shards"], out[f"{tag}/storage"] = np.array(st["shards"]), np.array(st["storage"])
+            out[f"{tag}/per_shard_bytes"] = np.array(st["per_shard_bytes"])
+            out[f"{tag}/self_ids"], out[f"{tag}/self_scores"] = result_rows(self_res, 5)
+            out.update(self.counts(c, f"{tag}/search/"))
+            out[f"{tag}/fresh"] = np.array([row[0].metadata["doc_id"] for row in fresh_res])
+            out[f"{tag}/generation"] = np.array(serve.tier_generation)
+            out[f"{tag}/ids"], out[f"{tag}/scores"] = result_rows(wide_res, 10)
+            out[f"{tag}/shadow_dispatches"] = np.array(shadows() - before)
+        self.save("tiered_sharded", **out)
+
+    def fused_tiered(self):
+        """tests/test_ivf_sharded.py's fused case on each mesh, dense and
+        hybrid over a lexical tier, the leader driving a command stream:
+        the fused retrieval against the two-step search, collectives
+        counted, no off-mesh fallback; then the same retrievals, and a
+        filtered one, under a deadline that runs out once the command is
+        published."""
+        from docqa_tpu_torch.config import EncoderConfig, StoreConfig
+        from docqa_tpu_torch.engines.encoder import EncoderEngine
+        from docqa_tpu_torch.engines.retrieve import FusedTieredRetriever
+        from docqa_tpu_torch.index.lexical import LexicalIndex
+        from docqa_tpu_torch.index.store import VectorStore
+        from docqa_tpu_torch.index.tiered import TieredIndex
+        from docqa_tpu_torch.runtime.metrics import DEFAULT_REGISTRY
+
+        out = {}
+        fallback = DEFAULT_REGISTRY.counter("retrieve_offmesh_fallback")
+        lapsing = lapsing_deadline()
+        for shape in mesh_shapes(self.world):
+            m = self.mesh(shape)
+            tag = f"{shape[0]}x{shape[1]}"
+            enc = EncoderEngine(EncoderConfig(**TIER_ENC), device="cpu", mesh=m)
+            store = VectorStore(StoreConfig(dim=IVF_DIM, shard_capacity=512, dtype="float32"),
+                                device="cpu", mesh=m)
+            lex = LexicalIndex(vocab_size=LEX_VOCAB, tile_width=LEX_WIDTH, device="cpu", mesh=m)
+            store.register_index_sink(lex)
+            store.add(enc.encode_texts(TIER_TEXTS),
+                      [{"doc_id": f"d{i}", "source": t, "text_content": t,
+                        "doc_type": TIER_DOC_TYPES[i % 2]} for i, t in enumerate(TIER_TEXTS)])
+            q_emb = enc.encode_texts(TIER_QUERIES)
+            tiered = TieredIndex(store, nprobe=4, min_rows=100, rebuild_tail_rows=10**6,
+                                 lexical=lex)
+            retr = FusedTieredRetriever(enc, tiered, device="cpu")
+            log = []
+            self.replayed(retr, "search_texts", log)
+            self.replayed(tiered, "search", log)
+            cases = [("dense", ""), ("dense", "two_"), ("hybrid", ""), ("hybrid", "two_"),
+                     ("dense", "lapsed_"), ("hybrid", "lapsed_"), ("filtered", ""),
+                     ("filtered", "lapsed_")]
+
+            def lead():
+                assert tiered.rebuild()
+                for mode in ("dense", "hybrid"):
+                    retr.search_texts(TIER_QUERIES, k=5, mode=mode)
+                    tiered.search(q_emb, k=5, mode=mode, query_texts=TIER_QUERIES)
+                for mode in ("dense", "hybrid"):
+                    retr.search_texts(TIER_QUERIES, k=5, mode=mode, deadline=lapsing)
+                for deadline in (None, lapsing):
+                    retr.search_texts(TIER_QUERIES, k=5, filters=TIER_FILTER,
+                                      deadline=deadline)
+
+            f0 = fallback.value
+            digest = self.streamed(m, [("tiered", tiered), ("retriever", retr)], lead)
+            assert len(log) == len(cases), len(log)
+            for (case, pre), (res, c) in zip(cases, log):
+                out[f"{tag}/{case}/{pre}ids"], out[f"{tag}/{case}/{pre}scores"] = result_rows(res, 5)
+                if pre != "two_":
+                    sub = f"{pre.rstrip('_')}/" if pre else ""
+                    out.update(self.counts(c, f"{tag}/{case}/{sub}"))
+            out[f"{tag}/fallbacks"] = np.array(fallback.value - f0)
+            out[f"{tag}/digest"] = np.array(digest)
+        self.save("fused_tiered", **out)
+
+    def _tier_extra(self, calls):
+        def extra(rt):
+            t = rt.search_index
+            return {"generation": np.array(t.tier_generation), "covered": np.array(t.covered),
+                    "rebuild_calls": np.array(len(calls)), "shards": np.array(
+                        t._tier[0].n_shards if t._tier is not None else 0)}
+
+        return extra
+
+    def _tiered_runtime(self, run):
+        """tier_script on the leader; every rank counts the rebuilds it
+        started (a follower none) and, under load, the leader's k-means
+        is held ``REBUILD_SLOW_S`` so the questions land during it."""
+        import time as _time
+
+        from docqa_tpu_torch.index import tiered as T
+
+        calls = []
+        rebuild, fit = T.TieredIndex.rebuild, T.fit_cells
+
+        def counted(t, *a, **k):
+            calls.append(1)
+            return rebuild(t, *a, **k)
+
+        def slow_fit(*a, **k):
+            if len(calls) > 1:  # the background rebuild, not the first
+                _time.sleep(REBUILD_SLOW_S)
+            return fit(*a, **k)
+
+        T.TieredIndex.rebuild, T.fit_cells = counted, slow_fit
+        try:
+            self._runtime(run, None, tier_script, extra=self._tier_extra(calls))
+        finally:
+            T.TieredIndex.rebuild, T.fit_cells = rebuild, fit
+
+    def runtime_tiered(self):
+        self._tiered_runtime("tiered")
+
+    def runtime_tiered_wide(self):
+        self._tiered_runtime("tiered_wide")
+
+    def fused_rag(self):
+        """tests/test_rag_fused.py's sharded case at (1, 2): FusedRAG over a
+        row-sharded store with its sidecar and a TP generator, every rank
+        asking; the classic text path on the same engine; a one-device
+        store's sources; the runtime's rule of no FusedRAG on a mesh."""
+        import json
+
+        from docqa_tpu_torch.config import (
+            DecoderConfig,
+            EncoderConfig,
+            GenerateConfig,
+            StoreConfig,
+            load_config,
+        )
+        from docqa_tpu_torch.engines.encoder import EncoderEngine
+        from docqa_tpu_torch.engines.generate import GenerateEngine
+        from docqa_tpu_torch.engines.rag_fused import FusedRAG
+        from docqa_tpu_torch.index.store import VectorStore, sidecar_rows
+        from docqa_tpu_torch.service.app import DocQARuntime
+        from docqa_tpu_torch.service.qa import QA_TEMPLATE
+
+        m = self.mesh((1, self.world))
+        enc = EncoderEngine(EncoderConfig(**ENC_WIDTHS), device="cpu")
+        gen = GenerateEngine(DecoderConfig(**RAG_DEC), GenerateConfig(**RAG_GEN), seed=7,
+                             device="cpu", mesh=m)
+        vecs = enc.encode_texts(RAG_CHUNKS)
+        rows, lens = sidecar_rows(gen.tokenizer, RAG_CHUNKS, RAG_WIDTH)
+        meta = [{"doc_id": f"d{i}", "source": f"chunk {i}", "text_content": t}
+                for i, t in enumerate(RAG_CHUNKS)]
+        cfg = StoreConfig(dim=64, shard_capacity=256, token_width=RAG_WIDTH, dtype="float32")
+        stores = {"mesh": VectorStore(cfg, device="cpu", mesh=m),
+                  "solo": VectorStore(cfg, device="cpu")}
+        for st in stores.values():
+            st.add(vecs, meta, token_rows=rows, token_lens=lens)
+        rag = FusedRAG(enc, stores["mesh"], gen, QA_TEMPLATE, k=3, device="cpu")
+        out = {"block": np.array(stores["mesh"].token_sidecar()[0].shape[0])}
+        for qi, question in enumerate(RAG_QUESTIONS):
+            got, c = self.counted(lambda: rag.ask(question, max_new_tokens=10))
+            emb = enc.encode_texts([question])
+            hits = stores["mesh"].search(emb, k=3)[0]
+            context = "\n\n".join(h.metadata["text_content"] for h in hits)
+            want = gen.generate_texts([QA_TEMPLATE.format(context=context, question=question)],
+                                      max_new_tokens=10)[0]
+            solo = [h.metadata["source"] for h in stores["solo"].search(emb, k=3)[0]]
+            out[f"q{qi}"] = np.array(json.dumps({
+                "answer": got["answer"], "sources": got["sources"], "classic": want,
+                "classic_sources": [h.metadata["source"] for h in hits], "solo": solo}))
+            out.update(self.counts(c, f"q{qi}/"))
+        rt = DocQARuntime(load_config(env={}, overrides={**RT_CFG, "store.token_width": 8}),
+                          device="cpu")
+        out["runtime_fused_rag"] = np.array(rt.qa is not None and rt.qa.fused_rag is not None)
+        if rt.follower:
+            rt.follow()
+        rt.stop()
+        self.save("fused_rag", **out)
 
     # ---- the tagger's data-parallel step -------------------------------------
 
