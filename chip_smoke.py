@@ -305,12 +305,32 @@ Phases, each of which fails the run on any error (nothing is caught):
    card (16 queries, nprobe 8, the shard's masking) and merged with
    ``merge_topk``: scores and ids equal the whole probe's (tie rule), each
    shard timed beside its byte bound.  The phase must take at most 120 s.
+18. training on a mesh, last (after phases 11 (b)-(d), 13 and 14 (d)), in
+   a world of one NCCL rank of its own: (a) on its (1, 1) mesh ``make_train_step(mesh=)`` at
+   phase 11 (b)'s config (Mistral-7B width, 2 layers, float32 master
+   weights, bf16 matmuls, remat) takes 5 steps on phase 11 (b)'s ragged
+   4 x 512 batch, losses and params bit-equal to the mesh-less step's with
+   0 collectives (under ``torch.use_deterministic_algorithms``: the
+   embedding's backward adds with atomics otherwise), and
+   ``make_encoder_train_step(mesh=)`` at MiniLM width the same way; the
+   trained encoder's embeddings through K1 ``prefill`` against the plain
+   attention's (K1 counted); the LM state through a sharded
+   ``TrainCheckpointer`` save at step 4 and a restore into another tree:
+   seconds and bytes, params bit-equal, the next loss the fifth's.  (b) one
+   rank's shard of full-depth Mistral-7B at TP 8 and TP 4 (32/n q heads, 8/n
+   kv heads, MLP 14,336/n, vocabulary 32,000/n, float32 master weights drawn
+   on the card): 5 remat steps on a ragged 4 x 512 batch in the cut
+   vocabulary, the loss falling; ms a step, the enqueue's share of it,
+   tokens/s and peak memory beside the state's bytes reckoned at 16 B a
+   parameter; one more TP-8 step under ``torch.profiler`` (device busy ms,
+   idle share, activities).  One rank's work, no collective time.  The
+   phase must take at most 120 s.
 
 The recorder is on by default, so phases 3-7 run traced too.  Prints the
 pool JSON line, the ingest JSON line, the obs JSON line, the app JSON line,
 the lifecycle JSON line, the training JSON line, the tiered JSON line, the
 checkpoints JSON line, the quant JSON line, the mesh JSON line, the mesh runtime JSON
-line, the mesh tiered JSON line, the launches-by-phase JSON
+line, the mesh tiered JSON line, the mesh train JSON line, the launches-by-phase JSON
 line (each main-path run's K1 and K4 counters, whose sums are the kernels
 line's launches; each run's K1 total must equal the sum of its paths, and
 its K4 total the sum of its weight modes and of its kernel modes), the
@@ -7008,6 +7028,359 @@ def run_mesh_tiered_path(counts, qa, tagger, phase12_app, tier_arrays):
             "launches": {"17 runtime": launches}}
 
 
+# ---- phase 18: training on a mesh ------------------------------------------------
+
+MTRAIN_STEPS = 5  # (a) and (b)
+MTRAIN_SAVE_AT = 4  # (a): the sharded save; the fifth step is the one resumed
+MTRAIN_TP = (8, 4)  # (b): one rank's shard of full-depth Mistral-7B at these TP
+MTRAIN_PHASE_LIMIT_S = 120.0
+
+
+class _deterministic:
+    """``torch.use_deterministic_algorithms`` for a block: the embedding's
+    backward (an accumulating ``index_put_``) adds with atomics on the card
+    otherwise, and two runs of one step then part in their last bits."""
+
+    def __enter__(self):
+        self.was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(self.was)
+
+
+def _bit_equal(a, b):
+    return all(torch.equal(a[k].detach(), b[k].detach()) for k in a)
+
+
+def run_mesh_train_lm(mesh, workdir):
+    """(a) the LM at phase 11 (b)'s config: make_train_step(mesh=) on the
+    (1, 1) mesh against the mesh-less step, ``MTRAIN_STEPS`` steps each on
+    phase 11 (b)'s ragged batch; a sharded save at ``MTRAIN_SAVE_AT``,
+    restored into a fresh tree whose next step gives the fifth loss."""
+    from docqa_tpu_torch.training.checkpoint import TrainCheckpointer
+    from docqa_tpu_torch.training.train import init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(DecoderConfig.mistral_7b(), num_layers=LM_LAYERS)
+    rng = np.random.default_rng(7)
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, (len(LM_LENGTHS), max(LM_LENGTHS)),
+                                        dtype=np.int32)).to(dev)
+    lengths = torch.tensor(LM_LENGTHS, dtype=torch.int32, device=dev)
+    ck_dir = os.path.join(workdir, "lm_sharded")
+    ckpt = TrainCheckpointer(ck_dir, max_to_keep=1)
+    runs, saved, save_s = {}, None, None
+    for name, m in (("plain", None), ("mesh", mesh)):
+        state, opt = init_train_state(cfg, seed=0, device=dev, mesh=m)
+        step = make_train_step(cfg, opt, m)
+        mesh_mod.COLLECTIVES.clear()
+        losses = []
+        for _ in range(MTRAIN_STEPS):
+            state, loss = step(state, ids, lengths)
+            losses.append(float(loss))
+            if m is not None and state["step"] == MTRAIN_SAVE_AT:
+                saved = {k: v.detach().clone() for k, v in state["params"].items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ckpt.save(state)
+                save_s = time.perf_counter() - t0
+        runs[name] = (losses, {k: v.detach() for k, v in state["params"].items()},
+                      dict(mesh_mod.COLLECTIVES))
+        del state, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    if runs["mesh"][0] != runs["plain"][0]:
+        raise AssertionError(f"(1, 1) mesh losses {runs['mesh'][0]} against mesh-less "
+                             f"{runs['plain'][0]}")
+    if not _bit_equal(runs["mesh"][1], runs["plain"][1]):
+        raise AssertionError("the (1, 1) mesh's params part from the mesh-less step's")
+    if runs["mesh"][2]:
+        raise AssertionError(f"the (1, 1) mesh issued collectives: {runs['mesh'][2]}")
+    losses = runs["mesh"][0]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the LM loss did not fall: {losses}")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_dir = os.path.join(ck_dir, str(MTRAIN_SAVE_AT))
+    files = sorted(os.listdir(step_dir))
+    ck_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in files)
+    template, opt = init_train_state(cfg, seed=1, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    TrainCheckpointer(ck_dir, max_to_keep=1).restore(template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if (template["step"], template["opt_state"].count) != (MTRAIN_SAVE_AT, MTRAIN_SAVE_AT):
+        raise AssertionError(f"restored step {template['step']}, saved {MTRAIN_SAVE_AT}")
+    if not _bit_equal(template["params"], saved):
+        raise AssertionError("the restored params differ from the saved ones")
+    del saved
+    template, loss = make_train_step(cfg, opt, mesh)(template, ids, lengths)
+    resumed = float(loss)
+    if resumed != losses[MTRAIN_SAVE_AT]:
+        raise AssertionError(f"resumed loss {resumed} against uninterrupted "
+                             f"{losses[MTRAIN_SAVE_AT]}")
+    del template, opt
+    shutil.rmtree(ck_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (a) LM at Mistral-7B width, {LM_LAYERS} layers: {MTRAIN_STEPS} steps on the "
+        f"(1, 1) mesh bit-equal to the mesh-less step (losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}), 0 collectives; sharded save at step {MTRAIN_SAVE_AT}: "
+        f"{files}, {ck_bytes / 2**30:.2f} GiB in {save_s:.1f} s, restored in "
+        f"{restore_s:.1f} s, params bit-equal, next loss {resumed:.6f} == uninterrupted")
+    return {"layers": LM_LAYERS, "losses": losses, "bit_equal": True, "collectives": 0,
+            "checkpoint": {"files": files, "bytes": ck_bytes, "save_s": save_s,
+                           "restore_s": restore_s, "resumed_loss": resumed}}
+
+
+def run_mesh_train_encoder(counts, mesh):
+    """(a) the encoder at MiniLM width: make_encoder_train_step(mesh=) on the
+    (1, 1) mesh against the mesh-less step, bit for bit; the trained
+    embeddings through K1 ``prefill`` against the plain attention's."""
+    from docqa_tpu_torch.text.tokenizer import default_tokenizer
+    from docqa_tpu_torch.training.encoder import (
+        encode_pair_batch, init_encoder_train_state, make_encoder_train_step,
+        synthetic_pairs,
+    )
+    from docqa_tpu_torch.weights import host_init_encoder_params
+
+    dev = torch.device("cuda")
+    cfg = EncoderConfig()
+    tok = default_tokenizer(cfg.vocab_size)
+    host = host_init_encoder_params(cfg, 0)
+    batches = [encode_pair_batch(tok, synthetic_pairs(np.random.default_rng(10 + i),
+                                                      ENC_BATCH), ENC_SEQ)
+               for i in range(MTRAIN_STEPS)]
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        state, opt = init_encoder_train_state(cfg, params=host, device=dev, mesh=m)
+        step = make_encoder_train_step(cfg, opt, m)
+        mesh_mod.COLLECTIVES.clear()
+        losses = [float(step(state, *b)[1]) for b in batches]
+        runs[name] = (losses, {k: v.detach() for k, v in state["params"].items()},
+                      dict(mesh_mod.COLLECTIVES))
+    if runs["mesh"][0] != runs["plain"][0] or not _bit_equal(runs["mesh"][1], runs["plain"][1]):
+        raise AssertionError(f"the (1, 1) mesh's encoder steps part from the mesh-less "
+                             f"ones: {runs['mesh'][0]} against {runs['plain'][0]}")
+    if runs["mesh"][2]:
+        raise AssertionError(f"the (1, 1) mesh issued collectives: {runs['mesh'][2]}")
+    trained = runs["mesh"][1]
+    pairs = synthetic_pairs(np.random.default_rng(123), ENC_EVAL_PAIRS)
+    _acc, plain = _recall_at_1(trained, cfg, tok, pairs, use_flash=False)
+    counts.clear()
+    _acc, served = _recall_at_1(trained, cfg, tok, pairs, use_flash=True)
+    torch.cuda.synchronize()
+    k1 = dict(counts)
+    if not k1.get("flash_attention.prefill", 0):
+        raise AssertionError(f"the trained encoder's serving encode launched no K1: {k1}")
+    atol, rtol = TOL[torch.bfloat16]
+    err = (served - plain).abs()
+    if not bool((err <= atol + rtol * plain.abs()).all()):
+        raise AssertionError(f"K1 embeddings part from the plain ones by {float(err.max())}")
+    log(f"  (a) encoder at MiniLM width: {MTRAIN_STEPS} steps on the (1, 1) mesh bit-equal "
+        f"to the mesh-less step (losses {runs['mesh'][0][0]:.4f} -> "
+        f"{runs['mesh'][0][-1]:.4f}), 0 collectives; its embeddings through K1 within "
+        f"{float(err.max()):.2e} of the plain path (K1 launches {k1})")
+    return {"losses": runs["mesh"][0], "bit_equal": True, "collectives": 0,
+            "k1_vs_plain_max_abs_err": float(err.max()), "k1_launches": k1}
+
+
+MTRAIN_NLL_ATOL = 1e-4  # (c): float32 nll near 30; two formulas of one log-softmax
+MTRAIN_NLL_GRAD_ATOL = 1e-5  # (c): softmax - one-hot, each element within [-1, 1]
+
+
+def run_vocab_parallel_nll(mesh):
+    """(c) the vocabulary-parallel cross-entropy of make_train_step(mesh=)
+    (``training/train._vocab_parallel_nll``) on the card.  On the (1, 1)
+    mesh its MAX and SUM collectives are the identity, so the nll of a
+    rank's logits block [4, 511, 32,000 / n] and its gradient are held
+    against log_softmax + gather on the same logits at each TP of
+    ``MTRAIN_TP``; forward and backward timed for both."""
+    from docqa_tpu_torch.training.train import _vocab_parallel_nll
+
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for n in MTRAIN_TP:
+        vocab = DecoderConfig.mistral_7b().vocab_size // n
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(n)
+        logits = 4 * torch.randn(len(LM_LENGTHS), max(LM_LENGTHS) - 1, vocab,
+                                 generator=gen, device=dev)
+        targets = torch.randint(0, vocab, logits.shape[:2], generator=gen, device=dev)
+        routes = {
+            "vocab_parallel": lambda x: _vocab_parallel_nll(x, targets, vocab, mesh),
+            "plain": lambda x: -torch.gather(torch.log_softmax(x, -1), -1,
+                                             targets[..., None])[..., 0],
+        }
+        res, ms = {}, {}
+        for name, nll_of in routes.items():
+            x = logits.clone().requires_grad_(True)
+
+            def fwd_bwd():
+                x.grad = None
+                nll = nll_of(x)
+                nll.sum().backward()
+                return nll
+
+            mesh_mod.COLLECTIVES.clear()
+            res[name] = (fwd_bwd().detach(), x.grad.clone())
+            if mesh_mod.COLLECTIVES:
+                raise AssertionError(f"a group of one rank issued {dict(mesh_mod.COLLECTIVES)}")
+            ms[name] = time_ms(fwd_bwd, flush, reps=10)
+        err = float((res["vocab_parallel"][0] - res["plain"][0]).abs().max())
+        grad_err = float((res["vocab_parallel"][1] - res["plain"][1]).abs().max())
+        if not (err <= MTRAIN_NLL_ATOL and grad_err <= MTRAIN_NLL_GRAD_ATOL):
+            raise AssertionError(f"TP {n}: the vocabulary-parallel nll parts from log_softmax "
+                                 f"by {err} (gradient {grad_err})")
+        out[f"tp{n}"] = {"vocab": vocab, "max_abs_err": err, "grad_max_abs_err": grad_err,
+                         "ms": ms["vocab_parallel"], "plain_ms": ms["plain"]}
+        log(f"  (c) TP {n}: the vocabulary-parallel nll of [{len(LM_LENGTHS)}, "
+            f"{max(LM_LENGTHS) - 1}, {vocab}] float32 logits within {err:.2e} of "
+            f"log_softmax + gather (atol {MTRAIN_NLL_ATOL:g}), its gradient within "
+            f"{grad_err:.2e} (atol {MTRAIN_NLL_GRAD_ATOL:g}); forward and backward "
+            f"{ms['vocab_parallel']:.3f} ms against {ms['plain']:.3f} ms")
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_shard_config(n):
+    """One rank's widths of full-depth Mistral-7B at TP ``n``: 32/n q heads,
+    8/n kv heads, MLP 14,336/n, vocabulary 32,000/n (its lm_head block; the
+    embedding cut alike)."""
+    full = DecoderConfig.mistral_7b()
+    return dataclasses.replace(full, num_heads=full.num_heads // n,
+                               num_kv_heads=full.num_kv_heads // n,
+                               mlp_dim=full.mlp_dim // n, vocab_size=full.vocab_size // n)
+
+
+def run_mesh_train_shards():
+    """(b) one rank's shard of full-depth Mistral-7B at each TP of
+    ``MTRAIN_TP``: float32 master weights drawn on the card,
+    ``MTRAIN_STEPS`` remat steps on a ragged 4 x 512 batch in the cut
+    vocabulary; ms a step, tokens/s and peak memory beside the state's
+    bytes reckoned at 16 B a parameter (params, grads, two moments).  One
+    rank's work: no collective time."""
+    from docqa_tpu_torch.models.decoder import decoder_param_schema
+    from docqa_tpu_torch.training.train import init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    out = {}
+    for n in MTRAIN_TP:
+        cfg = rank_shard_config(n)
+        n_params = sum(math.prod(shape) for _n, _k, shape, _f in decoder_param_schema(cfg))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state, opt = init_train_state(cfg, seed=0, device=dev)
+        rng = np.random.default_rng(8)
+        ids = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                            (len(LM_LENGTHS), max(LM_LENGTHS)),
+                                            dtype=np.int32)).to(dev)
+        lengths = torch.tensor(LM_LENGTHS, dtype=torch.int32, device=dev)
+        step = make_train_step(cfg, opt)
+        losses, times, enqueued = [], [], []
+        for _ in range(MTRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, ids, lengths)
+            enqueued.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated() - base
+        profiled = _profiled_step(step, state, ids, lengths) if n == MTRAIN_TP[0] else None
+        del state, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"TP {n}: the loss did not fall: {losses}")
+        step_ms = statistics.median(times[1:]) * 1e3
+        host_share = statistics.median(e / t for e, t in zip(enqueued[1:], times[1:]))
+        tokens = sum(LM_LENGTHS)
+        out[f"tp{n}"] = {
+            "layers": cfg.num_layers, "params": n_params, "state_bytes": 16 * n_params,
+            "losses": losses, "ms_per_step": step_ms, "first_step_ms": times[0] * 1e3,
+            "step_ms": [t * 1e3 for t in times], "enqueue_ms": [e * 1e3 for e in enqueued],
+            "host_share": host_share, "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_gib": peak / 2**30, "profiled_step": profiled,
+        }
+        log(f"  (b) TP {n}: one rank's shard of Mistral-7B at {cfg.num_layers} layers "
+            f"({n_params / 1e9:.3f} B params, {16 * n_params / 1e9:.1f} GB of state "
+            f"reckoned): loss {losses[0]:.4f} -> {losses[-1]:.4f}; {step_ms:.1f} ms a step "
+            f"(median of steps 2-{MTRAIN_STEPS}; the first {times[0] * 1e3:.0f} ms), the "
+            f"step's enqueue {host_share:.2f} of it, {tokens / step_ms * 1e3:.0f} tokens/s, "
+            f"peak {peak / 2**30:.2f} GiB" + (f"; one step profiled: {profiled}" if profiled
+                                              else ""))
+    return out
+
+
+def _profiled_step(step, state, ids, lengths):
+    """One more step under ``torch.profiler``: its wall ms, the device's
+    busy ms (the union of the card's activity intervals) and idle share,
+    and the activities (kernels, copies) the card ran; None where the
+    profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, ids, lengths)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    if not spans:  # the profiler saw no device activity: not measured
+        return {"wall_ms": wall * 1e3, "device_busy_ms": None, "idle_share": None,
+                "device_activities": 0}
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1 - busy_us / 1e3 / (wall * 1e3), "device_activities": len(spans)}
+
+
+def run_mesh_train_path(counts):
+    """Phase 18, last: a world of one NCCL rank of its own, (a) and (c) on
+    its (1, 1) mesh, (b) one rank's full-depth shards."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="docqa_phase18_")
+    try:
+        if not mesh_mod.multihost_init(f"file://{workdir}/nccl_init", 1, 0, local_rank=0,
+                                       device="cuda"):
+            raise AssertionError("multihost_init did not start the world")
+        mesh = mesh_mod.make_mesh(MeshConfig(), device="cuda")
+        if (mesh.n_data, mesh.n_model, dist.get_backend()) != (1, 1, "nccl"):
+            raise AssertionError(f"mesh {mesh.n_data}x{mesh.n_model} over "
+                                 f"{dist.get_backend()}")
+        with _deterministic():
+            lm = run_mesh_train_lm(mesh, workdir)
+            enc = run_mesh_train_encoder(counts, mesh)
+        nll = run_vocab_parallel_nll(mesh)
+        dist.destroy_process_group()
+        shards = run_mesh_train_shards()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(workdir, ignore_errors=True)
+    phase_s = time.perf_counter() - t0
+    log(f"  phase 18 took {phase_s:.1f} s (limit {MTRAIN_PHASE_LIMIT_S:.0f} s)")
+    if phase_s > MTRAIN_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 18 took {phase_s:.1f} s, over {MTRAIN_PHASE_LIMIT_S} s")
+    return {"summary": {"lm": lm, "encoder": enc, "vocab_parallel_nll": nll,
+                        "shards": shards, "phase_s": phase_s},
+            "launches": {"18 encoder": enc["k1_launches"]}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -7211,6 +7584,12 @@ def main(argv=None) -> int:
     quant_path["launches"].update({f"runtime int{b}": n
                                    for b, n in quant_rt["launches"].items()})
     log(f"  phase 13 took {ckpt_s:.1f} s; phase 14 {quant_s:.1f} s")
+
+    log("[18/18] training on a mesh: a world of one NCCL rank, the LM and encoder steps on "
+        "its (1, 1) mesh bit-equal to the mesh-less ones, a sharded checkpoint saved and "
+        "restored; then one rank's shard of full-depth Mistral-7B at TP 8 and TP 4")
+    mtrain_path = run_mesh_train_path(_kernels.LAUNCHES)
+    mtrain_s = mtrain_path["summary"]["phase_s"]
     # launches of the main-path runs (each counted from 0 around its run);
     # the wrapper counts every call under K1 and under its path, so each
     # run's K1 total must be the sum of its paths
@@ -7226,6 +7605,7 @@ def main(argv=None) -> int:
         **mesh_path["launches"],
         **mrt_path["launches"],
         **mtr_path["launches"],
+        **mtrain_path["launches"],
     }
     path_launches = collections.Counter()
     for phase, counted in phase_launches.items():
@@ -7320,6 +7700,7 @@ def main(argv=None) -> int:
                 "mesh_path": mesh_path, "mesh_path_s": mesh_s,
                 "mesh_runtime_path": mrt_path, "mesh_runtime_path_s": mrt_s,
                 "mesh_tiered_path": mtr_path, "mesh_tiered_path_s": mtr_s,
+                "mesh_train_path": mtrain_path, "mesh_train_path_s": mtrain_s,
                 "launches_by_phase": phase_launches,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
@@ -7405,6 +7786,7 @@ def main(argv=None) -> int:
         "runtime": {k: v for k, v in mt["runtime"].items() if k != "asks"},
         "shards": mt["shards"], "phase_s": mtr_s,
     }}))
+    print(json.dumps({"mesh_train": mtrain_path["summary"]}))
     print(json.dumps({"launches_by_phase": {
         phase: {key: n for key, n in counted.items() if n}
         for phase, counted in phase_launches.items()}}))

@@ -14,7 +14,14 @@ head counts off the shards' own widths, and the row-parallel ``wo`` and
 ``w_down`` products are summed over the model group: exactly two
 all-reduces a layer, in the activation's dtype, and no other collective
 in the forward.  :func:`decoder_head` returns vocabulary-local logits (the
-engine gathers them).  At ``n`` = 1 nothing is inserted.
+engine gathers them).  At ``n`` = 1 nothing is inserted.  Under autograd
+(the trainers) the two all-reduces are Megatron's *g* (the gradient
+passes as it is) and the input of each group of column-parallel products
+(``wq``/``wk``/``wv``, ``w_gate``/``w_up``, ``lm_head``) goes through *f*,
+which issues nothing forward and sums its gradient over the model group
+backward (``runtime/mesh.py``): 2 x layers + 1 all-reduces in the
+backward, and the replicated leaves get whole gradients, equal on every
+model rank.
 
 KV cache: preallocated [b, max_len, kv_heads, head_dim] per layer, written
 IN PLACE at a per-lane row offset (the reference returns an updated copy
@@ -27,7 +34,7 @@ shards onto the tree (the port's own safetensors reader).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,7 +46,9 @@ from docqa_tpu_torch.ops import qmatmul as _qm
 from docqa_tpu_torch.ops.attention import attention, attention_reference
 from docqa_tpu_torch.ops.norms import rms_norm
 from docqa_tpu_torch.ops.rope import apply_rope, rope_angles
-from docqa_tpu_torch.runtime.mesh import MeshContext, all_gather, all_reduce
+from docqa_tpu_torch.runtime.mesh import (
+    MeshContext, all_gather, copy_to_group, reduce_from_group,
+)
 from docqa_tpu_torch.utils import torch_dtype
 
 Params = Dict[str, torch.Tensor]
@@ -76,19 +85,26 @@ def init_decoder_params(
     (default ``cfg.dtype``).  The route for full-width random weights on a
     card; its numbers differ from the reference's numpy route
     (:func:`docqa_tpu_torch.weights.host_init_decoder_params`)."""
+    return dict(iter_decoder_params(cfg, seed, device, dtype))
+
+
+def iter_decoder_params(
+    cfg: DecoderConfig, seed: int, device, dtype: Optional[torch.dtype] = None
+) -> Iterator[Tuple[str, torch.Tensor]]:
+    """:func:`init_decoder_params`' (name, leaf) pairs, one drawn at a
+    time, so a caller that keeps a block of each holds one whole leaf at
+    most."""
     dtype = dtype or torch_dtype(cfg.dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    p: Params = {}
     for name, kind, shape, fan_in in decoder_param_schema(cfg):
         if kind == "ones":
-            p[name] = torch.ones(shape, dtype=dtype, device=device)
+            yield name, torch.ones(shape, dtype=dtype, device=device)
         else:
-            w = torch.randn(
-                shape, generator=gen, dtype=torch.float32, device=device
-            )
-            p[name] = (w * fan_in ** -0.5).to(dtype)
-    return p
+            w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+            w.mul_(fan_in ** -0.5)
+            yield name, w.to(dtype)
+            del w
 
 
 def init_kv_cache(
@@ -160,7 +176,16 @@ def _row_parallel(x: torch.Tensor, params: Params, name: str, dtype, full_in: in
         out = _qm.qmatmul(x, w[g0:g1], scale[g0:g1])
     else:
         out = _qmatmul(x, params, name, dtype)
-    return all_reduce(out, mesh.model_group, "decoder")
+    return reduce_from_group(out, mesh.model_group, "decoder")
+
+
+def _column_input(y: torch.Tensor, mesh: Optional[MeshContext]) -> torch.Tensor:
+    """The input of a group of column-parallel products, through
+    Megatron's *f*: under autograd each rank's gradient of ``y`` is its
+    heads' share, summed over the model group in the backward."""
+    if mesh is None or mesh.n_model == 1:
+        return y
+    return copy_to_group(y, mesh.model_group, "decoder_grad")
 
 
 def decoder_layer_stack(
@@ -192,7 +217,7 @@ def decoder_layer_stack(
     cos, sin = rope_angles(cfg.head_dim, rope_len, cfg.rope_theta, ids.device)
 
     def layer(i: int, x: torch.Tensor) -> torch.Tensor:
-        y = rms_norm(x, params[f"l{i}_attn_norm_g"], cfg.norm_eps)
+        y = _column_input(rms_norm(x, params[f"l{i}_attn_norm_g"], cfg.norm_eps), mesh)
         # heads from the widths: a tensor-parallel shard holds its share
         q = _qmatmul(y, params, f"l{i}_wq", dtype).reshape(b, s, -1, cfg.head_dim)
         k = _qmatmul(y, params, f"l{i}_wk", dtype).reshape(b, s, -1, cfg.head_dim)
@@ -205,7 +230,7 @@ def decoder_layer_stack(
         x = x + _row_parallel(attn, params, f"l{i}_wo", dtype,
                               cfg.num_heads * cfg.head_dim, mesh)
 
-        y = rms_norm(x, params[f"l{i}_mlp_norm_g"], cfg.norm_eps)
+        y = _column_input(rms_norm(x, params[f"l{i}_mlp_norm_g"], cfg.norm_eps), mesh)
         gate = _qmatmul(y, params, f"l{i}_w_gate", dtype)
         up = _qmatmul(y, params, f"l{i}_w_up", dtype)
         act = F.silu(gate.float()).to(dtype) * up
@@ -226,16 +251,17 @@ def decoder_head(
     x: torch.Tensor,  # [b, s, hidden]
     new_lengths: Optional[torch.Tensor] = None,
     last_token_only: bool = False,
+    mesh: Optional[MeshContext] = None,
 ) -> torch.Tensor:
     """Final norm + lm_head over the trunk's hidden states (f32 logits;
     a tensor-parallel ``lm_head`` shard gives this rank's vocabulary
-    block)."""
+    block, its input through Megatron's *f*)."""
     dtype = torch_dtype(cfg.dtype)
     if last_token_only and x.shape[1] > 1:
         # prefill: only the last valid row per lane feeds sampling
         idx = (new_lengths.long() - 1)[:, None, None].expand(-1, 1, x.shape[2])
         x = torch.gather(x, 1, idx)
-    x = rms_norm(x, params["final_norm_g"], cfg.norm_eps)
+    x = _column_input(rms_norm(x, params["final_norm_g"], cfg.norm_eps), mesh)
     return _qmatmul(x, params, "lm_head", dtype).float()
 
 
@@ -243,7 +269,9 @@ def gather_logits(logits: torch.Tensor, vocab: int,
                   mesh: Optional[MeshContext]) -> torch.Tensor:
     """Whole-vocabulary logits from this rank's ``lm_head`` block: on a
     model axis of n > 1 one ``all_gather`` (site ``logits``), a vocabulary
-    that does not divide padded for it; otherwise ``logits`` itself."""
+    that does not divide padded for it; otherwise ``logits`` itself.
+    Serving's: no gradient passes it (the trainers' loss is vocabulary
+    parallel, ``training/train.py``)."""
     if mesh is None or mesh.n_model == 1:
         return logits
     chunk = -(-vocab // mesh.n_model)
@@ -302,7 +330,7 @@ def decoder_forward(
 
     x = decoder_layer_stack(params, cfg, ids, positions, max_len, attend,
                             remat=remat, mesh=mesh)
-    return decoder_head(params, cfg, x, new_lengths, last_token_only)
+    return decoder_head(params, cfg, x, new_lengths, last_token_only, mesh=mesh)
 
 
 # --------------------------------------------------------------------------

@@ -7,12 +7,16 @@ from docqa_tpu_torch.parallel.ring_attention import (
     ulysses_attention,
 )
 from docqa_tpu_torch.parallel.sharding import (
+    TreeLayout,
     cache_pspecs,
+    decoder_layout,
     decoder_param_pspecs,
     paged_pool_pspecs,
+    replicated_layout,
     shard_decoder_params,
     shard_kv_cache,
     shard_paged_pools,
+    unshard,
 )
 
 __all__ = [
@@ -22,6 +26,10 @@ __all__ = [
     "shard_decoder_params",
     "shard_kv_cache",
     "shard_paged_pools",
+    "TreeLayout",
+    "decoder_layout",
+    "replicated_layout",
+    "unshard",
     "ring_attention",
     "ring_attention_local",
     "ulysses_attention",

@@ -20,8 +20,14 @@ and no collective runs, as the reference's single chip shards nothing.
 ``"<op>.<site>"`` (``all_reduce.decoder``, ``all_gather.logits``, ...), beside
 the kernels' ``ops/_kernels.LAUNCHES``, so tests and the chip smoke can pin
 each entry point's budget.  A collective over a group of one rank is never
-issued and never counted.  A collective that fails or outlives the process
-group's timeout raises :class:`~docqa_tpu_torch.ops._kernels.MeshFault`
+issued and never counted.  The trainers' collectives go through autograd:
+:func:`copy_to_group` (Megatron's *f*: nothing forward, an all-reduce of
+the gradient backward), :func:`reduce_from_group` (*g*: an all-reduce
+forward, the gradient as it is backward) and :func:`gather_from_group`
+(an all-gather forward, backward this rank's slice of the summed
+gradient).  Outside autograd each is the plain collective or nothing, so
+serving issues what it issued before.  A collective that fails or outlives
+the process group's timeout raises :class:`~docqa_tpu_torch.ops._kernels.MeshFault`
 (a device fault: every serving catch-all lets it through), and the mesh is
 broken from then on: every later collective and command raises at once.
 That holds where a collective blocks until it is done: gloo, the CPU
@@ -142,6 +148,14 @@ def all_gather(t: torch.Tensor, group, site: str, dim: int = 0) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def barrier(group, site: str) -> None:
+    """Wait for every rank of ``group`` (a gloo group of host work)."""
+    if group_size(group) == 1:
+        return
+    _collective(f"barrier.{site}", lambda: dist.barrier(group=group))
+    count_collective("barrier", site)
+
+
 def all_to_all(t: torch.Tensor, group, site: str) -> torch.Tensor:
     """Chunk ``i`` of ``t``'s leading axis to group rank ``i``; returns the
     chunks received, in source rank order along the leading axis."""
@@ -153,6 +167,92 @@ def all_to_all(t: torch.Tensor, group, site: str) -> torch.Tensor:
                 lambda: dist.all_to_all_single(out, t, group=group))
     count_collective("all_to_all", site)
     return out
+
+
+# ---------------------------------------------------------------------------
+# collectives under autograd (the trainers' Megatron operators)
+# ---------------------------------------------------------------------------
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's *f*: identity forward, gradient summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group, site):
+        ctx.group, ctx.site = group, site
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = grad.clone(memory_format=torch.contiguous_format)
+        return all_reduce(whole, ctx.group, ctx.site), None, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's *g*: the sum over the group forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, site):
+        return all_reduce(x.clone(), group, site)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """All-gather along ``dim`` forward; backward, this rank's slice of the
+    gradient summed over the group (every rank's loss read every slice)."""
+
+    @staticmethod
+    def forward(ctx, x, group, site, dim):
+        ctx.group, ctx.site, ctx.dim = group, site, dim
+        ctx.size = x.shape[dim]
+        return all_gather(x, group, site, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = all_reduce(grad.clone(memory_format=torch.contiguous_format), ctx.group,
+                           ctx.site + "_grad")
+        start = dist.get_rank(ctx.group) * ctx.size
+        return whole.narrow(ctx.dim, start, ctx.size), None, None, None
+
+
+def copy_to_group(x: torch.Tensor, group, site: str) -> torch.Tensor:
+    """Megatron's *f* before a group of column-parallel products: ``x`` as
+    it is forward (nothing issued); backward, one all-reduce of its
+    gradient over ``group`` (``all_reduce.<site>``).  The identity on a
+    group of one rank or outside autograd."""
+    if group_size(group) == 1 or not _tracked(x):
+        return x
+    return _CopyToGroup.apply(x, group, site)
+
+
+def reduce_from_group(x: torch.Tensor, group, site: str) -> torch.Tensor:
+    """Megatron's *g* after a row-parallel product: ``x`` summed over
+    ``group`` (``all_reduce.<site>``); backward, the gradient as it is.
+    Outside autograd it is :func:`all_reduce` itself, in place; under
+    autograd it reduces a copy."""
+    if group_size(group) == 1:
+        return x
+    if not _tracked(x):
+        return all_reduce(x, group, site)
+    return _ReduceFromGroup.apply(x, group, site)
+
+
+def gather_from_group(x: torch.Tensor, group, site: str, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` (``all_gather.<site>``)
+    with a gradient path back: each rank receives its slice of the
+    gradient summed over ``group`` (``all_reduce.<site>_grad``).  Every
+    rank's ``x`` must have the same shape."""
+    if group_size(group) == 1:
+        return x
+    if not _tracked(x):
+        return all_gather(x, group, site, dim=dim)
+    return _GatherFromGroup.apply(x, group, site, dim)
 
 
 @dataclass(frozen=True)

@@ -13,7 +13,9 @@ and this module reproduces it step for step:
   ``n >= max_norm`` and stays as it is otherwise — no epsilon, unlike
   ``torch.nn.utils.clip_grad_norm_`` (which divides by ``n + 1e-6``).  The
   choice is made on the device (``torch.where``), so a step never waits
-  for the norm on the host.
+  for the norm on the host.  On a tensor-parallel mesh the norm is the
+  global gradient's: the squared norms of the split leaves summed over the
+  model axis, the replicated leaves' added once (the state's ``layout``).
 * **AdamW** is ``torch.optim.AdamW`` with the reference's b1, b2, eps 1e-8
   and weight decay.  PyTorch decays before its Adam step
   (``p *= 1 - lr * wd``) and optax adds ``wd * p`` to the Adam update; both
@@ -32,9 +34,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
+
+from docqa_tpu_torch.runtime.mesh import all_reduce, group_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,16 +82,38 @@ class AdamWChain:
         cosine = 0.5 * (1 + math.cos(math.pi * t / (self.steps - w)))
         return self.lr * ((1 - alpha) * cosine + alpha)
 
-    def init(self, params: Dict[str, torch.Tensor]) -> "ChainState":
-        return ChainState(self, params)
+    def init(self, params: Dict[str, torch.Tensor], layout=None) -> "ChainState":
+        """``layout``: a ``parallel/sharding.TreeLayout`` when ``params``
+        are this rank's blocks of a tree on a mesh (the clip then takes the
+        global norm)."""
+        return ChainState(self, params, layout)
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Optional[Sequence[bool]] = None,
+                         group=None) -> torch.Tensor:
     """Scale ``grads`` in place as ``optax.clip_by_global_norm`` does; returns
-    the global norm before clipping (a 0-dim float32 tensor)."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
-    )
+    the global norm before clipping (a 0-dim float32 tensor).
+
+    ``sharded`` (a flag a gradient) and ``group``: the gradients are this
+    rank's blocks of a tensor-parallel tree, the flagged ones split over
+    ``group`` and the others whole on every rank.  The squared norms of
+    the split blocks are summed over ``group`` (one all-reduce of one
+    scalar, site ``clip``) and the whole leaves' added once, so every rank
+    clips by the norm of the global gradient.  On a group of one rank, or
+    with nothing flagged, it is the single-device function."""
+    if sharded is None or group_size(group) == 1 or not any(sharded):
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+        )
+    else:
+        norms = [torch.linalg.vector_norm(g.float()) for g in grads]
+        sq = all_reduce(torch.stack([n for n, s in zip(norms, sharded) if s]).square().sum(),
+                        group, "clip")
+        whole = [n for n, s in zip(norms, sharded) if not s]
+        if whole:
+            sq = sq + torch.stack(whole).square().sum()
+        norm = sq.sqrt()
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -95,11 +121,15 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
 
 class ChainState:
     """The chain's live state over one parameter tree: the AdamW moments
-    and the update count.  The parameters are stepped in place."""
+    and the update count.  The parameters are stepped in place.
+    ``layout``: where the tree's leaves lie on a mesh (None: whole)."""
 
-    def __init__(self, chain: AdamWChain, params: Dict[str, torch.Tensor]):
+    def __init__(self, chain: AdamWChain, params: Dict[str, torch.Tensor], layout=None):
         self.chain = chain
         self.params = params
+        self.layout = layout
+        split = set(layout.sharded) if layout is not None else set()
+        self._sharded = [k in split for k in params] if split else None
         self.count = 0
         self.adamw = torch.optim.AdamW(
             list(params.values()), lr=chain.lr_at(0), betas=(chain.b1, chain.b2),
@@ -114,7 +144,9 @@ class ChainState:
         if any(g is None for g in grads):
             missing = [k for k, p in self.params.items() if p.grad is None]
             raise RuntimeError(f"no gradient reached {missing}")
-        norm = clip_by_global_norm_(grads, self.chain.max_norm)
+        norm = clip_by_global_norm_(
+            grads, self.chain.max_norm, self._sharded,
+            self.layout.mesh.model_group if self._sharded else None)
         for group in self.adamw.param_groups:
             group["lr"] = self.chain.lr_at(self.count)
         self.adamw.step()
@@ -124,7 +156,3 @@ class ChainState:
 
     def state_dict(self) -> dict:
         return {"adamw": self.adamw.state_dict(), "count": self.count}
-
-    def load_state_dict(self, state: dict) -> None:
-        self.adamw.load_state_dict(state["adamw"])
-        self.count = int(state["count"])

@@ -344,6 +344,52 @@ def tier_requests(post, get, rt):
     return out
 
 
+# ---- the trainers on a mesh (tests/test_torch_mesh_train.py) -----------------
+
+# tests/test_torch_train_lm.py's DEC with 4 q and 4 kv heads (they divide
+# every model axis here)
+TRAIN_WIDTHS = dict(vocab_size=64, hidden_dim=32, num_layers=2, num_heads=4,
+                    num_kv_heads=4, head_dim=8, mlp_dim=64, max_seq_len=64,
+                    dtype="float32")
+TRAIN_UNEVEN_VOCAB = 62  # cut 16, 16, 16, 14 at a model axis of 4
+TRAIN_LR, TRAIN_SEED = 1e-2, 3
+# one ragged 4 x 16 batch a step; the data shards of every mesh here hold
+# different token counts
+TRAIN_LENGTHS = ((16, 13, 7, 5), (9, 16, 4, 12), (6, 8, 16, 15), (11, 3, 14, 16))
+TRAIN_STEPS = 3
+ENC_TRAIN_BATCH, ENC_TRAIN_SEQ, ENC_TRAIN_STEPS = 8, 16, 3
+CKPT_SEED, CKPT_TEMPLATE_SEED = 5, 9
+CKPT_WAIT_S = 120.0
+
+
+def train_batch(i, vocab=64):
+    """Step ``i``'s ids [4, 16] in [1, vocab) and TRAIN_LENGTHS[i]."""
+    rng = np.random.default_rng(100 + i)
+    ids = rng.integers(1, vocab, (4, 16)).astype(np.int32)
+    return ids, np.array(TRAIN_LENGTHS[i % len(TRAIN_LENGTHS)], np.int32)
+
+
+def enc_train_batch(i, cfg, b=ENC_TRAIN_BATCH):
+    from docqa_tpu_torch.text.tokenizer import default_tokenizer
+    from docqa_tpu_torch.training import encoder
+
+    pairs = encoder.synthetic_pairs(np.random.default_rng(200 + i), b)
+    return encoder.encode_pair_batch(default_tokenizer(cfg.vocab_size), pairs,
+                                     ENC_TRAIN_SEQ)
+
+
+def wait_for_step(directory, step, timeout_s=CKPT_WAIT_S):
+    """Poll until a checkpoint at ``step`` is committed in ``directory``."""
+    from docqa_tpu_torch.training.checkpoint import TrainCheckpointer
+
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout_s:
+        if os.path.isdir(directory) and TrainCheckpointer(directory).latest_step() == step:
+            return
+        time.sleep(0.1)
+    raise TimeoutError(f"no checkpoint at step {step} in {directory}")
+
+
 class Worker:
     def __init__(self, world, rank, out):
         import torch
@@ -1171,6 +1217,238 @@ class Worker:
                   **{"trained/" + k: np.asarray(v) for k, v in eng.params.items()},
                   **self.counts(c))
 
+    # ---- the trainers on a mesh --------------------------------------------
+
+    def _lm_state(self, m, seed=TRAIN_SEED, vocab=None):
+        from docqa_tpu_torch import weights
+        from docqa_tpu_torch.config import DecoderConfig
+        from docqa_tpu_torch.training import train
+
+        cfg = DecoderConfig(**{**TRAIN_WIDTHS, **({"vocab_size": vocab} if vocab else {})})
+        state, opt = train.init_train_state(
+            cfg, optimizer=train.default_optimizer(TRAIN_LR),
+            params=weights.host_init_decoder_params(cfg, seed), device="cpu", mesh=m)
+        return cfg, state, train.make_train_step(cfg, opt, m)
+
+    @staticmethod
+    def _moments(state):
+        st = state["opt_state"].adamw.state
+        return ({k: st[p]["exp_avg"] for k, p in state["params"].items()},
+                {k: st[p]["exp_avg_sq"] for k, p in state["params"].items()})
+
+    def _whole(self, state, prefix):
+        """The state's params and moments gathered whole, as arrays."""
+        from docqa_tpu_torch.parallel.sharding import unshard
+
+        layout = state["opt_state"].layout
+        out = {}
+        trees = (state["params"],) + (self._moments(state) if state["opt_state"].count else ())
+        for tag, tree in zip(("p", "m1", "m2"), trees):
+            for k, v in unshard(tree, layout).items():
+                out[f"{prefix}{tag}/{k}"] = v.detach().clone().numpy()
+        return out
+
+    def lm_train(self):
+        """Each mesh shape: TRAIN_STEPS steps from the seeded tree, every
+        step's loss, collectives, clip norm and replicated gradients, and
+        the whole params after it; one step at an uneven vocabulary; the
+        trees a step refuses."""
+        from docqa_tpu_torch.config import DecoderConfig
+        from docqa_tpu_torch.parallel import sharding as S
+        from docqa_tpu_torch.training import train
+
+        for shape in mesh_shapes(self.world):
+            m = self.mesh(shape)
+            tag = f"{shape[0]}x{shape[1]}"
+            cfg, state, step = self._lm_state(m)
+            layout = state["opt_state"].layout
+            seen = {}
+            update = state["opt_state"].update
+
+            def recorded():
+                seen["grads"] = {k: p.grad.detach().clone() for k, p in
+                                 state["params"].items() if layout.dims[k] is None}
+                seen["norm"] = update()
+                return seen["norm"]
+
+            state["opt_state"].update = recorded
+            out = {}
+            for i in range(TRAIN_STEPS):
+                (state, loss), c = self.counted(lambda: step(state, *train_batch(i)))
+                out[f"loss{i}"] = np.array(float(loss))
+                out[f"norm{i}"] = np.array(float(seen["norm"]))
+                out.update(self.counts(c, f"s{i}/"))
+                out.update({f"g{i}/{k}": v.numpy() for k, v in seen["grads"].items()})
+                out.update(self._whole(state, f"s{i}/"))
+                out.update({f"local{i}/{k}": v.detach().clone().numpy()
+                            for k, v in state["params"].items() if layout.dims[k] is None})
+            ucfg, ustate, ustep = self._lm_state(m, vocab=TRAIN_UNEVEN_VOCAB)
+            ids, lengths = train_batch(0, TRAIN_UNEVEN_VOCAB)
+            ustate, uloss = ustep(ustate, ids, lengths)
+            out["uneven/loss"] = np.array(float(uloss))
+            out.update(self._whole(ustate, "uneven/"))
+            # refusals: a whole tree on this mesh, a shard without one
+            errs = []
+            whole_cfg, whole, _ = self._lm_state(None)
+            for fn in (lambda: step(whole, *train_batch(0)),
+                       lambda: train.make_train_step(cfg, state["opt_state"].chain)(
+                           state, *train_batch(0)),
+                       lambda: step(state, *[a[:3] for a in train_batch(0)])):
+                try:
+                    fn()
+                    errs.append("")
+                except ValueError as e:
+                    errs.append(str(e))
+            out["refused"] = np.array(errs)
+            self.save(f"lm_train_{tag}", **out)
+
+    def encoder_train(self):
+        """The data-parallel encoder step at each shape: losses, collectives
+        and whole params after each step; a checkpoint of the trained state
+        (:meth:`_encoder_ckpt`); train_encoder's batch rounding; a batch
+        whose rows do not divide the data axis."""
+        from docqa_tpu_torch import weights
+        from docqa_tpu_torch.config import EncoderConfig
+        from docqa_tpu_torch.training import encoder
+
+        cfg = EncoderConfig(**ENC_WIDTHS)
+        shapes = [(2, 1)] if self.world == 2 else [(4, 1), (2, 2)]
+        for shape in shapes:
+            m = self.mesh(shape)
+            state, opt = encoder.init_encoder_train_state(
+                cfg, params=weights.host_init_encoder_params(cfg, 1), mesh=m)
+            step = encoder.make_encoder_train_step(cfg, opt, m)
+            out = {}
+            for i in range(ENC_TRAIN_STEPS):
+                (state, loss), c = self.counted(lambda: step(state, *enc_train_batch(i, cfg)))
+                out[f"loss{i}"] = np.array(float(loss))
+                out.update(self.counts(c, f"s{i}/"))
+                out.update({f"s{i}/p/{k}": v.detach().clone().numpy()
+                            for k, v in state["params"].items()})
+            out.update(self._encoder_ckpt(state, step, cfg, m))
+            try:
+                step(state, *enc_train_batch(0, cfg, b=ENC_TRAIN_BATCH - 1))
+                out["refused"] = np.array("")
+            except ValueError as e:
+                out["refused"] = np.array(str(e))
+            sizes = []
+            real = encoder.encode_pair_batch
+
+            def sized(tok, pairs, seq):
+                sizes.append(len(pairs))
+                return real(tok, pairs, seq)
+
+            encoder.encode_pair_batch = sized
+            try:
+                encoder.train_encoder(cfg, steps=1, batch_size=5, seq=ENC_TRAIN_SEQ,
+                                      params=weights.host_init_encoder_params(cfg, 1),
+                                      device="cpu", mesh=m)
+            finally:
+                encoder.encode_pair_batch = real
+            out["rounded"] = np.array(sizes)
+            self.save(f"encoder_train_{shape[0]}x{shape[1]}", **out)
+
+    def _encoder_ckpt(self, state, step, cfg, m):
+        """The trained encoder state saved by every rank into one directory,
+        restored into another tree on this mesh; one more step from each."""
+        from docqa_tpu_torch import weights
+        from docqa_tpu_torch.training import encoder
+        from docqa_tpu_torch.training.checkpoint import TrainCheckpointer
+
+        ck_dir = os.path.join(self._ckpt_root(), f"enc_{m.n_data}x{m.n_model}")
+        (_, c) = self.counted(lambda: TrainCheckpointer(ck_dir, max_to_keep=1).save(state))
+        out = {**self.counts(c, "save/"), **self._whole(state, "saved/")}
+        tmpl, _ = encoder.init_encoder_train_state(
+            cfg, params=weights.host_init_encoder_params(cfg, 2), mesh=m)
+        TrainCheckpointer(ck_dir).restore(tmpl)
+        out["restored/step"] = np.array([tmpl["step"], tmpl["opt_state"].count])
+        out.update(self._whole(tmpl, "restored/"))
+        batch = enc_train_batch(ENC_TRAIN_STEPS, cfg)
+        out["next"] = np.array(float(step(state, *batch)[1]))
+        out["restored/next"] = np.array(float(step(tmpl, *batch)[1]))
+        return out
+
+    def _ckpt_root(self):
+        with open(os.path.join(self.out, "ckpt_root.txt")) as f:
+            return f.read().strip()
+
+    def _steps_from(self, state, step, first, n):
+        losses = []
+        for i in range(first, first + n):
+            state, loss = step(state, *train_batch(i))
+            losses.append(float(loss))
+        return np.array(losses)
+
+    def ckpt_save(self):
+        """(1, 2): two steps, a save, two more (the uninterrupted run); the
+        one-device save restored here; then (2, 2)'s save restored here."""
+        from docqa_tpu_torch.training.checkpoint import TrainCheckpointer
+
+        root = self._ckpt_root()
+        m = self.mesh((1, 2))
+        _cfg, state, step = self._lm_state(m, seed=CKPT_SEED)
+        self._steps_from(state, step, 0, 2)
+        ck = TrainCheckpointer(os.path.join(root, "ck_1x2"), max_to_keep=1)
+        out = {"saved_step": np.array(ck.save(state))}
+        out.update(self._whole(state, "saved/"))
+        out["straight"] = self._steps_from(state, step, 2, 2)
+        for name in ("ck_whole", "ck_2x2"):
+            if name == "ck_2x2":
+                wait_for_step(os.path.join(root, name), 2)
+            _cfg, tmpl, step2 = self._lm_state(m, seed=CKPT_TEMPLATE_SEED)
+            TrainCheckpointer(os.path.join(root, name)).restore(tmpl)
+            out[f"{name}/step"] = np.array([tmpl["step"], tmpl["opt_state"].count])
+            out.update(self._whole(tmpl, f"{name}/"))
+            out[f"{name}/resumed"] = self._steps_from(tmpl, step2, 2, 2)
+        self.save("ckpt_save", **out)
+
+    def ckpt_restore(self):
+        """(1, 4) and (2, 2): (1, 2)'s save restored into another tree, then
+        two steps; (2, 2) saves what it restored before stepping."""
+        from docqa_tpu_torch.training.checkpoint import TrainCheckpointer
+
+        root = self._ckpt_root()
+        wait_for_step(os.path.join(root, "ck_1x2"), 2)
+        out = {}
+        for shape in mesh_shapes(self.world):
+            m = self.mesh(shape)
+            tag = f"{shape[0]}x{shape[1]}"
+            _cfg, tmpl, step = self._lm_state(m, seed=CKPT_TEMPLATE_SEED)
+            TrainCheckpointer(os.path.join(root, "ck_1x2")).restore(tmpl)
+            out[f"{tag}/step"] = np.array([tmpl["step"], tmpl["opt_state"].count])
+            out.update(self._whole(tmpl, f"{tag}/"))
+            if shape == (2, 2):
+                (_, c) = self.counted(lambda: TrainCheckpointer(
+                    os.path.join(root, "ck_2x2"), max_to_keep=1).save(tmpl))
+                out.update(self.counts(c, "save/"))
+            out[f"{tag}/resumed"] = self._steps_from(tmpl, step, 2, 2)
+        self.save("ckpt_restore", **out)
+
+    def train_lost_rank(self):
+        """(1, 2): a step, then rank 1 kills itself; rank 0's next step must
+        raise MeshFault within the process group's timeout."""
+        import signal
+
+        from docqa_tpu_torch.ops._kernels import MeshFault
+
+        m = self.mesh((1, 2))
+        _cfg, state, step = self._lm_state(m)
+        state, _loss = step(state, *train_batch(0))
+        if self.rank == 1:
+            os.kill(os.getpid(), signal.SIGKILL)
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        try:
+            step(state, *train_batch(1))
+            kind, msg = "", "the step returned with a rank gone"
+        except MeshFault as e:
+            kind, msg = "MeshFault", str(e)
+        except Exception as e:  # noqa: BLE001 - another failure is the result
+            kind, msg = type(e).__name__, str(e)
+        self.save("train_lost_rank", kind=np.array(kind), message=np.array(msg),
+                  seconds=np.array(time.perf_counter() - t0))
+        os._exit(0)  # the process group cannot be torn down with a rank gone
+
     def rank_fails(self):
         """Rank 1 raises before the collective; rank 0's all_reduce must
         raise (peer gone or timed out), never hang."""
@@ -1294,7 +1572,7 @@ def main():
         getattr(w, name)()
     import torch.distributed as dist
 
-    if "rank_fails" not in scenarios:
+    if "rank_fails" not in scenarios and "lost_rank" not in scenarios:
         dist.barrier()
         dist.destroy_process_group()
 
