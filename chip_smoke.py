@@ -325,12 +325,30 @@ Phases, each of which fails the run on any error (nothing is caught):
    parameter; one more TP-8 step under ``torch.profiler`` (device busy ms,
    idle share, activities).  One rank's work, no collective time.  The
    phase must take at most 120 s.
+19. the two runtime witnesses on the card, after phase 9's module check
+   (the parent holds no model weights then), in a child process (its own
+   CUDA context) whose first statements install the lock witness
+   (``analysis/race_witness.py``) and the ledger witness
+   (``analysis/ledger_audit.py``): ``DocQARuntime`` under phase 9's config
+   (Mistral-7B width, weights drawn on the card from phase 3's seed, phase
+   11 (a)'s tagger) behind ``AppServer`` on 127.0.0.1 port 0; 8 of phase
+   9's notes uploaded over HTTP, 8 generative /ask at once through the pool
+   and the batcher with ``GET /api/witness`` and ``GET /api/ledger`` read
+   while they run (200, the contract's key trees), a DELETE, then
+   ``stop()``.  At quiesce: no witnessed lock-order cycle, no witnessed
+   edge missing from lock-discipline's static graph, no leaked KV table,
+   no unretired cost record, no witnessed site missing from resource-flow's
+   static sites; K1 launched by the 8 asks, its total the sum of its
+   paths.  The child prints one JSON line (edges, held-lock blocking
+   events, tables and records, K1 by path, the /ask p50 under the
+   witnesses, not a latency figure).  The phase must take at most 120 s.
 
 The recorder is on by default, so phases 3-7 run traced too.  Prints the
 pool JSON line, the ingest JSON line, the obs JSON line, the app JSON line,
 the lifecycle JSON line, the training JSON line, the tiered JSON line, the
 checkpoints JSON line, the quant JSON line, the mesh JSON line, the mesh runtime JSON
-line, the mesh tiered JSON line, the mesh train JSON line, the launches-by-phase JSON
+line, the mesh tiered JSON line, the mesh train JSON line, the witness JSON line,
+the launches-by-phase JSON
 line (each main-path run's K1 and K4 counters, whose sums are the kernels
 line's launches; each run's K1 total must equal the sum of its paths, and
 its K4 total the sum of its weight modes and of its kernel modes), the
@@ -361,6 +379,7 @@ import os
 import re
 import shutil
 import statistics
+import string
 import struct
 import subprocess
 import sys
@@ -4417,10 +4436,22 @@ def _bpe_merges(words, n_merges):
     return merges
 
 
-def byte_level_tokenizer_json(texts, path, n_merges=S2S_MERGES):
+def _filler_pieces():
+    """Distinct non-empty pieces of printable ASCII (each its own byte-level
+    character): two letters or digits, then three."""
+    alphabet = string.ascii_letters + string.digits
+    for n in (2, 3):
+        for chars in itertools.product(alphabet, repeat=n):
+            yield "".join(chars)
+
+
+def byte_level_tokenizer_json(texts, path, n_merges=S2S_MERGES, vocab_size=None):
     """A BART-style byte-level BPE ``tokenizer.json`` built in code: the
     specials ``<s> <pad> </s> <unk>`` at 0-3, the 256-byte alphabet, then
-    merges counted from ``texts``."""
+    merges counted from ``texts``; with ``vocab_size``, distinct filler
+    pieces after them up to that many ids, so that every non-special id a
+    model of that vocabulary emits decodes to text.  No merge produces a
+    filler, so the notes encode as without them."""
     from docqa_tpu_torch.text import bpe
 
     words = collections.Counter()
@@ -4433,6 +4464,10 @@ def byte_level_tokenizer_json(texts, path, n_merges=S2S_MERGES):
         vocab.setdefault(bpe._BYTE_TO_CHAR[b], len(vocab))
     for a, b in merges:
         vocab.setdefault(a + b, len(vocab))
+    if vocab_size is not None:
+        fillers = _filler_pieces()
+        while len(vocab) < vocab_size:
+            vocab.setdefault(next(fillers), len(vocab))
     blob = {
         "added_tokens": [{"id": i, "content": t, "special": True}
                          for i, t in enumerate(["<s>", "<pad>", "</s>", "<unk>"])],
@@ -4585,7 +4620,8 @@ def write_bart_dir(path, cfg, tree, texts):
     """A bart-large-cnn-layout directory: config.json with ``cfg``'s
     hyper-parameters and the shipped generation policy, the tree as
     ``model.safetensors`` (float32, as the published file) and a byte-level
-    BPE ``tokenizer.json``."""
+    BPE ``tokenizer.json`` whose pieces cover every id below
+    ``cfg.vocab_size`` (the specials at the ids ``config.json`` names)."""
     os.makedirs(path, exist_ok=True)
     _write_config(path, {
         "model_type": "bart", "architectures": ["BartForConditionalGeneration"],
@@ -4600,7 +4636,8 @@ def write_bart_dir(path, cfg, tree, texts):
         "no_repeat_ngram_size": 3, "early_stopping": True,
     })
     save_safetensors(bart_hf_tensors(tree, cfg), os.path.join(path, "model.safetensors"))
-    byte_level_tokenizer_json(texts, os.path.join(path, "tokenizer.json"))
+    byte_level_tokenizer_json(texts, os.path.join(path, "tokenizer.json"),
+                              vocab_size=cfg.vocab_size)
     return path
 
 
@@ -7381,6 +7418,179 @@ def run_mesh_train_path(counts):
             "launches": {"18 encoder": enc["k1_launches"]}}
 
 
+# ---- phase 19: the runtime witnesses ---------------------------------------------
+
+WIT_NOTES = 8  # phase 9's first notes, uploaded over HTTP
+WIT_ASKS = 8  # generative questions asked at once
+WIT_PHASE_LIMIT_S = 120.0
+WIT_CHILD_TIMEOUT_S = 300.0
+# the child: both witnesses first, before any port module builds a lock
+WITNESS_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from docqa_tpu_torch.analysis import ledger_audit, race_witness
+race_witness.install_witness()
+ledger_audit.install_ledger_witness()
+import chip_smoke
+sys.exit(chip_smoke.witness_child(sys.argv[2]))
+"""
+
+
+def witness_child(tagger) -> int:
+    """Phase 19's child (the module docstring), with both witnesses
+    installed by its first statements.  Prints one ``{"witness_child":
+    ...}`` JSON line; any failed check raises."""
+    from docqa_tpu_torch.analysis import ledger_audit, race_witness
+    from docqa_tpu_torch.config import load_config
+    from docqa_tpu_torch.engines.router import AnswerRouter
+    from docqa_tpu_torch.service.app import AppServer, DocQARuntime, make_app
+
+    if race_witness.DEFAULT_WITNESS is None or ledger_audit.DEFAULT_LEDGER_WITNESS is None:
+        raise AssertionError("the witnesses were not installed before the port's imports")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_child = time.perf_counter()
+    _kernels.build()  # the parent built them: found in the cache
+    counts = _kernels.LAUNCHES
+    dev = torch.device("cuda")
+    dec_cfg = DecoderConfig.mistral_7b()
+    params = init_decoder_params(dec_cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    cfg = dataclasses.replace(
+        load_config(env={}, overrides={
+            "ner.params_path": tagger,
+            "resilience.request_deadline_s": APP_DEADLINE_S,
+        }),
+        decoder=dec_cfg,
+    )
+    t0 = time.perf_counter()
+    rt = DocQARuntime(cfg, device=dev, decoder_params=params).start()
+    server = AppServer(make_app(rt)).start()
+    boot_s = time.perf_counter() - t0
+    _lookups, generative = routing_lookups(AnswerRouter(), deid=rt.deid)
+    http = _Http(server.port, load_contract())
+    log(f"  [child] witnessed runtime booted in {boot_s:.1f} s; serving on "
+        f"127.0.0.1:{server.port}")
+    closed = False
+    try:
+        docs = app_notes(np.random.default_rng(21))[:WIT_NOTES]
+        ids = []
+        for d in docs:
+            body, ctype = _multipart(d["filename"], d["data"], d["fields"])
+            ids.append(http.json("POST /ingest/", "/ingest/", body=body, ctype=ctype)["doc_id"])
+        _wait_indexed(http, ids)
+        if len(generative) < WIT_ASKS:
+            raise AssertionError("the routing mix lacks the questions phase 19 asks")
+
+        # the main path: the counts from 0 just before the asks, read after
+        counts.clear()
+        results = [None] * WIT_ASKS
+
+        def ask(i, q):
+            t = time.perf_counter()
+            results[i] = (http.json("POST /ask/", "/ask/", payload={"question": q}),
+                          time.perf_counter() - t)
+
+        threads = [threading.Thread(target=ask, args=(i, q), name=f"witness-ask-{i}")
+                   for i, q in enumerate(generative[:WIT_ASKS])]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        # both witnesses read over HTTP while the asks are in flight
+        live = {"witness": http.json("GET /api/witness", "/api/witness"),
+                "ledger": http.json("GET /api/ledger", "/api/ledger")}
+        for t in threads:
+            t.join(timeout=APP_HTTP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        launches = dict(counts)
+        if any(r is None for r in results):
+            raise AssertionError("a witnessed /ask over HTTP did not answer")
+        _no_degraded("witnessed /ask", [r[0] for r in results])
+        http.json("DELETE /documents/{doc_id}", f"/documents/{ids[0]}")
+        http.json("GET /api/witness", "/api/witness")
+        http.json("GET /api/ledger", "/api/ledger")
+    finally:
+        closed = server.close(timeout=30)
+        rt.stop()
+    if not closed:
+        raise AssertionError("the witnessed app server's threads did not end")
+
+    # at quiesce
+    w = race_witness.witness_snapshot()
+    led = ledger_audit.ledger_snapshot()
+    for key, got in (("cycles", w["cycles"]),
+                     ("edges_missing_from_static", w["edges_missing_from_static"]),
+                     ("leaked_tables", led["leaked_tables"]),
+                     ("unretired_records", led["unretired_records"]),
+                     ("sites_missing_from_static", led["sites_missing_from_static"])):
+        if got:
+            raise AssertionError(f"phase 19 at quiesce: {key} = {got}")
+    k1 = launches.get("flash_attention", 0)
+    paths = {k: n for k, n in launches.items() if k.startswith("flash_attention.")}
+    if k1 <= 0 or k1 != sum(paths.values()):
+        raise AssertionError(f"phase 19's asks launched K1 {k1} times, its paths {paths}")
+    held = [b for b in w["blocking"] if "ms" in b]
+    lat = [r[1] for r in results]
+    summary = {
+        "boot_s": boot_s,
+        "witness_edges": len(w["edges"]),
+        "edge_names": [f"{e['from']} -> {e['to']}" for e in w["edges"]],
+        "static_edge_count": w["static_edge_count"],
+        "locks_seen": len(w["locks_seen"]),
+        "blocking_events": len(w["blocking"]),
+        "blocking_by_op": dict(collections.Counter(b["op"] for b in w["blocking"])),
+        "longest_held_block_ms": max((b["ms"] for b in held), default=0.0),
+        "live_edges_while_serving": len(live["witness"]["edges"]),
+        "live_tables_while_serving": len(live["ledger"]["leaked_tables"]),
+        "ledger_counts": led["counts"],
+        "witnessed_sites": len(led["witnessed_sites"]),
+        "static_site_count": led["static_site_count"],
+        "k1_launches": launches.get("flash_attention", 0),
+        "k1_by_path": paths,
+        "launches": launches,
+        "asks": WIT_ASKS, "asks_wall_s": wall,
+        "ask_p50_s_under_witnesses_not_a_latency_figure": _pctl(lat, 0.5),
+        "child_s": time.perf_counter() - t_child,
+    }
+    print(json.dumps({"witness_child": summary}), flush=True)
+    return 0
+
+
+def run_witness_path(tagger):
+    """Phase 19 (the module docstring): the witnessed runtime in a child
+    process, its JSON line read back; fails on the child's failure or past
+    the phase's limit."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, DOCQA_RACE_WITNESS="1", DOCQA_LEDGER_WITNESS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", WITNESS_CHILD, REPO_ROOT, tagger],
+        stdout=subprocess.PIPE, text=True, env=env, cwd=REPO_ROOT,
+        timeout=WIT_CHILD_TIMEOUT_S,
+    )
+    summary = None
+    for line in proc.stdout.splitlines():
+        if line.startswith('{"witness_child"'):
+            summary = json.loads(line)["witness_child"]
+        else:
+            log(line)
+    if proc.returncode != 0 or summary is None:
+        raise AssertionError(f"phase 19's child exited {proc.returncode}")
+    phase_s = time.perf_counter() - t0
+    summary["phase_s"] = phase_s
+    log(f"  witnessed runtime: {summary['witness_edges']} lock-order edges, none missing "
+        f"from the static graph, no cycle; {summary['blocking_events']} held-lock blocking "
+        f"events (longest {summary['longest_held_block_ms']:.1f} ms); tables "
+        f"{summary['ledger_counts']['tables_created']} created / "
+        f"{summary['ledger_counts']['tables_released']} released, records "
+        f"{summary['ledger_counts']['records_opened']} opened / "
+        f"{summary['ledger_counts']['records_retired']} retired, none left; K1 "
+        f"{summary['k1_by_path']}; /ask p50 {summary['ask_p50_s_under_witnesses_not_a_latency_figure']:.2f} s "
+        f"under the witnesses (not a latency figure)")
+    log(f"  phase 19 took {phase_s:.1f} s (limit {WIT_PHASE_LIMIT_S:.0f} s)")
+    if phase_s > WIT_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 19 took {phase_s:.1f} s, over {WIT_PHASE_LIMIT_S} s")
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -7551,6 +7761,11 @@ def main(argv=None) -> int:
     app_path["summary"]["reference"] = run_app_reference_check()
     app_s += time.perf_counter() - t_app
 
+    log("[19/19] the runtime witnesses: DocQARuntime at full width in a child process "
+        "with the lock-order and resource-ledger witnesses installed first, served over "
+        "HTTP; no cycle, no blind spot, no leak at quiesce")
+    witness_path = run_witness_path(tagger)
+
     log("[11/14 (b)-(d)] training: LM steps at Mistral-7B width with remat and a "
         "checkpoint resumed, and the encoder at MiniLM width")
     t_train = time.perf_counter()
@@ -7606,6 +7821,7 @@ def main(argv=None) -> int:
         **mrt_path["launches"],
         **mtr_path["launches"],
         **mtrain_path["launches"],
+        "19": witness_path["launches"],
     }
     path_launches = collections.Counter()
     for phase, counted in phase_launches.items():
@@ -7701,6 +7917,7 @@ def main(argv=None) -> int:
                 "mesh_runtime_path": mrt_path, "mesh_runtime_path_s": mrt_s,
                 "mesh_tiered_path": mtr_path, "mesh_tiered_path_s": mtr_s,
                 "mesh_train_path": mtrain_path, "mesh_train_path_s": mtrain_s,
+                "witness_path": witness_path, "witness_path_s": witness_path["phase_s"],
                 "launches_by_phase": phase_launches,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
@@ -7787,6 +8004,7 @@ def main(argv=None) -> int:
         "shards": mt["shards"], "phase_s": mtr_s,
     }}))
     print(json.dumps({"mesh_train": mtrain_path["summary"]}))
+    print(json.dumps({"witness": {k: v for k, v in witness_path.items() if k != "launches"}}))
     print(json.dumps({"launches_by_phase": {
         phase: {key: n for key, n in counted.items() if n}
         for phase, counted in phase_launches.items()}}))

@@ -1,0 +1,297 @@
+"""deadline-flow: request deadlines must thread through, waits must clamp.
+
+Counterpart of ``docqa_tpu/analysis/deadline_flow.py``.  The contract: a
+:class:`~docqa_tpu_torch.resilience.deadline.Deadline` is stamped once at
+``/ask`` admission and *threaded* through every stage; every blocking wait
+a request performs is clamped to the remaining budget.  Three sub-rules
+enforce it:
+
+1. **dropped deadline** — inside a function with a deadline in scope
+   (a parameter named ``deadline``/``dl``, a local built via
+   ``Deadline.after(...)``/``Deadline(...)``, or a local read from a
+   ``….deadline`` attribute), every call to a package function that
+   *accepts* a ``deadline`` parameter must pass one.  Calls that forward
+   ``**kwargs`` are trusted.
+2. **unclamped wait** — with a deadline in scope, blocking primitives
+   (the profile's ``wait_blocking_attrs``: ``….wait(…)``,
+   ``….result(…)``, ``….join(…)``, ``….get_many(…)``, and
+   ``time.sleep(…)``) must derive their timeout from the deadline
+   (``.bound(…)`` / ``.remaining(…)`` or a value data-flow-derived from
+   one; derivation propagates through assignments and ``list.append``).
+   A blocking call with *no* timeout at all is an unbounded wait and
+   always flags.
+3. **sleep-polling on the request path** — ``time.sleep`` in a
+   request-path module (the profile's ``request_path_modules``; on the
+   port the app, QA, the retrievers, the fused chain, the batcher, the
+   pool, the spine and the mesh's command stream; fixtures opt in with a
+   ``# docqa-lint: request-path`` pragma) is flagged regardless of scope:
+   the serving path waits on condition variables, never by polling.
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Dict, List, Optional, Set
+
+from docqa_tpu_torch.analysis.core import (
+    Finding,
+    FunctionInfo,
+    Package,
+    call_name,
+    expr_text,
+)
+from docqa_tpu_torch.analysis.lock_discipline import THREADISH_RE
+
+DEADLINE_NAME_HINTS = frozenset({"deadline", "dl"})
+
+
+def is_request_path(package: Package, module) -> bool:
+    """A module on the /ask serving chain: named by the profile, or one
+    carrying the ``# docqa-lint: request-path`` pragma."""
+    return (
+        module.relname in package.profile.request_path_modules
+        or module.request_path_pragma
+    )
+
+
+def _is_deadline_expr(value: ast.AST) -> bool:
+    """Expressions that produce a Deadline: ``Deadline.after(...)``,
+    ``Deadline(...)``, or a read of a ``….deadline`` attribute."""
+    if isinstance(value, ast.Call):
+        name = call_name(value)
+        return name.split(".")[0] == "Deadline"
+    if isinstance(value, ast.Attribute):
+        return value.attr == "deadline"
+    return False
+
+
+def _names_in(node: ast.AST) -> Set[str]:
+    return {n.id for n in ast.walk(node) if isinstance(n, ast.Name)}
+
+
+class _FunctionScan:
+    """Per-function dataflow: which names hold deadlines, which names are
+    deadline-derived ("clamped") timeouts."""
+
+    def __init__(self, fn: FunctionInfo):
+        self.fn = fn
+        body = fn.node
+        self.deadline_names: Set[str] = {
+            p for p in fn.params if p in DEADLINE_NAME_HINTS
+        }
+        # collect assignments once; nested defs get their own scan
+        self.assigns: List[tuple] = []  # (targets: Set[str], value: ast.AST)
+        for node in self._walk_shallow(body):
+            if isinstance(node, ast.Assign):
+                targets: Set[str] = set()
+                for t in node.targets:
+                    targets |= self._target_names(t)
+                self.assigns.append((targets, node.value))
+            elif isinstance(node, ast.AnnAssign) and node.value is not None:
+                self.assigns.append(
+                    (self._target_names(node.target), node.value)
+                )
+            elif isinstance(node, ast.AugAssign):
+                self.assigns.append(
+                    (self._target_names(node.target), node.value)
+                )
+            elif isinstance(node, ast.Call):
+                # x.append(expr) extends x — propagation must see it
+                name = call_name(node)
+                if name.endswith(".append") and node.args:
+                    base = name[: -len(".append")]
+                    if "." not in base:
+                        self.assigns.append(({base}, node.args[0]))
+        for targets, value in self.assigns:
+            if _is_deadline_expr(value):
+                self.deadline_names |= targets
+        self.clamped = self._fixed_point_clamped()
+
+    @staticmethod
+    def _target_names(t: ast.AST) -> Set[str]:
+        if isinstance(t, ast.Name):
+            return {t.id}
+        if isinstance(t, (ast.Tuple, ast.List)):
+            out: Set[str] = set()
+            for e in t.elts:
+                if isinstance(e, ast.Name):
+                    out.add(e.id)
+            return out
+        return set()
+
+    def _walk_shallow(self, root: ast.AST):
+        """Walk the function body without descending into nested defs."""
+        stack = list(ast.iter_child_nodes(root))
+        while stack:
+            node = stack.pop()
+            yield node
+            if isinstance(
+                node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)
+            ):
+                continue
+            stack.extend(ast.iter_child_nodes(node))
+
+    def _expr_is_clamped(self, value: ast.AST, clamped: Set[str]) -> bool:
+        text = expr_text(value)
+        if ".bound(" in text or ".remaining(" in text:
+            return True
+        return bool(
+            _names_in(value) & (clamped | self.deadline_names)
+        )
+
+    def _fixed_point_clamped(self) -> Set[str]:
+        clamped: Set[str] = set()
+        changed = True
+        while changed:
+            changed = False
+            for targets, value in self.assigns:
+                if targets <= clamped:
+                    continue
+                if self._expr_is_clamped(value, clamped):
+                    clamped |= targets
+                    changed = True
+        return clamped
+
+    def has_deadline(self) -> bool:
+        return bool(self.deadline_names)
+
+    # positional index of the timeout parameter per blocking primitive
+    # (wait(timeout) / result(timeout) / join(timeout) / sleep(secs) take
+    # it first; broker get_many(queue, max_n, timeout) takes it third)
+    TIMEOUT_POS = {
+        "wait": 0,
+        "result": 0,
+        "join": 0,
+        "sleep": 0,
+        "get_many": 2,
+    }
+
+    def timeout_arg(
+        self, node: ast.Call, attr: str
+    ) -> Optional[ast.AST]:
+        for kw in node.keywords:
+            if kw.arg == "timeout":
+                return kw.value
+        pos = self.TIMEOUT_POS.get(attr, 0)
+        if len(node.args) > pos:
+            return node.args[pos]
+        return None
+
+    def arg_is_clamped(self, arg: ast.AST) -> bool:
+        return self._expr_is_clamped(arg, self.clamped)
+
+
+class DeadlineFlowChecker:
+    rule = "deadline-flow"
+
+    def check(self, package: Package) -> List[Finding]:
+        accepts_deadline: Dict[str, List[FunctionInfo]] = {}
+        for f in package.functions:
+            if "deadline" in f.params:
+                accepts_deadline.setdefault(f.name, []).append(f)
+        out: List[Finding] = []
+        for fn in package.functions:
+            out.extend(self._check_fn(package, fn, accepts_deadline))
+        return out
+
+    # -- per function ---------------------------------------------------------
+
+    def _check_fn(
+        self,
+        package: Package,
+        fn: FunctionInfo,
+        accepts_deadline: Dict[str, List[FunctionInfo]],
+    ) -> List[Finding]:
+        module = fn.module
+        request_path = is_request_path(package, module)
+        scan = _FunctionScan(fn)
+        out: List[Finding] = []
+        for node in scan._walk_shallow(fn.node):
+            if not isinstance(node, ast.Call):
+                continue
+            name = call_name(node)
+            resolved = module.resolve_alias(name) if name else ""
+            is_sleep = resolved == "time.sleep" or resolved.endswith(
+                "time.sleep"
+            )
+            if is_sleep and request_path:
+                out.append(
+                    Finding(
+                        self.rule,
+                        module.relpath,
+                        node.lineno,
+                        fn.qualname,
+                        "time.sleep() on the request path — wait on a "
+                        "condition/deadline instead of polling",
+                    )
+                )
+                continue
+            if not scan.has_deadline():
+                continue
+            attr = name.rsplit(".", 1)[-1] if name else ""
+            receiver = name.rsplit(".", 1)[0] if "." in name else ""
+            # 1) dropped deadline
+            if attr in accepts_deadline and receiver not in (
+                scan.deadline_names
+            ):
+                callee = package.resolve_call(fn, node)
+                passes = any(
+                    kw.arg == "deadline" or kw.arg is None  # **kwargs
+                    for kw in node.keywords
+                ) or any(
+                    # positional deadline: a deadline name anywhere in the
+                    # argument expression (req.deadline, dl.tighten(), …)
+                    # or a deadline-producing expression counts as passing
+                    bool(_names_in(a) & scan.deadline_names)
+                    or _is_deadline_expr(a)
+                    for a in node.args
+                )
+                if (
+                    callee is not None
+                    and "deadline" in callee.params
+                    and not passes
+                ):
+                    out.append(
+                        Finding(
+                            self.rule,
+                            module.relpath,
+                            node.lineno,
+                            fn.qualname,
+                            f"call to {attr}() drops the in-scope deadline "
+                            "(callee accepts deadline=)",
+                        )
+                    )
+            # 2) unclamped blocking wait
+            if attr in package.profile.wait_blocking_attrs or is_sleep:
+                if receiver and receiver in scan.deadline_names:
+                    continue  # deadline.check/bound/etc on the deadline
+                if attr == "join" and not (
+                    THREADISH_RE.search(receiver)
+                    or any(kw.arg == "timeout" for kw in node.keywords)
+                ):
+                    continue  # str.join / os.path.join, not a thread join
+                arg = scan.timeout_arg(node, "sleep" if is_sleep else attr)
+                if arg is None:
+                    out.append(
+                        Finding(
+                            self.rule,
+                            module.relpath,
+                            node.lineno,
+                            fn.qualname,
+                            f"{attr or 'sleep'}() without a timeout while a "
+                            "deadline is in scope (unbounded wait)",
+                        )
+                    )
+                elif not scan.arg_is_clamped(arg):
+                    out.append(
+                        Finding(
+                            self.rule,
+                            module.relpath,
+                            node.lineno,
+                            fn.qualname,
+                            f"{attr or 'sleep'}() timeout is not clamped to "
+                            "the in-scope deadline (use deadline.bound/"
+                            "remaining)",
+                        )
+                    )
+        return out

@@ -514,14 +514,14 @@ class DispatchSpine:
             device_s * 1e3
         )
         if item.error is None:
-            def observe():
+            def record_cost():
                 cost_key = item.cost_key
                 if callable(cost_key):
                     # a key the device decided (a verify loop's steps)
                     cost_key = cost_key(item.result)
                 DEFAULT_OBSERVATORY.record(item.stage, cost_key, device_s)
 
-            _fenced(f"observatory record for {item.stage!r}", observe)
+            _fenced(f"observatory record for {item.stage!r}", record_cost)
         if item.trace is not None:
             # a finished trace must never fail a dispatch
             _fenced("dispatch span", lambda: item.trace.record_span(

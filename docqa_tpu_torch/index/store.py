@@ -61,7 +61,7 @@ import shutil
 import tempfile
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -334,26 +334,23 @@ class VectorStore:
             self._index_sinks.append(sink)
             if self._count:
                 self._call_sink(
-                    sink, "on_add", list(range(self._count)),
+                    sink.on_add, list(range(self._count)),
                     self._meta[: self._count],
                 )
 
     @staticmethod
-    def _call_sink(sink: Any, method: str, *args) -> None:
-        """A broken sink must not take dense ingest down with it, but it
-        fails loudly (``index_sink_errors``); a kernel or CUDA fault
-        reaches the caller."""
+    def _call_sink(hook: Callable, *args) -> None:
+        """Run one sink's hook (``sink.on_add`` ...).  A broken sink must
+        not take dense ingest down with it, but it fails loudly
+        (``index_sink_errors``); a kernel or CUDA fault reaches the
+        caller."""
         try:
-            getattr(sink, method)(*args)
+            hook(*args)
         except Exception as e:
             if is_device_fault(e):
                 raise
             DEFAULT_REGISTRY.counter("index_sink_errors").inc()
-            log.exception("index sink %s.%s failed", sink, method)
-
-    def _notify_sinks(self, method: str, *args) -> None:
-        for sink in self._index_sinks:
-            self._call_sink(sink, method, *args)
+            log.exception("index sink hook %s failed", hook)
 
     def device_view(self) -> Tuple[torch.Tensor, int]:
         """(device buffer, row count) read under one lock acquisition (on a
@@ -513,7 +510,8 @@ class VectorStore:
             self._count = start + n
             self._version += 1
             row_ids = list(range(start, start + n))
-            self._notify_sinks("on_add", row_ids, metadata)
+            for sink in self._index_sinks:
+                self._call_sink(sink.on_add, row_ids, metadata)
             return row_ids
 
     def _filter_mask_locked(self, filters: Dict[str, Any]) -> np.ndarray:
@@ -575,7 +573,8 @@ class VectorStore:
             for i in rows:
                 self._meta[i]["deleted"] = True
             self._version += 1
-            self._notify_sinks("on_delete", rows)
+            for sink in self._index_sinks:
+                self._call_sink(sink.on_delete, rows)
             log.info("tombstoned %d rows across %d docs", len(rows), len(codes))
             return len(rows)
 
@@ -604,7 +603,8 @@ class VectorStore:
             spine_run("store_add", lambda: self._place_rows(kept), device=self.device)
             self._version += 1
             self._n_compactions += 1
-            self._notify_sinks("on_compact", keep.copy())
+            for sink in self._index_sinks:
+                self._call_sink(sink.on_compact, keep.copy())
             log.info("compacted %d deleted rows; %d remain", count - kept, kept)
             return count - kept
 

@@ -88,9 +88,11 @@ the one place a boot would refuse a part this port lacks, refuses nothing
 since tiered serving on a mesh came (queue 1 item 9c: the int8 IVF tier
 row-sharded over the model axis, the tiered and hybrid programs as
 commands, ``index/tiered.py``).
-Routes whose subsystem is not ported answer as the reference does when
-that subsystem is idle or absent: ``/api/witness`` and ``/api/ledger`` with
-404.
+``/api/witness`` and ``/api/ledger`` serve the two runtime witnesses of
+``analysis/`` (the lock-order graph, the KV-table and cost-record ledger)
+when the process booted with ``DOCQA_RACE_WITNESS=1`` /
+``DOCQA_LEDGER_WITNESS=1``, and answer 404 otherwise, as the reference's
+do.
 
 Entry point: ``python -m docqa_tpu_torch.service.app`` (see :func:`main`),
 or ``torchrun --nproc-per-node N -m docqa_tpu_torch.service.app`` on a mesh
@@ -98,6 +100,13 @@ or ``torchrun --nproc-per-node N -m docqa_tpu_torch.service.app`` on a mesh
 """
 
 from __future__ import annotations
+
+if __name__ == "__main__":
+    # served as `python -m`: the lock witness goes in before the port's
+    # modules below build their import-time locks
+    from docqa_tpu_torch.analysis import race_witness as _race_witness
+
+    _race_witness.maybe_install_from_env()
 
 import argparse
 import concurrent.futures
@@ -172,6 +181,16 @@ class DocQARuntime:
         device="cuda",
         decoder_params=None,
     ) -> None:
+        # DOCQA_RACE_WITNESS=1 wraps every named lock and cv built from here
+        # on (GET /api/witness); DOCQA_LEDGER_WITNESS=1 tracks every KV
+        # table and cost record (GET /api/ledger).  This is the fallback
+        # install point: locks built when the port's modules were imported
+        # (obs, runtime.metrics, ops/_kernels) predate it; main() installs
+        # the lock witness at process entry for a served process.
+        from docqa_tpu_torch.analysis import ledger_audit, race_witness
+
+        race_witness.maybe_install_from_env()
+        ledger_audit.maybe_install_from_env()
         from docqa_tpu_torch.deid.engine import DeidEngine
         from docqa_tpu_torch.engines.encoder import EncoderEngine, HashEncoder
         from docqa_tpu_torch.engines.generate import GenerateEngine
@@ -642,8 +661,12 @@ class DocQARuntime:
         ``data.snapshot_every`` documents."""
         if not self._index_dir or self.cfg.data.snapshot_every <= 0:
             return
-        self._docs_since_snapshot += n_docs
-        if self._docs_since_snapshot >= self.cfg.data.snapshot_every:
+        # counted under the snapshot's lock: a batch landing while a
+        # snapshot is written is counted after its reset, not erased by it
+        with self._snapshot_lock:
+            self._docs_since_snapshot += n_docs
+            due = self._docs_since_snapshot >= self.cfg.data.snapshot_every
+        if due:
             self._snapshot()
 
     def _cost_pressure(self) -> Dict[str, Any]:
@@ -1199,10 +1222,32 @@ class App:
         return Response(payload=obs.DEFAULT_RECORDER.summaries(n=limit, anomalous=anomalous))
 
     def api_witness(self, _req: Request) -> Response:
-        return json_error(404, "witness not installed (not in the PyTorch port)")
+        """The lock witness's dump (locks seen, witnessed edges, held-lock
+        blocking events, cycles, and the cross-check against the static
+        acquisition graph).  404 unless the process booted with
+        ``DOCQA_RACE_WITNESS=1``: the witness wraps locks at creation, so
+        it cannot be enabled after boot."""
+        from docqa_tpu_torch.analysis.race_witness import witness_snapshot
+
+        snap = witness_snapshot()
+        if snap is None:
+            return json_error(404, "witness not installed (boot with DOCQA_RACE_WITNESS=1)")
+        return Response(payload=snap)
 
     def api_ledger(self, _req: Request) -> Response:
-        return json_error(404, "ledger witness not installed (not in the PyTorch port)")
+        """The resource-ledger witness's live dump (table and record counts,
+        live entries, witnessed call sites, the witnessed-⊆-static check).
+        While serving, ``leaked_tables`` / ``unretired_records`` list work
+        in flight; they are leaks only at quiesce.  404 unless booted with
+        ``DOCQA_LEDGER_WITNESS=1``."""
+        from docqa_tpu_torch.analysis.ledger_audit import ledger_snapshot
+
+        snap = ledger_snapshot()
+        if snap is None:
+            return json_error(
+                404, "ledger witness not installed (boot with DOCQA_LEDGER_WITNESS=1)"
+            )
+        return Response(payload=snap)
 
     def api_trace_one(self, req: Request) -> Response:
         trace = obs.DEFAULT_RECORDER.get(req.match["trace_id"])
@@ -1620,6 +1665,7 @@ class AppServer(ThreadingHTTPServer):
         self._threads_lock = threading.Lock()
         self._request_threads: List[threading.Thread] = []
         self._serve_thread: Optional[threading.Thread] = None
+        self._shutdown_thread: Optional[threading.Thread] = None
         self._serving = threading.Event()
 
     @property
@@ -1644,7 +1690,12 @@ class AppServer(ThreadingHTTPServer):
                 self.fault = exc
         log.error("device fault in a handler; the server stops: %r", exc)
         if self._serving.is_set():
-            threading.Thread(target=self.shutdown, name="http-shutdown", daemon=True).start()
+            t = threading.Thread(target=self.shutdown, name="http-shutdown", daemon=True)
+            with self._threads_lock:
+                if self._shutdown_thread is not None:
+                    return
+                self._shutdown_thread = t
+            t.start()
 
     def serve_forever(self, poll_interval: float = 0.05) -> None:
         self._serving.set()
@@ -1668,12 +1719,16 @@ class AppServer(ThreadingHTTPServer):
         self.server_close()
         with self._threads_lock:
             threads = list(self._request_threads)
+            shutdown_thread = self._shutdown_thread
+        if shutdown_thread is not None:
+            shutdown_thread.join(timeout)
         for t in threads:
             t.join(timeout)
         lanes_done = self.app.close(timeout)
         alive = [t for t in threads if t.is_alive()]
-        if self._serve_thread is not None and self._serve_thread.is_alive():
-            alive.append(self._serve_thread)
+        for t in (shutdown_thread, self._serve_thread):
+            if t is not None and t.is_alive():
+                alive.append(t)
         return lanes_done and not alive
 
 
@@ -1753,6 +1808,11 @@ def main(argv=None) -> None:
     ``WORLD_SIZE`` ranks, :func:`~docqa_tpu_torch.runtime.mesh.multihost_init`)
     rank 0 serves on ``--port`` and every other rank follows it, and the
     process group is destroyed on every rank at the end."""
+    # the lock witness at process entry (run as `python -m`, the module's
+    # own first statements installed it before its imports)
+    from docqa_tpu_torch.analysis import race_witness
+
+    race_witness.maybe_install_from_env()
     import torch.distributed as dist
 
     from docqa_tpu_torch.runtime.mesh import multihost_init

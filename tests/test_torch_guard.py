@@ -173,9 +173,26 @@ QUANT_MODULES = (
     "docqa_tpu_torch.service.broker",
     "docqa_tpu_torch.weights",
 )
+# the analyzer slice's modules (the CLI's __main__ too: importing it runs
+# nothing), held to the same two checks
+ANALYSIS_MODULES = (
+    "docqa_tpu_torch.analysis",
+    "docqa_tpu_torch.analysis.__main__",
+    "docqa_tpu_torch.analysis.concurrency",
+    "docqa_tpu_torch.analysis.core",
+    "docqa_tpu_torch.analysis.cv_protocol",
+    "docqa_tpu_torch.analysis.deadline_flow",
+    "docqa_tpu_torch.analysis.guarded_state",
+    "docqa_tpu_torch.analysis.ledger_audit",
+    "docqa_tpu_torch.analysis.lock_discipline",
+    "docqa_tpu_torch.analysis.phi_taint",
+    "docqa_tpu_torch.analysis.race_witness",
+    "docqa_tpu_torch.analysis.resource_flow",
+    "docqa_tpu_torch.analysis.thread_lifecycle",
+)
 SLICE_MODULES = (BATCHER_MODULES + INGEST_MODULES + OBS_MODULES + APP_MODULES
                  + LIFECYCLE_MODULES + TRAINING_MODULES + RETRIEVAL_MODULES
-                 + CHECKPOINT_MODULES + QUANT_MODULES)
+                 + CHECKPOINT_MODULES + QUANT_MODULES + ANALYSIS_MODULES)
 
 
 def _python_files():
