@@ -9,7 +9,8 @@ Phases, each of which fails the run on any error (nothing is caught):
    from ``docqa_tpu_torch/csrc`` (one nvcc per source, started together)
    and print each kernel's registers and spills.
 2. kernels: call the flash wrapper on the card at the shapes the /ask path
-   gives it and at a 4K-token prompt, hold the result against the plain
+   gives it, at a 4K-token prompt and at Llama-3-8B's 8K-token unwindowed
+   prefill (32 q / 8 kv heads of 128), hold the result against the plain
    PyTorch version on the same inputs (bf16: the decode or prefill
    tensor-core path; float32: the SIMT path), and time the kernel, the
    first port's SIMT kernel on the same bf16 inputs, the plain version,
@@ -227,7 +228,8 @@ Phases, each of which fails the run on any error (nothing is caught):
 14. the quantised decoder, (a)-(c) after phase 12 (they need phase 3's
    weights), (d) inside phase 13 (it needs its Mistral directory): (a) K4
    (``csrc/qmatmul.cu``) alone at the five Mistral-7B projection shapes at
-   4, 16, 32, 64 and 2,048 rows, int8 and (but ``lm_head``) int4, each
+   4, 16, 32, 64 and 2,048 rows, int8 and (but ``lm_head``) int4, and at
+   Llama-3-8B's ``lm_head`` [4,096 x 128,256] int8 at 4 and 2,048 rows, each
    case's kernel mode and launch printed, against its plain version at the
    bf16 tolerance, bit for bit on one-hot rows and run to run, timed beside
    the plain version, ``torch.matmul`` on the unquantised bf16 weight and
@@ -341,14 +343,31 @@ Phases, each of which fails the run on any error (nothing is caught):
    static sites; K1 launched by the 8 asks, its total the sum of its
    paths.  The child prints one JSON line (edges, held-lock blocking
    events, tables and records, K1 by path, the /ask p50 under the
-   witnesses, not a latency figure).  The phase must take at most 120 s.
+   witnesses, not a latency figure).  Before ``stop()`` the child runs the
+   port's live wire audit (``analysis/wire_audit.py``) against that
+   runtime: every route of the app driven over HTTP, ``rolling_restart``
+   and the profiler included, each response validated against
+   ``api_contract.json``, coverage both ways and a broker journal round
+   trip; 0 violations.  The phase must take at most 120 s.
+20. Llama-3-8B at full width, after phase 14 (a)-(c) and before phase 15
+   (phase 3's Mistral tree is still held; both new trees are freed before
+   phase 15): ``init_decoder_params(DecoderConfig.llama3_8b())`` drawn on
+   the card in bf16 (8.03 B parameters: the 128,256-token vocabulary, no
+   sliding window, ``rope_theta`` 500,000) and quantised int8 there as
+   phase 14 (b) does; a solo ``GenerateEngine`` (64 new tokens, K = 4) on
+   each tree over phase 3's encoder and store answers phase 3's first
+   question.  Prints each tree's bytes, the draw and quantise seconds, the
+   first-step logits int8 against bf16 (relative RMS, argmax), ms a verify
+   step, decode tokens/s and K1 and K4 launches: K1 encoder layers +
+   forwards x 32, K4 (7 x 32 + 1) x forwards for int8 and none for bf16.
+   The phase must take at most 90 s.
 
 The recorder is on by default, so phases 3-7 run traced too.  Prints the
 pool JSON line, the ingest JSON line, the obs JSON line, the app JSON line,
 the lifecycle JSON line, the training JSON line, the tiered JSON line, the
 checkpoints JSON line, the quant JSON line, the mesh JSON line, the mesh runtime JSON
 line, the mesh tiered JSON line, the mesh train JSON line, the witness JSON line,
-the launches-by-phase JSON
+the Llama-3 JSON line, the launches-by-phase JSON
 line (each main-path run's K1 and K4 counters, whose sums are the kernels
 line's launches; each run's K1 total must equal the sum of its paths, and
 its K4 total the sum of its weight modes and of its kernel modes), the
@@ -524,6 +543,10 @@ def kernel_cases():
              lengths=[4096], q_offset=[0], **mistral),
         dict(name="mistral_verify_4k", b=1, sq=4, skv=4224,
              lengths=[4100], q_offset=[4096], **{**mistral, "window": None}),
+        # Llama-3-8B's context (phase 20's decoder): an 8,192-token prompt,
+        # no sliding window, into the 8,320-row cache of 64 new tokens + K
+        dict(name="llama3_prefill_8k", b=1, sq=8192, skv=8320,
+             lengths=[8192], q_offset=[0], **{**mistral, "window": None}),
         # the NER tagger's window batches on phase 7's path: the trained
         # tagger (NERConfig: 8 heads of 32, no GQA, bidirectional) is served
         # in windows of the 128 tokens it was trained at, about 4.4 a note.
@@ -1675,14 +1698,29 @@ def run_pool_path(counts, qa_solo):
                                                res_cfg.breaker_reset_s),
                          resilience=res_cfg)
         preempted0 = DEFAULT_REGISTRY.counter("qos_preempted").value
+        admissions0 = bd.stats["admissions"]
         t0 = time.perf_counter()
-        batch = [pool_d.submit_text(p, max_new_tokens=batch_new, req_class="batch",
-                                    deadline=Deadline.after(120)) for p in prompts]
+        # the worker admits whatever is queued when it wakes: a request
+        # queued behind that pop lags a chunk, which can take the others to
+        # their full 64 tokens (their blocks freed) before it has 32.  Its
+        # lock (re-entrant) is held while the eight are queued, so they are
+        # admitted in one round and the pool is full when the /ask arrive
+        with bd._cv:
+            batch = [pool_d.submit_text(p, max_new_tokens=batch_new,
+                                        req_class="batch",
+                                        deadline=Deadline.after(120))
+                     for p in prompts]
         end = time.monotonic() + 120
         while (min(len(h._req.tokens) for h in batch) < 32
                and time.monotonic() < end):
             time.sleep(0.005)
         before = [list(h._req.tokens) for h in batch]
+        live = bd.n_active
+        if live != len(batch) or bd.stats["admissions"] - admissions0 != len(batch):
+            raise AssertionError(
+                f"round D: {live} of {len(batch)} batch lanes live when the /ask "
+                f"arrived ({[len(b) for b in before]} tokens, "
+                f"{bd.stats['admissions'] - admissions0} admissions)")
         res = _resolve_all(_submit_round(qa_d, QUESTIONS))
         n_encodes += len(res)
         outs = [h.result(timeout=120) for h in batch]
@@ -5530,6 +5568,10 @@ def run_training_encoder(counts, workdir):
 QUANT_SHAPES = (("wq", 4096, 4096), ("wk", 4096, 1024), ("w_gate", 4096, 14336),
                 ("w_down", 14336, 4096), ("lm_head", 4096, 32000))
 QUANT_ROWS = (4, 16, 32, 64, 2048)
+# Llama-3-8B's lm_head (phase 20's decoder), int8, at the solo verify's rows
+# and a packed prefill's; the int-weight library call is timed at m = 4
+# only (at 2,048 rows one call of it takes seconds)
+QUANT_LLAMA3_HEAD = ("lm_head_128k", 4096, 128256, (4, 2048))
 QUANT_TIMED = "w_gate_m4"  # the case each K4 entry of the kernels line reports
 QUANT_TIMED_MODE = {"ring": "w_gate_m4", "wgmma": "w_gate_m2048",  # and each kernel's
                     "simple": "ref_w_gate_m4"}
@@ -5724,6 +5766,19 @@ def run_qmatmul_cases(flush, parent=None):
             if why:
                 log(f"  int-weight library for {name} {mode}: {why}")
         del wb, packs, libs
+    name, k, n, rows_m = QUANT_LLAMA3_HEAD
+    w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+    wb = w.to(torch.bfloat16)
+    q, sc = quant.quantize_array(w)
+    del w
+    for m in rows_m:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        onehot, rows = onehot_of(m, k)
+        lib = (int_weight_library("int8", q, sc, k) if m == 4
+               else (None, "not timed at this shape (a call takes seconds)"))
+        results.append(_k4_case(f"{name}_m{m}_int8", x, q, sc, flush,
+                                time_ms(lambda: x @ wb, flush), lib, onehot, rows, parent))
+    del wb, q, sc
     for name, m, k, n, bits, group in QUANT_SIMPLE:
         w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
         wb = w.to(torch.bfloat16)
@@ -5869,7 +5924,7 @@ def _k4_identity(where, delta, layers, forwards):
     return want
 
 
-def _counted_ask(counts, qa, question, enc_layers, k4):
+def _counted_ask(counts, qa, question, enc_layers, k4, where="phase 14 /ask"):
     """One solo /ask with its launch identities: K1 encoder layers +
     forwards x decoder layers, and (a quantised engine) K4 (7 L + 1) x
     forwards, or none."""
@@ -5879,17 +5934,18 @@ def _counted_ask(counts, qa, question, enc_layers, k4):
     t0 = time.perf_counter()
     out = qa.ask(question)
     latency = time.perf_counter() - t0
-    _no_degraded("phase 14 /ask", [out])
+    _no_degraded(where, [out])
     delta = collections.Counter(counts)
     delta.subtract(before)
     st = dict(gen.last_stats)
     if k4:
-        _k4_identity("phase 14 /ask", delta, layers, st["forwards"])
+        _k4_identity(where, delta, layers, st["forwards"])
     elif delta.get("qmatmul", 0):
-        raise AssertionError(f"a bf16 /ask launched K4 {delta['qmatmul']} times")
+        raise AssertionError(f"{where}: a bf16 /ask launched K4 {delta['qmatmul']} times")
     if delta["flash_attention"] != enc_layers + st["forwards"] * layers:
-        raise AssertionError(f"phase 14 /ask: K1 launched {delta['flash_attention']}")
+        raise AssertionError(f"{where}: K1 launched {delta['flash_attention']}")
     return {"latency_s": latency, "forwards": st["forwards"],
+            "k1_launches": delta["flash_attention"], "k4_launches": delta.get("qmatmul", 0),
             "decode_tokens": st["decode_tokens"],
             "decode_tok_s": st["decode_tokens"] / st["decode_s"],
             "verify_step_ms": st["decode_s"] / max(st["forwards"] - 1, 1) * 1e3}
@@ -6256,6 +6312,81 @@ def run_quant_path(counts, qa, params, bf16_a1):
             "launches": {"reference config": calibrated_launches,
                          "solo int8": solo_launches[8], "solo int4": solo_launches[4],
                          "pool int8": pool_launches}}
+
+
+# ---- phase 20: Llama-3-8B at full width --------------------------------------
+
+L3_NEW_TOKENS = 64  # phase 3's first question, greedy, K = 4
+L3_PHASE_LIMIT_S = 90.0
+
+
+def run_llama3_path(counts, qa):
+    """Phase 20 (the module docstring): ``DecoderConfig.llama3_8b()`` drawn
+    on the card in bf16 and quantised int8 there, a solo engine on each
+    tree over phase 3's encoder and store answering phase 3's first
+    question; first-step logits int8 against bf16; K1 and K4 launches held
+    to their identities.  Both trees are freed before it returns."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = DecoderConfig.llama3_8b()
+    enc_layers = qa.retriever.encoder.cfg.num_layers
+    gen_cfg = GenerateConfig(max_new_tokens=L3_NEW_TOKENS, speculative_k=4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_decoder_params(cfg, seed=3, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.values())
+    t0 = time.perf_counter()
+    qtree = quant.quantize_decoder_params(params, 8)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    qcfg = dataclasses.replace(cfg, quantize_weights=True, quant_bits=8)
+    engines = {"bf16": GenerateEngine(cfg, gen_cfg, params=params, device=dev),
+               "int8": GenerateEngine(qcfg, gen_cfg, params=qtree, device=dev)}
+    del params, qtree
+    services = {mode: QAService(qa.retriever.encoder, qa.retriever.store, eng, k=3,
+                                device=dev) for mode, eng in engines.items()}
+    _prompt, ids = first_step_prompt(services["bf16"], QUESTIONS[0],
+                                     1024 - 2 - gen_cfg.speculative_k)
+    logits = {mode: solo_first_step(eng, ids) for mode, eng in engines.items()}
+    for mode, lg in logits.items():
+        if lg.shape != (cfg.vocab_size,) or not torch.isfinite(lg).all():
+            raise AssertionError(f"phase 20 {mode}: first-step logits {tuple(lg.shape)}")
+    ref, got = logits["bf16"], logits["int8"]
+    rel_rms = float((got - ref).norm() / ref.norm())
+    same_argmax = int(got.argmax()) == int(ref.argmax())
+    summary = {"params_b": n_params / 1e9, "draw_s": draw_s, "quantise_s": quant_s,
+               "first_step": {"int8_vs_bf16_rel_rms": rel_rms, "same_argmax": same_argmax,
+                              "prompt_tokens": len(ids)}}
+    # the main path: the counts from 0 just before the asks, read after
+    counts.clear()
+    for mode in ("bf16", "int8"):
+        rec = _counted_ask(counts, services[mode], QUESTIONS[0], enc_layers,
+                           k4=mode == "int8", where=f"phase 20 {mode} /ask")
+        rec["tree_bytes"] = quant.tree_bytes(engines[mode].params)
+        summary[mode] = rec
+        log(f"  Llama-3-8B {mode}: tree {rec['tree_bytes'] / 1e9:.3f} GB, /ask "
+            f"{rec['latency_s']:.3f} s, {rec['forwards']} forwards, "
+            f"{rec['verify_step_ms']:.2f} ms a verify step, decode "
+            f"{rec['decode_tok_s']:.1f} tok/s, K1 {rec['k1_launches']} launches "
+            f"({enc_layers} + {rec['forwards']} x {cfg.num_layers}), K4 "
+            f"{rec['k4_launches']}" + (f" (({QUANT_PROJECTIONS} x {cfg.num_layers} + 1) x "
+                                       f"{rec['forwards']})" if mode == "int8" else ""))
+    launches = dict(counts)
+    del services, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    summary["phase_s"] = phase_s
+    log(f"  Llama-3-8B: {n_params / 1e9:.3f} B params drawn in bf16 on the card in "
+        f"{draw_s:.2f} s, quantised int8 in {quant_s:.2f} s; first-step logits int8 vs bf16 "
+        f"relative RMS {rel_rms:.4f}, argmax {'kept' if same_argmax else 'differs'}")
+    log(f"  phase 20 took {phase_s:.1f} s (limit {L3_PHASE_LIMIT_S:.0f} s)")
+    if phase_s > L3_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 20 took {phase_s:.1f} s, over {L3_PHASE_LIMIT_S} s")
+    return {"summary": summary, "launches": launches}
 
 
 # ---- phase 15: the device plane on a mesh -----------------------------------
@@ -7441,6 +7572,7 @@ def witness_child(tagger) -> int:
     installed by its first statements.  Prints one ``{"witness_child":
     ...}`` JSON line; any failed check raises."""
     from docqa_tpu_torch.analysis import ledger_audit, race_witness
+    from docqa_tpu_torch.analysis.wire_audit import run_wire_audit
     from docqa_tpu_torch.config import load_config
     from docqa_tpu_torch.engines.router import AnswerRouter
     from docqa_tpu_torch.service.app import AppServer, DocQARuntime, make_app
@@ -7508,6 +7640,21 @@ def witness_child(tagger) -> int:
         http.json("DELETE /documents/{doc_id}", f"/documents/{ids[0]}")
         http.json("GET /api/witness", "/api/witness")
         http.json("GET /api/ledger", "/api/ledger")
+        # the port's live wire audit against this runtime, before stop:
+        # every route over HTTP (a second front on its own port)
+        t0 = time.perf_counter()
+        audit = run_wire_audit(rt=rt, timeout=APP_HTTP_TIMEOUT_S)
+        audit_s = time.perf_counter() - t0
+        cov = audit["coverage"]
+        if not audit["ok"] or len({cov["driven"], cov["registered"], cov["declared"]}) != 1:
+            bad = {k: r["violations"] for k, r in audit["endpoints"].items()
+                   if r["violations"]}
+            raise AssertionError(f"phase 19's wire audit: {audit['violations_total']} "
+                                 f"violations, coverage {cov}, journal "
+                                 f"{audit['journal']}: {bad}")
+        log(f"  [child] wire audit: {cov['driven']}/{cov['registered']} routes driven "
+            f"({cov['declared']} declared), 0 violations, journal round trip ok, "
+            f"{audit_s:.1f} s")
     finally:
         closed = server.close(timeout=30)
         rt.stop()
@@ -7549,6 +7696,13 @@ def witness_child(tagger) -> int:
         "launches": launches,
         "asks": WIT_ASKS, "asks_wall_s": wall,
         "ask_p50_s_under_witnesses_not_a_latency_figure": _pctl(lat, 0.5),
+        "redundant_retire_sites": led.get("redundant_retire_sites"),
+        "wire_audit": {
+            "routes_driven": cov["driven"], "routes_registered": cov["registered"],
+            "routes_declared": cov["declared"], "violations": audit["violations_total"],
+            "journal_ok": audit["journal"]["ok"], "seconds": audit_s,
+            "statuses": {k: r["status"] for k, r in audit["endpoints"].items()},
+        },
         "child_s": time.perf_counter() - t_child,
     }
     print(json.dumps({"witness_child": summary}), flush=True)
@@ -7719,6 +7873,12 @@ def main(argv=None) -> int:
                                 pool_path["summary"]["rounds"]["A1"])
     quant_s = time.perf_counter() - t_quant
 
+    log("[20/20] Llama-3-8B at full width: its decoder drawn in bf16 on the card and "
+        "quantised int8 there, a solo engine on each tree over phase 3's encoder and "
+        "store answering phase 3's first question through K1 and K4")
+    get_spine().reset_stats()
+    llama3_path = run_llama3_path(_kernels.LAUNCHES, qa)
+
     log("[15/15] the device plane on a mesh: a world of one rank over NCCL, the (1, 1) mesh's "
         "engine over phase 3's tree, the sharded top-k, Ulysses and ring attention; then one "
         "rank's K1 and K4 shard shapes at TP 1, 2, 4 and 8 of Mistral-7B")
@@ -7822,6 +7982,7 @@ def main(argv=None) -> int:
         **mtr_path["launches"],
         **mtrain_path["launches"],
         "19": witness_path["launches"],
+        "20": llama3_path["launches"],
     }
     path_launches = collections.Counter()
     for phase, counted in phase_launches.items():
@@ -7918,6 +8079,7 @@ def main(argv=None) -> int:
                 "mesh_tiered_path": mtr_path, "mesh_tiered_path_s": mtr_s,
                 "mesh_train_path": mtrain_path, "mesh_train_path_s": mtrain_s,
                 "witness_path": witness_path, "witness_path_s": witness_path["phase_s"],
+                "llama3_path": llama3_path,
                 "launches_by_phase": phase_launches,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
@@ -8005,6 +8167,7 @@ def main(argv=None) -> int:
     }}))
     print(json.dumps({"mesh_train": mtrain_path["summary"]}))
     print(json.dumps({"witness": {k: v for k, v in witness_path.items() if k != "launches"}}))
+    print(json.dumps({"llama3": llama3_path["summary"]}))
     print(json.dumps({"launches_by_phase": {
         phase: {key: n for key, n in counted.items() if n}
         for phase, counted in phase_launches.items()}}))

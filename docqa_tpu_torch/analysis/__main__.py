@@ -8,6 +8,9 @@ Usage:
     python -m docqa_tpu_torch.analysis --update-baseline   # accept current
     python -m docqa_tpu_torch.analysis --no-baseline       # raw findings
     python -m docqa_tpu_torch.analysis --format json
+    python -m docqa_tpu_torch.analysis --rules host-sync,dispatch-streams
+    python -m docqa_tpu_torch.analysis --wire-audit --device cpu
+    python -m docqa_tpu_torch.analysis --api-md      # the API document
 
 The gate fails (exit 1) on any finding not in the baseline AND on any
 stale baseline entry (accepted finding that no longer fires) — the
@@ -17,6 +20,13 @@ disable=<rule>``) are applied before baselining.  ``--update-baseline``
 keeps the justification of every entry that still fires and every entry
 outside the run's rules or paths; a new entry gets ``TODO: justify``,
 which the tests refuse until a real reason replaces it.
+
+``--wire-audit`` boots the fake-mode runtime on ``--device`` (the card by
+default), drives every route over HTTP on 127.0.0.1, validates each
+response against ``api_contract.json`` and round-trips a broker journal;
+it exits 1 on any violation and writes the report to ``--report`` when
+given.  ``--api-md`` prints the endpoint reference rendered from the
+contract.
 """
 
 from __future__ import annotations
@@ -68,7 +78,43 @@ def main(argv=None) -> int:
         "(justifications in existing entries are preserved)",
     )
     parser.add_argument("--format", choices=("text", "json"), default="text")
+    parser.add_argument(
+        "--wire-audit",
+        action="store_true",
+        help="run the live wire audit instead of the static rules",
+    )
+    parser.add_argument(
+        "--device", default="cuda",
+        help="the wire audit's device (default: cuda)",
+    )
+    parser.add_argument("--report", default=None, help="wire audit report path")
+    parser.add_argument(
+        "--api-md",
+        action="store_true",
+        help="print the API document rendered from api_contract.json",
+    )
     args = parser.parse_args(argv)
+
+    if args.api_md or args.wire_audit:
+        from docqa_tpu_torch.analysis import wire_audit
+
+        if args.api_md:
+            contract = wire_audit.load_contract(wire_audit.default_ledger_path())
+            sys.stdout.write(wire_audit.render_api_md(contract))
+            return 0
+        report = wire_audit.run_wire_audit(
+            device=args.device, report_path=args.report
+        )
+        cov = report["coverage"]
+        print(
+            f"wire audit: {cov['driven']}/{cov['registered']} routes driven, "
+            f"{cov['declared']} declared, {report['violations_total']} "
+            f"violation(s), journal {'ok' if report['journal']['ok'] else 'FAILED'}"
+        )
+        for key, row in report["endpoints"].items():
+            for v in row["violations"]:
+                print(f"{key} [{row['status']}]: {v}")
+        return 0 if report["ok"] else 1
 
     rules = (
         [r.strip() for r in args.rules.split(",") if r.strip()]

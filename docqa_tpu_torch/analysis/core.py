@@ -2,14 +2,18 @@
 baseline, runner.
 
 Counterpart of ``docqa_tpu/analysis/core.py``.  The checkers encode the
-port's concurrency and lifecycle invariants: one global lock order with no
-blocking call (I/O, a thread join, a wait on a CUDA stream) inside a
-critical section, a field guarded by a lock everywhere it is guarded
+port's concurrency, lifecycle and serving-contract invariants: one global
+lock order with no blocking call (I/O, a thread join, a wait on a CUDA
+stream) inside a critical section, a field guarded by a lock everywhere it is guarded
 anywhere, condition waits in predicate loops, every thread joined on its
 owner's stop path, request deadlines threaded through and clamping every
 wait, every acquired KV table, cost record, spine ticket and trace
 released exactly once, and raw pre-deid text kept out of logs, metric
-labels and external payloads.  This module holds everything they share:
+labels and external payloads; no device sync on /ask outside the
+spine's fetch, every thread that reaches the card ledgered, one
+retirement per request at declared sites, typed sheds with device faults
+passing every catch-all, and the HTTP and broker wire held to
+``api_contract.json``.  This module holds everything they share:
 
 * :class:`Package` — a parsed view of the tree: one :class:`Module` per
   file (AST + per-line suppressions + import-alias map) and one
@@ -149,6 +153,65 @@ class AnalysisProfile:
     # lock-discipline: module singletons by the class they hold
     # (``DEFAULT_OBSERVATORY.record(...)`` is ``Observatory.record``)
     receiver_classes: Tuple[Tuple[str, str], ...] = ()
+    # The serving-contract rules.  Every default below is the reference's
+    # table, so a profile built from the reference's older tables alone is
+    # the reference's profile.
+    #
+    # where the ledgers of dispatch-streams, retire-once and shed-taxonomy
+    # live, relative to the analysed package's root; None keeps the
+    # reference's convention (beside the package root, or in it)
+    ledger_dir: Optional[str] = None
+    # host-sync: modules it scans besides the request path; call prefixes
+    # whose results live on the device; calls that are a device fetch by
+    # definition; methods that sync on any receiver that is not a known
+    # host value; calls that build a compiled wrapper (calling the wrapper
+    # yields device values); calls whose results are host values (the
+    # sanctioned fetch); "module:qualname" functions whose waits are the
+    # sanctioned ones
+    host_sync_modules: FrozenSet[str] = frozenset()
+    host_sync_device_prefixes: Tuple[str, ...] = (
+        "jnp.", "jax.numpy.", "jax.lax.", "jax.random.",
+    )
+    host_sync_fetch_calls: FrozenSet[str] = frozenset({"jax.device_get"})
+    host_sync_methods: FrozenSet[str] = frozenset({"item", "tolist"})
+    host_sync_wrapper_tails: FrozenSet[str] = frozenset(
+        {"jit", "pjit", "shard_map"}
+    )
+    host_sync_host_calls: FrozenSet[str] = frozenset()
+    host_sync_sanctioned: FrozenSet[str] = frozenset()
+    # dispatch-streams: calls through a dispatch head that build a program
+    # or a host object without enqueueing device work, and the spine's
+    # module (calls into it are the delegation boundary)
+    dispatch_wrapper_tails: FrozenSet[str] = frozenset({
+        "jit", "ShapeDtypeStruct", "eval_shape", "shard_map", "tree_map",
+        "TraceAnnotation", "dtype",
+    })
+    spine_module: str = "engines.spine"
+    # the calls that put their closure on the spine, stage name first
+    spine_submit_tails: FrozenSet[str] = frozenset(
+        {"spine_run", "spine_submit"}
+    )
+    # retire-once: call tails that terminally retire a request
+    retire_terminal_tails: FrozenSet[str] = frozenset(
+        {"_finish", "_retire", "_fail_active"}
+    )
+    # shed-taxonomy: calls that tell a device fault from other errors (a
+    # catch-all that consults one lets device faults through)
+    device_fault_predicates: FrozenSet[str] = frozenset()
+    # wire-schema / wire-safety: the calls that answer a request, as (call
+    # tail, status position, payload position), -1 for keyword-only;
+    # (route key, response key, reason) keys a handler may produce beyond
+    # its contract entry
+    response_calls: Tuple[Tuple[str, int, int], ...] = (
+        ("json_response", -1, 0),
+    )
+    wire_key_exceptions: Tuple[Tuple[str, str, str], ...] = ()
+    # wire-safety: import heads whose call results are device arrays
+    device_value_heads: Tuple[str, ...] = ("jax", "jnp")
+    # wire-consumer: the benchmark script and perf baseline beside the
+    # package whose dotted paths it resolves (None: none)
+    bench_file: Optional[str] = "bench.py"
+    perf_baseline_file: Optional[str] = "perf_baseline.json"
 
 
 _PROTOCOLS = (
@@ -237,6 +300,9 @@ PORT_PROFILE = AnalysisProfile(
     # counts every hand-written kernel launch
     dispatch_calls=frozenset({
         "ops._kernels.build", "ops._kernels.load", "ops._kernels.count",
+        # engines/spine.py: where an item's closure runs (a lane's, or its
+        # caller's when a slot is free)
+        "engines.spine._run_item",
     }),
     # engines/spine.py: a spine item's own lock, taken through the item
     lock_aliases=(("item.settle_lock", "_Item.settle_lock"),),
@@ -253,6 +319,49 @@ PORT_PROFILE = AnalysisProfile(
         ("DEFAULT_PROFILER", "ProfilerWindow"),
         ("DEFAULT_RECORDER", "FlightRecorder"),
     ),
+    # the port's ledgers are its own: docqa_tpu_torch/analysis/*.json
+    ledger_dir="analysis",
+    # the solo engine's decode loop runs on /ask's spine items
+    host_sync_modules=frozenset({"engines.generate"}),
+    host_sync_device_prefixes=("torch.",),
+    # a wait for a CUDA stream
+    host_sync_fetch_calls=frozenset({"torch.cuda.synchronize"}),
+    host_sync_methods=frozenset({"item", "tolist", "cpu", "numpy", "synchronize"}),
+    host_sync_wrapper_tails=frozenset(),
+    # engines/spine.py: to_host starts an item's copy to pinned memory and
+    # a ticket's result() returns once it has landed, so what spine_run /
+    # result() return is on the host
+    host_sync_host_calls=frozenset({
+        "to_host", "spine_run", "result", "numpy.asarray", "numpy.array",
+    }),
+    # the item's end-event wait: the device-time read at the fetch and a
+    # strict spine's wait before a slot frees
+    host_sync_sanctioned=frozenset({"engines.spine:DispatchSpine._wait_end"}),
+    dispatch_wrapper_tails=frozenset({
+        "device", "dtype", "no_grad", "inference_mode", "set_grad_enabled",
+        "is_inference_mode_enabled", "is_grad_enabled", "is_available",
+        "device_count", "get_device_name", "current_device", "Event",
+        "Stream", "stream", "record_function", "manual_seed", "Generator",
+        "set_num_threads", "get_num_threads", "finfo", "iinfo",
+    }),
+    # spine_issue returns once the item has issued; the batcher's
+    # _on_lane(stage, fn, ...) issues on its own CUDA stream
+    spine_submit_tails=frozenset(
+        {"spine_run", "spine_submit", "spine_issue", "_on_lane"}
+    ),
+    device_fault_predicates=frozenset({"is_device_fault"}),
+    # service/app.py answers through Response(status, payload, ...)
+    response_calls=(("json_response", -1, 0), ("Response", 0, 1)),
+    wire_key_exceptions=(
+        ("GET /api/status", "mesh",
+         "the mesh's ranks and axes, present only when the runtime runs on "
+         "a mesh of ranks (runtime/mesh.py); the reference has no such "
+         "runtime, so its contract has no such key"),
+    ),
+    device_value_heads=("torch",),
+    # the port has no benchmark of its own yet
+    bench_file=None,
+    perf_baseline_file=None,
 )
 
 
@@ -689,20 +798,34 @@ def all_checkers() -> Dict[str, object]:
     """Rule name -> checker instance (import here to avoid cycles)."""
     from docqa_tpu_torch.analysis.cv_protocol import CvProtocolChecker
     from docqa_tpu_torch.analysis.deadline_flow import DeadlineFlowChecker
+    from docqa_tpu_torch.analysis.dispatch_streams import DispatchStreamsChecker
     from docqa_tpu_torch.analysis.guarded_state import GuardedStateChecker
+    from docqa_tpu_torch.analysis.host_sync import HostSyncChecker
     from docqa_tpu_torch.analysis.lock_discipline import LockDisciplineChecker
     from docqa_tpu_torch.analysis.phi_taint import PhiTaintChecker
     from docqa_tpu_torch.analysis.resource_flow import ResourceFlowChecker
+    from docqa_tpu_torch.analysis.retire_once import RetireOnceChecker
+    from docqa_tpu_torch.analysis.shed_taxonomy import ShedTaxonomyChecker
     from docqa_tpu_torch.analysis.thread_lifecycle import ThreadLifecycleChecker
+    from docqa_tpu_torch.analysis.wire_consumer import WireConsumerChecker
+    from docqa_tpu_torch.analysis.wire_safety import WireSafetyChecker
+    from docqa_tpu_torch.analysis.wire_schema import WireSchemaChecker
 
     checkers = [
         CvProtocolChecker(),
         DeadlineFlowChecker(),
+        DispatchStreamsChecker(),
         GuardedStateChecker(),
+        HostSyncChecker(),
         LockDisciplineChecker(),
         PhiTaintChecker(),
         ResourceFlowChecker(),
+        RetireOnceChecker(),
+        ShedTaxonomyChecker(),
         ThreadLifecycleChecker(),
+        WireConsumerChecker(),
+        WireSafetyChecker(),
+        WireSchemaChecker(),
     ]
     return {c.rule: c for c in checkers}
 
@@ -761,6 +884,37 @@ def analyze_paths(
         findings.extend(_run_package(package, rules))
     findings.sort(key=lambda f: (f.path, f.line, f.rule, f.message))
     return findings, analyzed
+
+
+def package_ledger_path(package: Package, name: str) -> Optional[str]:
+    """The ledger ``name`` of the analysed package: under the profile's
+    ``ledger_dir`` of the package root, else beside the root, else in it
+    (fixture trees carry their own or none), or None."""
+    for module in package.modules:
+        rel = module.relpath.replace("/", os.sep)
+        if not module.path.endswith(rel):
+            continue
+        base = module.path[: -len(rel)].rstrip(os.sep)
+        roots = [os.path.dirname(base), base]
+        if package.profile.ledger_dir is not None:
+            roots.insert(0, os.path.join(base, package.profile.ledger_dir))
+        for root in roots:
+            cand = os.path.join(root, name)
+            if os.path.exists(cand):
+                return cand
+    return None
+
+
+def load_json(path: Optional[str], **defaults) -> Dict:
+    """A ledger's JSON (``defaults`` for missing top-level keys, and the
+    whole of it when ``path`` is None or missing)."""
+    data: Dict = {}
+    if path and os.path.exists(path):
+        with open(path, encoding="utf-8") as f:
+            data = json.load(f)
+    for key, value in defaults.items():
+        data.setdefault(key, value)
+    return data
 
 
 def package_dir() -> str:

@@ -115,6 +115,8 @@ class LedgerWitness:
         }
         # (protocol, abspath, lineno) -> event count
         self.sites: Dict[Tuple[str, str, int], int] = {}
+        # (abspath, lineno) -> retires a record had already absorbed
+        self.redundant_retires: Dict[Tuple[str, int], int] = {}
         self._installed = False
         self._orig: Dict[str, Any] = {}
 
@@ -186,6 +188,7 @@ class LedgerWitness:
                 self.counts["records_retired"] += 1
             else:
                 self.counts["records_retire_redundant"] += 1
+                self.redundant_retires[site] = self.redundant_retires.get(site, 0) + 1
             self.live_records.pop(id(rec), None)
 
     # ---- results -------------------------------------------------------------
@@ -200,6 +203,7 @@ class LedgerWitness:
                 self.live_records.values(), key=lambda r: r["seq"]
             )
             site_items = sorted(self.sites.items())
+            redundant = sorted(self.redundant_retires.items())
         missing: List[Dict[str, Any]] = []
         witnessed = []
         for (proto, path, line), n in site_items:
@@ -221,6 +225,10 @@ class LedgerWitness:
                 len(t) for t in self.site_map.values()
             ),
             "sites_missing_from_static": missing,
+            "redundant_retire_sites": [
+                {"site": f"{path}:{line}", "events": n}
+                for (path, line), n in redundant
+            ],
         }
 
     # ---- installation --------------------------------------------------------

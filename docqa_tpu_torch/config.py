@@ -1,9 +1,13 @@
 """Configuration for the port: its own copies of the docqa_tpu dataclasses
 (``docqa_tpu/config.py``), holding only the fields this package reads.
 
-Field names and defaults match the reference exactly, so one dict of
-overrides builds the same configuration in both packages; the exceptions
-is ``DispatchConfig.n_lanes`` (see there).  :func:`load_config`
+Every field of the reference is here, with its name and default, so one
+dict of overrides (or one set of ``DOCQA_<SECTION>__<FIELD>`` variables)
+builds the same configuration in both packages; the one default that
+differs is ``DispatchConfig.n_lanes`` (see there).  A field with no
+subject in the port says so in its section's docstring; the runtime logs
+it once at boot when it is set away from its default
+(:func:`unused_fields`).  :func:`load_config`
 is the reference's: defaults, then the ``DOCQA_<SECTION>__<FIELD>``
 environment overlay, then explicit ``section.field`` overrides.
 """
@@ -13,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass, field, fields
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -138,6 +142,22 @@ class DecoderConfig:
             max_seq_len=4096,
             rope_theta=1000000.0,
             sliding_window=4096,
+        )
+
+    @staticmethod
+    def llama3_8b() -> "DecoderConfig":
+        """Llama-3-8B: the 128,256-token vocabulary, no sliding window,
+        ``rope_theta`` 500,000 and an 8,192-token context."""
+        return DecoderConfig(
+            vocab_size=128256,
+            hidden_dim=4096,
+            num_layers=32,
+            num_heads=32,
+            num_kv_heads=8,
+            head_dim=128,
+            mlp_dim=14336,
+            max_seq_len=8192,
+            rope_theta=500000.0,
         )
 
 
@@ -314,12 +334,15 @@ class PoolConfig:
 
 @dataclass(frozen=True)
 class StoreConfig:
-    """Device-resident exact vector store."""
+    """Device-resident exact vector store.  ``score`` names what the store
+    ranks by: ``"cosine"`` (a product of normalised rows, the one score it
+    computes); the runtime refuses any other value with ``ValueError``."""
 
     dim: int = 384
     # initial row capacity; the device buffer doubles when it fills
     shard_capacity: int = 16384
     dtype: str = "bfloat16"
+    score: str = "cosine"
     default_k: int = 3
     # "exact" (one product over the whole store) or "tiered" (IVF over the
     # bulk plus an exact tail, index/tiered.py)
@@ -367,9 +390,10 @@ class BrokerConfig:
 @dataclass(frozen=True)
 class RegistryConfig:
     """Document-metadata registry: SQLite by default, a Postgres URL for
-    several processes."""
+    several processes; ``table`` is the name of its table."""
 
     url: str = "sqlite://"  # in memory; "sqlite:///path.db" on disk
+    table: str = "documents"
 
 
 @dataclass(frozen=True)
@@ -410,11 +434,20 @@ class DataConfig:
 @dataclass(frozen=True)
 class ServiceConfig:
     """HTTP surface: the port the one server binds (the reference
-    deployment's ingest port), the bind address, and an optional
-    Tika-protocol extractor server."""
+    deployment's ingest port), the bind address, the socket timeout of
+    each connection (``request_timeout_s``: a client that sends or reads
+    nothing for that long is dropped), and an optional Tika-protocol
+    extractor server.
+
+    ``qa_port`` and ``synthesis_port`` name the reference deployment's
+    other two services; the port serves every route from the one server
+    on ``ingest_port``, so they have no subject here and are ignored."""
 
     ingest_port: int = 8000
+    qa_port: int = 8001
+    synthesis_port: int = 8005
     host: str = "0.0.0.0"
+    request_timeout_s: float = 60.0
     extractor_url: Optional[str] = None
 
 
@@ -431,7 +464,11 @@ class FlagsConfig:
 @dataclass(frozen=True)
 class DispatchConfig:
     """The dispatch spine (``engines/spine.py``): every device work item
-    of the process runs through its ``n_lanes`` slots."""
+    of the process runs through its ``n_lanes`` slots.  ``strict_sync``
+    serialises the spine: one item executes at a time and its device work
+    has finished (its end event waited for) before its slot frees; None is
+    auto, which is off (the port's single-process card runtime keeps
+    ``n_lanes`` items in flight)."""
 
     # the reference's default is 2; on the card a retrieval waited up to
     # 94.8 ms in the queue at 2 slots and under 0.1 ms at 8 (PERF.md), so
@@ -439,6 +476,7 @@ class DispatchConfig:
     n_lanes: int = 8
     max_depth: int = 256
     inline: bool = False
+    strict_sync: Optional[bool] = None
     # register the analytic cost models with the observatory after warm-up
     annotate_costs: bool = True
 
@@ -446,12 +484,18 @@ class DispatchConfig:
 @dataclass(frozen=True)
 class TelemetryConfig:
     """Time-series telemetry and the /ask SLO burn-rate policy
-    (``obs/telemetry.py``, ``obs/slo.py``)."""
+    (``obs/telemetry.py``, ``obs/slo.py``).
+
+    ``hbm_refresh_s`` paces the reference's compiled-program memory probe;
+    the port compiles no program and reads device memory from
+    ``torch.cuda.memory_stats`` every tick instead, so the field has no
+    subject here and is ignored."""
 
     enabled: bool = True
     interval_s: float = 10.0
     points: int = 360
     sample_every_s: float = 2.0
+    hbm_refresh_s: float = 600.0
     slo_ask_p95_ms: float = 2500.0
     slo_ask_availability: float = 0.99
     slo_ask_degraded_budget: float = 0.05
@@ -549,6 +593,27 @@ class Config:
 
 
 _SECTIONS = {f.name for f in fields(Config)}
+
+# fields kept for the reference's configuration surface that no code of
+# the port reads (their sections' docstrings say why)
+UNUSED_FIELDS = (
+    "service.qa_port",
+    "service.synthesis_port",
+    "telemetry.hbm_refresh_s",
+)
+
+
+def unused_fields(cfg: Config) -> Dict[str, Any]:
+    """``{"section.field": value}`` of every field in
+    :data:`UNUSED_FIELDS` set away from its default."""
+    default = Config()
+    out: Dict[str, Any] = {}
+    for path in UNUSED_FIELDS:
+        section, _, name = path.partition(".")
+        value = getattr(getattr(cfg, section), name)
+        if value != getattr(getattr(default, section), name):
+            out[path] = value
+    return out
 
 
 def _env_bool(value: str) -> bool:

@@ -816,7 +816,12 @@ class EnginePool:
         while not self._monitor_stop.wait(self.health_interval_s):
             try:
                 self._tick()
-            except Exception:
+            except Exception as e:
+                if is_device_fault(e):
+                    # a fault outside the rebuild and canary paths (a dead
+                    # replica's teardown, a flush) fails the pool like theirs
+                    self._fail(e)
+                    continue
                 log.exception("pool monitor tick failed (ignored)")
 
     def _tick(self) -> None:

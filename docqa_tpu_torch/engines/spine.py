@@ -60,6 +60,13 @@ and an admission 8.0 and 10.8 ms; with :data:`DEFAULT_LANES` = 8 (a slot
 for each of up to four replicas, the encoder and the retrievals, with room
 to spare) every stage waited under 0.1 ms.
 
+Strict mode (``dispatch.strict_sync``, :meth:`DispatchSpine.strict_sync`)
+serialises the spine as the reference's does: one item executes at a time,
+on a lane or on its caller, and each item waits for its end event (its
+device work has finished) before its slot frees, so at most one item's
+work is ever on the card.  None is auto, which is off here: the port's
+runtime is one process on one card.
+
 A kernel or CUDA fault (``ops/_kernels.is_device_fault``) raised by a
 closure or by the accounting around it (reading an event after a fault
 raises) reaches the submitter; other accounting errors are logged and never
@@ -314,6 +321,9 @@ class DispatchSpine:
         self._busy = 0
         self._busy_bg = 0
         self._closed = False
+        # strict mode (module docstring); None is auto, resolved by
+        # strict_sync()
+        self._strict: Optional[bool] = None
         self._lanes: List[threading.Thread] = []
         # set on a thread while it executes an item (a lane's or a caller's)
         self._local = threading.local()
@@ -341,6 +351,18 @@ class DispatchSpine:
     def _depth_locked(self) -> int:
         return len(self._ready) + len(self._ready_pf) + len(self._ready_bg)
 
+    def _slots_locked(self) -> int:
+        """Items that may execute at once: ``n_lanes``, or one in strict
+        mode (read live, so ``reconfigure(strict_sync=...)`` applies at
+        once)."""
+        return 1 if self._strict else self.n_lanes
+
+    def strict_sync(self) -> bool:
+        """True when the spine is serialised (module docstring); auto
+        (None) resolves to off."""
+        with self._cv:
+            return bool(self._strict)
+
     def _bg_slot_locked(self) -> bool:
         return self._busy_bg < max(1, self.n_lanes - 1) or self.n_lanes == 1
 
@@ -352,7 +374,7 @@ class DispatchSpine:
             with self._cv:
                 item = None
                 while item is None:
-                    free = self._busy < self.n_lanes
+                    free = self._busy < self._slots_locked()
                     pf_aged = bool(self._ready_pf) and (
                         _now() - self._ready_pf[0].t_submit
                         > PREFILL_MAX_WAIT_S
@@ -434,6 +456,9 @@ class DispatchSpine:
                 if events is not None:
                     events[1].record()
                     item.events = events
+                    if self.strict_sync():
+                        # the slot frees once the item's work has finished
+                        self._wait_end(item)
             item.result = out
         except BaseException as e:  # propagated to the submitter
             item.error = e
@@ -450,11 +475,16 @@ class DispatchSpine:
             item.done.set()
 
     @staticmethod
-    def _device_seconds(item: _Item) -> float:
+    def _wait_end(item: _Item) -> None:
+        """Wait for an item's end event: its device work has finished."""
+        item.events[1].synchronize()
+
+    @classmethod
+    def _device_seconds(cls, item: _Item) -> float:
         """The item's device time: CUDA-event elapsed time once the end
         event has completed (this waits for it), else closure wall time."""
         if item.events is not None and item.error is None:
-            item.events[1].synchronize()
+            cls._wait_end(item)
             return item.events[0].elapsed_time(item.events[1]) / 1e3
         return item.t_issued - item.t_start
 
@@ -562,7 +592,7 @@ class DispatchSpine:
             self._submitted += 1
             inline = self.inline
             claimed = (
-                not inline and on_caller and self._busy < self.n_lanes
+                not inline and on_caller and self._busy < self._slots_locked()
                 and not self._depth_locked()
                 and (not bg or self._bg_slot_locked())
             )
@@ -693,10 +723,15 @@ class DispatchSpine:
         n_lanes: Optional[int] = None,
         max_depth: Optional[int] = None,
         inline: Optional[bool] = None,
+        strict_sync: Optional[bool] = None,
     ) -> "DispatchSpine":
         """Apply runtime config.  The lane count changes only before the
-        first lane starts; depth and inline apply live."""
+        first lane starts; depth, inline and strict apply live (None leaves
+        a setting as it is)."""
         with self._cv:
+            if strict_sync is not None:
+                self._strict = bool(strict_sync)
+                self._cv.notify_all()
             if n_lanes is not None:
                 if not self._lanes:
                     self.n_lanes = max(1, int(n_lanes))
@@ -865,10 +900,12 @@ def configure(
     n_lanes: Optional[int] = None,
     max_depth: Optional[int] = None,
     inline: Optional[bool] = None,
+    strict_sync: Optional[bool] = None,
 ) -> DispatchSpine:
     """Apply runtime config to the process spine."""
     return get_spine().reconfigure(
         n_lanes=n_lanes, max_depth=max_depth, inline=inline,
+        strict_sync=strict_sync,
     )
 
 

@@ -125,7 +125,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from docqa_tpu_torch import obs
-from docqa_tpu_torch.config import Config, coerce_value, load_config
+from docqa_tpu_torch.config import Config, coerce_value, load_config, unused_fields
 from docqa_tpu_torch.engines import spine as _spine
 from docqa_tpu_torch.engines.serve import QueueFull
 from docqa_tpu_torch.models import hf_checkpoint
@@ -158,6 +158,19 @@ def refuse_unported(cfg: Config) -> None:
     tiered serving on a mesh (item 9c) last, so this refuses nothing; the
     boot keeps calling it as the place such a refusal goes."""
     del cfg
+
+
+def check_config(cfg: Config) -> None:
+    """Refuse a store score the store does not compute (``ValueError``),
+    and log once each field the port keeps for the reference's surface but
+    has no subject for, when it is set away from its default."""
+    if cfg.store.score != "cosine":
+        raise ValueError(
+            f"store.score={cfg.store.score!r}: the store ranks by cosine "
+            "(a product of normalised rows) only"
+        )
+    for path, value in sorted(unused_fields(cfg).items()):
+        log.info("%s=%r has no subject in this package; ignored", path, value)
 
 
 class DocQARuntime:
@@ -215,6 +228,7 @@ class DocQARuntime:
 
         self.cfg = cfg = cfg or load_config()
         refuse_unported(cfg)
+        check_config(cfg)
         if (cfg.decoder.checkpoint_dir and not cfg.flags.use_fake_llm
                 and decoder_params is not None):
             raise ValueError(
@@ -242,6 +256,7 @@ class DocQARuntime:
             n_lanes=cfg.dispatch.n_lanes,
             max_depth=cfg.dispatch.max_depth,
             inline=cfg.dispatch.inline,
+            strict_sync=cfg.dispatch.strict_sync,
         )
         # a process group up: the mesh over it and the command stream every
         # rank builds at this same point (module docstring)
@@ -434,7 +449,7 @@ class DocQARuntime:
             # documents /documents/ no longer lists
             os.makedirs(work_dir, exist_ok=True)
             registry_url = "sqlite:///" + os.path.join(work_dir, "registry.db")
-        self.registry = DocumentRegistry(registry_url)
+        self.registry = DocumentRegistry(registry_url, table=cfg.registry.table)
         # generator tokens at index time feed the fused chain's sidecar
         prompt_tokenizer = (
             self.generator.tokenizer if cfg.store.token_width else None
@@ -1580,6 +1595,11 @@ class _Handler(BaseHTTPRequestHandler):
     server: "AppServer"
     server_version = "docqa-torch"
 
+    def setup(self) -> None:
+        # the connection's socket timeout (service.request_timeout_s)
+        self.timeout = self.server.request_timeout_s
+        super().setup()
+
     def log_message(self, format, *args):  # noqa: A002 (the stdlib's name)
         log.debug("%s - %s", self.address_string(), format % args)
 
@@ -1654,13 +1674,22 @@ class AppServer(ThreadingHTTPServer):
     """``ThreadingHTTPServer`` over an :class:`App`: one thread a request.
     :meth:`start` serves from a background thread; :meth:`close` stops
     serving and joins the server's threads and the app's lanes, each with
-    a bound.  ``fault`` holds the device fault that stopped it, if any."""
+    a bound.  ``fault`` holds the device fault that stopped it, if any.
+    ``request_timeout_s`` is each connection's socket timeout (None: no
+    timeout; :func:`serve` passes ``service.request_timeout_s``)."""
 
     daemon_threads = True
 
-    def __init__(self, app: App, host: str = "127.0.0.1", port: int = 0) -> None:
+    def __init__(
+        self,
+        app: App,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        request_timeout_s: Optional[float] = None,
+    ) -> None:
         super().__init__((host, port), _Handler)
         self.app = app
+        self.request_timeout_s = request_timeout_s
         self.fault: Optional[BaseException] = None
         self._threads_lock = threading.Lock()
         self._request_threads: List[threading.Thread] = []
@@ -1749,6 +1778,7 @@ def serve(
             make_app(rt),
             host=host if host is not None else rt.cfg.service.host,
             port=port if port is not None else rt.cfg.service.ingest_port,
+            request_timeout_s=rt.cfg.service.request_timeout_s,
         )
         log.info("serving on %s:%d", *server.server_address[:2])
         try:

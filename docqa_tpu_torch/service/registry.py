@@ -28,6 +28,7 @@ Two deliberate extensions over the reference schema:
 
 from __future__ import annotations
 
+import re
 import sqlite3
 import threading
 import time
@@ -78,7 +79,13 @@ class DocumentRegistry:
       (multi-host); ``pg_module`` injects a driver stand-in for tests.
     """
 
-    def __init__(self, url: str = "sqlite://", pg_module=None) -> None:
+    def __init__(
+        self, url: str = "sqlite://", pg_module=None, table: str = "documents"
+    ) -> None:
+        if not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", table):
+            raise ValueError(f"registry table name {table!r} is not an identifier")
+        # the one table (registry.table); an identifier, so safe to format in
+        self._table = t = table
         if url in ("sqlite://", "sqlite:///:memory:"):
             self._conn = sqlite3.connect(":memory:", check_same_thread=False)
             self._param = "?"
@@ -111,7 +118,7 @@ class DocumentRegistry:
             # would round time.time() to whole minutes; SQLite treats any
             # type name with REAL/DOUB affinity as its 8-byte float
             self._exec(
-                """CREATE TABLE IF NOT EXISTS documents (
+                f"""CREATE TABLE IF NOT EXISTS {t} (
                     doc_id TEXT PRIMARY KEY,
                     filename TEXT NOT NULL,
                     upload_date DOUBLE PRECISION NOT NULL,
@@ -128,7 +135,7 @@ class DocumentRegistry:
             # SELECT * positional order == dataclass field order)
             try:
                 self._exec(
-                    "ALTER TABLE documents ADD COLUMN status_detail TEXT"
+                    f"ALTER TABLE {t} ADD COLUMN status_detail TEXT"
                 )
             except Exception as e:
                 # ONLY the already-migrated case may be swallowed — any
@@ -139,12 +146,12 @@ class DocumentRegistry:
                 if "duplicate column" not in msg and "already exists" not in msg:
                     raise
             self._exec(
-                "CREATE INDEX IF NOT EXISTS idx_documents_filename "
-                "ON documents(filename)"
+                f"CREATE INDEX IF NOT EXISTS idx_{t}_filename "
+                f"ON {t}(filename)"
             )
             self._exec(
-                "CREATE INDEX IF NOT EXISTS idx_documents_patient "
-                "ON documents(patient_id)"
+                f"CREATE INDEX IF NOT EXISTS idx_{t}_patient "
+                f"ON {t}(patient_id)"
             )
             self._conn.commit()
 
@@ -192,7 +199,7 @@ class DocumentRegistry:
         )
         with self._lock:
             self._exec(
-                "INSERT INTO documents VALUES (?,?,?,?,?,?,?,?,?)",
+                f"INSERT INTO {self._table} VALUES (?,?,?,?,?,?,?,?,?)",
                 (
                     rec.doc_id,
                     rec.filename,
@@ -221,13 +228,13 @@ class DocumentRegistry:
         with self._lock:
             if n_chunks is None:
                 self._exec(
-                    "UPDATE documents SET status=?, status_detail=? "
+                    f"UPDATE {self._table} SET status=?, status_detail=? "
                     "WHERE doc_id=?",
                     (status, detail, doc_id),
                 )
             else:
                 self._exec(
-                    "UPDATE documents SET status=?, status_detail=?, "
+                    f"UPDATE {self._table} SET status=?, status_detail=?, "
                     "n_chunks=? WHERE doc_id=?",
                     (status, detail, n_chunks, doc_id),
                 )
@@ -246,13 +253,13 @@ class DocumentRegistry:
         with self._lock:
             if n_chunks is None:
                 cur = self._exec(
-                    "UPDATE documents SET status=? "
+                    f"UPDATE {self._table} SET status=? "
                     "WHERE doc_id=? AND status != ?",
                     (status, doc_id, DELETED),
                 )
             else:
                 cur = self._exec(
-                    "UPDATE documents SET status=?, n_chunks=? "
+                    f"UPDATE {self._table} SET status=?, n_chunks=? "
                     "WHERE doc_id=? AND status != ?",
                     (status, n_chunks, doc_id, DELETED),
                 )
@@ -265,7 +272,7 @@ class DocumentRegistry:
     def get(self, doc_id: str) -> Optional[DocumentRecord]:
         with self._lock:
             cur = self._exec(
-                "SELECT * FROM documents WHERE doc_id=?", (doc_id,)
+                f"SELECT * FROM {self._table} WHERE doc_id=?", (doc_id,)
             )
             row = cur.fetchone()
         return self._row_to_record(row) if row else None
@@ -287,7 +294,7 @@ class DocumentRegistry:
         where = f"WHERE {' AND '.join(clauses)}" if clauses else ""
         with self._lock:
             cur = self._exec(
-                f"SELECT * FROM documents {where} "
+                f"SELECT * FROM {self._table} {where} "
                 "ORDER BY upload_date DESC LIMIT ?",
                 args + (limit,),
             )
