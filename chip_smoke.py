@@ -361,13 +361,44 @@ Phases, each of which fails the run on any error (nothing is caught):
    step, decode tokens/s and K1 and K4 launches: K1 encoder layers +
    forwards x 32, K4 (7 x 32 + 1) x forwards for int8 and none for bf16.
    The phase must take at most 90 s.
+21. determinism and the compile budget, last.  (a) The replay witness
+   (``analysis/replay_audit.py``) at full width: two child interpreters at
+   once under different ``PYTHONHASHSEED``s, each drawing
+   ``DecoderConfig.mistral_7b()`` in bf16 on the card from seed 0 and
+   running a solo ``GenerateEngine`` (greedy, K = 4) on 2 prompts, then a
+   ``ContinuousBatcher(n_slots=8, chunk=16)``: 4 cold prompts queued under
+   its lock, one admission pinning a prefix key and 4 warm prompts on it
+   queued the same way, every answer 32 new tokens; the top-10 ids of 16
+   seeded queries over an exact 1,000,000 x 384 bf16 store and over a
+   ``TieredIndex`` of its first 100,000 rows (nprobe 8); the broker journal
+   across a restart; the shadow sampler's selection.  The transcripts must
+   be bitwise equal (a divergence prints its request, token and stage);
+   each child at most 90 s.  The children run beside phase 11 (a)'s
+   tagger training child only: they start just before it and are joined
+   just after it, before phase 11 (a) times anything in this process, so
+   only that child's wall time and steps/s (``contended`` in the training
+   summary) and the children's own seconds are read under contention;
+   the rest of the phase runs last.  The smoke's limit is kept by running
+   them there and not by cutting an earlier path's depth.  (b) The compile
+   budget
+   (``analysis/compile_audit.py``): registers, spills, stack and shared
+   memory of every K1 and K4 kernel from the ``-Xptxas -v`` logs kept
+   beside the libraries; the peak memory above what was allocated before
+   of seven entry points, each read in its own phase (phase 3's first solo
+   ask, phase 5's round A, phase 6's round A1, phase 7's upload batch,
+   phase 13 (a)'s beam summaries, phase 14 (b)'s first int8 ask, phase
+   20's bf16 ask); the steady state (phase 3's first question asked again,
+   phase 5's round B after round A, phase 14 (b)'s first int8 question
+   again: no new K4 plan, leaf plan, tensor map or scratch growth), all
+   against ``analysis/compile_budget.json``.  ``--compile-report PATH``
+   writes the report before the gate.
 
 The recorder is on by default, so phases 3-7 run traced too.  Prints the
 pool JSON line, the ingest JSON line, the obs JSON line, the app JSON line,
 the lifecycle JSON line, the training JSON line, the tiered JSON line, the
 checkpoints JSON line, the quant JSON line, the mesh JSON line, the mesh runtime JSON
 line, the mesh tiered JSON line, the mesh train JSON line, the witness JSON line,
-the Llama-3 JSON line, the launches-by-phase JSON
+the Llama-3 JSON line, the replay and compile JSON line, the launches-by-phase JSON
 line (each main-path run's K1 and K4 counters, whose sums are the kernels
 line's launches; each run's K1 total must equal the sum of its paths, and
 its K4 total the sum of its weight modes and of its kernel modes), the
@@ -386,6 +417,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -412,6 +444,7 @@ import numpy as np
 import torch
 
 from docqa_tpu_torch import obs
+from docqa_tpu_torch.analysis import compile_audit, replay_audit
 from docqa_tpu_torch.config import (
     Config, DecoderConfig, EncoderConfig, GenerateConfig, MeshConfig, NERConfig,
     PoolConfig, QoSConfig, ResilienceConfig, StoreConfig,
@@ -475,6 +508,59 @@ TOL = {
     torch.bfloat16: (1e-2, 1e-2),
     torch.float32: (5e-5, 0.0),
 }
+
+
+# phase 21 (b)'s readings, taken in the phases that run each entry point:
+# peak bytes allocated above what was allocated before, and the steady
+# state's deltas over a repeated round
+COMPILE_PEAKS: dict = {}
+COMPILE_STEADY: dict = {}
+# the peak an enclosing window had seen when a reading reset the counter
+_PEAK_FLOOR = 0
+
+
+def reset_peak() -> None:
+    """Start a peak-memory window (``peak_allocated`` reads it)."""
+    global _PEAK_FLOOR
+    _PEAK_FLOOR = 0
+    torch.cuda.reset_peak_memory_stats()
+
+
+def peak_allocated() -> int:
+    """The peak allocated since the last ``reset_peak``, a reading nested
+    inside the window included."""
+    return max(torch.cuda.max_memory_allocated(), _PEAK_FLOOR)
+
+
+@contextlib.contextmanager
+def peak_reading(name: str, on: bool = True):
+    """Phase 21 (b)'s peak of entry point ``name`` around the block: the
+    bytes allocated at its peak above those allocated before it."""
+    global _PEAK_FLOOR
+    if not on:
+        yield
+        return
+    torch.cuda.synchronize()
+    _PEAK_FLOOR = peak_allocated()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        COMPILE_PEAKS[name] = int(torch.cuda.max_memory_allocated() - base)
+
+
+@contextlib.contextmanager
+def steady_reading(name: str, on: bool = True):
+    """Phase 21 (b)'s steady state of ``name``: what a repeated round adds
+    to K4's plan cache, leaf plans, tensor maps and scratch (all 0)."""
+    if not on:
+        yield
+        return
+    before = compile_audit.steady_state()
+    yield
+    COMPILE_STEADY[name] = compile_audit.steady_state_delta(before, compile_audit.steady_state())
 
 
 def log(msg: str) -> None:
@@ -938,7 +1024,8 @@ def run_main_path(counts, qa, params, enc_launches):
     for question in QUESTIONS:
         before = dict(counts)
         t0 = time.perf_counter()
-        out = qa.ask(question)
+        with peak_reading("solo_ask", on=not per_q):
+            out = qa.ask(question)
         latency = time.perf_counter() - t0
         _no_degraded("solo /ask", [out])
         delta = {key: counts[key] - before.get(key, 0) for key in PATH_KEYS}
@@ -991,6 +1078,10 @@ def run_main_path(counts, qa, params, enc_launches):
             f"{delta['flash_attention.prefill']}, simt {delta['flash_attention.simt']})")
         per_q.append(rec)
     launches = {"total": dict(counts), "note_encoding": enc_launches}
+    # phase 21 (b)'s steady state: the first question again, after the
+    # counts are read
+    with steady_reading("solo_ask"):
+        _no_degraded("solo /ask, repeated", [qa.ask(QUESTIONS[0])])
 
     # full-width output check (after the counts are read): one prefill of
     # the last question gives finite logits of the expected shape
@@ -1251,16 +1342,18 @@ def run_batcher_path(counts, qa_solo, solo_per_q):
             setattr(mod, name, counting(name, fn))
         try:
             stats0 = collections.Counter(batcher.stats)
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak()
             counts.clear()
             rounds = {}
             t_all = time.perf_counter()
             for name in ("A", "B"):
                 t0 = time.perf_counter()
                 before = collections.Counter(batcher.stats)
-                results = _ask_round(qa, QUESTIONS * 2)
-                if not batcher.drain(timeout=600):
-                    raise AssertionError(f"round {name} did not drain")
+                with peak_reading("batcher_round", on=name == "A"), \
+                        steady_reading("batcher_round", on=name == "B"):
+                    results = _ask_round(qa, QUESTIONS * 2)
+                    if not batcher.drain(timeout=600):
+                        raise AssertionError(f"round {name} did not drain")
                 wall = time.perf_counter() - t0
                 batcher.resume()
                 done = collections.Counter(batcher.stats) - before
@@ -1289,7 +1382,7 @@ def run_batcher_path(counts, qa_solo, solo_per_q):
                     f"{occ['blocks_total']} (prefix cache {occ.get('prefix_blocks')})")
             wall_all = time.perf_counter() - t_all
             launches, stats = _quiescent(counts, lambda: collections.Counter(batcher.stats))
-            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            peak_gib = peak_allocated() / 2**30
             stats = stats - stats0
         finally:
             for (mod, name), fn in originals.items():
@@ -1477,7 +1570,7 @@ def run_pool_path(counts, qa_solo):
              for q in QUESTIONS[1:3]]
     solo_fs = [solo_first_step(gen, ids) for _prompt, ids in first]
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     counts.clear()
     n_encodes = 0
     rounds = {}
@@ -1497,7 +1590,8 @@ def run_pool_path(counts, qa_solo):
                                               res_cfg.breaker_reset_s),
                         resilience=res_cfg)
         t0 = time.perf_counter()
-        res = _resolve_all(_submit_round(qa1, QUESTIONS * 4))
+        with peak_reading("pool_round_a1"):
+            res = _resolve_all(_submit_round(qa1, QUESTIONS * 4))
         wall = time.perf_counter() - t0
         stats_1 = pool1.stats()
     finally:
@@ -1802,7 +1896,7 @@ def run_pool_path(counts, qa_solo):
         got = {key: launches.get(key, 0) for key in want}
         if got != want:
             raise AssertionError(f"pool phase launches {got}, expected {want}")
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        peak_gib = peak_allocated() / 2**30
         summary = {
             "rounds": rounds,
             "routed": [r["routed"] for r in pool.status()["replicas"]],
@@ -2062,24 +2156,26 @@ def run_ingest_path(counts, qa_solo, tagger):
         pipe.start()
         rows0, nf0, ne0 = store.count, deid.forwards, encoder.forwards
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         counts.clear()
         t_start = time.perf_counter()
         uploaded = []
-        for d in docs:
-            rec = pipe.ingest_document(d["filename"], d["data"])
-            uploaded.append((rec.doc_id, time.perf_counter()))
-        t_uploaded = time.perf_counter() - t_start
-        deadline = time.perf_counter() + INGEST_TIMEOUT_S
-        for doc_id, _t in uploaded:
-            if not pipe.wait_indexed(doc_id, timeout=max(0.0, deadline - time.perf_counter())):
-                raise AssertionError(
-                    f"{doc_id} not INDEXED: {registry.get(doc_id).status} "
-                    f"({registry.get(doc_id).status_detail})")
+        with peak_reading("ingest_batch"):
+            for d in docs:
+                rec = pipe.ingest_document(d["filename"], d["data"])
+                uploaded.append((rec.doc_id, time.perf_counter()))
+            t_uploaded = time.perf_counter() - t_start
+            deadline = time.perf_counter() + INGEST_TIMEOUT_S
+            for doc_id, _t in uploaded:
+                if not pipe.wait_indexed(doc_id,
+                                         timeout=max(0.0, deadline - time.perf_counter())):
+                    raise AssertionError(
+                        f"{doc_id} not INDEXED: {registry.get(doc_id).status} "
+                        f"({registry.get(doc_id).status_detail})")
         wall = max(indexed_at[d] for d, _t in uploaded) - t_start
         launches = dict(counts)
         n_ner, n_enc = deid.forwards - nf0, encoder.forwards - ne0
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        peak_gib = peak_allocated() / 2**30
         untap()
 
         # ---- what must hold over the 512 uploads ----
@@ -3005,7 +3101,7 @@ def run_app_path(counts, qa, tagger, ingest_docs_s=None):
 
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     dev = qa.generator.device
     contract = load_contract()
     cfg = dataclasses.replace(
@@ -3256,7 +3352,7 @@ def run_app_path(counts, qa, tagger, ingest_docs_s=None):
         log(f"  HTTP front: routed /ask p50 {summary['front']['http_ms_p50']:.2f} ms over HTTP "
             f"vs {summary['front']['in_process_ms_p50']:.2f} ms in process "
             f"({APP_FRONT_PAIRS} pairs)")
-        summary["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        summary["peak_device_gib"] = peak_allocated() / 2**30
     finally:
         if not server.close(timeout=30):
             raise AssertionError("the app server's threads did not end")
@@ -4830,7 +4926,7 @@ def run_checkpoint_bart(counts, workdir, flush):
              "max_src_len", "max_tgt_len")
     if got_policy != want_policy or any(getattr(cfg, k) != getattr(base, k) for k in shape):
         raise AssertionError(f"imported BART config {cfg}")
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     t0 = time.perf_counter()
     eng = Seq2SeqEngine(cfg, params=params, device=dev)
     torch.cuda.synchronize()
@@ -4853,7 +4949,8 @@ def run_checkpoint_bart(counts, workdir, flush):
         f"one in its serving dtype; sources {src_lengths} tokens")
 
     # 8 notes under the shipped policy: 32 beam lanes
-    summaries, wall, delta, st = _timed_summary(eng, counts, src, S2S_NEW)
+    with peak_reading("summary"):
+        summaries, wall, delta, st = _timed_summary(eng, counts, src, S2S_NEW)
     _launch_check("beam summary", delta, 1, st["steps"] + 1, cfg.enc_layers, cfg.dec_layers)
     reads_cap = math.ceil(st["steps"] / eng.check_every) + 1
     if st["flag_reads"] > reads_cap:
@@ -4873,7 +4970,7 @@ def run_checkpoint_bart(counts, workdir, flush):
         "flag_reads": st["flag_reads"], "ms_per_step": step_ms,
         "summary_tokens": n_tokens, "summary_tokens_per_s": n_tokens / wall,
         "summary_lengths": [len(s) for s in summaries], "source_tokens": src_lengths,
-        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_device_gib": peak_allocated() / 2**30,
         "launches": delta,
     }
     # one decoder step alone, device time (the host's launches hidden
@@ -5261,12 +5358,16 @@ def _deid_summary(ev, split):
     }
 
 
-def run_training_tagger(counts, workdir):
+def run_training_tagger(counts, workdir, replay=None):
     """Phase 11 (a): the tagger at ``NERConfig()`` trained as the default
     config's boot trains it (``DeidEngine.trained`` with no cache: 1500
     steps at batch 32, seq 128, lr 2e-3 in a child process on the card),
     then held to the reference's quality floors; returns the cache's path
-    for phases 7-10 and the summary."""
+    for phases 7-10 and the summary.  With ``replay`` (a dict), phase 21
+    (a)'s children run beside the training child alone: started just
+    before it, joined just after it (their summary goes into ``replay``),
+    so every timing this process takes afterwards has the card to itself;
+    the child's wall time and steps/s are marked ``contended``."""
     from docqa_tpu_torch.deid.evalset import evaluate_deid, evaluate_deid_split
     from docqa_tpu_torch.training import ner as ner_train
 
@@ -5274,10 +5375,19 @@ def run_training_tagger(counts, workdir):
     cfg = NERConfig()
     path = os.path.join(workdir, "ner.npz")
     summary = {"steps": cfg.train_steps}
-    with _LogCapture("docqa.train.ner") as cap:
-        t0 = time.perf_counter()
-        DeidEngine.trained(cfg, params_path=path, device=dev)
-        wall = time.perf_counter() - t0
+    witness = start_replay_witness() if replay is not None else None
+    try:
+        with _LogCapture("docqa.train.ner") as cap:
+            t0 = time.perf_counter()
+            DeidEngine.trained(cfg, params_path=path, device=dev)
+            wall = time.perf_counter() - t0
+    finally:
+        if witness is not None:
+            replay.update(finish_replay_witness(witness))
+    if witness is not None:
+        summary["contended"] = {
+            "readings": ["wall_s", "steps_per_s"],
+            "with": "phase 21 (a)'s two replay children (Mistral-7B bf16 each)"}
     losses = {int(m.split()[3].split("/")[0]): float(m.split()[-1])
               for m in cap.messages if m.startswith("child: ner step")}
     if sorted(losses) != list(range(100, cfg.train_steps + 1, 100)):
@@ -5287,7 +5397,8 @@ def run_training_tagger(counts, workdir):
     summary.update(wall_s=wall, steps_per_s=cfg.train_steps / wall, losses=losses,
                    final_loss=losses[cfg.train_steps])
     log(f"  tagger trained at boot in a child process: {cfg.train_steps} steps in "
-        f"{wall:.1f} s wall ({cfg.train_steps / wall:.1f} steps/s, start-up included); "
+        f"{wall:.1f} s wall ({cfg.train_steps / wall:.1f} steps/s, start-up included"
+        f"{'; beside the replay children' if witness is not None else ''}); "
         f"loss every 100 steps {[round(losses[s], 4) for s in sorted(losses)]}, final "
         f"{losses[cfg.train_steps]:.4f}")
 
@@ -5373,7 +5484,7 @@ def run_training_lm(counts, workdir):
     cfg = dataclasses.replace(DecoderConfig.mistral_7b(), num_layers=LM_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     state, opt = init_train_state(cfg, seed=0, device=dev)
     n_params = sum(p.numel() for p in state["params"].values())
     rng = np.random.default_rng(7)
@@ -5410,7 +5521,7 @@ def run_training_lm(counts, workdir):
             t0 = time.perf_counter()
             ckpt.save(state)
             save_s = time.perf_counter() - t0
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_gib = peak_allocated() / 2**30
     if counts.get("flash_attention", 0):
         raise AssertionError(f"K1 launched during LM training: {dict(counts)}")
     if not losses[-1] < losses[0]:
@@ -6048,14 +6159,14 @@ def run_quant_solo(counts, qa, params):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         t0 = time.perf_counter()
         qtree = quant.quantize_decoder_params(params, bits)
         torch.cuda.synchronize()
         quant_s = time.perf_counter() - t0
         # what quantising held beyond the finished tree: one tensor's
         # temporaries
-        peak = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+        peak = peak_allocated() - torch.cuda.memory_allocated()
         qcfg = dataclasses.replace(cfg, quantize_weights=True, quant_bits=bits)
         qgen = GenerateEngine(qcfg, GenerateConfig(max_new_tokens=QUANT_ASK_TOKENS,
                                                    speculative_k=4),
@@ -6127,8 +6238,9 @@ def run_quant_solo(counts, qa, params):
             order = (("bf16", qa), (f"int{bits}", qa_q))
             rec_q = {}
             for mode, service in order if i % 2 == 0 else order[::-1]:
-                rec_q[mode] = _counted_ask(counts, service, question, enc_layers,
-                                           k4=mode != "bf16")
+                with peak_reading("int8_ask", on=mode == "int8" and i == 0):
+                    rec_q[mode] = _counted_ask(counts, service, question, enc_layers,
+                                               k4=mode != "bf16")
             got, ref = rec_q[f"int{bits}"], rec_q["bf16"]
             per_q.append({**got, **{f"bf16_{k}": v for k, v in ref.items()}})
             log(f"    int{bits} ask {i}: {got['latency_s']:.3f} s (bf16 "
@@ -6137,6 +6249,11 @@ def run_quant_solo(counts, qa, params):
                 f"{ref['verify_step_ms']:.2f}), decode {got['decode_tok_s']:.1f} tok/s (bf16 "
                 f"{ref['decode_tok_s']:.1f})")
         launches[bits] = dict(counts)
+        if bits == 8:
+            # phase 21 (b)'s steady state: the first question again (K4's
+            # plans, tensor maps and scratch were all made by the asks above)
+            with steady_reading("int8_ask"):
+                _no_degraded("int8 /ask, repeated", [qa_q.ask(QUESTIONS[0])])
         rec["asks"] = per_q
         summary[f"int{bits}"] = rec
         if bits == 8:
@@ -6239,7 +6356,7 @@ def run_quant_runtime(counts, mistral_dir, tagger):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         base = torch.cuda.memory_allocated()
         cfg = load_config(env={}, overrides={
             "ner.params_path": tagger, "decoder.checkpoint_dir": mistral_dir,
@@ -6253,7 +6370,7 @@ def run_quant_runtime(counts, mistral_dir, tagger):
         server = AppServer(make_app(rt)).start()
         boot_s = time.perf_counter() - t0
         try:
-            peak = torch.cuda.max_memory_allocated() - base
+            peak = peak_allocated() - base
             _c, carried, _t = load_checkpoint_dir(mistral_dir, expect=DecoderConfig)
             want = quant.quantize_decoder_params(carried, bits, device=dev)
             del carried
@@ -6363,8 +6480,9 @@ def run_llama3_path(counts, qa):
     # the main path: the counts from 0 just before the asks, read after
     counts.clear()
     for mode in ("bf16", "int8"):
-        rec = _counted_ask(counts, services[mode], QUESTIONS[0], enc_layers,
-                           k4=mode == "int8", where=f"phase 20 {mode} /ask")
+        with peak_reading("llama_ask", on=mode == "bf16"):
+            rec = _counted_ask(counts, services[mode], QUESTIONS[0], enc_layers,
+                               k4=mode == "int8", where=f"phase 20 {mode} /ask")
         rec["tree_bytes"] = quant.tree_bytes(engines[mode].params)
         summary[mode] = rec
         log(f"  Llama-3-8B {mode}: tree {rec['tree_bytes'] / 1e9:.3f} GB, /ask "
@@ -7442,7 +7560,7 @@ def run_mesh_train_shards():
         n_params = sum(math.prod(shape) for _n, _k, shape, _f in decoder_param_schema(cfg))
         gc.collect()
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         base = torch.cuda.memory_allocated()
         state, opt = init_train_state(cfg, seed=0, device=dev)
         rng = np.random.default_rng(8)
@@ -7460,7 +7578,7 @@ def run_mesh_train_shards():
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             losses.append(float(loss))
-        peak = torch.cuda.max_memory_allocated() - base
+        peak = peak_allocated() - base
         profiled = _profiled_step(step, state, ids, lengths) if n == MTRAIN_TP[0] else None
         del state, opt, step
         gc.collect()
@@ -7745,15 +7863,218 @@ def run_witness_path(tagger):
     return summary
 
 
+REPLAY_SEED = 0
+REPLAY_PHASE_LIMIT_S = 90.0
+REPLAY_CHILD_TIMEOUT_S = 240.0
+
+
+def start_replay_witness():
+    """Phase 21 (a), started: the replay smoke at full width (Mistral-7B
+    bf16 drawn on the card from seed 0: a solo engine's two answers and a
+    batcher's cold and warm groups, K = 4, 32 new tokens each; top-10 ids
+    of 16 queries over an exact 1,000,000 x 384 store and a tier of its
+    first 100,000 rows; the journal across a restart; the shadow sampler)
+    in two child interpreters at once under different ``PYTHONHASHSEED``s,
+    on a thread of this process.  ``run_training_tagger`` starts it just
+    before phase 11 (a)'s training child and ``finish_replay_witness``
+    joins it just after that child."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = {"t0": time.perf_counter(), "td": tempfile.mkdtemp(prefix="docqa_phase21_")}
+
+    def children():
+        try:
+            state["runs"] = replay_audit.spawn_runs(
+                REPLAY_SEED, "cuda", "full", state["td"],
+                timeout_s=REPLAY_CHILD_TIMEOUT_S, root=REPO_ROOT)
+        except BaseException as e:  # re-raised by finish_replay_witness
+            state["error"] = e
+        state["wall_s"] = time.perf_counter() - state["t0"]
+
+    state["thread"] = threading.Thread(target=children, name="phase21-replay", daemon=True)
+    state["thread"].start()
+    return state
+
+
+def finish_replay_witness(state):
+    """Phase 21 (a), joined: the transcripts must be bitwise equal; a
+    divergence is printed with its attribution (request, token, stage) and
+    fails the phase.  Each child must finish within the phase's limit."""
+    state["thread"].join(REPLAY_CHILD_TIMEOUT_S + 60.0)
+    shutil.rmtree(state["td"], ignore_errors=True)
+    if state["thread"].is_alive():
+        raise AssertionError("phase 21 (a): the replay children did not finish")
+    if "error" in state:
+        raise state["error"]
+    runs = state["runs"]
+    cmp = replay_audit.compare_transcripts(runs[0], runs[1])
+    if not cmp["equal"]:
+        for d in cmp["divergences"]:
+            log("  divergence: " + replay_audit.format_divergence(d))
+        raise AssertionError("phase 21 (a): the two runs diverge, first "
+                             + replay_audit.format_divergence(cmp["first_divergence"]))
+    reqs = runs[0]["decode"]["requests"]
+    want = (replay_audit.FULL_SOLO_QUESTIONS + 2 * replay_audit.FULL_GROUP + 1)
+    if len(reqs) != want or not all(
+            0 < len(r["tokens"]) <= replay_audit.FULL_NEW_TOKENS for r in reqs):
+        raise AssertionError(f"phase 21 (a): decode transcript {[(r['id'], len(r['tokens'])) for r in reqs]}")
+    queries = runs[0]["retrieval"]["queries"]
+    if len(queries) != 2 * replay_audit.FULL_QUERIES or not all(
+            len(q["doc_ids"]) == 10 for q in queries):
+        raise AssertionError("phase 21 (a): retrieval transcript short")
+    if runs[0]["journal"]["doc_states_pre"] != runs[0]["journal"]["doc_states_post"]:
+        raise AssertionError("phase 21 (a): journal replay did not converge")
+    if runs[0]["python_hash_seed"] == runs[1]["python_hash_seed"]:
+        raise AssertionError("phase 21 (a): both runs had the same hash seed")
+    slowest = max(r["seconds"] for r in runs)
+    if slowest > REPLAY_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 21 (a): a child took {slowest:.1f} s, over the "
+                             f"phase's {REPLAY_PHASE_LIMIT_S:.0f} s limit")
+    summary = {
+        "equal": True, "wall_s": state["wall_s"],
+        "hash_seeds": [r["python_hash_seed"] for r in runs],
+        "child_s": [r["seconds"] for r in runs],
+        "contended": {"readings": ["wall_s", "child_s"],
+                      "with": "phase 11 (a)'s tagger training child"},
+        "child_peak_gib": [r.get("peak_bytes", 0) / 2**30 for r in runs],
+        "requests": len(reqs), "tokens": sum(len(r["tokens"]) for r in reqs),
+        "queries": len(queries), "spec_k": runs[0]["decode"]["spec_k"],
+        "shadow_selected": len(runs[0]["shadow"]["selected"]),
+    }
+    log(f"  replay: {summary['requests']} streams ({summary['tokens']} tokens), "
+        f"{summary['queries']} retrievals, journal and shadow set bitwise equal across "
+        f"PYTHONHASHSEED {summary['hash_seeds']}; children "
+        + ", ".join(f"{s:.1f} s" for s in summary["child_s"])
+        + " at peak " + ", ".join(f"{g:.1f} GiB" for g in summary["child_peak_gib"])
+        + f"; {state['wall_s']:.1f} s from their start beside phase 11 (a)'s "
+        "training child")
+    return summary
+
+
+def run_compile_audit(report_path=None):
+    """Phase 21 (b): every K1 and K4 kernel's ptxas resources (from the
+    build logs beside the libraries), the seven entry points' peak memory
+    and the steady state, read in their phases, against
+    ``docqa_tpu_torch/analysis/compile_budget.json``.  The report is
+    written to ``report_path`` before the gate."""
+    kernels = compile_audit.kernel_resources()
+    report = compile_audit.make_report(kernels, COMPILE_PEAKS, COMPILE_STEADY)
+    if report_path:
+        os.makedirs(os.path.dirname(os.path.abspath(report_path)), exist_ok=True)
+        with open(report_path, "w") as f:
+            json.dump(report, f, indent=1, sort_keys=True)
+    for sym, k in sorted(kernels.items()):
+        log(f"    {sym}: {k['registers']} registers, spills {k['spill_stores']}/"
+            f"{k['spill_loads']} bytes, stack {k['stack_bytes']} bytes, smem "
+            f"{k['smem_bytes']} bytes")
+    log("  peaks above allocated: " + ", ".join(
+        f"{name} {COMPILE_PEAKS.get(name, 0) / 2**30:.3f} GiB"
+        for name in compile_audit.ENTRY_POINTS))
+    log("  steady state over a repeated round: " + ", ".join(
+        f"{name} {delta}" for name, delta in sorted(COMPILE_STEADY.items())))
+    ok, violations = compile_audit.check_reading(report)
+    if not ok:
+        raise AssertionError("phase 21 (b): compile budget violated:\n  "
+                             + "\n  ".join(violations))
+    return report
+
+
+def numerics_ab(flush):
+    """``--numerics-ab``: (1) phase 3's bf16 solo decode at Mistral-7B width
+    (one 195-token prompt, 64 new tokens, K = 4) and K4's cuBLAS bf16
+    library case (``torch.matmul`` at the w_gate and lm_head shapes) with
+    cuBLAS's bf16 reduced-precision split-K reduction allowed (PyTorch's
+    default) and pinned off (the port's), in turns allowed, off, off,
+    allowed; (2) the k-means cell sums at the tier's fit shape (262,144 x
+    384 float32 rows, 1,000 cells) by ``index_add_``, by one-hot products
+    of 16,384-row blocks and by ``index_put_(accumulate=True)``: device ms
+    and whether ten repeats are bitwise equal."""
+    flags = torch.backends.cuda.matmul
+    dev = torch.device("cuda")
+    cfg = DecoderConfig.mistral_7b()
+    params = init_decoder_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    gen = GenerateEngine(cfg, GenerateConfig(max_new_tokens=64, speculative_k=4),
+                         params=params, device=dev)
+    prompt = np.random.default_rng(3).integers(3, cfg.vocab_size, 195).tolist()
+    g = torch.Generator(device=dev).manual_seed(5)
+    mats = {f"{name}_m{m}": (torch.randn(m, k, device=dev, generator=g).bfloat16(),
+                             torch.randn(k, n, device=dev, generator=g).bfloat16())
+            for name, k, n in (("w_gate", 4096, 14336), ("lm_head", 4096, 32000))
+            for m in (4, 2048)}
+    runs = []
+    for allowed in (True, False, False, True):
+        flags.allow_bf16_reduced_precision_reduction = allowed
+        gen.generate_ids([prompt])  # warm at this setting
+        gen.generate_ids([prompt])
+        st = dict(gen.last_stats)
+        rec = {"reduced_precision_reduction": allowed,
+               "decode_tokens": st["decode_tokens"], "forwards": st["forwards"],
+               "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+               "verify_step_ms": st["decode_s"] * 1e3 / max(st["forwards"] - 1, 1),
+               "library_ms": {key: time_ms(lambda x=x, w=w: torch.matmul(x, w), flush)
+                              for key, (x, w) in mats.items()}}
+        log(f"  reduced-precision reduction {'allowed' if allowed else 'off'}: decode "
+            f"{rec['decode_tok_s']:.1f} tok/s, {rec['verify_step_ms']:.2f} ms a verify "
+            f"step ({rec['forwards']} forwards); cuBLAS bf16 "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in rec["library_ms"].items()))
+        runs.append(rec)
+    flags.allow_bf16_reduced_precision_reduction = False
+    del gen, params, mats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    x = torch.nn.functional.normalize(
+        torch.randn(262144, 384, device=dev, generator=g), dim=1)
+    cent = x[torch.randperm(x.shape[0], device=dev, generator=g)[:1000]]
+    assign = torch.argmax(x @ cent.T, dim=1)
+    c = cent.shape[0]
+
+    def by_index_add():
+        return torch.zeros((c, x.shape[1]), device=dev).index_add_(0, assign, x)
+
+    def by_onehot():
+        sums = torch.zeros((c, x.shape[1]), device=dev)
+        for start in range(0, x.shape[0], 16384):
+            a = assign[start:start + 16384]
+            onehot = torch.zeros((c, a.numel()), device=dev)
+            onehot[a, torch.arange(a.numel(), device=dev)] = 1.0
+            sums += onehot @ x[start:start + 16384]
+        return sums
+
+    def by_index_put():
+        return torch.zeros((c, x.shape[1]), device=dev).index_put_(
+            (assign,), x, accumulate=True)
+
+    ref = torch.zeros((c, x.shape[1]), dtype=torch.float64, device=dev).index_add_(
+        0, assign, x.double())
+    sums = {}
+    for name, fn in (("index_add", by_index_add), ("onehot_blocks", by_onehot),
+                     ("index_put", by_index_put)):
+        first = fn()
+        sums[name] = {"ms": time_ms(fn, flush),
+                      "bitwise_repeat": all(torch.equal(first, fn()) for _ in range(10)),
+                      "max_abs_err_vs_f64": float((first.double() - ref).abs().max())}
+        log(f"  cell sums by {name}: {sums[name]['ms']:.4f} ms, ten repeats bitwise "
+            f"equal {sums[name]['bitwise_repeat']}, max |err| against float64 "
+            f"{sums[name]['max_abs_err_vs_f64']:.3g}")
+    return {"decode_and_library": runs, "cell_sums": sums}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the full results as JSON to this path")
     ap.add_argument("--spine-lanes", type=int, default=None,
                     help="the dispatch spine's lane count (default: the spine's own)")
+    ap.add_argument("--compile-report", default=None,
+                    help="write phase 21 (b)'s compile report (JSON) to this path")
     ap.add_argument("--k4-ab", metavar="ROOT", default=None,
                     help="only run phase 14 (a)'s K4 cases and host_us_a_call with the "
                          "K4 of the checkout at ROOT beside this one, in turns, and exit")
+    ap.add_argument("--numerics-ab", action="store_true",
+                    help="only time phase 3's bf16 decode and K4's cuBLAS library case "
+                         "with cuBLAS's bf16 reduced-precision reduction allowed and off, "
+                         "and the k-means cell sums' three forms, and exit")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -7789,6 +8110,17 @@ def main(argv=None) -> int:
         print(json.dumps({"k4_ab_host_us": ab["host_us"]}))
         print(smi)
         return 0
+    if args.numerics_ab:
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        ab = numerics_ab(flush)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump({"card": smi, "torch": torch.__version__, "numerics_ab": ab},
+                          f, indent=1)
+        print(json.dumps({"numerics_ab": ab}))
+        print(smi)
+        return 0
 
     log("[2/14] kernels against their plain versions (bf16 and float32)")
     cases = run_kernel_cases()
@@ -7817,11 +8149,14 @@ def main(argv=None) -> int:
     _log_spine_waits("phase 6", pool_path["summary"]["spine"])
 
     log("[11/14 (a)] training: the tagger at NERConfig() trained as the default config's "
-        "boot trains it, then held to the reference's quality floors")
+        "boot trains it, then held to the reference's quality floors; beside its training "
+        "child only, phase 21 (a)'s replay children")
     t_train = time.perf_counter()
     train_dir = tempfile.mkdtemp(prefix="docqa_phase11_")
-    tagger, tagger_summary = run_training_tagger(_kernels.LAUNCHES, train_dir)
+    replay_path = {}
+    tagger, tagger_summary = run_training_tagger(_kernels.LAUNCHES, train_dir, replay_path)
     train_s = time.perf_counter() - t_train
+    log(f"  phase 11 (a) and 21 (a) took {train_s:.1f} s together")
 
     log("[7/14] ingest: DocumentPipeline at full width, then /ask over what it indexed")
     t_ingest = time.perf_counter()
@@ -7965,6 +8300,15 @@ def main(argv=None) -> int:
         "restored; then one rank's shard of full-depth Mistral-7B at TP 8 and TP 4")
     mtrain_path = run_mesh_train_path(_kernels.LAUNCHES)
     mtrain_s = mtrain_path["summary"]["phase_s"]
+
+    log("[21/21] determinism and the compile budget: (a) the replay smoke at Mistral-7B "
+        "width in two child interpreters under different hash seeds, bitwise equal (run "
+        "beside phase 11 (a), above); (b) K1's and K4's ptxas resources, the seven entry "
+        "points' peak memory and the steady state against compile_budget.json")
+    t_replay = time.perf_counter()
+    compile_report = run_compile_audit(args.compile_report)
+    replay_s = time.perf_counter() - t_replay + replay_path["wall_s"]
+    log(f"  phase 21 took {replay_s:.1f} s")
     # launches of the main-path runs (each counted from 0 around its run);
     # the wrapper counts every call under K1 and under its path, so each
     # run's K1 total must be the sum of its paths
@@ -8080,6 +8424,8 @@ def main(argv=None) -> int:
                 "mesh_train_path": mtrain_path, "mesh_train_path_s": mtrain_s,
                 "witness_path": witness_path, "witness_path_s": witness_path["phase_s"],
                 "llama3_path": llama3_path,
+                "replay_path": replay_path, "compile_audit": compile_report,
+                "replay_compile_s": replay_s,
                 "launches_by_phase": phase_launches,
             }, f, indent=1)
     print(json.dumps({"pool": {**pool_path["summary"], "phase_s": pool_s}}))
@@ -8168,6 +8514,9 @@ def main(argv=None) -> int:
     print(json.dumps({"mesh_train": mtrain_path["summary"]}))
     print(json.dumps({"witness": {k: v for k, v in witness_path.items() if k != "launches"}}))
     print(json.dumps({"llama3": llama3_path["summary"]}))
+    print(json.dumps({"replay": replay_path, "compile_audit": {
+        "peaks": COMPILE_PEAKS, "steady_state": COMPILE_STEADY,
+        "kernels": len(compile_report["kernels"])}, "phase_s": replay_s}))
     print(json.dumps({"launches_by_phase": {
         phase: {key: n for key, n in counted.items() if n}
         for phase, counted in phase_launches.items()}}))

@@ -212,6 +212,116 @@ class AnalysisProfile:
     # package whose dotted paths it resolves (None: none)
     bench_file: Optional[str] = "bench.py"
     perf_baseline_file: Optional[str] = "perf_baseline.json"
+    # The determinism, numerics and sharding rules.  The module sets are
+    # empty by default (fixtures opt in with the request-path pragma);
+    # every other default is the reference's table.
+    #
+    # entropy (the determinism manifest and entropy-in-state): resolved
+    # calls by kind; ``entropy_rng_tails`` classifies a method by its tail
+    # (``gen.manual_seed(...)`` on a generator instance) under the name
+    # given beside it
+    entropy_rng_mints: FrozenSet[str] = frozenset({
+        "jax.random.PRNGKey", "jax.random.key", "numpy.random.default_rng",
+        "numpy.random.RandomState", "numpy.random.SeedSequence",
+        "numpy.random.seed", "random.Random", "random.seed",
+    })
+    entropy_rng_tails: Tuple[Tuple[str, str], ...] = ()
+    entropy_process_sources: FrozenSet[str] = frozenset(
+        {"os.urandom", "uuid.uuid1", "uuid.uuid4"}
+    )
+    entropy_wallclock_sources: FrozenSet[str] = frozenset({
+        "time.time", "time.time_ns", "datetime.datetime.now",
+        "datetime.datetime.utcnow", "datetime.date.today",
+    })
+    entropy_monotonic_clocks: FrozenSet[str] = frozenset({
+        "time.perf_counter", "time.perf_counter_ns", "time.monotonic",
+        "time.monotonic_ns",
+    })
+    # replay-key-integrity, entropy-in-state, order-stability: the modules
+    # that mint cross-restart keys, own replayed state, and feed pack,
+    # batch, key or journal order
+    replay_key_modules: FrozenSet[str] = frozenset()
+    state_modules: FrozenSet[str] = frozenset()
+    order_modules: FrozenSet[str] = frozenset()
+    # rng-discipline: its scope; the affine-key tables (mints, derives,
+    # the per-request scheme's accessors, key-named parameters, the greedy
+    # dummy key's constructor, numpy's seeded-generator names); and the
+    # port's global-generator half: draws that take the process-global
+    # generator unless given ``rng_generator_kwarg``, and seeding calls
+    # whose literal seed is a finding on the request path
+    rng_modules: FrozenSet[str] = frozenset()
+    rng_key_mints: FrozenSet[str] = frozenset(
+        {"jax.random.PRNGKey", "jax.random.key"}
+    )
+    rng_key_derives: FrozenSet[str] = frozenset(
+        {"jax.random.split", "jax.random.fold_in"}
+    )
+    rng_key_scheme_tails: FrozenSet[str] = frozenset(
+        {"next_request_key", "_next_rng", "greedy_dummy_key"}
+    )
+    rng_key_params: FrozenSet[str] = frozenset(
+        {"rng", "key", "rng_key", "prng_key"}
+    )
+    rng_greedy_dummy: str = "greedy_dummy_key"
+    rng_numpy_ok: FrozenSet[str] = frozenset(
+        {"default_rng", "Generator", "RandomState", "SeedSequence"}
+    )
+    rng_global_draws: FrozenSet[str] = frozenset()
+    rng_global_seeders: FrozenSet[str] = frozenset()
+    rng_generator_kwarg: str = "generator"
+    rng_seed_calls: FrozenSet[str] = frozenset()
+    # dtype-flow: the array namespaces (dtype names, creation, reductions),
+    # the namespaces whose calls run on the device, the cast methods that
+    # take a dtype argument and those that name their dtype
+    # (``x.bfloat16()``), the product calls, and how f64 is named; a
+    # product over a low-precision operand needs ``preferred_element_type``
+    # unless ``dtype_accumulation_pin`` (a dotted attribute) is assigned
+    # False somewhere in the package
+    dtype_heads: Tuple[str, ...] = (
+        "jax.numpy", "jax", "numpy", "jnp", "np", "ml_dtypes",
+    )
+    dtype_device_heads: Tuple[str, ...] = ("jax", "jnp")
+    dtype_array_heads: Tuple[str, ...] = ("jax", "jnp", "np", "numpy")
+    dtype_extra_names: Tuple[Tuple[str, str], ...] = ()
+    dtype_cast_tails: FrozenSet[str] = frozenset({"astype"})
+    dtype_cast_methods: Tuple[Tuple[str, str], ...] = ()
+    dtype_matmul_tails: FrozenSet[str] = frozenset(
+        {"dot", "matmul", "einsum", "tensordot", "dot_general"}
+    )
+    dtype_reduce_tails: FrozenSet[str] = frozenset(
+        {"sum", "mean", "var", "std", "prod", "logsumexp"}
+    )
+    dtype_softmax_tails: FrozenSet[str] = frozenset({"softmax", "log_softmax"})
+    dtype_softmax_takes_dtype: bool = False
+    dtype_f64_reason: str = "f64 is TPU-emulated and doubles HBM traffic"
+    dtype_f64_cast_reason: str = "f64 is TPU-emulated"
+    dtype_f32_name: str = "jnp.float32"
+    # a float64 fact passed into a device call is a finding
+    dtype_f64_operands: bool = False
+    dtype_accumulation_pin: Optional[str] = None
+    # spec-shape: the call that builds a spec, and the functions whose
+    # dict values are specs written as tuple literals
+    spec_call_tails: FrozenSet[str] = frozenset({"PartitionSpec"})
+    spec_tuple_functions: FrozenSet[str] = frozenset()
+    # mesh-axes: the JAX half (collective tails, the spec and body calls,
+    # the mesh constructor) and the port's half: the one module that may
+    # call ``mesh_dist_head``'s collectives, its counted wrappers as
+    # name -> (group position, site position), the MeshContext
+    # attributes that name a data or model group
+    mesh_collectives: FrozenSet[str] = frozenset({
+        "psum", "pmean", "pmax", "pmin", "ppermute", "pshuffle",
+        "all_gather", "all_to_all", "psum_scatter", "axis_index",
+        "axis_size",
+    })
+    mesh_module: Optional[str] = None
+    mesh_dist_head: str = "torch.distributed"
+    mesh_dist_collectives: FrozenSet[str] = frozenset()
+    mesh_wrappers: Tuple[Tuple[str, int, int], ...] = ()
+    mesh_group_attrs: FrozenSet[str] = frozenset()
+    # the reference's rules with no subject in this package, as (rule,
+    # why, the constructs that would give it one); a construct in the tree
+    # while its rule is listed here fails tests/test_torch_detcheck.py
+    subjectless: Tuple[Tuple[str, str, Tuple[str, ...]], ...] = ()
 
 
 _PROTOCOLS = (
@@ -362,6 +472,132 @@ PORT_PROFILE = AnalysisProfile(
     # the port has no benchmark of its own yet
     bench_file=None,
     perf_baseline_file=None,
+    # seeding a torch generator is the port's RNG mint: torch.manual_seed
+    # (the global one) and a Generator instance's manual_seed
+    entropy_rng_mints=frozenset({
+        "torch.manual_seed", "torch.cuda.manual_seed",
+        "torch.cuda.manual_seed_all", "torch.random.manual_seed",
+        "numpy.random.default_rng", "numpy.random.RandomState",
+        "numpy.random.SeedSequence", "numpy.random.seed", "random.Random",
+        "random.seed",
+    }),
+    entropy_rng_tails=(("manual_seed", "torch.Generator.manual_seed"),),
+    # the modules that key the prefix cache and the pool's affinity, write
+    # the journal, sample shadows and fingerprint the store
+    replay_key_modules=frozenset({
+        "service.qa", "service.broker", "engines.serve", "engines.paged",
+        "engines.pool", "obs.retrieval_observatory", "index.store",
+    }),
+    state_modules=frozenset({
+        "service.qa", "service.broker", "service.registry", "service.pipeline",
+        "engines.serve", "engines.paged", "engines.pool", "index.store",
+        "obs.retrieval_observatory",
+    }),
+    order_modules=frozenset({
+        "engines.serve", "engines.paged", "engines.pool", "engines.qos",
+        "service.qa", "service.pipeline", "service.broker", "index.store",
+        "index.tiered", "obs.retrieval_observatory",
+    }),
+    # the /ask chain plus the decode and batching engines and the broker
+    rng_modules=frozenset({
+        "service.app", "service.qa", "engines.retrieve", "engines.rag_fused",
+        "engines.serve", "engines.pool", "engines.spine", "runtime.mesh",
+        "engines.generate", "engines.paged", "engines.qos", "engines.seq2seq",
+        "service.broker", "ops.sampling",
+    }),
+    # a torch.Generator is a stream, not an affine key: no key tables
+    rng_key_mints=frozenset(),
+    rng_key_derives=frozenset(),
+    rng_key_scheme_tails=frozenset(),
+    rng_key_params=frozenset(),
+    rng_global_draws=frozenset({
+        "torch.rand", "torch.randn", "torch.randint", "torch.randperm",
+        "torch.multinomial", "torch.bernoulli", "torch.normal",
+        "torch.poisson", "torch.rand_like", "torch.randn_like",
+        "torch.randint_like",
+        ".multinomial", ".bernoulli", ".bernoulli_", ".uniform_", ".normal_",
+        ".exponential_", ".random_", ".geometric_", ".cauchy_",
+        ".log_normal_",
+    }),
+    rng_global_seeders=frozenset({
+        "torch.manual_seed", "torch.seed", "torch.cuda.manual_seed",
+        "torch.cuda.manual_seed_all", "torch.random.manual_seed",
+    }),
+    rng_seed_calls=frozenset({
+        ".manual_seed", "numpy.random.default_rng", "random.Random",
+    }),
+    dtype_heads=("torch", "numpy", "np", "ml_dtypes"),
+    dtype_device_heads=("torch",),
+    dtype_array_heads=("torch", "np", "numpy"),
+    dtype_extra_names=(
+        ("float", "f32"), ("long", "i64"), ("int", "i32"),
+    ),
+    dtype_cast_tails=frozenset({"astype", "to", "type"}),
+    dtype_cast_methods=(
+        ("bfloat16", "bf16"), ("half", "f16"), ("float", "f32"),
+        ("double", "f64"),
+    ),
+    dtype_matmul_tails=frozenset({
+        "matmul", "mm", "bmm", "einsum", "tensordot", "dot", "linear",
+        "addmm", "baddbmm",
+    }),
+    dtype_reduce_tails=frozenset({
+        "sum", "mean", "var", "std", "prod", "logsumexp", "norm", "nansum",
+    }),
+    dtype_softmax_takes_dtype=True,
+    dtype_f32_name="torch.float32",
+    dtype_f64_reason=(
+        "float64 halves the card's vector rate, has no tensor-core path and "
+        "doubles HBM traffic"
+    ),
+    dtype_f64_cast_reason="float64 has no tensor-core path on the card",
+    dtype_f64_operands=True,
+    dtype_accumulation_pin=(
+        "torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction"
+    ),
+    # parallel/sharding.py: a Spec is a tuple of axis names
+    spec_call_tails=frozenset(),
+    spec_tuple_functions=frozenset({
+        "decoder_param_pspecs", "cache_pspecs", "paged_pool_pspecs",
+    }),
+    mesh_collectives=frozenset(),
+    mesh_module="runtime.mesh",
+    mesh_dist_collectives=frozenset({
+        "all_reduce", "all_gather", "all_gather_into_tensor",
+        "all_gather_object", "all_to_all", "all_to_all_single", "barrier",
+        "monitored_barrier", "broadcast", "broadcast_object_list", "reduce",
+        "reduce_scatter", "reduce_scatter_tensor", "gather", "gather_object",
+        "scatter", "scatter_object_list", "send", "recv", "isend", "irecv",
+        "batch_isend_irecv",
+    }),
+    # runtime/mesh.py's counted wrappers: (name, group position, site
+    # position)
+    mesh_wrappers=(
+        ("all_reduce", 1, 2), ("all_gather", 1, 2), ("barrier", 0, 1),
+        ("all_to_all", 1, 2), ("ring_exchange", 1, 2),
+        ("copy_to_group", 1, 2), ("reduce_from_group", 1, 2),
+        ("gather_from_group", 1, 2),
+    ),
+    mesh_group_attrs=frozenset({"data_group", "model_group", "group"}),
+    subjectless=(
+        ("jit-purity",
+         "the port traces nothing: no jax.jit, torch.compile or "
+         "torch.jit, and no CUDA graph captures the serving path (K1's and "
+         "K4's plans are shape functions run on the host at each call)",
+         ("torch.compile", "torch.jit.", "torch.cuda.graph", "CUDAGraph",
+          "make_graphed_callables")),
+        ("donation",
+         "the port donates no buffer: every device array is an ordinary "
+         "torch tensor its owner frees, so there is no donated-then-read "
+         "hazard to police",
+         ("donate",)),
+        ("retrace-hazard",
+         "the port compiles no program per shape: nothing jits, compiles or "
+         "captures a graph, so no call can retrace (K1's and K4's kernels "
+         "are built once per source by nvcc)",
+         ("torch.compile", "torch.jit.", "torch.cuda.graph", "CUDAGraph",
+          "make_graphed_callables")),
+    ),
 )
 
 
@@ -799,13 +1035,20 @@ def all_checkers() -> Dict[str, object]:
     from docqa_tpu_torch.analysis.cv_protocol import CvProtocolChecker
     from docqa_tpu_torch.analysis.deadline_flow import DeadlineFlowChecker
     from docqa_tpu_torch.analysis.dispatch_streams import DispatchStreamsChecker
+    from docqa_tpu_torch.analysis.dtype_flow import DtypeFlowChecker
+    from docqa_tpu_torch.analysis.entropy_state import EntropyStateChecker
     from docqa_tpu_torch.analysis.guarded_state import GuardedStateChecker
     from docqa_tpu_torch.analysis.host_sync import HostSyncChecker
     from docqa_tpu_torch.analysis.lock_discipline import LockDisciplineChecker
+    from docqa_tpu_torch.analysis.mesh_axes import MeshAxesChecker
+    from docqa_tpu_torch.analysis.order_stability import OrderStabilityChecker
     from docqa_tpu_torch.analysis.phi_taint import PhiTaintChecker
+    from docqa_tpu_torch.analysis.replay_keys import ReplayKeyChecker
     from docqa_tpu_torch.analysis.resource_flow import ResourceFlowChecker
     from docqa_tpu_torch.analysis.retire_once import RetireOnceChecker
+    from docqa_tpu_torch.analysis.rng_discipline import RngDisciplineChecker
     from docqa_tpu_torch.analysis.shed_taxonomy import ShedTaxonomyChecker
+    from docqa_tpu_torch.analysis.spec_shape import SpecShapeChecker
     from docqa_tpu_torch.analysis.thread_lifecycle import ThreadLifecycleChecker
     from docqa_tpu_torch.analysis.wire_consumer import WireConsumerChecker
     from docqa_tpu_torch.analysis.wire_safety import WireSafetyChecker
@@ -815,13 +1058,20 @@ def all_checkers() -> Dict[str, object]:
         CvProtocolChecker(),
         DeadlineFlowChecker(),
         DispatchStreamsChecker(),
+        DtypeFlowChecker(),
+        EntropyStateChecker(),
         GuardedStateChecker(),
         HostSyncChecker(),
         LockDisciplineChecker(),
+        MeshAxesChecker(),
+        OrderStabilityChecker(),
         PhiTaintChecker(),
+        ReplayKeyChecker(),
         ResourceFlowChecker(),
         RetireOnceChecker(),
+        RngDisciplineChecker(),
         ShedTaxonomyChecker(),
+        SpecShapeChecker(),
         ThreadLifecycleChecker(),
         WireConsumerChecker(),
         WireSafetyChecker(),

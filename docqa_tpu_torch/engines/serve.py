@@ -909,6 +909,10 @@ class ContinuousBatcher:
         re-admits the same object on another replica).  Every refusal
         leaves a shed snapshot and retires the request's cost record,
         except for pool-managed requests, whose refusal is routing."""
+        # the burn probe takes the SLO evaluator's lock: read it before the
+        # batcher's, so the two never nest
+        firing = (self._slo_firing()
+                  if not req.pool_managed and self._qos is not None else [])
         with self._cv:
             if self._worker_dead:
                 self._record_shed(
@@ -937,7 +941,6 @@ class ContinuousBatcher:
                 # batch admission defers typed (the pool checks its managed
                 # requests once, at dispatch)
                 cls = request_class(req)
-                firing = self._slo_firing()
                 if self._qos.should_defer(cls, firing):
                     DEFAULT_REGISTRY.counter("qos_deferred").inc()
                     DEFAULT_REGISTRY.counter(f"qos_deferred_{cls}").inc()

@@ -111,13 +111,27 @@ def _kcenter_init(vectors: torch.Tensor, c: int) -> torch.Tensor:
     return chosen
 
 
+def cell_sums(vectors: torch.Tensor, assign: torch.Tensor, c: int) -> torch.Tensor:
+    """The sum of the rows assigned to each of ``c`` cells.  On a card
+    ``index_put_`` with ``accumulate`` sorts the cell ids and adds each
+    cell's rows in one fixed order, so two builds of one corpus give the
+    same centroids bit for bit; ``index_add_`` there adds with float
+    atomics in no fixed order, and a centroid a bit off moves rows at the
+    next step (``chip_smoke.py`` phase 21 (a)).  On the CPU ``index_add_``
+    adds in row order."""
+    sums = torch.zeros((c, vectors.shape[1]), dtype=vectors.dtype, device=vectors.device)
+    if vectors.is_cuda:
+        return sums.index_put_((assign,), vectors, accumulate=True)
+    return sums.index_add_(0, assign, vectors)
+
+
 def _kmeans_step(vectors: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """One Lloyd iteration over L2-normalized rows: assign each row to its
     most similar centroid, average, re-normalize; an empty cell keeps its
     centroid."""
     c = centroids.shape[0]
     assign = torch.argmax(vectors @ centroids.T, dim=1)
-    sums = torch.zeros_like(centroids).index_add_(0, assign, vectors)
+    sums = cell_sums(vectors, assign, c).to(centroids.dtype)
     counts = torch.bincount(assign, minlength=c).to(vectors.dtype)[:, None]
     new = sums / counts.clamp_min(1.0)
     new = torch.where(counts > 0, new, centroids)

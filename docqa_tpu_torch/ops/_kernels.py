@@ -34,7 +34,7 @@ import subprocess
 import threading
 from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -104,16 +104,31 @@ def library_path(name: str, csrc_dir: Path = CSRC_DIR) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def build_log_path(name: str) -> Path:
+    """Where the build log of ``csrc/<name>.cu``'s library is kept."""
+    lib = library_path(name)
+    return lib.with_name(lib.name[: -len(".so")] + ".ptxas.log")
+
+
+def build_log(name: str) -> Optional[str]:
+    """The ``nvcc`` / ``ptxas -v`` log of the library ``load`` would load
+    (None where it was not built here)."""
+    path = build_log_path(name)
+    return path.read_text() if path.exists() else None
+
+
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Compile every named source whose library is missing, one ``nvcc``
-    per source, all started together.  Returns the compiler log of each
-    source it built; raises if any build fails (after waiting for all)."""
+    """Compile every named source whose library or build log is missing,
+    one ``nvcc`` per source, all started together.  Returns the compiler
+    log of each source it built; raises if any build fails (after waiting
+    for all)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     running = {}
     for name in names:
         out = library_path(name)
-        if out.exists():
+        # a library built before its log was kept is built again once
+        if out.exists() and build_log_path(name).exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
@@ -130,6 +145,12 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
+        # the -Xptxas -v log beside its library, so a cached build can still
+        # be read (the compile audit's kernel resources); written first, so
+        # a library never lacks its log
+        log_tmp = tmp.with_name(tmp.name + ".log")
+        log_tmp.write_text(log)
+        os.replace(log_tmp, build_log_path(name))
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failed:
         raise KernelError("\n".join(failed))

@@ -39,6 +39,7 @@ import ctypes
 import functools
 import math
 import threading
+from collections import Counter
 from typing import NamedTuple
 
 import torch
@@ -274,6 +275,7 @@ class _Store:
                     f"qmatmul {self.mode}: encoding the weight's tensor map failed: "
                     f"CUDA error {rc}"
                 )
+            _event("tensor_maps")
 
     def __reduce__(self):
         # a copy or a pickle of the weight is another leaf, whose first
@@ -297,6 +299,7 @@ class _Store:
                              plan.tiles_per_split, plan.grid, plan.rows)
             names = ("qmatmul", f"qmatmul.{self.mode}", f"qmatmul.{plan.kernel}")
             entry = self.plans[m] = (plan, ctypes.addressof(launch), names, launch)
+            _event("leaf_plans")
         return entry
 
 
@@ -305,6 +308,18 @@ def _no_store():
 
 
 _STORE = "_qmatmul_store"
+
+# what the kernel's host state has built, for the compile audit's steady
+# state (analysis/compile_audit.py): leaf plans made, weight tensor maps
+# encoded, scratch buffers (re)allocated.  A repeated round adds none.
+CACHE_EVENTS: Counter = Counter()
+_EVENTS_LOCK = threading.Lock()
+
+
+def _event(name: str) -> None:
+    with _EVENTS_LOCK:
+        CACHE_EVENTS[name] += 1
+
 
 # float32 split-K partials and the tiles' zeroed counters, one pair per
 # thread and (device, stream), grown to the largest product served: a
@@ -320,8 +335,10 @@ def _scratch(parts: int, tiles: int, device: int, stream: int):
     dev = torch.device("cuda", device)
     if part is None or part.numel() < parts:
         part = torch.empty(parts, dtype=torch.float32, device=dev)
+        _event("scratch")
     if counters is None or counters.numel() < tiles:
         counters = torch.zeros(tiles, dtype=torch.int32, device=dev)
+        _event("scratch")
     bufs[key] = (part, counters)
     return part.data_ptr(), counters.data_ptr()
 

@@ -30,27 +30,11 @@ from docqa_tpu_torch.runtime.mesh import (
     MeshContext,
     all_gather,
     all_to_all,
-    count_collective,
     group_size,
+    ring_exchange,
 )
 
 NEG_INF = -1e30
-
-
-def _rotate(tensors, group, idx: int, n: int):
-    """Send each tensor to the next rank of the ring and receive the
-    previous rank's: one ring round."""
-    nxt = dist.get_global_rank(group, (idx + 1) % n)
-    prv = dist.get_global_rank(group, (idx - 1) % n)
-    out = [torch.empty_like(t) for t in tensors]
-    ops = []
-    for t, buf in zip(tensors, out):
-        ops.append(dist.P2POp(dist.isend, t.contiguous(), nxt, group))
-        ops.append(dist.P2POp(dist.irecv, buf, prv, group))
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    count_collective("ring_round", "ring_attention")
-    return out
 
 
 def ring_attention_local(
@@ -111,7 +95,7 @@ def ring_attention_local(
     # needs, and an n-th round would only send the shards home
     for t in range(n - 1):
         acc, m, l = merge(t, kc, vc, acc, m, l)
-        kc, vc = _rotate((kc, vc), group, idx, n)
+        kc, vc = ring_exchange((kc, vc), group, "ring_attention")
     acc, _, l = merge(n - 1, kc, vc, acc, m, l)
 
     lt = l.permute(0, 2, 1, 3)  # [b, sq, h, 1]

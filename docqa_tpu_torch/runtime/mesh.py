@@ -169,6 +169,31 @@ def all_to_all(t: torch.Tensor, group, site: str) -> torch.Tensor:
     return out
 
 
+def ring_exchange(tensors, group, site: str):
+    """One ring round: each tensor to the next rank of ``group`` and the
+    previous rank's received in its place (``ring_round.<site>``).  Returns
+    the received tensors, in the order given."""
+    n = group_size(group)
+    if n == 1:
+        return list(tensors)
+    idx = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (idx + 1) % n)
+    prv = dist.get_global_rank(group, (idx - 1) % n)
+    out = [torch.empty_like(t) for t in tensors]
+
+    def exchange():
+        ops = []
+        for t, buf in zip(tensors, out):
+            ops.append(dist.P2POp(dist.isend, t.contiguous(), nxt, group))
+            ops.append(dist.P2POp(dist.irecv, buf, prv, group))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+    _collective(f"ring_round.{site}", exchange)
+    count_collective("ring_round", site)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # collectives under autograd (the trainers' Megatron operators)
 # ---------------------------------------------------------------------------

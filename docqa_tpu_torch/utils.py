@@ -30,6 +30,7 @@ def resolve_device(device) -> torch.device:
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' to run on the CPU"
             )
+        _pin_f32_accumulation()
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
@@ -41,3 +42,13 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dtype
+
+
+def _pin_f32_accumulation() -> None:
+    """Keep cuBLAS's bf16 products in float32 to the end: PyTorch's default
+    (``allow_bf16_reduced_precision_reduction = True``) lets a split-K bf16
+    GEMM reduce its partial sums in bf16.  Process-wide, so it is set here,
+    where the package resolves a CUDA device (every engine and the mesh
+    come through :func:`resolve_device`); dtype-flow reads the assignment
+    as the port's ``preferred_element_type``."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

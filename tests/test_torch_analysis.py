@@ -36,11 +36,16 @@ import pytest
 
 from docqa_tpu.analysis import concurrency as j_concurrency
 from docqa_tpu.analysis import deadline_flow as j_deadline
+from docqa_tpu.analysis import entropy_state as j_entropy_state
+from docqa_tpu.analysis import order_stability as j_order
+from docqa_tpu.analysis import replay_keys as j_replay_keys
+from docqa_tpu.analysis import rng_discipline as j_rng
 from docqa_tpu.analysis import lock_discipline as j_lock
 from docqa_tpu.analysis import phi_taint as j_phi
 from docqa_tpu.analysis import resource_flow as j_resource
 from docqa_tpu.analysis import run as j_run
 from docqa_tpu.analysis.core import Baseline as JBaseline
+from docqa_tpu.analysis.core import all_checkers as j_all_checkers
 from docqa_tpu.analysis.core import Finding as JFinding
 from docqa_tpu.analysis.core import Package as JPackage
 from docqa_tpu.analysis.core import _run_package as j_run_package
@@ -96,6 +101,12 @@ REF_PROFILE = AnalysisProfile(
     dispatch_heads=j_concurrency._JAX_HEADS,
     dispatch_attrs=j_concurrency._DISPATCHING_ATTRS,
     dispatch_calls=frozenset(),
+    # the determinism rules' scopes (their other tables default to the
+    # reference's)
+    replay_key_modules=_rel(j_replay_keys.PERSIST_KEY_MODULES),
+    state_modules=_rel(j_entropy_state.STATE_MODULES),
+    order_modules=_rel(j_order.ORDER_MODULES),
+    rng_modules=_rel(j_rng.RNG_SCOPE_MODULES),
 )
 
 
@@ -963,10 +974,20 @@ def leaky(alloc, want_it):
 def test_every_ported_rule_has_shared_fixtures():
     rules = {p.values[0] for p in FIXTURES}
     assert rules == set(RULES)
-    # the serving-contract rules' fixtures are tests/test_torch_contracts.py's
+    # the serving-contract rules' fixtures are tests/test_torch_contracts.py's;
+    # the determinism, numerics and sharding rules' are
+    # tests/test_torch_{det,num,shard}check.py's, and the three JAX-only
+    # rules are the profile's subjectless entries, their fixtures listed
+    # there as subjectless
     serving = {"dispatch-streams", "host-sync", "retire-once", "shed-taxonomy",
                "wire-consumer", "wire-safety", "wire-schema"}
-    assert sorted(all_checkers()) == sorted(set(RULES) | serving)
+    later = {"entropy-in-state", "order-stability", "replay-key-integrity",
+             "rng-discipline", "dtype-flow", "mesh-axes", "spec-shape"}
+    assert sorted(all_checkers()) == sorted(set(RULES) | serving | later)
+    subjectless = {e[0] for e in PORT_PROFILE.subjectless}
+    assert subjectless == {"jit-purity", "donation", "retrace-hazard"}
+    # every rule of the reference's analyzer is accounted for
+    assert set(j_all_checkers()) == set(all_checkers()) | subjectless
 
 
 @pytest.mark.parametrize("rule,sources", FIXTURES)

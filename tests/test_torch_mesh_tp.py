@@ -19,7 +19,9 @@ Tolerances, float32:
 Collective budgets from ``runtime.mesh.COLLECTIVES``: a forward holds
 2 x layers all-reduces and one logits gather and nothing else, one gather
 of the streams over the data axis when it has more than one rank, none at
-(1, 1).
+(1, 1).  The same worlds run the shard audit's programs
+(``analysis/shard_audit.py``, the worker's ``shard_audit`` scenario), and
+their report is held to the port's ``analysis/shard_budget.json``.
 """
 
 import dataclasses
@@ -40,6 +42,7 @@ from docqa_tpu.models.quant import quantize_decoder_params as j_quantize
 from docqa_tpu.parallel import sharding as jshard
 from docqa_tpu.runtime import mesh as jmesh
 from docqa_tpu_torch import weights
+from docqa_tpu_torch.analysis import shard_audit
 from docqa_tpu_torch.config import DecoderConfig, GenerateConfig
 from docqa_tpu_torch.engines.generate import GenerateEngine
 from docqa_tpu_torch.runtime import mesh as tmesh
@@ -74,7 +77,8 @@ def worlds(tmp_path_factory, int8_tree):
     """One gloo world of each size for the module, started at once; its
     ranks run every scenario of this file."""
     out = {}
-    for n, scenarios in ((2, "tp_generate,quant_tp"), (4, "tp_generate,quant_tp")):
+    for n, scenarios in ((2, "tp_generate,quant_tp,shard_audit"),
+                         (4, "tp_generate,quant_tp,shard_audit")):
         d = tmp_path_factory.mktemp(f"world{n}")
         np.savez(d / "inputs.npz", **{f"int8/{k}": v for k, v in int8_tree.items()})
         out[n] = W.World(n, scenarios, d)
@@ -148,17 +152,32 @@ def test_tp_first_step_logits(worlds, tag):
 def test_tp_collective_budget(worlds, tag):
     """2 x layers all-reduces and one logits gather a forward, and one
     gather of the streams over the data axis when it has more than one
-    rank; nothing else."""
+    rank; nothing else.  The per-forward and per-call counts are the
+    port's shard budget's (``analysis/shard_budget.json``
+    ``decoder_tp_forward`` and ``generate_data_gather``), and this world's
+    prefill forward holds the budget's semantic rules."""
     n_data = _shape(tag)[0]
+    budget = shard_audit.load_budget()["programs"]
+    assert budget["decoder_tp_forward"]["meta"]["num_layers"] == TP_CFG.num_layers
+    per_forward = budget["decoder_tp_forward"]["per_mesh"][tag]
+    per_call = budget["generate_data_gather"]["per_mesh"][tag]
+    assert per_forward == {"all_reduce.decoder": 2 * TP_CFG.num_layers,
+                           "all_gather.logits": 1}
+    assert per_call == ({"all_gather.generate": 1} if n_data > 1 else {})
     for r in range(_world_of(tag)):
         res = _world(worlds, tag).result(f"tp_generate_{tag}", r)
         for run in ("spec0", "spec4", "sampled"):
             fw = int(res[f"{run}/forwards"])
-            want = {"all_reduce.decoder": 2 * TP_CFG.num_layers * fw,
-                    "all_gather.logits": fw}
-            if n_data > 1:
-                want["all_gather.generate"] = 1
+            want = {k: v * fw for k, v in per_forward.items()}
+            want.update(per_call)
             assert _counts(res, run + "/") == want, run
+        measured = {"programs": {"decoder_tp_forward": {
+            "meta": budget["decoder_tp_forward"]["meta"],
+            "per_mesh": {tag: _counts(res, "prefill/")}}}}
+        assert shard_audit.compare_budget(measured, {"programs": budget},
+                                          programs=["decoder_tp_forward"]) == [
+            f"decoder_tp_forward/{m}: present in budget only"
+            for m in sorted(budget["decoder_tp_forward"]["per_mesh"]) if m != tag]
 
 
 @pytest.mark.parametrize("tag", SHAPES)
@@ -236,3 +255,22 @@ def test_quantised_tp_ids_equal_the_reference(worlds, reference_quant_ids, tag, 
             "all_gather.logits"]
 
 
+def test_shard_budget_over_the_worlds(worlds):
+    """The shard audit's report, the ``1x1`` mesh counted here and the other
+    shapes in this module's worlds (every rank of a world counting the
+    same), equals ``analysis/shard_budget.json`` and holds its semantic
+    rules.  ``DOCQA_SHARD_REPORT=<path>`` also writes the report there, for
+    ``python -m docqa_tpu_torch.analysis --shard-audit <path> --write-budget``."""
+    import json
+
+    per_world = [[json.loads(str(worlds[n].result("shard_audit", r)["counts"]))
+                  for r in range(n)] for n in (2, 4)]
+    report = shard_audit.make_report(
+        shard_audit.audit_rank(["1x1"], shard_audit.AUDIT_PROGRAMS), per_world)
+    if os.environ.get("DOCQA_SHARD_REPORT"):
+        with open(os.environ["DOCQA_SHARD_REPORT"], "w", encoding="utf-8") as f:
+            json.dump(report, f, indent=1, sort_keys=True)
+    budget = shard_audit.load_budget()
+    assert shard_audit.compare_budget(report, budget) == []
+    assert shard_audit.budget_todos(budget) == []
+    assert report["rank_disagreements"] == []

@@ -47,6 +47,7 @@ from docqa_tpu.config import EncoderConfig as JEncoderConfig
 from docqa_tpu.runtime import mesh as jmesh
 from docqa_tpu.training import encoder as jenc
 from docqa_tpu.training import train as jtrain
+from docqa_tpu_torch.analysis import shard_audit
 from docqa_tpu_torch.config import DecoderConfig, EncoderConfig
 from docqa_tpu_torch.runtime import mesh as tmesh
 from docqa_tpu_torch.training import encoder, train
@@ -207,16 +208,25 @@ def test_training_collective_budget(worlds, tag):
       logit (2);
     * the clip: one scalar over the model axis;
     * on a data axis > 1: one all-reduce a leaf and one of the loss.
-    Nothing else, on every rank and at every step."""
+    Nothing else, on every rank and at every step.  The counts are the
+    port's shard budget's (``analysis/shard_budget.json``
+    ``lm_train_step``), and every step of this world holds its semantic
+    rules."""
     n_data, n_model = _shape(tag)
     L = CFG.num_layers
     want = {"all_reduce.decoder": 3 * L, "all_reduce.decoder_grad": 2 * L + 1,
             "all_reduce.vocab_ce": 2, "all_reduce.clip": 1}
     if n_data > 1:
         want.update({"all_reduce.lm_grads": N_LEAVES, "all_reduce.lm_loss": 1})
+    prog = shard_audit.load_budget()["programs"]["lm_train_step"]
+    assert prog["meta"]["num_layers"] == L and prog["meta"]["n_leaves"] == N_LEAVES
+    assert prog["per_mesh"][tag] == want
     for res in _ranks(worlds, tag, f"lm_train_{tag}"):
         for i in range(W.TRAIN_STEPS):
-            assert _counts(res, f"s{i}/") == want, i
+            assert _counts(res, f"s{i}/") == prog["per_mesh"][tag], i
+            measured = {"programs": {"lm_train_step": {
+                "meta": prog["meta"], "per_mesh": {tag: _counts(res, f"s{i}/")}}}}
+            assert shard_audit.semantic_violations(measured) == [], i
 
 
 @pytest.mark.parametrize("tag", SHAPES)

@@ -488,3 +488,30 @@ def test_runtime_without_the_variables_answers_404(tmp_path):
         assert status == 404
         assert validate_response(contract[key], status, body) == []
     assert out["witness_quiesced"] is None and out["ledger_quiesced"] is None
+
+
+def test_the_burn_probe_is_read_outside_the_batchers_lock():
+    """Phase 19's witness on the card saw ``ContinuousBatcher._cv ->
+    BurnRateEvaluator._lock``, an order the static graph lacks: a batcher
+    with a QoS policy read the SLO burn probe (the evaluator's ``firing``,
+    under its lock) while holding its own condition.  The probe is now read
+    before the batcher's lock, so the two never nest."""
+    from docqa_tpu_torch.config import QoSConfig
+
+    cfg = DecoderConfig(vocab_size=64, hidden_dim=32, num_layers=1, num_heads=2,
+                        num_kv_heads=2, head_dim=16, mlp_dim=64, max_seq_len=128,
+                        dtype="float32")
+    engine = GenerateEngine(cfg, GenerateConfig(max_new_tokens=2), device="cpu")
+    b = ContinuousBatcher(engine, n_slots=2, chunk=2, cache_len=64, qos=QoSConfig())
+    held = []
+
+    def probe():
+        held.append(b._cv._is_owned())
+        return []
+
+    b.set_slo_probe(probe)
+    try:
+        b.submit_ids([3, 4, 5], max_new_tokens=2).result(timeout=60)
+    finally:
+        b.stop()
+    assert held == [False]

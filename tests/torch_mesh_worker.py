@@ -26,9 +26,14 @@ from datetime import timedelta  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-TP_WIDTHS = dict(vocab_size=128, hidden_dim=64, num_layers=2, num_heads=8,
-                 num_kv_heads=8, head_dim=16, mlp_dim=128, max_seq_len=128,
-                 dtype="float32")
+# the shard audit's widths and training batches: its budget counts these
+# worlds' collectives (the ``shard_audit`` scenario)
+from docqa_tpu_torch.analysis import shard_audit  # noqa: E402
+from docqa_tpu_torch.analysis.shard_audit import (  # noqa: E402
+    TRAIN_LENGTHS, train_batch,
+)
+
+TP_WIDTHS = shard_audit.DECODER_WIDTHS
 # tests/test_quant.py's TP case (int8) and its int4 one (one group a
 # projection: the groups never divide the model axis), and a config whose
 # int4 groups divide it for w_down (4 groups) and for wo at n = 2 (2 groups)
@@ -41,8 +46,7 @@ INT4_DIV_WIDTHS = dict(vocab_size=256, hidden_dim=256, num_layers=1, num_heads=8
 PROMPTS = [[3, 4, 5], [9, 8, 7, 6]]
 # a vocabulary no model axis here divides: the gathered logits are padded
 UNEVEN_VOCAB = 125
-ENC_WIDTHS = dict(vocab_size=512, hidden_dim=64, num_layers=2, num_heads=4,
-                  mlp_dim=128, max_seq_len=64, embed_dim=64, dtype="float32")
+ENC_WIDTHS = shard_audit.ENCODER_WIDTHS
 S2S_WIDTHS = dict(vocab_size=256, d_model=64, enc_layers=2, dec_layers=2, num_heads=4,
                   mlp_dim=128, max_src_len=64, max_tgt_len=32, dtype="float32")
 S2S_SRC = [[5, 9, 11, 7], list(range(3, 40)), [8], [4, 8, 2, 6, 10]]
@@ -348,25 +352,15 @@ def tier_requests(post, get, rt):
 
 # tests/test_torch_train_lm.py's DEC with 4 q and 4 kv heads (they divide
 # every model axis here)
-TRAIN_WIDTHS = dict(vocab_size=64, hidden_dim=32, num_layers=2, num_heads=4,
-                    num_kv_heads=4, head_dim=8, mlp_dim=64, max_seq_len=64,
-                    dtype="float32")
+TRAIN_WIDTHS = shard_audit.TRAIN_WIDTHS
 TRAIN_UNEVEN_VOCAB = 62  # cut 16, 16, 16, 14 at a model axis of 4
 TRAIN_LR, TRAIN_SEED = 1e-2, 3
-# one ragged 4 x 16 batch a step; the data shards of every mesh here hold
-# different token counts
-TRAIN_LENGTHS = ((16, 13, 7, 5), (9, 16, 4, 12), (6, 8, 16, 15), (11, 3, 14, 16))
+# one ragged 4 x 16 batch a step (shard_audit's ``train_batch``): the data
+# shards of every mesh here hold different token counts
 TRAIN_STEPS = 3
 ENC_TRAIN_BATCH, ENC_TRAIN_SEQ, ENC_TRAIN_STEPS = 8, 16, 3
 CKPT_SEED, CKPT_TEMPLATE_SEED = 5, 9
 CKPT_WAIT_S = 120.0
-
-
-def train_batch(i, vocab=64):
-    """Step ``i``'s ids [4, 16] in [1, vocab) and TRAIN_LENGTHS[i]."""
-    rng = np.random.default_rng(100 + i)
-    ids = rng.integers(1, vocab, (4, 16)).astype(np.int32)
-    return ids, np.array(TRAIN_LENGTHS[i % len(TRAIN_LENGTHS)], np.int32)
 
 
 def enc_train_batch(i, cfg, b=ENC_TRAIN_BATCH):
@@ -1448,6 +1442,15 @@ class Worker:
         self.save("train_lost_rank", kind=np.array(kind), message=np.array(msg),
                   seconds=np.array(time.perf_counter() - t0))
         os._exit(0)  # the process group cannot be torn down with a rank gone
+
+    def shard_audit(self):
+        """Every audited program on every mesh shape of this world, counted
+        by ``analysis/shard_audit.py`` (the budget's measurement)."""
+        import json
+
+        res = shard_audit.audit_rank(shard_audit.world_meshes(self.world),
+                                     shard_audit.AUDIT_PROGRAMS)
+        self.save("shard_audit", counts=np.array(json.dumps(res, sort_keys=True)))
 
     def rank_fails(self):
         """Rank 1 raises before the collective; rank 0's all_reduce must
