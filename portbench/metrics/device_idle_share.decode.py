@@ -1,0 +1,9 @@
+"""The traced part's share of time in which no operation ran on the device:
+1 - the union of kernel, copy and fill intervals over the traced window."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0 or not t.device:
+        return None
+    return 100.0 * (1.0 - t.busy_s() / t.window_s)
